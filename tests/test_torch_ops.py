@@ -1,0 +1,185 @@
+"""Parity of ray_tpu_torch.ops with ray_tpu.ops on the CPU: RMSNorm, cross
+entropy, the chunked LM-head CE, the plain version of each flash kernel
+against the Pallas kernel in interpret mode, and flash_attention/mha forward
+and gradients with GQA. Inputs come from numpy with a seed; both sides run
+in f32 (JAX at matmul precision "highest")."""
+
+import numpy as np
+import pytest
+
+from ray_tpu.testing import force_cpu_mesh
+
+force_cpu_mesh(8)  # before first backend use, like every jax-facing test
+
+import jax  # noqa: E402
+
+jax.config.update("jax_default_matmul_precision", "highest")
+import jax.numpy as jnp  # noqa: E402
+import torch  # noqa: E402
+
+from ray_tpu.ops.flash_attention import (  # noqa: E402
+    _flash_bwd_dkv,
+    _flash_bwd_dq,
+    _flash_fwd,
+)
+from ray_tpu.ops.flash_attention import flash_attention as jax_flash_attention  # noqa: E402
+from ray_tpu.ops.fused import (  # noqa: E402
+    fused_rmsnorm as jax_rmsnorm,
+    lm_head_cross_entropy as jax_lm_head_ce,
+    softmax_cross_entropy as jax_ce,
+)
+from ray_tpu_torch.ops.flash_attention import (  # noqa: E402
+    _flash_bwd_dkv_ref,
+    _flash_bwd_dq_ref,
+    _flash_fwd_ref,
+    launches,
+    mha,
+)
+from ray_tpu_torch.ops.fused import (  # noqa: E402
+    fused_rmsnorm,
+    lm_head_cross_entropy,
+    softmax_cross_entropy,
+)
+
+# f32 on both sides; the two frameworks sum in different orders, so results
+# agree to a few f32 ulps of the operands' scale, not bit for bit.
+F32_ATOL = 1e-5
+# Attention outputs and gradients sum over up to 192 keys of O(1) products:
+# the bound the JAX package's own kernel-vs-XLA test uses.
+ATTN_ATOL = 2e-4
+
+
+def _t(x):
+    return torch.from_numpy(np.array(x))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rmsnorm_matches_jax(dtype):
+    rs = np.random.RandomState(0)
+    x = rs.randn(2, 5, 32).astype(np.float32)
+    w = rs.randn(32).astype(np.float32)
+    jt, tt = getattr(jnp, dtype), getattr(torch, dtype)
+    ref = jax_rmsnorm(jnp.asarray(x).astype(jt), jnp.asarray(w))
+    out = fused_rmsnorm(_t(x).to(tt), _t(w))
+    assert out.dtype == tt
+    ref = np.asarray(ref.astype(jnp.float32))
+    # bf16: both round the same f32 value, so at most one bf16 ulp apart.
+    tol = dict(atol=F32_ATOL) if dtype == "float32" else dict(rtol=2 ** -7, atol=1e-6)
+    np.testing.assert_allclose(out.float().numpy(), ref, **tol)
+
+
+def test_softmax_cross_entropy_matches_jax():
+    rs = np.random.RandomState(1)
+    logits = rs.randn(3, 7, 50).astype(np.float32) * 3
+    labels = rs.randint(0, 50, (3, 7))
+    labels[0, :3] = -100
+    ref_loss, ref_n = jax_ce(jnp.asarray(logits), jnp.asarray(labels))
+    loss, n = softmax_cross_entropy(_t(logits), _t(labels))
+    assert float(n) == float(ref_n) == 18.0
+    np.testing.assert_allclose(float(loss.detach()), float(ref_loss), rtol=1e-6)
+
+
+@pytest.mark.parametrize("chunk_tokens", [64, 80])  # 192 tokens: divides, and not
+def test_lm_head_cross_entropy_matches_jax(chunk_tokens):
+    B, T, d, V = 2, 96, 32, 257
+    rs = np.random.RandomState(2)
+    hidden = rs.randn(B, T, d).astype(np.float32)
+    unembed = rs.randn(d, V).astype(np.float32)
+    targets = rs.randint(0, V, (B, T))
+    targets[1, -7:] = -100
+
+    def jax_loss(h, w):
+        return jax_lm_head_ce(h, w, jnp.asarray(targets), chunk_tokens=chunk_tokens)[0]
+
+    ref_loss = jax_loss(jnp.asarray(hidden), jnp.asarray(unembed))
+    ref_gh, ref_gw = jax.grad(jax_loss, argnums=(0, 1))(jnp.asarray(hidden), jnp.asarray(unembed))
+
+    h = _t(hidden).requires_grad_(True)
+    w = _t(unembed).requires_grad_(True)
+    loss, n = lm_head_cross_entropy(h, w, _t(targets), chunk_tokens=chunk_tokens)
+    loss.backward()
+    assert float(n) == B * T - 7
+    np.testing.assert_allclose(float(loss.detach()), float(ref_loss), rtol=1e-6)
+    np.testing.assert_allclose(h.grad.numpy(), np.asarray(ref_gh), atol=F32_ATOL)
+    np.testing.assert_allclose(w.grad.numpy(), np.asarray(ref_gw), atol=F32_ATOL)
+
+
+def test_lm_head_cross_entropy_all_ignored_counts_one():
+    h = torch.randn(1, 4, 8)
+    loss, n = lm_head_cross_entropy(h, torch.randn(8, 11), torch.full((1, 4), -100), chunk_tokens=3)
+    assert float(n) == 1.0 and float(loss) == 0.0
+
+
+def _qkv(seed, BH, T, D, n=4):
+    rs = np.random.RandomState(seed)
+    return [rs.randn(BH, T, D).astype(np.float32) for _ in range(n)]
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("seq", [128, 192])  # 192 exercises the 128-row block padding
+def test_plain_kernels_match_pallas(causal, seq):
+    """Each plain version against its Pallas kernel run in interpret mode:
+    o and lse (B1/B2), dq (B3), dk and dv (B4), from the same residuals."""
+    BH, D = 4, 64
+    q, k, v, do = _qkv(3, BH, seq, D)
+    scale = 1.0 / np.sqrt(D)
+    kw = dict(causal=causal, scale=scale, block_q=128, block_k=128, interpret=True)
+    jq, jk, jv, jdo = map(jnp.asarray, (q, k, v, do))
+
+    o_ref, lse8 = _flash_fwd(jq, jk, jv, with_lse=True, **kw)
+    o_only = _flash_fwd(jq, jk, jv, **kw)
+    o, lse = _flash_fwd_ref(_t(q), _t(k), _t(v), causal, scale, with_lse=True)
+    np.testing.assert_allclose(o.numpy(), np.asarray(o_ref), atol=ATTN_ATOL)
+    np.testing.assert_allclose(_flash_fwd_ref(_t(q), _t(k), _t(v), causal, scale).numpy(),
+                               np.asarray(o_only), atol=ATTN_ATOL)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(lse8[..., 0]), atol=ATTN_ATOL)
+
+    delta = (do * np.asarray(o_ref)).sum(-1).astype(np.float32)
+    delta8 = jnp.broadcast_to(jnp.asarray(delta)[..., None], (BH, seq, 8))
+    dq_ref = _flash_bwd_dq(jq, jk, jv, jdo, lse8, delta8, **kw)
+    dk_ref, dv_ref = _flash_bwd_dkv(jq, jk, jv, jdo, lse8, delta8, **kw)
+    lse_np = np.asarray(lse8[..., 0])
+    args = (_t(q), _t(k), _t(v), _t(do), _t(lse_np), _t(delta), causal, scale)
+    dq = _flash_bwd_dq_ref(*args)
+    dk, dv = _flash_bwd_dkv_ref(*args)
+    assert dq.dtype == dk.dtype == dv.dtype == torch.float32
+    np.testing.assert_allclose(dq.numpy(), np.asarray(dq_ref), atol=ATTN_ATOL)
+    np.testing.assert_allclose(dk.numpy(), np.asarray(dk_ref), atol=ATTN_ATOL)
+    np.testing.assert_allclose(dv.numpy(), np.asarray(dv_ref), atol=ATTN_ATOL)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("impl", ["kernel", "torch"])
+def test_mha_gqa_forward_and_grads_match_jax(impl, causal):
+    """[B, T, H, D] attention with 4 query heads on 2 kv heads, against the
+    JAX flash_attention (Pallas, interpret mode) forward and gradients."""
+    B, T, H, Hk, D = 2, 192, 4, 2, 64
+    rs = np.random.RandomState(4)
+    q = rs.randn(B, T, H, D).astype(np.float32)
+    k = rs.randn(B, T, Hk, D).astype(np.float32)
+    v = rs.randn(B, T, Hk, D).astype(np.float32)
+    w = rs.randn(B, T, H, D).astype(np.float32)  # cotangent weights
+
+    def jax_obj(q, k, v):
+        o = jax_flash_attention(q, k, v, causal=causal, interpret=True)
+        return (o * w).sum(), o
+
+    (_, o_ref), grads_ref = jax.value_and_grad(jax_obj, argnums=(0, 1, 2), has_aux=True)(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+
+    leaves = [_t(x).requires_grad_(True) for x in (q, k, v)]
+    before = dict(launches)
+    o = mha(*leaves, causal=causal, impl=impl)
+    (o * _t(w)).sum().backward()
+    assert launches == before  # CPU tensors run the plain versions, never a kernel
+    np.testing.assert_allclose(o.detach().numpy(), np.asarray(o_ref), atol=ATTN_ATOL)
+    for leaf, ref in zip(leaves, grads_ref):
+        np.testing.assert_allclose(leaf.grad.numpy(), np.asarray(ref), atol=ATTN_ATOL)
+
+
+def test_mha_auto_takes_plain_path_on_cpu_and_rejects_unknown_impl():
+    q = torch.randn(1, 8, 2, 16)
+    np.testing.assert_allclose(mha(q, q, q, causal=True).numpy(),
+                               mha(q, q, q, causal=True, impl="torch").numpy())
+    with pytest.raises(ValueError):
+        mha(q, q, q, impl="pallas")
