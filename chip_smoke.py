@@ -6,12 +6,16 @@ GPT-2-small forward and train step through them.
 
 Phases, each printing one JSON line:
   1. card     nvidia-smi's name and power limit, torch's device name;
+     build    each kernel's registers and spills (ptxas -v) and its count of
+              tensor-core instructions (HMMA in cuobjdump -sass), which must
+              be above 0 for every tensor-core (*_tc) kernel;
   2. kernels  every kernel against its plain version, element by element
               (f32 with TF32 off and bf16; causal and not; head_dim 64 and
               128; T in 192, 1000, 1024; GQA through `mha`), then at the
               slice's shape the kernel's time, the plain version's,
               F.scaled_dot_product_attention's (a yardstick only: the port
-              never calls it) and the bound;
+              never calls it), the bound, the useful TFLOP/s and the share
+              of the bound reached (bound_ms / ms);
   3. forward  transformer_apply at GPT-2-small widths through the kernels and
               through the plain attention in bf16, each against the same
               weights run in f32;
@@ -32,6 +36,7 @@ import importlib
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -132,16 +137,26 @@ def check_ratios(ratios: dict, where) -> None:
 
 
 def time_ms(fn, reps: int = 20) -> float:
-    """Mean device time of fn over reps launches, after one warm-up."""
+    """Mean device time of fn over reps calls run back to back, after one
+    warm-up. The stream is held busy (torch.cuda._sleep) until every call is
+    queued, so the card never waits on the host between calls: a host slower
+    than the card, as for an autograd backward of many small launches, would
+    otherwise set the figure. The hold grows until the start event is still
+    pending once the last call is queued."""
     fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    for hold in (10_000_000 * 4 ** i for i in range(6)):  # GPU cycles, ~5 ms up
+        torch.cuda._sleep(hold)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        queued_in_time = not start.query()
+        torch.cuda.synchronize()
+        if queued_in_time:
+            return start.elapsed_time(end) / reps
+    raise SmokeFailure("the host could not queue the timed calls ahead of the card")
 
 
 def card() -> dict:
@@ -160,6 +175,69 @@ def peak_bf16_for(name: str) -> float:
     if "H100" in name or "H200" in name:
         return 989e12
     raise SmokeFailure(f"no bf16 peak known for {name!r}")
+
+
+# ------------------------------------------------------------ build report
+
+_KERNEL_NAME = re.compile(r"(fwd_kernel_tc|bwd_dkv_kernel_tc|fwd_kernel|bwd_dq_kernel|bwd_dkv_kernel)"
+                          r"I((?:Li\d+E|Lb[01]E|f|13__nv_bfloat16)+)E")
+_TEMPLATE_ARG = re.compile(r"Li(\d+)E|Lb([01])E|(13__nv_bfloat16|f)")
+
+
+def kernel_label(mangled: str) -> str:
+    """A kernel's mangled name as 'fwd_kernel_tc<64,true,false>'; other
+    names unchanged."""
+    m = _KERNEL_NAME.search(mangled)
+    if not m:
+        return mangled
+    args = [n or {"1": "true", "0": "false"}.get(b) or {"f": "f32"}.get(t, "bf16")
+            for n, b, t in _TEMPLATE_ARG.findall(m.group(2))]
+    return f"{m.group(1)}<{','.join(args)}>"
+
+
+def ptxas_report(log: str) -> dict:
+    """{kernel: {"registers", "spill_stores", "spill_loads"}} from ptxas -v."""
+    out, cur = {}, None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function '|Function properties for )([^'\s]+)", line)
+        if m:
+            cur = out.setdefault(kernel_label(m.group(1)), {})
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and cur is not None:
+            cur["spill_stores"], cur["spill_loads"] = int(m.group(1)), int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur is not None:
+            cur["registers"] = int(m.group(1))
+    return out
+
+
+def sass_hmma(sass: str) -> dict:
+    """{kernel: count of tensor-core (HMMA) instructions} from cuobjdump -sass."""
+    out, cur = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            cur = kernel_label(m.group(1))
+            out[cur] = 0
+        elif cur is not None and "HMMA" in line:
+            out[cur] += 1
+    return out
+
+
+def build_report(build) -> dict:
+    """Registers, spills and HMMA count of each kernel of the flash library;
+    fails unless every tensor-core kernel has HMMA instructions."""
+    lib = build.library_path("flash_attention")
+    regs = ptxas_report(lib.with_suffix(".log").read_text())
+    sass = subprocess.run([build.tool("cuobjdump"), "-sass", str(lib)], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    hmma = sass_hmma(sass)
+    report = {name: {**regs.get(name, {}), "hmma": n} for name, n in sorted(hmma.items())}
+    tc = [name for name in report if "_tc<" in name]
+    check(len(tc) == 12 and all(report[name]["hmma"] > 0 for name in tc),
+          f"tensor-core kernels without HMMA instructions: {report}")
+    return report
 
 
 # ----------------------------------------------------------------- phase 2
@@ -323,14 +401,17 @@ def kernel_timings(fa, dev, gen, cfg) -> dict:
     for _, key, _ in KERNELS:
         flops, nbytes = work[key]
         t_ops, t_bytes = flops / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+        ms = time_ms(kernel_fns[key])
         rows[key] = {
             "max_abs_err": errs[key],
             "err_to_limit": ratios[key],
-            "ms": time_ms(kernel_fns[key]),
+            "ms": ms,
             "plain_ms": time_ms(plain_fns[key], reps=5),
             "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "library_ms": library[key],
+            "tflops": flops / ms * 1e-9,  # useful flops, no recompute, no hi/lo split
+            "bound_share": max(t_ops, t_bytes) / ms,
         }
     emit({"phase": "kernels", "shape": [BH, T, D], "dtype": str(dt).split(".")[-1], "causal": True,
           "timings": rows, "sdpa_fwd_ms": sdpa_fwd_ms, "sdpa_bwd_ms": sdpa_bwd_ms,
@@ -516,7 +597,8 @@ def main() -> int:
     t0 = time.perf_counter()
     for name in _build.sources():
         _build.build(name)
-    emit({"phase": "build", "sources": _build.sources(), "seconds": time.perf_counter() - t0})
+    emit({"phase": "build", "sources": _build.sources(), "seconds": time.perf_counter() - t0,
+          "kernels": build_report(_build)})
 
     cfg = tr.TransformerConfig(**GPT2_SMALL)
     kernel_cases(fa, dev, gen)

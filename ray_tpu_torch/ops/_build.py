@@ -5,6 +5,8 @@ Each `csrc/<name>.cu` is compiled by `nvcc` for Hopper (`sm_90a`) into
 the hash covers the source and the flags, so an edited source is rebuilt
 and a stale library is never loaded. The libraries have a plain C interface
 and are loaded with `ctypes`; nothing here includes PyTorch's headers.
+`ptxas -v`'s report (each kernel's registers, shared memory and spills) is
+kept beside the library as `<name>-<hash>.log`.
 """
 
 from __future__ import annotations
@@ -20,8 +22,9 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "ray_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+
 
 def _nvcc() -> str:
     found = shutil.which("nvcc")
@@ -53,8 +56,14 @@ def build(name: str) -> Path:
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stdout}")
+    path.with_suffix(".log").write_text(proc.stdout)
     os.replace(tmp, path)  # atomic: a concurrent loader sees all or nothing
     return path
+
+
+def tool(name: str) -> str:
+    """A CUDA toolkit program (cuobjdump, ...) from beside nvcc."""
+    return str(Path(_nvcc()).parent / name)
 
 
 def load(name: str) -> ctypes.CDLL:

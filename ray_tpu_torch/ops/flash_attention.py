@@ -8,6 +8,10 @@ become the CUDA kernels of `csrc/flash_attention.cu`, bound with ctypes:
   flash_bwd_dq               <- _attn_bwd_dq_kernel   (B3)
   flash_bwd_dkv              <- _attn_bwd_dkv_kernel  (B4)
 
+For bf16 inputs (the train step's) the forward and dk/dv run on the tensor
+cores; f32 inputs, and dq in both types, run on the f32 CUDA cores. Either
+way every sum is f32 and the plain versions below are what they compute.
+
 Each wrapper launches its kernel for a CUDA tensor and raises on anything
 the kernel does not take; for a CPU tensor it runs its plain PyTorch
 version (`_flash_*_ref`), which repeats the kernel's arithmetic densely and
@@ -80,6 +84,8 @@ def _check_inputs(q, k, v, *rest) -> None:
             raise ValueError(f"flash kernels need one dtype, got {q.dtype} and {t.dtype}")
         if not t.is_contiguous():
             raise ValueError("flash kernels need contiguous tensors")
+        if t.data_ptr() % 16:
+            raise ValueError("flash kernels load rows 16 bytes at a time: tensors must be 16-byte aligned")
     if q.dtype not in _DTYPES:
         raise ValueError(f"flash kernels take float32 or bfloat16, got {q.dtype}")
     if q.dim() != 3 or k.shape != v.shape or k.dim() != 3:
@@ -173,6 +179,8 @@ def flash_fwd(q, k, v, *, causal: bool, scale: float, with_lse: bool = False):
     if q.device.type == "cpu":
         return _flash_fwd_ref(q, k, v, causal, scale, with_lse)
     _check_inputs(q, k, v)
+    if not scale > 0:  # the kernel takes the row max before it scales
+        raise ValueError(f"flash_fwd needs scale > 0, got {scale}")
     BH, T, D = q.shape
     o = torch.empty_like(q)
     lse = torch.empty((BH, T), dtype=torch.float32, device=q.device) if with_lse else None

@@ -38,24 +38,33 @@ def _err(a, b):
     return float((a.detach().float() - b.detach().float()).abs().max())
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("T", [192, 1000])
 @pytest.mark.parametrize("D", [64, 128])
-def test_kernels_match_plain_versions(dev, causal, T, D):
+def test_kernels_match_plain_versions(dev, causal, T, D, dtype):
+    """f32 runs the CUDA-core kernels, bf16 the tensor-core ones (and the
+    CUDA-core dq); both are held to chip_smoke.py's limits: ATOL for f32
+    outputs, one bf16 ulp for the bf16 o."""
+    cs = importlib.import_module("chip_smoke")
     g = torch.Generator(device=dev).manual_seed(T + D)
-    q, k, v, do = (torch.randn(3, T, D, device=dev, generator=g) for _ in range(4))
+    q, k, v, do = (torch.randn(3, T, D, device=dev, generator=g).to(dtype) for _ in range(4))
     scale = D ** -0.5
     o, lse = fa.flash_fwd(q, k, v, causal=causal, scale=scale, with_lse=True)
     ref_o, ref_lse = fa._flash_fwd_ref(q, k, v, causal, scale, True)
-    delta = (do * ref_o).sum(-1)
+    delta = (do.float() * ref_o.float()).sum(-1)
     dq = fa.flash_bwd_dq(q, k, v, do, ref_lse, delta, causal=causal, scale=scale)
     dk, dv = fa.flash_bwd_dkv(q, k, v, do, ref_lse, delta, causal=causal, scale=scale)
     ref_dk, ref_dv = fa._flash_bwd_dkv_ref(q, k, v, do, ref_lse, delta, causal, scale)
     torch.cuda.synchronize()
-    assert _err(o, ref_o) <= ATOL and _err(lse, ref_lse) <= ATOL
-    assert _err(fa.flash_fwd(q, k, v, causal=causal, scale=scale), ref_o) <= ATOL
-    assert _err(dq, fa._flash_bwd_dq_ref(q, k, v, do, ref_lse, delta, causal, scale)) <= ATOL
-    assert _err(dk, ref_dk) <= ATOL and _err(dv, ref_dv) <= ATOL
+    assert cs.F32_ATOL == ATOL
+    _, ratios = cs.compare({
+        "fwd": [(fa.flash_fwd(q, k, v, causal=causal, scale=scale), ref_o)],
+        "fwd_lse": [(o, ref_o), (lse, ref_lse)],
+        "bwd_dq": [(dq, fa._flash_bwd_dq_ref(q, k, v, do, ref_lse, delta, causal, scale))],
+        "bwd_dkv": [(dk, ref_dk), (dv, ref_dv)],
+    })
+    assert all(r <= 1.0 for r in ratios.values()), ratios
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
@@ -100,13 +109,17 @@ def test_small_model_through_the_kernels_matches_plain_path(dev):
 
 # Deliberately broken copies of the kernels' source, each built into the
 # test's own directory and bound in place of the real library, to show that
-# chip_smoke.py's limits fail a subtly wrong kernel: {name: (line, broken line)}.
+# chip_smoke.py's limits fail a subtly wrong bf16 (tensor-core) kernel:
+# {name: (line, broken line)}; each line occurs once in the source.
 MUTANTS = {
-    # The forward (the file's first such loop) drops the last, partial key tile.
-    "fwd_drops_partial_key_tile": ("int nk = (seq_k + BK - 1) / BK;", "int nk = seq_k / BK;"),
-    # bwd_dkv drops the last q tile.
-    "dkv_drops_last_q_tile": ("const int nq = (seq_q + BQ - 1) / BQ;",
-                              "const int nq = (seq_q + BQ - 1) / BQ - 1;"),
+    # fwd_kernel_tc drops the last, partial key tile.
+    "fwd_drops_partial_key_tile": ("int n_kv_tiles = (seq_k + BK - 1) / BK;",
+                                   "int n_kv_tiles = seq_k / BK;"),
+    # fwd_kernel_tc rounds P to bf16 once: it drops the lo term of P.V.
+    "fwd_drops_lo_term": ("mma_pair(acc[2 * j], acc[2 * j + 1], p_lo, b);", ""),
+    # bwd_dkv_kernel_tc drops the last q tile.
+    "dkv_drops_last_q_tile": ("const int n_q_tiles = (seq_q + BQ - 1) / BQ;",
+                              "const int n_q_tiles = (seq_q + BQ - 1) / BQ - 1;"),
 }
 
 
@@ -116,7 +129,7 @@ def mutant(dev, request, tmp_path, monkeypatch):
         return None
     line, broken = MUTANTS[request.param]
     src = (_build.CSRC / "flash_attention.cu").read_text()
-    assert line in src
+    assert src.count(line) == 1
     cu, so = tmp_path / "mutant.cu", tmp_path / "mutant.so"
     cu.write_text(src.replace(line, broken, 1))
     subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(so), str(cu)], check=True)

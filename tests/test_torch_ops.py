@@ -2,7 +2,11 @@
 entropy, the chunked LM-head CE, the plain version of each flash kernel
 against the Pallas kernel in interpret mode, and flash_attention/mha forward
 and gradients with GQA. Inputs come from numpy with a seed; both sides run
-in f32 (JAX at matmul precision "highest")."""
+in f32 (JAX at matmul precision "highest"). Also: why the bf16 tensor-core
+kernels split P and dS into two bf16 terms, and chip_smoke.py's readers of
+the compiler's reports."""
+
+import importlib
 
 import numpy as np
 import pytest
@@ -29,6 +33,7 @@ from ray_tpu.ops.fused import (  # noqa: E402
     softmax_cross_entropy as jax_ce,
 )
 from ray_tpu_torch.ops.flash_attention import (  # noqa: E402
+    _bwd_tile_ref,
     _flash_bwd_dkv_ref,
     _flash_bwd_dq_ref,
     _flash_fwd_ref,
@@ -175,6 +180,70 @@ def test_mha_gqa_forward_and_grads_match_jax(impl, causal):
     np.testing.assert_allclose(o.detach().numpy(), np.asarray(o_ref), atol=ATTN_ATOL)
     for leaf, ref in zip(leaves, grads_ref):
         np.testing.assert_allclose(leaf.grad.numpy(), np.asarray(ref), atol=ATTN_ATOL)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("D", [64, 128])
+def test_tensor_core_operands_need_the_hi_lo_split(D, causal):
+    """The bf16 kernels hand P (in P.V and P^T.dO) and dS (in dS^T.Q), f32
+    values made on chip, to bf16 tensor cores. Rounded once, they miss
+    chip_smoke.py's kernel limits; split into hi = bf16(x) and lo = bf16(x -
+    hi), one product each, they hold them. Emulated here through the plain
+    versions' math: the inputs are bf16, so every product is exact in f32
+    and only the rounding of P and dS differs from the plain versions."""
+    cs = importlib.import_module("chip_smoke")
+    T = 1024
+    q, k, v, do = (_t(x).bfloat16() for x in _qkv(7, 2, T, D))
+    scale = D ** -0.5
+    ref_o, lse = _flash_fwd_ref(q, k, v, causal, scale, with_lse=True)
+    delta = (do.float() * ref_o.float()).sum(-1)
+    ref_dk, ref_dv = _flash_bwd_dkv_ref(q, k, v, do, lse, delta, causal, scale)
+    # P as the forward holds it: exp(s - row max), not yet divided by l.
+    s = torch.einsum("btd,bsd->bts", q.float(), k.float()) * scale
+    if causal:
+        s = s.masked_fill(~torch.ones(T, T, dtype=torch.bool).tril(), -1e30)
+    p_fwd = torch.exp(s - s.amax(-1, keepdim=True))
+    l = p_fwd.sum(-1, keepdim=True)
+    p, ds = _bwd_tile_ref(q, k, v, do, lse, delta, causal, scale)
+
+    def once(x):
+        return [x.bfloat16().float()]
+
+    def split(x):
+        hi = x.bfloat16().float()
+        return [hi, (x - hi).bfloat16().float()]
+
+    def ratios(rounding):
+        o = sum(torch.einsum("bts,bsd->btd", t, v.float()) for t in rounding(p_fwd)) / l
+        dk = sum(torch.einsum("bts,btd->bsd", t, q.float()) for t in rounding(ds))
+        dv = sum(torch.einsum("bts,btd->bsd", t, do.float()) for t in rounding(p))
+        return cs.compare({"o": [(o.bfloat16(), ref_o)], "dkv": [(dk, ref_dk), (dv, ref_dv)]})[1]
+
+    rounded_once, split_in_two = ratios(once), ratios(split)
+    assert rounded_once["o"] > 1.0 and rounded_once["dkv"] > 1.0, rounded_once
+    assert split_in_two["o"] <= 1.0 and split_in_two["dkv"] <= 1.0, split_in_two
+
+
+def test_build_report_parsers():
+    """chip_smoke.py's readers of ptxas -v and cuobjdump -sass output."""
+    cs = importlib.import_module("chip_smoke")
+    fwd = "_ZN12_GLOBAL__N_113fwd_kernel_tcILi64ELb1ELb0EEEvPK13__nv_bfloat16S3_S3_PS1_Pfiif"
+    dq = "_ZN12_GLOBAL__N_113bwd_dq_kernelI13__nv_bfloat16Li128ELb0EEEvPKT_S4_S4_S4_PKfS6_Pfiif"
+    old = "_ZN12_GLOBAL__N_110fwd_kernelIfLi64ELb1ELb1EEEvPKT_S4_S4_PS2_Pfiif"
+    assert cs.kernel_label(fwd) == "fwd_kernel_tc<64,true,false>"
+    assert cs.kernel_label(dq) == "bwd_dq_kernel<bf16,128,false>"
+    assert cs.kernel_label(old) == "fwd_kernel<f32,64,true,true>"
+    assert cs.kernel_label("_Z3foov") == "_Z3foov"
+    log = (f"ptxas info    : Compiling entry function '{fwd}' for 'sm_90a'\n"
+           f"ptxas info    : Function properties for {fwd}\n"
+           "    0 bytes stack frame, 8 bytes spill stores, 12 bytes spill loads\n"
+           "ptxas info    : Used 168 registers, used 1 barriers, 380 bytes cmem[0]\n")
+    assert cs.ptxas_report(log) == {"fwd_kernel_tc<64,true,false>": {
+        "registers": 168, "spill_stores": 8, "spill_loads": 12}}
+    sass = (f"\t\tFunction : {fwd}\n        /*0100*/  HMMA.16816.F32.BF16 R4, R8, R12, R4 ;\n"
+            "        /*0110*/  HMMA.16816.F32.BF16 R16, R8, R14, R16 ;\n"
+            f"\t\tFunction : {old}\n        /*0100*/  FFMA R1, R2, R3, R1 ;\n")
+    assert cs.sass_hmma(sass) == {"fwd_kernel_tc<64,true,false>": 2, "fwd_kernel<f32,64,true,true>": 0}
 
 
 def test_mha_auto_takes_plain_path_on_cpu_and_rejects_unknown_impl():
