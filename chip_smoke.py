@@ -7,8 +7,8 @@ GPT-2-small forward and train step through them.
 Phases, each printing one JSON line:
   1. card     nvidia-smi's name and power limit, torch's device name;
      build    each kernel's registers and spills (ptxas -v) and its count of
-              tensor-core instructions (HMMA in cuobjdump -sass), which must
-              be above 0 for every tensor-core (*_tc) kernel;
+              tensor-core instructions (HMMA in cuobjdump -sass); every
+              tensor-core (*_tc) kernel must have HMMA and no spill;
   2. kernels  every kernel against its plain version, element by element
               (f32 with TF32 off and bf16; causal and not; head_dim 64 and
               128; T in 192, 1000, 1024; GQA through `mha`), then at the
@@ -179,8 +179,11 @@ def peak_bf16_for(name: str) -> float:
 
 # ------------------------------------------------------------ build report
 
-_KERNEL_NAME = re.compile(r"(fwd_kernel_tc|bwd_dkv_kernel_tc|fwd_kernel|bwd_dq_kernel|bwd_dkv_kernel)"
+_KERNEL_NAME = re.compile(r"((?:fwd|bwd_dq|bwd_dkv)_kernel(?:_tc)?)"
                           r"I((?:Li\d+E|Lb[01]E|f|13__nv_bfloat16)+)E")
+# Tensor-core kernels in the build: fwd_kernel_tc (D x CAUSAL x WRITE_LSE),
+# bwd_dq_kernel_tc and bwd_dkv_kernel_tc (D x CAUSAL each).
+N_TC_KERNELS = 16
 _TEMPLATE_ARG = re.compile(r"Li(\d+)E|Lb([01])E|(13__nv_bfloat16|f)")
 
 
@@ -227,16 +230,18 @@ def sass_hmma(sass: str) -> dict:
 
 def build_report(build) -> dict:
     """Registers, spills and HMMA count of each kernel of the flash library;
-    fails unless every tensor-core kernel has HMMA instructions."""
+    fails unless all N_TC_KERNELS tensor-core kernels are there, each with
+    HMMA instructions and no spill."""
     lib = build.library_path("flash_attention")
     regs = ptxas_report(lib.with_suffix(".log").read_text())
     sass = subprocess.run([build.tool("cuobjdump"), "-sass", str(lib)], capture_output=True,
                           text=True, timeout=300, check=True).stdout
     hmma = sass_hmma(sass)
     report = {name: {**regs.get(name, {}), "hmma": n} for name, n in sorted(hmma.items())}
-    tc = [name for name in report if "_tc<" in name]
-    check(len(tc) == 12 and all(report[name]["hmma"] > 0 for name in tc),
-          f"tensor-core kernels without HMMA instructions: {report}")
+    tc = {name: r for name, r in report.items() if "_tc<" in name}
+    check(len(tc) == N_TC_KERNELS and all(r["hmma"] > 0 and r.get("spill_stores") == 0
+                                          and r.get("spill_loads") == 0 for r in tc.values()),
+          f"want {N_TC_KERNELS} tensor-core kernels, each with HMMA and no spill: {tc}")
     return report
 
 
@@ -537,8 +542,8 @@ def train_phase(tr, fa, cfg, dev, gen) -> tuple:
 
 def profile_phase(run_step, step_ms: float) -> None:
     """Where the device time of two train steps goes, by kernel family
-    (torch.profiler), and the device's idle share in the unprofiled steps of
-    phase 4: 1 - device time per step / step time."""
+    (torch.profiler), each flash kernel's share, and the device's idle share
+    in the unprofiled steps of phase 4: 1 - device time per step / step time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -550,21 +555,23 @@ def profile_phase(run_step, step_ms: float) -> None:
     # Device-side user annotations (Optimizer.step#...) span kernels already counted.
     kernels = [e for e in prof.events()
                if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
-    by_name = {}
-    for e in kernels:
-        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / steps
+    by_name, flash = {}, {}
     families, counts = {}, {}
     for e in kernels:
-        name = e.name
+        name, ms = e.name, e.time_range.elapsed_us() / 1e3 / steps
+        by_name[name] = by_name.get(name, 0.0) + ms
         if any(s in name for s in ("fwd_kernel", "bwd_dq_kernel", "bwd_dkv_kernel")):
             fam = "flash (this repo)"
+            m = re.search(r"\w+_kernel(?:_tc)?<[^>]*>", name)  # demangled: drop the arguments
+            key = m.group(0) if m else kernel_label(name)
+            flash[key] = flash.get(key, 0.0) + ms
         elif any(s in name.lower() for s in ("gemm", "cutlass", "xmma", "nvjet", "sm90")):
             fam = "matmul (cuBLAS)"
         elif "multi_tensor" in name or "adam" in name.lower():
             fam = "optimizer"
         else:
             fam = "other"
-        families[fam] = families.get(fam, 0.0) + e.time_range.elapsed_us() / 1e3 / steps
+        families[fam] = families.get(fam, 0.0) + ms
         counts[fam] = counts.get(fam, 0) + 1
     device_ms = sum(families.values())
     top = sorted(((ms, name) for name, ms in by_name.items()), reverse=True)[:8]
@@ -572,6 +579,7 @@ def profile_phase(run_step, step_ms: float) -> None:
           "idle_share": 1 - device_ms / step_ms if device_ms else None,
           "ms_by_family": families,
           "launches_by_family": {k: v // steps for k, v in counts.items()},
+          "flash_ms_by_kernel": flash,
           "top_kernels_ms": [[n[:80], ms] for ms, n in top]})
 
 

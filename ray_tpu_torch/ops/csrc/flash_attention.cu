@@ -5,7 +5,7 @@
 //   bf16 inputs (the train step's)        f32 inputs
 //   fwd_kernel_tc<.., WRITE_LSE=false>    fwd_kernel<.., WRITE_LSE=false>  <- _attn_fwd_kernel      (B1)
 //   fwd_kernel_tc<.., WRITE_LSE=true>     fwd_kernel<.., WRITE_LSE=true>   <- _attn_fwd_kernel_lse  (B2)
-//   bwd_dq_kernel                         bwd_dq_kernel                    <- _attn_bwd_dq_kernel   (B3)
+//   bwd_dq_kernel_tc                      bwd_dq_kernel                    <- _attn_bwd_dq_kernel   (B3)
 //   bwd_dkv_kernel_tc                     bwd_dkv_kernel                   <- _attn_bwd_dkv_kernel  (B4)
 //
 // Layout [BH, T, D] for q/do/o and [BH, S, D] for k/v, row-major and
@@ -14,9 +14,9 @@
 //
 // What bounds them on the card. The least time for the work is set by the
 // bytes at the train step's shape (causal, T = 1024, D = 64: ~256 flops per
-// byte of q, k, v, o, just under the ~295 at which an H100's bf16 tensor
-// cores stop waiting on memory), so a fast kernel reads each input once and
-// keeps everything O(T*S) on chip.
+// byte moved, in the forward and in each backward kernel, just under the
+// ~295 at which an H100's bf16 tensor cores stop waiting on memory), so a
+// fast kernel reads each input once and keeps everything O(T*S) on chip.
 //
 // The tensor-core kernels (*_tc, bf16 only; second half of this file). Their
 // products run on mma.sync m16n8k16 (bf16 operands, f32 sums), fed from
@@ -24,9 +24,9 @@
 // a two-stage ring, so the next tile's load overlaps this tile's products.
 //   * Exactness. q, k, v and do are bf16, so their products are exact in f32
 //     and S = q.k^T and dP = do.v^T match the f32 plain versions up to the
-//     order of the sums. P (in P.V and P^T.dO) and dS (in dS^T.Q) are f32
-//     values made on chip; rounded once to bf16 they would miss the limits
-//     of chip_smoke.py several times over (tests/test_torch_ops.py,
+//     order of the sums. P (in P.V and P^T.dO) and dS (in dS.K and dS^T.Q)
+//     are f32 values made on chip; rounded once to bf16 they would miss the
+//     limits of chip_smoke.py several times over (tests/test_torch_ops.py,
 //     test_tensor_core_operands_need_the_hi_lo_split). Each is split into
 //     hi = bf16(x) and lo = bf16(x - hi), both multiplied into the same f32
 //     sum: the error falls to ~2^-16 of x, and the kernels compute what the
@@ -36,23 +36,27 @@
 //     its A operand in the layout of its own accumulator, so both terms of
 //     the split go straight from registers into the next product.
 //   * Tiles of 64 rows, 4 warps, each warp owning 16 rows of the block's
-//     resident operand (q rows in the forward, k rows in bwd_dkv). Shared
+//     resident operand (q rows in the forward and bwd_dq, k rows in
+//     bwd_dkv), whose fragments and sums stay in registers. Shared
 //     rows are padded by 16 bytes so the 8 row addresses of an ldmatrix hit
 //     8 distinct bank groups. Rows at or past T or S are zero-filled by
 //     cp.async (src-size 0), never read: in a flat [BH*T, D] view they would
 //     be the next head's rows.
-//   * bwd_dkv walks each q tile in chunks of 16 q columns: S^T, dP^T, P^T
-//     and dS^T of a chunk live in 8 registers each, so only dK and dV (16 x
-//     D per warp) stay resident, and D = 128 fits 4 warps without a spill.
+//   * The backward kernels walk each streamed tile in chunks of 16 columns
+//     (q columns in bwd_dkv, keys in bwd_dq): S, dP, P and dS of a chunk
+//     live in 8 registers each, so only the warp's own rows stay resident
+//     (dK and dV in bwd_dkv; Q, dO and dQ fragments in bwd_dq), and D = 128
+//     fits 4 warps without a spill. On the causal diagonal, bwd_dq skips the
+//     chunks that lie wholly above the warp's rows.
 //   * Tile loads are unrolled to a fixed count per thread: a loop bounded by
 //     threadIdx.x compiles to ~300 instructions with branches per tile.
 // f32 inputs keep the first kernels below: the tensor cores take f32 only as
 // TF32 or through a three-way bf16 split, and the f32 path exists for the
-// tests. bwd_dq (B3) keeps them for both types; it is next in ROADMAP B5.
+// tests.
 //
-// The first kernels (f32, and bf16 bwd_dq) do their arithmetic on the f32
-// CUDA cores (67 TFLOP/s, not the tensor cores' 989), and that is what bounds
-// them: a forward at the train shape is 13 GFLOP, at least 0.19 ms there.
+// The first kernels (f32 only) do their arithmetic on the f32 CUDA cores
+// (67 TFLOP/s, not the tensor cores' 989), and that is what bounds them: a
+// forward at the train shape is 13 GFLOP, at least 0.19 ms there.
 // What their design does about it:
 //   * The TPU kernels carry the online-softmax state (m, l, acc) in VMEM
 //     scratch from one sequential grid step to the next. Blocks on Hopper
@@ -748,6 +752,138 @@ __device__ __forceinline__ void chunk_grads(float (&s)[2][4], float (&dp)[2][4],
     }
 }
 
+// P = exp(S * scale - lse) and dS = P (dP - delta) scale of one 16 x 16
+// chunk (q rows x k columns), in place of dP in dp; 0 where masked (MASK).
+// r0 is this lane's first q row, c0 the k position of s[0][0]; lr and dl
+// hold the lse and delta of rows r0 and r0 + 8.
+template <bool MASK, bool CAUSAL>
+__device__ __forceinline__ void chunk_grads_q(const float (&s)[2][4], float (&dp)[2][4],
+                                              const float (&lr)[2], const float (&dl)[2], int r0,
+                                              int c0, int seq_k, float scale) {
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int qp = r0 + 8 * (e / 2), kp = c0 + j * 8 + e % 2;
+      const bool ok = !MASK || (kp < seq_k && (!CAUSAL || qp >= kp));
+      const float p = expf(s[j][e] * scale - lr[e / 2]);
+      dp[j][e] = ok ? p * (dp[j][e] - dl[e / 2]) * scale : 0.f;
+    }
+}
+
+// ------------------------------------------------- backward dq (tensor cores)
+// Replaces _attn_bwd_dq_kernel for bf16. One block per (64-row q tile, bh);
+// warp w owns q rows 16w..16w+15 and keeps their Q and dO fragments, lse,
+// delta and dQ in registers. K and V tiles stream through a two-stage ring.
+// Each k tile is taken 16 keys at a time: S = Q.K^T and dP = dO.V^T, P and
+// dS in registers, then dQ += dS_hi.K + dS_lo.K. Rows past T are computed
+// from zeros and never written: a dq row depends on its own dS row only.
+template <int D, bool CAUSAL>
+__global__ void __launch_bounds__(TC_THREADS, D <= 64 ? 3 : 1) bwd_dq_kernel_tc(
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+    const bf16* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
+    float* __restrict__ dq, int seq_q, int seq_k, float scale) {
+  constexpr int LD = D + TC_LD_PAD, KC = D / 16, DT = D / 8;
+  extern __shared__ __align__(16) unsigned char tc_smem_dq[];
+  bf16* qs = reinterpret_cast<bf16*>(tc_smem_dq);  // [BQ][LD]
+  bf16* dos = qs + BQ * LD;                        // [BQ][LD]
+  bf16* ks = dos + BQ * LD;                        // [2][BK][LD]
+  bf16* vs = ks + 2 * BK * LD;                     // [2][BK][LD]
+
+  const int bh = blockIdx.y;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;  // the longest causal rows start first
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, tg = lane % 4;
+  const int r0 = q0 + warp * 16 + lane / 4;  // this lane's rows: r0 and r0 + 8
+  q += static_cast<size_t>(bh) * seq_q * D;
+  dout += static_cast<size_t>(bh) * seq_q * D;
+  dq += static_cast<size_t>(bh) * seq_q * D;
+  k += static_cast<size_t>(bh) * seq_k * D;
+  v += static_cast<size_t>(bh) * seq_k * D;
+  lse += static_cast<size_t>(bh) * seq_q;
+  delta += static_cast<size_t>(bh) * seq_q;
+
+  int n_k_tiles = (seq_k + BK - 1) / BK;
+  if (CAUSAL) n_k_tiles = min(n_k_tiles, (q0 + BQ - 1) / BK + 1);  // stop at the diagonal tile
+
+  tile_async<BQ, D>(qs, q, q0, seq_q);
+  tile_async<BQ, D>(dos, dout, q0, seq_q);
+  cp_async_commit();
+  tile_async<BK, D>(ks, k, 0, seq_k);
+  tile_async<BK, D>(vs, v, 0, seq_k);
+  cp_async_commit();
+  float lr[2], dl[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qp = r0 + 8 * r;
+    lr[r] = qp < seq_q ? lse[qp] : 0.f;
+    dl[r] = qp < seq_q ? delta[qp] : 0.f;
+  }
+  cp_async_wait<1>();
+  __syncthreads();
+  uint32_t qf[KC][4], dof[KC][4];
+#pragma unroll
+  for (int kc = 0; kc < KC; ++kc) {
+    ldsm_x4(qf[kc], qs + (warp * 16 + a_row(lane)) * LD + kc * 16 + a_col(lane));
+    ldsm_x4(dof[kc], dos + (warp * 16 + a_row(lane)) * LD + kc * 16 + a_col(lane));
+  }
+
+  float dqa[DT][4] = {};
+
+  for (int kt = 0; kt < n_k_tiles; ++kt) {
+    const int st = kt & 1, k0 = kt * BK;
+    cp_async_wait<0>();  // tile kt is in, for every thread after the barrier, which
+    __syncthreads();     // also means every warp is done with tile kt - 1's stage
+    if (kt + 1 < n_k_tiles) {  // so the next tile loads there while this one is multiplied
+      tile_async<BK, D>(ks + (st ^ 1) * BK * LD, k, k0 + BK, seq_k);
+      tile_async<BK, D>(vs + (st ^ 1) * BK * LD, v, k0 + BK, seq_k);
+      cp_async_commit();
+    }
+    const bf16* kst = ks + st * BK * LD;
+    const bf16* vst = vs + st * BK * LD;
+    // Only a tile on the diagonal or past seq_k has masked entries.
+    const bool edge = k0 + BK > seq_k || (CAUSAL && k0 + BK - 1 > q0);
+
+#pragma unroll
+    for (int c = 0; c < BK / 16; ++c) {  // 16 keys at a time
+      // On the diagonal, a chunk wholly above this warp's rows adds nothing.
+      if (CAUSAL && k0 + c * 16 > q0 + warp * 16 + 15) break;
+      float s[2][4] = {}, dp[2][4] = {};
+#pragma unroll
+      for (int kc = 0; kc < KC; ++kc) {
+        uint32_t b[4];
+        ldsm_x4(b, kst + (c * 16 + n_row(lane)) * LD + kc * 16 + n_col(lane));
+        mma_pair(s[0], s[1], qf[kc], b);
+        ldsm_x4(b, vst + (c * 16 + n_row(lane)) * LD + kc * 16 + n_col(lane));
+        mma_pair(dp[0], dp[1], dof[kc], b);
+      }
+      if (edge)
+        chunk_grads_q<true, CAUSAL>(s, dp, lr, dl, r0, k0 + c * 16 + 2 * tg, seq_k, scale);
+      else
+        chunk_grads_q<false, CAUSAL>(s, dp, lr, dl, r0, k0 + c * 16 + 2 * tg, seq_k, scale);
+      uint32_t ds_hi[4], ds_lo[4];
+      split_a(dp[0], dp[1], ds_hi, ds_lo);
+#pragma unroll
+      for (int j = 0; j < D / 16; ++j) {
+        uint32_t b[4];
+        ldsm_x4_trans(b, kst + (c * 16 + a_row(lane)) * LD + j * 16 + a_col(lane));
+        mma_pair(dqa[2 * j], dqa[2 * j + 1], ds_hi, b);
+        mma_pair(dqa[2 * j], dqa[2 * j + 1], ds_lo, b);
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qp = r0 + 8 * r;
+    if (qp >= seq_q) continue;
+#pragma unroll
+    for (int j = 0; j < DT; ++j)
+      *reinterpret_cast<float2*>(dq + static_cast<size_t>(qp) * D + j * 8 + 2 * tg) =
+          make_float2(dqa[j][2 * r], dqa[j][2 * r + 1]);
+  }
+}
+
 // ------------------------------------------------ backward dkv (tensor cores)
 // Replaces _attn_bwd_dkv_kernel for bf16. One block per (64-row k tile, bh);
 // warp w owns k rows 16w..16w+15 and accumulates their dK and dV in
@@ -981,9 +1117,20 @@ cudaError_t bwd_dkv_tc(const void* q, const void* k, const void* v, const void* 
                       grid, smem, stream, qt, kt, vt, dot, lse, delta, dk, dv, seq_q, seq_k, scale);
 }
 
-template <int D, typename... Args>
-cudaError_t bwd_dq_bf16(Args... args) {
-  return bwd_dq<bf16, D>(args...);
+template <int D>
+cudaError_t bwd_dq_tc(const void* q, const void* k, const void* v, const void* dout,
+                      const float* lse, const float* delta, float* dq, int bh, int seq_q,
+                      int seq_k, float scale, bool causal, cudaStream_t stream) {
+  const size_t smem = sizeof(bf16) * (2 * BQ + 4 * BK) * (D + TC_LD_PAD);
+  const dim3 grid((seq_q + BQ - 1) / BQ, bh);
+  const bf16* qt = static_cast<const bf16*>(q);
+  const bf16* kt = static_cast<const bf16*>(k);
+  const bf16* vt = static_cast<const bf16*>(v);
+  const bf16* dot = static_cast<const bf16*>(dout);
+  return causal ? launch<bwd_dq_kernel_tc<D, true>, TC_THREADS>(
+                      grid, smem, stream, qt, kt, vt, dot, lse, delta, dq, seq_q, seq_k, scale)
+                : launch<bwd_dq_kernel_tc<D, false>, TC_THREADS>(
+                      grid, smem, stream, qt, kt, vt, dot, lse, delta, dq, seq_q, seq_k, scale);
 }
 
 }  // namespace
@@ -992,8 +1139,7 @@ cudaError_t bwd_dq_bf16(Args... args) {
 // dtype: 0 = float32, 1 = bfloat16. head_dim: 64 or 128. Each function
 // returns the cudaError_t of its launch (0 on success); the kernel runs on
 // `stream` and nothing here synchronises or allocates. f32 goes to F32_FN,
-// the CUDA-core kernels; bf16 to BF16_FN, the tensor-core kernels where
-// there is one (fwd, bwd_dkv).
+// the CUDA-core kernels; bf16 to BF16_FN, the tensor-core kernels.
 
 #define RT_DISPATCH(F32_FN, BF16_FN, ...)                                              \
   if (dtype == 0 && head_dim == 64) return F32_FN<float, 64>(__VA_ARGS__);             \
@@ -1014,7 +1160,7 @@ int rt_flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse
 int rt_flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
                     const void* lse, const void* delta, void* dq, int bh, int seq_q, int seq_k,
                     int head_dim, float scale, int causal, int dtype, void* stream) {
-  RT_DISPATCH(bwd_dq, bwd_dq_bf16, q, k, v, dout, static_cast<const float*>(lse),
+  RT_DISPATCH(bwd_dq, bwd_dq_tc, q, k, v, dout, static_cast<const float*>(lse),
               static_cast<const float*>(delta), static_cast<float*>(dq), bh, seq_q, seq_k, scale,
               causal != 0, static_cast<cudaStream_t>(stream))
 }

@@ -8,9 +8,9 @@ become the CUDA kernels of `csrc/flash_attention.cu`, bound with ctypes:
   flash_bwd_dq               <- _attn_bwd_dq_kernel   (B3)
   flash_bwd_dkv              <- _attn_bwd_dkv_kernel  (B4)
 
-For bf16 inputs (the train step's) the forward and dk/dv run on the tensor
-cores; f32 inputs, and dq in both types, run on the f32 CUDA cores. Either
-way every sum is f32 and the plain versions below are what they compute.
+For bf16 inputs (the train step's) all four run on the tensor cores; f32
+inputs run on the f32 CUDA cores. Either way every sum is f32 and the plain
+versions below are what they compute.
 
 Each wrapper launches its kernel for a CUDA tensor and raises on anything
 the kernel does not take; for a CPU tensor it runs its plain PyTorch

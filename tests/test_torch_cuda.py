@@ -43,9 +43,9 @@ def _err(a, b):
 @pytest.mark.parametrize("T", [192, 1000])
 @pytest.mark.parametrize("D", [64, 128])
 def test_kernels_match_plain_versions(dev, causal, T, D, dtype):
-    """f32 runs the CUDA-core kernels, bf16 the tensor-core ones (and the
-    CUDA-core dq); both are held to chip_smoke.py's limits: ATOL for f32
-    outputs, one bf16 ulp for the bf16 o."""
+    """f32 runs the CUDA-core kernels, bf16 the tensor-core ones; both are
+    held to chip_smoke.py's limits: ATOL for f32 outputs, one bf16 ulp for
+    the bf16 o."""
     cs = importlib.import_module("chip_smoke")
     g = torch.Generator(device=dev).manual_seed(T + D)
     q, k, v, do = (torch.randn(3, T, D, device=dev, generator=g).to(dtype) for _ in range(4))
@@ -120,6 +120,14 @@ MUTANTS = {
     # bwd_dkv_kernel_tc drops the last q tile.
     "dkv_drops_last_q_tile": ("const int n_q_tiles = (seq_q + BQ - 1) / BQ;",
                               "const int n_q_tiles = (seq_q + BQ - 1) / BQ - 1;"),
+    # bwd_dq_kernel_tc rounds dS to bf16 once: it drops the lo term of dS.K.
+    "dq_drops_lo_term": ("mma_pair(dqa[2 * j], dqa[2 * j + 1], ds_lo, b);", ""),
+    # bwd_dq_kernel_tc drops the last, partial key tile.
+    "dq_drops_partial_key_tile": ("int n_k_tiles = (seq_k + BK - 1) / BK;",
+                                  "int n_k_tiles = seq_k / BK;"),
+    # bwd_dq_kernel_tc stops one tile short of the causal diagonal.
+    "dq_drops_diagonal_tile": ("n_k_tiles = min(n_k_tiles, (q0 + BQ - 1) / BK + 1);",
+                               "n_k_tiles = min(n_k_tiles, (q0 + BQ - 1) / BK);"),
 }
 
 
@@ -139,24 +147,35 @@ def mutant(dev, request, tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("mutant", list(MUTANTS), indirect=True)
 def test_smoke_limits_catch_a_broken_kernel(dev, mutant):
+    """Each broken kernel misses chip_smoke.py's limits in one of the two
+    causal modes at T = 1000 (a partial last tile)."""
     cs = importlib.import_module("chip_smoke")
     g = torch.Generator(device=dev).manual_seed(0)
     q, k, v, do = (torch.randn(4, 1000, 64, device=dev, generator=g).bfloat16() for _ in range(4))
     scale = 0.125
-    ref_o, ref_lse = fa._flash_fwd_ref(q, k, v, False, scale, True)
-    delta = (do.float() * ref_o.float()).sum(-1)
-    _, ratios = cs.compare({
-        "fwd": [(fa.flash_fwd(q, k, v, causal=False, scale=scale), ref_o)],
-        "bwd_dkv": list(zip(fa.flash_bwd_dkv(q, k, v, do, ref_lse, delta, causal=False, scale=scale),
-                            fa._flash_bwd_dkv_ref(q, k, v, do, ref_lse, delta, False, scale))),
-    })
-    broken = "fwd" if mutant.startswith("fwd") else "bwd_dkv"
-    assert ratios[broken] > 1.0, ratios
+    worst = {}
+    for causal in (False, True):
+        ref_o, ref_lse = fa._flash_fwd_ref(q, k, v, causal, scale, True)
+        delta = (do.float() * ref_o.float()).sum(-1)
+        args = (q, k, v, do, ref_lse, delta)
+        _, ratios = cs.compare({
+            "fwd": [(fa.flash_fwd(q, k, v, causal=causal, scale=scale), ref_o)],
+            "bwd_dq": [(fa.flash_bwd_dq(*args, causal=causal, scale=scale),
+                        fa._flash_bwd_dq_ref(*args, causal, scale))],
+            "bwd_dkv": list(zip(fa.flash_bwd_dkv(*args, causal=causal, scale=scale),
+                                fa._flash_bwd_dkv_ref(*args, causal, scale))),
+        })
+        worst = {key: max(r, worst.get(key, 0.0)) for key, r in ratios.items()}
+    broken = {"fwd": "fwd", "dq": "bwd_dq", "dkv": "bwd_dkv"}[mutant.split("_")[0]]
+    assert worst[broken] > 1.0, worst
 
 
-@pytest.mark.parametrize("mutant", [None, "dkv_drops_last_q_tile"], indirect=True)
+@pytest.mark.parametrize("mutant", [None, "dkv_drops_last_q_tile", "dq_drops_diagonal_tile"],
+                         indirect=True)
 def test_smoke_gradient_check_catches_a_broken_backward(dev, mutant):
-    """The first loss cannot see a broken backward kernel; the gradients can."""
+    """The first loss cannot see a broken backward kernel; the gradients can
+    (but not a dropped lo term: tests/test_torch_ops.py,
+    test_gradient_check_sees_a_lost_tile_not_a_once_rounded_ds)."""
     cs = importlib.import_module("chip_smoke")
     cfg = tr.TransformerConfig(vocab_size=512, d_model=256, n_layers=2, n_heads=4,
                                max_seq_len=1024, dtype=torch.bfloat16, attention_impl="kernel")

@@ -3,8 +3,9 @@ entropy, the chunked LM-head CE, the plain version of each flash kernel
 against the Pallas kernel in interpret mode, and flash_attention/mha forward
 and gradients with GQA. Inputs come from numpy with a seed; both sides run
 in f32 (JAX at matmul precision "highest"). Also: why the bf16 tensor-core
-kernels split P and dS into two bf16 terms, and chip_smoke.py's readers of
-the compiler's reports."""
+kernels split P and dS into two bf16 terms, what chip_smoke.py's first-step
+gradient check can and cannot see of a broken dq, and chip_smoke.py's
+readers of the compiler's reports."""
 
 import importlib
 
@@ -185,18 +186,19 @@ def test_mha_gqa_forward_and_grads_match_jax(impl, causal):
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("D", [64, 128])
 def test_tensor_core_operands_need_the_hi_lo_split(D, causal):
-    """The bf16 kernels hand P (in P.V and P^T.dO) and dS (in dS^T.Q), f32
-    values made on chip, to bf16 tensor cores. Rounded once, they miss
-    chip_smoke.py's kernel limits; split into hi = bf16(x) and lo = bf16(x -
-    hi), one product each, they hold them. Emulated here through the plain
-    versions' math: the inputs are bf16, so every product is exact in f32
-    and only the rounding of P and dS differs from the plain versions."""
+    """The bf16 kernels hand P (in P.V and P^T.dO) and dS (in dS.K and
+    dS^T.Q), f32 values made on chip, to bf16 tensor cores. Rounded once,
+    they miss chip_smoke.py's kernel limits; split into hi = bf16(x) and lo =
+    bf16(x - hi), one product each, they hold them. Emulated here through the
+    plain versions' math: the inputs are bf16, so every product is exact in
+    f32 and only the rounding of P and dS differs from the plain versions."""
     cs = importlib.import_module("chip_smoke")
     T = 1024
     q, k, v, do = (_t(x).bfloat16() for x in _qkv(7, 2, T, D))
     scale = D ** -0.5
     ref_o, lse = _flash_fwd_ref(q, k, v, causal, scale, with_lse=True)
     delta = (do.float() * ref_o.float()).sum(-1)
+    ref_dq = _flash_bwd_dq_ref(q, k, v, do, lse, delta, causal, scale)
     ref_dk, ref_dv = _flash_bwd_dkv_ref(q, k, v, do, lse, delta, causal, scale)
     # P as the forward holds it: exp(s - row max), not yet divided by l.
     s = torch.einsum("btd,bsd->bts", q.float(), k.float()) * scale
@@ -215,13 +217,51 @@ def test_tensor_core_operands_need_the_hi_lo_split(D, causal):
 
     def ratios(rounding):
         o = sum(torch.einsum("bts,bsd->btd", t, v.float()) for t in rounding(p_fwd)) / l
+        dq = sum(torch.einsum("bts,bsd->btd", t, k.float()) for t in rounding(ds))
         dk = sum(torch.einsum("bts,btd->bsd", t, q.float()) for t in rounding(ds))
         dv = sum(torch.einsum("bts,btd->bsd", t, do.float()) for t in rounding(p))
-        return cs.compare({"o": [(o.bfloat16(), ref_o)], "dkv": [(dk, ref_dk), (dv, ref_dv)]})[1]
+        return cs.compare({"o": [(o.bfloat16(), ref_o)], "dq": [(dq, ref_dq)],
+                           "dkv": [(dk, ref_dk), (dv, ref_dv)]})[1]
 
     rounded_once, split_in_two = ratios(once), ratios(split)
-    assert rounded_once["o"] > 1.0 and rounded_once["dkv"] > 1.0, rounded_once
-    assert split_in_two["o"] <= 1.0 and split_in_two["dkv"] <= 1.0, split_in_two
+    assert all(r > 1.0 for r in rounded_once.values()), rounded_once
+    assert all(r <= 1.0 for r in split_in_two.values()), split_in_two
+
+
+@pytest.mark.parametrize("broken", ["ds_rounded_once", "drops_diagonal_tile"])
+def test_gradient_check_sees_a_lost_tile_not_a_once_rounded_ds(broken, monkeypatch):
+    """chip_smoke.py's first-step gradient check, run here through the plain
+    versions with dq broken as two of tests/test_torch_cuda.py's mutants
+    break bwd_dq_kernel_tc, on that file's model. A dq that loses each q
+    tile's diagonal key tile fails the check. A dq whose dS was rounded to
+    bf16 once passes it: that error is below the bf16 path's own, so only
+    the element limits of phase 2 catch it."""
+    cs = importlib.import_module("chip_smoke")
+    fa = importlib.import_module("ray_tpu_torch.ops.flash_attention")
+    tr = importlib.import_module("ray_tpu_torch.models.transformer")
+
+    def broken_dq(q, k, v, do, lse, delta, causal, scale):
+        _, ds = _bwd_tile_ref(q, k, v, do, lse, delta, causal, scale)
+        if broken == "ds_rounded_once":
+            ds = ds.bfloat16().float()
+        else:  # the kernel's 64-row tiles: keep only key tiles left of the diagonal
+            tile = torch.arange(q.shape[1]) // 64
+            ds = ds * (tile[None, :] < tile[:, None])
+        return torch.einsum("bts,bsd->btd", ds, k.float())
+
+    monkeypatch.setattr(fa, "_flash_bwd_dq_ref", broken_dq)
+    dev = torch.device("cpu")
+    cfg = tr.TransformerConfig(vocab_size=512, d_model=256, n_layers=2, n_heads=4,
+                               max_seq_len=1024, dtype=torch.bfloat16, attention_impl="kernel")
+    g = torch.Generator(device=dev).manual_seed(0)
+    raw = torch.randint(0, cfg.vocab_size, (2, 1025), generator=g)
+    batch = {"tokens": raw[:, :-1].contiguous(), "targets": raw[:, 1:].contiguous()}
+    model = tr.transformer_init(cfg, g, device=dev)
+    if broken == "ds_rounded_once":
+        cs.grads_check(tr, cfg, dev, model, batch)
+    else:
+        with pytest.raises(cs.SmokeFailure, match="gradients"):
+            cs.grads_check(tr, cfg, dev, model, batch)
 
 
 def test_build_report_parsers():
@@ -229,21 +269,30 @@ def test_build_report_parsers():
     cs = importlib.import_module("chip_smoke")
     fwd = "_ZN12_GLOBAL__N_113fwd_kernel_tcILi64ELb1ELb0EEEvPK13__nv_bfloat16S3_S3_PS1_Pfiif"
     dq = "_ZN12_GLOBAL__N_113bwd_dq_kernelI13__nv_bfloat16Li128ELb0EEEvPKT_S4_S4_S4_PKfS6_Pfiif"
+    dq_tc = "_ZN12_GLOBAL__N_116bwd_dq_kernel_tcILi64ELb1EEEvPK13__nv_bfloat16S3_S3_S3_PKfS5_Pfiif"
     old = "_ZN12_GLOBAL__N_110fwd_kernelIfLi64ELb1ELb1EEEvPKT_S4_S4_PS2_Pfiif"
     assert cs.kernel_label(fwd) == "fwd_kernel_tc<64,true,false>"
     assert cs.kernel_label(dq) == "bwd_dq_kernel<bf16,128,false>"
+    assert cs.kernel_label(dq_tc) == "bwd_dq_kernel_tc<64,true>"
     assert cs.kernel_label(old) == "fwd_kernel<f32,64,true,true>"
     assert cs.kernel_label("_Z3foov") == "_Z3foov"
     log = (f"ptxas info    : Compiling entry function '{fwd}' for 'sm_90a'\n"
            f"ptxas info    : Function properties for {fwd}\n"
            "    0 bytes stack frame, 8 bytes spill stores, 12 bytes spill loads\n"
-           "ptxas info    : Used 168 registers, used 1 barriers, 380 bytes cmem[0]\n")
-    assert cs.ptxas_report(log) == {"fwd_kernel_tc<64,true,false>": {
-        "registers": 168, "spill_stores": 8, "spill_loads": 12}}
+           "ptxas info    : Used 168 registers, used 1 barriers, 380 bytes cmem[0]\n"
+           f"ptxas info    : Compiling entry function '{dq_tc}' for 'sm_90a'\n"
+           f"ptxas info    : Function properties for {dq_tc}\n"
+           "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+           "ptxas info    : Used 154 registers, used 1 barriers, 380 bytes cmem[0]\n")
+    assert cs.ptxas_report(log) == {
+        "fwd_kernel_tc<64,true,false>": {"registers": 168, "spill_stores": 8, "spill_loads": 12},
+        "bwd_dq_kernel_tc<64,true>": {"registers": 154, "spill_stores": 0, "spill_loads": 0}}
     sass = (f"\t\tFunction : {fwd}\n        /*0100*/  HMMA.16816.F32.BF16 R4, R8, R12, R4 ;\n"
             "        /*0110*/  HMMA.16816.F32.BF16 R16, R8, R14, R16 ;\n"
+            f"\t\tFunction : {dq_tc}\n        /*0100*/  HMMA.16816.F32.BF16 R4, R8, R12, R4 ;\n"
             f"\t\tFunction : {old}\n        /*0100*/  FFMA R1, R2, R3, R1 ;\n")
-    assert cs.sass_hmma(sass) == {"fwd_kernel_tc<64,true,false>": 2, "fwd_kernel<f32,64,true,true>": 0}
+    assert cs.sass_hmma(sass) == {"fwd_kernel_tc<64,true,false>": 2, "bwd_dq_kernel_tc<64,true>": 1,
+                                  "fwd_kernel<f32,64,true,true>": 0}
 
 
 def test_mha_auto_takes_plain_path_on_cpu_and_rejects_unknown_impl():
