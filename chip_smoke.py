@@ -1,7 +1,7 @@
 """Smoke run of ray_tpu_torch on one NVIDIA GPU: builds the CUDA kernels from
 the checkout, holds each against its plain PyTorch version, then drives the
 GPT-2-small forward and train step through them, bare and through the port's
-runtime and its GPU trainer.
+runtime and its GPU trainer, the ResNet-50 train step, and the port's bench.
 
     python3 chip_smoke.py            # needs one CUDA card, nvcc, the checkout
 
@@ -33,13 +33,33 @@ Phases, each printing one JSON line:
               checkpointing after step 5, and a second fit resumed from that
               checkpoint for steps 6-10; losses, launches and step times of
               the worker against the bare run;
-  7. the kernels line, with each kernel's launches in phases 3, 4 and 6.
-Any failure exits non-zero. The last line is the ok line.
+  7. resnet   ResNet-50 at full width (1000 classes, 224x224): the bf16
+              train-mode forward and its running statistics, and the first
+              gradients (eval mode; train mode's are reported), against the
+              same weights run in f32 (TF32 off), each within its stated
+              bound; ResNet-18's train-mode gradients, and each of
+              ResNet-50's batch norms alone in train mode, forward and
+              backward, likewise; then the bench's step
+              (batch 128, SGD): a warm-up and ten steps on one batch with a
+              falling loss, images/s, MFU and peak memory, and where two
+              further steps spend their device time;
+  8. bench    `python -m ray_tpu_torch.bench` (its step, transformer and e2e
+              phases, each in a process of its own): its line must hold all
+              three phases, no `*_error` key, rates above 0, MFUs below 1,
+              4096 e2e images, each read by the worker's step with the
+              label and bytes the dataset made for it (rows_intact), no jax
+              or ray_tpu module in the e2e worker and
+              CUDA tensors bitwise equal through the object store;
+then the kernels line, with each kernel's launches in phases 3, 4, 6 and the
+bench's transformer phase. Any failure exits non-zero. The last line is the
+ok line.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
 import gc
 import importlib
 import json
@@ -97,6 +117,38 @@ LOSS_BOUND = 1e-3
 # loss within LOSS_BOUND. The trainer checkpoints after step TRAINER_SAVE_AT,
 # where every run of phases 4 and 6 splits its timed span (run_steps).
 TRAINER_SAVE_AT = 5
+
+# Phase 7: ResNet-50 as the JAX package's bench configures it (bench.py:110-125):
+# the bf16-against-f32 checks at batch 32, the bench's step at batch 128.
+RESNET_SIZE, RESNET_CHECK_BATCH, RESNET_BATCH = 224, 32, 128
+# bf16 against f32 on the same weights and images, by relative L2 (||bf16 -
+# f32|| / ||f32||). bf16 keeps 8 significant bits, and each of the 53 batch
+# norms rounds its folded per-channel scale and bias to bf16 (up to 2^-9 of
+# the value, the same for every position of a channel), so at
+# initialisation, where train-mode logits are O(1) averages of normalised
+# features, these errors add up over the layers: 53 * 2^-9 ~ 0.1. Bounds:
+# - train-mode logits within 0.25; each batch norm's running statistics
+#   after that forward within 5e-2 (means and variances of the batch);
+# - the first gradients of every parameter within 0.15, taken in eval mode.
+#   Train-mode gradients at initialisation are chaotic in f32 itself: a
+#   one-ulp change of the images moves ResNet-50's by ~2% and rounding the
+#   images alone to bf16 by ~95% (median relative L2 over the parameters,
+#   measured on an H100 by this phase), so at depth 50 they are reported,
+#   with those moves, and not bounded. In eval mode the batch norms are
+#   fixed affine maps and a one-ulp change moves the gradients by ~2e-4.
+# - train-mode gradients where they are less chaotic: ResNet-18, same
+#   width, classes, size, batch and code, where rounding the images to bf16
+#   moves f32's by ~19%. The bf16 run's median over the parameters within
+#   RESNET18_GRAD_RATIO times that move (measured 2.0-2.1 times, with the
+#   bf16 run 0.38-0.40 from f32); a wrong backward is of order 1 from it.
+# - each of ResNet-50's batch norms alone in train mode, on the activations
+#   a bf16 forward gives it: output and input, scale and bias gradients
+#   within RESNET_BN_LAYER_REL of f32 (measured worst 8.2e-3, the scale
+#   gradient), so the bf16 train-mode batch-norm backward that the eval-mode
+#   gradients skip is held layer by layer.
+# A wrong cast, layout or statistic gives errors of order 1.
+RESNET_LOGITS_REL, RESNET_STATS_REL, RESNET_GRAD_REL = 0.25, 5e-2, 0.15
+RESNET18_GRAD_RATIO, RESNET_BN_LAYER_REL = 3.0, 2e-2
 
 KERNELS = [  # name, launch-count key, TPU kernel it replaces
     ("flash_fwd", "fwd", "ray_tpu/ops/flash_attention.py:35"),
@@ -181,15 +233,6 @@ def card() -> dict:
     ).stdout.strip().splitlines()[0]
     return {"nvidia_smi": smi, "name": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}
-
-
-def peak_bf16_for(name: str) -> float:
-    """Dense bf16 peak of the card by its name (NVIDIA's data sheets)."""
-    if "H100" in name and "PCIe" in name:
-        return 756e12
-    if "H100" in name or "H200" in name:
-        return 989e12
-    raise SmokeFailure(f"no bf16 peak known for {name!r}")
 
 
 # ------------------------------------------------------------ build report
@@ -514,6 +557,8 @@ def grads_check(tr, cfg, dev, model, batch) -> None:
 
 
 def train_phase(tr, fa, cfg, dev, gen) -> tuple:
+    from ray_tpu_torch.device import peak_bf16_flops
+
     raw = torch.randint(0, cfg.vocab_size, (BATCH, SEQ + 1), device=dev, generator=gen)
     batch = {"tokens": raw[:, :-1].contiguous(), "targets": raw[:, 1:].contiguous()}
     model = tr.transformer_init(cfg, gen, device=dev)
@@ -527,7 +572,7 @@ def train_phase(tr, fa, cfg, dev, gen) -> tuple:
     losses = [run["losses"][k] for k in sorted(run["losses"])]
 
     tokens_per_s = BATCH * SEQ / run["step_ms"] * 1e3
-    peak = peak_bf16_for(torch.cuda.get_device_name(0))
+    peak = peak_bf16_flops(torch.cuda.get_device_name(0))
     useful = tr.flops_per_token(cfg, SEQ)
     hardware = tr.hardware_flops_per_token(cfg, SEQ)
     line = {
@@ -580,15 +625,100 @@ def run_steps(step, state, batch, save=None) -> dict:
             "step_ms": seconds / timed * 1e3, "grad_norm": float(m["grad_norm"])}
 
 
-def profile_phase(run_step, step_ms: float) -> None:
+def kernel_family(name: str) -> str:
+    if any(s in name for s in ("fwd_kernel", "bwd_dq_kernel", "bwd_dkv_kernel")):
+        return "flash (this repo)"
+    if any(s in name.lower() for s in ("conv", "fprop", "dgrad", "wgrad", "cudnn")):
+        return "conv (cuDNN)"
+    if any(s in name.lower() for s in ("gemm", "cutlass", "xmma", "nvjet", "sm90")):
+        return "matmul (cuBLAS)"
+    if "multi_tensor" in name or "adam" in name.lower() or "sgd" in name.lower():
+        return "optimizer"
+    return "other"
+
+
+SCOPE = "smoke::"  # prefix of the record_function scopes profile_phase opens
+
+
+@contextlib.contextmanager
+def scoped(scopes: dict):
+    """Run each function of `scopes` ({label: (module, attribute name)})
+    inside record_function(SCOPE + label) until the block ends."""
+    from torch.profiler import record_function
+
+    def wrap(label, fn):
+        @functools.wraps(fn)
+        def inner(*args, **kwargs):
+            with record_function(SCOPE + label):
+                return fn(*args, **kwargs)
+        return inner
+
+    saved = [(mod, attr, getattr(mod, attr)) for mod, attr in scopes.values()]
+    for label, (mod, attr) in scopes.items():
+        setattr(mod, attr, wrap(label, getattr(mod, attr)))
+    try:
+        yield
+    finally:
+        for mod, attr, fn in saved:
+            setattr(mod, attr, fn)
+
+
+def scope_times(events, leaf) -> dict:
+    """{label: {key: time}} over the profiler's host events. `leaf(event)`
+    gives the (key, time) pairs an event launched itself (its kernels).
+    An event's label is the SCOPE it ran in; a backward op's is the scope
+    its forward op ran in, matched by autograd sequence number (the node
+    of number n is made by the last forward op that reports n); any other
+    event takes its outermost op's name, "bwd " + the node's for the
+    backward."""
+    from torch.autograd import DeviceType
+
+    def chain(e):
+        while e is not None:
+            yield e
+            e = e.cpu_parent
+
+    bwd = "autograd::engine::evaluate_function: "
+    host = sorted((e for e in events if e.device_type == DeviceType.CPU),
+                  key=lambda e: e.time_range.start)
+    node_scope = {}
+    for e in host:
+        names = [a.name for a in chain(e)]
+        if e.sequence_nr >= 0 and not any(n.startswith(bwd) for n in names):
+            node_scope[e.sequence_nr] = next(
+                (n[len(SCOPE):] for n in names if n.startswith(SCOPE)), None)
+    out = {}
+    for e in host:
+        pairs = leaf(e)
+        if not pairs:
+            continue
+        label = root = None
+        for a in chain(e):
+            if a.name.startswith(SCOPE):
+                label = a.name[len(SCOPE):]
+                break
+            if a.name.startswith(bwd):
+                label = node_scope.get(a.sequence_nr) or "bwd " + a.name[len(bwd):]
+                break
+            root = a.name
+        row = out.setdefault(label or root, {})
+        for key, t in pairs:
+            row[key] = row.get(key, 0.0) + t
+    return out
+
+
+def profile_phase(run_step, step_ms: float, phase: str = "profile", scopes=None) -> None:
     """Where the device time of two train steps goes, by kernel family
     (torch.profiler), each flash kernel's share, and the device's idle share
-    in the unprofiled steps of phase 4: 1 - device time per step / step time."""
+    in the unprofiled steps timed before: 1 - device time per step / step
+    time. With `scopes` (scoped's argument), also by op: each kernel goes
+    to the scope or op that launched it (scope_times), forward and backward."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     steps = 2
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with scoped(scopes or {}), profile(activities=[ProfilerActivity.CPU,
+                                                   ProfilerActivity.CUDA]) as prof:
         for _ in range(steps):
             run_step()
         torch.cuda.synchronize()
@@ -600,27 +730,30 @@ def profile_phase(run_step, step_ms: float) -> None:
     for e in kernels:
         name, ms = e.name, e.time_range.elapsed_us() / 1e3 / steps
         by_name[name] = by_name.get(name, 0.0) + ms
-        if any(s in name for s in ("fwd_kernel", "bwd_dq_kernel", "bwd_dkv_kernel")):
-            fam = "flash (this repo)"
+        fam = kernel_family(name)
+        if fam == "flash (this repo)":
             m = re.search(r"\w+_kernel(?:_tc)?<[^>]*>", name)  # demangled: drop the arguments
             key = m.group(0) if m else kernel_label(name)
             flash[key] = flash.get(key, 0.0) + ms
-        elif any(s in name.lower() for s in ("gemm", "cutlass", "xmma", "nvjet", "sm90")):
-            fam = "matmul (cuBLAS)"
-        elif "multi_tensor" in name or "adam" in name.lower():
-            fam = "optimizer"
-        else:
-            fam = "other"
         families[fam] = families.get(fam, 0.0) + ms
         counts[fam] = counts.get(fam, 0) + 1
     device_ms = sum(families.values())
     top = sorted(((ms, name) for name, ms in by_name.items()), reverse=True)[:8]
-    emit({"phase": "profile", "per_step": True, "device_ms": device_ms, "step_ms": step_ms,
-          "idle_share": 1 - device_ms / step_ms if device_ms else None,
-          "ms_by_family": families,
-          "launches_by_family": {k: v // steps for k, v in counts.items()},
-          "flash_ms_by_kernel": flash,
-          "top_kernels_ms": [[n[:80], ms] for ms, n in top]})
+    line = {"phase": phase, "per_step": True, "device_ms": device_ms, "step_ms": step_ms,
+            "idle_share": 1 - device_ms / step_ms if device_ms else None,
+            "ms_by_family": families,
+            "launches_by_family": {k: v // steps for k, v in counts.items()},
+            "flash_ms_by_kernel": flash,
+            "top_kernels_ms": [[n[:80], ms] for ms, n in top]}
+    if scopes:
+        by_op = scope_times(prof.events(), lambda e: [
+            (kernel_family(k.name), k.duration / 1e3 / steps) for k in e.kernels])
+        total = {op: sum(row.values()) for op, row in by_op.items()}
+        ranked = sorted(total, key=total.get, reverse=True)
+        line["ms_by_op"] = {op: by_op[op] for op in ranked[:12]}
+        line["ms_by_op_rest"] = sum(total[op] for op in ranked[12:])
+        line["ms_not_linked_to_an_op"] = device_ms - sum(total.values())
+    emit(line)
 
 
 # ----------------------------------------------------------------- phase 6
@@ -784,10 +917,255 @@ def trainer_phase(cfg, dev, build) -> dict:
     return launches
 
 
+# ----------------------------------------------------------------- phase 7
+
+def rel_l2(x, ref) -> float:
+    x, ref = x.detach().float(), ref.detach().float()
+    return float(torch.linalg.vector_norm(x - ref) / torch.linalg.vector_norm(ref))
+
+
+def resnet_first_pass(resnet, cfg, weights, images, labels, train: bool) -> dict:
+    """One forward and backward of a fresh ResNet in `cfg` holding
+    `weights`: its logits, loss, running statistics and gradients."""
+    model = resnet.ResNet(cfg, images.device)
+    model.load_state_dict(weights)
+    logits = resnet.resnet_apply(model, images, train=train)
+    loss = F.cross_entropy(logits, labels)
+    loss.backward()
+    return {"logits": logits.detach(), "loss": float(loss.detach()),
+            "stats": {n: b.clone() for n, b in model.named_buffers()},
+            "grads": {n: p.grad for n, p in model.named_parameters()}}
+
+
+def worst(errs: dict, n: int = 3) -> dict:
+    return dict(sorted(errs.items(), key=lambda kv: kv[1])[-n:])
+
+
+def median(values) -> float:
+    values = sorted(values)
+    return values[len(values) // 2]
+
+
+def check_inputs(resnet, cfg, dev, gen) -> tuple:
+    """Weights, RESNET_CHECK_BATCH channels_last images and labels."""
+    weights = resnet.resnet_init(cfg, dev, gen).state_dict()
+    images = torch.randn(RESNET_CHECK_BATCH, RESNET_SIZE, RESNET_SIZE, 3, device=dev,
+                         generator=gen).permute(0, 3, 1, 2)
+    labels = torch.randint(0, cfg.num_classes, (RESNET_CHECK_BATCH,), device=dev, generator=gen)
+    return weights, images, labels
+
+
+def vs(a, b, key) -> dict:
+    return {n: rel_l2(a[key][n], t) for n, t in b[key].items()}
+
+
+def train_passes(resnet, cfg, weights, images, labels, moves) -> tuple:
+    """Train-mode first passes of bf16 `cfg` and of f32 on the same inputs,
+    and of f32 on each image set of `moves` ({name: images}). Returns the
+    bf16 and f32 passes and, for each move, the median relative L2 over
+    the parameters of how far it moves f32's gradients."""
+    f32 = dataclasses.replace(cfg, dtype=torch.float32)
+    got, want = (resnet_first_pass(resnet, c, weights, images, labels, True) for c in (cfg, f32))
+    medians = {}
+    for name, moved in moves.items():
+        medians[name] = median(vs(resnet_first_pass(resnet, f32, weights, moved, labels, True),
+                                  want, "grads").values())
+    return got, want, medians
+
+
+def resnet_checks(resnet, cfg, dev, gen) -> None:
+    """bf16 against f32 on the same weights and images at batch
+    RESNET_CHECK_BATCH: train-mode logits and running statistics, eval-mode
+    gradients; the train-mode gradients reported beside how far f32's move
+    for a one-ulp change of the images and for images rounded to bf16."""
+    weights, images, labels = check_inputs(resnet, cfg, dev, gen)
+    ulp = images * (1 + 2.0 ** -23 * torch.randn(images.shape, device=dev, generator=gen).sign())
+    moves = {"one_ulp": ulp, "bf16_images": images.to(cfg.dtype).float()}
+    got, want, f32_moves = train_passes(resnet, cfg, weights, images, labels, moves)
+    logits = rel_l2(got["logits"], want["logits"])
+    stats, train_grads = vs(got, want, "stats"), vs(got, want, "grads")
+    check(tuple(got["logits"].shape) == (RESNET_CHECK_BATCH, cfg.num_classes)
+          and bool(torch.isfinite(got["logits"]).all()), "ResNet logits: wrong shape or not finite")
+    del got, want
+    f32 = dataclasses.replace(cfg, dtype=torch.float32)
+    got, want = (resnet_first_pass(resnet, c, weights, images, labels, False) for c in (cfg, f32))
+    grads = vs(got, want, "grads")
+    line = {"logits_rel_l2": logits, "worst_stats_rel_l2": worst(stats),
+            "eval_worst_grad_rel_l2": worst(grads), "eval_median_grad_rel_l2": median(grads.values()),
+            "train_median_grad_rel_l2": median(train_grads.values()),
+            "f32_train_median_grad_move": f32_moves,
+            "bounds": {"logits": RESNET_LOGITS_REL, "stats": RESNET_STATS_REL,
+                       "eval_grads": RESNET_GRAD_REL}}
+    emit({"phase": "resnet", "batch": RESNET_CHECK_BATCH, "size": RESNET_SIZE, "bf16_vs_f32": line})
+    check(logits <= RESNET_LOGITS_REL, f"bf16 ResNet logits off f32: {line}")
+    check(all(math.isfinite(r) and r <= RESNET_STATS_REL for r in stats.values()),
+          f"bf16 running statistics off f32: {line['worst_stats_rel_l2']}")
+    check(all(math.isfinite(r) and r <= RESNET_GRAD_REL for r in grads.values()),
+          f"bf16 first gradients off f32: {line['eval_worst_grad_rel_l2']}")
+    check(all(math.isfinite(r) for r in train_grads.values()), "a train-mode gradient is not finite")
+
+
+def resnet18_train_grads(resnet, dev, gen) -> None:
+    """ResNet-18 at full width, train mode: the bf16 first gradients
+    against f32's, their median within RESNET18_GRAD_RATIO times how far
+    rounding the images to bf16 moves f32's."""
+    cfg = resnet.ResNetConfig(depth=18, num_classes=1000, dtype=torch.bfloat16)
+    weights, images, labels = check_inputs(resnet, cfg, dev, gen)
+    got, want, moves = train_passes(resnet, cfg, weights, images, labels,
+                                    {"bf16_images": images.to(cfg.dtype).float()})
+    grads = vs(got, want, "grads")
+    line = {"train_median_grad_rel_l2": median(grads.values()),
+            "train_worst_grad_rel_l2": worst(grads),
+            "f32_train_median_grad_move": moves,
+            "ratio": median(grads.values()) / moves["bf16_images"], "bound": RESNET18_GRAD_RATIO}
+    emit({"phase": "resnet", "depth": 18, "batch": RESNET_CHECK_BATCH, "size": RESNET_SIZE,
+          "bf16_vs_f32": line})
+    check(all(math.isfinite(r) for r in grads.values()), "a ResNet-18 gradient is not finite")
+    check(line["ratio"] <= RESNET18_GRAD_RATIO,
+          f"bf16 ResNet-18 train-mode gradients off f32: {line}")
+
+
+BN_CHECKED = ("output", "input_grad", "scale_grad", "bias_grad")
+
+
+def bn_layer_checks(resnet, cfg, dev, gen) -> dict:
+    """Each batch norm of `cfg`, train mode, forward and backward alone, in
+    bf16 against f32: the activations a bf16 train-mode forward of
+    RESNET_CHECK_BATCH images hands each one, the same upstream gradient,
+    its trained scale and bias. {layer: {output, input grad, scale grad,
+    bias grad: relative L2}}."""
+    model = resnet.resnet_init(cfg, dev, gen)
+    names = {id(m): n for n, m in model.named_modules()}
+    seen = []
+    bn = resnet._bn
+
+    def record(x, mod, train):
+        seen.append((names[id(mod)], x.detach().clone()))
+        return bn(x, mod, train)
+
+    images = torch.randn(RESNET_CHECK_BATCH, RESNET_SIZE, RESNET_SIZE, 3, device=dev,
+                         generator=gen).permute(0, 3, 1, 2)
+    resnet._bn = record
+    try:
+        with torch.no_grad():
+            resnet.resnet_apply(model, images, train=True)
+    finally:
+        resnet._bn = bn
+    out = {}
+    for name, x in seen:
+        mod = model.get_submodule(name)
+        with torch.no_grad():  # a trained layer's scale and bias, not init's 1 and 0
+            mod.scale.copy_(1 + 0.5 * torch.randn(mod.scale.shape, device=dev, generator=gen))
+            mod.bias.copy_(0.5 * torch.randn(mod.bias.shape, device=dev, generator=gen))
+        g = torch.randn(x.shape, device=dev, generator=gen).to(x.dtype)
+        runs = {}
+        for dt in (x.dtype, torch.float32):
+            xi = x.to(dt, copy=True).requires_grad_()
+            mod.zero_grad(set_to_none=True)
+            y = bn(xi, mod, True)
+            y.backward(g.to(dt))
+            runs[dt] = (y.detach(), xi.grad, mod.scale.grad.clone(), mod.bias.grad.clone())
+        out[name] = {k: rel_l2(a, b)
+                     for k, a, b in zip(BN_CHECKED, runs[x.dtype], runs[torch.float32])}
+    return out
+
+
+def resnet_bn_layers(resnet, cfg, dev, gen) -> None:
+    """bn_layer_checks on `cfg`, each relative L2 within RESNET_BN_LAYER_REL."""
+    layers = bn_layer_checks(resnet, cfg, dev, gen)
+    line = {"layers": len(layers), "bound": RESNET_BN_LAYER_REL,
+            "worst": {k: max((v[k], n) for n, v in layers.items()) for k in BN_CHECKED},
+            "median": {k: median([v[k] for v in layers.values()]) for k in BN_CHECKED}}
+    emit({"phase": "resnet", "bn_layers_bf16_vs_f32": line})
+    check(all(math.isfinite(r) and r <= RESNET_BN_LAYER_REL for v in layers.values()
+              for r in v.values()), f"a bf16 train-mode batch norm is off f32: {line}")
+
+
+def resnet_phase(dev, gen) -> None:
+    """ResNet-50 at full width: resnet_checks, resnet18_train_grads and
+    resnet_bn_layers, then the bench's step at
+    batch RESNET_BATCH: a warm-up and TRAIN_STEPS steps on one batch, timed
+    with the card synchronised at the ends; the loss must fall. Then a
+    profile of two further steps."""
+    from ray_tpu_torch.device import peak_bf16_flops
+    from ray_tpu_torch.models import resnet
+
+    cfg = resnet.ResNetConfig(depth=50, num_classes=1000, dtype=torch.bfloat16)
+    resnet_checks(resnet, cfg, dev, gen)
+    resnet18_train_grads(resnet, dev, gen)
+    resnet_bn_layers(resnet, cfg, dev, gen)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    init_state, step = resnet.make_train_step(cfg, dev)
+    state = init_state(gen)
+    images = torch.randn(RESNET_BATCH, RESNET_SIZE, RESNET_SIZE, 3, device=dev, generator=gen)
+    batch = {"images": images.to(cfg.dtype).permute(0, 3, 1, 2),
+             "labels": torch.randint(0, cfg.num_classes, (RESNET_BATCH,), device=dev,
+                                     generator=gen)}
+    torch.cuda.reset_peak_memory_stats(dev)
+    losses = [step(state, batch)[1]["loss"]]  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_STEPS):
+        losses.append(step(state, batch)[1]["loss"])
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / TRAIN_STEPS * 1e3
+    losses = [float(x) for x in losses]
+    images_per_s = RESNET_BATCH / step_ms * 1e3
+    flops = resnet.train_flops_per_image(cfg, RESNET_SIZE)
+    emit({"phase": "resnet", "batch": RESNET_BATCH, "size": RESNET_SIZE, "steps": TRAIN_STEPS,
+          "losses": losses, "step_ms": step_ms, "images_per_s": images_per_s,
+          "flops_per_image": flops,
+          "mfu": flops * images_per_s / peak_bf16_flops(torch.cuda.get_device_name(0)),
+          "max_memory_gib": torch.cuda.max_memory_allocated(dev) / 2**30})
+    check(all(math.isfinite(x) for x in losses), "a ResNet loss is not finite")
+    check(losses[-1] < losses[0], "the ResNet loss did not fall")
+    profile_phase(lambda: step(state, batch), step_ms, phase="resnet_profile",
+                  scopes={"batch_norm": (resnet, "_bn"), "conv": (resnet, "_conv")})
+
+
+# ----------------------------------------------------------------- phase 8
+
+def bench_phase() -> dict:
+    """`python -m ray_tpu_torch.bench` from this checkout, and the checks on
+    its line. Returns its transformer phase's flash launches."""
+    t0 = time.time()
+    proc = subprocess.run([sys.executable, "-m", "ray_tpu_torch.bench"],
+                          cwd=os.path.dirname(os.path.abspath(__file__)),
+                          capture_output=True, text=True, timeout=900)
+    seconds = time.time() - t0
+    check(proc.returncode == 0, f"the bench exited {proc.returncode}:\n{proc.stdout[-2000:]}\n"
+                                f"{proc.stderr[-4000:]}")
+    line = json.loads(proc.stdout.strip().splitlines()[-1])
+    emit({"phase": "bench", "seconds": seconds, "line": line})
+    errors = [k for k in line if k.endswith("_error")]
+    check(not errors, f"the bench folded a phase's failure into {errors}")
+    rates = ("value", "transformer_tokens_per_sec", "e2e_images_per_sec",
+             "ingest_only_images_per_sec", "iter_only_images_per_sec")
+    check(all(k in line for k in rates), f"the bench's line lacks a phase: {sorted(line)}")
+    check(all(line[k] > 0 for k in rates), f"a bench rate is not above 0: {[line[k] for k in rates]}")
+    check(0 < line["mfu"] < 1.0 and 0 < line["transformer_hw_mfu"] < 1.0,
+          f"bench MFU out of (0, 1): {line['mfu']}, {line['transformer_hw_mfu']}")
+    check(line["e2e_images"] == 4096 and line["e2e_rows_intact"] is True,
+          f"the e2e worker saw {line['e2e_images']} images, not 4096 rows intact")
+    check(line["e2e_worker_device"].startswith("cuda") and not line["e2e_worker_forbidden_modules"],
+          f"e2e worker on {line['e2e_worker_device']} with {line['e2e_worker_forbidden_modules']}")
+    check(line["e2e_put_get_bitwise"] is True and line["e2e_task_tensor_bitwise"] is True,
+          "a CUDA tensor did not come back bitwise equal through the object store")
+    check(all(math.isfinite(line[k]) for k in ("step_loss_last", "transformer_loss_last",
+                                                "e2e_loss_last")), "a bench loss is not finite")
+    launches = line["transformer_flash_launches"]
+    for key in ("fwd_lse", "bwd_dq", "bwd_dkv"):
+        check(launches[key] > 0, f"{key} was not launched in the bench's transformer phase")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    started = time.perf_counter()
     # The package comes from the checkout this script sits in, and nowhere else.
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from ray_tpu_torch.ops import _build
@@ -821,13 +1199,18 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     trainer_launches = trainer_phase(cfg, dev, _build)
+    resnet_phase(dev, gen)
+    gc.collect()
+    torch.cuda.empty_cache()  # the bench's processes need the card's memory
+    bench_launches = bench_phase()
 
     kernels = []
     for name, key, replaces in KERNELS:
-        n = fwd_launches[key] + train_launches[key] + trainer_launches[key]
+        n = fwd_launches[key] + train_launches[key] + trainer_launches[key] + bench_launches[key]
         kernels.append({"name": name, "route": "cuda", "source": SOURCE, "replaces": replaces,
                         "launches": n, **rows[key]})
         check(n > 0, f"{name} was not launched on the main path")
+    emit({"phase": "total", "seconds": time.perf_counter() - started})
     print(info["nvidia_smi"], flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": info["name"], "count": info["count"]}})

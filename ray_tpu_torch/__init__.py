@@ -1,10 +1,11 @@
 """ray_tpu_torch: the port of ray_tpu to PyTorch and CUDA on NVIDIA Hopper.
 
 The runtime is the port's own copy of ray_tpu's core (tasks, actors,
-shared-memory objects, placement groups, train), with GPUs as a cluster
-resource; `models` (the transformer) and `ops` (flash attention with
-hand-written CUDA kernels, RMSNorm, chunked cross entropy) hold the train
-step. It imports neither jax nor ray_tpu.
+shared-memory objects, placement groups, train, data), with GPUs as a
+cluster resource; `models` (the transformer and ResNet) and `ops` (flash
+attention with hand-written CUDA kernels, RMSNorm, chunked cross entropy)
+hold the train steps, and `bench` measures them. It imports neither jax
+nor ray_tpu.
 
     import ray_tpu_torch
 

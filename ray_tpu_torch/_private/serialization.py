@@ -15,14 +15,18 @@ header = {"p": pickled-meta-bytes, "o": [buffer offsets], "s": [buffer sizes],
 
 Buffers are 64-byte aligned so deserialized numpy views over shm are
 cache-line aligned and directly usable by torch.from_numpy / dlpack without
-a copy. CUDA tensors get no reducer of their own yet (ROADMAP A9).
+a copy. torch tensors, CUDA ones included, travel as their raw bytes in one
+out-of-band buffer and come back as CPU tensors (`_torch_reducers`).
 """
 
 from __future__ import annotations
 
+import collections
+import io
 import os
 import pickle
 import struct
+import sys
 import threading
 from typing import Any, Callable, List, Optional, Tuple
 
@@ -208,7 +212,11 @@ def serialize(value: Any) -> SerializedObject:
         if _is_simple(value):
             meta = pickle.dumps(value, protocol=5, buffer_callback=buffer_cb)
         else:
-            meta = cloudpickle.dumps(value, protocol=5, buffer_callback=buffer_cb)
+            with io.BytesIO() as f:
+                pickler = _TorchPickler(f, _torch_reducers(), protocol=5,
+                                        buffer_callback=buffer_cb)
+                pickler.dump(value)
+                meta = f.getvalue()
         contained = _ctx.contained_refs
     finally:
         _ctx.contained_refs = prev
@@ -277,3 +285,54 @@ class DeserializationContext:
     def __exit__(self, *exc):
         _ctx.ref_deserializer, _ctx.actor_handle_deserializer = self._prev
         return False
+
+
+def _rebuild_tensor(raw, dtype, shape, requires_grad: bool, is_param: bool):
+    import torch
+
+    # The store hands back read-only buffers, and a tensor cannot be made
+    # read-only: the tensor gets memory of its own.
+    t = torch.from_numpy(raw if raw.flags.writeable else raw.copy())
+    t = t.view(dtype).reshape(shape)
+    if is_param:
+        return torch.nn.Parameter(t, requires_grad=requires_grad)
+    return t.requires_grad_(requires_grad)
+
+
+def _reduce_tensor(t):
+    import torch
+
+    if (t.layout != torch.strided or t.is_quantized or t.device.type not in ("cpu", "cuda")
+            or (t.requires_grad and not t.is_leaf)):
+        return t.__reduce_ex__(pickle.HIGHEST_PROTOCOL)  # torch's own, and its errors
+    # Raw bytes, so that dtypes numpy lacks (bfloat16, float8) travel too.
+    raw = t.detach().cpu().contiguous().reshape(-1).view(torch.uint8).numpy()
+    return (_rebuild_tensor, (raw, t.dtype, tuple(t.shape), t.requires_grad,
+                              isinstance(t, torch.nn.Parameter)))
+
+
+def _torch_reducers() -> dict:
+    """{type: reducer} for torch tensors, once user code has imported torch
+    into this process: the runtime's daemons and plain workers never import
+    it. A tensor travels as one out-of-band buffer of its bytes, fetched to
+    the host at Put time, so a CUDA tensor comes back as a CPU tensor (as
+    the JAX package's jax arrays come back as host numpy) and the consumer
+    moves it to its own device. The table keys on the exact type, so
+    Parameter is listed beside Tensor."""
+    if "torch" not in sys.modules:
+        return {}
+    import torch
+
+    return {torch.Tensor: _reduce_tensor, torch.nn.Parameter: _reduce_tensor}
+
+
+class _TorchPickler(cloudpickle.Pickler):
+    """cloudpickle's pickler with the torch reducers in its own dispatch
+    table (the C pickler reads the table when it is made). Registering them
+    with copyreg would change every pickle of the process: torch.save would
+    write tensors that torch.load (weights_only) refuses."""
+
+    def __init__(self, file, reducers: dict, **kwargs):
+        self.dispatch_table = collections.ChainMap(reducers, cloudpickle.Pickler.dispatch_table)
+        super().__init__(file, **kwargs)
+

@@ -1,10 +1,18 @@
-"""ray_tpu_torch.models: the flagship model family in PyTorch.
+"""ray_tpu_torch.models: the model families in PyTorch.
 
-Port of ray_tpu.models: the decoder-only transformer. `transformer_init`
-builds the module, `transformer_apply` the forward and `make_train_step`
-an (init_state, step) pair on one device. ResNet comes in a later slice.
+Port of ray_tpu.models: the decoder-only transformer (`transformer_init`
+builds the module, `transformer_apply` the forward, `make_train_step` an
+(init_state, step) pair on one device) and ResNet (`resnet_init`,
+`resnet_apply`, and its SGD step `resnet.make_train_step`).
 """
 
+from ray_tpu_torch.models.resnet import (
+    ResNet,
+    ResNetConfig,
+    block_layout,
+    resnet_apply,
+    resnet_init,
+)
 from ray_tpu_torch.models.transformer import (
     Transformer,
     TransformerConfig,
@@ -16,6 +24,11 @@ from ray_tpu_torch.models.transformer import (
 )
 
 __all__ = [
+    "ResNet",
+    "ResNetConfig",
+    "block_layout",
+    "resnet_init",
+    "resnet_apply",
     "Transformer",
     "TransformerConfig",
     "TransformerLoss",

@@ -33,7 +33,7 @@ from __future__ import annotations
 
 import os
 from dataclasses import dataclass
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import cloudpickle
 
@@ -62,24 +62,35 @@ class TorchConfig(BackendConfig):
         return _TorchBackend
 
 
-def _find_free_port() -> int:
-    import socket
-
-    with socket.socket() as s:
-        s.bind(("", 0))
-        return s.getsockname()[1]
-
-
 # The device of this worker process's rank, set when the gang starts. A train
 # worker is a process of its own (an actor), so the process holds one rank.
 _device = None
+# Rank 0's rendezvous store, listening from the moment its port is known
+# until the gang is torn down.
+_store = None
+
+
+def _bind_store(host: str, world_size: int, timeout_s: float) -> int:
+    """Rank 0: listen for the gang's rendezvous on a port the OS picks and
+    return that port. The store is bound before its port is handed out, so
+    no other process can take the port in between, as it could between a
+    probe that frees a port and a later bind."""
+    import datetime
+
+    import torch.distributed as dist
+
+    global _store
+    _store = dist.TCPStore(host, 0, world_size, is_master=True, wait_for_workers=False,
+                           timeout=datetime.timedelta(seconds=timeout_s))
+    return _store.port
 
 
 def _setup_worker(use_gpu: bool, local_rank: int, backend: Optional[str],
-                  init_method: Optional[str], rank: int, world_size: int,
+                  rendezvous: Optional[Tuple[str, int]], rank: int, world_size: int,
                   timeout_s: float) -> str:
     """Pick this rank's device and, for a gang of more than one, join the
-    process group. Raises on a GPU gang without a usable card."""
+    process group through rank 0's store at `rendezvous` (host, port).
+    Raises on a GPU gang without a usable card."""
     import datetime
 
     import torch
@@ -100,16 +111,20 @@ def _setup_worker(use_gpu: bool, local_rank: int, backend: Optional[str],
         torch.cuda.set_device(_device)
     else:
         _device = torch.device("cpu")
-    if init_method is not None:
+    if rendezvous is not None:
         import torch.distributed as dist
 
         if not dist.is_initialized():
+            timeout = datetime.timedelta(seconds=timeout_s)
+            host, port = rendezvous
+            store = _store if rank == 0 else dist.TCPStore(
+                host, port, world_size, is_master=False, timeout=timeout)
             dist.init_process_group(
                 backend=backend,
-                init_method=init_method,
+                store=store,
                 rank=rank,
                 world_size=world_size,
-                timeout=datetime.timedelta(seconds=timeout_s),
+                timeout=timeout,
                 device_id=_device if use_gpu else None,
             )
     return str(_device)
@@ -118,27 +133,29 @@ def _setup_worker(use_gpu: bool, local_rank: int, backend: Optional[str],
 def _teardown_worker():
     import torch.distributed as dist
 
-    global _device
+    global _device, _store
     _device = None
     if dist.is_initialized():
         dist.destroy_process_group()
+    _store = None
 
 
 class _TorchBackend(Backend):
     """reference: train/torch/config.py _TorchBackend.on_start — rank 0's
-    node address and a free port there become the rendezvous; every worker
-    picks its device and runs init_process_group."""
+    worker binds the rendezvous store at its node's address and reports the
+    port it got; every worker picks its device and runs init_process_group
+    through that store."""
 
     def on_start(self, worker_group, backend_config: TorchConfig):
         use_gpu = worker_group.pg.bundles[0].get("GPU", 0) > 0
         backend = backend_config.backend or ("nccl" if use_gpu else "gloo")
         world = len(worker_group)
-        init_method = None
+        rendezvous = None
         if world > 1:
-            port = ray_tpu_torch.get(
-                worker_group.workers[0].apply.remote(cloudpickle.dumps(_find_free_port))
-            )
-            init_method = f"tcp://{worker_group.node_ips[0]}:{port}"
+            host = worker_group.node_ips[0]
+            port = ray_tpu_torch.get(worker_group.workers[0].apply.remote(
+                cloudpickle.dumps(_bind_store), host, world, backend_config.init_timeout_s))
+            rendezvous = (host, port)
         setup_blob = cloudpickle.dumps(_setup_worker)
         refs = [
             w.apply.remote(
@@ -146,7 +163,7 @@ class _TorchBackend(Backend):
                 use_gpu,
                 worker_group.local_ranks[rank],
                 backend,
-                init_method,
+                rendezvous,
                 rank,
                 world,
                 backend_config.init_timeout_s,

@@ -220,6 +220,9 @@ COPIED = [
     *(f"train/{m}.py" for m in (
         "__init__", "_backend_executor", "_checkpoint", "_session",
         "_worker_group", "base_trainer")),
+    *(f"data/{m}.py" for m in (
+        "__init__", "_execution", "block", "dataset", "datasource", "iterator",
+        "tensor_extension")),
 ]
 
 # The modules of the copy that differ from ray_tpu's after the rename, and
@@ -229,7 +232,8 @@ DIFFERS = {
     "actor.py": "method.bind raises: compiled graphs (ray_tpu.dag) are ROADMAP A13",
     "remote_function.py": "num_gpus maps to 'GPU' (num_tpus to 'TPU' in ray_tpu); "
                           "fn.bind raises: ray_tpu.workflow is not ported",
-    "_private/serialization.py": "no jax-array reducer (it imports jax); CUDA tensors are A9",
+    "_private/serialization.py": "a torch-tensor reducer (CUDA tensors come back as CPU "
+                                 "tensors, out of band) in place of the jax-array one",
     "_private/node.py": "num_gpus, and the registry's GPU detection when no GPU count is given",
     "_private/worker.py": "init(num_gpus=...); address='auto' reads RAY_TPU_TORCH_ADDRESS; "
                           "client mode raises: ray_tpu.util.client is not ported",
@@ -248,6 +252,8 @@ DIFFERS = {
     "train/_worker_group.py": "node_info returns the node address for the rendezvous; no "
                               "init/shutdown_collective (ray_tpu.util.collective is A12)",
     "train/base_trainer.py": "as_trainable raises: ray_tpu.tune is not ported",
+    "data/iterator.py": "the _finalize_fn docstring names the torch host->device copy, "
+                        "not jax.device_put",
 }
 
 

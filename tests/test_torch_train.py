@@ -183,6 +183,29 @@ def test_dataset_shard_in_session(torch_cluster, tmp_path):  # noqa: F811
     assert result.metrics["n"] == 5
 
 
+def test_rendezvous_port_is_listening_when_handed_out():
+    """Rank 0's store is bound before its port goes to the other ranks: a
+    client connects at once, and the store answers it. A probe that binds
+    port 0, reads the number and closes its socket hands out a port nobody
+    listens on, which another process can take before init_process_group
+    binds it again (EADDRINUSE, and the gang's setup times out)."""
+    import socket
+
+    import torch.distributed as dist
+
+    from ray_tpu_torch.train import torch as train_torch
+
+    port = train_torch._bind_store("127.0.0.1", 2, 30.0)
+    try:
+        socket.create_connection(("127.0.0.1", port), timeout=5).close()
+        client = dist.TCPStore("127.0.0.1", port, 2, is_master=False)
+        client.set("rank1", "ready")
+        assert train_torch._store.get("rank1") == b"ready"
+    finally:
+        train_torch._teardown_worker()
+    assert train_torch._store is None
+
+
 # -- the GPU trainer's parity, on the CPU ---------------------------------------
 
 
