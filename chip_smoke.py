@@ -1,7 +1,8 @@
 """Smoke run of ray_tpu_torch on one NVIDIA GPU: builds the CUDA kernels from
 the checkout, holds each against its plain PyTorch version, then drives the
 GPT-2-small forward and train step through them, bare and through the port's
-runtime and its GPU trainer, the ResNet-50 train step, and the port's bench.
+runtime and its GPU trainer, the ResNet-50 train step, the port's bench, and
+the sharded step on a one-device mesh with ring attention's kernel route.
 
     python3 chip_smoke.py            # needs one CUDA card, nvcc, the checkout
 
@@ -50,9 +51,22 @@ Phases, each printing one JSON line:
               label and bytes the dataset made for it (rows_intact), no jax
               or ray_tpu module in the e2e worker and
               CUDA tensors bitwise equal through the object store;
-then the kernels line, with each kernel's launches in phases 3, 4, 6 and the
-bench's transformer phase. Any failure exits non-zero. The last line is the
-ok line.
+  9. mesh     (a) make_train_step on make_mesh(_factor_axes(1)), a world of
+              one on NCCL (FSDP2 over the 1x1 data/fsdp sub-mesh), against
+              the bare step on the same weights and batch: a warm-up and
+              MESH_STEPS steps each, in turns; losses and grad_norms within
+              LOSS_BOUND of the bare run's, the same kernel launches, step
+              ms and peak memory of both; (b) ring attention's kernel route
+              in loopback (RING_SHAPE in RING_SHARDS shards, bf16 and f32,
+              causal and not; one B2, B3 and B4 launch per hop not skipped)
+              against the plain full attention, its ms beside one
+              full-sequence kernel call's, no synchronising call in it and
+              its device time by kernel family; each kernel timed without
+              the causal mask and at one hop's shape; (c) a one-worker GPU TorchTrainer running (a)'s
+              sharded step, its losses within LOSS_BOUND of (a)'s;
+then the kernels line, with each kernel's launches in phases 3, 4, 6, the
+bench's transformer phase and phase 9. Any failure exits non-zero. The last
+line is the ok line.
 """
 
 from __future__ import annotations
@@ -149,6 +163,19 @@ RESNET_SIZE, RESNET_CHECK_BATCH, RESNET_BATCH = 224, 32, 128
 # A wrong cast, layout or statistic gives errors of order 1.
 RESNET_LOGITS_REL, RESNET_STATS_REL, RESNET_GRAD_REL = 0.25, 5e-2, 0.15
 RESNET18_GRAD_RATIO, RESNET_BN_LAYER_REL = 3.0, 2e-2
+
+# Phase 9: the sharded step against the bare one, a warm-up and MESH_STEPS
+# steps each; its one-worker trainer MESH_TRAINER_STEPS steps; ring
+# attention's kernel route in loopback on RING_SHAPE [B, T, H, D] (phase
+# 4's batch, sequence and heads) in RING_SHARDS sequence shards, held by
+# phase 2's limits (F32_ATOL; BF16_RTOL, BF16_ATOL with the merged hop
+# outputs' magnitudes as slack: each hop's bf16 output is rounded once
+# before the merge, as a bf16 dk term is before gqa_case's sum).
+# The ring's ms are a mean over RING_TIME_REPS calls: it queues ~190
+# launches a call causal and ~290 not, and the host blocks once ~1024 wait
+# on the stream, held or not, so time_ms can hold the card for few calls.
+MESH_STEPS, MESH_TRAINER_STEPS = 5, 3
+RING_SHAPE, RING_SHARDS, RING_TIME_REPS = (8, 1024, 12, 64), 4, 2
 
 KERNELS = [  # name, launch-count key, TPU kernel it replaces
     ("flash_fwd", "fwd", "ray_tpu/ops/flash_attention.py:35"),
@@ -754,6 +781,7 @@ def profile_phase(run_step, step_ms: float, phase: str = "profile", scopes=None)
         line["ms_by_op_rest"] = sum(total[op] for op in ranked[12:])
         line["ms_not_linked_to_an_op"] = device_ms - sum(total.values())
     emit(line)
+    return device_ms
 
 
 # ----------------------------------------------------------------- phase 6
@@ -1161,6 +1189,322 @@ def bench_phase() -> dict:
     return launches
 
 
+# ----------------------------------------------------------------- phase 9
+
+def mesh_inputs(cfg, dev) -> tuple:
+    """Phase 9's weights and batch, drawn in that order from SEED + 2 (the
+    bare step, the sharded step and the trainer's worker all start here)."""
+    from ray_tpu_torch.models import transformer as tr
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    model = tr.transformer_init(cfg, gen, device=dev)
+    raw = torch.randint(0, cfg.vocab_size, (BATCH, SEQ + 1), device=dev, generator=gen)
+    return model, {"tokens": raw[:, :-1].contiguous(), "targets": raw[:, 1:].contiguous()}
+
+
+def mesh_step(cfg, dev, model):
+    """make_train_step on make_mesh(_factor_axes(1)) (a world of one: NCCL
+    on the card), with `model` placed on it: (state, step)."""
+    from ray_tpu_torch.dryrun import _factor_axes
+    from ray_tpu_torch.models import transformer as tr
+    from ray_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh(_factor_axes(1), device=dev)
+    init_state, step = tr.make_train_step(cfg, mesh=mesh)
+    return init_state(model=model), step
+
+
+def sharded_phase(tr, fa, cfg, dev) -> dict:
+    """9a: the sharded step at world 1 against the bare step on the same
+    weights and batch, a warm-up and MESH_STEPS steps each, taken in turns
+    (bare, sharded, sharded, bare, ...), each step timed with the card
+    synchronised at its ends. Every loss and grad_norm within LOSS_BOUND of
+    the bare run's, and the same launches of every kernel. Then two profiled
+    steps of each (profile_phase): device time and idle share. Returns the
+    launches of both runs' timed steps and the sharded run's losses."""
+    model, batch = mesh_inputs(cfg, dev)
+    twin = tr.Transformer(cfg, dev)
+    twin.load_state_dict(model.state_dict())
+    init_state, bare_step = tr.make_train_step(cfg, dev)
+    runs = {"bare": (init_state(model=twin), bare_step), "sharded": mesh_step(cfg, dev, model)}
+    resident = torch.cuda.memory_allocated(dev)
+    out = {name: {"losses": [], "grad_norms": [], "ms": [], "peak_gib": 0.0,
+                  "launches": {key: 0 for _, key, _ in KERNELS}} for name in runs}
+    fa.reset_launches()
+    for k in range(MESH_STEPS + 1):
+        for name in (("bare", "sharded") if k % 2 else ("sharded", "bare")):
+            state, step = runs[name]
+            row = out[name]
+            before = dict(fa.launches)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            t0 = time.perf_counter()
+            _, m = step(state, batch)
+            torch.cuda.synchronize()
+            if k:  # step 0 is the warm-up
+                row["ms"].append((time.perf_counter() - t0) * 1e3)
+            row["peak_gib"] = max(row["peak_gib"], torch.cuda.max_memory_allocated(dev) / 2**30)
+            row["losses"].append(float(m["loss"]))
+            row["grad_norms"].append(float(m["grad_norm"]))
+            for key in row["launches"]:
+                row["launches"][key] += fa.launches[key] - before[key]
+    launches = dict(fa.launches)
+    bare, sharded = out["bare"], out["sharded"]
+    diffs = {"loss": max(abs(a - b) for a, b in zip(sharded["losses"], bare["losses"])),
+             "grad_norm": max(abs(a - b) for a, b in zip(sharded["grad_norms"], bare["grad_norms"]))}
+    line = {"phase": "mesh", "part": "sharded_step", "mesh": "_factor_axes(1)", "batch": BATCH,
+            "seq": SEQ, "steps": MESH_STEPS, "resident_gib": resident / 2**30,
+            "max_diff_vs_bare": diffs, "loss_bound": LOSS_BOUND,
+            **{name: {**row, "step_ms": sum(row["ms"]) / len(row["ms"])} for name, row in out.items()},
+            "sharded_over_bare_ms": sum(sharded["ms"]) / sum(bare["ms"])}
+    emit(line)
+    check(all(math.isfinite(x) for x in sharded["losses"] + sharded["grad_norms"]),
+          "a sharded loss or grad_norm is not finite")
+    check(diffs["loss"] <= LOSS_BOUND and diffs["grad_norm"] <= LOSS_BOUND,
+          f"the sharded step is off the bare step: {diffs}")
+    check(sharded["launches"] == bare["launches"],
+          f"the sharded step's launches differ from the bare step's: {sharded['launches']}, "
+          f"{bare['launches']}")
+    for key in ("fwd_lse", "bwd_dq", "bwd_dkv"):
+        check(sharded["launches"][key] > 0, f"{key} was not launched by the sharded step")
+    # The sharded step's cost split into the card's and the host's share.
+    device_ms = {name: profile_phase(lambda run=runs[name]: run[1](run[0], batch),
+                                     line[name]["step_ms"], phase=f"mesh_{name}_profile")
+                 for name in runs}
+    emit({"phase": "mesh", "part": "sharded_step_device", "device_ms": device_ms,
+          "sharded_over_bare_device_ms": device_ms["sharded"] / device_ms["bare"]})
+    return {"launches": launches, "losses": sharded["losses"]}
+
+
+def ring_slack(fa, qf, kf, vf, shards: int, causal: bool, scale: float, lse):
+    """sum over the hops of exp(lse_hop - lse) * |o_hop| for each output
+    element: the magnitude of the bf16 hop outputs the ring merges, each
+    rounded once before the merge (err_ratio's slack)."""
+    from ray_tpu_torch.parallel.ring_attention import _hop_case
+
+    c = qf.shape[1] // shards
+    slack = torch.zeros(qf.shape, dtype=torch.float32, device=qf.device)
+    for r in range(shards):
+        rows = slice(r * c, (r + 1) * c)
+        for src in range(shards):
+            case = _hop_case(r, src, causal)
+            if case == "skip":
+                continue
+            cols = slice(src * c, (src + 1) * c)
+            o_h, lse_h = fa._flash_fwd_ref(qf[:, rows], kf[:, cols], vf[:, cols], case == "diag",
+                                           scale, True)
+            slack[:, rows] += torch.exp(lse_h - lse[:, rows])[..., None] * o_h.float().abs()
+    return slack
+
+
+def ring_host_checks(run, reps: int = 10) -> None:
+    """The ring's forward and backward with no synchronising CUDA call in
+    it (torch.cuda.set_sync_debug_mode("error") raises on one), then where
+    its device time goes (profile_phase: flash kernels against the rest)
+    and its idle share against its time on the host's clock, taken as the
+    train steps' are: what the host costs it."""
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        run()
+    except RuntimeError as exc:
+        raise SmokeFailure(f"the ring synchronises with the card: {exc}") from None
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        run()
+    torch.cuda.synchronize()
+    profile_phase(run, (time.perf_counter() - t0) / reps * 1e3, phase="ring_profile")
+
+
+def ring_phase(fa, dev, gen) -> dict:
+    """9b: ring attention's kernel route in loopback, RING_SHAPE split into
+    RING_SHARDS sequence shards, bf16 and f32, causal and not: the output
+    and dq, dk, dv against the plain full attention (the kernels' plain
+    versions on the whole sequence) under phase 2's limits, the launches
+    per kernel (one per hop that is not skipped), and the ring's forward
+    and backward device ms beside one full-sequence kernel call's; for
+    bf16 causal, ring_host_checks. Then the kernels' times without the
+    causal mask and at one hop's shape (template_times). Returns the
+    ring's launches."""
+    from ray_tpu_torch.parallel import ring_attention_loopback
+
+    B, T, H, D = RING_SHAPE
+    S, scale = RING_SHARDS, D ** -0.5
+    launches = {key: 0 for _, key, _ in KERNELS}
+
+    def bhtd(x):
+        return x.transpose(1, 2).reshape(B * H, T, D)
+
+    for dtype in (torch.bfloat16, torch.float32):
+        for causal in (True, False):
+            q, k, v, do = (torch.randn(B, T, H, D, device=dev, generator=gen).to(dtype)
+                           for _ in range(4))
+            leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+            fa.reset_launches()
+            o = ring_attention_loopback(*leaves, S, causal=causal, impl="kernel")
+            got = [o, *torch.autograd.grad(o, leaves, do)]
+            torch.cuda.synchronize()
+            hops = dict(fa.launches)
+            for key in launches:
+                launches[key] += hops[key]
+            qf, kf, vf, dof = (bhtd(t) for t in (q, k, v, do))
+            o_ref, lse = fa._flash_fwd_ref(qf, kf, vf, causal, scale, True)
+            o_ring = bhtd(got[0].detach())
+            # bf16: delta from the ring's rounded o, as gqa_case takes it.
+            delta = (dof.float() * (o_ring if dtype == torch.bfloat16 else o_ref).float()).sum(-1)
+            dq = fa._flash_bwd_dq_ref(qf, kf, vf, dof, lse, delta, causal, scale)
+            dk, dv = fa._flash_bwd_dkv_ref(qf, kf, vf, dof, lse, delta, causal, scale)
+            slack = ring_slack(fa, qf, kf, vf, S, causal, scale, lse) if dtype == torch.bfloat16 else None
+            pairs = {"o": (o_ring, o_ref, slack)}
+            for name, a, b in zip(("dq", "dk", "dv"), got[1:], (dq, dk, dv)):
+                pairs[name] = (bhtd(a), b.to(dtype))
+            errs = {n: max_err(p[0], p[1]) for n, p in pairs.items()}
+            ratios = {n: err_ratio(*p) for n, p in pairs.items()}
+            n_hops = S * (S + 1) // 2 if causal else S * S
+            leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+            ring = lambda: torch.autograd.grad(  # noqa: E731
+                ring_attention_loopback(*leaves, S, causal=causal, impl="kernel"), leaves, do)
+            fl = [t.detach().requires_grad_(True) for t in (qf, kf, vf)]
+            ring_ms = time_ms(ring, reps=RING_TIME_REPS)
+            full_ms = time_ms(lambda: torch.autograd.grad(
+                fa._FlashAttention.apply(*fl, causal, scale), fl, dof), reps=RING_TIME_REPS)
+            case = {"dtype": str(dtype).split(".")[-1], "causal": causal, "shape": list(RING_SHAPE),
+                    "shards": S, "hops": n_hops, "launches": hops, "max_abs_err": errs,
+                    "err_to_limit": ratios, "ring_fwd_bwd_ms": ring_ms,
+                    "full_kernel_fwd_bwd_ms": full_ms}
+            emit({"phase": "mesh", "part": "ring_loopback", "case": case})
+            check_ratios(ratios, {"ring": case})
+            if dtype == torch.bfloat16 and causal:
+                ring_host_checks(ring)
+            check(all(hops[key] == n_hops for key in ("fwd_lse", "bwd_dq", "bwd_dkv"))
+                  and hops["fwd"] == 0, f"the ring launched {hops}, not {n_hops} hops of each")
+            del q, k, v, do, leaves, got, o, fl, qf, kf, vf, dof, o_ref, lse, dq, dk, dv, slack, pairs
+    emit({"phase": "mesh", "part": "kernel_templates", **template_times(fa, dev, gen)})
+    return launches
+
+
+def template_times(fa, dev, gen) -> dict:
+    """Each kernel (bf16) at the slice's full shape [B*H, T, D] without the
+    causal mask, and at one ring hop's [B*H, T/RING_SHARDS, D] without it
+    (a hop below the diagonal) and with it (the diagonal hop): ms, bound."""
+    B, T, H, D = RING_SHAPE
+    BH, scale = B * H, D ** -0.5
+    out = {}
+    for t, causal in ((T, False), (T // RING_SHARDS, False), (T // RING_SHARDS, True)):
+        q, k, v, do = (torch.randn(BH, t, D, device=dev, generator=gen).to(torch.bfloat16)
+                       for _ in range(4))
+        o, lse = fa.flash_fwd(q, k, v, causal=causal, scale=scale, with_lse=True)
+        delta = (do.float() * o.float()).sum(-1)
+        fns = {
+            "fwd": lambda: fa.flash_fwd(q, k, v, causal=causal, scale=scale),
+            "fwd_lse": lambda: fa.flash_fwd(q, k, v, causal=causal, scale=scale, with_lse=True),
+            "bwd_dq": lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta, causal=causal, scale=scale),
+            "bwd_dkv": lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta, causal=causal, scale=scale),
+        }
+        pairs = BH * t * (t + 1) / 2 if causal else BH * t * t
+        mat, elt = BH * t * D, 2
+        work = {"fwd": (4 * D * pairs, 4 * mat * elt),
+                "fwd_lse": (4 * D * pairs, 4 * mat * elt + BH * t * 4),
+                "bwd_dq": (6 * D * pairs, 4 * mat * elt + 2 * BH * t * 4 + mat * 4),
+                "bwd_dkv": (8 * D * pairs, 4 * mat * elt + 2 * BH * t * 4 + 2 * mat * 4)}
+        rows = {}
+        for key, fn in fns.items():
+            flops, nbytes = work[key]
+            t_ops, t_bytes = flops / PEAK_BF16 * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+            ms = time_ms(fn)
+            rows[key] = {"ms": ms, "bound_ms": max(t_ops, t_bytes),
+                         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                         "bound_share": max(t_ops, t_bytes) / ms}
+        out[f"{'causal' if causal else 'noncausal'}_{BH}x{t}x{D}"] = rows
+    return out
+
+
+def mesh_trainer_loop(config) -> None:
+    """The runtime worker's loop of 9c: the sharded step of 9a (its weights,
+    batch and mesh, a world of one started in this worker) for
+    MESH_TRAINER_STEPS steps, one report each, then the process group
+    destroyed."""
+    import torch.distributed as dist
+
+    from ray_tpu_torch import train
+    from ray_tpu_torch.train.torch import get_device
+
+    fa = importlib.import_module("ray_tpu_torch.ops.flash_attention")
+    dev = get_device()
+    model, batch = mesh_inputs(config["cfg"], dev)
+    state, step = mesh_step(config["cfg"], dev, model)
+    world, backend = dist.get_world_size(), dist.get_backend()
+    fa.reset_launches()
+    try:
+        for k in range(MESH_TRAINER_STEPS):
+            _, m = step(state, batch)
+            train.report({"step": k, "loss": float(m["loss"]), "device": str(dev),
+                          "world": world, "backend": backend, "launches": dict(fa.launches)})
+    finally:
+        dist.destroy_process_group()
+
+
+def mesh_trainer_phase(cfg, sharded_losses) -> dict:
+    """9c: a one-worker GPU TorchTrainer running 9a's sharded step; its
+    losses within LOSS_BOUND of 9a's first MESH_TRAINER_STEPS. Returns the
+    worker's launches."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.air import RunConfig, ScalingConfig
+    from ray_tpu_torch.train.torch import TorchTrainer
+
+    storage = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_mesh")
+    shutil.rmtree(storage, ignore_errors=True)
+    t0 = time.time()
+    rt.init(num_cpus=2)
+    try:
+        result = TorchTrainer(
+            mesh_trainer_loop, train_loop_config={"cfg": cfg},
+            scaling_config=ScalingConfig(num_workers=1, use_gpu=True),
+            run_config=RunConfig(name="mesh", storage_path=storage),
+        ).fit()
+    finally:
+        rt.shutdown()
+        shutil.rmtree(storage, ignore_errors=True)
+    rows = result.metrics_history
+    losses = [r["loss"] for r in rows]
+    diffs = [abs(a - b) for a, b in zip(losses, sharded_losses)]
+    emit({"phase": "mesh", "part": "trainer", "losses": losses,
+          "sharded_losses": sharded_losses[:MESH_TRAINER_STEPS], "max_diff": max(diffs, default=None),
+          "loss_bound": LOSS_BOUND, "device": rows[-1]["device"] if rows else None,
+          "world": rows[-1]["world"] if rows else None,
+          "backend": rows[-1]["backend"] if rows else None,
+          "launches": rows[-1]["launches"] if rows else None, "fit_s": time.time() - t0})
+    check(len(losses) == MESH_TRAINER_STEPS, f"the mesh trainer reported {len(losses)} steps")
+    check(rows[-1]["device"].startswith("cuda") and rows[-1]["backend"] == "nccl"
+          and rows[-1]["world"] == 1, f"the mesh trainer ran on {rows[-1]}")
+    check(all(d <= LOSS_BOUND for d in diffs), f"the mesh trainer's losses are off 9a's: {diffs}")
+    return rows[-1]["launches"]
+
+
+def mesh_phase(tr, fa, cfg, dev, gen) -> dict:
+    """Phase 9 (9a, 9b, 9c); destroys this process's group before it ends.
+    Returns the kernels' launches in its paths."""
+    import torch.distributed as dist
+
+    t0 = time.perf_counter()
+    try:
+        sharded = sharded_phase(tr, fa, cfg, dev)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    ring = ring_phase(fa, dev, gen)
+    gc.collect()
+    torch.cuda.empty_cache()
+    worker = mesh_trainer_phase(cfg, sharded["losses"])
+    launches = {key: sharded["launches"][key] + ring[key] + worker[key] for _, key, _ in KERNELS}
+    emit({"phase": "mesh", "seconds": time.perf_counter() - t0, "launches": launches})
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1203,10 +1547,14 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()  # the bench's processes need the card's memory
     bench_launches = bench_phase()
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh_launches = mesh_phase(tr, fa, cfg, dev, gen)
 
     kernels = []
     for name, key, replaces in KERNELS:
-        n = fwd_launches[key] + train_launches[key] + trainer_launches[key] + bench_launches[key]
+        n = (fwd_launches[key] + train_launches[key] + trainer_launches[key] + bench_launches[key]
+             + mesh_launches[key])
         kernels.append({"name": name, "route": "cuda", "source": SOURCE, "replaces": replaces,
                         "launches": n, **rows[key]})
         check(n > 0, f"{name} was not launched on the main path")

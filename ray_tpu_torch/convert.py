@@ -50,22 +50,26 @@ def params_from_jax(tree: Dict[str, Any], cfg: TransformerConfig, device="cuda")
 
 def params_to_numpy(model: Transformer, grads: bool = False) -> Dict[str, Any]:
     """The module's parameters (or their .grad) as a ray_tpu-shaped tree of
-    numpy arrays, block leaves stacked on a leading [L] axis."""
-
-    def get(p):
+    numpy arrays, block leaves stacked on a leading [L] axis. A model placed
+    on a mesh gives whole arrays, gathered from every rank's shards, as
+    `jax.tree.map(np.array, params)` does: every rank of the mesh calls it."""
+    layout = getattr(model, "layout", None)
+    whole = {}
+    for name, p in model.named_parameters():
         t = p.grad if grads else p
-        return t.detach().float().cpu().numpy()
-
+        if layout is not None:
+            t = layout.gather(name, t)
+        whole[name] = t.detach().float().cpu().numpy().copy()  # not a view of the live weight
     tree = {
-        "embed": get(model.embed),
-        "final_norm": get(model.final_norm),
+        "embed": whole["embed"],
+        "final_norm": whole["final_norm"],
         "blocks": {
-            name: np.stack([get(getattr(blk, name)) for blk in model.blocks])
+            name: np.stack([whole[f"blocks.{i}.{name}"] for i in range(len(model.blocks))])
             for name in BLOCK_PARAMS
         },
     }
     if not model.cfg.tied_embeddings:
-        tree["unembed"] = get(model.unembed)
+        tree["unembed"] = whole["unembed"]
     return tree
 
 

@@ -8,14 +8,28 @@ tied embeddings. Attention goes through the hand-written flash kernels
 The parameters keep the reference's names and orientation (x @ w), one
 `Block` per layer where the reference stacks them on a leading [L] axis, so
 `ray_tpu_torch.convert.params_from_jax` loads a JAX tree by plain copies.
-The mesh (param_shardings, logical axes) and ring attention come later.
+
+On a mesh (`make_train_step(..., mesh=...)`, axes of ray_tpu_torch.parallel):
+  data/fsdp — batch split; FSDP2 `fully_shard` over the (data, fsdp)
+              sub-mesh, replicating over data and sharding each parameter's
+              `embed` dim over fsdp (the norms stay whole); a mesh without
+              fsdp gets an fsdp axis of one device for it
+  tensor    — heads + mlp hidden + vocab split (Megatron layout, each shard a
+              plain local Parameter, the collectives of parallel/tensor_parallel)
+  sequence  — tokens split on T; attention runs the ring over global positions
+              (the mesh's sequence axis chooses the ring, where the
+              reference's attention_impl="ring" does; attention_impl then
+              chooses the kernels or plain torch for each hop)
+`_LOGICAL_AXES` and `param_shardings` give each parameter's layout, as the
+reference's do. The reference's XLA computes exact causal attention over a
+sharded sequence by gathering; the port computes it with ring attention.
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Callable, Optional
+from typing import Callable, Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -25,6 +39,9 @@ from torch.utils.checkpoint import checkpoint
 from ray_tpu_torch.device import resolve_device
 from ray_tpu_torch.ops.flash_attention import mha
 from ray_tpu_torch.ops.fused import fused_rmsnorm, lm_head_cross_entropy
+from ray_tpu_torch.parallel import mesh as mesh_lib
+from ray_tpu_torch.parallel.ring_attention import ring_attention
+from ray_tpu_torch.parallel.tensor_parallel import all_reduce_, copy_to, gather_from, reduce_from
 
 
 @dataclass(frozen=True)
@@ -39,7 +56,7 @@ class TransformerConfig:
     rope_theta: float = 10_000.0
     dtype: torch.dtype = torch.bfloat16  # compute/activation dtype
     remat: bool = False  # torch.utils.checkpoint each block
-    attention_impl: str = "auto"  # auto | kernel | torch
+    attention_impl: str = "auto"  # auto | kernel | torch (also inside the ring)
     norm_eps: float = 1e-6
     tied_embeddings: bool = True
 
@@ -83,8 +100,8 @@ class Block(nn.Module):
                 name, nn.Parameter(torch.empty(shape, dtype=torch.float32, device=device))
             )
 
-    def forward(self, x, positions):
-        return _block(x, self, positions, self.cfg)
+    def forward(self, x, positions, layout=None):
+        return _block(x, self, positions, self.cfg, layout)
 
 
 class Transformer(nn.Module):
@@ -135,6 +152,49 @@ def transformer_init(cfg: TransformerConfig, generator: Optional[torch.Generator
     return model
 
 
+# Logical axes of each parameter, by its last name (the reference's table
+# without the stacked "layers" axis: one Block per layer here).
+_LOGICAL_AXES = {
+    "embed": ("vocab", "embed"),
+    "unembed": ("embed", "vocab"),
+    "final_norm": (None,),
+    "attn_norm": (None,),
+    "wq": ("embed", "heads"),
+    "wk": ("embed", "kv"),
+    "wv": ("embed", "kv"),
+    "wo": ("heads", "embed"),
+    "mlp_norm": (None,),
+    "w_gate": ("embed", "mlp"),
+    "w_up": ("embed", "mlp"),
+    "w_down": ("mlp", "embed"),
+}
+
+
+def _param_names(cfg: TransformerConfig):
+    """The Transformer's parameter names, in named_parameters' order."""
+    names = ["embed"]
+    names += [f"blocks.{i}.{p}" for i in range(cfg.n_layers) for p in BLOCK_PARAMS]
+    names.append("final_norm")
+    if not cfg.tied_embeddings:
+        names.append("unembed")
+    return names
+
+
+def param_shardings(mesh, cfg: TransformerConfig) -> Dict[str, tuple]:
+    """{parameter name: per dim, the mesh axis (or axes, or None) it splits
+    over}, from the logical-axis table + default_transformer_rules."""
+    rules = mesh_lib.default_transformer_rules(mesh)
+    return {n: rules.spec(_LOGICAL_AXES[n.rsplit(".", 1)[-1]]) for n in _param_names(cfg)}
+
+
+def _dim_over(spec: tuple, axis: str) -> Optional[int]:
+    """The dim of `spec` that splits over mesh axis `axis`, or None."""
+    for d, a in enumerate(spec):
+        if a == axis or (isinstance(a, tuple) and axis in a):
+            return d
+    return None
+
+
 # ----------------------------------------------------------------- forward
 
 def _rope(x, positions, theta: float):
@@ -149,43 +209,73 @@ def _rope(x, positions, theta: float):
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
 
 
-def _block(x, blk: Block, positions, cfg: TransformerConfig):
-    B, T, d = x.shape
-    h, hk, dh = cfg.n_heads, cfg.kv_heads, cfg.head_dim
-    dt = cfg.dtype
+def _attention(q, k, v, cfg: TransformerConfig, layout):
+    if layout is not None and layout.seq is not None:
+        # Tokens split on T: exact causal attention in global positions
+        # around the ring, kv heads repeated first as the reference does.
+        rep = q.shape[2] // k.shape[2]
+        if rep > 1:
+            k, v = k.repeat_interleave(rep, dim=2), v.repeat_interleave(rep, dim=2)
+        impl = "plain" if cfg.attention_impl == "torch" else cfg.attention_impl
+        return ring_attention(q, k, v, layout.seq, causal=True, impl=impl)
+    return mha(q, k, v, causal=True, impl=cfg.attention_impl)
 
-    y = fused_rmsnorm(x, blk.attn_norm, eps=cfg.norm_eps)
+
+def _block(x, blk: Block, positions, cfg: TransformerConfig, layout=None):
+    B, T, d = x.shape
+    t = 1 if layout is None else layout.t_size
+    h, hk, dh = cfg.n_heads // t, cfg.kv_heads // t, cfg.head_dim
+    dt = cfg.dtype
+    tp = None if layout is None else layout.tensor
+    wk, wv = blk.wk, blk.wv
+    if t > 1:  # this rank's kv heads, those of its q heads
+        cols = slice(layout.t_rank * hk * dh, (layout.t_rank + 1) * hk * dh)
+        wk, wv = wk[:, cols], wv[:, cols]
+
+    y = copy_to(fused_rmsnorm(x, blk.attn_norm, eps=cfg.norm_eps), tp)
     q = (y @ blk.wq.to(dt)).reshape(B, T, h, dh)
-    k = (y @ blk.wk.to(dt)).reshape(B, T, hk, dh)
-    v = (y @ blk.wv.to(dt)).reshape(B, T, hk, dh)
+    k = (y @ wk.to(dt)).reshape(B, T, hk, dh)
+    v = (y @ wv.to(dt)).reshape(B, T, hk, dh)
     q = _rope(q, positions, cfg.rope_theta)
     k = _rope(k, positions, cfg.rope_theta)
-    o = mha(q, k, v, causal=True, impl=cfg.attention_impl)
-    x = x + o.reshape(B, T, h * dh) @ blk.wo.to(dt)
+    o = _attention(q, k, v, cfg, layout)
+    x = x + reduce_from(o.reshape(B, T, h * dh) @ blk.wo.to(dt), tp)
 
-    y = fused_rmsnorm(x, blk.mlp_norm, eps=cfg.norm_eps)
+    y = copy_to(fused_rmsnorm(x, blk.mlp_norm, eps=cfg.norm_eps), tp)
     gate = F.silu(y @ blk.w_gate.to(dt))
     up = y @ blk.w_up.to(dt)
-    return x + (gate * up) @ blk.w_down.to(dt)
+    return x + reduce_from((gate * up) @ blk.w_down.to(dt), tp)
 
 
 def transformer_hidden(model: Transformer, tokens, positions=None):
-    """Forward through the blocks: [B, T] tokens -> [B, T, d] normed hidden."""
+    """Forward through the blocks: [B, T] tokens -> [B, T, d] normed hidden.
+    On a mesh, `tokens` are this rank's and the positions global."""
     cfg = model.cfg
+    layout = getattr(model, "layout", None)
     B, T = tokens.shape
     if positions is None:
-        positions = torch.arange(T, dtype=torch.int32, device=tokens.device).expand(B, T)
-    x = F.embedding(tokens, model.embed.to(cfg.dtype))
+        start = 0 if layout is None else layout.s_rank * T
+        positions = torch.arange(start, start + T, dtype=torch.int32,
+                                 device=tokens.device).expand(B, T)
+    x = F.embedding(tokens, _vocab_whole(model, model.embed, 0).to(cfg.dtype))
     for blk in model.blocks:
         if cfg.remat:
-            x = checkpoint(blk, x, positions, use_reentrant=False)
+            x = checkpoint(blk, x, positions, layout, use_reentrant=False)
         else:
-            x = blk(x, positions)
+            x = blk(x, positions, layout)
     return fused_rmsnorm(x, model.final_norm, eps=cfg.norm_eps)
 
 
+def _vocab_whole(model: Transformer, w, dim: int):
+    """A vocab-sharded weight whole: gathered over tensor on a mesh."""
+    layout = getattr(model, "layout", None)
+    return w if layout is None else gather_from(w, layout.tensor, dim)
+
+
 def _unembed(model: Transformer):
-    return model.embed.T if model.cfg.tied_embeddings else model.unembed
+    if model.cfg.tied_embeddings:
+        return _vocab_whole(model, model.embed, 0).T
+    return _vocab_whole(model, model.unembed, 1)
 
 
 def transformer_apply(model: Transformer, tokens, positions=None):
@@ -230,22 +320,193 @@ class TransformerLoss(nn.Module):
         return transformer_loss(self.model, batch)
 
 
+class _Layout:
+    """How a model lies on a mesh, and the collectives its step makes.
+
+    Every gradient ends as the mean over the ranks that hold different
+    tokens (data, fsdp, sequence) of each rank's gradient of its own mean
+    loss, which is the gradient of the global mean loss:
+    - FSDP2 averages its parameters' gradients over (data, fsdp); the norms,
+      which it does not shard, are averaged here over (data, fsdp);
+    - every gradient is averaged here over sequence;
+    - wk and wv, whole on every tensor rank, get gradients only in the
+      columns of the rank's own kv heads: summed here over tensor.
+    """
+
+    def __init__(self, mesh, cfg: TransformerConfig):
+        self.mesh = mesh
+        self.specs = param_shardings(mesh, cfg)
+        self.tensor = mesh_lib.axis_group(mesh, mesh_lib.TENSOR)
+        self.t_rank = mesh_lib.axis_rank(mesh, mesh_lib.TENSOR)
+        self.t_size = mesh_lib.axis_size(mesh, mesh_lib.TENSOR)
+        self.seq = mesh_lib.axis_group(mesh, mesh_lib.SEQUENCE)
+        self.s_rank = mesh_lib.axis_rank(mesh, mesh_lib.SEQUENCE)
+        self.s_size = mesh_lib.axis_size(mesh, mesh_lib.SEQUENCE)
+        self.dp = [a for a in (mesh_lib.DATA, mesh_lib.FSDP) if a in mesh.mesh_dim_names]
+        rep = cfg.n_heads // cfg.kv_heads
+        if cfg.n_heads % self.t_size or (cfg.n_heads // self.t_size) % rep:
+            raise ValueError(
+                f"tensor size {self.t_size} must split {cfg.n_heads} query heads into groups "
+                f"of whole kv heads ({rep} query heads each)")
+
+    def tensor_dim(self, name: str) -> Optional[int]:
+        return _dim_over(self.specs[name], mesh_lib.TENSOR)
+
+    @torch.no_grad()
+    def place(self, loss_fn: "TransformerLoss") -> None:
+        """Cut every tensor-sharded parameter to this rank's shard, then
+        fully_shard each block and the root over the (data, fsdp) sub-mesh,
+        each parameter on its `embed` dim; the norms stay whole."""
+        from torch.distributed.fsdp import fully_shard
+        from torch.distributed.tensor import Shard
+
+        model = loss_fn.model
+        for name, p in list(model.named_parameters()):
+            d = self.tensor_dim(name)
+            if d is None or self.t_size == 1:
+                continue
+            if p.shape[d] % self.t_size:
+                raise ValueError(f"{name} {tuple(p.shape)}: dim {d} does not split over "
+                                 f"tensor {self.t_size}")
+            owner, attr = model.get_submodule(name.rpartition(".")[0]), name.rpartition(".")[2]
+            setattr(owner, attr, nn.Parameter(p.chunk(self.t_size, dim=d)[self.t_rank].clone()))
+        model.layout = self
+        if not self.dp:
+            return
+        dp_mesh = self._dp_mesh()
+        specs = param_shardings(dp_mesh, model.cfg)
+        dims = {p: _dim_over(specs[n], mesh_lib.FSDP) for n, p in model.named_parameters()}
+        whole = {p for p, d in dims.items() if d is None}
+        for m in (*model.blocks, loss_fn):
+            fully_shard(m, mesh=dp_mesh, shard_placement_fn=lambda p: Shard(dims[p]),
+                        ignored_params=whole)
+
+    def _dp_mesh(self):
+        """The (data, fsdp) sub-mesh FSDP2 runs on. A mesh without an fsdp
+        axis gets one of size 1, so that its data axis too averages the
+        gradients during the backward (HSDP, replicated over data)."""
+        if mesh_lib.FSDP in self.mesh.mesh_dim_names:
+            return self.mesh[tuple(self.dp)]
+        n = mesh_lib.axis_size(self.mesh, mesh_lib.DATA)
+        return self.mesh[mesh_lib.DATA]._unflatten(0, (n, 1), (mesh_lib.DATA, mesh_lib.FSDP))
+
+    def local_batch(self, batch):
+        """This rank's tokens and targets of a global batch."""
+        if "targets" in batch:
+            tokens, targets = batch["tokens"], batch["targets"]
+        else:
+            tokens, targets = batch["tokens"][:, :-1], batch["tokens"][:, 1:]
+        return {"tokens": mesh_lib.batch_slice(self.mesh, tokens),
+                "targets": mesh_lib.batch_slice(self.mesh, targets)}
+
+    def _grads(self, model):
+        """(name, local gradient, averaged by FSDP) of every parameter."""
+        from torch.distributed.tensor import DTensor
+
+        for name, p in model.named_parameters():
+            g = p.grad
+            yield name, (g.to_local() if isinstance(g, DTensor) else g), isinstance(g, DTensor)
+
+    def reduce_grads(self, model) -> None:
+        grads = list(self._grads(model))
+        if self.t_size > 1:
+            all_reduce_([g for n, g, _ in grads if "kv" in _LOGICAL_AXES[n.rsplit(".", 1)[-1]]],
+                        self.tensor)
+        for axis in self.dp:
+            n = mesh_lib.axis_size(self.mesh, axis)
+            if n > 1:
+                all_reduce_([g for _, g, by_fsdp in grads if not by_fsdp],
+                            self.mesh.get_group(axis), 1.0 / n)
+        all_reduce_([g for _, g, _ in grads], self.seq, 1.0 / self.s_size)
+
+    def grad_norm(self, model) -> torch.Tensor:
+        """The global norm: each shard's sum of squares summed over the axes
+        that shard it, each replicated gradient counted once."""
+        import torch.distributed as dist
+
+        total = 0.0
+        buckets: Dict[tuple, list] = {}
+        for name, g, by_fsdp in self._grads(model):
+            key = (by_fsdp, self.t_size > 1 and self.tensor_dim(name) is not None)
+            buckets.setdefault(key, []).append(torch.linalg.vector_norm(g) ** 2)
+        for (by_fsdp, by_tensor), sq in buckets.items():
+            s = torch.stack(sq).sum()
+            for group in ((mesh_lib.axis_group(self.mesh, mesh_lib.FSDP) if by_fsdp else None),
+                          (self.tensor if by_tensor else None)):
+                if group is not None:
+                    dist.all_reduce(s, group=group)
+            total = total + s
+        return torch.sqrt(total)
+
+    def mean_loss(self, loss) -> torch.Tensor:
+        """The global mean loss: the mean of every rank's (tensor ranks hold
+        equal ones)."""
+        import torch.distributed as dist
+
+        world = dist.get_world_size()
+        if world == 1:
+            return loss
+        loss = loss.detach().clone()
+        dist.all_reduce(loss)
+        return loss / world
+
+    def gather(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        """A parameter (or gradient) of this layout whole on every rank."""
+        import torch.distributed as dist
+        from torch.distributed.tensor import DTensor
+
+        if isinstance(t, DTensor):
+            t = t.full_tensor()
+        d = self.tensor_dim(name)
+        if d is None or self.t_size == 1:
+            return t
+        parts = [torch.empty_like(t) for _ in range(self.t_size)]
+        dist.all_gather(parts, t.contiguous(), group=self.tensor)
+        return torch.cat(parts, dim=d)
+
+
+def _param_groups(model):
+    """The optimizer's parameters: a list, or, on a mesh, one group of FSDP's
+    sharded DTensors and one of plain tensors (a foreach update takes no
+    mix of the two)."""
+    params = list(model.parameters())
+    if getattr(model, "layout", None) is None:
+        return params
+    from torch.distributed.tensor import DTensor
+
+    groups = [[p for p in params if isinstance(p, DTensor)],
+              [p for p in params if not isinstance(p, DTensor)]]
+    return [{"params": g} for g in groups if g]
+
+
 def make_train_step(cfg: TransformerConfig, device="cuda",
                     optimizer: Optional[Callable] = None,
-                    wrap: Optional[Callable] = None):
-    """Build (init_state, step) on one device.
+                    wrap: Optional[Callable] = None, *, mesh=None):
+    """Build (init_state, step) on one device, or on a mesh.
 
-    optimizer: a callable params -> torch.optim.Optimizer (default `adamw`).
+    optimizer: a callable params -> torch.optim.Optimizer (default `adamw`);
+    on a mesh it gets a list of param groups.
     wrap: a callable nn.Module -> nn.Module applied to the model's
     `TransformerLoss`, e.g. `ray_tpu_torch.train.torch.prepare_model`, which
     wraps it in DistributedDataParallel in a gang of more than one worker;
     the step computes the loss through what it returns.
+    mesh: a DeviceMesh (ray_tpu_torch.parallel.make_mesh), whose device type
+    replaces `device`; init_state places the whole model on it (data, fsdp,
+    tensor; see the module docstring), and step takes the GLOBAL batch, the
+    same on every rank, and trains on this rank's part (`batch_slice`);
+    its loss and grad_norm are the global ones. `wrap` does not combine
+    with a mesh.
     init_state(generator=None, *, model=None) -> {'model', 'opt', 'step',
-    'loss_fn'}; a given model (e.g. from params_from_jax) is used as it is.
+    'loss_fn'}; a given model (e.g. from params_from_jax) is used as it is,
+    or, on a mesh, cut to this rank's shards in place.
     step(state, batch) -> (state, {'loss', 'grad_norm'}): the parameters and
     the optimizer state are updated in place, where the reference donates
     its buffers.
     """
+    if mesh is not None:
+        if wrap is not None:
+            raise ValueError("a step on a mesh shards the model itself: pass no wrap")
+        device = mesh.device_type
     device = resolve_device(device)
     if optimizer is None:
         optimizer = adamw
@@ -256,17 +517,27 @@ def make_train_step(cfg: TransformerConfig, device="cuda",
         elif model.embed.device.type != device.type:
             raise ValueError(f"model is on {model.embed.device}, the step on {device}")
         loss_fn = TransformerLoss(model)
-        if wrap is not None:
+        if mesh is not None:
+            _Layout(mesh, cfg).place(loss_fn)
+        elif wrap is not None:
             loss_fn = wrap(loss_fn)
-        return {"model": model, "opt": optimizer(list(model.parameters())), "step": 0,
+        return {"model": model, "opt": optimizer(_param_groups(model)), "step": 0,
                 "loss_fn": loss_fn}
 
     def step(state, batch):
         model, opt = state["model"], state["opt"]
+        layout = getattr(model, "layout", None)
+        if layout is not None:
+            batch = layout.local_batch(batch)
         loss = state["loss_fn"](batch)
         loss.backward()
-        grads = [p.grad for p in model.parameters()]
-        gnorm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g) for g in grads]))
+        if layout is None:
+            grads = [p.grad for p in model.parameters()]
+            gnorm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g) for g in grads]))
+        else:
+            layout.reduce_grads(model)
+            gnorm = layout.grad_norm(model)
+            loss = layout.mean_loss(loss)
         opt.step()
         opt.zero_grad(set_to_none=True)
         state["step"] += 1

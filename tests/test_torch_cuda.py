@@ -188,3 +188,28 @@ def test_smoke_gradient_check_catches_a_broken_backward(dev, mutant):
     else:
         with pytest.raises(cs.SmokeFailure, match="gradients"):
             cs.grads_check(tr, cfg, dev, model, batch)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_ring_kernel_route_matches_plain_route(dev, causal):
+    """Ring attention's kernel route (B2 per hop, merged by LSE; B3 and B4
+    per hop with the global LSE), four shards in loopback, against its
+    plain route (the reference's online softmax in global positions), f32:
+    output and gradients within ATOL, one launch of each per hop run."""
+    from ray_tpu_torch.parallel import ring_attention_loopback
+
+    g = torch.Generator(device=dev).manual_seed(7)
+    q, k, v, do = (torch.randn(2, 256, 4, 64, device=dev, generator=g) for _ in range(4))
+    out = {}
+    for impl in ("kernel", "plain"):
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        fa.reset_launches()
+        o = ring_attention_loopback(*leaves, 4, causal=causal, impl=impl)
+        out[impl] = [o, *torch.autograd.grad(o, leaves, do)]
+        torch.cuda.synchronize()
+        out[impl + "_launches"] = dict(fa.launches)
+    for a, b in zip(out["kernel"], out["plain"]):
+        assert _err(a, b) <= ATOL
+    hops = 10 if causal else 16
+    assert out["kernel_launches"] == {"fwd": 0, "fwd_lse": hops, "bwd_dq": hops, "bwd_dkv": hops}
+    assert not any(out["plain_launches"].values())
