@@ -1,8 +1,9 @@
 """Smoke run of ray_tpu_torch on one NVIDIA GPU: builds the CUDA kernels from
 the checkout, holds each against its plain PyTorch version, then drives the
 GPT-2-small forward and train step through them, bare and through the port's
-runtime and its GPU trainer, the ResNet-50 train step, the port's bench, and
-the sharded step on a one-device mesh with ring attention's kernel route.
+runtime and its GPU trainer, the ResNet-50 train step, the port's bench, the
+sharded step on a one-device mesh with ring attention's kernel route, and the
+collective groups and a compiled graph's CUDA device edge in runtime actors.
 
     python3 chip_smoke.py            # needs one CUDA card, nvcc, the checkout
 
@@ -64,9 +65,23 @@ Phases, each printing one JSON line:
               its device time by kernel family; each kernel timed without
               the causal mask and at one hop's shape; (c) a one-worker GPU TorchTrainer running (a)'s
               sharded step, its losses within LOSS_BOUND of (a)'s;
+ 10. collective in two GPU actors of the runtime sharing the card (GPU 0.5
+              each): (a) one joins a collective group on NCCL at world 1
+              and a store group, runs every op on both on 16 MiB bf16 and
+              f32 CUDA tensors (the same answers, bitwise) and reports both
+              allreduce rates and the telemetry families; (b) ring and
+              Ulysses attention on the NCCL group at RING_SHAPE (bf16/f32,
+              causal or not) against the kernels' plain versions, one B2,
+              B3 and B4 launch each, their ms beside one full-sequence
+              call's; (c) the two form a 2-rank gloo group (NCCL refuses two
+              ranks on one card) and a compiled DAG moves the producer's
+              16 MiB bf16 CUDA tensor to the consumer over a device edge:
+              by CUDA IPC, bitwise, with no device-to-host copy in the
+              producer's profile, and STOP through the same edge; its rate
+              against the same graph on a "tensor" (shm) edge;
 then the kernels line, with each kernel's launches in phases 3, 4, 6, the
-bench's transformer phase and phase 9. Any failure exits non-zero. The last
-line is the ok line.
+bench's transformer phase and phases 9 and 10. Any failure exits non-zero.
+The last line is the ok line.
 """
 
 from __future__ import annotations
@@ -176,6 +191,18 @@ RESNET18_GRAD_RATIO, RESNET_BN_LAYER_REL = 3.0, 2e-2
 # on the stream, held or not, so time_ms can hold the card for few calls.
 MESH_STEPS, MESH_TRAINER_STEPS = 5, 3
 RING_SHAPE, RING_SHARDS, RING_TIME_REPS = (8, 1024, 12, 64), 4, 2
+# Phase 10: collective groups and the compiled graph's device edge, in GPU
+# actors of the runtime. 10a holds every op of the NCCL group at world 1 to
+# the store backend's answer on the same 16 MiB input, bitwise (a world of
+# one reduces nothing, so both return the input; the store carries bf16 as
+# float32); its rates are of COLL_RATE_REPS allreduces of that input. 10b
+# holds ring and Ulysses attention on the group at RING_SHAPE by phase 2's
+# limits (one hop at world 1: no merge, no slack). 10c's edge moves
+# DAG_EDGE_ELEMS bf16 (16 MiB) per execute; its rates are of DAG_RATE_REPS
+# executes.
+COLL_BYTES, COLL_RATE_REPS = 16 << 20, {"nccl": 50, "store": 5}
+DAG_EDGE_ELEMS, DAG_SEEDS, DAG_RATE_REPS = 8 << 20, (1, 2, 3), 20
+NCCL_GROUP, STORE_GROUP, DAG_GROUP = "smoke_nccl", "smoke_store", "smoke_dag"
 
 KERNELS = [  # name, launch-count key, TPU kernel it replaces
     ("flash_fwd", "fwd", "ray_tpu/ops/flash_attention.py:35"),
@@ -1505,6 +1532,328 @@ def mesh_phase(tr, fa, cfg, dev, gen) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------- phase 10
+
+def dag_tensor(seed: int):
+    """10c's payload: DAG_EDGE_ELEMS bf16 on this process's card, the same
+    bits in every process on one card for one seed."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randn(DAG_EDGE_ELEMS, device="cuda", generator=gen).to(torch.bfloat16)
+
+
+class GroupRank:
+    """A GPU actor of phase 10: the NCCL group at world 1 and attention on
+    it (10a, 10b), then one end of 10c's compiled DAG on a 2-rank gloo
+    group. Returns what it measured; the checks run in the driver."""
+
+    def __init__(self):
+        import threading
+
+        self.last = None
+        self.profiling = False
+        self.stop = threading.Event()
+
+    def ready(self) -> str:
+        return torch.cuda.get_device_name(torch.cuda.current_device())
+
+    def collective_ops(self) -> dict:
+        """10a: every op on the NCCL group and on a store group of one, bf16
+        and f32, 16 MiB; the allreduce rates of both."""
+        import numpy as np
+
+        from ray_tpu_torch.util import collective as col
+
+        dev = torch.device("cuda", torch.cuda.current_device())
+        col.init_collective_group(1, 0, backend="nccl", group_name=NCCL_GROUP)
+        col.init_collective_group(1, 0, backend="store", group_name=STORE_GROUP)
+        gen = torch.Generator(device=dev).manual_seed(SEED + 10)
+        equal, kinds = {}, set()
+        for dtype in (torch.bfloat16, torch.float32):
+            n = COLL_BYTES // torch.tensor([], dtype=dtype).element_size()
+            x = torch.randn(n // 1024, 1024, device=dev, generator=gen).to(dtype)
+            ops = {f"allreduce_{op}": functools.partial(col.allreduce, x, op=op)
+                   for op in ("sum", "product", "min", "max")}
+            ops.update({
+                "allgather": lambda g: col.allgather(x, g)[0],
+                "reducescatter": lambda g: col.reducescatter(x, g),
+                "broadcast": lambda g: col.broadcast(x, 0, g),
+                "send_recv": lambda g: (col.send(x, 0, g, tag=7), col.recv(0, g, tag=7))[1],
+            })
+            for name, fn in ops.items():
+                got, want = fn(NCCL_GROUP), fn(STORE_GROUP)
+                kinds.add((type(got).__name__, got.device.type, str(got.dtype)))
+                equal[f"{name}_{str(dtype).split('.')[-1]}"] = bool(
+                    got.dtype == dtype and torch.equal(got.float().cpu(),
+                                                       torch.from_numpy(np.asarray(want)).float()))
+            col.barrier(NCCL_GROUP)
+            col.barrier(STORE_GROUP)
+        x = torch.randn(COLL_BYTES // 4, device=dev, generator=gen)
+        rates = {}
+        for backend, group in (("nccl", NCCL_GROUP), ("store", STORE_GROUP)):
+            col.allreduce(x, group)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(COLL_RATE_REPS[backend]):
+                col.allreduce(x, group)
+            torch.cuda.synchronize()
+            rates[backend] = (COLL_BYTES / 2**20) * COLL_RATE_REPS[backend] / (time.perf_counter() - t0)
+        col.destroy_collective_group(STORE_GROUP)
+        return {"equal": equal, "kinds": sorted(kinds), "mb_per_s": rates,
+                "mesh": str(col.get_group_mesh(NCCL_GROUP)),
+                "backend": col.get_group_collectives(NCCL_GROUP).backend}
+
+    def group_attention(self) -> dict:
+        """10b: ring_attention_on_group and ulysses_attention_on_group on
+        the NCCL group at RING_SHAPE, bf16 and f32, causal and not: output
+        and dq, dk, dv against the kernels' plain versions on the whole
+        sequence (errors and error-to-limit ratios), the launches of each
+        checked run, and the fwd+bwd device ms of each against one
+        full-sequence kernel call's. Then leaves the group."""
+        from ray_tpu_torch.parallel import ring_attention_on_group, ulysses_attention_on_group
+        from ray_tpu_torch.util import collective as col
+
+        fa = importlib.import_module("ray_tpu_torch.ops.flash_attention")
+        dev = torch.device("cuda", torch.cuda.current_device())
+        gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+        B, T, H, D = RING_SHAPE
+        scale = D ** -0.5
+        launches = {key: 0 for _, key, _ in KERNELS}
+        cases = []
+
+        def bhtd(x):
+            return x.transpose(1, 2).reshape(B * H, T, D)
+
+        fns = {"ring": ring_attention_on_group, "ulysses": ulysses_attention_on_group}
+        for dtype in (torch.bfloat16, torch.float32):
+            for causal in (True, False):
+                q, k, v, do = (torch.randn(B, T, H, D, device=dev, generator=gen).to(dtype)
+                               for _ in range(4))
+                qf, kf, vf, dof = (bhtd(t) for t in (q, k, v, do))
+                o_ref, lse = fa._flash_fwd_ref(qf, kf, vf, causal, scale, True)
+                fl = [t.detach().requires_grad_(True) for t in (qf, kf, vf)]
+                full_ms = time_ms(lambda: torch.autograd.grad(
+                    fa._FlashAttention.apply(*fl, causal, scale), fl, dof), reps=RING_TIME_REPS)
+                for name, f in fns.items():
+                    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+                    fa.reset_launches()
+                    o = f(*leaves, causal=causal, group_name=NCCL_GROUP)
+                    got = [o, *torch.autograd.grad(o, leaves, do)]
+                    torch.cuda.synchronize()
+                    run = dict(fa.launches)
+                    for key in launches:
+                        launches[key] += run[key]
+                    o_got = bhtd(got[0].detach())
+                    # bf16: delta from the kernel's rounded o, as its backward takes it.
+                    delta = (dof.float() * (o_got if dtype == torch.bfloat16 else o_ref).float()).sum(-1)
+                    dq = fa._flash_bwd_dq_ref(qf, kf, vf, dof, lse, delta, causal, scale)
+                    dk, dv = fa._flash_bwd_dkv_ref(qf, kf, vf, dof, lse, delta, causal, scale)
+                    pairs = {"o": (o_got, o_ref.to(dtype))}
+                    for key, a, b in zip(("dq", "dk", "dv"), got[1:], (dq, dk, dv)):
+                        pairs[key] = (bhtd(a), b.to(dtype))
+                    errs, ratios = compare({key: [p] for key, p in pairs.items()})
+                    timed = [t.detach().requires_grad_(True) for t in (q, k, v)]
+                    group_ms = time_ms(lambda: torch.autograd.grad(
+                        f(*timed, causal=causal, group_name=NCCL_GROUP), timed, do),
+                        reps=RING_TIME_REPS)
+                    cases.append({"fn": name, "dtype": str(dtype).split(".")[-1], "causal": causal,
+                                  "shape": list(RING_SHAPE), "launches": run, "max_abs_err": errs,
+                                  "err_to_limit": ratios, "group_fwd_bwd_ms": group_ms,
+                                  "full_kernel_fwd_bwd_ms": full_ms})
+                    del leaves, got, o, o_got, dq, dk, dv, pairs, timed
+                del q, k, v, do, qf, kf, vf, dof, o_ref, lse, fl
+        col.destroy_collective_group(NCCL_GROUP)
+        return {"cases": cases, "launches": launches}
+
+    # -- 10c ---------------------------------------------------------------
+
+    def join(self, rank: int) -> None:
+        from ray_tpu_torch.util import collective as col
+
+        col.init_collective_group(2, rank, backend="gloo", group_name=DAG_GROUP)
+
+    def make(self, seed: int):
+        return dag_tensor(seed)
+
+    def take(self, x) -> tuple:
+        self.last = x
+        return x.device.type, str(x.dtype), tuple(x.shape)
+
+    def bitwise_equal(self, seed: int) -> bool:
+        return torch.equal(self.last.view(torch.int16), dag_tensor(seed).view(torch.int16))
+
+    def routes(self) -> dict:
+        from ray_tpu_torch.dag import tensor_channel
+
+        return dict(tensor_channel.routes)
+
+    def profile(self) -> dict:
+        """Profile this process (the card's activity, whichever thread
+        queues it) until stop_profile; the count of each memcpy kind."""
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            self.profiling = True
+            self.stop.wait(120)
+            torch.cuda.synchronize()
+        self.profiling = False
+        kinds = {}
+        for e in prof.events():
+            if e.name.startswith("Memcpy"):
+                kinds[e.name] = kinds.get(e.name, 0) + 1
+        return kinds
+
+    def is_profiling(self) -> bool:
+        return self.profiling
+
+    def stop_profile(self) -> None:
+        self.stop.set()
+
+
+def gcs_collective_telemetry(groups, timeout: float = 20.0) -> dict:
+    """{family: {group: (kind, allreduce observations, allreduce bytes)}} of
+    the collective families in the GCS's telemetry aggregate, where a
+    process flushes its deltas every telemetry_flush_interval_s; polled
+    until each group of `groups` has its allreduces in both families."""
+    from ray_tpu_torch._private import worker as worker_mod
+
+    deadline = time.monotonic() + timeout
+    while True:
+        agg = worker_mod.global_worker.run_async(
+            worker_mod._core().gcs.call("GetTelemetry", {}))["telemetry"]
+        out = {}
+        for fam, table in (("op_latency_s", "hists"), ("bytes", "counters")):
+            kind = agg["meta"].get(f"collective.{fam}", {}).get("kind")
+            rows = out.setdefault(fam, {})
+            for skey, v in agg[table].get(f"collective.{fam}", {}).items():
+                labels = dict(json.loads(skey.split("|", 1)[1]))
+                if labels["op"] == "allreduce":
+                    _, n, b = rows.get(labels["group"], (kind, 0, 0.0))
+                    rows[labels["group"]] = (kind, n + (v["total"] if fam == "op_latency_s" else 0),
+                                             b + (v if fam == "bytes" else 0.0))
+        if all(g in out[fam] for g in groups for fam in out) or time.monotonic() > deadline:
+            return out
+        time.sleep(0.5)
+
+
+def dag_rate(compiled, reps: int) -> float:
+    """Executes per second of a warm compiled graph, each one read back."""
+    compiled.execute(0).get(timeout=60)
+    t0 = time.perf_counter()
+    for i in range(reps):
+        compiled.execute(100 + i).get(timeout=60)
+    return reps / (time.perf_counter() - t0)
+
+
+def dag_phase(rt, producer, consumer) -> dict:
+    """10c: the producer's bf16 CUDA tensor to the consumer over a device
+    edge of a compiled DAG on a 2-rank gloo group (two actors on one card),
+    with the producer profiled; then the edge's rate against the same
+    graph on a "tensor" (shm) edge. Returns what the checks read."""
+    from ray_tpu_torch import dag
+
+    rt.get([producer.join.remote(0), consumer.join.remote(1)], timeout=120)
+
+    def compiled(transport: str):
+        with dag.InputNode() as inp:
+            made = producer.make.bind(inp)
+            if transport == "device":
+                made = made.with_tensor_transport("device", group_name=DAG_GROUP, src=0, dst=1)
+            else:
+                made = made.with_tensor_transport("tensor")
+            graph = consumer.take.bind(made)
+        return graph.experimental_compile(max_buf_size=2 * DAG_EDGE_ELEMS + (1 << 20))
+
+    out = {}
+    graph = compiled("device")
+    loops = graph._loop_refs
+    try:
+        profiled = producer.profile.remote()
+        deadline = time.monotonic() + 60
+        while not rt.get(producer.is_profiling.remote(), timeout=30):
+            check(time.monotonic() < deadline, "the producer's profiler did not start")
+            time.sleep(0.1)
+        out["received"], out["bitwise"] = [], []
+        for seed in DAG_SEEDS:
+            out["received"].append(graph.execute(seed).get(timeout=60))
+            out["bitwise"].append(rt.get(consumer.bitwise_equal.remote(seed), timeout=60))
+        rt.get(producer.stop_profile.remote(), timeout=30)
+        out["producer_memcpy"] = rt.get(profiled, timeout=180)
+        out["device_per_s"] = dag_rate(graph, DAG_RATE_REPS)
+    finally:
+        graph.teardown()
+    # Each loop returns its count of executes once STOP has crossed its
+    # input channel: the consumer's is the device edge.
+    out["loop_iterations"] = rt.get(loops, timeout=60)
+    out["routes"] = rt.get([producer.routes.remote(), consumer.routes.remote()], timeout=30)
+    graph = compiled("tensor")
+    try:
+        out["shm_per_s"] = dag_rate(graph, DAG_RATE_REPS)
+    finally:
+        graph.teardown()
+    return out
+
+
+def collective_phase() -> dict:
+    """Phase 10 (10a, 10b, 10c) in two GPU actors sharing the card (GPU 0.5
+    each). Returns 10b's launches."""
+    import ray_tpu_torch as rt
+
+    t0 = time.perf_counter()
+    rt.init(num_cpus=4)
+    try:
+        gpus = rt.cluster_resources().get("GPU")
+        actor = rt.remote(num_gpus=0.5, max_concurrency=4)(GroupRank)
+        producer, consumer = actor.remote(), actor.remote()
+        names = rt.get([producer.ready.remote(), consumer.ready.remote()], timeout=180)
+        free = rt.available_resources().get("GPU", 0.0)
+        emit({"phase": "collective", "part": "actors", "gpu": gpus, "gpu_free_with_both": free,
+              "cards": names, "start_s": time.perf_counter() - t0})
+        check(gpus == torch.cuda.device_count() and free == gpus - 1.0,
+              f"two actors of GPU 0.5 left {free} of {gpus} GPU free")
+        ops = rt.get(producer.collective_ops.remote(), timeout=180)
+        ops["telemetry"] = gcs_collective_telemetry((NCCL_GROUP, STORE_GROUP))
+        emit({"phase": "collective", "part": "ops", **ops})
+        check(ops["backend"] == "nccl", f"the group runs on {ops['backend']}")
+        check(all(ops["equal"].values()), f"the NCCL group's ops differ from the store's: {ops['equal']}")
+        check(all(tuple(kind[:2]) == ("Tensor", "cuda") for kind in ops["kinds"]),
+              f"the NCCL group returned {ops['kinds']}")
+        for fam, kind in (("op_latency_s", "histogram"), ("bytes", "counter")):
+            rows = ops["telemetry"][fam]
+            check(all(g in rows and rows[g][0] == kind for g in (NCCL_GROUP, STORE_GROUP)),
+                  f"collective/{fam} in the GCS: {rows}")
+        attn = rt.get(producer.group_attention.remote(), timeout=600)
+        for case in attn["cases"]:
+            emit({"phase": "collective", "part": "attention", "case": case})
+            check_ratios(case["err_to_limit"], {"group_attention": case})
+            check(all(case["launches"][key] == 1 for key in ("fwd_lse", "bwd_dq", "bwd_dkv"))
+                  and case["launches"]["fwd"] == 0,
+                  f"{case['fn']} on the group launched {case['launches']}, not one of each")
+        t1 = time.perf_counter()
+        edge = dag_phase(rt, producer, consumer)
+        emit({"phase": "collective", "part": "dag", "seconds": time.perf_counter() - t1, **edge,
+              "dag_channel_tensor_per_s": edge["device_per_s"],
+              "dag_channel_tensor_shm_per_s": edge["shm_per_s"]})
+        n = len(DAG_SEEDS)
+        check(edge["received"] == [("cuda", "torch.bfloat16", (DAG_EDGE_ELEMS,))] * n,
+              f"the consumer received {edge['received']}")
+        check(all(edge["bitwise"]), f"the device edge changed the tensor: {edge['bitwise']}")
+        check(edge["routes"][0].get("ipc", 0) >= n and edge["routes"][1].get("ipc", 0) >= n,
+              f"the device edge did not go by CUDA IPC: {edge['routes']}")
+        kinds = edge["producer_memcpy"]
+        check(any("DtoD" in k for k in kinds), f"the producer's profile shows no device copy: {kinds}")
+        check(not any("DtoH" in k for k in kinds), f"the producer copied to the host: {kinds}")
+        check(edge["loop_iterations"] == [n + 1 + DAG_RATE_REPS] * 2,
+              f"the loops ended after {edge['loop_iterations']} executes")
+    finally:
+        rt.shutdown()
+    emit({"phase": "collective", "seconds": time.perf_counter() - t0,
+          "collective_allreduce_mb_per_s": ops["mb_per_s"]["nccl"],
+          "collective_allreduce_store_mb_per_s": ops["mb_per_s"]["store"],
+          "dag_channel_tensor_per_s": edge["device_per_s"],
+          "dag_channel_tensor_shm_per_s": edge["shm_per_s"], "launches": attn["launches"]})
+    return attn["launches"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1550,11 +1899,14 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     mesh_launches = mesh_phase(tr, fa, cfg, dev, gen)
+    gc.collect()
+    torch.cuda.empty_cache()
+    collective_launches = collective_phase()
 
     kernels = []
     for name, key, replaces in KERNELS:
         n = (fwd_launches[key] + train_launches[key] + trainer_launches[key] + bench_launches[key]
-             + mesh_launches[key])
+             + mesh_launches[key] + collective_launches[key])
         kernels.append({"name": name, "route": "cuda", "source": SOURCE, "replaces": replaces,
                         "launches": n, **rows[key]})
         check(n > 0, f"{name} was not launched on the main path")

@@ -885,11 +885,26 @@ class Executor:
             if self.actor_instance is None:
                 raise RuntimeError("actor not initialized")
             if wire["actor_method"] == "__rt_dag_loop__":
-                # Compiled-DAG resident loop: ray_tpu.dag is not ported yet.
-                raise NotImplementedError(
-                    "compiled graphs are not ported yet: ray_tpu_torch has no "
-                    "dag module (ROADMAP A13)"
-                )
+                # Compiled-DAG resident loop (ray_tpu_torch.dag): runs until the
+                # driver writes the STOP sentinel into the input channels.
+                from ray_tpu_torch.dag.exec_loop import dag_exec_loop
+
+                args, kwargs = await self.load_args(wire)
+                loop = asyncio.get_running_loop()
+                dag_tctx = tracing.ctx_from_wire(wire) or tracing.current_context()
+
+                def _dag_run():
+                    # Trace context does not cross run_in_executor; re-set it
+                    # so submissions from inside the DAG loop stay traced.
+                    tok = tracing.set_context(dag_tctx)
+                    try:
+                        return dag_exec_loop(self.actor_instance, *args)
+                    finally:
+                        tracing.reset_context(tok)
+
+                result = await loop.run_in_executor(None, _dag_run)
+                returns = await self.store_returns(wire, result)
+                return {"returns": returns}
             method = getattr(self.actor_instance, wire["actor_method"])
             t_fetch = time.time()
             args, kwargs = await self.load_args(wire)

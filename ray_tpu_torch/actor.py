@@ -89,12 +89,10 @@ class ActorMethod:
         return refs
 
     def bind(self, *args, **kwargs):
-        """Lazy DAG construction for compiled graphs: ray_tpu.dag is not
-        ported yet (ROADMAP A13)."""
-        raise NotImplementedError(
-            "compiled graphs (method.bind) are not ported yet: ray_tpu_torch "
-            "has no dag module (ROADMAP A13)"
-        )
+        """Lazy DAG construction for compiled graphs (ray_tpu_torch.dag)."""
+        from ray_tpu_torch.dag.nodes import ClassMethodNode
+
+        return ClassMethodNode(self._handle, self._name, args, kwargs)
 
     def __call__(self, *args, **kwargs):
         raise TypeError(

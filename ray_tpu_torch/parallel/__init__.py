@@ -25,10 +25,12 @@ from ray_tpu_torch.parallel.ring_attention import (
     full_attention,
     ring_attention,
     ring_attention_loopback,
+    ring_attention_on_group,
     ring_attention_sharded,
 )
 from ray_tpu_torch.parallel.ulysses import (
     ulysses_attention,
+    ulysses_attention_on_group,
     ulysses_attention_sharded,
 )
 
@@ -49,8 +51,10 @@ __all__ = [
     "host_local_device_count",
     "ring_attention",
     "ring_attention_loopback",
+    "ring_attention_on_group",
     "ring_attention_sharded",
     "full_attention",
     "ulysses_attention",
+    "ulysses_attention_on_group",
     "ulysses_attention_sharded",
 ]

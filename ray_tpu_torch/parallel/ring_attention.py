@@ -22,7 +22,8 @@ around the ring with K/V and reach their owner after S hops. The hop math
 is apart from the transport: `_GroupRing` rotates over a process group,
 `_LoopbackRing` runs all S shards of one tensor in this process by list
 indexing, the same math without a second rank. `ring_attention_on_group`
-(the collective-group variant) waits for the port's collective groups.
+runs the ring over a collective group's process group (its engine,
+ray_tpu_torch/util/collective/mesh_ops.py).
 """
 
 from __future__ import annotations
@@ -39,12 +40,15 @@ _BIG_NEG = -1e30
 
 class _GroupRing:
     """The ring of a process group: this process holds one shard, and a
-    rotation hands each tensor to the next rank."""
+    rotation hands each tensor to the next rank. `wait(work, what)` waits
+    on each transfer (a collective group's death watch); None waits
+    plainly."""
 
-    def __init__(self, group):
+    def __init__(self, group, wait=None):
         import torch.distributed as dist
 
         self.group = group
+        self.wait = wait
         self.size = 1 if group is None else dist.get_world_size(group)
         self.ranks = [0 if group is None else dist.get_rank(group)]
 
@@ -70,7 +74,10 @@ class _GroupRing:
                     dist.P2POp(dist.irecv, got, prv, self.group, tag)]
             outs.append([got])
         for work in dist.batch_isend_irecv(ops):
-            work.wait()
+            if self.wait is None:
+                work.wait()
+            else:
+                self.wait(work, "ring_attention")
         return tuple(outs)
 
 
@@ -282,6 +289,21 @@ def ring_attention_sharded(q, k, v, mesh, causal: bool = False, seq_axis: str = 
     q, k, v = (shard_of(mesh, t, dims) for t in (q, k, v))
     group = axis_group(mesh, seq_axis) if seq_axis in present else None
     return ring_attention(q, k, v, group, causal=causal, impl=impl)
+
+
+def ring_attention_on_group(q, k, v, causal: bool = False, group_name: str = "default"):
+    """Ring attention over a collective group (nccl or gloo backend): q/k/v
+    are this rank's [B, T_local, H, D] sequence shards on the group's
+    device, rank r of the group holding global positions
+    [r*T_local, (r+1)*T_local). Every rank of the group calls it."""
+    from ray_tpu_torch.util.collective import get_group_collectives
+
+    eng = get_group_collectives(group_name)
+    if eng is None:
+        raise ValueError(
+            f"group {group_name!r} has no mesh engine (nccl or gloo backend required)"
+        )
+    return eng.ring_attention(q, k, v, causal=causal)
 
 
 def full_attention(q, k, v, causal: bool = False, scale: Optional[float] = None):

@@ -6,8 +6,8 @@ splitting heads across the group, each rank runs attention on its head
 subset through `mha` (the flash kernels on the card), and a second
 all-to-all restores sequence sharding. Better when heads >= the group size
 and all-to-all bandwidth is plentiful; ring wins on very long sequences.
-`ulysses_attention_on_group` (the collective-group variant) waits for the
-port's collective groups.
+`ulysses_attention_on_group` runs it over a collective group's process
+group (its engine, ray_tpu_torch/util/collective/mesh_ops.py).
 """
 
 from __future__ import annotations
@@ -19,10 +19,11 @@ import torch
 from ray_tpu_torch.ops.flash_attention import mha
 
 
-def _all_to_all(x, group, split_dim: int, concat_dim: int):
+def _all_to_all(x, group, split_dim: int, concat_dim: int, wait=None):
     """Split `split_dim` into the group's size, send piece j to rank j, and
     concatenate the pieces received along `concat_dim` in rank order
-    (jax.lax.all_to_all(..., tiled=True))."""
+    (jax.lax.all_to_all(..., tiled=True)). `wait(work, what)` waits on the
+    exchange (a collective group's death watch); None waits plainly."""
     import torch.distributed as dist
 
     n = 1 if group is None else dist.get_world_size(group)
@@ -33,7 +34,11 @@ def _all_to_all(x, group, split_dim: int, concat_dim: int):
     pieces = x.movedim(split_dim, 0)
     pieces = pieces.reshape(n, pieces.shape[0] // n, *pieces.shape[1:]).contiguous()
     got = torch.empty_like(pieces)
-    dist.all_to_all_single(got, pieces, group=group)
+    work = dist.all_to_all_single(got, pieces, group=group, async_op=True)
+    if wait is None:
+        work.wait()
+    else:
+        wait(work, "ulysses_attention")
     return torch.cat([p.movedim(0, split_dim) for p in got.unbind(0)], dim=concat_dim)
 
 
@@ -41,25 +46,41 @@ class _AllToAll(torch.autograd.Function):
     """`_all_to_all` whose backward is the inverse all-to-all."""
 
     @staticmethod
-    def forward(ctx, x, group, split_dim: int, concat_dim: int):
-        ctx.group, ctx.split_dim, ctx.concat_dim = group, split_dim, concat_dim
-        return _all_to_all(x, group, split_dim, concat_dim)
+    def forward(ctx, x, group, split_dim: int, concat_dim: int, wait=None):
+        ctx.group, ctx.split_dim, ctx.concat_dim, ctx.wait = group, split_dim, concat_dim, wait
+        return _all_to_all(x, group, split_dim, concat_dim, wait)
 
     @staticmethod
     def backward(ctx, g):
-        return _all_to_all(g, ctx.group, ctx.concat_dim, ctx.split_dim), None, None, None
+        return (_all_to_all(g, ctx.group, ctx.concat_dim, ctx.split_dim, ctx.wait),
+                None, None, None, None)
 
 
 def ulysses_attention(q, k, v, group=None, causal: bool = False, scale: Optional[float] = None,
-                      impl: str = "auto"):
+                      impl: str = "auto", wait=None):
     """q/k/v: [B, T_local, H, D] local shards, sequence sharded over `group`
     (None: one shard); H (and the kv heads) divisible by the group size.
-    `impl` is mha's. Returns [B, T_local, H, D]."""
+    `impl` is mha's; `wait(work, what)` waits on each all-to-all (None:
+    plainly). Returns [B, T_local, H, D]."""
     # [B, T/N, H, D] -> [B, T, H/N, D]
-    q2, k2, v2 = (_AllToAll.apply(t, group, 2, 1) for t in (q, k, v))
+    q2, k2, v2 = (_AllToAll.apply(t, group, 2, 1, wait) for t in (q, k, v))
     out = mha(q2, k2, v2, causal=causal, scale=scale, impl=impl)
     # [B, T, H/N, D] -> [B, T/N, H, D]
-    return _AllToAll.apply(out, group, 1, 2)
+    return _AllToAll.apply(out, group, 1, 2, wait)
+
+
+def ulysses_attention_on_group(q, k, v, causal: bool = False, group_name: str = "default"):
+    """Ulysses attention over a collective group (nccl or gloo backend), the
+    shards as in ring_attention_on_group; heads divisible by the group's
+    size."""
+    from ray_tpu_torch.util.collective import get_group_collectives
+
+    eng = get_group_collectives(group_name)
+    if eng is None:
+        raise ValueError(
+            f"group {group_name!r} has no mesh engine (nccl or gloo backend required)"
+        )
+    return eng.ulysses_attention(q, k, v, causal=causal)
 
 
 def ulysses_attention_sharded(q, k, v, mesh, causal: bool = False, seq_axis: str = "sequence",

@@ -71,9 +71,9 @@ class TrainContext:
         return self._s.trial_info.trial_dir
 
     def get_collective_group(self) -> Optional[str]:
-        """Name of the collective group spanning the worker gang: None in the
-        port, whose gang syncs through the torch.distributed process group
-        the trainer's backend sets up (util.collective is ROADMAP A12)."""
+        """Name of the collective group spanning the worker gang (the
+        trainer's TorchConfig(collective_backend=...); ops on it go through
+        ray_tpu_torch.util.collective). None for a gang of one or without one."""
         return self._s.collective_group
 
 

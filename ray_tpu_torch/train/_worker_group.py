@@ -4,8 +4,6 @@ python/ray/train/_internal/worker_group.py).
 One TrainWorker actor per rank (per GPU when the gang uses GPUs). The actor
 runs with max_concurrency > 1 so `run()` (the user's train loop, on one
 executor thread) and `poll()` (driver drains results, on another) overlap.
-Process groups come from the trainer's backend (train/torch), not from a
-collective group here.
 """
 
 from __future__ import annotations
@@ -77,6 +75,16 @@ class TrainWorker:
         fn = cloudpickle.loads(fn_blob)
         return fn(*args)
 
+    def init_collective(
+        self, world_size: int, rank: int, backend: str, group_name: str
+    ) -> None:
+        from ray_tpu_torch.util import collective
+
+        if not collective.is_group_initialized(group_name):
+            collective.init_collective_group(
+                world_size, rank, backend=backend, group_name=group_name
+            )
+
     def run(self, fn_blob: bytes) -> Optional[str]:
         """Execute the train loop; returns a traceback string on failure."""
         assert self.session is not None, "setup_session must run first"
@@ -132,6 +140,12 @@ class TrainWorker:
         if s.finished.is_set() and s.result_queue.empty():
             return {"done": True, "error": repr(s.error) if s.error else None}
         return {"pending": True}
+
+    def shutdown_collective(self, group_name: str) -> None:
+        from ray_tpu_torch.util import collective
+
+        if collective.is_group_initialized(group_name):
+            collective.destroy_collective_group(group_name)
 
 
 def _takes_config(fn) -> bool:

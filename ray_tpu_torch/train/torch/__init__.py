@@ -11,7 +11,13 @@ python/ray/train/torch, torch_trainer.py and config.py:65-147):
   only when the scaling config says `use_gpu=False`; the rank counts within
   the gang, since a GPU lease names no card, so a node runs one GPU gang;
 - `prepare_model` moves the model there and wraps it in
-  DistributedDataParallel when the gang has more than one worker.
+  DistributedDataParallel when the gang has more than one worker;
+- a gang of more than one also joins a collective group named
+  `train_<uuid>` (`TorchConfig.collective_backend`, "store" by default, as
+  ray_tpu's JaxConfig), whose name the loop reads from
+  `train.get_context().get_collective_group()`. With "nccl" or "gloo" the
+  group is a `new_group` over the gang's default process group, not a
+  second rendezvous.
 
     from ray_tpu_torch.train.torch import TorchTrainer, get_device
     from ray_tpu_torch.air import ScalingConfig
@@ -32,6 +38,7 @@ A checkpoint of a train step's state is `model.state_dict()` and
 from __future__ import annotations
 
 import os
+import uuid
 from dataclasses import dataclass
 from typing import Any, Dict, Optional, Tuple
 
@@ -52,10 +59,17 @@ class TorchConfig(BackendConfig):
     backend: None picks "nccl" when the gang uses GPUs, "gloo" otherwise.
     Whether it uses GPUs is the trainer's ScalingConfig(use_gpu=...), read
     from the gang's bundles when it starts.
+
+    collective_backend (ray_tpu's JaxConfig.collective_backend): the
+    backend of the gang's collective group (ray_tpu_torch.util.collective):
+      "store"         — named-actor store collectives (the default);
+      "nccl" / "gloo" — a new_group over the gang's process group;
+      None            — no collective group.
     """
 
     backend: Optional[str] = None
     init_timeout_s: float = 120.0
+    collective_backend: Optional[str] = "store"
 
     @property
     def backend_cls(self):
@@ -171,8 +185,24 @@ class _TorchBackend(Backend):
             for rank, w in enumerate(worker_group.workers)
         ]
         ray_tpu_torch.get(refs, timeout=backend_config.init_timeout_s + 30)
+        be = backend_config.collective_backend
+        if be is None or world <= 1:
+            return
+        group_name = f"train_{uuid.uuid4().hex[:8]}"
+        worker_group._collective_group = group_name
+        refs = [
+            w.init_collective.remote(world, rank, be, group_name)
+            for rank, w in enumerate(worker_group.workers)
+        ]
+        ray_tpu_torch.get(refs, timeout=backend_config.init_timeout_s + 30)
 
     def on_shutdown(self, worker_group, backend_config: TorchConfig):
+        name = getattr(worker_group, "_collective_group", None)
+        if name:
+            try:
+                worker_group.execute("shutdown_collective", name)
+            except Exception:
+                pass
         try:
             worker_group.execute("apply", cloudpickle.dumps(_teardown_worker))
         except Exception:

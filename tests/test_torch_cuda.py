@@ -213,3 +213,115 @@ def test_ring_kernel_route_matches_plain_route(dev, causal):
     hops = 10 if causal else 16
     assert out["kernel_launches"] == {"fwd": 0, "fwd_lse": hops, "bwd_dq": hops, "bwd_dkv": hops}
     assert not any(out["plain_launches"].values())
+
+
+def test_nccl_group_at_world_one(dev):
+    """A collective group on NCCL at world 1 in this process: every op on
+    bf16 and f32 CUDA tensors gives back the input's kind on the card,
+    equal to its input (a world of one), and ring/Ulysses attention on the
+    group launch the flash kernels (one B2, B3 and B4 each)."""
+    from ray_tpu_torch.parallel import ring_attention_on_group, ulysses_attention_on_group
+    from ray_tpu_torch.util import collective as col
+
+    col.init_collective_group(1, 0, backend="nccl", group_name="t_nccl1")
+    try:
+        assert col.get_group_mesh("t_nccl1").device_type == "cuda"
+        for dtype in (torch.bfloat16, torch.float32):
+            x = torch.randn(64, 32, device=dev).to(dtype)
+            for op in ("sum", "product", "min", "max"):
+                assert torch.equal(col.allreduce(x, "t_nccl1", op=op), x)
+            (g,) = col.allgather(x, "t_nccl1")
+            for out in (g, col.reducescatter(x, "t_nccl1"), col.broadcast(x, 0, "t_nccl1")):
+                assert out.device.type == "cuda" and torch.equal(out, x)
+            col.barrier("t_nccl1")
+            col.send(x, 0, "t_nccl1", tag=3)
+            assert torch.equal(col.recv(0, "t_nccl1", tag=3), x)
+        q, k, v = (torch.randn(2, 128, 4, 64, device=dev).to(torch.bfloat16).requires_grad_(True)
+                   for _ in range(3))
+        for f in (ring_attention_on_group, ulysses_attention_on_group):
+            fa.reset_launches()
+            o = f(q, k, v, causal=True, group_name="t_nccl1")
+            torch.autograd.grad(o, (q, k, v), torch.ones_like(o))
+            torch.cuda.synchronize()
+            assert {key: fa.launches[key] for key in ("fwd_lse", "bwd_dq", "bwd_dkv")} == \
+                {"fwd_lse": 1, "bwd_dq": 1, "bwd_dkv": 1}, (f.__name__, fa.launches)
+    finally:
+        col.destroy_collective_group("t_nccl1")
+
+
+def test_device_channel_ipc_between_two_actors(dev):
+    """Two GPU actors share the card (num_gpus=0.5 each) in a 2-rank gloo
+    group: a device channel between them resolves to CUDA IPC, and bf16 CUDA
+    tensors arrive on the card bitwise, the reader opening the writer's
+    buffer once for repeated writes of one size."""
+    import ray_tpu_torch as rt
+
+    rt.init(num_cpus=2, num_gpus=1)
+    try:
+        @rt.remote(num_gpus=0.5)
+        class End:
+            def join(self, rank):
+                from ray_tpu_torch.util import collective as col
+
+                col.init_collective_group(2, rank, backend="gloo", group_name="t_ipc")
+
+            def open(self, spec):
+                from ray_tpu_torch.dag.channel import make_channel
+
+                self.ch = make_channel(spec)
+                return self.ch.mode
+
+            def write(self, seed):
+                g = torch.Generator(device="cuda").manual_seed(seed)
+                self.ch.write(torch.randn(1 << 20, device="cuda", generator=g).to(torch.bfloat16))
+
+            def read(self, seed):
+                from ray_tpu_torch.dag import tensor_channel as tc
+
+                got = self.ch.read(timeout=60)
+                g = torch.Generator(device="cuda").manual_seed(seed)
+                want = torch.randn(1 << 20, device="cuda", generator=g).to(torch.bfloat16)
+                return (got.device.type, torch.equal(got.view(torch.int16), want.view(torch.int16)),
+                        id(self.ch._opened[1]), tc.routes["ipc"])
+
+        from ray_tpu_torch.dag.channel import make_channel
+
+        w, r = End.remote(), End.remote()
+        rt.get([w.join.remote(0), r.join.remote(1)], timeout=120)
+        spec = ("rtdag_t_ipc", 1 << 20, "device", {"group": "t_ipc", "src": 0, "dst": 1})
+        chan = make_channel(spec, create=True)
+        assert rt.get([w.open.remote(spec), r.open.remote(spec)], timeout=60) == ["ipc", "ipc"]
+        outs = []
+        for seed in (1, 2, 3):
+            got = r.read.remote(seed)
+            rt.get(w.write.remote(seed), timeout=60)
+            outs.append(rt.get(got, timeout=60))
+        assert [o[:2] for o in outs] == [("cuda", True)] * 3
+        assert len({o[2] for o in outs}) == 1 and outs[-1][3] == 3
+        chan.close(unlink=True)
+    finally:
+        rt.shutdown()
+
+
+def test_device_channel_loopback_hop(dev):
+    """One process addressing two cards: the tensor is copied onto the dst
+    card (make_cuda_hop) and handed to a same-process reader; a reader
+    without the parked tensor decodes the frame's bytes."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("the loopback route needs two cards")
+    from ray_tpu_torch.dag import tensor_channel as tc
+
+    w = tc.DeviceTensorChannel("rtdag_t_loop", 1 << 22, create=True, meta={"src": 0, "dst": 1})
+    try:
+        r = tc.DeviceTensorChannel("rtdag_t_loop", 1 << 22, meta={"src": 0, "dst": 1})
+        x = torch.arange(64 * 64, device="cuda:0", dtype=torch.float32).reshape(64, 64)
+        w.write(x)
+        assert w.mode == "loopback"
+        out = r.read(timeout=10)
+        assert out.device == torch.device("cuda", 1) and torch.equal(out.cpu(), x.cpu())
+        w.write(("ok", x))
+        tc._DEVICE_SLOTS.pop("rtdag_t_loop")  # a reader in another process
+        kind, host = r.read(timeout=10)
+        assert kind == "ok" and host.device.type == "cpu" and torch.equal(host, x.cpu())
+    finally:
+        w.close(unlink=True)

@@ -29,6 +29,7 @@ import json, sys
 sys.path.insert(0, {repo!r})
 import numpy as np
 import {pkg} as rt
+import {pkg}.dag, {pkg}.util.collective  # jax-free in both packages
 
 def bad():
     import sys
@@ -54,6 +55,7 @@ class C:
         return self.n
 
     def modules(self):
+        import {pkg}.dag, {pkg}.util.collective
         return bad()
 
 big = rt.put(np.arange(1_000_000, dtype=np.float64))  # 8 MB: the shm path
@@ -172,6 +174,20 @@ def test_port_keeps_its_own_names_on_disk(monkeypatch, tmp_path):
         ray_tpu_torch.init(address="auto")
 
 
+@pytest.mark.timeout(60)
+def test_collective_and_dag_load_without_jax():
+    """ray_tpu_torch.util.collective, ray_tpu_torch.dag and the parallel
+    package's group entry points load with no jax and no ray_tpu module."""
+    code = ("import sys; import ray_tpu_torch.util.collective, ray_tpu_torch.dag; "
+            "from ray_tpu_torch.parallel import ring_attention_on_group, "
+            "ulysses_attention_on_group; "
+            f"print(sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
+                         timeout=60)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip().splitlines()[-1] == "[]"
+
+
 @pytest.mark.timeout(90)
 def test_unported_branches_raise_not_implemented(torch_cluster):  # noqa: F811
     @ray_tpu_torch.remote
@@ -185,8 +201,6 @@ def test_unported_branches_raise_not_implemented(torch_cluster):  # noqa: F811
 
     with pytest.raises(NotImplementedError, match="workflow"):
         f.bind()
-    with pytest.raises(NotImplementedError, match="A13"):
-        A.remote().m.bind()
     with pytest.raises(NotImplementedError, match="client mode"):
         ray_tpu_torch.init(address="ray-tpu://127.0.0.1:1")
 
@@ -214,6 +228,9 @@ COPIED = [
         "gcs_store", "gcs_ha", "node", "raylet", "core_worker", "worker",
         "worker_main", "worker_zygote", "accelerators")),
     "air/__init__.py", "air/config.py",
+    *(f"dag/{m}.py" for m in (
+        "__init__", "channel", "compiled", "exec_loop", "nodes", "tensor_channel")),
+    *(f"util/collective/{m}.py" for m in ("__init__", "collective", "mesh_ops")),
     *(f"util/{m}.py" for m in (
         "__init__", "actor_pool", "placement_group", "scheduling_strategies", "tracing")),
     "runtime_env/__init__.py", "runtime_env/context.py", "runtime_env/container.py",
@@ -229,7 +246,6 @@ COPIED = [
 # why. Editing this list is how a later slice lets them drift on purpose.
 DIFFERS = {
     "__init__.py": "the runtime API merged beside `models` and `ops`, which load lazily",
-    "actor.py": "method.bind raises: compiled graphs (ray_tpu.dag) are ROADMAP A13",
     "remote_function.py": "num_gpus maps to 'GPU' (num_tpus to 'TPU' in ray_tpu); "
                           "fn.bind raises: ray_tpu.workflow is not ported",
     "_private/serialization.py": "a torch-tensor reducer (CUDA tensors come back as CPU "
@@ -237,7 +253,6 @@ DIFFERS = {
     "_private/node.py": "num_gpus, and the registry's GPU detection when no GPU count is given",
     "_private/worker.py": "init(num_gpus=...); address='auto' reads RAY_TPU_TORCH_ADDRESS; "
                           "client mode raises: ray_tpu.util.client is not ported",
-    "_private/worker_main.py": "the compiled-DAG loop raises: ray_tpu.dag is A13",
     "_private/raylet.py": "the spill directory lies under the temp dir (TMPDIR), not a fixed "
                           "/tmp, so two checkouts with their own TMPDIR never share it",
     "_private/accelerators.py": "GPUAcceleratorManager registered; no TPU manager and no "
@@ -247,10 +262,21 @@ DIFFERS = {
                               "/tmp: it is keyed by the package's hash, so two checkouts "
                               "sharing it would read each other's extractions",
     "train/__init__.py": "no JaxConfig",
-    "train/_backend_executor.py": "no JaxConfig/_JaxBackend: the backend is train/torch's",
-    "train/_session.py": "the collective-group docstring: the gang syncs through torch.distributed",
-    "train/_worker_group.py": "node_info returns the node address for the rendezvous; no "
-                              "init/shutdown_collective (ray_tpu.util.collective is A12)",
+    "train/_backend_executor.py": "no JaxConfig/_JaxBackend: train/torch's TorchConfig sets up "
+                                  "the gang's process group and its collective group "
+                                  "(collective_backend)",
+    "train/_session.py": "the collective-group docstring names TorchConfig's option",
+    "train/_worker_group.py": "node_info returns the node address for the rendezvous",
+    "dag/tensor_channel.py": "torch tensors on the shm wire (the torch dtype's name in the header, "
+                             "bf16 included) in place of jax arrays; DeviceTensorChannel moves "
+                             "CUDA tensors by CUDA IPC, the group's send/recv or a device copy "
+                             "(loopback) in place of a compiled ppermute; make_cuda_hop in "
+                             "place of make_ici_transfer",
+    "util/collective/collective.py": "nccl and gloo backends on torch.distributed (GCS-KV "
+                                     "rendezvous, a death watch over async work handles) in "
+                                     "place of the xla backend; ops take torch tensors too",
+    "util/collective/mesh_ops.py": "MeshCollectives runs each op on the group's process group "
+                                   "in place of compiled shard_map programs over a jax mesh",
     "train/base_trainer.py": "as_trainable raises: ray_tpu.tune is not ported",
     "data/iterator.py": "the _finalize_fn docstring names the torch host->device copy, "
                         "not jax.device_put",
