@@ -2,8 +2,9 @@
 the checkout, holds each against its plain PyTorch version, then drives the
 GPT-2-small forward and train step through them, bare and through the port's
 runtime and its GPU trainer, the ResNet-50 train step, the port's bench, the
-sharded step on a one-device mesh with ring attention's kernel route, and the
-collective groups and a compiled graph's CUDA device edge in runtime actors.
+sharded step on a one-device mesh with ring attention's kernel route, the
+collective groups and a compiled graph's CUDA device edge in runtime actors,
+and RLlib's learners on the card with CPU env runners.
 
     python3 chip_smoke.py            # needs one CUDA card, nvcc, the checkout
 
@@ -79,9 +80,23 @@ Phases, each printing one JSON line:
               by CUDA IPC, bitwise, with no device-to-host copy in the
               producer's profile, and STOP through the same edge; its rate
               against the same graph on a "tensor" (shm) edge;
+ 11. rllib    RLlib on the port, no gymnasium needed: (a) every learner
+              (PPO separate and shared, IMPALA, APPO, DQN, CQL, SAC at
+              (256, 256), BC, MARWIL) on cuda, TF32 off, against the same
+              learner on the CPU: loss, metrics and gradients, then three
+              update_from_batch steps; (b) PPO learns the numpy CartPole of
+              ray_tpu_torch.testing at cartpole-ppo.yaml's settings, two CPU
+              runner actors of four envs and the learner on cuda, to
+              RL_THRESHOLD within RL_MAX_ITERS iterations: env steps/s, the
+              update's host ms, its device ms and the learner's idle share
+              (one profiled iteration), each iteration's sampling/learning
+              split; no runner process has a CUDA context or jax; (c) two
+              learner actors sharing the card (GPU 0.5 each) take one
+              averaged update, bitwise in sync; (d) (b)'s checkpoint restored
+              into an algorithm whose learner is on the CPU;
 then the kernels line, with each kernel's launches in phases 3, 4, 6, the
-bench's transformer phase and phases 9 and 10. Any failure exits non-zero.
-The last line is the ok line.
+bench's transformer phase and phases 9, 10 and 11 (none: RLlib's modules
+are MLPs). Any failure exits non-zero. The last line is the ok line.
 """
 
 from __future__ import annotations
@@ -203,6 +218,30 @@ RING_SHAPE, RING_SHARDS, RING_TIME_REPS = (8, 1024, 12, 64), 4, 2
 COLL_BYTES, COLL_RATE_REPS = 16 << 20, {"nccl": 50, "store": 5}
 DAG_EDGE_ELEMS, DAG_SEEDS, DAG_RATE_REPS = 8 << 20, (1, 2, 3), 20
 NCCL_GROUP, STORE_GROUP, DAG_GROUP = "smoke_nccl", "smoke_store", "smoke_dag"
+# Phase 11: RLlib. PPO on CartPole at tests/test_rllib.py's settings
+# (rllib/tuned_examples/ppo/cartpole-ppo.yaml): the (64, 64) separate
+# policy and value nets, two CPU runner actors of four envs each, the
+# learner on cuda; RL_THRESHOLD within RL_MAX_ITERS iterations. 11a holds
+# every learner (SAC at its default (256, 256)) on cuda, TF32 off, against
+# the same learner on the CPU on one batch of RL_CHECK_ROWS rows (IMPALA and
+# APPO: [RL_FRAGMENT, RL_ENVS] fragments), lr RL_CHECK_LR. Both do f32
+# arithmetic and differ in summation order (cuBLAS against the CPU's
+# GEMMs), ~1e-7 relative per product, so:
+#  - loss and every metric: |cuda - cpu| <= RL_METRIC_TOL * max(1, |cpu|);
+#  - each gradient leaf: relative L2 within RL_GRAD_REL;
+#  - every parameter after each of RL_UPDATES updates: within
+#    RL_UPDATE_ATOL, 1% of an Adam step at lr 1e-3 (a gradient component
+#    near 0 lets rounding move m / sqrt(v); the CPU tests measured 1.6e-6
+#    against the JAX package); 11c and 11d's updates too.
+# 11d's restored state is the saved numpy: weights bitwise, Adam's moments
+# within RL_STATE_ATOL (0: bitwise too).
+RL_HIDDEN, RL_SAC_HIDDEN = (64, 64), (256, 256)
+RL_PPO = dict(train_batch_size=2048, minibatch_size=256, num_epochs=10, lr=3e-4,
+              entropy_coeff=0.01)
+RL_RUNNERS, RL_ENVS, RL_FRAGMENT = 2, 8, 50
+RL_THRESHOLD, RL_MAX_ITERS = 150, 40
+RL_CHECK_ROWS, RL_CHECK_LR, RL_UPDATES = 256, 1e-3, 3
+RL_METRIC_TOL, RL_GRAD_REL, RL_UPDATE_ATOL, RL_STATE_ATOL = 1e-5, 1e-5, 1e-5, 0.0
 
 KERNELS = [  # name, launch-count key, TPU kernel it replaces
     ("flash_fwd", "fwd", "ray_tpu/ops/flash_attention.py:35"),
@@ -1854,6 +1893,305 @@ def collective_phase() -> dict:
     return attn["launches"]
 
 
+# ---------------------------------------------------------------- phase 11
+
+def rl_tree_err(got, want) -> tuple:
+    """(max abs difference, worst leaf's relative L2 difference) between two
+    numpy trees of one structure."""
+    import numpy as np
+
+    if isinstance(want, dict):
+        pairs = [rl_tree_err(got[k], want[k]) for k in want]
+    elif isinstance(want, (list, tuple)):
+        pairs = [rl_tree_err(g, w) for g, w in zip(got, want)]
+    else:
+        g, w = np.asarray(got, np.float64), np.asarray(want, np.float64)
+        d = float(np.abs(g - w).max()) if g.size else 0.0
+        return d, float(np.linalg.norm(g - w) / max(np.linalg.norm(w), 1e-30))
+    return max(p[0] for p in pairs), max(p[1] for p in pairs)
+
+
+def rl_metric_err(got: dict, want: dict) -> float:
+    """Worst |got - want| / max(1, |want|) over want's metrics."""
+    return max(abs(got[k] - v) / max(1.0, abs(v)) for k, v in want.items())
+
+
+def rl_inputs(name, learner, batch, noise):
+    """The case's batch on the learner's device with what its update adds:
+    the target net (DQN, CQL, SAC), SAC's noise (`noise`, numpy, the same on
+    both devices) and MARWIL's moving average."""
+    import numpy as np
+
+    b = learner.to_device(batch)
+    if hasattr(learner, "target_params"):
+        b["_target_params"] = learner.target_params
+    if name == "sac":
+        b["_eps_next"], b["_eps_pi"] = (torch.from_numpy(x).to(learner.device) for x in noise)
+    if name == "marwil":
+        b["_ma_sq_adv"] = torch.tensor(np.float32(learner.ma_sq_adv), device=learner.device)
+    return b
+
+
+def rl_learner_parity() -> dict:
+    """11a: every learner on cuda (TF32 off) against the same learner on the
+    CPU, same seed, weights and batch: loss, metrics and gradients of one
+    backward, then RL_UPDATES update_from_batch steps (metrics and every
+    parameter after each). Returns {case: errors}."""
+    import numpy as np
+
+    from ray_tpu_torch.rllib.core.rl_module import RLModuleSpec, tree_of
+    from ray_tpu_torch.testing import rl_learner_cases
+
+    out = {}
+    cases = rl_learner_cases(seed=SEED, n=RL_CHECK_ROWS, T=RL_FRAGMENT, envs=RL_ENVS,
+                             hidden=RL_HIDDEN, sac_hidden=RL_SAC_HIDDEN)
+    for name, case in cases.items():
+        cls = getattr(importlib.import_module(f"ray_tpu_torch.rllib.algorithms.{case['module']}"),
+                      case["cls"])
+        args = (case["cfg"],) if case["cfg"] is not None else ()
+        pair = [cls(RLModuleSpec(**case["spec"]), *args, lr=RL_CHECK_LR, seed=SEED, device=d)
+                for d in ("cuda", "cpu")]
+        gpu, cpu = pair
+        check(all(p.is_cuda for p in gpu.module.parameters()), f"{name}'s learner is not on cuda")
+        start = rl_tree_err(gpu.get_weights(), cpu.get_weights())
+        rng = np.random.RandomState(SEED)
+        n, act_dim = len(case["batch"]["obs"]), case["spec"].get("act_dim", 0)
+        noise = [rng.randn(n, max(act_dim, 1)).astype(np.float32) for _ in range(2)]
+        t0 = time.perf_counter()
+        metrics = [learner._to_host(learner._backward(rl_inputs(name, learner, case["batch"], noise)))
+                   for learner in pair]
+        grads = rl_tree_err(*(tree_of(l.module, lambda p: p.grad) for l in pair))
+        row = {"init_max_abs": start[0], "metric_err": rl_metric_err(*metrics),
+               "loss": [metrics[0]["total_loss"], metrics[1]["total_loss"]],
+               "grad_max_abs": grads[0], "grad_rel_l2": grads[1], "update_metric_err": [],
+               "update_max_abs": []}
+        for _ in range(RL_UPDATES):
+            m = [learner.update_from_batch(case["batch"]) for learner in pair]
+            row["update_metric_err"].append(rl_metric_err(*m))
+            row["update_max_abs"].append(rl_tree_err(gpu.get_weights(), cpu.get_weights())[0])
+        row["seconds"] = time.perf_counter() - t0
+        out[name] = row
+        emit({"phase": "rllib", "part": "learner", "case": name, **row})
+        check(start[0] == 0.0, f"{name}: the cuda and CPU learners start from other weights")
+        check(row["metric_err"] <= RL_METRIC_TOL and grads[1] <= RL_GRAD_REL,
+              f"{name}'s loss, metrics or gradients on cuda are off the CPU's: {row}")
+        check(max(row["update_metric_err"]) <= RL_METRIC_TOL
+              and max(row["update_max_abs"]) <= RL_UPDATE_ATOL,
+              f"{name}'s updates on cuda are off the CPU's: {row}")
+    return out
+
+
+def rl_timed(obj, attr: str, log: list) -> None:
+    """Wrap obj.attr so each call's host seconds go to `log`."""
+    fn = getattr(obj, attr)
+
+    @functools.wraps(fn)
+    def timed(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            log.append(time.perf_counter() - t0)
+
+    setattr(obj, attr, timed)
+
+
+def rl_ppo_config(device=None):
+    from ray_tpu_torch.rllib import PPOConfig
+    from ray_tpu_torch.testing import cartpole_env
+
+    return (PPOConfig().environment(cartpole_env)
+            .env_runners(num_env_runners=RL_RUNNERS, num_envs_per_env_runner=RL_ENVS // RL_RUNNERS)
+            .training(**RL_PPO).learners(device=device).debugging(seed=SEED))
+
+
+def rl_learn_cartpole(rt) -> tuple:
+    """11b: PPO learns CartPole with two CPU runner actors and its learner
+    on cuda, until RL_THRESHOLD or RL_MAX_ITERS; then one more iteration
+    under the profiler for the learner's device time. Returns the
+    algorithm and the phase's numbers."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    t0 = time.perf_counter()
+    algo = rl_ppo_config().build_algo()
+    start_s = time.perf_counter() - t0
+    sample_s, learn_s = [], []
+    rl_timed(algo.env_runner_group, "sample", sample_s)
+    rl_timed(algo.learner_group, "update_from_batch", learn_s)
+    iters, returns = [], []
+    t1 = time.perf_counter()
+    while len(iters) < RL_MAX_ITERS:
+        n_s, n_l = len(sample_s), len(learn_s)
+        result = algo.train()
+        iters.append({"return_mean": result["episode_return_mean"],
+                      "seconds": result["time_this_iter_s"], "sample_s": sum(sample_s[n_s:]),
+                      "learn_s": sum(learn_s[n_l:]), "updates": len(learn_s) - n_l})
+        returns.append(result["episode_return_mean"])
+        if result["episode_return_mean"] >= RL_THRESHOLD:
+            break
+    train_s = time.perf_counter() - t1
+    env_steps = result["num_env_steps_sampled_lifetime"]
+    last = iters[-1]
+    n_l = len(learn_s)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        algo.train()
+        torch.cuda.synchronize()
+    device = [e for e in prof.events()
+              if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+    device_ms = sum(e.time_range.elapsed_us() / 1e3 for e in device)
+    profiled_updates = len(learn_s) - n_l
+    by_name = {}
+    for e in device:
+        by_name[e.name[:60]] = by_name.get(e.name[:60], 0) + 1
+    infos = rt.get([a.process_info.remote() for a in algo.env_runner_group._manager.actors],
+                   timeout=60)
+    module = algo.learner_group._local.module
+    numbers = {
+        "iterations": len(iters), "reached": returns[-1] >= RL_THRESHOLD,
+        "return_mean_last": returns[-1], "returns": returns,
+        "env_steps": env_steps, "env_steps_per_s": env_steps / train_s,
+        "sample_env_steps_per_s": env_steps / sum(i["sample_s"] for i in iters),
+        "build_s": start_s, "train_s": train_s,
+        "update_ms_host": 1e3 * last["learn_s"] / last["updates"],
+        "updates_per_iteration": last["updates"],
+        "iteration_split_s": [[i["sample_s"], i["learn_s"]] for i in iters],
+        "device_ms_per_update": device_ms / profiled_updates,
+        "device_launches_per_update": len(device) / profiled_updates,
+        "launches_per_update_by_name": sorted(
+            ([name, n / profiled_updates] for name, n in by_name.items()),
+            key=lambda x: -x[1])[:15],
+        "learner_idle_share": 1 - device_ms / (1e3 * last["learn_s"]),
+        "learner_device": str(next(module.parameters()).device),
+        "runner_processes": infos,
+    }
+    emit({"phase": "rllib", "part": "ppo_cartpole", **numbers})
+    check(numbers["reached"], f"PPO did not reach {RL_THRESHOLD} on CartPole in "
+                              f"{RL_MAX_ITERS} iterations: {returns}")
+    check(all(p.is_cuda for p in module.parameters()), "the PPO learner's params are not on cuda")
+    check(all(not i["cuda_initialized"] and not i["forbidden_modules"] for i in infos),
+          f"a runner process made a CUDA context or holds jax/ray_tpu: {infos}")
+    return algo, numbers
+
+
+def rl_checkpoint(algo, storage: str) -> dict:
+    """11d: 11b's algorithm saved from the card, restored into a fresh
+    algorithm whose learner is on the CPU: weights and Adam's state equal,
+    then one update of each on one batch within 11a's bound."""
+    from ray_tpu_torch.testing import rl_batch
+    import numpy as np
+
+    path = algo.save(os.path.join(storage, "rllib_ckpt"))
+    fresh = rl_ppo_config(device="cpu").env_runners(num_env_runners=0).build_algo()
+    try:
+        fresh.restore(path)
+        card, host = algo.learner_group._local, fresh.learner_group._local
+        a, b = card.get_state(), host.get_state()
+        weights = rl_tree_err(b["params"], a["params"])[0]
+        adam = rl_tree_err(b["opt_state"], a["opt_state"])[0]
+        batch = rl_batch("ppo", np.random.RandomState(SEED + 11), n=RL_PPO["minibatch_size"],
+                         obs_dim=4)
+        m = [learner.update_from_batch(batch) for learner in (card, host)]
+        after = rl_tree_err(host.get_weights(), card.get_weights())[0]
+        out = {"learner_devices": [str(card.device), str(host.device)],
+               "weights_max_abs": weights, "adam_state_max_abs": adam,
+               "steps": [a["opt_state"]["step"], b["opt_state"]["step"]],
+               "iteration": fresh.iteration, "update_metric_err": rl_metric_err(*m),
+               "update_max_abs": after}
+    finally:
+        fresh.stop()
+    emit({"phase": "rllib", "part": "checkpoint", **out})
+    check(out["learner_devices"][0].startswith("cuda") and out["learner_devices"][1] == "cpu",
+          f"11d's learners are on {out['learner_devices']}")
+    check(weights == 0.0 and adam <= RL_STATE_ATOL and out["steps"][0] == out["steps"][1],
+          f"the checkpoint did not restore on the CPU: {out}")
+    check(out["update_metric_err"] <= RL_METRIC_TOL and after <= RL_UPDATE_ATOL,
+          f"the restored CPU learner's update is off the card's: {out}")
+    return out
+
+
+def rl_learner_group(rt) -> dict:
+    """11c: two learner actors sharing the card (GPU 0.5 each) take one
+    averaged PPO update: bitwise in sync, and within 11a's bound of a local
+    cuda learner that applied the mean of their gradients."""
+    import numpy as np
+
+    from ray_tpu_torch.rllib import LearnerGroup, RLModuleSpec
+    from ray_tpu_torch.rllib.algorithms.ppo import PPOLearner
+    from ray_tpu_torch.rllib.core.learner_group import _mean_tree, _shard_batch
+    from ray_tpu_torch.testing import PPO_LOSS, rl_batch
+
+    spec = RLModuleSpec(obs_dim=4, num_actions=2, hidden=RL_HIDDEN)
+    lr, clip = RL_PPO["lr"], 0.5
+
+    def build(device):
+        return PPOLearner(spec, PPO_LOSS, lr=lr, grad_clip=clip, seed=SEED, device=device)
+
+    batch = rl_batch("ppo", np.random.RandomState(SEED + 12), n=2 * RL_PPO["minibatch_size"],
+                     obs_dim=4)
+    t0 = time.perf_counter()
+    group = LearnerGroup(build, num_learners=2, num_gpus_per_learner=0.5)
+    try:
+        actors = group._manager.actors
+        devices = rt.get([a.get_device.remote() for a in actors], timeout=180)
+        start_s = time.perf_counter() - t0
+        metrics = group.update_from_batch(batch)
+        w = rt.get([a.get_weights.remote() for a in actors], timeout=60)
+    finally:
+        group.shutdown()
+    local = build("cuda")
+    local.apply_gradients(_mean_tree([local.compute_gradients(shard)[0]
+                                      for shard in _shard_batch(batch, 2)]))
+    out = {"devices": devices, "start_s": start_s, "total_loss": metrics["total_loss"],
+           "actors_max_abs": rl_tree_err(w[1], w[0])[0],
+           "vs_local_max_abs": rl_tree_err(w[0], local.get_weights())[0]}
+    emit({"phase": "rllib", "part": "learner_group", **out})
+    check(all(d.startswith("cuda") for d in devices), f"the learner actors are on {devices}")
+    check(out["actors_max_abs"] == 0.0, f"the two learner actors differ: {out}")
+    check(out["vs_local_max_abs"] <= RL_UPDATE_ATOL,
+          f"the averaged update is off a local learner's on the mean gradients: {out}")
+    return out
+
+
+def rllib_phase(fa) -> dict:
+    """Phase 11 (11a-d). Returns the flash launches it made (none: RLlib's
+    modules are MLPs)."""
+    import tempfile
+
+    import ray_tpu_torch as rt
+
+    t0 = time.perf_counter()
+    before = dict(fa.launches)
+    parity = rl_learner_parity()
+    storage = tempfile.mkdtemp(prefix="ray_tpu_torch_smoke_rl_")
+    rt.init(num_cpus=4)
+    try:
+        algo, learn = rl_learn_cartpole(rt)
+        try:
+            ckpt = rl_checkpoint(algo, storage)
+        finally:
+            algo.stop()
+        group = rl_learner_group(rt)
+    finally:
+        rt.shutdown()
+        shutil.rmtree(storage, ignore_errors=True)
+    launches = {k: fa.launches[k] - before[k] for k in before}
+    worst = {"metric_err": max(max(r["metric_err"], *r["update_metric_err"])
+                               for r in parity.values()),
+             "grad_rel_l2": max(r["grad_rel_l2"] for r in parity.values()),
+             "update_max_abs": max(max(r["update_max_abs"]) for r in parity.values())}
+    emit({"phase": "rllib", "seconds": time.perf_counter() - t0, "learner_worst": worst,
+          "iterations_to_threshold": learn["iterations"],
+          "env_steps_per_s": learn["env_steps_per_s"],
+          "update_ms_host": learn["update_ms_host"],
+          "device_ms_per_update": learn["device_ms_per_update"],
+          "learner_idle_share": learn["learner_idle_share"],
+          "group_in_sync": group["actors_max_abs"] == 0.0,
+          "checkpoint_weights_equal": ckpt["weights_max_abs"] == 0.0, "launches": launches})
+    check(not any(launches.values()), f"RLlib launched flash kernels: {launches}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1902,11 +2240,12 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     collective_launches = collective_phase()
+    rllib_launches = rllib_phase(fa)
 
     kernels = []
     for name, key, replaces in KERNELS:
         n = (fwd_launches[key] + train_launches[key] + trainer_launches[key] + bench_launches[key]
-             + mesh_launches[key] + collective_launches[key])
+             + mesh_launches[key] + collective_launches[key] + rllib_launches[key])
         kernels.append({"name": name, "route": "cuda", "source": SOURCE, "replaces": replaces,
                         "launches": n, **rows[key]})
         check(n > 0, f"{name} was not launched on the main path")

@@ -218,16 +218,41 @@ def synth_block(batch, rows: int, size: int, num_classes: int) -> dict:
     return {"image": images.reshape(rows, size * size * 3), "label": labels.astype(np.int64)}
 
 
+def rows_diff(labels, row_sums, n_blocks: int, rows: int, size: int, num_classes: int,
+              batch: int) -> dict:
+    """The (label, byte sum) pairs of the rows a consumer read, in read
+    order, against those of the n_blocks blocks synth_block makes, as
+    multisets: "missing" made rows not read, each with its block and row;
+    "extra" read rows not made, each with its position, its batch (position
+    // batch) and the (block, row) whose bytes have its byte sum, if any.
+    Both empty when every row was read once with its own label and bytes."""
+    made = {}
+    for blk in range(n_blocks):
+        b = synth_block({"id": np.array([blk])}, rows, size, num_classes)
+        sums = b["image"].sum(axis=1, dtype=np.int64).tolist()
+        for r, pair in enumerate(zip(b["label"].tolist(), sums)):
+            made.setdefault(pair, []).append((blk, r))
+    of_bytes = {pair[1]: where[0] for pair, where in made.items()}
+    missing = {pair: list(where) for pair, where in made.items()}
+    extra = []
+    for i, pair in enumerate(zip(labels, row_sums)):
+        if missing.get(pair):
+            missing[pair].pop()
+        else:
+            extra.append({"label": pair[0], "byte_sum": pair[1], "position": i,
+                          "batch": i // batch, "bytes_of": of_bytes.get(pair[1])})
+    missing = [{"label": pair[0], "byte_sum": pair[1], "block": blk, "row": r}
+               for pair, where in missing.items() for blk, r in where]
+    return {"missing": missing, "extra": extra}
+
+
 def rows_intact(labels, row_sums, n_blocks: int, rows: int, size: int,
                 num_classes: int) -> bool:
     """Whether the (label, byte sum) pairs of the rows a consumer read are,
     in any order, those of the n_blocks blocks synth_block makes: every row
     once, each with its own label and bytes."""
-    want = []
-    for blk in range(n_blocks):
-        b = synth_block({"id": np.array([blk])}, rows, size, num_classes)
-        want += zip(b["label"].tolist(), b["image"].sum(axis=1, dtype=np.int64).tolist())
-    return sorted(zip(labels, row_sums)) == sorted(want)
+    diff = rows_diff(labels, row_sums, n_blocks, rows, size, num_classes, batch=1)
+    return not diff["missing"] and not diff["extra"]
 
 
 def make_dataset(n_blocks: int, rows: int, size: int, num_classes: int):
@@ -406,9 +431,12 @@ def phase_e2e(device: str) -> dict:
             datasets={"train": make_ds()},
         ).fit()
         worker = result.metrics
-        if not rows_intact(worker["labels"], worker["row_sums"], n_blocks, rows, size,
-                           model["num_classes"]):
-            raise RuntimeError("the e2e worker's step read rows that synth_block did not make")
+        diff = rows_diff(worker["labels"], worker["row_sums"], n_blocks, rows, size,
+                         model["num_classes"], batch)
+        if diff["missing"] or diff["extra"]:
+            # Which rows, batches and blocks: the clue to a fault seen once.
+            raise RuntimeError("the e2e worker's step read rows that synth_block did not "
+                               f"make: {json.dumps(diff)[:6000]}")
 
         # breakdown: ingest-only (the whole warm pipeline, no device work)
         shard = make_ds().streaming_split(1)[0]

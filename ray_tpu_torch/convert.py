@@ -5,7 +5,9 @@ stacked on a leading [L] layer axis; the port keeps one `Block` per layer,
 with the same names and orientation. `resnet_init` returns a dict with a
 list of block dicts; the port keeps the names, with convolution weights
 OIHW where the reference's are HWIO and each batch norm's running mean and
-var as buffers. Both directions go through numpy.
+var as buffers. An RLlib module's params are lists of {"w": [in, out], "b"}
+per net (plus SAC's `log_alpha`); the port's modules hold each as a Dense
+layer with `weight` [out, in]. Both directions go through numpy.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ from ray_tpu_torch.models.transformer import (
     Transformer,
     TransformerConfig,
 )
+from ray_tpu_torch.rllib.core import rl_module
 
 
 def _put(tensor, value) -> None:
@@ -118,3 +121,17 @@ def resnet_params_to_numpy(model: ResNet, grads: bool = False) -> Dict[str, Any]
             node = node.setdefault(key, {}) if isinstance(node, dict) else node[key]
         node[path[-1]] = np.ascontiguousarray(value)
     return tree
+
+
+def rl_module_from_jax(params: Dict[str, Any], spec: rl_module.RLModuleSpec, kind: str,
+                       device="cuda") -> torch.nn.Module:
+    """The RLlib module of `kind` ("pi_vf", "q" or "sac") for `spec`, holding
+    a ray_tpu.rllib param tree (numpy, or anything np.asarray takes)."""
+    module = rl_module.make_module(kind, spec, torch.Generator().manual_seed(0))
+    return rl_module.load_tree(module, params).to(device)
+
+
+def rl_module_to_numpy(module: torch.nn.Module, grads: bool = False) -> Dict[str, Any]:
+    """The module's parameters (or their .grad) as a ray_tpu.rllib-shaped
+    tree of numpy arrays."""
+    return rl_module.tree_of(module, (lambda p: p.grad) if grads else None)

@@ -213,6 +213,31 @@ def _bare_first_loss(first_labels) -> float:
     return float(m["loss"])
 
 
+def test_rows_diff_names_missing_and_extra_rows():
+    """The e2e check's diagnostic: rows read in order against the rows
+    synth_block makes. A row whose bytes belong to another block shows as
+    one extra (its position, batch and the block its bytes came from) and
+    one missing (its own block and row); intact reads show neither."""
+    from ray_tpu_torch.bench import rows_diff, rows_intact
+
+    n_blocks, rows, size, classes = 3, 8, 16, 10
+    labels, sums = [], []
+    for blk in range(n_blocks):
+        b = synth_block({"id": np.array([blk])}, rows, size, classes)
+        labels += b["label"].tolist()
+        sums += b["image"].sum(axis=1, dtype=np.int64).tolist()
+    assert rows_diff(labels[::-1], sums[::-1], n_blocks, rows, size, classes, 4) == {
+        "missing": [], "extra": []}
+    bad = list(sums)
+    bad[5] = sums[2 * rows + 1]  # block 0's row 5 read with block 2's row 1's bytes
+    diff = rows_diff(labels, bad, n_blocks, rows, size, classes, 4)
+    assert diff["extra"] == [{"label": labels[5], "byte_sum": sums[2 * rows + 1], "position": 5,
+                              "batch": 1, "bytes_of": (2, 1)}]
+    assert diff["missing"] == [{"label": labels[5], "byte_sum": sums[5], "block": 0, "row": 5}]
+    assert rows_intact(labels, sums, n_blocks, rows, size, classes)
+    assert not rows_intact(labels, bad, n_blocks, rows, size, classes)
+
+
 @pytest.mark.timeout(180)
 def test_e2e_loop_counts_every_image_once_and_steps_as_bare(torch_cluster, tmp_path):  # noqa: F811
     from ray_tpu_torch.bench import make_dataset, rows_intact

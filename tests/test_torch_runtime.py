@@ -1,8 +1,9 @@
-"""The port's runtime copy (ray_tpu_torch's core, placement groups and train
-modules) against ray_tpu's: the same core drive through both packages, no
-jax and no ray_tpu module in the port's processes, GPUs as a cluster
-resource, and a drift test that holds each copied module to its ray_tpu
-counterpart's text after the rename."""
+"""The port's runtime copy (ray_tpu_torch's core, placement groups, train,
+data, dag, collective and the jax-free rllib modules) against ray_tpu's:
+the same core drive through both packages, no jax and no ray_tpu module in
+the port's processes, GPUs as a cluster resource, and a drift test that
+holds each copied module to its ray_tpu counterpart's text after the
+rename."""
 
 import json
 import os
@@ -188,6 +189,19 @@ def test_collective_and_dag_load_without_jax():
     assert out.stdout.strip().splitlines()[-1] == "[]"
 
 
+@pytest.mark.timeout(60)
+def test_rllib_loads_without_jax_or_gymnasium():
+    """import ray_tpu_torch.rllib loads no jax, optax or ray_tpu module, and
+    not gymnasium either: only a runner of a named env imports it."""
+    code = ("import sys; import ray_tpu_torch.rllib; "
+            f"print(sorted(m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN + ('gymnasium',)!r}))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
+                         timeout=60)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip().splitlines()[-1] == "[]"
+
+
 @pytest.mark.timeout(90)
 def test_unported_branches_raise_not_implemented(torch_cluster):  # noqa: F811
     @ray_tpu_torch.remote
@@ -240,6 +254,11 @@ COPIED = [
     *(f"data/{m}.py" for m in (
         "__init__", "_execution", "block", "dataset", "datasource", "iterator",
         "tensor_extension")),
+    *(f"rllib/{m}.py" for m in (
+        "__init__", "core/__init__", "env/__init__", "algorithms/__init__", "utils/__init__",
+        "env/env_runner_group", "env/multi_agent_env", "utils/actor_manager",
+        "utils/replay_buffer", "utils/offline", "algorithms/algorithm_config",
+        "algorithms/algorithm")),
 ]
 
 # The modules of the copy that differ from ray_tpu's after the rename, and
@@ -280,6 +299,13 @@ DIFFERS = {
     "train/base_trainer.py": "as_trainable raises: ray_tpu.tune is not ported",
     "data/iterator.py": "the _finalize_fn docstring names the torch host->device copy, "
                         "not jax.device_put",
+    "rllib/__init__.py": "the docstring describes torch modules and learners on the card",
+    "rllib/algorithms/algorithm_config.py": "num_gpus_per_learner replaces num_tpus_per_learner; "
+                                            "learners(device=...) sets learner_device "
+                                            "(None means cuda)",
+    "rllib/algorithms/algorithm.py": "every learner group gets num_gpus_per_learner and the "
+                                     "learners' device; a learner builder is a function of "
+                                     "the device",
 }
 
 
