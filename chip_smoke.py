@@ -4,7 +4,9 @@ GPT-2-small forward and train step through them, bare and through the port's
 runtime and its GPU trainer, the ResNet-50 train step, the port's bench, the
 sharded step on a one-device mesh with ring attention's kernel route, the
 collective groups and a compiled graph's CUDA device edge in runtime actors,
-and RLlib's learners on the card with CPU env runners.
+RLlib's learners on the card with CPU env runners, Serve's GPU replicas
+answering GPT-2-small requests under loadgen, and Tune trials that are GPU
+trainers.
 
     python3 chip_smoke.py            # needs one CUDA card, nvcc, the checkout
 
@@ -94,9 +96,33 @@ Phases, each printing one JSON line:
               learner actors sharing the card (GPU 0.5 each) take one
               averaged update, bitwise in sync; (d) (b)'s checkpoint restored
               into an algorithm whose learner is on the CPU;
+ 12. serve    GPT-2 small (bf16, weights from a seed) in two Serve replicas
+              of GPU 0.5 each, continuous batching up to 8 prompts of 64-1024
+              tokens, right-padded, under inference_mode: (a) 64 seeded
+              prompts through the handle and the HTTP proxy, each answer (the
+              last position's f32 log-probs, the greedy token) against the
+              same prompt alone in f32 and in bf16 on the plain path, by
+              phase 3's rule; (b) loadgen's closed loop at concurrency 16,
+              then its open loop at 5x the calibrated rate with a 1 s
+              deadline: rate, latency percentiles, prompt tokens/s, batch
+              sizes, B1 launches per batch (12, no B2-B4), no overrun and
+              no error, overload as typed sheds; (c) one batch profiled in
+              a replica (device ms, host ms, idle share) beside the same
+              batch bare here; (d) @serve.multiplexed with one model a
+              replica, two seeds in turns: the replica's allocated memory
+              within one model after each eviction, answers equal to bare
+              runs;
+ 13. tune     a Tuner over two learning rates, each trial
+              TorchTrainer(...).as_trainable() with one worker at GPU 0.5
+              (both on the card at once) taking five AdamW steps of the
+              GPT-2-small step at batch 4: each trial's losses against a
+              bare run here, the best result the lower last loss, B2-B4
+              launched in every trial's worker, each trial's times;
 then the kernels line, with each kernel's launches in phases 3, 4, 6, the
-bench's transformer phase and phases 9, 10 and 11 (none: RLlib's modules
-are MLPs). Any failure exits non-zero. The last line is the ok line.
+bench's transformer phase and phases 9-13 (none in 11: RLlib's modules
+are MLPs; the reference and timing runs this script makes itself in 12
+and 13 are not counted). Any failure exits non-zero. The last line is
+the ok line.
 """
 
 from __future__ import annotations
@@ -242,6 +268,34 @@ RL_RUNNERS, RL_ENVS, RL_FRAGMENT = 2, 8, 50
 RL_THRESHOLD, RL_MAX_ITERS = 150, 40
 RL_CHECK_ROWS, RL_CHECK_LR, RL_UPDATES = 256, 1e-3, 3
 RL_METRIC_TOL, RL_GRAD_REL, RL_UPDATE_ATOL, RL_STATE_ATOL = 1e-5, 1e-5, 1e-5, 0.0
+# Phase 12: Serve. GPT-2 small (GPT2_SMALL's widths, bf16, no remat)
+# served by SERVE_REPLICAS replicas at GPU SERVE_GPU each, sharing the card,
+# with continuous batching (up to SERVE_MAX_BATCH requests a call, formed
+# within SERVE_BATCH_WAIT_S); SERVE_PROMPTS prompts of int32 tokens, their
+# lengths drawn from a seed in SERVE_PROMPT_LENS. 12a holds the served
+# log-probs by phase 3's rule (LOGITS_MEAN_RATIO, LOGITS_MAX_RATIO: no
+# further from f32 than the plain bf16 path on each prompt alone), and the
+# greedy token to f32's wherever f32's top-2 margin is above
+# GREEDY_MARGIN_RATIO times the plain bf16 path's max abs error on that
+# prompt: each of the two tokens may move by the served path's error, at
+# most LOGITS_MAX_RATIO times bf16's. SERVE_HTTP: the card's machine has
+# aiohttp, so 12a sends every prompt through the HTTP proxy too. 12b runs
+# loadgen at SERVE_CONCURRENCY for SERVE_CLOSED_S, then the open loop at
+# SERVE_OVERLOAD times the calibrated rate for SERVE_OPEN_S, deadline
+# SERVE_TIMEOUT_S (loadgen.run_smoke's settings). 12d's multiplexed replica
+# keeps one model: after each eviction its allocated memory is within one
+# model's bytes plus SERVE_MUX_SLACK (what a request leaves allocated).
+SERVE_REPLICAS, SERVE_GPU, SERVE_MAX_BATCH, SERVE_BATCH_WAIT_S = 2, 0.5, 8, 0.01
+SERVE_PROMPTS, SERVE_PROMPT_LENS, SERVE_CONCURRENCY = 64, (64, 1024), 16
+SERVE_CLOSED_S, SERVE_OPEN_S, SERVE_OVERLOAD, SERVE_TIMEOUT_S = 5.0, 5.0, 5.0, 1.0
+GREEDY_MARGIN_RATIO = 2 * LOGITS_MAX_RATIO
+SERVE_HTTP = True
+SERVE_MUX_SEEDS, SERVE_MUX_SLACK = (SEED + 20, SEED + 21), 64 << 20
+# Phase 13: Tune. A grid over TUNE_LRS, each trial a TorchTrainer with one
+# worker at GPU TUNE_GPU (both trials on the card at once) taking
+# TUNE_STEPS AdamW steps of the GPT-2-small step at TUNE_BATCH x SEQ; each
+# trial's losses within LOSS_BOUND of a bare run in this process.
+TUNE_LRS, TUNE_GPU, TUNE_BATCH, TUNE_STEPS = (3e-4, 1e-3), 0.5, 4, 5
 
 KERNELS = [  # name, launch-count key, TPU kernel it replaces
     ("flash_fwd", "fwd", "ray_tpu/ops/flash_attention.py:35"),
@@ -263,6 +317,11 @@ def emit(obj) -> None:
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise SmokeFailure(what)
+
+
+def forbidden_modules() -> list:
+    """The modules of this process the port must never load."""
+    return sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "optax", "ray_tpu"))
 
 
 def max_err(a, b) -> float:
@@ -910,8 +969,7 @@ def trainer_loop(config) -> None:
         "max_memory_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
         "launches": run["launches"],
         "library": importlib.import_module("ray_tpu_torch.ops.flash_attention")._kernels()._name,
-        "forbidden_modules": [m for m in sys.modules
-                              if m.split(".")[0] in ("jax", "jaxlib", "optax", "ray_tpu")],
+        "forbidden_modules": forbidden_modules(),
     }})
 
 
@@ -2192,6 +2250,554 @@ def rllib_phase(fa) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------- phase 12
+
+def serving_config(tr):
+    """Phase 12's model: GPT2_SMALL for inference (no remat)."""
+    return tr.TransformerConfig(**{**GPT2_SMALL, "remat": False})
+
+
+def serve_prompts(n: int, seed: int, vocab: int) -> list:
+    """n prompts of int32 token ids, their lengths drawn in SERVE_PROMPT_LENS."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    lo, hi = SERVE_PROMPT_LENS
+    return [rng.randint(0, vocab, rng.randint(lo, hi + 1)).astype(np.int32) for _ in range(n)]
+
+
+def serve_batch(tr, model, prompts, dev) -> tuple:
+    """What a replica computes for a batch: the prompts right-padded to the
+    longest, transformer_apply under inference_mode, and for each prompt the
+    f32 log-probs at its last real position (causal: padding never reaches
+    it) and the greedy token. Returns (log-probs [n, V] numpy, tokens)."""
+    lengths = [len(p) for p in prompts]
+    tokens = torch.zeros((len(prompts), max(lengths)), dtype=torch.long)
+    for i, p in enumerate(prompts):
+        tokens[i, :len(p)] = torch.from_numpy(p)
+    with torch.inference_mode():
+        logits = tr.transformer_apply(model, tokens.to(dev))
+        last = logits[torch.arange(len(prompts), device=dev),
+                      torch.tensor(lengths, device=dev) - 1]
+        logp = torch.log_softmax(last.float(), dim=-1)
+        return logp.cpu().numpy(), logp.argmax(dim=-1).cpu().tolist()
+
+
+def batch_times(tr, model, prompts, dev, reps: int = 3) -> dict:
+    """One batch's time on the host's clock (mean of `reps` unprofiled runs,
+    synchronised at the ends), its device time and launches (one profiled
+    run: kernels and copies), and the idle share, 1 - device / host."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    serve_batch(tr, model, prompts, dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        serve_batch(tr, model, prompts, dev)
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) / reps * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        serve_batch(tr, model, prompts, dev)
+        torch.cuda.synchronize()
+    device = [e for e in prof.events()
+              if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+    device_ms = sum(e.time_range.elapsed_us() / 1e3 for e in device)
+    return {"batch": len(prompts), "padded_to": max(len(p) for p in prompts), "host_ms": host_ms,
+            "device_ms": device_ms, "device_launches": len(device),
+            "idle_share": 1 - device_ms / host_ms}
+
+
+class GPT2Server:
+    """Phase 12's deployment: GPT-2 small on this replica's card, weights
+    from `seed`. A call gets a batch (the replica's continuous batching,
+    max_batch_size SERVE_MAX_BATCH) of prompts, each an int32 array or an
+    HTTP request whose body is one, and answers each with its last
+    position's f32 log-probs and greedy token (bytes for HTTP: the log-probs
+    then the token, little-endian). One batch runs on the card at a time,
+    so each batch's flash launches are read exactly."""
+
+    def __init__(self, seed: int):
+        import collections
+        import threading
+
+        from ray_tpu_torch.models import transformer as tr
+
+        if not torch.cuda.is_available():
+            raise RuntimeError("a GPT2Server replica needs a CUDA card")
+        self.tr = tr
+        self.fa = importlib.import_module("ray_tpu_torch.ops.flash_attention")
+        self.dev = torch.device("cuda", torch.cuda.current_device())
+        gen = torch.Generator(device=self.dev).manual_seed(seed)
+        self.model = tr.transformer_init(serving_config(tr), gen, device=self.dev)
+        self.lock = threading.Lock()
+        self.sizes = collections.Counter()
+        self.launches = []  # per batch: {kernel key: launches}
+
+    def __call__(self, batch):
+        import numpy as np
+
+        prompts = [np.frombuffer(x.body, dtype=np.int32).copy() if hasattr(x, "body") else x
+                   for x in batch]
+        with self.lock:
+            before = dict(self.fa.launches)
+            logp, greedy = serve_batch(self.tr, self.model, prompts, self.dev)
+            self.launches.append({k: self.fa.launches[k] - before[k] for k in before})
+            self.sizes[len(batch)] += 1
+        return [row.tobytes() + np.int32(g).tobytes() if hasattr(x, "body") else (row, g)
+                for x, row, g in zip(batch, logp, greedy)]
+
+    def stats(self) -> dict:
+        return {"device": str(self.dev), "device_name": torch.cuda.get_device_name(self.dev),
+                "pid": os.getpid(), "sizes": dict(sorted(self.sizes.items())),
+                "launches": self.launches, "forbidden_modules": forbidden_modules()}
+
+    def profile_batch(self, prompts) -> dict:
+        with self.lock:
+            return batch_times(self.tr, self.model, prompts, self.dev)
+
+
+def mux_server_class(serve):
+    """12d's deployment: one replica holding at most one GPT-2 small model,
+    loaded by @serve.multiplexed from the request's model id (a seed).
+    Each answer carries the card's allocated bytes after the request."""
+
+    class MuxServer:
+        def __init__(self):
+            from ray_tpu_torch.models import transformer as tr
+
+            if not torch.cuda.is_available():
+                raise RuntimeError("a MuxServer replica needs a CUDA card")
+            self.tr = tr
+            self.dev = torch.device("cuda", torch.cuda.current_device())
+            self.base = torch.cuda.memory_allocated(self.dev)
+            self.loads = []
+
+        @serve.multiplexed(max_num_models_per_replica=1)
+        async def get_model(self, model_id: str):
+            self.loads.append(model_id)
+            gen = torch.Generator(device=self.dev).manual_seed(int(model_id))
+            return self.tr.transformer_init(serving_config(self.tr), gen, device=self.dev)
+
+        async def __call__(self, prompt):
+            torch.cuda.reset_peak_memory_stats(self.dev)
+            model = await self.get_model(serve.get_multiplexed_model_id())
+            logp, greedy = serve_batch(self.tr, model, [prompt], self.dev)
+            del model
+            return {"logp": logp[0], "greedy": greedy[0], "loads": list(self.loads),
+                    "allocated": torch.cuda.memory_allocated(self.dev) - self.base,
+                    "peak": torch.cuda.max_memory_allocated(self.dev) - self.base}
+
+    return MuxServer
+
+
+class PromptRouter:
+    """The router loadgen drives, handing each request the next of the
+    seeded prompts in turn (loadgen sends one payload for all), and counting
+    the prompt tokens of the requests that were answered."""
+
+    def __init__(self, router, prompts):
+        self.router, self.prompts = router, prompts
+        self.sent = 0
+        self.answered_tokens = 0
+
+    async def assign_request(self, dep, meta, args, kwargs, timeout_s=None):
+        prompt = self.prompts[self.sent % len(self.prompts)]
+        self.sent += 1
+        out = await self.router.assign_request(dep, meta, (prompt,), kwargs, timeout_s=timeout_s)
+        self.answered_tokens += len(prompt)
+        return out
+
+
+def replica_actors(rt, worker_mod, app: str) -> list:
+    """The replica actors of an application, by their registered names."""
+    reply = worker_mod.global_worker.run_async(
+        worker_mod._core().gcs.call("ListNamedActors", {"namespace": "serve"}))
+    names = sorted(n for n in reply.get("names", []) if n.startswith(f"SERVE_REPLICA::{app}#"))
+    return [rt.get_actor(n, namespace="serve") for n in names]
+
+
+def call_replica(rt, actor, method: str, timeout: float = 300, **kwargs):
+    """A user method of a replica, called on that replica (keyword
+    arguments: never batched)."""
+    return rt.get(actor.handle_request.remote({"call_method": method}, (), kwargs),
+                  timeout=timeout)
+
+
+def served_vs_f32(tr, model, prompts, served, dev) -> dict:
+    """12a's rule, phase 3's: each prompt alone through the same weights on
+    the plain path in f32 (TF32 off, the truth) and in bf16; the served
+    log-probs no further from f32 than bf16's, mean and max abs error over
+    all prompts within LOGITS_MEAN_RATIO and LOGITS_MAX_RATIO. The greedy
+    token must be f32's wherever f32's top-2 margin is above
+    GREEDY_MARGIN_RATIO times the bf16 plain path's max abs error on that
+    prompt."""
+    import numpy as np
+
+    cfg = serving_config(tr)
+    refs = {}
+    for name, c in (("plain_bf16", dataclasses.replace(cfg, attention_impl="torch")),
+                    ("f32", dataclasses.replace(cfg, attention_impl="torch", dtype=torch.float32))):
+        m = tr.Transformer(c, dev)
+        m.load_state_dict(model.state_dict())
+        refs[name] = [serve_batch(tr, m, [p], dev) for p in prompts]
+        del m
+    truth = np.stack([r[0][0] for r in refs["f32"]])
+    plain = np.stack([r[0][0] for r in refs["plain_bf16"]])
+    got = np.stack([s[0] for s in served])
+    err = {"served_bf16": np.abs(got - truth), "plain_bf16": np.abs(plain - truth)}
+    stats = {k: {"mean_abs_err": float(e.mean()), "max_abs_err": float(e.max())}
+             for k, e in err.items()}
+    top2 = np.sort(truth, axis=1)[:, -2:]
+    margin = top2[:, 1] - top2[:, 0]
+    limit = GREEDY_MARGIN_RATIO * err["plain_bf16"].max(axis=1)
+    decided = margin > limit
+    f32_greedy = truth.argmax(axis=1)
+    served_greedy = np.array([s[1] for s in served])
+    return {"prompts": len(prompts), "vs_f32": stats,
+            "ratios": {"mean": stats["served_bf16"]["mean_abs_err"] / stats["plain_bf16"]["mean_abs_err"],
+                       "max": stats["served_bf16"]["max_abs_err"] / stats["plain_bf16"]["max_abs_err"]},
+            "worst_prompt_max_ratio": float((err["served_bf16"].max(axis=1)
+                                             / err["plain_bf16"].max(axis=1)).max()),
+            "greedy_decided": int(decided.sum()),
+            "greedy_mismatch_where_decided": int((served_greedy != f32_greedy)[decided].sum()),
+            "greedy_equal_all": int((served_greedy == f32_greedy).sum()),
+            "finite": bool(np.isfinite(got).all()), "shape": list(got.shape)}
+
+
+def http_answers(base: str, prompts) -> list:
+    """The prompts through the HTTP proxy, SERVE_CONCURRENCY at a time:
+    (log-probs, greedy token) from each answer's bytes."""
+    import concurrent.futures
+    import urllib.request
+
+    import numpy as np
+
+    def one(p):
+        body = urllib.request.urlopen(urllib.request.Request(f"{base}/gpt2", data=p.tobytes()),
+                                      timeout=120).read()
+        return np.frombuffer(body[:-4], dtype=np.float32), int(np.frombuffer(body[-4:], np.int32)[0])
+
+    with concurrent.futures.ThreadPoolExecutor(SERVE_CONCURRENCY) as pool:
+        return list(pool.map(one, prompts))
+
+
+def handle_answers(handle, prompts) -> list:
+    """The prompts through the DeploymentHandle, SERVE_CONCURRENCY in flight."""
+    out = []
+    for i in range(0, len(prompts), SERVE_CONCURRENCY):
+        responses = [handle.remote(p) for p in prompts[i:i + SERVE_CONCURRENCY]]
+        out.extend(r.result(timeout_s=300) for r in responses)
+    return out
+
+
+def serve_load(worker_mod, loadgen, handle_mod, prompts, dep: str) -> tuple:
+    """12b: loadgen's closed loop at SERVE_CONCURRENCY for SERVE_CLOSED_S,
+    then its open loop at SERVE_OVERLOAD times the calibrated rate for
+    SERVE_OPEN_S, deadline SERVE_TIMEOUT_S each, as loadgen.run_smoke runs
+    them. Returns (to_gate_json's dict, closed-loop prompt tokens/s)."""
+
+    async def phases():
+        router = await handle_mod._get_router()
+        closed_router = PromptRouter(router, prompts)
+        closed = await loadgen.closed_loop(closed_router, dep, concurrency=SERVE_CONCURRENCY,
+                                           duration_s=SERVE_CLOSED_S, timeout_s=SERVE_TIMEOUT_S)
+        rate = closed.ok / max(closed.duration_s, 1e-9)
+        opened = await loadgen.open_loop(PromptRouter(router, prompts), dep,
+                                         rps=rate * SERVE_OVERLOAD, duration_s=SERVE_OPEN_S,
+                                         timeout_s=SERVE_TIMEOUT_S)
+        return closed, opened, closed_router.answered_tokens / closed.duration_s, \
+            router.stats().get(dep, {})
+
+    closed, opened, tokens_per_s, router_stats = worker_mod.global_worker.run_async(
+        phases(), timeout=SERVE_CLOSED_S + SERVE_OPEN_S + 300)
+    out = loadgen.to_gate_json(closed, opened)
+    out["router"] = router_stats
+    return out, tokens_per_s
+
+
+def serve_multiplexed(rt, serve, tr, dev, prompts) -> dict:
+    """12d: MuxServer at GPU SERVE_GPU, the model ids SERVE_MUX_SEEDS asked
+    for in turns, one prompt each: after every eviction the replica's
+    allocated memory is within one model's bytes plus SERVE_MUX_SLACK, and
+    each answer equals a bare run of that seed's model on the same prompt."""
+    import numpy as np
+
+    app = serve.deployment(num_replicas=1, ray_actor_options={"num_gpus": SERVE_GPU},
+                           health_check_timeout_s=300.0)(mux_server_class(serve))
+    handle = serve.run(app.bind(), name="mux", route_prefix=None, _timeout_s=300)
+    order = [SERVE_MUX_SEEDS[i % 2] for i in range(2 * len(SERVE_MUX_SEEDS))]
+    answers = [handle.options(multiplexed_model_id=str(seed)).remote(prompts[i]).result(timeout_s=300)
+               for i, seed in enumerate(order)]
+    serve.delete("mux")
+    cfg = serving_config(tr)
+    diffs = []
+    for i, seed in enumerate(order):
+        model = tr.transformer_init(cfg, torch.Generator(device=dev).manual_seed(seed), device=dev)
+        if i == 0:
+            model_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+        logp, greedy = serve_batch(tr, model, [prompts[i]], dev)
+        diffs.append(float(np.abs(answers[i]["logp"] - logp[0]).max())
+                     + float(answers[i]["greedy"] != greedy[0]))
+        del model
+    return {"order": order, "loads": answers[-1]["loads"], "model_bytes": model_bytes,
+            "slack_bytes": SERVE_MUX_SLACK,
+            "allocated_after": [a["allocated"] for a in answers],
+            "peak_during": [a["peak"] for a in answers],
+            "max_abs_vs_bare": diffs}
+
+
+def serve_phase(tr, fa, dev) -> dict:
+    """Phase 12 (12a-12d): GPT-2 small served by SERVE_REPLICAS GPU replicas
+    sharing the card, then a multiplexed replica. Returns the flash launches
+    of every replica (the main path's: the reference runs made here are not
+    counted)."""
+    import numpy as np
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import loadgen, serve
+    from ray_tpu_torch._private import worker as worker_mod
+    from ray_tpu_torch.serve import handle as handle_mod
+
+    t0 = time.perf_counter()
+    cfg = serving_config(tr)
+    prompts = serve_prompts(SERVE_PROMPTS, SEED + 12, cfg.vocab_size)
+    rt.init(num_cpus=4)
+    try:
+        serve.start(http_options={"host": "127.0.0.1", "port": 0} if SERVE_HTTP
+                    else {"enabled": False})
+        app = serve.deployment(num_replicas=SERVE_REPLICAS, max_batch_size=SERVE_MAX_BATCH,
+                               batch_wait_timeout_s=SERVE_BATCH_WAIT_S,
+                               ray_actor_options={"num_gpus": SERVE_GPU},
+                               health_check_timeout_s=300.0)(GPT2Server)
+        handle = serve.run(app.bind(SEED + 12), name="gpt2", route_prefix="/gpt2",
+                           _timeout_s=300)
+        start_s = time.perf_counter() - t0
+        gpu_free = rt.available_resources().get("GPU", 0.0)
+        # 12a: every prompt through the handle (and the HTTP proxy), each
+        # answer against f32.
+        served = handle_answers(handle, prompts)
+        received = [(row.copy(), g) for row, g in served]  # the answers as they came
+        via_http = None
+        if SERVE_HTTP:
+            controller = rt.get_actor("SERVE_CONTROLLER", namespace="serve")
+            http = rt.get(controller.get_http_config.remote())
+            via_http = http_answers(f"http://{http['host']}:{http['port']}", prompts)
+        # 12b: load.
+        gate, tokens_per_s = serve_load(worker_mod, loadgen, handle_mod, prompts, f"gpt2#{app.name}")
+        # 12c: one batch profiled in a replica.
+        replicas = replica_actors(rt, worker_mod, "gpt2")
+        batch = prompts[:SERVE_MAX_BATCH]
+        in_replica = call_replica(rt, replicas[0], "profile_batch", prompts=batch)
+        t1 = time.perf_counter()
+        one = [handle.remote(p) for p in batch]
+        [r.result(timeout_s=300) for r in one]
+        batch_round_trip_ms = (time.perf_counter() - t1) * 1e3
+        stats = [call_replica(rt, a, "stats") for a in replicas]
+        metrics = [rt.get(a.get_metrics.remote(), timeout=60) for a in replicas]
+        serve.delete("gpt2")  # frees the card for 12d's replica
+        mux = serve_multiplexed(rt, serve, tr, dev, prompts)
+    finally:
+        serve.shutdown()
+        rt.shutdown()
+
+    model = tr.transformer_init(cfg, torch.Generator(device=dev).manual_seed(SEED + 12), device=dev)
+    accuracy = served_vs_f32(tr, model, prompts, received, dev)
+    http_equal = None if via_http is None else all(
+        np.array_equal(a[0], b[0]) and a[1] == b[1] for a, b in zip(via_http, received))
+    # An answer held since 12a (a zero-copy view where the object store
+    # allows one) must still read what it read then.
+    held_changed = [i for i, (a, b) in enumerate(zip(served, received))
+                    if not np.array_equal(a[0], b[0], equal_nan=True)]
+    bare = batch_times(tr, model, batch, dev)
+    del model
+    per_batch = [b for s in stats for b in s["launches"]]
+    launches = {key: sum(b[key] for b in per_batch) for _, key, _ in KERNELS}
+    line = {
+        "phase": "serve", "replicas": SERVE_REPLICAS, "gpu_per_replica": SERVE_GPU,
+        "gpu_free_with_replicas": gpu_free, "start_s": start_s, "http": SERVE_HTTP,
+        "max_batch_size": SERVE_MAX_BATCH, "prompt_lens": list(SERVE_PROMPT_LENS),
+        "accuracy": accuracy, "bounds": {"mean": LOGITS_MEAN_RATIO, "max": LOGITS_MAX_RATIO,
+                                         "greedy_margin_ratio": GREEDY_MARGIN_RATIO},
+        "http_equal_to_handle": http_equal, "held_answers_changed": held_changed,
+        **{k: gate[k] for k in ("serve_rps", "serve_p50_ms", "serve_p99_ms", "serve_p999_ms",
+                                "serve_goodput_rps", "serve_offered_rps", "serve_shed",
+                                "serve_deadline_cut", "serve_overruns", "serve_errors")},
+        "prompt_tokens_per_s": tokens_per_s,
+        "load_phases": gate["phases"], "router": gate["router"],
+        "batch_sizes": [s["sizes"] for s in stats],
+        "batch_metrics": [m["batch"] for m in metrics],
+        "b1_launches_per_batch": sorted({b["fwd"] for b in per_batch}),
+        "batches": len(per_batch), "launches": launches,
+        "replica_batch": in_replica, "bare_batch": bare,
+        "batch_round_trip_ms": batch_round_trip_ms,
+        "replica_devices": [s["device"] for s in stats],
+        "multiplexed": mux, "seconds": time.perf_counter() - t0,
+    }
+    emit(line)
+    check(accuracy["finite"] and accuracy["shape"] == [SERVE_PROMPTS, cfg.vocab_size],
+          f"served answers: {accuracy['shape']}, finite {accuracy['finite']}")
+    check(accuracy["ratios"]["mean"] <= LOGITS_MEAN_RATIO
+          and accuracy["ratios"]["max"] <= LOGITS_MAX_RATIO,
+          f"served log-probs further from f32 than the plain bf16 path's: {accuracy}")
+    check(accuracy["greedy_mismatch_where_decided"] == 0,
+          f"a served greedy token differs from f32's where the margin decides it: {accuracy}")
+    check(http_equal in (None, True), "the HTTP proxy's answers differ from the handle's")
+    check(not held_changed, f"answers held since 12a changed under later traffic: {held_changed}")
+    check(gate["serve_overruns"] == 0 and gate["serve_errors"] == 0,
+          f"overload gave overruns or errors: {gate['phases']}")
+    check(gate["serve_shed"] + gate["serve_deadline_cut"] > 0,
+          f"the open loop at {SERVE_OVERLOAD}x shed nothing: {gate['phases']['open']}")
+    check(all(s["device"].startswith("cuda") for s in stats) and len(stats) == SERVE_REPLICAS,
+          f"replicas on {[s['device'] for s in stats]}")
+    check(gpu_free == torch.cuda.device_count() - SERVE_REPLICAS * SERVE_GPU,
+          f"{gpu_free} GPU free with the replicas up")
+    check(all(not s["forbidden_modules"] for s in stats),
+          f"a replica imported {[s['forbidden_modules'] for s in stats]}")
+    check(per_batch and all(b["fwd"] == GPT2_SMALL["n_layers"] and b["fwd_lse"] == 0
+                            and b["bwd_dq"] == 0 and b["bwd_dkv"] == 0 for b in per_batch),
+          f"a served batch launched {sorted({tuple(b.values()) for b in per_batch})}, "
+          f"not {GPT2_SMALL['n_layers']} B1 and no B2-B4")
+    check(all(a <= mux["model_bytes"] + SERVE_MUX_SLACK for a in mux["allocated_after"]),
+          f"the multiplexed replica kept more than one model after an eviction: {mux}")
+    check(mux["loads"] == [str(s) for s in mux["order"]],
+          f"the multiplexed replica loaded {mux['loads']} for {mux['order']}")
+    check(all(d == 0.0 for d in mux["max_abs_vs_bare"]),
+          f"multiplexed answers differ from bare runs of their models: {mux['max_abs_vs_bare']}")
+    return launches
+
+
+# ---------------------------------------------------------------- phase 13
+
+def tune_steps(cfg, dev, lr: float) -> dict:
+    """Phase 13's run on `dev`, in a trial's worker or bare in this process: a
+    batch (TUNE_BATCH x SEQ) and the weights drawn in that order from
+    SEED + 13, then TUNE_STEPS AdamW(lr) steps. Each step's loss, the mean
+    step time and the flash launches."""
+    from ray_tpu_torch.models import transformer as tr
+
+    fa = importlib.import_module("ray_tpu_torch.ops.flash_attention")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 13)
+    raw = torch.randint(0, cfg.vocab_size, (TUNE_BATCH, SEQ + 1), device=dev, generator=gen)
+    batch = {"tokens": raw[:, :-1].contiguous(), "targets": raw[:, 1:].contiguous()}
+    init_state, step = tr.make_train_step(cfg, dev, optimizer=functools.partial(tr.adamw, lr=lr))
+    state = init_state(gen)
+    fa.reset_launches()
+    losses = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(TUNE_STEPS):
+        state, m = step(state, batch)
+        losses.append(float(m["loss"]))
+    return {"losses": losses, "step_ms": (time.perf_counter() - t0) / TUNE_STEPS * 1e3,
+            "launches": dict(fa.launches)}
+
+
+def tune_trial_loop(config) -> None:
+    """A Tune trial's TorchTrainer worker: tune_steps at the trial's lr,
+    each step's loss reported as it comes, then a summary report."""
+    from ray_tpu_torch import train
+    from ray_tpu_torch.train.torch import get_device
+
+    started = time.time()
+    dev = get_device()
+    run = tune_steps(config["cfg"], dev, config["lr"])
+    for k, loss in enumerate(run["losses"]):
+        train.report({"step": k, "loss": loss})
+    train.report({"loss": run["losses"][-1], "summary": {
+        "lr": config["lr"], "device": str(dev), "pid": os.getpid(),
+        "loop_started_at": started, "loop_ended_at": time.time(),
+        "step_ms": run["step_ms"], "launches": run["launches"],
+        "forbidden_modules": forbidden_modules()}})
+
+
+def tune_phase(tr, dev) -> dict:
+    """Phase 13: a Tuner over TUNE_LRS, each trial TorchTrainer(...)
+    .as_trainable() with one GPU worker at GPU TUNE_GPU, both trials on the
+    card at once; each trial's losses against a bare run here. Returns the
+    trials' flash launches."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import tune
+    from ray_tpu_torch.air import RunConfig, ScalingConfig
+    from ray_tpu_torch.train.torch import TorchTrainer
+
+    t0 = time.perf_counter()
+    cfg = tr.TransformerConfig(**GPT2_SMALL)
+    bare = {}
+    for lr in TUNE_LRS:
+        t1 = time.perf_counter()
+        bare[lr] = tune_steps(cfg, dev, lr)
+        torch.cuda.synchronize()
+        bare[lr]["seconds"] = time.perf_counter() - t1
+    gc.collect()
+    torch.cuda.empty_cache()
+    storage = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_tune")
+    shutil.rmtree(storage, ignore_errors=True)
+    rt.init(num_cpus=6)  # two trial actors and their two workers, one CPU each
+    try:
+        trainer = TorchTrainer(
+            tune_trial_loop, train_loop_config={"cfg": cfg},
+            scaling_config=ScalingConfig(num_workers=1, use_gpu=True,
+                                         resources_per_worker={"GPU": TUNE_GPU}),
+            run_config=RunConfig(storage_path=storage))
+        fit_start = time.time()
+        grid = tune.Tuner(
+            trainer,
+            param_space={"train_loop_config": {"lr": tune.grid_search(list(TUNE_LRS))}},
+            tune_config=tune.TuneConfig(metric="loss", mode="min",
+                                        max_concurrent_trials=len(TUNE_LRS)),
+            run_config=RunConfig(name="tune", storage_path=storage),
+        ).fit()
+        fit_end = time.time()
+        best = grid.get_best_result()
+    finally:
+        rt.shutdown()
+        shutil.rmtree(storage, ignore_errors=True)
+    trials = {}
+    for trial in grid._trials:
+        steps = {m["step"]: m["loss"] for m in trial.history if "step" in m}
+        summary = next(m["summary"] for m in trial.history if "summary" in m)
+        lr = summary["lr"]
+        trials[lr] = {"losses": [steps[k] for k in sorted(steps)], **summary,
+                      "worker_start_s": summary["loop_started_at"] - fit_start,
+                      "loop_s": summary["loop_ended_at"] - summary["loop_started_at"],
+                      "fit_s": summary["loop_ended_at"] - fit_start,
+                      "error": trial.error}
+    diffs = {lr: max(abs(a - b) for a, b in zip(t["losses"], bare[lr]["losses"]))
+             for lr, t in trials.items()}
+    last = {lr: t["losses"][-1] for lr, t in trials.items()}
+    launches = {key: sum(t["launches"][key] for t in trials.values()) for _, key, _ in KERNELS}
+    spans = sorted((t["loop_started_at"], t["loop_ended_at"]) for t in trials.values())
+    line = {"phase": "tune", "lrs": list(TUNE_LRS), "batch": TUNE_BATCH, "seq": SEQ,
+            "steps": TUNE_STEPS, "gpu_per_trial": TUNE_GPU,
+            "trials": {str(lr): t for lr, t in trials.items()},
+            "bare": {str(lr): {"losses": b["losses"], "step_ms": b["step_ms"],
+                               "seconds": b["seconds"]} for lr, b in bare.items()},
+            "max_loss_diff_vs_bare": {str(lr): d for lr, d in diffs.items()},
+            "loss_bound": LOSS_BOUND, "best_lr": best.metrics["summary"]["lr"],
+            "best_loss": best.metrics["loss"], "tuner_fit_s": fit_end - fit_start,
+            "loops_overlapped": spans[1][0] < spans[0][1],
+            "tail_after_last_loop_s": fit_end - max(t["loop_ended_at"] for t in trials.values()),
+            "launches": launches, "seconds": time.perf_counter() - t0}
+    emit(line)
+    check(sorted(trials) == sorted(TUNE_LRS) and all(t["error"] is None for t in trials.values()),
+          f"the Tuner ran trials {sorted(trials)}: {[t['error'] for t in trials.values()]}")
+    check(all(t["device"].startswith("cuda") for t in trials.values()),
+          f"trials trained on {[t['device'] for t in trials.values()]}")
+    check(all(len(t["losses"]) == TUNE_STEPS for t in trials.values()),
+          "a trial did not report every step's loss")
+    check(all(d <= LOSS_BOUND for d in diffs.values()), f"trials' losses off the bare runs': {diffs}")
+    check(best.metrics["loss"] == min(last.values()) and last[line["best_lr"]] == min(last.values()),
+          f"the best result (lr {line['best_lr']}, loss {best.metrics['loss']}) is not the trial "
+          f"with the lower last loss: {last}")
+    check(all(not t["forbidden_modules"] for t in trials.values()),
+          f"a trial's worker imported {[t['forbidden_modules'] for t in trials.values()]}")
+    for key in ("fwd_lse", "bwd_dq", "bwd_dkv"):
+        check(all(t["launches"][key] > 0 for t in trials.values()),
+              f"{key} was not launched in every trial's worker")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2241,11 +2847,18 @@ def main() -> int:
     torch.cuda.empty_cache()
     collective_launches = collective_phase()
     rllib_launches = rllib_phase(fa)
+    gc.collect()
+    torch.cuda.empty_cache()  # the replicas and the trials' workers need the card's memory
+    serve_launches = serve_phase(tr, fa, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    tune_launches = tune_phase(tr, dev)
 
     kernels = []
     for name, key, replaces in KERNELS:
         n = (fwd_launches[key] + train_launches[key] + trainer_launches[key] + bench_launches[key]
-             + mesh_launches[key] + collective_launches[key] + rllib_launches[key])
+             + mesh_launches[key] + collective_launches[key] + rllib_launches[key]
+             + serve_launches[key] + tune_launches[key])
         kernels.append({"name": name, "route": "cuda", "source": SOURCE, "replaces": replaces,
                         "launches": n, **rows[key]})
         check(n > 0, f"{name} was not launched on the main path")

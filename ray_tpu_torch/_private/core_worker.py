@@ -14,6 +14,7 @@ API (ray_tpu_torch/_private/worker.py) bridges via run_coroutine_threadsafe.
 from __future__ import annotations
 
 import asyncio
+import functools
 import hashlib
 import logging
 import time
@@ -1298,7 +1299,7 @@ class CoreWorker:
         counts: Dict[str, int] = {}
         for oid in oids:
             counts[oid] = counts.get(oid, 0) + 1
-        await self.plasma.release_counts(counts)
+        await self.plasma.release_value_holds(counts)
 
     async def _flush_free_queue(self) -> None:
         if not self._free_queue:
@@ -1434,16 +1435,20 @@ class CoreWorker:
             ref_deserializer=self._deserialize_ref
         ):
             for ref, payload in zip(refs, payloads):
-                value, is_exc = serialization.deserialize(payload)
+                if isinstance(payload, memoryview):
+                    # Plasma-backed zero-copy value: one hold follows the
+                    # value's out-of-band buffers, so the arena bytes stay
+                    # mapped while anything built on them is alive (a numpy
+                    # array in a tuple, a view taken out of it), whether or
+                    # not the ObjectRef lives on, and can be spilled/evicted
+                    # once they are collected (reference: plasma client
+                    # buffer refcounts).
+                    value, is_exc = serialization.deserialize(
+                        payload, on_release=self._value_hold(ref.hex()))
+                else:
+                    value, is_exc = serialization.deserialize(payload)
                 if is_exc:
                     raise value
-                if isinstance(payload, memoryview):
-                    # Plasma-backed zero-copy value: transfer one hold to the
-                    # value's lifetime so the arena bytes stay mapped while
-                    # the value is alive but can be spilled/evicted once it's
-                    # garbage collected, even if the ObjectRef lives on
-                    # (reference: plasma client buffer refcounts).
-                    self._attach_value_hold(ref.hex(), value)
                 values.append(value)
         return values[0] if single else values
 
@@ -1453,16 +1458,12 @@ class CoreWorker:
         self._release_one_queue.append(oid)
         self._wake_flush()
 
-    def _attach_value_hold(self, oid: str, value: Any) -> None:
-        import weakref
-
-        try:
-            weakref.finalize(value, self._queue_release_one, oid)
-        except TypeError:
-            # Not weakref-able (plain containers/scalars): the hold stays
-            # tied to the ObjectRef lifetime (conservative; no corruption,
-            # but such objects cannot be spilled while referenced).
-            pass
+    def _value_hold(self, oid: str):
+        """Move one of this process's holds on `oid` to a value's lifetime:
+        the ObjectRef's release no longer drops it; the returned callback
+        (run when the value's buffers are collected) does."""
+        self.plasma.hold_for_value(oid)
+        return functools.partial(self._queue_release_one, oid)
 
     def _deserialize_ref(self, hex_id, owner_addr):
         return ObjectRef(hex_id, owner_addr, self)

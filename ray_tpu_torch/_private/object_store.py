@@ -135,6 +135,9 @@ class PlasmaClient:
         # Objects this client holds (the raylet counts a hold per ObjGet and
         # will not recycle their bytes until released / disconnect).
         self.held: Dict[str, int] = {}
+        # Of `held`, the holds that follow a value's buffers (hold_for_value):
+        # release_many leaves them to release_value_holds.
+        self.value_held: Dict[str, int] = {}
         # Debounced release batch: oids queued by release() in one loop tick
         # flush as a single ObjRelease call (value drops arrive in bursts
         # when a task's deserialized arguments are collected together).
@@ -243,8 +246,25 @@ class PlasmaClient:
         raise ObjectLostError(f"pull of {oid[:12]} failed: {missing}")
 
     async def release_many(self, oids: List[str]) -> None:
-        """Drop ALL of this client's holds on the given objects."""
-        await self.release_counts({oid: self.held.get(oid, 0) for oid in oids})
+        """Drop this client's holds on the given objects, all but those that
+        follow a value's buffers."""
+        await self.release_counts({oid: self.held.get(oid, 0) - self.value_held.get(oid, 0)
+                                   for oid in oids})
+
+    def hold_for_value(self, oid: str) -> None:
+        """One of this client's holds on `oid` now follows a deserialized
+        value's buffers: release_many keeps it, release_value_holds drops it."""
+        self.value_held[oid] = self.value_held.get(oid, 0) + 1
+
+    async def release_value_holds(self, counts: Dict[str, int]) -> None:
+        """Drop holds that followed values whose buffers were collected."""
+        for oid, n in counts.items():
+            left = self.value_held.get(oid, 0) - n
+            if left > 0:
+                self.value_held[oid] = left
+            else:
+                self.value_held.pop(oid, None)
+        await self.release_counts(counts)
 
     def release(self, oid: str) -> None:
         """Fire-and-forget release (LRU touch + all-holds drop). Coalesced:

@@ -241,12 +241,16 @@ def serialize(value: Any) -> SerializedObject:
     return SerializedObject(header, raw_views, contained, is_exception)
 
 
-def deserialize(region) -> Tuple[Any, bool]:
+def deserialize(region, on_release: Optional[Callable[[], None]] = None) -> Tuple[Any, bool]:
     """Inverse of serialize. ``region`` is a bytes-like over the wire layout.
 
     Returns (value, is_exception). Out-of-band buffers are zero-copy views
     into ``region`` — the caller must keep the backing memory alive as long
-    as the value is (the object store client pins it).
+    as anything built on them is. With ``on_release``, each buffer is handed
+    to the value as a _RegionBuffer, and on_release() runs once, when the
+    last of them is gone: when nothing of the value, or of any array a
+    caller took out of it, can read ``region`` any more (at once when the
+    value kept none).
     """
     view = memoryview(region)
     (header_len,) = _LEN.unpack(view[0:4])
@@ -257,8 +261,51 @@ def deserialize(region) -> Tuple[Any, bool]:
     for off, size in zip(header["o"], header["s"]):
         start = base + off
         bufs.append(view[start : start + size])
+    if on_release is not None:
+        bufs = _region_buffers(bufs, on_release)
     value = pickle.loads(header["p"], buffers=bufs)
     return value, header["e"]
+
+
+class _RegionBuffer:
+    """An out-of-band buffer over the caller's region (a PEP 688 exporter).
+    Whatever is built on it (a numpy array and its views, an Arrow buffer)
+    keeps it alive, so it is collected only when nothing can read the
+    region through it."""
+
+    __slots__ = ("_view", "__weakref__")
+
+    def __init__(self, view: memoryview):
+        self._view = view
+
+    def __buffer__(self, flags: int) -> memoryview:
+        return memoryview(self._view)
+
+    def __release_buffer__(self, view: memoryview) -> None:
+        view.release()
+
+
+def _region_buffers(views: List[memoryview], on_release: Callable[[], None]) -> list:
+    """Wrap each view in a _RegionBuffer; on_release() runs once, after the
+    last wrapper is collected (or now, with no views)."""
+    import weakref
+
+    if not views:
+        on_release()
+        return views
+    lock, left = threading.Lock(), [len(views)]
+
+    def one_gone() -> None:
+        with lock:
+            left[0] -= 1
+            last = left[0] == 0
+        if last:
+            on_release()
+
+    wrapped = [_RegionBuffer(v) for v in views]
+    for w in wrapped:
+        weakref.finalize(w, one_gone)
+    return wrapped
 
 
 def header_buffer_base(region) -> int:

@@ -123,7 +123,7 @@ def init(
         # ray_tpu.util.client, which the port does not have.
         raise NotImplementedError(
             "client mode (ray-tpu://) is not ported: ray_tpu_torch has no "
-            "util.client (not queued in ROADMAP.md)"
+            "util.client yet (queued in ROADMAP.md, item A16b)"
         )
 
     if address == "auto":

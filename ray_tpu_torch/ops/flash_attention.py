@@ -255,12 +255,13 @@ class _FlashAttention(torch.autograd.Function):
 
 
 def _to_bhtd(x, rep: int):
-    """[B, T, Hk, D] -> [B*Hk*rep, T, D], each kv head repeated `rep` times in
-    a row (jnp.repeat on the head axis)."""
+    """[B, T, Hk, D] -> [B*Hk*rep, T, D], contiguous, each kv head repeated
+    `rep` times in a row (jnp.repeat on the head axis). With B = 1 the
+    reshape alone is a strided view, which the kernels refuse."""
     if rep > 1:
         x = x.repeat_interleave(rep, dim=2)
     B, T, H, D = x.shape
-    return x.transpose(1, 2).reshape(B * H, T, D)
+    return x.transpose(1, 2).reshape(B * H, T, D).contiguous()
 
 
 def flash_attention(q, k, v, *, causal: bool = False, scale: Optional[float] = None):

@@ -94,7 +94,7 @@ class RemoteFunction:
         """Lazy task node for workflows: ray_tpu.workflow is not ported."""
         raise NotImplementedError(
             "workflows (fn.bind) are not ported: ray_tpu_torch has no "
-            "workflow module (not queued in ROADMAP.md)"
+            "workflow module yet (queued in ROADMAP.md, item A16b)"
         )
 
     def _remote(self, args, kwargs):

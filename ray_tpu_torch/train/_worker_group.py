@@ -19,6 +19,10 @@ from ray_tpu_torch.train import _session
 from ray_tpu_torch.train._checkpoint import Checkpoint
 from ray_tpu_torch.train._session import TrialInfo, _TrainSession
 
+# How often poll() looks at whether the loop has finished while it waits for
+# a result.
+_FINISH_CHECK_S = 0.05
+
 
 class TrainWorker:
     """Actor hosting one rank of the training gang."""
@@ -112,14 +116,28 @@ class TrainWorker:
 
         max_results=1 → lock-step drain (train's per-round rank sync);
         None → drain everything queued (tune, where a fast trial may have
-        reported many times between controller rounds)."""
+        reported many times between controller rounds).
+
+        The wait for the first result ends as soon as the loop has finished
+        with nothing left queued, so a fit does not wait out `timeout` after
+        its last report."""
         import queue as _q
+        import time
 
         assert self.session is not None
         s = self.session
         out = []
+        deadline = time.monotonic() + timeout
         try:
-            out.append(s.result_queue.get(timeout=timeout))
+            while True:
+                try:
+                    out.append(s.result_queue.get(
+                        timeout=max(0.0, min(_FINISH_CHECK_S, deadline - time.monotonic()))))
+                    break
+                except _q.Empty:
+                    if (s.finished.is_set() and s.result_queue.empty()) or (
+                            time.monotonic() >= deadline):
+                        raise
             while max_results is None or len(out) < max_results:
                 out.append(s.result_queue.get_nowait())
         except _q.Empty:

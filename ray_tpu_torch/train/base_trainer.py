@@ -1,8 +1,9 @@
 """BaseTrainer / DataParallelTrainer (reference: python/ray/train/base_trainer.py
 :567 `fit`, train/data_parallel_trainer.py:428 `training_loop`).
 
-`fit()` drives the BackendExecutor directly. ray_tpu also runs the same
-`_run_loop` inside a Tune trial (`as_trainable()`); the port has no Tune.
+`fit()` drives the BackendExecutor directly; under Tune the same `_run_loop`
+executes inside a trial actor via `as_trainable()` (the reference couples the
+two the same way: base_trainer.py:608 wraps every fit in a single-trial Tuner).
 """
 
 from __future__ import annotations
@@ -249,9 +250,35 @@ class DataParallelTrainer(BaseTrainer):
     # -- Tune integration ----------------------------------------------------
 
     def as_trainable(self):
-        """Wrap this trainer as a Tune function-trainable: ray_tpu.tune is not
-        ported."""
-        raise NotImplementedError(
-            "Tune is not ported: ray_tpu_torch has no tune module "
-            "(not queued in ROADMAP.md)"
-        )
+        """Wrap this trainer as a Tune function-trainable (reference:
+        base_trainer.py:819). The returned callable runs the full drive loop
+        inside the trial and re-reports every worker report to Tune."""
+        trainer = self
+
+        def _trainable(config: Dict[str, Any]):
+            import copy
+
+            from ray_tpu_torch import tune
+            from ray_tpu_torch.train import _session
+
+            run_loop_config = dict(trainer.train_loop_config)
+            run_loop_config.update(config.get("train_loop_config", config))
+            t = copy.copy(trainer)
+            t.train_loop_config = run_loop_config
+            # Nest the inner worker gang's artifacts inside the tune trial's
+            # directory (reference: the trainer IS the trial).
+            trial_info = copy.copy(_session._get_session().trial_info)
+
+            def cb(metrics, ckpt_path):
+                tune.report(
+                    metrics,
+                    checkpoint=Checkpoint(ckpt_path) if ckpt_path else None,
+                    _already_persisted=True,
+                )
+
+            result = t._run_loop(trial_info, report_cb=cb)
+            if result.error is not None:
+                raise result.error
+
+        _trainable.__name__ = f"{type(self).__name__}_trainable"
+        return _trainable

@@ -107,6 +107,24 @@ def test_small_model_through_the_kernels_matches_plain_path(dev):
         assert _err(p.grad, r.grad) <= ATOL, name
 
 
+def test_batch_of_one_forward_through_the_kernels(dev):
+    """A lone prompt (a Serve replica's batch of one) under inference_mode:
+    B1 takes its [H, T, D] operands, and the logits match the plain path."""
+    cfg = tr.TransformerConfig(vocab_size=256, d_model=128, n_layers=2, n_heads=2,
+                               dtype=torch.float32, attention_impl="kernel")
+    model = tr.transformer_init(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    plain = tr.Transformer(dataclasses.replace(cfg, attention_impl="torch"), dev)
+    plain.load_state_dict(model.state_dict())
+    toks = torch.randint(0, cfg.vocab_size, (1, 77), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(1))
+    fa.reset_launches()
+    with torch.inference_mode():
+        got = tr.transformer_apply(model, toks)
+        want = tr.transformer_apply(plain, toks)
+    assert fa.launches["fwd"] == cfg.n_layers and fa.launches["fwd_lse"] == 0
+    assert _err(got, want) <= ATOL
+
+
 # Deliberately broken copies of the kernels' source, each built into the
 # test's own directory and bound in place of the real library, to show that
 # chip_smoke.py's limits fail a subtly wrong bf16 (tensor-core) kernel:

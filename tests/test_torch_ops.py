@@ -301,3 +301,17 @@ def test_mha_auto_takes_plain_path_on_cpu_and_rejects_unknown_impl():
                                mha(q, q, q, causal=True, impl="torch").numpy())
     with pytest.raises(ValueError):
         mha(q, q, q, impl="pallas")
+
+
+@pytest.mark.parametrize("B", [1, 3])
+def test_to_bhtd_is_contiguous_for_every_batch(B):
+    """The kernels take contiguous [BH, T, D]: with a batch of one (a Serve
+    replica's lone request) the transposed reshape alone is a strided view."""
+    from ray_tpu_torch.ops.flash_attention import _to_bhtd
+
+    x = torch.randn(B, 5, 4, 8)
+    for rep in (1, 2):
+        got = _to_bhtd(x, rep)
+        assert got.is_contiguous()
+        want = x.repeat_interleave(rep, dim=2).permute(0, 2, 1, 3).reshape(B * 4 * rep, 5, 8)
+        assert torch.equal(got, want)

@@ -1,9 +1,9 @@
 """The port's runtime copy (ray_tpu_torch's core, placement groups, train,
-data, dag, collective and the jax-free rllib modules) against ray_tpu's:
-the same core drive through both packages, no jax and no ray_tpu module in
-the port's processes, GPUs as a cluster resource, and a drift test that
-holds each copied module to its ray_tpu counterpart's text after the
-rename."""
+data, dag, collective, the jax-free rllib modules, Serve, loadgen and
+Tune) against ray_tpu's: the same core drive through both packages, no jax
+and no ray_tpu module in the port's processes, GPUs as a cluster resource,
+and a drift test that holds each copied module to its ray_tpu
+counterpart's text after the rename."""
 
 import json
 import os
@@ -259,6 +259,14 @@ COPIED = [
         "env/env_runner_group", "env/multi_agent_env", "utils/actor_manager",
         "utils/replay_buffer", "utils/offline", "algorithms/algorithm_config",
         "algorithms/algorithm")),
+    *(f"serve/{m}.py" for m in (
+        "__init__", "schema", "handle", "api", "_private/__init__", "_private/common",
+        "_private/long_poll", "_private/router", "_private/replica", "_private/controller",
+        "_private/proxy", "protobuf/__init__", "protobuf/serve_pb2")),
+    "loadgen/__init__.py", "loadgen/__main__.py",
+    *(f"tune/{m}.py" for m in (
+        "__init__", "trainable", "search", "suggest", "schedulers", "tuner",
+        "tune_controller")),
 ]
 
 # The modules of the copy that differ from ray_tpu's after the rename, and
@@ -266,12 +274,20 @@ COPIED = [
 DIFFERS = {
     "__init__.py": "the runtime API merged beside `models` and `ops`, which load lazily",
     "remote_function.py": "num_gpus maps to 'GPU' (num_tpus to 'TPU' in ray_tpu); "
-                          "fn.bind raises: ray_tpu.workflow is not ported",
+                          "fn.bind raises: workflows are not ported yet (ROADMAP A16b)",
     "_private/serialization.py": "a torch-tensor reducer (CUDA tensors come back as CPU "
-                                 "tensors, out of band) in place of the jax-array one",
+                                 "tensors, out of band) in place of the jax-array one; "
+                                 "deserialize(on_release=...) hands zero-copy buffers over as "
+                                 "_RegionBuffer exporters and reports when the last is collected",
+    "_private/core_worker.py": "a zero-copy value's store hold follows the value's out-of-band "
+                               "buffers (deserialize's on_release): ray_tpu drops it with the "
+                               "ObjectRef, so an array held in a tuple or dict, or taken out of "
+                               "a value, is overwritten once the ref is gone",
+    "_private/object_store.py": "release_many keeps the holds that follow values "
+                                "(hold_for_value, release_value_holds)",
     "_private/node.py": "num_gpus, and the registry's GPU detection when no GPU count is given",
     "_private/worker.py": "init(num_gpus=...); address='auto' reads RAY_TPU_TORCH_ADDRESS; "
-                          "client mode raises: ray_tpu.util.client is not ported",
+                          "client mode raises: util.client is not ported yet (ROADMAP A16b)",
     "_private/raylet.py": "the spill directory lies under the temp dir (TMPDIR), not a fixed "
                           "/tmp, so two checkouts with their own TMPDIR never share it",
     "_private/accelerators.py": "GPUAcceleratorManager registered; no TPU manager and no "
@@ -285,7 +301,9 @@ DIFFERS = {
                                   "the gang's process group and its collective group "
                                   "(collective_backend)",
     "train/_session.py": "the collective-group docstring names TorchConfig's option",
-    "train/_worker_group.py": "node_info returns the node address for the rendezvous",
+    "train/_worker_group.py": "node_info returns the node address for the rendezvous; poll "
+                              "returns as soon as the loop has finished with nothing queued "
+                              "(ray_tpu waits out the whole poll timeout, ~10 s a fit)",
     "dag/tensor_channel.py": "torch tensors on the shm wire (the torch dtype's name in the header, "
                              "bf16 included) in place of jax arrays; DeviceTensorChannel moves "
                              "CUDA tensors by CUDA IPC, the group's send/recv or a device copy "
@@ -296,7 +314,6 @@ DIFFERS = {
                                      "place of the xla backend; ops take torch tensors too",
     "util/collective/mesh_ops.py": "MeshCollectives runs each op on the group's process group "
                                    "in place of compiled shard_map programs over a jax mesh",
-    "train/base_trainer.py": "as_trainable raises: ray_tpu.tune is not ported",
     "data/iterator.py": "the _finalize_fn docstring names the torch host->device copy, "
                         "not jax.device_put",
     "rllib/__init__.py": "the docstring describes torch modules and learners on the card",
@@ -306,6 +323,15 @@ DIFFERS = {
     "rllib/algorithms/algorithm.py": "every learner group gets num_gpus_per_learner and the "
                                      "learners' device; a learner builder is a function of "
                                      "the device",
+    "serve/_private/controller.py": "ray_actor_options['num_gpus'] leases 'GPU' (num_tpus "
+                                    "leases 'TPU' in ray_tpu)",
+    "serve/protobuf/serve_pb2.py": "the descriptor's package is ray_tpu_torch.serve and its file "
+                                   "ray_tpu_torch/serve/protobuf/serve.proto (protoc's output), "
+                                   "so both packages' messages load in one process; the rename "
+                                   "alone breaks the descriptor's length prefixes",
+    "loadgen/__init__.py": "run_smoke starts its cluster with num_gpus=0 (num_tpus=0 in ray_tpu)",
+    "tune/tune_controller.py": "a trial's 'GPU' resource goes to its actor's num_gpus ('TPU' to "
+                               "num_tpus in ray_tpu); its TrainWorker is the port's",
 }
 
 
@@ -330,3 +356,52 @@ def test_copy_matches_ray_tpu_after_rename(rel):
 def test_drift_list_names_only_copied_modules():
     assert set(DIFFERS) <= set(COPIED)
     assert all(reason for reason in DIFFERS.values())
+
+
+@pytest.mark.timeout(120)
+def test_zero_copy_values_outlive_their_refs(monkeypatch):
+    """A value read zero-copy from the object store stays intact while
+    anything built on its buffers lives, though its ObjectRef is gone and
+    later objects reuse the arena (ray_tpu ties the store hold to the ref,
+    so an array held in a tuple, a dict or a view taken out of a value is
+    overwritten); once those are collected the holds go back."""
+    import gc
+    import time
+
+    import numpy as np
+
+    from ray_tpu_torch._private import worker as worker_mod
+
+    monkeypatch.setenv("RAY_TPU_OBJECT_STORE_EVICTION_GRACE_S", "0.2")  # reuse comes soon
+    ray_tpu_torch.init(num_cpus=2)
+    try:
+        @ray_tpu_torch.remote
+        class Maker:
+            def make(self, i, kind):
+                arr = np.full(50_304, float(i), np.float32)  # 201 KB: the shm store
+                return {"tuple": (arr, i), "dict": {"x": arr}, "array": arr}[kind]
+
+        maker = Maker.remote()
+        held = {"tuple": [], "dict": [], "view": []}
+        for i in range(8):
+            held["tuple"].append(ray_tpu_torch.get(maker.make.remote(i, "tuple"))[0])
+            held["dict"].append(ray_tpu_torch.get(maker.make.remote(i, "dict"))["x"])
+            held["view"].append(ray_tpu_torch.get(maker.make.remote(i, "array"))[100:200])
+        time.sleep(0.5)
+        for j in range(200):
+            ray_tpu_torch.get(maker.make.remote(1000 + j, ("tuple", "dict", "array")[j % 3]))
+        changed = {kind: [i for i, a in enumerate(arrs) if not (a == float(i)).all()]
+                   for kind, arrs in held.items()}
+        assert changed == {"tuple": [], "dict": [], "view": []}, changed
+
+        plasma = worker_mod._core().plasma
+        assert sum(plasma.value_held.values()) >= 24
+        del held
+        gc.collect()
+        deadline = time.monotonic() + 10
+        while plasma.value_held and time.monotonic() < deadline:
+            ray_tpu_torch.get(maker.make.remote(0, "array"))  # wakes the release flush
+            gc.collect()
+        assert sum(plasma.value_held.values()) <= 1, plasma.value_held
+    finally:
+        ray_tpu_torch.shutdown()
