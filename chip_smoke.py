@@ -5,8 +5,9 @@ runtime and its GPU trainer, the ResNet-50 train step, the port's bench, the
 sharded step on a one-device mesh with ring attention's kernel route, the
 collective groups and a compiled graph's CUDA device edge in runtime actors,
 RLlib's learners on the card with CPU env runners, Serve's GPU replicas
-answering GPT-2-small requests under loadgen, and Tune trials that are GPU
-trainers.
+answering GPT-2-small requests under loadgen, Tune trials that are GPU
+trainers, and the port as a GPU cluster: cluster_utils, the CLI, a job,
+the state API, the dashboard, client mode and a workflow of GPU steps.
 
     python3 chip_smoke.py            # needs one CUDA card, nvcc, the checkout
 
@@ -118,10 +119,31 @@ Phases, each printing one JSON line:
               GPT-2-small step at batch 4: each trial's losses against a
               bare run here, the best result the lower last loss, B2-B4
               launched in every trial's worker, each trial's times;
+ 14. cluster  the port as a GPU cluster, GPT-2 small at full width: (a) a
+              cluster_utils Cluster whose head has no GPU and one added
+              node has one: a num_gpus=1 task's forward (B1) must run on
+              that node and give a bare forward's last-position log-probs
+              bitwise; (b) a head started by `python -m
+              ray_tpu_torch.scripts.cli start --head --num-gpus 1` with its
+              dashboard and client server: `cli status` shows GPU 1, a job
+              whose driver attaches with address="auto" runs (a)'s task and
+              logs the same log-probs' digest, `cli list tasks` and
+              util.state show the task with GPU 1.0 in its resources, the
+              dashboard's JSON endpoints answer; (c) a client-mode driver
+              with CUDA_VISIBLE_DEVICES="" on the head's client server runs
+              a num_gpus=1 task of TUNE_STEPS AdamW steps (B2-B4): its
+              losses and a gradient (a CUDA tensor in the task, a CPU
+              tensor in the client) bitwise a bare run's, no CUDA state in
+              the client, the proxy's round trip beside a driver's;
+              (d) a workflow init -> train -> eval of num_gpus=1 steps
+              whose train fails once (a marker file): run raises, resume
+              finishes, bitwise an uninterrupted run, init run once, the
+              checkpointed CUDA tensors CPU tensors on disk; then `cli
+              stop`, and no process of the port is left;
 then the kernels line, with each kernel's launches in phases 3, 4, 6, the
-bench's transformer phase and phases 9-13 (none in 11: RLlib's modules
-are MLPs; the reference and timing runs this script makes itself in 12
-and 13 are not counted). Any failure exits non-zero. The last line is
+bench's transformer phase and phases 9-14 (none in 11: RLlib's modules
+are MLPs; the reference and timing runs this script makes itself in 12,
+13 and 14 are not counted). Any failure exits non-zero. The last line is
 the ok line.
 """
 
@@ -296,6 +318,14 @@ SERVE_MUX_SEEDS, SERVE_MUX_SLACK = (SEED + 20, SEED + 21), 64 << 20
 # TUNE_STEPS AdamW steps of the GPT-2-small step at TUNE_BATCH x SEQ; each
 # trial's losses within LOSS_BOUND of a bare run in this process.
 TUNE_LRS, TUNE_GPU, TUNE_BATCH, TUNE_STEPS = (3e-4, 1e-3), 0.5, 4, 5
+# Phase 14: the port as a GPU cluster. 14a's forward (and 14d's eval) run
+# GPT2_SMALL on CLUSTER_BATCH x SEQ tokens; 14b's head, started by the CLI,
+# has CLUSTER_HEAD_CPUS CPUs and one GPU; 14c times the client's proxy by
+# CLIENT_PINGS round trips of a task that does nothing; 14c's task and 14d's
+# train step take TUNE_STEPS and WORKFLOW_STEPS AdamW steps at TUNE_BATCH x
+# SEQ. Every answer that crosses the cluster is held bitwise to a bare run
+# in this process (14c's losses within LOSS_BOUND, which bitwise meets).
+CLUSTER_BATCH, CLUSTER_HEAD_CPUS, CLIENT_PINGS, WORKFLOW_STEPS = 8, 4, 20, 3
 
 KERNELS = [  # name, launch-count key, TPU kernel it replaces
     ("flash_fwd", "fwd", "ray_tpu/ops/flash_attention.py:35"),
@@ -2798,6 +2828,518 @@ def tune_phase(tr, dev) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------- phase 14
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+
+
+def cuda_here() -> torch.device:
+    """The card of a GPU task's process. A GPU task placed on a process that
+    has no card raises here: nothing falls back to the CPU."""
+    if not torch.cuda.is_available():
+        raise RuntimeError(f"a GPU task ran without a CUDA card (pid {os.getpid()}, node "
+                           f"{os.environ.get('RAY_TPU_NODE_ID')})")
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def digest(t) -> str:
+    """sha256 of a tensor's dtype, shape and bytes: equal digests, equal tensors."""
+    import hashlib
+
+    t = t.detach().cpu().contiguous()
+    body = t.view(torch.uint8) if t.dtype != torch.bool else t.to(torch.uint8)
+    return hashlib.sha256(f"{t.dtype}{tuple(t.shape)}".encode()
+                          + body.numpy().tobytes()).hexdigest()
+
+
+def cluster_forward(seed: int) -> dict:
+    """14a's forward, in a GPU task or bare here: GPT-2 small's weights and
+    then CLUSTER_BATCH x SEQ tokens, drawn from `seed` on the card; the f32
+    log-probs at each prompt's last position (B1 under inference_mode), the
+    flash launches and where it ran."""
+    from ray_tpu_torch.models import transformer as tr
+
+    fa = importlib.import_module("ray_tpu_torch.ops.flash_attention")
+    dev = cuda_here()
+    cfg = tr.TransformerConfig(**GPT2_SMALL)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    model = tr.transformer_init(cfg, gen, device=dev)
+    tokens = torch.randint(0, cfg.vocab_size, (CLUSTER_BATCH, SEQ), device=dev, generator=gen)
+    fa.reset_launches()
+    with torch.inference_mode():
+        logits = tr.transformer_apply(model, tokens)
+        logp = torch.log_softmax(logits[:, -1].float(), dim=-1)
+    torch.cuda.synchronize(dev)
+    return {"logp": logp, "launches": dict(fa.launches), "device": str(dev), "pid": os.getpid(),
+            "node": os.environ.get("RAY_TPU_NODE_ID")}
+
+
+def client_train(seed: int) -> dict:
+    """14c's task, in a GPU task or bare here: a batch (TUNE_BATCH x SEQ)
+    and GPT-2 small's weights drawn from `seed` on the card, TUNE_STEPS AdamW
+    steps (B2-B4), then one more forward and backward whose gradient of
+    blocks.0.wq comes back as a CUDA tensor. Its step ms are on the host's
+    clock, the card synchronised at the ends."""
+    from ray_tpu_torch.models import transformer as tr
+
+    fa = importlib.import_module("ray_tpu_torch.ops.flash_attention")
+    dev = cuda_here()
+    cfg = tr.TransformerConfig(**GPT2_SMALL)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    raw = torch.randint(0, cfg.vocab_size, (TUNE_BATCH, SEQ + 1), device=dev, generator=gen)
+    batch = {"tokens": raw[:, :-1].contiguous(), "targets": raw[:, 1:].contiguous()}
+    init_state, step = tr.make_train_step(cfg, dev)
+    state = init_state(gen)
+    fa.reset_launches()
+    losses = []
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    for _ in range(TUNE_STEPS):
+        state, m = step(state, batch)
+        losses.append(float(m["loss"]))
+    step_ms = (time.perf_counter() - t0) / TUNE_STEPS * 1e3
+    state["loss_fn"](batch).backward()
+    grad = dict(state["model"].named_parameters())["blocks.0.wq"].grad.detach().clone()
+    return {"losses": losses, "grad": grad, "step_ms": step_ms, "launches": dict(fa.launches),
+            "device": str(dev), "node": os.environ.get("RAY_TPU_NODE_ID")}
+
+
+def client_ping() -> int:
+    return os.getpid()
+
+
+def job_main() -> None:
+    """14b's job entrypoint: attaches with address="auto" (the job manager
+    hands the job RAY_TPU_TORCH_ADDRESS), runs 14a's forward as a GPU task
+    and prints the log-probs' digest, on a line of its own."""
+    import ray_tpu_torch as rt
+
+    rt.init(address="auto")
+    try:
+        out = rt.get(rt.remote(num_gpus=1)(cluster_forward).remote(SEED + 14), timeout=600)
+        nodes = sorted(n["node_id"] for n in rt.nodes())
+    finally:
+        rt.shutdown()
+    print("JOB_RESULT " + json.dumps({
+        "digest": digest(out["logp"]), "logp_device": str(out["logp"].device),
+        "launches": out["launches"], "device": out["device"], "node": out["node"],
+        "cluster_nodes": nodes, "address": os.environ.get("RAY_TPU_TORCH_ADDRESS"),
+        "forbidden_modules": forbidden_modules()}), flush=True)
+
+
+def client_main(address: str) -> None:
+    """14c's client-mode driver (run with CUDA_VISIBLE_DEVICES=""): a GPU
+    task through the client server, its tensor back as a CPU tensor, and
+    the proxy's round trip for a task that does nothing; prints one line."""
+    import ray_tpu_torch as rt
+
+    t0 = time.perf_counter()
+    rt.init(address=address)
+    connect_s = time.perf_counter() - t0
+    try:
+        ping = rt.remote(num_cpus=0)(client_ping)
+        rt.get(ping.remote(), timeout=120)  # its worker started
+        t0 = time.perf_counter()
+        for _ in range(CLIENT_PINGS):
+            rt.get(ping.remote(), timeout=120)
+        ping_ms = (time.perf_counter() - t0) / CLIENT_PINGS * 1e3
+        t0 = time.perf_counter()
+        out = rt.get(rt.remote(num_gpus=1)(client_train).remote(SEED + 15), timeout=600)
+        task_s = time.perf_counter() - t0
+    finally:
+        rt.shutdown()
+    grad = out["grad"]
+    print("CLIENT_RESULT " + json.dumps({
+        "losses": out["losses"], "grad_digest": digest(grad), "grad_type": type(grad).__name__,
+        "grad_device": str(grad.device), "grad_dtype": str(grad.dtype),
+        "task_device": out["device"], "worker_step_ms": out["step_ms"],
+        "launches": out["launches"], "connect_s": connect_s, "task_s": task_s,
+        "ping_ms": ping_ms, "cuda_initialized": torch.cuda.is_initialized(),
+        "cuda_visible_devices": os.environ.get("CUDA_VISIBLE_DEVICES"),
+        "forbidden_modules": forbidden_modules()}), flush=True)
+
+
+def wf_init(seed: int, counter: str) -> dict:
+    """14d's first step: GPT-2 small's weights from `seed`, on the card."""
+    from ray_tpu_torch.models import transformer as tr
+
+    with open(counter, "a") as f:
+        f.write("x")
+    dev = cuda_here()
+    model = tr.transformer_init(tr.TransformerConfig(**GPT2_SMALL),
+                                torch.Generator(device=dev).manual_seed(seed), device=dev)
+    return {"params": model.state_dict()}
+
+
+def wf_model(params: dict, dev):
+    from ray_tpu_torch.models import transformer as tr
+
+    model = tr.Transformer(tr.TransformerConfig(**GPT2_SMALL), dev)
+    model.load_state_dict(params)
+    return model
+
+
+def wf_train(init: dict, seed: int, fail_marker) -> dict:
+    """14d's second step: WORKFLOW_STEPS AdamW steps from init's weights on
+    a batch from `seed` (B2-B4). While `fail_marker` exists it removes it
+    and fails, before any work."""
+    from ray_tpu_torch.models import transformer as tr
+
+    if fail_marker and os.path.exists(fail_marker):
+        os.unlink(fail_marker)
+        raise RuntimeError("train fails once (marker file)")
+    fa = importlib.import_module("ray_tpu_torch.ops.flash_attention")
+    dev = cuda_here()
+    cfg = tr.TransformerConfig(**GPT2_SMALL)
+    init_state, step = tr.make_train_step(cfg, dev)
+    state = init_state(model=wf_model(init["params"], dev))
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    raw = torch.randint(0, cfg.vocab_size, (TUNE_BATCH, SEQ + 1), device=dev, generator=gen)
+    batch = {"tokens": raw[:, :-1].contiguous(), "targets": raw[:, 1:].contiguous()}
+    fa.reset_launches()
+    losses = [float(step(state, batch)[1]["loss"]) for _ in range(WORKFLOW_STEPS)]
+    return {"params": state["model"].state_dict(), "losses": losses,
+            "launches": dict(fa.launches)}
+
+
+def wf_eval(trained: dict, seed: int) -> dict:
+    """14d's last step: the trained weights' last-position log-probs on
+    CLUSTER_BATCH x SEQ tokens from `seed` (B1), a CUDA tensor."""
+    fa = importlib.import_module("ray_tpu_torch.ops.flash_attention")
+    from ray_tpu_torch.models import transformer as tr
+
+    dev = cuda_here()
+    model = wf_model(trained["params"], dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    tokens = torch.randint(0, model.cfg.vocab_size, (CLUSTER_BATCH, SEQ), device=dev,
+                           generator=gen)
+    fa.reset_launches()
+    with torch.inference_mode():
+        logp = torch.log_softmax(tr.transformer_apply(model, tokens)[:, -1].float(), dim=-1)
+    torch.cuda.synchronize(dev)
+    return {"logp": logp, "train_losses": trained["losses"],
+            "train_launches": trained["launches"], "eval_launches": dict(fa.launches)}
+
+
+def wf_graph(rt, counter: str, fail_marker):
+    gpu = rt.remote(num_gpus=1)
+    p = gpu(wf_init).bind(SEED + 16, counter)
+    p = gpu(wf_train).bind(p, SEED + 17, fail_marker)
+    return gpu(wf_eval).bind(p, SEED + 18)
+
+
+def port_processes() -> set:
+    """Pids of this machine's processes whose command line names the port or
+    this script (heads, workers and zygotes, job and client drivers), this
+    one excluded."""
+    pids = set()
+    for entry in os.listdir("/proc"):
+        if entry.isdigit() and int(entry) != os.getpid():
+            try:
+                with open(f"/proc/{entry}/cmdline", "rb") as f:
+                    cmdline = f.read()
+                if b"ray_tpu_torch" in cmdline or b"chip_smoke" in cmdline:
+                        pids.add(int(entry))
+            except OSError:
+                pass
+    return pids
+
+
+def cli(*argv, timeout: float = 120) -> subprocess.CompletedProcess:
+    return subprocess.run([sys.executable, "-m", "ray_tpu_torch.scripts.cli", *argv], cwd=ROOT,
+                          capture_output=True, text=True, timeout=timeout)
+
+
+def head_line(log: str, prefix: str, proc, timeout: float = 120) -> str:
+    """The first line of the head's log that starts with `prefix`."""
+    deadline = time.monotonic() + timeout
+    while True:
+        with open(log) as f:
+            text = f.read()
+        found = [x.strip() for x in text.splitlines() if x.startswith(prefix)]
+        if found:
+            return found[0]
+        check(proc.poll() is None, f"the head exited {proc.returncode}: {text[-3000:]}")
+        check(time.monotonic() < deadline, f"the head printed no {prefix!r} line: {text[-3000:]}")
+        time.sleep(0.1)
+
+
+def http_get(url: str) -> str:
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=30) as r:
+        return r.read().decode()
+
+
+def cluster_utils_run(bare: dict) -> dict:
+    """14a: a Cluster whose head has no GPU and one added node has one; the
+    GPU task must run on that node and give the bare forward's log-probs."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.cluster_utils import Cluster
+
+    t0 = time.perf_counter()
+    cluster = Cluster(head_node_args={"num_cpus": 2, "num_gpus": 0})
+    try:
+        gpu_node = cluster.add_node(num_cpus=2, num_gpus=1)
+        cluster.connect()
+        resources = rt.cluster_resources()
+        t1 = time.perf_counter()
+        out = rt.get(rt.remote(num_gpus=1)(cluster_forward).remote(SEED + 14), timeout=600)
+        task_s = time.perf_counter() - t1
+    finally:
+        cluster.shutdown()
+    line = {"gpu_node": gpu_node.node_id, "head_node": cluster.head_node.raylet.node_id,
+            "task_node": out["node"], "task_device": out["device"],
+            "cluster_gpu": resources.get("GPU"), "logp_shape": list(out["logp"].shape),
+            "logp_device": str(out["logp"].device),
+            "bitwise_equal_to_bare": bool(torch.equal(out["logp"], bare["logp"].cpu())),
+            "max_abs_diff_vs_bare": max_err(out["logp"], bare["logp"].cpu()),
+            "launches": out["launches"], "task_s": task_s,
+            "seconds": time.perf_counter() - t0}
+    check(line["cluster_gpu"] == 1.0, f"the cluster advertises GPU {line['cluster_gpu']}, not 1")
+    check(out["node"] == gpu_node.node_id,
+          f"the GPU task ran on node {out['node']}, not the GPU node {gpu_node.node_id}")
+    check(out["device"].startswith("cuda") and line["logp_device"] == "cpu",
+          f"the task ran on {out['device']} and its log-probs reached the driver on "
+          f"{line['logp_device']}")
+    check(line["logp_shape"] == [CLUSTER_BATCH, GPT2_SMALL["vocab_size"]]
+          and bool(torch.isfinite(out["logp"]).all()), "the task's log-probs are not finite")
+    check(line["bitwise_equal_to_bare"], f"the GPU node's log-probs differ from the bare "
+                                         f"forward's by {line['max_abs_diff_vs_bare']}")
+    check(out["launches"]["fwd"] == GPT2_SMALL["n_layers"],
+          f"the GPU task launched B1 {out['launches']['fwd']} times, not once a layer")
+    return line
+
+
+def cli_job_run(rt, address: str, dashboard: str, bare: dict) -> dict:
+    """14b on the head the CLI started: `cli status`, a job whose driver
+    attaches with address="auto" and runs 14a's forward, the task in `cli
+    list tasks` and util.state with its GPU, the dashboard's endpoints."""
+    from ray_tpu_torch.job import JobStatus, JobSubmissionClient
+    from ray_tpu_torch.util import state
+
+    status = cli("status")
+    check(status.returncode == 0, f"cli status exited {status.returncode}: {status.stderr[-2000:]}")
+    gpu_line = [x.strip() for x in status.stdout.splitlines() if x.strip().startswith("GPU:")]
+    check(len(gpu_line) == 1 and gpu_line[0].endswith("/ 1 available"),
+          f"cli status shows no GPU 1: {status.stdout}")
+
+    t0 = time.perf_counter()
+    jobs = JobSubmissionClient()
+    sid = jobs.submit_job(entrypoint=f"{sys.executable} -c \"import sys; sys.path.insert(0, "
+                                     f"{ROOT!r}); import chip_smoke; chip_smoke.job_main()\"")
+    job_status = jobs.wait_until_finish(sid, timeout_s=600, poll_s=0.2)
+    job_s = time.perf_counter() - t0
+    logs = jobs.get_job_logs(sid)
+    check(job_status == JobStatus.SUCCEEDED, f"the job ended {job_status}: {logs[-3000:]}")
+    job = json.loads([x for x in logs.splitlines() if x.startswith("JOB_RESULT ")][-1][11:])
+    head_nodes = sorted(n["node_id"] for n in rt.nodes())
+
+    listed = cli("list", "tasks", "--limit", "10000")
+    check(listed.returncode == 0, f"cli list tasks exited {listed.returncode}: "
+                                  f"{listed.stderr[-2000:]}")
+    rows = [t for t in json.loads(listed.stdout) if t["name"] == "cluster_forward"]
+    api_rows = [t for t in state.list_tasks() if t["name"] == "cluster_forward"]
+    pages = {p: json.loads(http_get(dashboard + p)) for p in (
+        "/api/nodes", "/api/jobs", "/api/tasks/summary", "/api/cluster_status",
+        "/api/events?limit=50")}
+    healthz, metrics = http_get(dashboard + "/-/healthz"), http_get(dashboard + "/metrics")
+    line = {"status_gpu": gpu_line[0], "job_submit_to_succeeded_s": job_s, "job": job,
+            "job_digest_equal_to_bare": job["digest"] == digest(bare["logp"]),
+            "job_attached_to_head": job["cluster_nodes"] == head_nodes,
+            "list_tasks": rows, "state_list_tasks": api_rows,
+            "dashboard_nodes": len(pages["/api/nodes"]["nodes"]),
+            "dashboard_jobs": {j["submission_id"]: j["status"] for j in pages["/api/jobs"]["jobs"]},
+            "dashboard_task_summary": pages["/api/tasks/summary"]["summary"].get("cluster_forward"),
+            "dashboard_healthz": healthz, "metrics_bytes": len(metrics)}
+    check(job["device"].startswith("cuda") and job["logp_device"] == "cpu",
+          f"the job's task ran on {job['device']}")
+    check(line["job_digest_equal_to_bare"], "the job's log-probs differ from the bare forward's")
+    check(line["job_attached_to_head"] and job["address"] == address,
+          f"the job attached to {job['address']} ({job['cluster_nodes']}), not the head "
+          f"{address} ({head_nodes})")
+    check(not job["forbidden_modules"], f"the job's driver imported {job['forbidden_modules']}")
+    for where, found in (("cli list tasks", rows), ("util.state.list_tasks", api_rows)):
+        check(any(t["state"] == "FINISHED" and t["resources"].get("GPU") == 1.0 for t in found),
+              f"{where} shows no finished GPU task: {found}")
+    check(healthz == "success" and line["dashboard_nodes"] == 1
+          and line["dashboard_jobs"].get(sid) == JobStatus.SUCCEEDED
+          and (line["dashboard_task_summary"] or {}).get("FINISHED", 0) >= 1
+          and "nodes" in pages["/api/cluster_status"]
+          and any(e["label"] == "NODE_ADDED" for e in pages["/api/events?limit=50"]["events"]),
+          f"the dashboard's JSON endpoints: {line}")
+    return line
+
+
+def client_run(rt, client_addr: str, work: str, bare: dict) -> dict:
+    """14c: a client-mode driver without a card (client_main, in a
+    subprocess) against the bare run of its task; the proxy's round trip
+    beside this driver's."""
+    t0 = time.perf_counter()
+    for _ in range(CLIENT_PINGS + 1):
+        rt.get(rt.remote(num_cpus=0)(client_ping).remote(), timeout=120)
+    driver_ping_ms = (time.perf_counter() - t0) / (CLIENT_PINGS + 1) * 1e3
+    t0 = time.perf_counter()
+    client = subprocess.run(
+        [sys.executable, "-c", f"import sys; sys.path.insert(0, {ROOT!r}); import chip_smoke; "
+                               f"chip_smoke.client_main({client_addr!r})"],
+        cwd=work, env={**os.environ, "CUDA_VISIBLE_DEVICES": ""}, capture_output=True, text=True,
+        timeout=900)
+    client_s = time.perf_counter() - t0
+    check(client.returncode == 0, f"the client exited {client.returncode}: "
+                                  f"{client.stdout[-2000:]}\n{client.stderr[-4000:]}")
+    got = json.loads([x for x in client.stdout.splitlines()
+                      if x.startswith("CLIENT_RESULT ")][-1][14:])
+    diffs = [abs(a - b) for a, b in zip(got["losses"], bare["losses"])]
+    line = {**got, "process_s": client_s, "bare_losses": bare["losses"],
+            "bare_step_ms": bare["step_ms"], "driver_ping_ms": driver_ping_ms,
+            "max_loss_diff_vs_bare": max(diffs),
+            "grad_equal_to_bare": got["grad_digest"] == digest(bare["grad"])}
+    check(got["task_device"].startswith("cuda"), f"the client's task ran on {got['task_device']}")
+    check(len(diffs) == TUNE_STEPS and max(diffs) <= LOSS_BOUND,
+          f"the client's losses off the bare run's: {diffs}")
+    check(got["grad_type"] == "Tensor" and got["grad_device"] == "cpu"
+          and line["grad_equal_to_bare"],
+          f"the gradient reached the client as a {got['grad_device']} {got['grad_type']} "
+          f"unequal to the bare run's")
+    check(got["cuda_initialized"] is False and got["cuda_visible_devices"] == "",
+          "the client process made CUDA state")
+    check(not got["forbidden_modules"], f"the client imported {got['forbidden_modules']}")
+    return line
+
+
+def workflow_run(rt, work: str) -> dict:
+    """14d: the workflow of GPU steps, its train failing once (a marker
+    file): run raises, resume finishes; an uninterrupted run beside it."""
+    import pickle
+
+    from ray_tpu_torch import workflow
+
+    store = os.path.join(work, "workflows")
+    marker = os.path.join(work, "train_fails_once")
+    counters = {wid: os.path.join(work, f"{wid}.init_runs") for wid in ("wf-resumed", "wf-whole")}
+    with open(marker, "w") as f:
+        f.write("1")
+    t0 = time.perf_counter()
+    try:
+        workflow.run(wf_graph(rt, counters["wf-resumed"], marker), workflow_id="wf-resumed",
+                     storage=store)
+        first_run = "finished"
+    except Exception as exc:  # the train step's failure, as planned
+        first_run = f"{type(exc).__name__}: {str(exc)[:200]}"
+    failed_s = time.perf_counter() - t0
+    failed_meta = workflow.get_metadata("wf-resumed", storage=store)["status"]
+    t0 = time.perf_counter()
+    resumed = workflow.resume("wf-resumed", storage=store)
+    resume_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    whole = workflow.run(wf_graph(rt, counters["wf-whole"], None), workflow_id="wf-whole",
+                         storage=store)
+    whole_s = time.perf_counter() - t0
+    steps = workflow.get_step_metadata("wf-resumed", storage=store)
+    steps_dir = os.path.join(store, "wf-resumed", "steps")
+    init_pkl = [s for s in os.listdir(steps_dir) if "_wf_init_" in s and s.endswith(".pkl")]
+    with open(os.path.join(steps_dir, init_pkl[0]), "rb") as f:
+        saved = pickle.load(f)["params"]
+    init_runs = {}
+    for wid, path in counters.items():
+        with open(path) as f:
+            init_runs[wid] = f.read().count("x")
+    line = {
+        "first_run": first_run, "status_after_failure": failed_meta,
+        "failed_run_s": failed_s, "resume_s": resume_s, "uninterrupted_s": whole_s,
+        "init_runs": init_runs,
+        "steps": {sid: {k: m.get(k) for k in ("name", "status", "attempts")}
+                  for sid, m in steps.items()},
+        "train_losses": resumed["train_losses"],
+        "logp_bitwise_equal": bool(torch.equal(resumed["logp"], whole["logp"])),
+        "losses_equal": resumed["train_losses"] == whole["train_losses"],
+        "checkpoint_devices": sorted({str(t.device) for t in saved.values()}),
+        "checkpoint_tensors": len(saved), "output_device": str(resumed["logp"].device),
+        "launches": [resumed["train_launches"], resumed["eval_launches"],
+                     whole["train_launches"], whole["eval_launches"]]}
+    check(first_run.startswith(("TaskError", "RuntimeError")) and failed_meta == "FAILED",
+          f"the interrupted workflow did not fail at train: {first_run}")
+    check(line["logp_bitwise_equal"] and line["losses_equal"],
+          "the resumed workflow's output differs from the uninterrupted one's")
+    check(init_runs == {"wf-resumed": 1, "wf-whole": 1}, f"init ran {init_runs} times")
+    check(line["checkpoint_devices"] == ["cpu"] and line["output_device"] == "cpu",
+          f"checkpointed tensors on {line['checkpoint_devices']}")
+    check(all(math.isfinite(x) for x in line["train_losses"]), "a workflow loss is not finite")
+    return line
+
+
+def cluster_phase(dev) -> dict:
+    """Phase 14: the port as a GPU cluster. 14a on a cluster_utils Cluster;
+    14b-14d on a head started by the CLI, which `cli stop` ends, leaving no
+    process of the port. Returns the flash launches of every GPU task it
+    ran, summed (the bare runs here are not counted)."""
+    import signal
+
+    import ray_tpu_torch as rt
+
+    t_phase = time.perf_counter()
+    work = os.path.join(ROOT, "build", "chip_smoke_cluster")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    bare_fwd = cluster_forward(SEED + 14)
+    bare_train = client_train(SEED + 15)
+    line = {"phase": "cluster", "14a": cluster_utils_run(bare_fwd)}
+
+    before = port_processes()
+    log = os.path.join(work, "head.log")
+    head = None
+    try:
+        t0 = time.perf_counter()
+        with open(log, "w") as f:
+            head = subprocess.Popen(
+                [sys.executable, "-m", "ray_tpu_torch.scripts.cli", "start", "--head",
+                 "--num-gpus", "1", "--num-cpus", str(CLUSTER_HEAD_CPUS), "--dashboard-port", "0",
+                 "--client-server-port", "0"],
+                cwd=ROOT, stdout=f, stderr=subprocess.STDOUT, start_new_session=True,
+                env={**os.environ, "PYTHONUNBUFFERED": "1"})
+        client_addr = head_line(log, "remote drivers:", head).split("address='")[1].rstrip("')")
+        head_start_s = time.perf_counter() - t0
+        address = head_line(log, "ray_tpu_torch head started at", head).rsplit(" ", 1)[1]
+        dashboard = head_line(log, "dashboard:", head).split(" ", 1)[1]
+        rt.init(address=address)
+        line["14b"] = {"head_start_s": head_start_s, "address": address, "dashboard": dashboard,
+                       "client_server": client_addr,
+                       **cli_job_run(rt, address, dashboard, bare_fwd)}
+        line["14c"] = client_run(rt, client_addr, work, bare_train)
+        line["14d"] = workflow_run(rt, work)
+        rt.shutdown()
+
+        stopped = cli("stop")
+        check(stopped.returncode == 0 and "SIGTERM" in stopped.stdout,
+              f"cli stop: {stopped.stdout} {stopped.stderr[-2000:]}")
+        head.wait(timeout=60)
+        deadline = time.monotonic() + 30
+        while port_processes() - before and time.monotonic() < deadline:
+            time.sleep(0.2)
+        left = sorted(port_processes() - before)
+        check(not left, f"port processes left after cli stop: {left}")
+    finally:
+        rt.shutdown()
+        if head is not None and head.poll() is None:
+            try:
+                os.killpg(head.pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+            head.wait(timeout=30)
+        shutil.rmtree(work, ignore_errors=True)
+
+    task_launches = [line["14a"]["launches"], line["14b"]["job"]["launches"],
+                     line["14c"]["launches"], *line["14d"]["launches"]]
+    launches = {key: sum(t[key] for t in task_launches) for _, key, _ in KERNELS}
+    line.update({"head_exit": head.returncode, "left_processes": left, "launches": launches,
+                 "nvidia_smi": card()["nvidia_smi"], "seconds": time.perf_counter() - t_phase})
+    emit(line)
+    for key in ("fwd", "fwd_lse", "bwd_dq", "bwd_dkv"):
+        check(launches[key] > 0, f"{key} was not launched in phase 14")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2853,12 +3395,15 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     tune_launches = tune_phase(tr, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    cluster_launches = cluster_phase(dev)
 
     kernels = []
     for name, key, replaces in KERNELS:
         n = (fwd_launches[key] + train_launches[key] + trainer_launches[key] + bench_launches[key]
              + mesh_launches[key] + collective_launches[key] + rllib_launches[key]
-             + serve_launches[key] + tune_launches[key])
+             + serve_launches[key] + tune_launches[key] + cluster_launches[key])
         kernels.append({"name": name, "route": "cuda", "source": SOURCE, "replaces": replaces,
                         "launches": n, **rows[key]})
         check(n > 0, f"{name} was not launched on the main path")

@@ -2234,7 +2234,10 @@ class CoreWorker:
             return_ids, [d for d, _ in wire["dependencies"]]
         )
         refs = [ObjectRef(oid, self.addr, self) for oid in return_ids]
-        self.record_task_event(wire["task_id"], wire["name"], "PENDING")
+        # The lease's resources ride the first event, so the state API
+        # shows what each task asked for (a GPU task's "GPU").
+        self.record_task_event(wire["task_id"], wire["name"], "PENDING",
+                               resources=wire["resources"])
         self._inflight_tasks[wire["task_id"]] = {"cancelled": False, "conn": None}
         oid_to_task = self._oid_to_task
         for oid in wire["return_ids"]:

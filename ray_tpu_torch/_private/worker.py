@@ -107,7 +107,8 @@ def init(
     With no address, boots a head node in-process (GCS + raylet on a
     background event loop; reference: ray.init at worker.py:1214).
     `address="host:port"` connects to an existing GCS. `address="auto"` (or
-    the RAY_TPU_TORCH_ADDRESS env var) finds the running cluster.
+    the RAY_TPU_TORCH_ADDRESS env var, set for submitted jobs) finds the
+    running cluster.
     `num_gpus` sets the node's "GPU" resource; without it the node advertises
     the GPUs it detects (accelerators.GPUAcceleratorManager).
 
@@ -119,12 +120,22 @@ def init(
     config.refresh()  # pick up env overrides set after import (fixtures)
 
     if address and (address.startswith("ray-tpu://") or address.startswith("ray://")):
-        # Client mode (reference: Ray Client, ray.init("ray://...")) needs
-        # ray_tpu.util.client, which the port does not have.
-        raise NotImplementedError(
-            "client mode (ray-tpu://) is not ported: ray_tpu_torch has no "
-            "util.client yet (queued in ROADMAP.md, item A16b)"
-        )
+        # Client mode (reference: Ray Client, ray.init("ray://...")): drive
+        # the cluster through its proxy endpoint; this process never joins
+        # the cluster network.
+        from ray_tpu_torch.util import client as client_mod
+
+        with _init_lock:
+            w = global_worker
+            if w.connected or w.mode == "client":
+                if ignore_reinit_error:
+                    return {"address": address}
+                raise RayTpuError("ray_tpu_torch.init() called twice")
+            ctx = client_mod.connect(address, namespace=namespace)
+            w.client = ctx
+            w.mode = "client"
+            atexit.register(shutdown)
+            return {"address": address, "job_id": ctx.job_id}
 
     if address == "auto":
         address = _os.environ.get("RAY_TPU_TORCH_ADDRESS") or _read_cluster_address()

@@ -5,9 +5,14 @@ the C++ mutable-object machinery (experimental_mutable_object_manager.h:37):
 a fixed shm segment reused for every message — no per-message allocation,
 naming, or RPC. Synchronization is a seqlock: the writer bumps the sequence
 to odd while writing and even when done; the reader spins (briefly) then
-sleeps, and validates the sequence didn't move mid-read.
+sleeps, and validates that the header (sequence and length) didn't move
+mid-read.
 
 Layout: [seq: u64][length: u64][payload...]
+
+A sealed header whose length is shorter than any frame (0 is what a fresh
+segment holds) is a write not yet visible, never a message: the reader
+polls on instead of parsing it.
 """
 
 from __future__ import annotations
@@ -32,13 +37,17 @@ class ChannelFullError(Exception):
 class Channel:
     """One-slot mutable channel over a named shm segment."""
 
+    # The shortest frame a writer seals: a pickle is at least one byte.
+    MIN_FRAME = 1
+
     def __init__(self, name: str, max_buf_size: int = 10 * 1024 * 1024, *,
                  create: bool = False):
         self.name = name
         self.max_buf_size = max_buf_size
         if create:
+            # A new segment is zero-filled, i.e. header (0, 0). Nothing here
+            # writes the header: a store to it could only reset a live slot.
             self._seg = shm.create(name, DATA_OFFSET + max_buf_size)
-            HEADER.pack_into(self._seg.view, 0, 0, 0)
         else:
             self._seg = shm.open_rw(name)
         self._last_read_seq = 0
@@ -67,10 +76,11 @@ class Channel:
         polls = 0
         while True:
             seq, length = HEADER.unpack_from(view, 0)
-            if seq % 2 == 0 and seq > self._last_read_seq:
+            if seq % 2 == 0 and seq > self._last_read_seq and length >= self.MIN_FRAME:
                 payload = bytes(view[DATA_OFFSET : DATA_OFFSET + length])
-                seq2, _ = HEADER.unpack_from(view, 0)
-                if seq2 == seq:  # seqlock validate: no concurrent rewrite
+                # seqlock validate: no concurrent rewrite, and both header
+                # fields as first read (they are two loads, not one).
+                if HEADER.unpack_from(view, 0) == (seq, length):
                     # Decode strictly AFTER validation, from the private
                     # copy: torn slot bytes must be retried, never parsed.
                     self._last_read_seq = seq

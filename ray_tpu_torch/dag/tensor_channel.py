@@ -104,6 +104,8 @@ class TensorChannel(Channel):
     hook); only the payload encoding differs.
     """
 
+    MIN_FRAME = _AHDR.size  # every frame starts with its array header
+
     # -- writer side ---------------------------------------------------------
 
     def write(self, value: Any) -> None:

@@ -91,11 +91,10 @@ class RemoteFunction:
         return self._remote(args, kwargs)
 
     def bind(self, *args, **kwargs):
-        """Lazy task node for workflows: ray_tpu.workflow is not ported."""
-        raise NotImplementedError(
-            "workflows (fn.bind) are not ported: ray_tpu_torch has no "
-            "workflow module yet (queued in ROADMAP.md, item A16b)"
-        )
+        """Lazy task node for workflows (ray_tpu_torch.workflow.run(fn.bind(...)))."""
+        from ray_tpu_torch.workflow.api import FunctionNode
+
+        return FunctionNode(self, args, kwargs)
 
     def _remote(self, args, kwargs):
         opts = self._options

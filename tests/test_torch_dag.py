@@ -260,6 +260,96 @@ def test_tensor_channel_carries_torch_tensors_bitwise(dtype):
         w.close(unlink=True)
 
 
+def _frame(kind: str, i: int):
+    return np.full(8, float(i), np.float32) if kind == "tensor" else {"i": i}
+
+
+@pytest.mark.timeout(60)
+@pytest.mark.parametrize("kind", ["chan", "tensor"])
+def test_sealed_empty_header_is_read_as_not_yet_written(kind):
+    """A sealed header of length 0, the header a fresh segment holds (a
+    compiled DAG's shm edge once parsed it as a frame and raised
+    struct.error in TensorChannel._parse), is no message: the reader polls
+    on and returns the frame written after it."""
+    import threading
+
+    from ray_tpu_torch.dag.channel import HEADER, make_channel
+
+    spec = (f"rtdag_tch_empty_{kind}_{os.getpid()}", 1 << 20, kind)
+    w = make_channel(spec, create=True)
+    try:
+        r = make_channel(spec)
+        HEADER.pack_into(w._seg.view, 0, 2, 0)  # sealed sequence, empty frame
+        writer = threading.Timer(0.2, w.write, (_frame(kind, 7),))
+        writer.start()
+        got = r.read(timeout=10)
+        writer.join()
+        assert _same(got, _frame(kind, 7))
+        r.close()
+    finally:
+        w.close(unlink=True)
+
+
+def _poll_each_channel(names, results) -> None:
+    """Reader process: opens each channel once its name arrives, says it is
+    polling, and reads one frame."""
+    from ray_tpu_torch.dag.channel import make_channel
+
+    while True:
+        spec = names.get(timeout=60)
+        if spec is None:
+            return
+        ch = make_channel(spec)
+        results.put(("polling", spec[0]))
+        try:
+            results.put(("read", ch.read(timeout=30)))
+        except BaseException as exc:  # reported to the test, which fails
+            results.put(("error", f"{type(exc).__name__}: {exc}"))
+        ch.close()
+
+
+@pytest.mark.timeout(120)
+def test_fresh_channels_read_by_a_reader_polling_before_the_first_write():
+    """Many fresh channels of both kinds, each read in another process by a
+    reader that is already polling when the writer makes its first write,
+    half of them at once and half after a short wait: every read returns its
+    channel's frame."""
+    import multiprocessing as mp
+    import random
+    import time
+
+    from ray_tpu_torch.dag.channel import make_channel
+
+    ctx = mp.get_context("spawn")
+    names, results = ctx.Queue(), ctx.Queue()
+    reader = ctx.Process(target=_poll_each_channel, args=(names, results), daemon=True)
+    reader.start()
+    rng = random.Random(0)
+    got = []
+    try:
+        for i in range(200):
+            kind = ("chan", "tensor")[i % 2]
+            spec = (f"rtdag_tch_fresh_{os.getpid()}_{i}", 1 << 16, kind)
+            w = make_channel(spec, create=True)
+            try:
+                names.put(spec)
+                assert results.get(timeout=60) == ("polling", spec[0])
+                if i % 4 >= 2:
+                    time.sleep(rng.uniform(0, 2e-3))
+                w.write(_frame(kind, i))
+                status, value = results.get(timeout=60)
+            finally:
+                w.close(unlink=True)
+            assert status == "read", value
+            got.append(_same(value, _frame(kind, i)))
+        names.put(None)
+        reader.join(timeout=30)
+    finally:
+        if reader.is_alive():
+            reader.kill()
+    assert all(got)
+
+
 @pytest.mark.timeout(60)
 def test_device_channel_nonarray_falls_back_to_shm():
     """STOP sentinels, dicts and error wires ride the inherited pickle path

@@ -278,3 +278,39 @@ def test_e2e_loop_counts_every_image_once_and_steps_as_bare(torch_cluster, tmp_p
         torch.set_num_threads(threads)
         torch.backends.mkldnn.enabled = enabled
     assert abs(m["first_loss"] - bare) <= LOSS_ATOL, (m["first_loss"], bare)
+
+
+@pytest.mark.timeout(120)
+def test_held_batches_keep_their_rows_past_their_blocks_refs(monkeypatch):
+    """The bench's e2e rows fault, on the CPU: a pipeline's batches, held
+    after the executor has dropped their blocks' refs, keep the rows
+    synth_block made for them while a few hundred later objects reuse the
+    store's arena (a batch is a zero-copy view of its block: the store hold
+    follows the view, not the ref)."""
+    import gc
+    import time
+
+    from ray_tpu_torch import bench
+
+    monkeypatch.setenv("RAY_TPU_OBJECT_STORE_EVICTION_GRACE_S", "0.2")  # reuse comes soon
+    n_blocks, rows, size, classes = 8, 16, 64, 1000  # 196 KB blocks: the shm store
+    ray_tpu_torch.init(num_cpus=2)
+    try:
+        ds = bench.make_dataset(n_blocks, rows, size, classes)
+        held = list(ds.iter_batches(batch_size=rows // 2))
+        gc.collect()
+        time.sleep(0.5)
+
+        @ray_tpu_torch.remote
+        def later(i):
+            return np.full(rows * size * size * 3, i % 251, np.uint8)
+
+        for i in range(300):
+            ray_tpu_torch.get(later.remote(i))
+        labels = [int(x) for b in held for x in b["label"]]
+        sums = [int(s) for b in held for s in b["image"].sum(axis=1, dtype=np.int64)]
+    finally:
+        ray_tpu_torch.shutdown()
+    assert len(labels) == n_blocks * rows
+    diff = bench.rows_diff(labels, sums, n_blocks, rows, size, classes, batch=rows // 2)
+    assert bench.rows_intact(labels, sums, n_blocks, rows, size, classes), diff

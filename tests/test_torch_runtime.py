@@ -202,21 +202,49 @@ def test_rllib_loads_without_jax_or_gymnasium():
     assert out.stdout.strip().splitlines()[-1] == "[]"
 
 
-@pytest.mark.timeout(90)
-def test_unported_branches_raise_not_implemented(torch_cluster):  # noqa: F811
-    @ray_tpu_torch.remote
-    def f():
-        return 1
+# The modules of the cluster surface: the CLI, jobs, the state API, metrics
+# and their export, the dashboard, client mode, workflows, the queue and
+# cluster_utils.
+CLUSTER_SURFACE = (
+    "scripts.cli", "job", "job.job_manager", "util.state", "util.state.api", "util.metrics",
+    "util.metrics_export", "dashboard.dashboard", "util.client", "util.client.server",
+    "util.client.common", "workflow", "workflow.api", "util.queue", "cluster_utils")
 
-    @ray_tpu_torch.remote
-    class A:
-        def m(self):
-            return 1
 
-    with pytest.raises(NotImplementedError, match="workflow"):
-        f.bind()
-    with pytest.raises(NotImplementedError, match="client mode"):
-        ray_tpu_torch.init(address="ray-tpu://127.0.0.1:1")
+def test_unported_branches_raise_not_implemented():
+    """The only stubs left that name a ROADMAP item: the CLI's up, down and
+    submit need the launcher and autoscaler (A17b); workflows (fn.bind) and
+    client mode (ray-tpu://) are ported."""
+    from ray_tpu_torch.scripts.cli import build_parser
+
+    parser = build_parser()
+    for argv in (["up", "c.yaml"], ["down", "c.yaml"], ["submit", "c.yaml", "echo", "hi"]):
+        args = parser.parse_args(argv)
+        with pytest.raises(NotImplementedError, match=f"ray-tpu {argv[0]}.*A17b"):
+            args.fn(args)
+    stubs = []
+    for root, _, files in os.walk(os.path.join(REPO, "ray_tpu_torch")):
+        for name in files:
+            if name.endswith(".py"):
+                with open(os.path.join(root, name)) as f:
+                    text = f.read()
+                stubs += [(name, m) for m in re.findall(r"item (A\d+\w*)", text)]
+    assert stubs == [("cli.py", "A17b")], stubs
+
+
+@pytest.mark.timeout(60)
+def test_cluster_surface_loads_without_jax_or_torch():
+    """Every module of the cluster surface loads with no jax, no ray_tpu and
+    no torch module at all (so no CUDA state): the CLI, the job manager and
+    the client server start on a machine without a card or nvcc."""
+    mods = ", ".join(f"ray_tpu_torch.{m}" for m in CLUSTER_SURFACE)
+    code = (f"import sys; import {mods}; "
+            f"print(sorted(m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN + ('torch',)!r}))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
+                         timeout=60)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip().splitlines()[-1] == "[]"
 
 
 # -- drift -------------------------------------------------------------------
@@ -267,14 +295,21 @@ COPIED = [
     *(f"tune/{m}.py" for m in (
         "__init__", "trainable", "search", "suggest", "schedulers", "tuner",
         "tune_controller")),
+    *(f"util/{m}.py" for m in (
+        "queue", "metrics", "metrics_export", "state/__init__", "state/api",
+        "client/common", "client/__init__", "client/server")),
+    "job/__init__.py", "job/job_manager.py",
+    "dashboard/__init__.py", "dashboard/dashboard.py",
+    "cluster_utils.py",
+    "workflow/__init__.py", "workflow/api.py",
+    "scripts/__init__.py", "scripts/cli.py",
 ]
 
 # The modules of the copy that differ from ray_tpu's after the rename, and
 # why. Editing this list is how a later slice lets them drift on purpose.
 DIFFERS = {
     "__init__.py": "the runtime API merged beside `models` and `ops`, which load lazily",
-    "remote_function.py": "num_gpus maps to 'GPU' (num_tpus to 'TPU' in ray_tpu); "
-                          "fn.bind raises: workflows are not ported yet (ROADMAP A16b)",
+    "remote_function.py": "num_gpus maps to 'GPU' (num_tpus to 'TPU' in ray_tpu)",
     "_private/serialization.py": "a torch-tensor reducer (CUDA tensors come back as CPU "
                                  "tensors, out of band) in place of the jax-array one; "
                                  "deserialize(on_release=...) hands zero-copy buffers over as "
@@ -282,12 +317,12 @@ DIFFERS = {
     "_private/core_worker.py": "a zero-copy value's store hold follows the value's out-of-band "
                                "buffers (deserialize's on_release): ray_tpu drops it with the "
                                "ObjectRef, so an array held in a tuple or dict, or taken out of "
-                               "a value, is overwritten once the ref is gone",
+                               "a value, is overwritten once the ref is gone; a task's PENDING "
+                               "event carries its lease's resources for the state API",
     "_private/object_store.py": "release_many keeps the holds that follow values "
                                 "(hold_for_value, release_value_holds)",
     "_private/node.py": "num_gpus, and the registry's GPU detection when no GPU count is given",
-    "_private/worker.py": "init(num_gpus=...); address='auto' reads RAY_TPU_TORCH_ADDRESS; "
-                          "client mode raises: util.client is not ported yet (ROADMAP A16b)",
+    "_private/worker.py": "init(num_gpus=...); address='auto' reads RAY_TPU_TORCH_ADDRESS",
     "_private/raylet.py": "the spill directory lies under the temp dir (TMPDIR), not a fixed "
                           "/tmp, so two checkouts with their own TMPDIR never share it",
     "_private/accelerators.py": "GPUAcceleratorManager registered; no TPU manager and no "
@@ -304,11 +339,6 @@ DIFFERS = {
     "train/_worker_group.py": "node_info returns the node address for the rendezvous; poll "
                               "returns as soon as the loop has finished with nothing queued "
                               "(ray_tpu waits out the whole poll timeout, ~10 s a fit)",
-    "dag/tensor_channel.py": "torch tensors on the shm wire (the torch dtype's name in the header, "
-                             "bf16 included) in place of jax arrays; DeviceTensorChannel moves "
-                             "CUDA tensors by CUDA IPC, the group's send/recv or a device copy "
-                             "(loopback) in place of a compiled ppermute; make_cuda_hop in "
-                             "place of make_ici_transfer",
     "util/collective/collective.py": "nccl and gloo backends on torch.distributed (GCS-KV "
                                      "rendezvous, a death watch over async work handles) in "
                                      "place of the xla backend; ops take torch tensors too",
@@ -332,6 +362,26 @@ DIFFERS = {
     "loadgen/__init__.py": "run_smoke starts its cluster with num_gpus=0 (num_tpus=0 in ray_tpu)",
     "tune/tune_controller.py": "a trial's 'GPU' resource goes to its actor's num_gpus ('TPU' to "
                                "num_tpus in ray_tpu); its TrainWorker is the port's",
+    "dag/channel.py": "read takes a sealed header shorter than any frame (length 0: a fresh "
+                      "segment) for a write not yet visible and polls on, and validates "
+                      "both header fields; create no longer stores a header into the "
+                      "segment (ray_tpu parsed an empty frame once, in a compiled DAG's "
+                      "shm edge)",
+    "dag/tensor_channel.py": "torch tensors on the shm wire (the torch dtype's name in the header, "
+                             "bf16 included) in place of jax arrays; DeviceTensorChannel moves "
+                             "CUDA tensors by CUDA IPC, the group's send/recv or a device copy "
+                             "(loopback) in place of a compiled ppermute; make_cuda_hop in "
+                             "place of make_ici_transfer; MIN_FRAME is the array header's size",
+    "util/state/api.py": "list_tasks rows carry the lease's resources (a GPU task shows "
+                         "'GPU'), from the PENDING event the core worker records",
+    "job/job_manager.py": "the job's entrypoint gets RAY_TPU_TORCH_ADDRESS, which the port's "
+                          "init(address='auto') reads (ray_tpu sets RAY_TPU_ADDRESS, which the "
+                          "port never reads)",
+    "cluster_utils.py": "add_node(num_gpus=...) leases 'GPU' (num_tpus leases 'TPU' in "
+                        "ray_tpu); without a count the node advertises the GPUs it detects",
+    "scripts/cli.py": "start --num-gpus (--num-tpus in ray_tpu); the address variable is "
+                      "RAY_TPU_TORCH_ADDRESS; up, down and submit raise NotImplementedError: "
+                      "the launcher and autoscaler are not ported (ROADMAP A17b)",
 }
 
 
