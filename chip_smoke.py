@@ -6,8 +6,9 @@ sharded step on a one-device mesh with ring attention's kernel route, the
 collective groups and a compiled graph's CUDA device edge in runtime actors,
 RLlib's learners on the card with CPU env runners, Serve's GPU replicas
 answering GPT-2-small requests under loadgen, Tune trials that are GPU
-trainers, and the port as a GPU cluster: cluster_utils, the CLI, a job,
-the state API, the dashboard, client mode and a workflow of GPU steps.
+trainers, the port as a GPU cluster: cluster_utils, the CLI, a job,
+the state API, the dashboard, client mode and a workflow of GPU steps, and
+its scale-out: the native extensions, an autoscaled GPU node and ray_perf.
 
     python3 chip_smoke.py            # needs one CUDA card, nvcc, the checkout
 
@@ -140,11 +141,34 @@ Phases, each printing one JSON line:
               finishes, bitwise an uninterrupted run, init run once, the
               checkpointed CUDA tensors CPU tensors on disk; then `cli
               stop`, and no process of the port is left;
+ 15. scale_out (a) the runtime's native extensions, which this process
+              built from ray_tpu_torch/_native/csrc/ at its first import
+              (the seconds of each build), are the ones loaded here and in
+              a num_gpus=1 worker (the native wire codec, store core and
+              shm segments, not the pure-Python fallbacks), and
+              `python -m ray_tpu_torch._native.native_ab`'s codec and
+              end-to-end legs on this host, its threshold misses printed
+              as data (single runs on this shared host swing across both
+              sides of them);
+              (b) a ClusterLauncher on the `fake` provider, its head of 2
+              CPUs and no GPU, one worker type `gpu` of {CPU: 2, GPU: 1}
+              (0 to 1 of it): a job submitted through the launcher and a
+              num_gpus=1 task each run 14a's forward (B1); both wait on
+              the head alone until update() launches the GPU node, both
+              run there, bitwise the bare forward (the job by its digest),
+              the idle node is terminated and `down` leaves no process of
+              the port; the time from demand to registered node, the
+              task's, the job's and idle to terminated; (c) `python -m
+              ray_tpu_torch._private.ray_perf --json` on the card: every
+              key of the reference's main and
+              the CUDA keys (NCCL at world 1, the CUDA IPC device edge)
+              above 0; with loadgen's smoke through benchmarks/perf_gate.py
+              against its floors, whose misses are printed as data;
 then the kernels line, with each kernel's launches in phases 3, 4, 6, the
-bench's transformer phase and phases 9-14 (none in 11: RLlib's modules
+bench's transformer phase and phases 9-15 (none in 11: RLlib's modules
 are MLPs; the reference and timing runs this script makes itself in 12,
-13 and 14 are not counted). Any failure exits non-zero. The last line is
-the ok line.
+13, 14 and 15 are not counted). Any failure exits non-zero. The last line
+is the ok line.
 """
 
 from __future__ import annotations
@@ -326,6 +350,9 @@ TUNE_LRS, TUNE_GPU, TUNE_BATCH, TUNE_STEPS = (3e-4, 1e-3), 0.5, 4, 5
 # SEQ. Every answer that crosses the cluster is held bitwise to a bare run
 # in this process (14c's losses within LOSS_BOUND, which bitwise meets).
 CLUSTER_BATCH, CLUSTER_HEAD_CPUS, CLIENT_PINGS, WORKFLOW_STEPS = 8, 4, 20, 3
+# Phase 15: scale-out. 15b's autoscaler waits AUTOSCALE_UPSCALE_S of unmet
+# demand before it launches, and terminates a node idle AUTOSCALE_IDLE_S.
+AUTOSCALE_UPSCALE_S, AUTOSCALE_IDLE_S = 0.5, 5.0
 
 KERNELS = [  # name, launch-count key, TPU kernel it replaces
     ("flash_fwd", "fwd", "ray_tpu/ops/flash_attention.py:35"),
@@ -3340,6 +3367,263 @@ def cluster_phase(dev) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------- phase 15
+
+NATIVE_MODULES = ("_fastpath", "_shm", "_store")
+
+
+def native_state() -> dict:
+    """Which native paths this process's runtime took (the wire codec, the
+    store core, the shm segments), and the library each native module was
+    loaded from beside the one built from the checkout's sources."""
+    from ray_tpu_torch import _native
+    from ray_tpu_torch._private import rpc, shm, store_core
+
+    loaded = {n: getattr(sys.modules.get(f"ray_tpu_torch._native.{n}"), "__file__", None)
+              for n in NATIVE_MODULES}
+    return {"wire": rpc.native_wire_active(), "store_core": store_core.NATIVE,
+            "shm": shm.NATIVE, "loaded": loaded,
+            "built": {n: str(_native.library_path(n)) for n in NATIVE_MODULES},
+            "node": os.environ.get("RAY_TPU_NODE_ID"), "pid": os.getpid()}
+
+
+def native_ok(state: dict) -> bool:
+    return (state["wire"] and state["store_core"] and state["shm"]
+            and all(state["loaded"][n] and os.path.samefile(state["loaded"][n], state["built"][n])
+                    for n in NATIVE_MODULES))
+
+
+def native_run(work: str) -> dict:
+    """15a: the extensions this process built at its first import of the
+    runtime, from ray_tpu_torch/_native/csrc/; the native paths taken here
+    and in a num_gpus=1 worker; native_ab's two legs on this host, whose
+    threshold misses are data: their single runs swing across both sides
+    of the thresholds on this shared host."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import _native
+
+    here = native_state()
+    rt.init(num_cpus=2)
+    try:
+        worker = rt.get(rt.remote(num_gpus=1)(native_state).remote(), timeout=300)
+    finally:
+        rt.shutdown()
+    ab_json = os.path.join(work, "native_ab.json")
+    t0 = time.perf_counter()
+    ab = subprocess.run([sys.executable, "-m", "ray_tpu_torch._native.native_ab", "--json", ab_json],
+                        cwd=ROOT, capture_output=True, text=True, timeout=600)
+    ab_s = time.perf_counter() - t0
+    report = None
+    if os.path.exists(ab_json):
+        with open(ab_json) as f:
+            report = json.load(f)
+    check(ab.returncode in (0, 1) and report is not None and "e2e" in report,
+          f"native_ab exited {ab.returncode}: {ab.stdout[-2000:]} {ab.stderr[-3000:]}")
+    line = {"build_s": dict(_native.BUILD_SECONDS), "sources": str(_native.CSRC),
+            "driver": here, "gpu_worker": worker, "native_ab": report,
+            "native_ab_misses": report["failures"], "native_ab_s": ab_s}
+    check(sorted(_native.BUILD_SECONDS) == sorted(NATIVE_MODULES),
+          f"this process built {sorted(_native.BUILD_SECONDS)}, not all of {NATIVE_MODULES}")
+    check(native_ok(here), f"the driver's runtime is not on the native path: {here}")
+    check(native_ok(worker), f"the GPU worker's runtime is not on the native path: {worker}")
+    rates = [*report["codec"].values(), *report["e2e"].values()]
+    check(all(v > 0 for v in rates), f"native_ab measured nothing: {report}")
+    check((ab.returncode == 0) == (not report["failures"]),
+          f"native_ab's exit {ab.returncode} against its misses {report['failures']}")
+    return line
+
+
+def autoscale_config(state_dir: str):
+    from ray_tpu_torch.autoscaler import launcher as launcher_mod
+    from ray_tpu_torch.autoscaler.launcher import ClusterConfig
+
+    launcher_mod._STATE_DIR = state_dir  # inside the checkout's build/
+    return ClusterConfig.from_dict({
+        "cluster_name": "smoke15", "provider": {"type": "fake"}, "head_node_type": "head",
+        "idle_timeout_minutes": AUTOSCALE_IDLE_S / 60,
+        "available_node_types": {
+            "head": {"resources": {"CPU": 2}, "min_workers": 0, "max_workers": 0},
+            "gpu": {"resources": {"CPU": 2, "GPU": 1}, "min_workers": 0, "max_workers": 1}}})
+
+
+def scale_until(launcher, done, what: str, timeout: float) -> dict:
+    """Autoscaler rounds every 0.25 s until done() holds: the rounds'
+    launches and terminations, and the seconds it took."""
+    t0 = time.perf_counter()
+    launched = terminated = rounds = 0
+    while not done():
+        check(time.perf_counter() - t0 < timeout,
+              f"{what}: not within {timeout} s ({launched} launched, {terminated} terminated)")
+        out = launcher.update()
+        launched, terminated, rounds = (launched + out["launched"],
+                                        terminated + out["terminated"], rounds + 1)
+        time.sleep(0.25)
+    return {"s": time.perf_counter() - t0, "rounds": rounds, "launched": launched,
+            "terminated": terminated}
+
+
+def autoscale_run(work: str, bare: dict) -> dict:
+    """15b: a fake-provider cluster whose head has no GPU and whose one
+    worker type has one. A job (submitted first, so its supervisor lands on
+    the head) and a num_gpus=1 task each run 14a's forward: both wait on
+    the head alone until the autoscaler launches the GPU node, both run
+    there, bitwise the bare forward, and the idle node goes."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.autoscaler.launcher import ClusterLauncher
+    from ray_tpu_torch.job import JobSubmissionClient
+
+    before = port_processes()
+    launcher = ClusterLauncher(autoscale_config(os.path.join(work, "state")))
+    line = {}
+    try:
+        address = launcher.up()
+        launcher.autoscaler.config.upscale_delay_s = AUTOSCALE_UPSCALE_S
+        provider = launcher.provider
+        rt.init(address=address)
+        line["head_gpu"] = rt.cluster_resources().get("GPU", 0.0)
+        jobs = JobSubmissionClient(address)
+
+        def gpu_node_alive() -> bool:
+            ids = {provider.raylet_node_id(p) for p in provider.non_terminated_nodes()}
+            return any(n["node_id"] in ids and n["state"] == "ALIVE" for n in rt.nodes())
+
+        def job_done() -> bool:
+            return jobs.get_job_status(sid) in ("SUCCEEDED", "FAILED", "STOPPED")
+
+        t_job = time.perf_counter()
+        sid, _ = launcher.submit(f"{sys.executable} -c \"import sys; sys.path.insert(0, "
+                                 f"{ROOT!r}); import chip_smoke; chip_smoke.job_main()\"",
+                                 wait=False)
+        while jobs.get_job_status(sid) == "PENDING":  # its supervisor is placed
+            check(time.perf_counter() - t_job < 120, "the job's supervisor did not start")
+            time.sleep(0.1)
+        t0 = time.perf_counter()
+        ref = rt.remote(num_gpus=1)(cluster_forward).remote(SEED + 14)
+        time.sleep(2 * AUTOSCALE_UPSCALE_S)
+        line["pending_on_head"] = (not provider.non_terminated_nodes()
+                                   and not rt.wait([ref], num_returns=1, timeout=0)[0])
+        line["scale_up"] = scale_until(launcher, gpu_node_alive, "GPU node up", 120)
+        (pid,) = provider.non_terminated_nodes()
+        node_id = provider.raylet_node_id(pid)
+        line["demand_to_registered_s"] = time.perf_counter() - t0
+        out = rt.get(ref, timeout=600)
+        line["task_s"] = time.perf_counter() - t0
+        line["while_job_runs"] = scale_until(launcher, job_done, "job finished", 600)
+        line["job_s"] = time.perf_counter() - t_job
+        logs = jobs.get_job_logs(sid)
+        status = jobs.get_job_status(sid)
+        check(status == "SUCCEEDED", f"the job ended {status}: {logs[-3000:]}")
+        job = json.loads([x for x in logs.splitlines() if x.startswith("JOB_RESULT ")][-1][11:])
+        line["scale_down"] = scale_until(launcher, lambda: not provider.non_terminated_nodes(),
+                                         "idle GPU node down", AUTOSCALE_IDLE_S + 60)
+        line["idle_to_terminated_s"] = line["scale_down"]["s"]
+        line.update({"gpu_node": node_id, "task_node": out["node"], "task_device": out["device"],
+                     "bitwise_equal_to_bare": bool(torch.equal(out["logp"], bare["logp"].cpu())),
+                     "max_abs_diff_vs_bare": max_err(out["logp"], bare["logp"].cpu()),
+                     "task_launches": out["launches"], "job_node": job["node"],
+                     "job_launches": job["launches"],
+                     "job_digest_equal_to_bare": job["digest"] == digest(bare["logp"]),
+                     "job_forbidden_modules": job["forbidden_modules"]})
+    finally:
+        launcher.down()
+        rt.shutdown()
+    deadline = time.monotonic() + 30
+    while port_processes() - before and time.monotonic() < deadline:
+        time.sleep(0.2)
+    line["left_processes"] = sorted(port_processes() - before)
+    check(line["head_gpu"] == 0.0 and line["pending_on_head"],
+          f"the GPU task did not wait on the head alone: {line}")
+    check(out["node"] == node_id and job["node"] == node_id,
+          f"the GPU work ran on {out['node']} and {job['node']}, not the launched node {node_id}")
+    check(line["bitwise_equal_to_bare"], f"the autoscaled node's log-probs differ from the bare "
+                                         f"forward's by {line['max_abs_diff_vs_bare']}")
+    check(line["job_digest_equal_to_bare"], "the job's log-probs differ from the bare forward's")
+    check(not job["forbidden_modules"], f"the job's driver imported {job['forbidden_modules']}")
+    check(out["launches"]["fwd"] == GPT2_SMALL["n_layers"],
+          f"the task launched B1 {out['launches']['fwd']} times, not once a layer")
+    got = [(line[k]["launched"], line[k]["terminated"])
+           for k in ("scale_up", "while_job_runs", "scale_down")]
+    check(got == [(1, 0), (0, 0), (0, 1)], f"launched, terminated per stage: {got}")
+    check(not line["left_processes"], f"port processes left after down: {line['left_processes']}")
+    return line
+
+
+def perf_run(work: str) -> dict:
+    """15c: `python -m ray_tpu_torch._private.ray_perf --json` on the card,
+    every key of the reference's main and the CUDA keys above 0; then that
+    JSON and loadgen's smoke through benchmarks/perf_gate.py against its
+    floors, whose misses are data (the floors are a 1-core Xeon's)."""
+    from ray_tpu_torch._private import ray_perf
+
+    perf_json, serve_json = os.path.join(work, "perf.json"), os.path.join(work, "serve.json")
+    t0 = time.perf_counter()
+    perf = subprocess.run([sys.executable, "-m", "ray_tpu_torch._private.ray_perf", "--json",
+                           perf_json], cwd=ROOT, capture_output=True, text=True, timeout=900)
+    perf_s = time.perf_counter() - t0
+    check(perf.returncode == 0 and os.path.exists(perf_json),
+          f"ray_perf exited {perf.returncode}: {perf.stdout[-2000:]} {perf.stderr[-3000:]}")
+    with open(perf_json) as f:
+        results = json.load(f)
+    want = ray_perf.result_keys(os.path.join(ROOT, "ray_tpu_torch", "_private", "ray_perf.py"))
+    want |= set(ray_perf.CUDA_KEYS)
+    t1 = time.perf_counter()
+    serve = subprocess.run([sys.executable, "-m", "ray_tpu_torch.loadgen", "--smoke", "--json",
+                            serve_json], cwd=ROOT, capture_output=True, text=True, timeout=600)
+    check(serve.returncode == 0, f"loadgen --smoke exited {serve.returncode}: "
+                                 f"{serve.stderr[-3000:]}")
+    loadgen_s = time.perf_counter() - t1
+    gate = subprocess.run([sys.executable, os.path.join("benchmarks", "perf_gate.py"), perf_json,
+                           serve_json], cwd=ROOT, capture_output=True, text=True, timeout=120)
+    misses = [x.strip() for x in gate.stderr.splitlines() if x.startswith("  ")]
+    line = {"ray_perf_s": perf_s, "loadgen_s": loadgen_s, "results": results,
+            "gate_rc": gate.returncode, "gate_misses": misses, "gate_table": gate.stdout,
+            "host_cpus": os.cpu_count(), "host_cpu": cpu_model()}
+    check(want <= set(results), f"ray_perf lacks {sorted(want - set(results))}")
+    check(all(v > 0 for k, v in results.items()), f"ray_perf values not above 0: "
+          f"{ {k: v for k, v in results.items() if not v > 0} }")
+    check(not any("error" in k for k in results), f"ray_perf error keys: {results}")
+    check(gate.returncode in (0, 1) and (gate.returncode == 0) == (not misses),
+          f"perf_gate exited {gate.returncode}: {gate.stdout[-2000:]} {gate.stderr[-2000:]}")
+    return line
+
+
+def cpu_model() -> str:
+    with open("/proc/cpuinfo") as f:
+        names = [x.split(":", 1)[1].strip() for x in f if x.startswith("model name")]
+    return names[0] if names else "unknown"
+
+
+def scale_out_phase() -> dict:
+    """Phase 15: the runtime's native extensions (15a), an autoscaled GPU
+    node (15b) and ray_perf with its gate (15c). Returns the flash launches
+    of 15b's task and job (the bare run here is not counted)."""
+    t_phase = time.perf_counter()
+    work = os.path.join(ROOT, "build", "chip_smoke_scale_out")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    try:
+        line = {"phase": "scale_out", "15a": native_run(work)}
+        emit({"phase": "scale_out", "part": "15a", **line["15a"]})
+        bare = cluster_forward(SEED + 14)
+        line["15b"] = autoscale_run(work, bare)
+        emit({"phase": "scale_out", "part": "15b", **line["15b"]})
+        line["15c"] = perf_run(work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    launches = {key: line["15b"]["task_launches"][key] + line["15b"]["job_launches"][key]
+                for _, key, _ in KERNELS}
+    emit({"phase": "scale_out", "part": "15c", **line["15c"]})
+    emit({"phase": "scale_out", "launches": launches, "nvidia_smi": card()["nvidia_smi"],
+          "15a_build_s": line["15a"]["build_s"],
+          "15a_native_ab_misses": line["15a"]["native_ab_misses"], "15b_times_s": {
+              k: line["15b"][k] for k in ("demand_to_registered_s", "task_s", "job_s",
+                                          "idle_to_terminated_s")},
+          "15c_gate_misses": line["15c"]["gate_misses"],
+          "seconds": time.perf_counter() - t_phase})
+    check(launches["fwd"] > 0, "B1 was not launched in phase 15")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3398,12 +3682,14 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     cluster_launches = cluster_phase(dev)
+    scale_out_launches = scale_out_phase()
 
     kernels = []
     for name, key, replaces in KERNELS:
         n = (fwd_launches[key] + train_launches[key] + trainer_launches[key] + bench_launches[key]
              + mesh_launches[key] + collective_launches[key] + rllib_launches[key]
-             + serve_launches[key] + tune_launches[key] + cluster_launches[key])
+             + serve_launches[key] + tune_launches[key] + cluster_launches[key]
+             + scale_out_launches[key])
         kernels.append({"name": name, "route": "cuda", "source": SOURCE, "replaces": replaces,
                         "launches": n, **rows[key]})
         check(n > 0, f"{name} was not launched on the main path")

@@ -914,12 +914,18 @@ class LeasePool:
                 )
                 self._fp_drainer_installed = True
         tid = wire["task_id"]
+        # bytes() wrap: the C++ side reads the args with "y#", which takes
+        # bytes only, and to_bytes() gives a bytearray when the args carry
+        # out-of-band buffers (an array or a tensor of more than 512 bytes).
+        blob = wire["args_blob"]
+        if not isinstance(blob, bytes):
+            blob = bytes(blob)
         if not fp.submit(
             lease.fp_channel,
             tid.encode(),
             wire["func_id"].encode(),
             wire["name"].encode(),
-            wire["args_blob"],
+            blob,
         ):
             lease.fp_channel = False
             return False

@@ -122,9 +122,11 @@ def iter_blocks_pipelined(
         return
     from concurrent.futures import ThreadPoolExecutor
 
-    pool = ThreadPoolExecutor(
-        max_workers=lookahead, thread_name_prefix="block-fetch"
-    )
+    # One fetch thread: the blocks are fetched in order. A fetched block is
+    # held (its zero-copy buffers keep its store hold) and cannot be
+    # spilled, and the block the consumer waits for may need the arena room
+    # that later blocks, fetched first, would take.
+    pool = ThreadPoolExecutor(max_workers=1, thread_name_prefix="block-fetch")
     pending: collections.deque = collections.deque()
     try:
         for ref in refs:

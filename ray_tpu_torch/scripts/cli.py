@@ -193,26 +193,76 @@ def cmd_job(args) -> None:
 # -- ray-tpu summary / timeline ------------------------------------------------
 
 
-def _needs_launcher(command: str):
-    raise NotImplementedError(
-        f"`ray-tpu {command}` needs the cluster launcher and autoscaler, which "
-        "ray_tpu_torch does not have yet (queued in ROADMAP.md, item A17b)"
-    )
-
-
 def cmd_up(args) -> None:
     """Boot a cluster from a YAML (reference: `ray up`, scripts.py:1279)."""
-    _needs_launcher("up")
+    import time as _time
+
+    from ray_tpu_torch.autoscaler.launcher import ClusterConfig, ClusterLauncher
+
+    launcher = ClusterLauncher(ClusterConfig.from_yaml(args.config))
+    addr = launcher.up()
+    print(f"cluster up; head address: {addr}")
+    if args.monitor:
+        print("autoscaler monitor running (ctrl-c to detach)...")
+        try:
+            while True:
+                launcher.update()
+                _time.sleep(launcher.autoscaler.config.poll_interval_s)
+        except KeyboardInterrupt:
+            pass
 
 
 def cmd_down(args) -> None:
     """Tear down a cluster (reference: `ray down`, scripts.py:1355)."""
-    _needs_launcher("down")
+    from ray_tpu_torch.autoscaler.launcher import (
+        ClusterConfig,
+        ClusterLauncher,
+        read_cluster_state,
+    )
+
+    config = ClusterConfig.from_yaml(args.config)
+    state = read_cluster_state(config.cluster_name)
+    launcher = ClusterLauncher(config)
+    launcher._make_provider()
+    if state:
+        launcher.head_address = state.get("head_address")
+        launcher._worker_pids = state.get("worker_pids", [])
+    # A fresh process has no in-memory node table: adopt what the cloud
+    # reports before terminating.
+    discover = getattr(launcher.provider, "discover_nodes", None)
+    if discover is not None:
+        discover()
+    launcher.down()
+    print(f"cluster {config.cluster_name} down")
 
 
 def cmd_submit(args) -> None:
     """Submit an entrypoint against a cluster booted with `up`."""
-    _needs_launcher("submit")
+    from ray_tpu_torch.autoscaler.launcher import ClusterConfig, read_cluster_state
+    from ray_tpu_torch.job import JobSubmissionClient
+
+    config = ClusterConfig.from_yaml(args.config)
+    state = read_cluster_state(config.cluster_name)
+    if not state:
+        raise SystemExit(f"no running cluster named {config.cluster_name!r}")
+    # argparse REMAINDER may include the literal "--" separator as the
+    # first token; anything after it (including dashes) IS the entrypoint.
+    tokens = list(args.entrypoint)
+    if tokens and tokens[0] == "--":
+        tokens = tokens[1:]
+    entry = " ".join(tokens)
+    client = JobSubmissionClient(state["head_address"])
+    sid = client.submit_job(entrypoint=entry)
+    print(f"submitted job {sid}")
+    if not args.no_wait:
+        import time as _time
+
+        while True:
+            info = client.get_job_info(sid)
+            if info.status in ("SUCCEEDED", "FAILED", "STOPPED"):
+                print(f"job {sid}: {info.status}")
+                break
+            _time.sleep(0.5)
 
 
 def cmd_summary(args) -> None:

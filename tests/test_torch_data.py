@@ -314,3 +314,37 @@ def test_held_batches_keep_their_rows_past_their_blocks_refs(monkeypatch):
     assert len(labels) == n_blocks * rows
     diff = bench.rows_diff(labels, sums, n_blocks, rows, size, classes, batch=rows // 2)
     assert bench.rows_intact(labels, sums, n_blocks, rows, size, classes), diff
+
+
+@pytest.mark.timeout(120)
+def test_blocks_are_fetched_in_order_so_the_next_one_has_room(monkeypatch, tmp_path):
+    """The pipelined block fetch when the arena holds two of three blocks:
+    the first block's task ends after the other two are in the store.
+    Fetched in order, the first block gets its room (the other two spill)
+    and all three reach the consumer intact. Fetched all at once, the two
+    later blocks were held (their zero-copy buffers keep their store holds,
+    so they cannot spill) and the first block's create waited for room
+    until it timed out."""
+    import json
+    import time
+
+    from ray_tpu_torch.data.iterator import iter_blocks_pipelined
+
+    mb = 1 << 20
+    monkeypatch.setenv("RAY_TPU_OBJECT_SPILLING_CONFIG", json.dumps(
+        {"type": "filesystem", "params": {"directory_path": str(tmp_path)}}))
+    monkeypatch.setenv("RAY_TPU_OBJECT_STORE_CREATE_TIMEOUT_S", "10")
+    ray_tpu_torch.init(num_cpus=2, object_store_memory=16 * mb)
+    try:
+        @ray_tpu_torch.remote
+        def late(i):
+            time.sleep(2)
+            return np.full(6 * mb, i, np.uint8)
+
+        first = late.remote(1)
+        rest = [ray_tpu_torch.put(np.full(6 * mb, i, np.uint8)) for i in (2, 3)]
+        got = [(int(b[0]), int(b[-1]), len(b))
+               for b in iter_blocks_pipelined(iter([first, *rest]), lookahead=4)]
+    finally:
+        ray_tpu_torch.shutdown()
+    assert got == [(i, i, 6 * mb) for i in (1, 2, 3)]

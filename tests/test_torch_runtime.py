@@ -202,6 +202,21 @@ def test_rllib_loads_without_jax_or_gymnasium():
     assert out.stdout.strip().splitlines()[-1] == "[]"
 
 
+@pytest.mark.timeout(60)
+def test_yardsticks_and_scale_out_load_without_jax():
+    """ray_perf, sim_cluster, the autoscaler and the native extensions load
+    with no jax and no ray_tpu module."""
+    code = ("import sys; import ray_tpu_torch._private.ray_perf, "
+            "ray_tpu_torch._private.sim_cluster, ray_tpu_torch.autoscaler, "
+            "ray_tpu_torch.autoscaler.launcher, ray_tpu_torch._native.native_ab; "
+            "from ray_tpu_torch._native import _fastpath, _shm, _store; "
+            f"print(sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
+                         timeout=60)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip().splitlines()[-1] == "[]"
+
+
 # The modules of the cluster surface: the CLI, jobs, the state API, metrics
 # and their export, the dashboard, client mode, workflows, the queue and
 # cluster_utils.
@@ -212,15 +227,17 @@ CLUSTER_SURFACE = (
 
 
 def test_unported_branches_raise_not_implemented():
-    """The only stubs left that name a ROADMAP item: the CLI's up, down and
-    submit need the launcher and autoscaler (A17b); workflows (fn.bind) and
-    client mode (ray-tpu://) are ported."""
+    """No stub that names a ROADMAP item is left: the CLI's up, down and
+    submit run the cluster launcher (A17b), as workflows (fn.bind) and
+    client mode (ray-tpu://) run theirs; each command reads its cluster
+    YAML, so a missing one is the error, not a missing port."""
     from ray_tpu_torch.scripts.cli import build_parser
 
     parser = build_parser()
-    for argv in (["up", "c.yaml"], ["down", "c.yaml"], ["submit", "c.yaml", "echo", "hi"]):
+    missing = os.path.join(tempfile.mkdtemp(), "missing.yaml")
+    for argv in (["up", missing], ["down", missing], ["submit", missing, "echo", "hi"]):
         args = parser.parse_args(argv)
-        with pytest.raises(NotImplementedError, match=f"ray-tpu {argv[0]}.*A17b"):
+        with pytest.raises(FileNotFoundError, match="missing.yaml"):
             args.fn(args)
     stubs = []
     for root, _, files in os.walk(os.path.join(REPO, "ray_tpu_torch")):
@@ -229,7 +246,7 @@ def test_unported_branches_raise_not_implemented():
                 with open(os.path.join(root, name)) as f:
                     text = f.read()
                 stubs += [(name, m) for m in re.findall(r"item (A\d+\w*)", text)]
-    assert stubs == [("cli.py", "A17b")], stubs
+    assert stubs == [], stubs
 
 
 @pytest.mark.timeout(60)
@@ -303,6 +320,10 @@ COPIED = [
     "cluster_utils.py",
     "workflow/__init__.py", "workflow/api.py",
     "scripts/__init__.py", "scripts/cli.py",
+    "_private/sim_cluster.py", "_private/ray_perf.py",
+    *(f"autoscaler/{m}.py" for m in ("__init__", "autoscaler", "node_provider", "launcher")),
+    # The native extensions' sources, copied from src/ (see _renamed).
+    *(f"_native/csrc/{m}.cc" for m in ("fastpath", "shm_buffer", "store_core")),
 ]
 
 # The modules of the copy that differ from ray_tpu's after the rename, and
@@ -318,7 +339,10 @@ DIFFERS = {
                                "buffers (deserialize's on_release): ray_tpu drops it with the "
                                "ObjectRef, so an array held in a tuple or dict, or taken out of "
                                "a value, is overwritten once the ref is gone; a task's PENDING "
-                               "event carries its lease's resources for the state API",
+                               "event carries its lease's resources for the state API; the "
+                               "native fast path gets its args as bytes (ray_tpu passes the "
+                               "bytearray of args with out-of-band buffers, which the C "
+                               "submit refuses with a TypeError)",
     "_private/object_store.py": "release_many keeps the holds that follow values "
                                 "(hold_for_value, release_value_holds)",
     "_private/node.py": "num_gpus, and the registry's GPU detection when no GPU count is given",
@@ -345,7 +369,10 @@ DIFFERS = {
     "util/collective/mesh_ops.py": "MeshCollectives runs each op on the group's process group "
                                    "in place of compiled shard_map programs over a jax mesh",
     "data/iterator.py": "the _finalize_fn docstring names the torch host->device copy, "
-                        "not jax.device_put",
+                        "not jax.device_put; blocks are fetched in order on one thread "
+                        "(ray_tpu fetches `lookahead` at once: with holds that follow "
+                        "values, later blocks fetched first held the arena room the "
+                        "next block needed, and its create timed out)",
     "rllib/__init__.py": "the docstring describes torch modules and learners on the card",
     "rllib/algorithms/algorithm_config.py": "num_gpus_per_learner replaces num_tpus_per_learner; "
                                             "learners(device=...) sets learner_device "
@@ -380,13 +407,36 @@ DIFFERS = {
     "cluster_utils.py": "add_node(num_gpus=...) leases 'GPU' (num_tpus leases 'TPU' in "
                         "ray_tpu); without a count the node advertises the GPUs it detects",
     "scripts/cli.py": "start --num-gpus (--num-tpus in ray_tpu); the address variable is "
-                      "RAY_TPU_TORCH_ADDRESS; up, down and submit raise NotImplementedError: "
-                      "the launcher and autoscaler are not ported (ROADMAP A17b)",
+                      "RAY_TPU_TORCH_ADDRESS",
+    "_private/ray_perf.py": "the collective child runs MeshCollectives on 8 gloo processes "
+                           "(a jax psum over a forced 8-device CPU mesh in ray_tpu); the DAG "
+                           "edge carries a torch tensor; init(num_gpus=0); on a card, "
+                           "main(device='cuda') adds the NCCL group's and the CUDA IPC "
+                           "edge's keys",
+    "_native/__init__.py": "builds the extensions from _native/csrc/ at first import and "
+                           "loads them under their module names (ray_tpu's is empty: "
+                           "setup.py build_ext builds its extensions in place)",
+    "autoscaler/__init__.py": "exports GCEGPUNodeProvider in place of GCETPUNodeProvider",
+    "autoscaler/autoscaler.py": "every scaling unit is one host: a GPU count is per host like "
+                                "any resource, so there is no TPU-{pod}-head gang branch in "
+                                "_covers, no pod-slice gang in _launch, and a FAILED node is "
+                                "replaced alone",
+    "autoscaler/node_provider.py": "FakeNodeProvider passes the type's GPU count to add_node "
+                                   "(0 for a CPU type: no count would advertise the host's "
+                                   "cards); GCEGPUNodeProvider creates GCE GPU VMs (gcloud "
+                                   "compute instances, JSON describe, GCE's instance states) "
+                                   "in place of TPU VMs",
+    "autoscaler/launcher.py": "the head's GPU count (num_tpus in ray_tpu), the gce provider "
+                              "is GCEGPUNodeProvider, the head starts ray-tpu-torch, the "
+                              "state directory is ~/.ray_tpu_torch, and update() attaches a "
+                              "driver to the head when none is connected (ray_tpu's `up "
+                              "--monitor` raised 'not initialized' on its first round)",
 }
 
 
 def _renamed(rel: str) -> str:
-    with open(os.path.join(REPO, "ray_tpu", rel)) as f:
+    ref = rel.replace("_native/csrc/", os.path.join("..", "src") + os.sep)
+    with open(os.path.join(REPO, "ray_tpu", ref)) as f:
         return CHANGE_NUMBER.sub("", f.read().replace(*RENAME))
 
 

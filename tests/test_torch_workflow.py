@@ -186,19 +186,62 @@ def test_metrics_render():
     assert "test_lat_count 3" in text
 
 
+# Records _record_metrics' three metrics through {pkg}'s registry in a fresh
+# process and prints the snapshot and its render for two workers. The
+# registry is module-global: in the test's own process it holds whatever
+# earlier tests registered (tests/test_telemetry.py registers a counter in
+# ray_tpu's alone), so each package's snapshot is taken where only this
+# test has recorded.
+METRICS_SCRIPT = r'''
+import json, sys
+sys.path.insert(0, {repo!r})
+sys.path.insert(0, {tests!r})
+from test_torch_workflow import _record_metrics
+from {pkg}.util import metrics as M
+
+snap = _record_metrics(M)
+print("RESULT " + json.dumps({{"snap": snap,
+                              "text": M.render_prometheus({{"w1": snap, "w2": snap}})}}))
+'''
+
+
+def _metrics_in_fresh_process(pkg: str) -> dict:
+    code = METRICS_SCRIPT.format(repo=REPO, tests=os.path.dirname(os.path.abspath(__file__)),
+                                 pkg=pkg)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
+                         timeout=60, env={**os.environ, "JAX_PLATFORMS": "cpu"})
+    assert out.returncode == 0, out.stderr[-4000:]
+    line = [x for x in out.stdout.splitlines() if x.startswith("RESULT ")]
+    assert line, (out.stdout[-2000:], out.stderr[-2000:])
+    return json.loads(line[-1][len("RESULT "):])
+
+
+def _assert_metrics_parity():
+    ref = _metrics_in_fresh_process("ray_tpu")
+    port = _metrics_in_fresh_process("ray_tpu_torch")
+    assert json.dumps(ref["snap"], sort_keys=True) == json.dumps(port["snap"], sort_keys=True)
+    assert port["text"] == ref["text"].replace("ray_tpu", "ray_tpu_torch")
+    assert 'test_requests{route="/a"} 4.0' in port["text"]  # two workers' 2.0
+
+
+@pytest.mark.timeout(120)
 def test_render_prometheus_matches_reference():
     """Both packages' render_prometheus give the same text for one snapshot
     (after the rename), and the same metrics recorded through each package
-    give the same snapshot."""
-    from ray_tpu.util import metrics as ref
-    from ray_tpu_torch.util import metrics as port
+    give the same snapshot; each package records in a process of its own."""
+    _assert_metrics_parity()
 
-    snap = _record_metrics(port)
-    ref_snap = _record_metrics(ref)
-    assert json.dumps(ref_snap, sort_keys=True) == json.dumps(snap, sort_keys=True)
-    per_worker = {"w1": snap, "w2": snap}
-    want = ref.render_prometheus(per_worker).replace("ray_tpu", "ray_tpu_torch")
-    assert port.render_prometheus(per_worker) == want
+
+@pytest.mark.timeout(120)
+def test_render_prometheus_parity_ignores_metrics_registered_here():
+    """A metric registered in ray_tpu's registry in this process (as an
+    earlier test on the same xdist worker may do) does not reach either
+    package's snapshot: the parity holds all the same."""
+    from ray_tpu.util import metrics as ref
+
+    ref.Counter("t11_only_in_this_process", "", tag_keys=()).inc(1)
+    assert "t11_only_in_this_process" in ref._collect_local()
+    _assert_metrics_parity()
 
 
 def test_queue(torch_cluster):  # noqa: F811
