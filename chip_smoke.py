@@ -8,7 +8,9 @@ RLlib's learners on the card with CPU env runners, Serve's GPU replicas
 answering GPT-2-small requests under loadgen, Tune trials that are GPU
 trainers, the port as a GPU cluster: cluster_utils, the CLI, a job,
 the state API, the dashboard, client mode and a workflow of GPU steps, and
-its scale-out: the native extensions, an autoscaled GPU node and ray_perf.
+its scale-out: the native extensions, an autoscaled GPU node and ray_perf,
+and chaos: the port's lint gate, the chaos suite and a nemesis against GPU
+work.
 
     python3 chip_smoke.py            # needs one CUDA card, nvcc, the checkout
 
@@ -150,25 +152,43 @@ Phases, each printing one JSON line:
               end-to-end legs on this host, its threshold misses printed
               as data (single runs on this shared host swing across both
               sides of them);
-              (b) a ClusterLauncher on the `fake` provider, its head of 2
-              CPUs and no GPU, one worker type `gpu` of {CPU: 2, GPU: 1}
-              (0 to 1 of it): a job submitted through the launcher and a
-              num_gpus=1 task each run 14a's forward (B1); both wait on
-              the head alone until update() launches the GPU node, both
-              run there, bitwise the bare forward (the job by its digest),
-              the idle node is terminated and `down` leaves no process of
-              the port; the time from demand to registered node, the
-              task's, the job's and idle to terminated; (c) `python -m
+              (b) a ClusterLauncher on the `fake` provider, its head of no
+              CPU and no GPU, one worker type `gpu` of {CPU: 2, GPU: 1}
+              (0 to 1 of it): a num_gpus=1 task runs 14a's forward (B1),
+              waiting on the head alone until update() launches the GPU
+              node; then a job submitted through the launcher (its
+              supervisor can only land on that node) runs the same forward
+              there; both bitwise the bare forward (the job by its
+              digest), the job's supervisor DEAD once it has ended, the
+              idle node terminated and `down` leaving no process of the
+              port; the time from demand to registered node, the task's,
+              the job's and idle to terminated; (c) `python -m
               ray_tpu_torch._private.ray_perf --json` on the card: every
               key of the reference's main and
               the CUDA keys (NCCL at world 1, the CUDA IPC device edge)
               above 0; with loadgen's smoke through benchmarks/perf_gate.py
               against its floors, whose misses are printed as data;
+ 16. chaos    (a) `python -m ray_tpu_torch.devtools.lint`, the port's
+              static gate over its tree: clean within its 120 s budget,
+              each pass's seconds; (b) `python -m ray_tpu_torch.chaos
+              --suite smoke --seeds 2`: every seed of every scenario
+              converges with every invariant held (each seed's fault count
+              and seconds), and `--check-determinism` on one scenario gives
+              the digests that run used; (c) the port's Nemesis against GPU
+              work: a Cluster whose head has no GPU and one added
+              {GPU: 1} node, 14a's forward as num_gpus=1 tasks with 3
+              retries: kill_worker while the first is inside its forward,
+              the retry bitwise the bare forward; a second's answer left
+              unfetched on the GPU node, kill_raylet on that node and a
+              replacement {GPU: 1} node, the get rebuilt by lineage,
+              bitwise; then every raylet's leases and store settled, no
+              acknowledged answer lost, the replacement's GPU available
+              1.0, and the seconds from each kill to its answer;
 then the kernels line, with each kernel's launches in phases 3, 4, 6, the
-bench's transformer phase and phases 9-15 (none in 11: RLlib's modules
+bench's transformer phase and phases 9-16 (none in 11: RLlib's modules
 are MLPs; the reference and timing runs this script makes itself in 12,
-13, 14 and 15 are not counted). Any failure exits non-zero. The last line
-is the ok line.
+13, 14, 15 and 16 are not counted, nor 16's killed attempt). Any failure
+exits non-zero. The last line is the ok line.
 """
 
 from __future__ import annotations
@@ -353,6 +373,14 @@ CLUSTER_BATCH, CLUSTER_HEAD_CPUS, CLIENT_PINGS, WORKFLOW_STEPS = 8, 4, 20, 3
 # Phase 15: scale-out. 15b's autoscaler waits AUTOSCALE_UPSCALE_S of unmet
 # demand before it launches, and terminates a node idle AUTOSCALE_IDLE_S.
 AUTOSCALE_UPSCALE_S, AUTOSCALE_IDLE_S = 0.5, 5.0
+# Phase 16: chaos. 16b runs the chaos CLI's smoke suite over CHAOS_SEEDS
+# seeds and its determinism check on CHAOS_DETERMINISM_SCENARIO. 16c's tasks
+# run 14a's forward on NEMESIS_SEEDS with max_retries NEMESIS_RETRIES; the
+# first's first attempt forwards in a loop once it is inside its forward, for
+# at most NEMESIS_HOLD_S, and is killed NEMESIS_IN_FORWARD_S after it says so.
+CHAOS_SEEDS, CHAOS_DETERMINISM_SCENARIO = 2, "chunk_loss"
+NEMESIS_SEEDS, NEMESIS_RETRIES = (SEED + 16, SEED + 17), 3
+NEMESIS_HOLD_S, NEMESIS_IN_FORWARD_S = 120.0, 1.0
 
 KERNELS = [  # name, launch-count key, TPU kernel it replaces
     ("flash_fwd", "fwd", "ray_tpu/ops/flash_attention.py:35"),
@@ -2879,26 +2907,40 @@ def digest(t) -> str:
                           + body.numpy().tobytes()).hexdigest()
 
 
-def cluster_forward(seed: int) -> dict:
-    """14a's forward, in a GPU task or bare here: GPT-2 small's weights and
-    then CLUSTER_BATCH x SEQ tokens, drawn from `seed` on the card; the f32
-    log-probs at each prompt's last position (B1 under inference_mode), the
-    flash launches and where it ran."""
+def forward_inputs(seed: int) -> tuple:
+    """GPT-2 small's weights and then CLUSTER_BATCH x SEQ tokens, drawn from
+    `seed` on this process's card."""
     from ray_tpu_torch.models import transformer as tr
 
-    fa = importlib.import_module("ray_tpu_torch.ops.flash_attention")
     dev = cuda_here()
     cfg = tr.TransformerConfig(**GPT2_SMALL)
     gen = torch.Generator(device=dev).manual_seed(seed)
     model = tr.transformer_init(cfg, gen, device=dev)
     tokens = torch.randint(0, cfg.vocab_size, (CLUSTER_BATCH, SEQ), device=dev, generator=gen)
-    fa.reset_launches()
+    return model, tokens
+
+
+def last_logp(model, tokens):
+    """The f32 log-probs at each prompt's last position (B1 under
+    inference_mode), the card synchronised."""
+    from ray_tpu_torch.models import transformer as tr
+
     with torch.inference_mode():
         logits = tr.transformer_apply(model, tokens)
         logp = torch.log_softmax(logits[:, -1].float(), dim=-1)
-    torch.cuda.synchronize(dev)
-    return {"logp": logp, "launches": dict(fa.launches), "device": str(dev), "pid": os.getpid(),
-            "node": os.environ.get("RAY_TPU_NODE_ID")}
+    torch.cuda.synchronize(tokens.device)
+    return logp
+
+
+def cluster_forward(seed: int) -> dict:
+    """14a's forward, in a GPU task or bare here: forward_inputs(seed)'s
+    last-position log-probs, the flash launches and where it ran."""
+    fa = importlib.import_module("ray_tpu_torch.ops.flash_attention")
+    model, tokens = forward_inputs(seed)
+    fa.reset_launches()
+    logp = last_logp(model, tokens)
+    return {"logp": logp, "launches": dict(fa.launches), "device": str(tokens.device),
+            "pid": os.getpid(), "node": os.environ.get("RAY_TPU_NODE_ID")}
 
 
 def client_train(seed: int) -> dict:
@@ -3442,7 +3484,7 @@ def autoscale_config(state_dir: str):
         "cluster_name": "smoke15", "provider": {"type": "fake"}, "head_node_type": "head",
         "idle_timeout_minutes": AUTOSCALE_IDLE_S / 60,
         "available_node_types": {
-            "head": {"resources": {"CPU": 2}, "min_workers": 0, "max_workers": 0},
+            "head": {"resources": {"CPU": 0}, "min_workers": 0, "max_workers": 0},
             "gpu": {"resources": {"CPU": 2, "GPU": 1}, "min_workers": 0, "max_workers": 1}}})
 
 
@@ -3463,14 +3505,16 @@ def scale_until(launcher, done, what: str, timeout: float) -> dict:
 
 
 def autoscale_run(work: str, bare: dict) -> dict:
-    """15b: a fake-provider cluster whose head has no GPU and whose one
-    worker type has one. A job (submitted first, so its supervisor lands on
-    the head) and a num_gpus=1 task each run 14a's forward: both wait on
-    the head alone until the autoscaler launches the GPU node, both run
-    there, bitwise the bare forward, and the idle node goes."""
+    """15b: a fake-provider cluster whose head has no CPU and no GPU and whose
+    one worker type has both. A num_gpus=1 task runs 14a's forward: it waits
+    on the head alone until the autoscaler launches the GPU node, then runs
+    there, bitwise the bare forward. A job submitted then (its supervisor can
+    only land on the GPU node) runs the same forward there; its supervisor
+    ends with it, and the idle node goes."""
     import ray_tpu_torch as rt
     from ray_tpu_torch.autoscaler.launcher import ClusterLauncher
     from ray_tpu_torch.job import JobSubmissionClient
+    from ray_tpu_torch.util.state import list_actors
 
     before = port_processes()
     launcher = ClusterLauncher(autoscale_config(os.path.join(work, "state")))
@@ -3490,13 +3534,6 @@ def autoscale_run(work: str, bare: dict) -> dict:
         def job_done() -> bool:
             return jobs.get_job_status(sid) in ("SUCCEEDED", "FAILED", "STOPPED")
 
-        t_job = time.perf_counter()
-        sid, _ = launcher.submit(f"{sys.executable} -c \"import sys; sys.path.insert(0, "
-                                 f"{ROOT!r}); import chip_smoke; chip_smoke.job_main()\"",
-                                 wait=False)
-        while jobs.get_job_status(sid) == "PENDING":  # its supervisor is placed
-            check(time.perf_counter() - t_job < 120, "the job's supervisor did not start")
-            time.sleep(0.1)
         t0 = time.perf_counter()
         ref = rt.remote(num_gpus=1)(cluster_forward).remote(SEED + 14)
         time.sleep(2 * AUTOSCALE_UPSCALE_S)
@@ -3508,12 +3545,27 @@ def autoscale_run(work: str, bare: dict) -> dict:
         line["demand_to_registered_s"] = time.perf_counter() - t0
         out = rt.get(ref, timeout=600)
         line["task_s"] = time.perf_counter() - t0
+        t_job = time.perf_counter()
+        sid, _ = launcher.submit(f"{sys.executable} -c \"import sys; sys.path.insert(0, "
+                                 f"{ROOT!r}); import chip_smoke; chip_smoke.job_main()\"",
+                                 wait=False)
         line["while_job_runs"] = scale_until(launcher, job_done, "job finished", 600)
         line["job_s"] = time.perf_counter() - t_job
         logs = jobs.get_job_logs(sid)
         status = jobs.get_job_status(sid)
         check(status == "SUCCEEDED", f"the job ended {status}: {logs[-3000:]}")
         job = json.loads([x for x in logs.splitlines() if x.startswith("JOB_RESULT ")][-1][11:])
+        t_end = time.perf_counter()
+        supervisor = {}
+        while time.perf_counter() - t_end < 30:
+            supervisor = [a for a in list_actors()
+                          if a.get("name") == f"_job_supervisor:{sid}"][0]
+            if supervisor["state"] == "DEAD":
+                break
+            time.sleep(0.1)
+        line["supervisor"] = {"state": supervisor["state"], "node": supervisor.get("node_id"),
+                              "dead_after_s": time.perf_counter() - t_end}
+        line["stop_finished_job"] = jobs.stop_job(sid)
         line["scale_down"] = scale_until(launcher, lambda: not provider.non_terminated_nodes(),
                                          "idle GPU node down", AUTOSCALE_IDLE_S + 60)
         line["idle_to_terminated_s"] = line["scale_down"]["s"]
@@ -3535,6 +3587,9 @@ def autoscale_run(work: str, bare: dict) -> dict:
           f"the GPU task did not wait on the head alone: {line}")
     check(out["node"] == node_id and job["node"] == node_id,
           f"the GPU work ran on {out['node']} and {job['node']}, not the launched node {node_id}")
+    check(line["supervisor"]["state"] == "DEAD" and line["supervisor"]["node"] == node_id,
+          f"the job's supervisor is {line['supervisor']}, not DEAD on the GPU node {node_id}")
+    check(line["stop_finished_job"] is False, "stop_job on the finished job did not return False")
     check(line["bitwise_equal_to_bare"], f"the autoscaled node's log-probs differ from the bare "
                                          f"forward's by {line['max_abs_diff_vs_bare']}")
     check(line["job_digest_equal_to_bare"], "the job's log-probs differ from the bare forward's")
@@ -3624,6 +3679,243 @@ def scale_out_phase() -> dict:
     return launches
 
 
+def lint_run() -> dict:
+    """16a: `python -m ray_tpu_torch.devtools.lint`, the port's static gate
+    over its own tree: clean, within the gate's budget, each pass's seconds."""
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "ray_tpu_torch.devtools.lint"], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    wall = time.perf_counter() - t0
+    timing = [x for x in out.stdout.splitlines() if re.match(r"lint: [0-9.]+s wall", x)]
+    passes = dict(re.findall(r"([a-z-]+) ([0-9.]+)s", timing[-1].split("(", 1)[1])) \
+        if timing else {}
+    check(out.returncode == 0 and "lint: clean" in out.stdout,
+          f"the lint gate exited {out.returncode}: {out.stdout[-3000:]} {out.stderr[-2000:]}")
+    check(len(passes) == 8, f"the gate's timing line names {sorted(passes)}, not its 8 passes")
+    return {"rc": out.returncode, "wall_s": wall,
+            "gate_s": float(timing[-1].split()[1].rstrip("s")),
+            "pass_s": {k: float(v) for k, v in passes.items()}}
+
+
+def chaos_cli(work: str, *argv, timeout: float = 300) -> list:
+    """`python -m ray_tpu_torch.chaos` with `argv`: its exit code and its
+    output lines, each with the seconds since the line before it; the
+    runtime's own log (stderr) goes to a file under `work`."""
+    with open(os.path.join(work, "chaos_stderr.log"), "a") as err:
+        proc = subprocess.Popen([sys.executable, "-u", "-m", "ray_tpu_torch.chaos", *argv],
+                                cwd=ROOT, stdout=subprocess.PIPE, stderr=err, text=True,
+                                start_new_session=True)
+        lines, last, t0 = [], time.perf_counter(), time.perf_counter()
+        try:
+            for raw in proc.stdout:
+                now = time.perf_counter()
+                lines.append((raw.rstrip("\n"), now - last))
+                last = now
+                check(now - t0 < timeout, f"chaos {argv} ran past {timeout} s")
+            rc = proc.wait(timeout=max(1.0, timeout - (time.perf_counter() - t0)))
+        finally:
+            if proc.poll() is None:
+                os.killpg(proc.pid, 9)
+                proc.wait()
+    return [rc, lines]
+
+
+def chaos_run(work: str) -> dict:
+    """16b: the chaos CLI's smoke suite over CHAOS_SEEDS seeds (every
+    invariant must hold on every seed: each seed's fault count and the
+    seconds from the line before its own to it), then its determinism
+    check on one scenario, whose digests must be the ones that run used."""
+    rc, lines = chaos_cli(work, "--suite", "smoke", "--seeds", str(CHAOS_SEEDS), "--no-corpus")
+    seeds, scenario = [], None
+    for text, dt in lines:
+        head = re.match(r"chaos scenario (\w+):", text)
+        if head:
+            scenario = head.group(1)
+        seed = re.match(r"\s+seed\s+(\d+) (ok|FAIL)\s+faults=(\d+)\s+schedule=(\w+)", text)
+        if seed:
+            seeds.append({"scenario": scenario, "seed": int(seed.group(1)),
+                          "ok": seed.group(2) == "ok", "faults": int(seed.group(3)),
+                          "schedule": seed.group(4), "s": dt})
+    out = "\n".join(text for text, _ in lines)
+    check(rc == 0 and "every invariant held" in out, f"chaos smoke exited {rc}: {out[-3000:]}")
+    from ray_tpu_torch.chaos.runner import SUITES
+
+    check(len(seeds) == len(SUITES["smoke"]) * CHAOS_SEEDS and all(s["ok"] for s in seeds),
+          f"chaos smoke seeds: {seeds}")
+    drc, dlines = chaos_cli(work, "--check-determinism", "--scenario",
+                            CHAOS_DETERMINISM_SCENARIO, "--seeds", str(CHAOS_SEEDS), timeout=60)
+    again = {int(m.group(1)): m.group(2) for m in (
+        re.match(r"\s+\w+ seed (\d+): (\w+) deterministic", text) for text, _ in dlines) if m}
+    ran = {s["seed"]: s["schedule"] for s in seeds if s["scenario"] == CHAOS_DETERMINISM_SCENARIO}
+    same = sorted(ran) == sorted(again) and all(again[k].startswith(ran[k]) for k in ran)
+    check(drc == 0 and same, f"the determinism check gave {again} (rc {drc}), the run {ran}")
+    return {"seeds": seeds, "determinism": {"scenario": CHAOS_DETERMINISM_SCENARIO,
+                                            "digests": again, "same_as_run": same}}
+
+
+def nemesis_forward(seed: int, log_path: str, hold_path=None) -> bytes:
+    """16c's task: 14a's forward on `seed`, its last-position log-probs as
+    bytes. Each forward that returns appends its launches, process and node
+    to `log_path`. With `hold_path`, an attempt that finds no such file
+    writes its pid there once it is inside its forward and forwards on until
+    it is killed (NEMESIS_HOLD_S at most, then it raises)."""
+    fa = importlib.import_module("ray_tpu_torch.ops.flash_attention")
+    model, tokens = forward_inputs(seed)
+    if hold_path is not None and not os.path.exists(hold_path):
+        with open(hold_path + ".tmp", "w") as f:
+            f.write(str(os.getpid()))
+        os.replace(hold_path + ".tmp", hold_path)
+        deadline = time.monotonic() + NEMESIS_HOLD_S
+        while time.monotonic() < deadline:
+            last_logp(model, tokens)
+        raise RuntimeError(f"no nemesis killed pid {os.getpid()} in {NEMESIS_HOLD_S} s")
+    fa.reset_launches()
+    logp = last_logp(model, tokens)
+    with open(log_path, "a") as f:
+        f.write(json.dumps({"seed": seed, "pid": os.getpid(), "launches": dict(fa.launches),
+                            "node": os.environ.get("RAY_TPU_NODE_ID")}) + "\n")
+    return logp.cpu().numpy().tobytes()
+
+
+def worker_pick(cluster, pid: int):
+    """The pick with which the Nemesis's kill_worker hits the worker of
+    process `pid`: its index among the live workers in the order kill_worker
+    takes them (by node id, then worker id); None if it is not there."""
+    live = [h.proc.pid for nid in sorted(cluster.raylets)
+            for _, h in sorted(cluster.raylets[nid].workers.items())
+            if h.proc is not None and h.proc.returncode is None]
+    return live.index(pid) if pid in live else None
+
+
+def nemesis_run(work: str) -> dict:
+    """16c: the port's Nemesis against GPU work. A Cluster whose head has no
+    GPU and one added {GPU: 1} node; 14a's forward as num_gpus=1 tasks with
+    NEMESIS_RETRIES retries. (1) kill_worker on the first task's worker while
+    it is inside its forward: the retry's answer is the bare forward's,
+    bitwise. (2) A second task's answer is left on the GPU node unfetched,
+    kill_raylet takes that node, a replacement {GPU: 1} node joins, and the
+    get rebuilds the answer by lineage, bitwise the bare forward's. (3) Then
+    every raylet's leases and store settle, no acknowledged answer is lost,
+    and the replacement shows GPU available 1.0."""
+    import hashlib
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.chaos import invariants
+    from ray_tpu_torch.chaos.nemesis import Nemesis
+    from ray_tpu_torch.cluster_utils import Cluster
+
+    bare = {s: last_logp(*forward_inputs(s)).cpu().numpy().tobytes() for s in NEMESIS_SEEDS}
+    log_path, hold_path = os.path.join(work, "forwards.jsonl"), os.path.join(work, "hold.pid")
+    line, before = {}, port_processes()
+    t0 = time.perf_counter()
+    cluster = Cluster(head_node_args={"num_cpus": 2, "num_gpus": 0})
+    try:
+        gpu_node = cluster.add_node(num_cpus=2, num_gpus=1)
+        cluster.connect()
+        nemesis = Nemesis(cluster)
+        task = rt.remote(num_gpus=1, max_retries=NEMESIS_RETRIES)(nemesis_forward)
+
+        ref1 = task.remote(NEMESIS_SEEDS[0], log_path, hold_path)
+        while not os.path.exists(hold_path):
+            check(time.perf_counter() - t0 < 300, "the first task never reached its forward")
+            time.sleep(0.05)
+        with open(hold_path) as f:
+            victim = int(f.read())
+        time.sleep(NEMESIS_IN_FORWARD_S)
+        pick = worker_pick(cluster, victim)
+        check(pick is not None, f"the first task's process {victim} is no live worker")
+        t_kill = time.perf_counter()
+        fired = cluster._run(nemesis.fire("kill_worker", pick))
+        answer1 = rt.get(ref1, timeout=600)
+        line["kill_worker"] = {"fired": fired, "victim_pid": victim,
+                               "kill_to_answer_s": time.perf_counter() - t_kill,
+                               "bitwise_equal_to_bare": answer1 == bare[NEMESIS_SEEDS[0]]}
+
+        ref2 = task.remote(NEMESIS_SEEDS[1], log_path)
+        ready, _ = rt.wait([ref2], num_returns=1, timeout=600)  # located, not fetched
+        check(bool(ready), "the second task did not finish")
+        t_kill = time.perf_counter()
+        fired = cluster._run(nemesis.fire("kill_raylet", 0))  # the head is protected
+        replacement = cluster.add_node(num_cpus=2, num_gpus=1)
+        answer2 = rt.get(ref2, timeout=600)
+        line["kill_raylet"] = {"fired": fired, "killed_node": gpu_node.node_id,
+                               "replacement_node": replacement.node_id,
+                               "kill_to_answer_s": time.perf_counter() - t_kill,
+                               "bitwise_equal_to_bare": answer2 == bare[NEMESIS_SEEDS[1]]}
+
+        cluster._run(invariants.quiesce(cluster, timeout=60))
+        violations = [str(v) for r in cluster.raylets.values()
+                      for v in invariants.check_leases(r) + invariants.check_store(r)]
+        ledger = [(ref, hashlib.sha256(bare[s]).hexdigest(), "task")
+                  for ref, s in zip((ref1, ref2), NEMESIS_SEEDS)]
+        violations += [str(v) for v in invariants.check_no_data_loss(rt, ledger, timeout_s=300)]
+        line["violations"] = violations
+        line["replacement_gpu_available"] = replacement.available.to_dict().get("GPU")
+        line["actions_fired"] = list(nemesis.actions_fired)
+    finally:
+        cluster.shutdown()
+    deadline = time.monotonic() + 30
+    while port_processes() - before and time.monotonic() < deadline:
+        time.sleep(0.2)
+    line["left_processes"] = sorted(port_processes() - before)
+    with open(log_path) as f:
+        forwards = [json.loads(x) for x in f]
+    line["forwards"] = [(f["seed"], f["node"][:8], f["launches"]["fwd"]) for f in forwards]
+    line["launches"] = {key: sum(f["launches"][key] for f in forwards) for _, key, _ in KERNELS}
+    line["seconds"] = time.perf_counter() - t0
+    check(line["actions_fired"] == ["kill_worker", "kill_raylet"]
+          and line["kill_worker"]["fired"] is not None and line["kill_raylet"]["fired"]
+          == f"kill_raylet {gpu_node.node_id[:8]}", f"the nemesis fired {line}")
+    check(line["kill_worker"]["bitwise_equal_to_bare"],
+          "the retried answer differs from the bare forward's")
+    check(line["kill_raylet"]["bitwise_equal_to_bare"],
+          "the answer rebuilt by lineage differs from the bare forward's")
+    check(not violations, f"invariants violated after the nemesis: {violations}")
+    check(line["replacement_gpu_available"] == 1.0,
+          f"the surviving GPU node has GPU {line['replacement_gpu_available']} available")
+    # The retry and the second task on the GPU node; then rebuilds on the
+    # replacement: the second answer's, and any other whose only copy went
+    # with the killed node (the data-loss check's get rebuilds it).
+    ran = [f[:2] for f in line["forwards"]]
+    want = [(NEMESIS_SEEDS[0], gpu_node.node_id[:8]), (NEMESIS_SEEDS[1], gpu_node.node_id[:8])]
+    check(ran[:2] == want and (NEMESIS_SEEDS[1], replacement.node_id[:8]) in ran[2:]
+          and all(f[1] == replacement.node_id[:8] for f in ran[2:]),
+          f"the forwards that returned ran as {line['forwards']}: not {want}, then rebuilds on "
+          f"the replacement node {replacement.node_id[:8]}, the second answer's among them")
+    check(all(f[2] == GPT2_SMALL["n_layers"] for f in line["forwards"]),
+          f"a forward launched B1 other than once a layer: {line['forwards']}")
+    check(not line["left_processes"], f"port processes left: {line['left_processes']}")
+    return line
+
+
+def chaos_phase() -> dict:
+    """Phase 16: the port's lint gate (16a), the chaos CLI's smoke suite and
+    determinism check (16b) and the Nemesis against GPU work (16c). Returns
+    the flash launches of 16c's forwards that returned (the killed attempt's
+    and the bare runs here are not counted)."""
+    t_phase = time.perf_counter()
+    work = os.path.join(ROOT, "build", "chip_smoke_chaos")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    try:
+        lint = lint_run()
+        emit({"phase": "chaos", "part": "16a", **lint})
+        chaos = chaos_run(work)
+        emit({"phase": "chaos", "part": "16b", **chaos})
+        nemesis = nemesis_run(work)
+        emit({"phase": "chaos", "part": "16c", **nemesis})
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    emit({"phase": "chaos", "launches": nemesis["launches"], "nvidia_smi": card()["nvidia_smi"],
+          "16a_gate_s": lint["gate_s"],
+          "16b_seed_s": [round(s["s"], 2) for s in chaos["seeds"]],
+          "16c_kill_to_answer_s": {k: nemesis[k]["kill_to_answer_s"]
+                                   for k in ("kill_worker", "kill_raylet")},
+          "seconds": time.perf_counter() - t_phase})
+    check(nemesis["launches"]["fwd"] > 0, "B1 was not launched in phase 16")
+    return nemesis["launches"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3683,13 +3975,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     cluster_launches = cluster_phase(dev)
     scale_out_launches = scale_out_phase()
+    chaos_launches = chaos_phase()
 
     kernels = []
     for name, key, replaces in KERNELS:
         n = (fwd_launches[key] + train_launches[key] + trainer_launches[key] + bench_launches[key]
              + mesh_launches[key] + collective_launches[key] + rllib_launches[key]
              + serve_launches[key] + tune_launches[key] + cluster_launches[key]
-             + scale_out_launches[key])
+             + scale_out_launches[key] + chaos_launches[key])
         kernels.append({"name": name, "route": "cuda", "source": SOURCE, "replaces": replaces,
                         "launches": n, **rows[key]})
         check(n > 0, f"{name} was not launched on the main path")

@@ -1992,8 +1992,8 @@ class CoreWorker:
             logger.debug("node-death watch unavailable: %s", e)
 
     def _on_node_event(self, msg) -> None:
-        if not isinstance(msg, dict) or msg.get("event") != "removed":
-            return
+        if self.closed or not isinstance(msg, dict) or msg.get("event") != "removed":
+            return  # a closed worker rebuilds nothing: its cluster may be stopping
         addr = msg.get("lost_object_addr") or (msg.get("node") or {}).get("addr")
         if not addr:
             return
@@ -2495,9 +2495,13 @@ class CoreWorker:
     def _store_task_results(self, wire: dict, reply: dict) -> None:
         if reply.get("error") is not None:
             payload = reply["error"]
+            streaming = wire.get("num_returns") == -1
             for oid in wire["return_ids"]:
-                self.memory_store.put_inline(oid, payload)
-            if wire.get("num_returns") == -1:
+                # A stream already published keeps its generator: the items it
+                # produced stay readable, the rest resolve to the error.
+                if not (streaming and self._oid_to_dyn.get(oid) == wire["task_id"]):
+                    self.memory_store.put_inline(oid, payload)
+            if streaming:
                 self._dyn_fail(wire["task_id"], payload)
             self.record_task_event(wire["task_id"], wire["name"], "FAILED")
             return

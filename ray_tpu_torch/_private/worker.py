@@ -262,6 +262,18 @@ def attach_existing(core: CoreWorker, loop: asyncio.AbstractEventLoop) -> None:
     w._owns_loop = False
 
 
+async def close_driver(core: Optional[CoreWorker]) -> None:
+    """A driver's farewell (JobFinished) and its core worker's close; nothing
+    for a core already closed."""
+    if core is None or core.closed:
+        return
+    try:
+        await asyncio.wait_for(core.gcs.call("JobFinished", {"job_id": core.job_id}), 5)
+    except Exception:
+        pass
+    await core.close()
+
+
 def shutdown() -> None:
     w = global_worker
     if w.mode == "client":
@@ -287,14 +299,7 @@ def shutdown() -> None:
 
     async def _down():
         try:
-            if core is not None:
-                try:
-                    await asyncio.wait_for(
-                        core.gcs.call("JobFinished", {"job_id": core.job_id}), 5
-                    )
-                except Exception:
-                    pass
-                await core.close()
+            await close_driver(core)
         finally:
             if node is not None:
                 await node.stop()

@@ -109,6 +109,10 @@ class Cluster:
         self.raylets.clear()
 
         async def go():
+            # The driver says farewell and flushes while the daemons still
+            # answer: against a stopped GCS each call redials until its
+            # window ends (5 s for JobFinished, 30 s for a task-event flush).
+            await worker_mod.close_driver(worker_mod.global_worker.core)
             for r in raylets:
                 try:
                     await r.stop()

@@ -2,7 +2,8 @@
 
 Analog of dashboard/modules/job/job_manager.py (JobManager:56) and
 job_supervisor.py (JobSupervisor:49): the supervisor is a detached actor so
-the job outlives the submitting client; logs and JobInfo live in the GCS KV.
+the job outlives the submitting client, and it ends itself once the job has
+ended; logs and JobInfo live in the GCS KV.
 """
 
 from __future__ import annotations
@@ -75,6 +76,7 @@ class JobSupervisor:
         """Run the entrypoint to completion; returns final status."""
         import asyncio
 
+        from ray_tpu_torch._private import rpc
         from ray_tpu_torch._private import worker as worker_mod
 
         core = worker_mod._core()
@@ -124,6 +126,9 @@ class JobSupervisor:
             await self._set_status(JobStatus.FAILED, f"{type(e).__name__}: {e}")
         finally:
             await self._kv_put(JOB_LOGS_NS, self.submission_id, bytes(log_buf))
+            # The job is over and its record is in the KV: the supervisor ends
+            # itself, so its node no longer counts as busy.
+            rpc.spawn(core.kill_actor(core.current_actor_id))
         return self.info.status
 
     async def stop(self) -> bool:
@@ -221,6 +226,11 @@ class JobSubmissionClient:
         return out
 
     def stop_job(self, submission_id: str) -> bool:
+        """False for an unknown job and for one that has ended (its
+        supervisor is gone with it)."""
+        blob = self._kv_get(JOB_INFO_NS, submission_id)
+        if blob is None or JobInfo.from_json(blob).status in JobStatus.TERMINAL:
+            return False
         try:
             sup = self._ray.get_actor(
                 f"_job_supervisor:{submission_id}", namespace="_job"

@@ -43,6 +43,16 @@ def torch_cluster():
     ray_tpu_torch.shutdown()
 
 
+@pytest.fixture
+def torch_shutdown_only():
+    """The test calls init itself (or attaches to a Cluster); the fixture
+    shuts the port's runtime down."""
+    import ray_tpu_torch
+
+    yield None
+    ray_tpu_torch.shutdown()
+
+
 # ------------------------------------------------------------ gloo processes
 
 def _child(fn, inbox, rank: int, world: int, port: int, results) -> None:

@@ -605,3 +605,63 @@ def test_cli_up_submit_down_on_the_fake_provider(tmp_path):
             break
         time.sleep(0.5)
     assert left.stdout.strip() == "", left.stdout
+
+
+@pytest.mark.timeout(120)
+def test_job_supervisor_ends_with_its_job_and_frees_its_node(shutdown_only):
+    """A job's supervisor actor is DEAD within a few seconds of SUCCEEDED,
+    stop_job on the finished job returns False as for an unknown one, and the
+    fake-provider node that hosted the supervisor is terminated after its idle
+    timeout (a supervisor left ALIVE kept its node busy for good)."""
+    from ray_tpu_torch.cluster_utils import Cluster
+    from ray_tpu_torch.job import JobStatus, JobSubmissionClient
+    from ray_tpu_torch.util.state import list_actors
+
+    # The head has no CPU: a task's demand brings up a worker node, and the
+    # supervisor (0.1 CPU) can only land there.
+    cluster = Cluster(initialize_head=True, head_node_args={"num_cpus": 0, "num_gpus": 0})
+    ray_tpu_torch.init(address=cluster.address)
+    provider = FakeNodeProvider(
+        cluster,
+        node_types={"cpu": {"resources": {"CPU": 1.0}, "min_workers": 0, "max_workers": 1}},
+    )
+    scaler = Autoscaler(provider, AutoscalerConfig(upscale_delay_s=0.0, idle_timeout_s=2.0))
+
+    @ray_tpu_torch.remote(num_cpus=1)
+    def where():
+        return os.environ.get("RAY_TPU_NODE_ID")
+
+    try:
+        ref = where.remote()
+        deadline = time.monotonic() + 30
+        while time.monotonic() < deadline and not provider.non_terminated_nodes():
+            scaler.update()
+            time.sleep(0.2)
+        (pid,) = provider.non_terminated_nodes()
+        assert ray_tpu_torch.get(ref, timeout=60) == provider.raylet_node_id(pid)
+        client = JobSubmissionClient()
+        sid = client.submit_job(entrypoint=f"{sys.executable} -c \"print('job done')\"")
+        assert client.wait_until_finish(sid, timeout_s=60) == JobStatus.SUCCEEDED
+        assert "job done" in client.get_job_logs(sid)
+
+        def supervisor_state():
+            rows = [a for a in list_actors() if a.get("name") == f"_job_supervisor:{sid}"]
+            assert len(rows) == 1, rows
+            return rows[0]["state"]
+
+        ended = time.monotonic()
+        while time.monotonic() < ended + 10 and supervisor_state() != "DEAD":
+            time.sleep(0.1)
+        assert supervisor_state() == "DEAD"
+        assert client.stop_job(sid) is False
+        assert client.stop_job("no-such-job") is False
+        with pytest.raises(ValueError):
+            ray_tpu_torch.get_actor(f"_job_supervisor:{sid}", namespace="_job")
+
+        deadline = time.monotonic() + 30
+        while time.monotonic() < deadline and provider.non_terminated_nodes():
+            scaler.update()
+            time.sleep(0.5)
+        assert provider.non_terminated_nodes() == [], f"node {pid} was kept busy"
+    finally:
+        cluster.shutdown()

@@ -412,3 +412,58 @@ def test_gpu_task_lands_on_the_gpu_node():
         ray_tpu_torch.kill(a)
     finally:
         cluster.shutdown()
+
+
+@pytest.mark.timeout(90)
+def test_shutdown_says_farewell_while_the_gcs_answers():
+    """Cluster.shutdown closes its driver (JobFinished, the task-event flush)
+    before it stops the daemons: it stopped them first, and each call then
+    redialed the stopped GCS until its window ended (5 s for JobFinished, 30 s
+    for a flush). Held at 4.5 s, below the first of those windows."""
+    from ray_tpu_torch._private import worker as worker_mod
+
+    cluster = Cluster(head_node_args={"num_cpus": 1, "num_gpus": 0})
+    cluster.add_node(num_cpus=1, resources={"victim": 1})
+    cluster.connect()
+
+    @ray_tpu_torch.remote(resources={"victim": 1})
+    def one():
+        return 1
+
+    assert ray_tpu_torch.get(one.remote(), timeout=60) == 1
+    core = worker_mod.global_worker.core
+    start = time.monotonic()
+    cluster.shutdown()
+    took = time.monotonic() - start
+    assert core.closed and not worker_mod.global_worker.connected
+    assert took < 4.5, f"shutdown took {took:.2f} s"
+
+
+@pytest.mark.timeout(90)
+def test_a_closed_driver_rebuilds_nothing_while_its_cluster_stops():
+    """Stopping a Cluster removes its nodes, and the GCS announces each
+    removal. A driver that has closed must not start lineage reconstruction
+    of its answers for them: it did, and each such task failed against the
+    stopping daemons, attempt after attempt, as the cluster went down."""
+    from ray_tpu_torch._private import worker as worker_mod
+
+    cluster = Cluster(head_node_args={"num_cpus": 1, "num_gpus": 0})
+    cluster.add_node(num_cpus=1, resources={"victim": 1})
+    cluster.connect()
+
+    @ray_tpu_torch.remote(resources={"victim": 1}, max_retries=3)
+    def produce():
+        return np.ones(200_000)  # 1.6 MB: a plasma return on the victim node
+
+    ref = produce.remote()
+    assert float(ray_tpu_torch.get(ref, timeout=60).sum()) == 200_000.0
+    core = worker_mod.global_worker.core
+    rebuilt = []
+
+    async def record(oid):
+        rebuilt.append(oid)
+
+    core._recover_lost_primary = record
+    cluster.shutdown()
+    assert rebuilt == []
+    del ref

@@ -250,6 +250,25 @@ def test_unported_branches_raise_not_implemented():
 
 
 @pytest.mark.timeout(60)
+def test_chaos_and_devtools_load_without_jax_and_devtools_without_torch():
+    """ray_tpu_torch.chaos (every module) loads with no jax and no ray_tpu
+    module; ray_tpu_torch.devtools (every pass and the explorer) loads without
+    torch as well, so the lint gate runs on a host without PyTorch."""
+    chaos = ", ".join(f"ray_tpu_torch.chaos.{m}" for m in (
+        "schedule", "interceptors", "invariants", "nemesis", "runner", "scenarios_explore"))
+    devtools = ", ".join(f"ray_tpu_torch.devtools.{m}" for m in (
+        "aio_lint", "rpc_check", "rpc_flow", "exc_flow", "lifecycle", "protocols",
+        "telemetry_lint", "lint", "explore"))
+    for mods, forbidden in ((chaos, FORBIDDEN), (devtools, FORBIDDEN + ("torch",))):
+        code = (f"import sys; import {mods}; "
+                f"print(sorted(m for m in sys.modules if m.split('.')[0] in {forbidden!r}))")
+        out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                             text=True, timeout=60)
+        assert out.returncode == 0, out.stderr[-2000:]
+        assert out.stdout.strip().splitlines()[-1] == "[]", mods
+
+
+@pytest.mark.timeout(60)
 def test_cluster_surface_loads_without_jax_or_torch():
     """Every module of the cluster surface loads with no jax, no ray_tpu and
     no torch module at all (so no CUDA state): the CLI, the job manager and
@@ -273,9 +292,9 @@ def test_cluster_surface_loads_without_jax_or_torch():
 # `-m ray_tpu_torch._private.worker_main` and the port's zygote, with the
 # port's checkout on the workers' PYTHONPATH.
 RENAME = ("ray_tpu", "ray_tpu_torch")
-# Two comments of ray_tpu name the change behind them by its number; the
-# copies describe the change alone.
-CHANGE_NUMBER = re.compile(r" \(?PR \d+\)?")
+# Some comments and docstrings of ray_tpu name the change behind them by its
+# number; the copies describe the change alone.
+CHANGE_NUMBER = re.compile(r" \(?PR \d+\)?|(?<=[\"\n])PR \d+ ")
 
 COPIED = [
     "__init__.py", "actor.py", "remote_function.py",
@@ -324,6 +343,12 @@ COPIED = [
     *(f"autoscaler/{m}.py" for m in ("__init__", "autoscaler", "node_provider", "launcher")),
     # The native extensions' sources, copied from src/ (see _renamed).
     *(f"_native/csrc/{m}.cc" for m in ("fastpath", "shm_buffer", "store_core")),
+    *(f"chaos/{m}.py" for m in (
+        "__init__", "__main__", "schedule", "interceptors", "invariants", "nemesis", "runner",
+        "scenarios_explore")),
+    *(f"devtools/{m}.py" for m in (
+        "__init__", "aio_lint", "rpc_check", "rpc_flow", "exc_flow", "lifecycle", "protocols",
+        "telemetry_lint", "lint", "explore")),
 ]
 
 # The modules of the copy that differ from ray_tpu's after the rename, and
@@ -342,11 +367,20 @@ DIFFERS = {
                                "event carries its lease's resources for the state API; the "
                                "native fast path gets its args as bytes (ray_tpu passes the "
                                "bytearray of args with out-of-band buffers, which the C "
-                               "submit refuses with a TypeError)",
+                               "submit refuses with a TypeError); a closed worker starts no "
+                               "lineage reconstruction on a node's removal (a stopping "
+                               "cluster's removals set off tasks that failed, attempt after "
+                               "attempt); a streaming generator that fails keeps the "
+                               "generator it published (ray_tpu overwrites it with the error, "
+                               "so a get after the failure raises and the produced items are "
+                               "lost to it)",
     "_private/object_store.py": "release_many keeps the holds that follow values "
                                 "(hold_for_value, release_value_holds)",
     "_private/node.py": "num_gpus, and the registry's GPU detection when no GPU count is given",
-    "_private/worker.py": "init(num_gpus=...); address='auto' reads RAY_TPU_TORCH_ADDRESS",
+    "_private/worker.py": "init(num_gpus=...); address='auto' reads RAY_TPU_TORCH_ADDRESS; "
+                          "the driver's farewell and close are close_driver, which "
+                          "Cluster.shutdown calls first, and which does nothing for a "
+                          "driver already closed",
     "_private/raylet.py": "the spill directory lies under the temp dir (TMPDIR), not a fixed "
                           "/tmp, so two checkouts with their own TMPDIR never share it",
     "_private/accelerators.py": "GPUAcceleratorManager registered; no TPU manager and no "
@@ -403,9 +437,18 @@ DIFFERS = {
                          "'GPU'), from the PENDING event the core worker records",
     "job/job_manager.py": "the job's entrypoint gets RAY_TPU_TORCH_ADDRESS, which the port's "
                           "init(address='auto') reads (ray_tpu sets RAY_TPU_ADDRESS, which the "
-                          "port never reads)",
+                          "port never reads); the supervisor actor ends itself once the job's "
+                          "status and logs are in the KV, and stop_job on an ended job returns "
+                          "False (ray_tpu's supervisor stays ALIVE and keeps its node busy for "
+                          "the autoscaler)",
     "cluster_utils.py": "add_node(num_gpus=...) leases 'GPU' (num_tpus leases 'TPU' in "
-                        "ray_tpu); without a count the node advertises the GPUs it detects",
+                        "ray_tpu); without a count the node advertises the GPUs it detects; "
+                        "shutdown closes its driver before it stops the daemons (ray_tpu "
+                        "stops them first, and the driver's farewell then redials the "
+                        "stopped GCS for 5 s, a task-event flush for 30 s)",
+    "chaos/runner.py": "the session's head is built with num_gpus=0 (num_tpus=0 in ray_tpu)",
+    "devtools/lint.py": "the gate prints every pass's wall time, as its docstring says "
+                        "(ray_tpu prints the three slowest)",
     "scripts/cli.py": "start --num-gpus (--num-tpus in ray_tpu); the address variable is "
                       "RAY_TPU_TORCH_ADDRESS",
     "_private/ray_perf.py": "the collective child runs MeshCollectives on 8 gloo processes "
