@@ -16,16 +16,22 @@ work.
 
 Phases, each printing one JSON line:
   1. card     nvidia-smi's name and power limit, torch's device name;
-     build    each kernel's registers and spills (ptxas -v) and its count of
-              tensor-core instructions (HMMA in cuobjdump -sass); every
-              tensor-core (*_tc) kernel must have HMMA and no spill;
+     build    each kernel's registers and spills (ptxas -v) and its counts of
+              tensor-core instructions (HMMA for mma.sync, HGMMA for wgmma,
+              in cuobjdump -sass); every Hopper forward (*_sm90) kernel must
+              have HGMMA, no spill and no wgmma that ptxas serialized, every
+              mma.sync backward (*_tc) kernel HMMA and no spill;
   2. kernels  every kernel against its plain version, element by element
               (f32 with TF32 off and bf16; causal and not; head_dim 64 and
-              128; T in 192, 1000, 1024; GQA through `mha`), then at the
-              slice's shape the kernel's time, the plain version's,
-              F.scaled_dot_product_attention's (a yardstick only: the port
-              never calls it), the bound, the useful TFLOP/s and the share
-              of the bound reached (bound_ms / ms);
+              128; T in 1, 100, 192, 1000, 1024; T = 300 on S = 1000 keys
+              without the mask; GQA through `mha`), then at the slice's
+              shape (batch 8) and the bench's (batch 32) the kernel's time,
+              the plain version's, F.scaled_dot_product_attention's (a
+              yardstick only: the port never calls it), the bound, the
+              useful TFLOP/s, the share of the bound reached (bound_ms /
+              ms) and, for the forward, the host's us per call; and where
+              the forward spends a K/V tile, in SM cycles, from a build
+              with its cycle stamps (kernel_ab --timeline);
   3. forward  transformer_apply at GPT-2-small widths through the kernels and
               through the plain attention in bf16, each against the same
               weights run in f32;
@@ -206,6 +212,7 @@ import shutil
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import torch
 import torch.nn.functional as F
@@ -474,16 +481,19 @@ def card() -> dict:
 
 # ------------------------------------------------------------ build report
 
-_KERNEL_NAME = re.compile(r"((?:fwd|bwd_dq|bwd_dkv)_kernel(?:_tc)?)"
+_KERNEL_NAME = re.compile(r"((?:fwd|bwd_dq|bwd_dkv)_kernel(?:_tc|_sm90)?)"
                           r"I((?:Li\d+E|Lb[01]E|f|13__nv_bfloat16)+)E")
-# Tensor-core kernels in the build: fwd_kernel_tc (D x CAUSAL x WRITE_LSE),
-# bwd_dq_kernel_tc and bwd_dkv_kernel_tc (D x CAUSAL each).
-N_TC_KERNELS = 16
+# bf16 kernels in the build: the Hopper forward fwd_kernel_sm90 (wgmma:
+# HGMMA in the SASS) and the backward bwd_dq_kernel_tc and bwd_dkv_kernel_tc
+# (mma.sync: HMMA), each over D x CAUSAL (x WRITE_LSE for the forward).
+N_SM90_KERNELS, N_TC_KERNELS = 8, 8
 _TEMPLATE_ARG = re.compile(r"Li(\d+)E|Lb([01])E|(13__nv_bfloat16|f)")
+_SERIALIZED = re.compile(r"wgmma\.mma_async instructions are serialized due to (.*) "
+                         r"in the function '([^']+)'")
 
 
 def kernel_label(mangled: str) -> str:
-    """A kernel's mangled name as 'fwd_kernel_tc<64,true,false>'; other
+    """A kernel's mangled name as 'fwd_kernel_sm90<64,true,false>'; other
     names unchanged."""
     m = _KERNEL_NAME.search(mangled)
     if not m:
@@ -494,9 +504,15 @@ def kernel_label(mangled: str) -> str:
 
 
 def ptxas_report(log: str) -> dict:
-    """{kernel: {"registers", "spill_stores", "spill_loads"}} from ptxas -v."""
+    """{kernel: {"registers", "spill_stores", "spill_loads"[, "wgmma_serialized"]}}
+    from ptxas -v; the last is ptxas's reason where it serialized a kernel's
+    wgmma (it runs right, and slow)."""
     out, cur = {}, None
     for line in log.splitlines():
+        m = _SERIALIZED.search(line)
+        if m:
+            out.setdefault(kernel_label(m.group(2)), {})["wgmma_serialized"] = m.group(1)
+            continue
         m = re.search(r"(?:Compiling entry function '|Function properties for )([^'\s]+)", line)
         if m:
             cur = out.setdefault(kernel_label(m.group(1)), {})
@@ -510,74 +526,88 @@ def ptxas_report(log: str) -> dict:
     return out
 
 
-def sass_hmma(sass: str) -> dict:
-    """{kernel: count of tensor-core (HMMA) instructions} from cuobjdump -sass."""
+def sass_mma(sass: str) -> dict:
+    """{kernel: {"hmma": n, "hgmma": n}} from cuobjdump -sass: its counts of
+    mma.sync (HMMA) and wgmma (HGMMA) tensor-core instructions."""
     out, cur = {}, None
     for line in sass.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
-            cur = kernel_label(m.group(1))
-            out[cur] = 0
-        elif cur is not None and "HMMA" in line:
-            out[cur] += 1
+            cur = out[kernel_label(m.group(1))] = {"hmma": 0, "hgmma": 0}
+        elif cur is not None:
+            cur["hmma"] += "HMMA" in line
+            cur["hgmma"] += "HGMMA" in line
     return out
 
 
 def build_report(build) -> dict:
-    """Registers, spills and HMMA count of each kernel of the flash library;
-    fails unless all N_TC_KERNELS tensor-core kernels are there, each with
-    HMMA instructions and no spill."""
+    """Registers, spills and tensor-core instruction counts of each kernel of
+    the flash library; fails unless all N_SM90_KERNELS Hopper forward
+    kernels are there, each with HGMMA, no spill and no serialized wgmma,
+    and all N_TC_KERNELS mma.sync backward kernels, each with HMMA and no
+    spill."""
     lib = build.library_path("flash_attention")
     regs = ptxas_report(lib.with_suffix(".log").read_text())
     sass = subprocess.run([build.tool("cuobjdump"), "-sass", str(lib)], capture_output=True,
                           text=True, timeout=300, check=True).stdout
-    hmma = sass_hmma(sass)
-    report = {name: {**regs.get(name, {}), "hmma": n} for name, n in sorted(hmma.items())}
+    report = {name: {**regs.get(name, {}), **n} for name, n in sorted(sass_mma(sass).items())}
+
+    def no_spill(r):
+        return r.get("spill_stores") == 0 and r.get("spill_loads") == 0
+
+    sm90 = {name: r for name, r in report.items() if "_sm90<" in name}
+    check(len(sm90) == N_SM90_KERNELS and all(r["hgmma"] > 0 and no_spill(r) and "wgmma_serialized" not in r
+                                              for r in sm90.values()),
+          f"want {N_SM90_KERNELS} Hopper forward kernels, each with HGMMA, no spill and no "
+          f"serialized wgmma: {sm90}")
     tc = {name: r for name, r in report.items() if "_tc<" in name}
-    check(len(tc) == N_TC_KERNELS and all(r["hmma"] > 0 and r.get("spill_stores") == 0
-                                          and r.get("spill_loads") == 0 for r in tc.values()),
-          f"want {N_TC_KERNELS} tensor-core kernels, each with HMMA and no spill: {tc}")
+    check(len(tc) == N_TC_KERNELS and all(r["hmma"] > 0 and no_spill(r) for r in tc.values()),
+          f"want {N_TC_KERNELS} mma.sync backward kernels, each with HMMA and no spill: {tc}")
     return report
 
 
 # ----------------------------------------------------------------- phase 2
 
-def kernel_cases(fa, dev, gen) -> None:
+def kernel_cases(fa, dev, gen, gen_more) -> None:
     """Every kernel against its plain version on the listed cases. Prints
     each case's max abs error and worst error-to-limit ratio (F32_ATOL,
-    BF16_RTOL, BF16_ATOL) per kernel."""
+    BF16_RTOL, BF16_ATOL) per kernel. The cases T in 1, 100 and S != T
+    draw from gen_more, the others from gen in the order they always have,
+    so the later phases' inputs do not move when a case is added."""
     worst = {key: {"max_abs_err": 0.0, "err_to_limit": 0.0} for _, key, _ in KERNELS}
     cases = 0
     for dtype in (torch.float32, torch.bfloat16):
-        for D in (64, 128):
-            for T in (192, 1000, 1024):
-                for causal in (True, False):
-                    q, k, v, do = (torch.randn(4, T, D, device=dev, generator=gen).to(dtype)
-                                   for _ in range(4))
-                    scale = D ** -0.5
-                    ref_o, ref_lse = fa._flash_fwd_ref(q, k, v, causal, scale, True)
-                    o, lse = fa.flash_fwd(q, k, v, causal=causal, scale=scale, with_lse=True)
-                    o1 = fa.flash_fwd(q, k, v, causal=causal, scale=scale)
-                    delta = (do.float() * ref_o.float()).sum(-1)
-                    dq = fa.flash_bwd_dq(q, k, v, do, ref_lse, delta, causal=causal, scale=scale)
-                    dk, dv = fa.flash_bwd_dkv(q, k, v, do, ref_lse, delta, causal=causal, scale=scale)
-                    ref_dq = fa._flash_bwd_dq_ref(q, k, v, do, ref_lse, delta, causal, scale)
-                    ref_dk, ref_dv = fa._flash_bwd_dkv_ref(q, k, v, do, ref_lse, delta, causal, scale)
-                    errs, ratios = compare({
-                        "fwd": [(o1, ref_o)],
-                        "fwd_lse": [(o, ref_o), (lse, ref_lse)],
-                        "bwd_dq": [(dq, ref_dq)],
-                        "bwd_dkv": [(dk, ref_dk), (dv, ref_dv)],
-                    })
-                    case = dict(dtype=str(dtype).split(".")[-1], D=D, T=T, causal=causal,
-                                max_abs_err=errs, err_to_limit=ratios)
-                    emit({"phase": "kernels", "case": case})
-                    check_ratios(ratios, case)
-                    for key in errs:
-                        w = worst[key]
-                        w["max_abs_err"] = max(w["max_abs_err"], errs[key])
-                        w["err_to_limit"] = max(w["err_to_limit"], ratios[key])
-                    cases += 1
+        shapes = [(D, T, T, causal, gen) for D in (64, 128) for T in (192, 1000, 1024)
+                  for causal in (True, False)]
+        shapes += [(D, T, T, causal, gen_more) for D in (64, 128) for T in (1, 100)
+                   for causal in (True, False)]
+        for D, T, S, causal, g in shapes + [(64, 300, 1000, False, gen_more)]:
+            q, k, v, do = (torch.randn(4, n, D, device=dev, generator=g).to(dtype)
+                           for n in (T, S, S, T))
+            scale = D ** -0.5
+            ref_o, ref_lse = fa._flash_fwd_ref(q, k, v, causal, scale, True)
+            o, lse = fa.flash_fwd(q, k, v, causal=causal, scale=scale, with_lse=True)
+            o1 = fa.flash_fwd(q, k, v, causal=causal, scale=scale)
+            delta = (do.float() * ref_o.float()).sum(-1)
+            dq = fa.flash_bwd_dq(q, k, v, do, ref_lse, delta, causal=causal, scale=scale)
+            dk, dv = fa.flash_bwd_dkv(q, k, v, do, ref_lse, delta, causal=causal, scale=scale)
+            ref_dq = fa._flash_bwd_dq_ref(q, k, v, do, ref_lse, delta, causal, scale)
+            ref_dk, ref_dv = fa._flash_bwd_dkv_ref(q, k, v, do, ref_lse, delta, causal, scale)
+            errs, ratios = compare({
+                "fwd": [(o1, ref_o)],
+                "fwd_lse": [(o, ref_o), (lse, ref_lse)],
+                "bwd_dq": [(dq, ref_dq)],
+                "bwd_dkv": [(dk, ref_dk), (dv, ref_dv)],
+            })
+            case = dict(dtype=str(dtype).split(".")[-1], D=D, T=T, S=S, causal=causal,
+                        max_abs_err=errs, err_to_limit=ratios)
+            emit({"phase": "kernels", "case": case})
+            check_ratios(ratios, case)
+            for key in errs:
+                w = worst[key]
+                w["max_abs_err"] = max(w["max_abs_err"], errs[key])
+                w["err_to_limit"] = max(w["err_to_limit"], ratios[key])
+            cases += 1
     for dtype in (torch.float32, torch.bfloat16):
         gqa_case(fa, dev, gen, dtype)
         cases += 1
@@ -636,11 +666,12 @@ def gqa_case(fa, dev, gen, dtype) -> None:
     check_ratios(ratios, {"gqa": case})
 
 
-def kernel_timings(fa, dev, gen, cfg) -> dict:
-    """Each kernel at the shapes the train step gives it (bf16, causal,
-    [B*H, T, D]): its time, its plain version's, the library call's and its
-    bound. Returns {key: row}."""
-    BH, T, D = BATCH * cfg.n_heads, SEQ, cfg.head_dim
+def kernel_timings(fa, dev, gen, cfg, batch: int = BATCH) -> dict:
+    """Each kernel at the shapes the train step gives it at `batch` (bf16,
+    causal, [B*H, T, D]): its time, its plain version's, the library call's
+    and its bound; for the forward also the host's us per call (the tensor
+    maps are encoded at each). Returns {key: row}."""
+    BH, T, D = batch * cfg.n_heads, SEQ, cfg.head_dim
     dt = cfg.dtype
     q, k, v, do = (torch.randn(BH, T, D, device=dev, generator=gen).to(dt) for _ in range(4))
     scale = D ** -0.5
@@ -672,8 +703,8 @@ def kernel_timings(fa, dev, gen, cfg) -> dict:
         "bwd_dkv": lambda: fa._flash_bwd_dkv_ref(q, k, v, do, lse, delta, True, scale),
     }
     # Yardstick: PyTorch's fused attention on the same inputs, [B, H, T, D].
-    sq, sk, sv = (t.view(BATCH, cfg.n_heads, T, D).detach().requires_grad_(True) for t in (q, k, v))
-    sdo = do.view(BATCH, cfg.n_heads, T, D)
+    sq, sk, sv = (t.view(batch, cfg.n_heads, T, D).detach().requires_grad_(True) for t in (q, k, v))
+    sdo = do.view(batch, cfg.n_heads, T, D)
     with torch.no_grad():
         sdpa_fwd_ms = time_ms(lambda: F.scaled_dot_product_attention(sq, sk, sv, is_causal=True))
     so = F.scaled_dot_product_attention(sq, sk, sv, is_causal=True)
@@ -697,6 +728,7 @@ def kernel_timings(fa, dev, gen, cfg) -> dict:
         "bwd_dkv": (8 * D * pairs, 4 * mat * elt + 2 * BH * T * 4 + 2 * mat * 4),
     }
     peak = PEAK_BF16 if dt == torch.bfloat16 else PEAK_F32
+    host_us = importlib.import_module("ray_tpu_torch.ops.kernel_ab").host_us
     rows = {}
     for _, key, _ in KERNELS:
         flops, nbytes = work[key]
@@ -713,6 +745,8 @@ def kernel_timings(fa, dev, gen, cfg) -> dict:
             "tflops": flops / ms * 1e-9,  # useful flops, no recompute, no hi/lo split
             "bound_share": max(t_ops, t_bytes) / ms,
         }
+        if key in ("fwd", "fwd_lse"):
+            rows[key]["host_us"] = host_us(kernel_fns[key])
     emit({"phase": "kernels", "shape": [BH, T, D], "dtype": str(dt).split(".")[-1], "causal": True,
           "timings": rows, "sdpa_fwd_ms": sdpa_fwd_ms, "sdpa_bwd_ms": sdpa_bwd_ms,
           "sdpa_fwd_bwd_ms": sdpa_fwd_bwd_ms, "port_fwd_bwd_ms": port_fwd_bwd_ms})
@@ -3937,14 +3971,22 @@ def main() -> int:
     emit({"phase": "card", **info})
 
     t0 = time.perf_counter()
-    for name in _build.sources():
-        _build.build(name)
+    kernel_ab = importlib.import_module("ray_tpu_torch.ops.kernel_ab")
+    with ThreadPoolExecutor() as pool:  # one nvcc a library, all at once
+        for built in [pool.submit(_build.build, name) for name in _build.sources()] + [
+                pool.submit(kernel_ab.timeline_library)]:
+            built.result()
     emit({"phase": "build", "sources": _build.sources(), "seconds": time.perf_counter() - t0,
           "kernels": build_report(_build)})
 
     cfg = tr.TransformerConfig(**GPT2_SMALL)
-    kernel_cases(fa, dev, gen)
+    # Phase 2's cases beyond its first ones draw from their own generator.
+    gen_more = torch.Generator(device=dev).manual_seed(SEED + 2)
+    kernel_cases(fa, dev, gen, gen_more)
     rows = kernel_timings(fa, dev, gen, cfg)
+    kernel_timings(fa, dev, gen_more, cfg, batch=4 * BATCH)  # the bench's batch: emitted, not in the line
+    # Where the forward spends a K/V tile, in SM cycles (the stamped build).
+    emit({"phase": "kernels", "fwd_timeline_cycles": kernel_ab.timeline(dev)})
 
     tokens = torch.randint(0, cfg.vocab_size, (BATCH, SEQ), device=dev, generator=gen)
     fwd_launches = forward_phase(tr, fa, cfg, dev, gen, tokens)

@@ -2,11 +2,11 @@
 // log-sum-exp residual) and the two tiled backward kernels.
 //
 // Replaces the four Pallas TPU kernels of ray_tpu/ops/flash_attention.py:
-//   bf16 inputs (the train step's)        f32 inputs
-//   fwd_kernel_tc<.., WRITE_LSE=false>    fwd_kernel<.., WRITE_LSE=false>  <- _attn_fwd_kernel      (B1)
-//   fwd_kernel_tc<.., WRITE_LSE=true>     fwd_kernel<.., WRITE_LSE=true>   <- _attn_fwd_kernel_lse  (B2)
-//   bwd_dq_kernel_tc                      bwd_dq_kernel                    <- _attn_bwd_dq_kernel   (B3)
-//   bwd_dkv_kernel_tc                     bwd_dkv_kernel                   <- _attn_bwd_dkv_kernel  (B4)
+//   bf16 inputs (the train step's)          f32 inputs
+//   fwd_kernel_sm90<.., WRITE_LSE=false>    fwd_kernel<.., WRITE_LSE=false>  <- _attn_fwd_kernel      (B1)
+//   fwd_kernel_sm90<.., WRITE_LSE=true>     fwd_kernel<.., WRITE_LSE=true>   <- _attn_fwd_kernel_lse  (B2)
+//   bwd_dq_kernel_tc                        bwd_dq_kernel                    <- _attn_bwd_dq_kernel   (B3)
+//   bwd_dkv_kernel_tc                       bwd_dkv_kernel                   <- _attn_bwd_dkv_kernel  (B4)
 //
 // Layout [BH, T, D] for q/do/o and [BH, S, D] for k/v, row-major and
 // contiguous; lse and delta are [BH, T] f32; dq, dk and dv are f32. D is 64
@@ -16,38 +16,87 @@
 // bytes at the train step's shape (causal, T = 1024, D = 64: ~256 flops per
 // byte moved, in the forward and in each backward kernel, just under the
 // ~295 at which an H100's bf16 tensor cores stop waiting on memory), so a
-// fast kernel reads each input once and keeps everything O(T*S) on chip.
+// fast kernel reads each input once and keeps everything O(T*S) on chip,
+// and then has to keep the tensor cores busy: at ~256 flops a byte the
+// bytes and the products take about as long, and the online softmax's work
+// on the CUDA cores has to hide under both.
 //
-// The tensor-core kernels (*_tc, bf16 only; second half of this file). Their
-// products run on mma.sync m16n8k16 (bf16 operands, f32 sums), fed from
-// shared memory by ldmatrix, and the streamed tiles arrive by cp.async into
-// a two-stage ring, so the next tile's load overlaps this tile's products.
-//   * Exactness. q, k, v and do are bf16, so their products are exact in f32
-//     and S = q.k^T and dP = do.v^T match the f32 plain versions up to the
-//     order of the sums. P (in P.V and P^T.dO) and dS (in dS.K and dS^T.Q)
-//     are f32 values made on chip; rounded once to bf16 they would miss the
-//     limits of chip_smoke.py several times over (tests/test_torch_ops.py,
-//     test_tensor_core_operands_need_the_hi_lo_split). Each is split into
-//     hi = bf16(x) and lo = bf16(x - hi), both multiplied into the same f32
-//     sum: the error falls to ~2^-16 of x, and the kernels compute what the
-//     TPU kernels' f32 dots compute. The split costs 1.5x the useful tensor
-//     flops, still far under the bound set by the bytes.
-//   * mma.sync, not wgmma: P and dS are made in registers, and mma.sync takes
-//     its A operand in the layout of its own accumulator, so both terms of
-//     the split go straight from registers into the next product.
+// Exactness, in every bf16 kernel. q, k, v and do are bf16, so their
+// products are exact in f32 and S = q.k^T and dP = do.v^T match the f32
+// plain versions up to the order of the sums. P (in P.V and P^T.dO) and dS
+// (in dS.K and dS^T.Q) are f32 values made on chip; rounded once to bf16
+// they would miss the limits of chip_smoke.py several times over
+// (tests/test_torch_ops.py, test_tensor_core_operands_need_the_hi_lo_split).
+// Each is split into hi = bf16(x) and lo = bf16(x - hi), both multiplied into
+// the same f32 sum: the error falls to ~2^-16 of x, and the kernels compute
+// what the TPU kernels' f32 dots compute. The split costs 1.5x the useful
+// tensor flops.
+//
+// The bf16 forward (fwd_kernel_sm90, last section) is built from Hopper's
+// own parts, as FlashAttention-3 is:
+//   1. Work split. A persistent grid, one block per SM, takes work items of
+//      (128-row q tile, bh) in units of two q tiles of one head, the longest
+//      and the shortest causal rows together, so every unit holds like work
+//      and the blocks at work at one time share a few heads' K and V in L2.
+//      Three warpgroups: a producer, whose one elected thread issues every
+//      load, and two consumers of 64 q rows each (wgmma's M). setmaxnreg
+//      moves registers from the producer (24) to the consumers (240), whose
+//      S, P (hi and lo) and output sums live in registers.
+//   2. TMA with mbarrier rings. Q loads once an item, behind its own full and
+//      empty barriers, so the next item's Q lands while this item's last
+//      products run; K and V tiles (128 keys at D = 64, 64 at D = 128) stream
+//      through a ring of 4 stages, so loads run ahead of the products without
+//      a block-wide barrier. The tensor maps are 3-D [BH, S, D] in boxes of
+//      [1, rows, 64] with the 128-byte swizzle (64 bf16 a row: D = 128 takes
+//      two boxes), so rows past T or S are zero-filled within the head: a
+//      flat [BH*S, D] map would read the next head's rows there, and those
+//      keys are masked but 0 * inf would still poison a sum, as the TPU
+//      kernel's own zeroing of V's padding rows guards against. The maps are
+//      encoded on the host at each call.
+//   3. S = Q.K^T on wgmma m64n128k16 (m64n64k16 at D = 128) with both
+//      operands read from shared memory (K-major, descriptors in the swizzle
+//      TMA wrote): no ldmatrix, no warp reading the whole tile for its rows.
+//   4. Softmax on the accumulator fragment: a row spans the 4 lanes of a
+//      quad, in four partial maxima and sums a row. Tiles off the diagonal
+//      and inside S skip the mask. exp2 with scale * log2(e) folded into one
+//      FMA (flash_fwd requires scale > 0).
+//   5. acc += P_hi.V + P_lo.V on wgmma m64nDk16 with A from registers: the
+//      S accumulator's fragment is the A operand's layout pairwise, so P goes
+//      from the softmax into the product without shared memory; V is the
+//      MN-major B operand (the descriptor's transpose bit).
+//   6. Overlap. A consumer issues S_j = Q.K_j^T with P_{j-1}.V_{j-1}, then
+//      runs the softmax of tile j while P_{j-1}.V_{j-1} is still on the
+//      tensor cores (commit groups, wait_group<1>); the two consumers issue
+//      their products in turn (named barriers), so one's softmax runs under
+//      the other's products.
+// What holds it back (clock64 stamps in a consumer, on an H100): a wgmma
+// whose A is in registers holds its warps until it has read them, so a
+// consumer spends ~800 cycles a tile issuing S and P.V and then ~1200-1500
+// in the softmax and ~400 splitting P; that CUDA-core and exp work, not the
+// bytes or the tensor cores (busy about half the time), sets the pace. A
+// third consumer (192 rows, 160 registers each) moved the contention to the
+// exp unit and issue slots without a gain.
+
+// The bf16 backward kernels (*_tc) run on mma.sync m16n8k16 (bf16
+// operands, f32 sums), fed from shared memory by ldmatrix, and the streamed
+// tiles arrive by cp.async into a two-stage ring, so the next tile's load
+// overlaps this tile's products.
+//   * mma.sync takes its A operand in the layout of its own accumulator, so
+//     both terms of the split go straight from registers into the next
+//     product.
 //   * Tiles of 64 rows, 4 warps, each warp owning 16 rows of the block's
-//     resident operand (q rows in the forward and bwd_dq, k rows in
-//     bwd_dkv), whose fragments and sums stay in registers. Shared
-//     rows are padded by 16 bytes so the 8 row addresses of an ldmatrix hit
-//     8 distinct bank groups. Rows at or past T or S are zero-filled by
-//     cp.async (src-size 0), never read: in a flat [BH*T, D] view they would
-//     be the next head's rows.
-//   * The backward kernels walk each streamed tile in chunks of 16 columns
-//     (q columns in bwd_dkv, keys in bwd_dq): S, dP, P and dS of a chunk
-//     live in 8 registers each, so only the warp's own rows stay resident
-//     (dK and dV in bwd_dkv; Q, dO and dQ fragments in bwd_dq), and D = 128
-//     fits 4 warps without a spill. On the causal diagonal, bwd_dq skips the
-//     chunks that lie wholly above the warp's rows.
+//     resident operand (q rows in bwd_dq, k rows in bwd_dkv), whose
+//     fragments and sums stay in registers. Shared rows are padded by 16
+//     bytes so the 8 row addresses of an ldmatrix hit 8 distinct bank
+//     groups. Rows at or past T or S are zero-filled by cp.async (src-size
+//     0), never read: in a flat [BH*T, D] view they would be the next head's
+//     rows.
+//   * Each streamed tile is walked in chunks of 16 columns (q columns in
+//     bwd_dkv, keys in bwd_dq): S, dP, P and dS of a chunk live in 8
+//     registers each, so only the warp's own rows stay resident (dK and dV
+//     in bwd_dkv; Q, dO and dQ fragments in bwd_dq), and D = 128 fits 4
+//     warps without a spill. On the causal diagonal, bwd_dq skips the chunks
+//     that lie wholly above the warp's rows.
 //   * Tile loads are unrolled to a fixed count per thread: a loop bounded by
 //     threadIdx.x compiles to ~300 instructions with branches per tile.
 // f32 inputs keep the first kernels below: the tensor cores take f32 only as
@@ -73,6 +122,7 @@
 //     kernels skip them; rows past T or S are loaded as 0 and masked, never
 //     read from device memory (0 * NaN would poison a sum).
 
+#include <cuda.h>  // CUtensorMap and its enums; no driver function is linked
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -588,150 +638,6 @@ __device__ __forceinline__ int a_col(int lane) { return 8 * (lane / 16); }
 __device__ __forceinline__ int n_row(int lane) { return lane % 8 + 8 * (lane / 16); }
 __device__ __forceinline__ int n_col(int lane) { return 8 * (lane / 8 % 2); }
 
-// One k tile of the forward's online softmax for this lane's rows r0 and
-// r0 + 8: scale S (MASK: masked entries -> BIG_NEG), fold the tile into the
-// running max m and this lane's part l of the row sum, rescale acc, and leave
-// P = exp(S - m) (0 where masked) in s. c0 is the k position of s[0][0].
-// Without a mask the scale is applied inside exp's argument, one FMA: scale
-// > 0, so the max of the scaled row is the scaled max of the row.
-template <bool MASK, bool CAUSAL, int NT, int DT>
-__device__ __forceinline__ void online_softmax(float (&s)[NT][4], float (&acc)[DT][4], float (&m)[2],
-                                               float (&l)[2], int r0, int c0, int seq_k, float scale) {
-  auto ok = [&](int j, int e) {
-    const int qp = r0 + 8 * (e / 2), kp = c0 + j * 8 + e % 2;
-    return kp < seq_k && (!CAUSAL || qp >= kp);
-  };
-  float mx[2] = {BIG_NEG, BIG_NEG};
-#pragma unroll
-  for (int j = 0; j < NT; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      if (MASK) s[j][e] = ok(j, e) ? s[j][e] * scale : BIG_NEG;
-      mx[e / 2] = fmaxf(mx[e / 2], s[j][e]);
-    }
-  float alpha[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const float mn = fmaxf(m[r], MASK ? quad_max(mx[r]) : quad_max(mx[r]) * scale);
-    alpha[r] = expf(m[r] - mn);
-    m[r] = mn;
-    l[r] *= alpha[r];
-  }
-#pragma unroll
-  for (int j = 0; j < DT; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] *= alpha[e / 2];
-#pragma unroll
-  for (int j = 0; j < NT; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      if (MASK)
-        s[j][e] = ok(j, e) ? expf(s[j][e] - m[e / 2]) : 0.f;
-      else
-        s[j][e] = expf(fmaf(s[j][e], scale, -m[e / 2]));
-      l[e / 2] += s[j][e];
-    }
-}
-
-// ------------------------------------------------------- forward (tensor cores)
-// Replaces _attn_fwd_kernel (WRITE_LSE = false) and _attn_fwd_kernel_lse
-// (WRITE_LSE = true) for bf16. One block per (64-row q tile, bh); warp w
-// owns q rows 16w..16w+15 and keeps their Q fragments in registers. K and V
-// tiles stream through a two-stage ring. Per tile: S = Q.K^T (f32), scale
-// and mask, online max and sum (a row spans the 4 lanes of a quad), then
-// acc += P_hi.V + P_lo.V.
-template <int D, bool CAUSAL, bool WRITE_LSE>
-__global__ void __launch_bounds__(TC_THREADS) fwd_kernel_tc(
-    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-    bf16* __restrict__ o, float* __restrict__ lse, int seq_q, int seq_k, float scale) {
-  constexpr int LD = D + TC_LD_PAD, KC = D / 16, NT = BK / 8, DT = D / 8;
-  extern __shared__ __align__(16) unsigned char tc_smem_fwd[];
-  bf16* qs = reinterpret_cast<bf16*>(tc_smem_fwd);  // [BQ][LD]
-  bf16* ks = qs + BQ * LD;                          // [2][BK][LD]
-  bf16* vs = ks + 2 * BK * LD;                      // [2][BK][LD]
-
-  const int bh = blockIdx.y;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;  // the longest causal rows start first
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, tg = lane % 4;
-  const int r0 = q0 + warp * 16 + lane / 4;  // this lane's rows: r0 and r0 + 8
-  q += static_cast<size_t>(bh) * seq_q * D;
-  o += static_cast<size_t>(bh) * seq_q * D;
-  k += static_cast<size_t>(bh) * seq_k * D;
-  v += static_cast<size_t>(bh) * seq_k * D;
-
-  int n_kv_tiles = (seq_k + BK - 1) / BK;
-  if (CAUSAL) n_kv_tiles = min(n_kv_tiles, (q0 + BQ - 1) / BK + 1);  // skip tiles above the diagonal
-
-  tile_async<BQ, D>(qs, q, q0, seq_q);
-  cp_async_commit();
-  tile_async<BK, D>(ks, k, 0, seq_k);
-  tile_async<BK, D>(vs, v, 0, seq_k);
-  cp_async_commit();
-  cp_async_wait<1>();
-  __syncthreads();
-  uint32_t qf[KC][4];
-#pragma unroll
-  for (int kc = 0; kc < KC; ++kc) ldsm_x4(qf[kc], qs + (warp * 16 + a_row(lane)) * LD + kc * 16 + a_col(lane));
-
-  float acc[DT][4] = {};
-  float m[2] = {BIG_NEG, BIG_NEG}, l[2] = {0.f, 0.f};  // l: this lane's part of the row sum
-
-  for (int kt = 0; kt < n_kv_tiles; ++kt) {
-    const int st = kt & 1, k0 = kt * BK;
-    cp_async_wait<0>();  // tile kt is in, for every thread after the barrier, which
-    __syncthreads();     // also means every warp is done with tile kt - 1's stage
-    if (kt + 1 < n_kv_tiles) {  // so the next tile loads there while this one is multiplied
-      tile_async<BK, D>(ks + (st ^ 1) * BK * LD, k, k0 + BK, seq_k);
-      tile_async<BK, D>(vs + (st ^ 1) * BK * LD, v, k0 + BK, seq_k);
-      cp_async_commit();
-    }
-    const bf16* kst = ks + st * BK * LD;
-    const bf16* vst = vs + st * BK * LD;
-
-    float s[NT][4] = {};
-#pragma unroll
-    for (int kc = 0; kc < KC; ++kc)
-#pragma unroll
-      for (int j = 0; j < NT / 2; ++j) {
-        uint32_t b[4];
-        ldsm_x4(b, kst + (j * 16 + n_row(lane)) * LD + kc * 16 + n_col(lane));
-        mma_pair(s[2 * j], s[2 * j + 1], qf[kc], b);
-      }
-
-    // Only a tile on the diagonal or past seq_k has masked entries.
-    if (k0 + BK > seq_k || (CAUSAL && k0 + BK - 1 > q0))
-      online_softmax<true, CAUSAL>(s, acc, m, l, r0, k0 + 2 * tg, seq_k, scale);
-    else
-      online_softmax<false, CAUSAL>(s, acc, m, l, r0, k0 + 2 * tg, seq_k, scale);
-
-#pragma unroll
-    for (int kc = 0; kc < BK / 16; ++kc) {  // 16 keys of P at a time
-      uint32_t p_hi[4], p_lo[4];
-      split_a(s[2 * kc], s[2 * kc + 1], p_hi, p_lo);
-#pragma unroll
-      for (int j = 0; j < D / 16; ++j) {
-        uint32_t b[4];
-        ldsm_x4_trans(b, vst + (kc * 16 + a_row(lane)) * LD + j * 16 + a_col(lane));
-        mma_pair(acc[2 * j], acc[2 * j + 1], p_hi, b);
-        mma_pair(acc[2 * j], acc[2 * j + 1], p_lo, b);
-      }
-    }
-  }
-  cp_async_wait<0>();
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int qp = r0 + 8 * r;
-    const float lsafe = fmaxf(quad_sum(l[r]), 1e-30f);
-    if (qp >= seq_q) continue;
-#pragma unroll
-    for (int j = 0; j < DT; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(o + static_cast<size_t>(qp) * D + j * 8 + 2 * tg) =
-          __floats2bfloat162_rn(acc[j][2 * r] / lsafe, acc[j][2 * r + 1] / lsafe);
-    if (WRITE_LSE && tg == 0) lse[static_cast<size_t>(bh) * seq_q + qp] = m[r] + logf(lsafe);
-  }
-}
-
 // P^T = exp(S^T * scale - lse) and dS^T = P^T (dP^T - delta) scale of one
 // 16 x 16 chunk (k rows x q columns), in place of S^T in s and dP^T in dp;
 // 0 where masked (MASK). i0 is the column of s[0][0] within the q tile, r0
@@ -1002,6 +908,491 @@ __global__ void __launch_bounds__(TC_THREADS, D <= 64 ? 3 : 1) bwd_dkv_kernel_tc
   }
 }
 
+// ============================================== forward on Hopper (bf16, sm_90a)
+//
+// fwd_kernel_sm90 replaces _attn_fwd_kernel (WRITE_LSE = false, B1) and
+// _attn_fwd_kernel_lse (WRITE_LSE = true, B2) of ray_tpu/ops/flash_attention.py
+// for bf16 inputs. See the file's header for what bounds it and why it is
+// built this way.
+
+constexpr int FWD_BQ = 128;       // q rows per block: 64 per consumer warpgroup
+constexpr int FWD_THREADS = 384;  // warpgroups 0 and 1 consume, warpgroup 2 loads
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
+
+// Tile sizes and shared memory of one block, in bytes. Every tile is a stack
+// of 64-column boxes as TMA writes them with the 128-byte swizzle:
+// [D / 64][rows][64]. At D = 128 a tile of 64 keys keeps S, P (hi and lo)
+// and the output sums within the consumers' 240 registers.
+template <int D>
+struct FwdCfg {
+  static constexpr int BN = D == 64 ? 128 : 64;  // keys per K/V tile (the N of S = Q.K^T)
+  static constexpr int STAGES = 4;               // K/V ring depth
+  static constexpr int Q_BYTES = FWD_BQ * D * 2;
+  static constexpr int KV_BYTES = BN * D * 2;  // one K or one V tile
+  static constexpr int BAR_BYTES = 8 * (2 + 2 * STAGES);
+  // + 1024: the dynamic base is aligned up to the swizzle's 1024-byte period.
+  static constexpr int BYTES = Q_BYTES + 2 * STAGES * KV_BYTES + BAR_BYTES + 1024;
+};
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+// One arrival on the barrier from the threads with `pred` (a predicate in the
+// instruction, not a branch: no divergent path among the warpgroup's wgmma).
+__device__ __forceinline__ void mbar_arrive_if(uint32_t bar, bool pred) {
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %1, 0;\n@p mbarrier.arrive.shared::cta.b64 _, [%0];\n}\n"
+               ::"r"(bar), "r"(static_cast<int>(pred)) : "memory");
+}
+// Until the barrier's phase with this parity has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  asm volatile(
+      "{\n.reg .pred p;\nWAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n}\n" ::"r"(bar), "r"(parity) : "memory");
+}
+// Named barriers 1 and 2 (of 256 threads) order the two consumer
+// warpgroups' products: warpgroup w syncs on 1 + w when it may issue, and
+// arrives on the other's when it has issued.
+__device__ __forceinline__ void bar_sync(int id) {
+  asm volatile("bar.sync %0, 256;\n" ::"r"(id) : "memory");
+}
+__device__ __forceinline__ void bar_arrive_if(int id, bool pred) {
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %1, 0;\n@p bar.arrive %0, 256;\n}\n"
+               ::"r"(id), "r"(static_cast<int>(pred)) : "memory");
+}
+
+// One box [64 columns, `rows` rows, 1 head] of a 3-D [heads, rows, D] map at
+// (column c0, row, head) into shared memory; completion counts on `bar`.
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint32_t bar, int c0,
+                                            int row, int head) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(row), "r"(head)
+      : "memory");
+}
+// Rows [row, row + ROWS) of head `head`, all D columns, one box per 64.
+template <int ROWS, int D>
+__device__ __forceinline__ void load_rows(bf16* dst, const CUtensorMap* map, uint32_t bar, int head,
+                                          int row) {
+#pragma unroll
+  for (int c = 0; c < D / 64; ++c) tma_load_3d(dst + c * ROWS * 64, map, bar, c * 64, row, head);
+}
+
+// A wgmma shared-memory descriptor of a 128B-swizzled operand: start address,
+// leading and stride byte offsets (in 16-byte units), layout 1 = 128B swizzle.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | static_cast<uint64_t>(lbo >> 4) << 16 |
+         static_cast<uint64_t>(sbo >> 4) << 32 | 1ull << 62;
+}
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// Pins registers a wgmma writes or reads asynchronously, so the compiler
+// neither moves nor reuses them between the issue and the wait.
+template <int N>
+__device__ __forceinline__ void keep(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void keep(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+
+// wgmma m64nNk16, bf16 in, f32 sums in d (N / 2 per thread). _ss: A and B
+// both K-major from shared memory (SCALE_D = 0 overwrites d). _rs: A from
+// registers in the accumulator's own layout, B MN-major (transposed) from
+// shared memory, added to d.
+template <int SCALE_D>
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31 "
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "n"(SCALE_D));
+}
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31 "
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "n"(1));
+}
+template <int SCALE_D>
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63 "
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "n"(SCALE_D));
+}
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63 "
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "n"(1));
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// One K/V tile of the online softmax for this thread's rows r0 and r0 + 8,
+// in log2 units: s holds raw Q.K^T (N / 4 column groups of 8, as the wgmma
+// accumulator lays them out) and leaves holding P = 2^(s * sl2 - m), 0 where
+// masked; m (the running row max of s * sl2) and l (this thread's part of
+// the row sum) are updated, and alpha is the factor that rescales the sums
+// made under the old max. c0 is the key position of s[0]. sl2 = scale *
+// log2(e) folds the scale into exp2's argument, one FMA: exp(scale * s - M)
+// = 2^(s * sl2 - M * log2(e)), and with scale > 0 the max of s * sl2 is the
+// max of s times sl2.
+template <bool MASK, bool CAUSAL, int N>
+__device__ __forceinline__ void softmax_body(float (&s)[N], float (&m)[2], float (&l)[2],
+                                             float (&alpha)[2], int r0, int c0, int seq_k, float sl2) {
+  auto ok = [&](int i) {
+    const int qp = r0 + 8 * (i % 4 / 2), kp = c0 + 8 * (i / 4) + i % 2;
+    return kp < seq_k && (!CAUSAL || qp >= kp);
+  };
+  // Four partial maxima and sums a row (k = which of them), so no chain of
+  // dependent instructions runs the length of the row.
+  auto k = [](int i) { return i / 4 % 2 * 2 + i % 2; };
+  float mx[2][4], rs[2][4];
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) mx[r][j] = BIG_NEG, rs[r][j] = 0.f;
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    if (MASK) s[i] = ok(i) ? s[i] * sl2 : BIG_NEG;
+    mx[i % 4 / 2][k(i)] = fmaxf(mx[i % 4 / 2][k(i)], s[i]);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float mr = quad_max(fmaxf(fmaxf(mx[r][0], mx[r][1]), fmaxf(mx[r][2], mx[r][3])));
+    const float mn = fmaxf(m[r], MASK ? mr : mr * sl2);
+    alpha[r] = ex2(m[r] - mn);
+    m[r] = mn;
+  }
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    const float mr = m[i % 4 / 2];
+    s[i] = MASK ? (ok(i) ? ex2(s[i] - mr) : 0.f) : ex2(fmaf(s[i], sl2, -mr));
+    rs[i % 4 / 2][k(i)] += s[i];
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + ((rs[r][0] + rs[r][1]) + (rs[r][2] + rs[r][3]));
+}
+
+// The softmax of the tile of 2N keys whose first key is k0, for a warpgroup
+// whose first row is row0: only a tile on the diagonal or past seq_k has
+// masked entries.
+template <bool CAUSAL, int N>
+__device__ __forceinline__ void softmax_tile(float (&s)[N], float (&m)[2], float (&l)[2],
+                                             float (&alpha)[2], int k0, int row0, int r0, int tg,
+                                             int seq_k, float sl2) {
+  if (k0 + 2 * N > seq_k || (CAUSAL && k0 + 2 * N - 1 > row0))
+    softmax_body<true, CAUSAL>(s, m, l, alpha, r0, k0 + 2 * tg, seq_k, sl2);
+  else
+    softmax_body<false, CAUSAL>(s, m, l, alpha, r0, k0 + 2 * tg, seq_k, sl2);
+}
+
+// P (s after the softmax) as the A operand of P.V: the accumulator's 16-key
+// group c is the A fragment of keys 16c..16c+15, split into hi = bf16(P) and
+// lo = bf16(P - hi) (a P rounded once misses the limits: see the header).
+template <int N>
+__device__ __forceinline__ void split_p(const float (&s)[N], uint32_t (&hi)[N / 8][4], uint32_t (&lo)[N / 8][4]) {
+#pragma unroll
+  for (int c = 0; c < N / 8; ++c)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) split_bf16x2(s[8 * c + 2 * r], s[8 * c + 2 * r + 1], hi[c][r], lo[c][r]);
+}
+
+// S = Q.K^T of one tile: Q (this warpgroup's 64 rows at q_addr) and K (the
+// stage's 2N rows at k_addr), both K-major, 16 columns of D per wgmma.
+// Within a 128-byte swizzled row, the k-th 16 columns start 32k bytes in.
+template <int D, int N>
+__device__ __forceinline__ void issue_s(float (&s)[N], uint32_t q_addr, uint32_t k_addr) {
+#pragma unroll
+  for (int kc = 0; kc < D / 16; ++kc) {
+    const uint64_t a = smem_desc(q_addr + kc / 4 * FWD_BQ * 128 + kc % 4 * 32, 16, 1024);
+    const uint64_t b = smem_desc(k_addr + kc / 4 * 2 * N * 128 + kc % 4 * 32, 16, 1024);
+    if (kc == 0)
+      wgmma_ss<0>(s, a, b);
+    else
+      wgmma_ss<1>(s, a, b);
+  }
+}
+
+// acc += P_hi.V + P_lo.V of one tile, 16 keys per wgmma pair. V is the
+// MN-major B operand: 8 keys of 128 bytes a 1024-byte swizzle atom (SBO),
+// its 64-column boxes 16 NC * 128 bytes apart (LBO), NC groups of 16 keys.
+template <int D, int NC>
+__device__ __forceinline__ void issue_pv(float (&acc)[D / 2], const uint32_t (&p_hi)[NC][4],
+                                         const uint32_t (&p_lo)[NC][4], uint32_t v_addr) {
+#pragma unroll
+  for (int c = 0; c < NC; ++c) {
+    const uint64_t b = smem_desc(v_addr + c * 16 * 128, 16 * NC * 128, 1024);
+    wgmma_rs(acc, p_hi[c], b);
+    wgmma_rs(acc, p_lo[c], b);
+  }
+}
+
+#ifdef RT_FWD_TIMELINE
+// Cycle stamps of block 0's two consumers (their thread 0) for each K/V tile
+// after an item's first, [consumer][tile][event]: 0 the tile's K and V
+// landed, 1 S and the previous tile's P.V issued, 2 S in, 3 softmax done,
+// 4 P.V in, 5 P split. Only ray_tpu_torch/ops/kernel_ab.py's timeline build
+// defines RT_FWD_TIMELINE (chip_smoke.py phase 2 reads it through
+// rt_fwd_timeline); the library the port loads has no stamps.
+constexpr int FWD_TIMELINE_TILES = 64;
+__device__ long long fwd_timeline[2][FWD_TIMELINE_TILES][6];
+__device__ __forceinline__ void fwd_stamp(int wg, int tile, int ev, bool pred) {
+  long long* at = &fwd_timeline[wg][min(tile, FWD_TIMELINE_TILES - 1)][ev];
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %2, 0;\n@p st.global.b64 [%0], %1;\n}\n" ::"l"(at),
+               "l"(clock64()), "r"(static_cast<int>(pred)) : "memory");
+}
+#define FWD_STAMP(tile, ev) fwd_stamp(wg, tile, ev, blockIdx.x == 0 && tid == 0)
+#else
+#define FWD_STAMP(tile, ev)
+#endif
+
+// K/V tiles a q tile starting at row q0 takes: all of S, or with CAUSAL
+// none above the diagonal.
+template <bool CAUSAL, int BN>
+__device__ __forceinline__ int kv_tiles(int q0, int seq_k) {
+  const int n = (seq_k + BN - 1) / BN;
+  return CAUSAL ? min(n, (q0 + FWD_BQ - 1) / BN + 1) : n;
+}
+
+// Work comes in units of two q tiles of one head, q tile n_qt - 1 - p and q
+// tile p (the middle one alone when n_qt is odd), so causal units hold like
+// work, and the blocks at work at one time share a few heads' K and V in L2.
+// Item j of unit u: its head and first q row; false past the unit's last.
+__device__ __forceinline__ bool unit_item(int u, int j, int n_qt, int& head, int& q0) {
+  const int n_pairs = (n_qt + 1) / 2, p = u % n_pairs, qt = j == 0 ? n_qt - 1 - p : p;
+  head = u / n_pairs;
+  q0 = qt * FWD_BQ;
+  return j == 0 || qt != n_qt - 1 - p;
+}
+
+// Persistent: block b takes units b, b + gridDim.x, ... of the
+// (n_qt + 1) / 2 * bh units. The K/V ring runs on across items, and the
+// next item's Q loads while this item's last products and its stores run.
+template <int D, bool CAUSAL, bool WRITE_LSE>
+__global__ void __launch_bounds__(FWD_THREADS, 1) fwd_kernel_sm90(
+    const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap k_map,
+    const __grid_constant__ CUtensorMap v_map, bf16* __restrict__ o, float* __restrict__ lse, int bh,
+    int seq_q, int seq_k, float scale) {
+  using Cfg = FwdCfg<D>;
+  constexpr int BN = Cfg::BN, STAGES = Cfg::STAGES;
+  extern __shared__ unsigned char fwd_smem[];
+  // The 128-byte swizzle is a function of the shared address bits, with a
+  // period of 1024 bytes: TMA and the wgmma descriptors agree on it only
+  // from a 1024-byte aligned base.
+  bf16* qs = reinterpret_cast<bf16*>(fwd_smem + (1024 - smem_u32(fwd_smem) % 1024) % 1024);
+  bf16* ks = qs + FWD_BQ * D;       // [STAGES][D / 64][BN][64]
+  bf16* vs = ks + STAGES * BN * D;  // [STAGES][D / 64][BN][64]
+  const uint32_t q_full = smem_u32(vs + STAGES * BN * D);  // the item's Q landed
+  const uint32_t q_empty = q_full + 8;                     // both consumers are done with Q
+  const uint32_t full_bar = q_empty + 8;                   // [STAGES]: the stage's K and V landed
+  const uint32_t empty_bar = full_bar + 8 * STAGES;        // [STAGES]: both consumers are done with it
+
+  const int n_qt = (seq_q + FWD_BQ - 1) / FWD_BQ, n_units = (n_qt + 1) / 2 * bh;
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    mbar_init(q_empty, 2);
+    for (int st = 0; st < STAGES; ++st) {
+      mbar_init(full_bar + 8 * st, 1);
+      mbar_init(empty_bar + 8 * st, 2);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // Warp-uniform, and visibly so to the compiler: a wgmma in a path it takes
+  // for divergent is serialized.
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  if (wg == 2) {  // producer: one thread keeps Q and the ring full
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == 256) {
+      int it = 0, n = 0, head, q0;  // K/V tiles (the ring's position) and items loaded
+      for (int u = blockIdx.x; u < n_units; u += gridDim.x)
+        for (int j = 0; j < 2 && unit_item(u, j, n_qt, head, q0); ++j, ++n) {
+          const int n_kv_tiles = kv_tiles<CAUSAL, BN>(q0, seq_k);
+          mbar_wait(q_empty, (n & 1) ^ 1);  // passes at once for the first item
+          mbar_expect_tx(q_full, Cfg::Q_BYTES);
+          load_rows<FWD_BQ, D>(qs, &q_map, q_full, head, q0);
+          for (int kt = 0; kt < n_kv_tiles; ++kt, ++it) {
+            const int st = it % STAGES;
+            mbar_wait(empty_bar + 8 * st, (it / STAGES & 1) ^ 1);  // passes at once on the first lap
+            const uint32_t full = full_bar + 8 * st;
+            mbar_expect_tx(full, 2 * Cfg::KV_BYTES);  // out-of-range rows are zero-filled and counted
+            load_rows<BN, D>(ks + st * BN * D, &k_map, full, head, kt * BN);
+            load_rows<BN, D>(vs + st * BN * D, &v_map, full, head, kt * BN);
+          }
+        }
+    }
+  } else {  // consumer warpgroup wg: q rows [q0 + 64 wg, q0 + 64 wg + 64) of each item
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32, tg = lane % 4;
+    const float sl2 = scale * LOG2E;
+    const uint32_t q_addr = smem_u32(qs) + wg * 64 * 128;
+    float s[BN / 2], acc[D / 2], alpha[2];
+    uint32_t p_hi[BN / 16][4], p_lo[BN / 16][4];
+
+    int it = 0, n = 0, head, q0;  // K/V tiles and items consumed
+    for (int u = blockIdx.x; u < n_units; u += gridDim.x)
+      for (int j = 0; j < 2 && unit_item(u, j, n_qt, head, q0); ++j, ++n) {
+        const int n_kv_tiles = kv_tiles<CAUSAL, BN>(q0, seq_k);
+        const int row0 = q0 + wg * 64;
+        const int r0 = row0 + warp * 16 + lane / 4;  // this thread's rows: r0 and r0 + 8
+#pragma unroll
+        for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+        float m[2] = {BIG_NEG, BIG_NEG}, l[2] = {0.f, 0.f};  // l: this thread's part of the row sum
+
+        mbar_wait(q_full, n & 1);
+        bar_arrive_if(1, wg == 1);  // warpgroup 0 issues first
+        // Tile 0: S_0 alone.
+        mbar_wait(full_bar + 8 * (it % STAGES), it / STAGES & 1);
+        bar_sync(1 + wg);
+        keep(s);
+        wgmma_fence();
+        issue_s<D>(s, q_addr, smem_u32(ks + it % STAGES * BN * D));
+        wgmma_commit();
+        keep(s);
+        bar_arrive_if(2 - wg, wg == 0 || n_kv_tiles > 1);  // the other warpgroup's turn
+        wgmma_wait<0>();
+        keep(s);
+        mbar_arrive_if(q_empty, tid == 0 && n_kv_tiles == 1);  // the last S is in: Q may go
+        softmax_tile<CAUSAL>(s, m, l, alpha, 0, row0, r0, tg, seq_k, sl2);
+        split_p(s, p_hi, p_lo);
+        // Tile kt: issue S_kt = Q.K_kt^T and acc += P_{kt-1}.V_{kt-1} in turn with
+        // the other warpgroup, so its softmax runs under these products; then
+        // this tile's softmax while P_{kt-1}.V_{kt-1} is still on the tensor cores.
+        for (int kt = 1; kt < n_kv_tiles; ++kt) {
+          const int st = (it + kt) % STAGES, prev = (it + kt - 1) % STAGES;
+          mbar_wait(full_bar + 8 * st, (it + kt) / STAGES & 1);
+          FWD_STAMP(it + kt, 0);
+          bar_sync(1 + wg);
+          keep(s);
+          keep(acc);
+          keep(p_hi);
+          keep(p_lo);
+          wgmma_fence();
+          issue_s<D>(s, q_addr, smem_u32(ks + st * BN * D));
+          wgmma_commit();
+          issue_pv<D>(acc, p_hi, p_lo, smem_u32(vs + prev * BN * D));
+          wgmma_commit();
+          FWD_STAMP(it + kt, 1);
+          keep(s);
+          keep(acc);
+          bar_arrive_if(2 - wg, wg == 0 || kt + 1 < n_kv_tiles);
+          wgmma_wait<1>();  // S_kt is in
+          keep(s);
+          FWD_STAMP(it + kt, 2);
+          mbar_arrive_if(q_empty, tid == 0 && kt + 1 == n_kv_tiles);
+          softmax_tile<CAUSAL>(s, m, l, alpha, kt * BN, row0, r0, tg, seq_k, sl2);
+          FWD_STAMP(it + kt, 3);
+          wgmma_wait<0>();  // P_{kt-1}.V_{kt-1} is in: its P and its stage are free
+          keep(acc);
+          keep(p_hi);
+          keep(p_lo);
+          FWD_STAMP(it + kt, 4);
+          mbar_arrive_if(empty_bar + 8 * prev, tid == 0);
+#pragma unroll
+          for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[i % 4 / 2];
+          split_p(s, p_hi, p_lo);
+          FWD_STAMP(it + kt, 5);
+        }
+        it += n_kv_tiles;
+        const int last = (it - 1) % STAGES;
+        keep(acc);
+        keep(p_hi);
+        keep(p_lo);
+        wgmma_fence();
+        issue_pv<D>(acc, p_hi, p_lo, smem_u32(vs + last * BN * D));
+        wgmma_commit();
+        keep(acc);
+        wgmma_wait<0>();
+        keep(acc);
+        keep(p_hi);
+        keep(p_lo);
+        mbar_arrive_if(empty_bar + 8 * last, tid == 0);
+
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int qp = r0 + 8 * r;
+          const float lsafe = fmaxf(quad_sum(l[r]), 1e-30f), linv = 1.f / lsafe;
+          if (qp >= seq_q) continue;
+          bf16* orow = o + (static_cast<size_t>(head) * seq_q + qp) * D;
+#pragma unroll
+          for (int c = 0; c < D / 8; ++c)
+            *reinterpret_cast<__nv_bfloat162*>(orow + c * 8 + 2 * tg) =
+                __floats2bfloat162_rn(acc[4 * c + 2 * r] * linv, acc[4 * c + 2 * r + 1] * linv);
+          if (WRITE_LSE && tg == 0) lse[static_cast<size_t>(head) * seq_q + qp] = m[r] * LN2 + logf(lsafe);
+        }
+      }
+  }
+}
+
 // ---------------------------------------------------------------- launchers
 
 // Every kernel takes more than the default 48 KB of shared memory, which a
@@ -1080,25 +1471,77 @@ cudaError_t bwd_dkv(const void* q, const void* k, const void* v, const void* dou
                                                       delta, dk, dv, seq_q, seq_k, scale);
 }
 
+// cuTensorMapEncodeTiled, taken from the driver through the runtime, so the
+// library needs no -lcuda.
+using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                   const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                   const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                   CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encode_tiled() {
+  static const EncodeTiledFn fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiledFn>(p)
+                                                                       : nullptr;
+  }();
+  return fn;
+}
+
+// A contiguous [heads, rows, D] bf16 tensor as a 3-D TMA map read in boxes of
+// 64 columns by box_rows rows of one head, 128-byte swizzled. A box's rows
+// past `rows` are zero-filled: they never come from the next head. TMA needs
+// the base 16-byte aligned and every stride a multiple of 16 bytes: the
+// wrapper checks the first, and D in {64, 128} gives the second.
+cudaError_t encode_rows(CUtensorMap* map, const void* ptr, int heads, int rows, int D, int box_rows) {
+  const EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {cuuint64_t(D), cuuint64_t(rows), cuuint64_t(heads)};
+  const cuuint64_t strides[2] = {cuuint64_t(D) * 2, cuuint64_t(rows) * D * 2};  // bytes, dims 1 and 2
+  const cuuint32_t box[3] = {64, cuuint32_t(box_rows), 1}, unit[3] = {1, 1, 1};
+  const CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
+                              strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                              CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
 template <int D>
-cudaError_t fwd_tc(const void* q, const void* k, const void* v, void* o, float* lse, int bh,
-                   int seq_q, int seq_k, float scale, bool causal, cudaStream_t stream) {
-  const size_t smem = sizeof(bf16) * (BQ + 4 * BK) * (D + TC_LD_PAD);
-  const dim3 grid((seq_q + BQ - 1) / BQ, bh);
-  const bf16* qt = static_cast<const bf16*>(q);
-  const bf16* kt = static_cast<const bf16*>(k);
-  const bf16* vt = static_cast<const bf16*>(v);
+cudaError_t fwd_sm90(const void* q, const void* k, const void* v, void* o, float* lse, int bh,
+                     int seq_q, int seq_k, float scale, bool causal, cudaStream_t stream) {
+  CUtensorMap qm, km, vm;
+  cudaError_t err = encode_rows(&qm, q, bh, seq_q, D, FWD_BQ);
+  if (err == cudaSuccess) err = encode_rows(&km, k, bh, seq_k, D, FwdCfg<D>::BN);
+  if (err == cudaSuccess) err = encode_rows(&vm, v, bh, seq_k, D, FwdCfg<D>::BN);
+  if (err != cudaSuccess) return err;
+  // One block per SM (or per unit of work, if fewer), each walking its units.
+  constexpr int kMaxDevices = 64;
+  static int sm_count[kMaxDevices] = {};
+  int dev = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (sm_count[dev] == 0 &&
+      (err = cudaDeviceGetAttribute(&sm_count[dev], cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return err;
+  const size_t smem = FwdCfg<D>::BYTES;
+  const dim3 grid(min(((seq_q + FWD_BQ - 1) / FWD_BQ + 1) / 2 * bh, sm_count[dev]));
   bf16* ot = static_cast<bf16*>(o);
   if (causal) {
-    return lse ? launch<fwd_kernel_tc<D, true, true>, TC_THREADS>(grid, smem, stream, qt, kt, vt,
-                                                                  ot, lse, seq_q, seq_k, scale)
-               : launch<fwd_kernel_tc<D, true, false>, TC_THREADS>(grid, smem, stream, qt, kt, vt,
-                                                                   ot, lse, seq_q, seq_k, scale);
+    return lse ? launch<fwd_kernel_sm90<D, true, true>, FWD_THREADS>(grid, smem, stream, qm, km, vm, ot,
+                                                                      lse, bh, seq_q, seq_k, scale)
+               : launch<fwd_kernel_sm90<D, true, false>, FWD_THREADS>(grid, smem, stream, qm, km, vm, ot,
+                                                                       lse, bh, seq_q, seq_k, scale);
   }
-  return lse ? launch<fwd_kernel_tc<D, false, true>, TC_THREADS>(grid, smem, stream, qt, kt, vt,
-                                                                 ot, lse, seq_q, seq_k, scale)
-             : launch<fwd_kernel_tc<D, false, false>, TC_THREADS>(grid, smem, stream, qt, kt, vt,
-                                                                  ot, lse, seq_q, seq_k, scale);
+  return lse ? launch<fwd_kernel_sm90<D, false, true>, FWD_THREADS>(grid, smem, stream, qm, km, vm, ot,
+                                                                     lse, bh, seq_q, seq_k, scale)
+             : launch<fwd_kernel_sm90<D, false, false>, FWD_THREADS>(grid, smem, stream, qm, km, vm, ot,
+                                                                      lse, bh, seq_q, seq_k, scale);
 }
 
 template <int D>
@@ -1153,7 +1596,7 @@ extern "C" {
 int rt_flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int bh,
                  int seq_q, int seq_k, int head_dim, float scale, int causal, int dtype,
                  void* stream) {
-  RT_DISPATCH(fwd, fwd_tc, q, k, v, o, static_cast<float*>(lse), bh, seq_q, seq_k, scale,
+  RT_DISPATCH(fwd, fwd_sm90, q, k, v, o, static_cast<float*>(lse), bh, seq_q, seq_k, scale,
               causal != 0, static_cast<cudaStream_t>(stream))
 }
 
@@ -1174,5 +1617,16 @@ int rt_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* do
 }
 
 const char* rt_error_string(int err) { return cudaGetErrorString(static_cast<cudaError_t>(err)); }
+
+#ifdef RT_FWD_TIMELINE
+// Copies the stamps into dst (host memory, [2][64][6] int64) and clears them.
+int rt_fwd_timeline(void* dst) {
+  void* at = nullptr;
+  cudaError_t err = cudaMemcpyFromSymbol(dst, fwd_timeline, sizeof(fwd_timeline));
+  if (err == cudaSuccess) err = cudaGetSymbolAddress(&at, fwd_timeline);
+  if (err == cudaSuccess) err = cudaMemset(at, 0, sizeof(fwd_timeline));
+  return static_cast<int>(err);
+}
+#endif
 
 }  // extern "C"

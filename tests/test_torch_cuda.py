@@ -128,24 +128,38 @@ def test_batch_of_one_forward_through_the_kernels(dev):
 # Deliberately broken copies of the kernels' source, each built into the
 # test's own directory and bound in place of the real library, to show that
 # chip_smoke.py's limits fail a subtly wrong bf16 (tensor-core) kernel:
-# {name: (line, broken line)}; each line occurs once in the source.
+# {name: [(line, broken line), ...]}; each line occurs once in the source.
 MUTANTS = {
-    # fwd_kernel_tc drops the last, partial key tile.
-    "fwd_drops_partial_key_tile": ("int n_kv_tiles = (seq_k + BK - 1) / BK;",
-                                   "int n_kv_tiles = seq_k / BK;"),
-    # fwd_kernel_tc rounds P to bf16 once: it drops the lo term of P.V.
-    "fwd_drops_lo_term": ("mma_pair(acc[2 * j], acc[2 * j + 1], p_lo, b);", ""),
+    # fwd_kernel_sm90 drops the last, partial key tile.
+    "fwd_drops_partial_key_tile": [("const int n = (seq_k + BN - 1) / BN;",
+                                    "const int n = seq_k / BN;")],
+    # fwd_kernel_sm90 rounds P to bf16 once: it drops the P_lo.V product.
+    "fwd_drops_lo_term": [("wgmma_rs(acc, p_lo[c], b);", "")],
+    # fwd_kernel_sm90 reads q, k and v through 2-D [BH*S, D] tensor maps:
+    # rows past S come from the next head instead of TMA's zero fill.
+    "fwd_flat_tensor_maps": [
+        ("const cuuint64_t dims[3] = {cuuint64_t(D), cuuint64_t(rows), cuuint64_t(heads)};",
+         "const cuuint64_t dims[3] = {cuuint64_t(D), cuuint64_t(rows) * heads, 1};"),
+        ("const cuuint64_t strides[2] = {cuuint64_t(D) * 2, cuuint64_t(rows) * D * 2};",
+         "const cuuint64_t strides[2] = {cuuint64_t(D) * 2, cuuint64_t(rows) * heads * D * 2};"),
+        ("load_rows<FWD_BQ, D>(qs, &q_map, q_full, head, q0);",
+         "load_rows<FWD_BQ, D>(qs, &q_map, q_full, 0, head * seq_q + q0);"),
+        ("load_rows<BN, D>(ks + st * BN * D, &k_map, full, head, kt * BN);",
+         "load_rows<BN, D>(ks + st * BN * D, &k_map, full, 0, head * seq_k + kt * BN);"),
+        ("load_rows<BN, D>(vs + st * BN * D, &v_map, full, head, kt * BN);",
+         "load_rows<BN, D>(vs + st * BN * D, &v_map, full, 0, head * seq_k + kt * BN);"),
+    ],
     # bwd_dkv_kernel_tc drops the last q tile.
-    "dkv_drops_last_q_tile": ("const int n_q_tiles = (seq_q + BQ - 1) / BQ;",
-                              "const int n_q_tiles = (seq_q + BQ - 1) / BQ - 1;"),
+    "dkv_drops_last_q_tile": [("const int n_q_tiles = (seq_q + BQ - 1) / BQ;",
+                               "const int n_q_tiles = (seq_q + BQ - 1) / BQ - 1;")],
     # bwd_dq_kernel_tc rounds dS to bf16 once: it drops the lo term of dS.K.
-    "dq_drops_lo_term": ("mma_pair(dqa[2 * j], dqa[2 * j + 1], ds_lo, b);", ""),
+    "dq_drops_lo_term": [("mma_pair(dqa[2 * j], dqa[2 * j + 1], ds_lo, b);", "")],
     # bwd_dq_kernel_tc drops the last, partial key tile.
-    "dq_drops_partial_key_tile": ("int n_k_tiles = (seq_k + BK - 1) / BK;",
-                                  "int n_k_tiles = seq_k / BK;"),
+    "dq_drops_partial_key_tile": [("int n_k_tiles = (seq_k + BK - 1) / BK;",
+                                   "int n_k_tiles = seq_k / BK;")],
     # bwd_dq_kernel_tc stops one tile short of the causal diagonal.
-    "dq_drops_diagonal_tile": ("n_k_tiles = min(n_k_tiles, (q0 + BQ - 1) / BK + 1);",
-                               "n_k_tiles = min(n_k_tiles, (q0 + BQ - 1) / BK);"),
+    "dq_drops_diagonal_tile": [("n_k_tiles = min(n_k_tiles, (q0 + BQ - 1) / BK + 1);",
+                                "n_k_tiles = min(n_k_tiles, (q0 + BQ - 1) / BK);")],
 }
 
 
@@ -153,11 +167,12 @@ MUTANTS = {
 def mutant(dev, request, tmp_path, monkeypatch):
     if request.param is None:
         return None
-    line, broken = MUTANTS[request.param]
     src = (_build.CSRC / "flash_attention.cu").read_text()
-    assert src.count(line) == 1
+    for line, broken in MUTANTS[request.param]:
+        assert src.count(line) == 1
+        src = src.replace(line, broken, 1)
     cu, so = tmp_path / "mutant.cu", tmp_path / "mutant.so"
-    cu.write_text(src.replace(line, broken, 1))
+    cu.write_text(src)
     subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(so), str(cu)], check=True)
     monkeypatch.setattr(fa, "_lib", fa._bind(ctypes.CDLL(str(so))))
     return request.param
@@ -166,10 +181,20 @@ def mutant(dev, request, tmp_path, monkeypatch):
 @pytest.mark.parametrize("mutant", list(MUTANTS), indirect=True)
 def test_smoke_limits_catch_a_broken_kernel(dev, mutant):
     """Each broken kernel misses chip_smoke.py's limits in one of the two
-    causal modes at T = 1000 (a partial last tile)."""
+    causal modes at T = 1000 (a partial last tile). The keys past T are
+    masked, so rows read from the next head in their place change nothing
+    unless they hold a value that survives a zero weight: for the flat-map
+    mutant the inputs are the first 4 heads of 5 and V's first rows of every
+    later head are inf (the TPU kernel zeroes V's padding rows against just
+    this), and only head 0, whose own values are all finite, is compared."""
     cs = importlib.import_module("chip_smoke")
     g = torch.Generator(device=dev).manual_seed(0)
     q, k, v, do = (torch.randn(4, 1000, 64, device=dev, generator=g).bfloat16() for _ in range(4))
+    heads = slice(None)
+    if mutant == "fwd_flat_tensor_maps":
+        v5 = torch.cat([v, torch.randn(1, 1000, 64, device=dev, generator=g).bfloat16()])
+        v5[1:, :24] = float("inf")  # the rows a flat map reads for the partial tile of the head before
+        v, heads = v5[:4], slice(0, 1)
     scale = 0.125
     worst = {}
     for causal in (False, True):
@@ -177,15 +202,17 @@ def test_smoke_limits_catch_a_broken_kernel(dev, mutant):
         delta = (do.float() * ref_o.float()).sum(-1)
         args = (q, k, v, do, ref_lse, delta)
         _, ratios = cs.compare({
-            "fwd": [(fa.flash_fwd(q, k, v, causal=causal, scale=scale), ref_o)],
+            "fwd": [(fa.flash_fwd(q, k, v, causal=causal, scale=scale)[heads], ref_o[heads])],
             "bwd_dq": [(fa.flash_bwd_dq(*args, causal=causal, scale=scale),
                         fa._flash_bwd_dq_ref(*args, causal, scale))],
             "bwd_dkv": list(zip(fa.flash_bwd_dkv(*args, causal=causal, scale=scale),
                                 fa._flash_bwd_dkv_ref(*args, causal, scale))),
         })
-        worst = {key: max(r, worst.get(key, 0.0)) for key, r in ratios.items()}
+        for key, r in ratios.items():
+            if not r <= worst.get(key, 0.0):  # NaN (inf times a zero weight) counts as worst
+                worst[key] = r
     broken = {"fwd": "fwd", "dq": "bwd_dq", "dkv": "bwd_dkv"}[mutant.split("_")[0]]
-    assert worst[broken] > 1.0, worst
+    assert not worst[broken] <= 1.0, worst
 
 
 @pytest.mark.parametrize("mutant", [None, "dkv_drops_last_q_tile", "dq_drops_diagonal_tile"],

@@ -228,6 +228,102 @@ def test_tensor_core_operands_need_the_hi_lo_split(D, causal):
     assert all(r <= 1.0 for r in split_in_two.values()), split_in_two
 
 
+# The Hopper forward's tiles (csrc/flash_attention.cu, FWD_BQ and FwdCfg):
+# 128 q rows a work item, two consumer warpgroups of 64; 128 keys a K/V tile
+# at D = 64, 64 at D = 128.
+SM90_BQ, SM90_BN = 128, {64: 128, 128: 64}
+_LOG2E, _LN2 = 1.4426950408889634, 0.6931471805599453
+
+
+def _fwd_sm90_emulation(q, k, v, causal, scale, split=True):
+    """fwd_kernel_sm90's arithmetic in torch, tile by tile in its order and
+    sizes: per K/V tile, each 64-row warpgroup takes the masked path only on
+    the diagonal or past S (as the kernel decides), the running max in log2
+    units with scale * log2(e) folded into one FMA, exp2, the rescale of the
+    sums made under the old max; P split into hi = bf16(P) and lo = bf16(P -
+    hi) (or, not split, rounded once), each times V into the f32 sum, which
+    is rescaled after the product of the previous tile has landed; o is that
+    sum times 1 / l. Returns (o bf16, lse f32)."""
+    BH, T, D = q.shape
+    S, bn = k.shape[1], SM90_BN[D]
+    f32 = torch.float32
+    sl2 = torch.tensor(scale, dtype=f32) * torch.tensor(_LOG2E, dtype=f32)
+    big_neg = torch.tensor(-1e30, dtype=f32)
+    o = torch.empty(BH, T, D, dtype=torch.bfloat16)
+    lse = torch.empty(BH, T, dtype=f32)
+    for q0 in range(0, T, SM90_BQ):
+        rows = torch.arange(q0, q0 + SM90_BQ)
+        qt = torch.zeros(BH, SM90_BQ, D, dtype=f32)  # TMA zero-fills rows past T
+        qt[:, :T - q0] = q[:, q0:q0 + SM90_BQ].float()
+        n = -(-S // bn)
+        if causal:
+            n = min(n, (q0 + SM90_BQ - 1) // bn + 1)  # tiles above the diagonal are skipped
+        m = torch.full((BH, SM90_BQ), -1e30, dtype=f32)
+        l = torch.zeros(BH, SM90_BQ, dtype=f32)
+        acc = torch.zeros(BH, SM90_BQ, D, dtype=f32)
+        pv = None  # P.V of the previous tile, added before this tile's rescale
+        for k0 in range(0, n * bn, bn):
+            kk, vv = (torch.zeros(BH, bn, D, dtype=f32) for _ in range(2))  # TMA zero-fills past S
+            kk[:, :S - k0] = k[:, k0:k0 + bn].float()
+            vv[:, :S - k0] = v[:, k0:k0 + bn].float()
+            s = torch.einsum("btd,bsd->bts", qt, kk)
+            keys = torch.arange(k0, k0 + bn)
+            ok = (keys[None, :] < S) & ((rows[:, None] >= keys[None, :]) if causal else True)
+            ok = ok.expand(SM90_BQ, bn)
+            p, alpha = torch.empty_like(s), torch.empty_like(m)
+            for w0 in range(0, SM90_BQ, 64):  # one consumer warpgroup's rows
+                w = slice(w0, w0 + 64)
+                if k0 + bn > S or (causal and k0 + bn - 1 > q0 + w0):
+                    s2 = torch.where(ok[w], s[:, w] * sl2, big_neg)
+                    mn = torch.maximum(m[:, w], s2.amax(-1))
+                    p[:, w] = torch.where(ok[w], torch.exp2(s2 - mn[..., None]), 0.0)
+                else:
+                    mn = torch.maximum(m[:, w], s[:, w].amax(-1) * sl2)
+                    # fmaf(s, sl2, -m): one rounding
+                    p[:, w] = torch.exp2((s[:, w].double() * sl2.double() - mn[..., None].double()).float())
+                alpha[:, w] = torch.exp2(m[:, w] - mn)
+                m[:, w] = mn
+            l = l * alpha + p.sum(-1)
+            if pv is not None:
+                acc = acc + pv
+            acc = acc * alpha[..., None]
+            hi = p.bfloat16().float()
+            terms = [hi, (p - hi).bfloat16().float()] if split else [hi]
+            pv = sum(torch.einsum("bts,bsd->btd", t, vv) for t in terms)
+        lsafe = l.clamp_min(1e-30)
+        keep = rows < T
+        o[:, rows[keep]] = ((acc + pv) * (1 / lsafe)[..., None])[:, keep].bfloat16()
+        lse[:, rows[keep]] = (m * _LN2 + torch.log(lsafe))[:, keep]
+    return o, lse
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("T", [192, 1000, 1024])
+@pytest.mark.parametrize("D", [64, 128])
+def test_sm90_forward_arithmetic_holds_the_smoke_limits(D, T, causal):
+    """The Hopper forward's arithmetic, emulated on bf16 inputs, against the
+    plain version and against the Pallas kernel (interpret mode) within
+    chip_smoke.py's limits; with P rounded once instead of split, it misses
+    them."""
+    cs = importlib.import_module("chip_smoke")
+    q, k, v = _qkv(11, 2, T, D, n=3)
+    scale = D ** -0.5
+    tq, tk, tv = (_t(x).bfloat16() for x in (q, k, v))
+    o, lse = _fwd_sm90_emulation(tq, tk, tv, causal, scale)
+    ref_o, ref_lse = _flash_fwd_ref(tq, tk, tv, causal, scale, with_lse=True)
+    jq, jk, jv = (jnp.asarray(x).astype(jnp.bfloat16) for x in (q, k, v))
+    pallas_o, pallas_lse = _flash_fwd(jq, jk, jv, causal=causal, scale=scale, block_q=128,
+                                      block_k=128, interpret=True, with_lse=True)
+    pallas_o = _t(np.asarray(pallas_o.astype(jnp.float32))).bfloat16()
+    pallas_lse = _t(np.asarray(pallas_lse[..., 0]))
+    _, ratios = cs.compare({"plain": [(o, ref_o), (lse, ref_lse)],
+                            "pallas": [(o, pallas_o), (lse, pallas_lse)]})
+    assert all(r <= 1.0 for r in ratios.values()), ratios
+    once_o, _ = _fwd_sm90_emulation(tq, tk, tv, causal, scale, split=False)
+    _, once = cs.compare({"plain": [(once_o, ref_o)], "pallas": [(once_o, pallas_o)]})
+    assert all(r > 1.0 for r in once.values()), once
+
+
 @pytest.mark.parametrize("broken", ["ds_rounded_once", "drops_diagonal_tile"])
 def test_gradient_check_sees_a_lost_tile_not_a_once_rounded_ds(broken, monkeypatch):
     """chip_smoke.py's first-step gradient check, run here through the plain
@@ -265,13 +361,21 @@ def test_gradient_check_sees_a_lost_tile_not_a_once_rounded_ds(broken, monkeypat
 
 
 def test_build_report_parsers():
-    """chip_smoke.py's readers of ptxas -v and cuobjdump -sass output."""
+    """chip_smoke.py's readers of ptxas -v and cuobjdump -sass output: the
+    Hopper forward's mangled names (nvcc's file-scoped anonymous namespace,
+    CUtensorMap parameters), its HGMMA (wgmma) apart from HMMA (mma.sync),
+    and ptxas's warning where it serialized a kernel's wgmma."""
     cs = importlib.import_module("chip_smoke")
     fwd = "_ZN12_GLOBAL__N_113fwd_kernel_tcILi64ELb1ELb0EEEvPK13__nv_bfloat16S3_S3_PS1_Pfiif"
+    sm90 = ("_ZN51_GLOBAL__N__c4b42d03_18_flash_attention_cu_e1dd8ece15fwd_kernel_sm90ILi64ELb1ELb0EEEv"
+            "14CUtensorMap_stS1_S1_P13__nv_bfloat16Pfiiif")
+    sm90_nc = sm90.replace("ILi64ELb1ELb0EE", "ILi128ELb0ELb1EE")
     dq = "_ZN12_GLOBAL__N_113bwd_dq_kernelI13__nv_bfloat16Li128ELb0EEEvPKT_S4_S4_S4_PKfS6_Pfiif"
     dq_tc = "_ZN12_GLOBAL__N_116bwd_dq_kernel_tcILi64ELb1EEEvPK13__nv_bfloat16S3_S3_S3_PKfS5_Pfiif"
     old = "_ZN12_GLOBAL__N_110fwd_kernelIfLi64ELb1ELb1EEEvPKT_S4_S4_PS2_Pfiif"
     assert cs.kernel_label(fwd) == "fwd_kernel_tc<64,true,false>"
+    assert cs.kernel_label(sm90) == "fwd_kernel_sm90<64,true,false>"
+    assert cs.kernel_label(sm90_nc) == "fwd_kernel_sm90<128,false,true>"
     assert cs.kernel_label(dq) == "bwd_dq_kernel<bf16,128,false>"
     assert cs.kernel_label(dq_tc) == "bwd_dq_kernel_tc<64,true>"
     assert cs.kernel_label(old) == "fwd_kernel<f32,64,true,true>"
@@ -283,16 +387,55 @@ def test_build_report_parsers():
            f"ptxas info    : Compiling entry function '{dq_tc}' for 'sm_90a'\n"
            f"ptxas info    : Function properties for {dq_tc}\n"
            "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
-           "ptxas info    : Used 154 registers, used 1 barriers, 380 bytes cmem[0]\n")
+           "ptxas info    : Used 154 registers, used 1 barriers, 380 bytes cmem[0]\n"
+           f"ptxas info    : Compiling entry function '{sm90}' for 'sm_90a'\n"
+           f"ptxas info    : Function properties for {sm90}\n"
+           "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+           "ptxas info    : Used 168 registers, used 16 barriers\n"
+           "ptxas info    : (C7520) Potential Performance Loss: wgmma.mma_async instructions are "
+           "serialized due to program dependence on compiler-inserted WG.AR in divergent path in the "
+           f"function '{sm90}'\n")
     assert cs.ptxas_report(log) == {
         "fwd_kernel_tc<64,true,false>": {"registers": 168, "spill_stores": 8, "spill_loads": 12},
-        "bwd_dq_kernel_tc<64,true>": {"registers": 154, "spill_stores": 0, "spill_loads": 0}}
+        "bwd_dq_kernel_tc<64,true>": {"registers": 154, "spill_stores": 0, "spill_loads": 0},
+        "fwd_kernel_sm90<64,true,false>": {
+            "registers": 168, "spill_stores": 0, "spill_loads": 0,
+            "wgmma_serialized": "program dependence on compiler-inserted WG.AR in divergent path"}}
     sass = (f"\t\tFunction : {fwd}\n        /*0100*/  HMMA.16816.F32.BF16 R4, R8, R12, R4 ;\n"
             "        /*0110*/  HMMA.16816.F32.BF16 R16, R8, R14, R16 ;\n"
+            f"\t\tFunction : {sm90}\n"
+            "        /*0200*/  HGMMA.64x128x16.F32.BF16 R24, gdesc[UR4], RZ, !UPT, gsb0 ;\n"
+            "        /*0210*/  HGMMA.64x64x16.F32.BF16 R88, R152, gdesc[UR8], R88, gsb0 ;\n"
+            "        /*0220*/  WARPGROUP.DEPBAR.LE gsb0, 0x0 ;\n"
             f"\t\tFunction : {dq_tc}\n        /*0100*/  HMMA.16816.F32.BF16 R4, R8, R12, R4 ;\n"
             f"\t\tFunction : {old}\n        /*0100*/  FFMA R1, R2, R3, R1 ;\n")
-    assert cs.sass_hmma(sass) == {"fwd_kernel_tc<64,true,false>": 2, "bwd_dq_kernel_tc<64,true>": 1,
-                                  "fwd_kernel<f32,64,true,true>": 0}
+    assert cs.sass_mma(sass) == {"fwd_kernel_tc<64,true,false>": {"hmma": 2, "hgmma": 0},
+                                 "fwd_kernel_sm90<64,true,false>": {"hmma": 0, "hgmma": 2},
+                                 "bwd_dq_kernel_tc<64,true>": {"hmma": 1, "hgmma": 0},
+                                 "fwd_kernel<f32,64,true,true>": {"hmma": 0, "hgmma": 0}}
+
+
+def test_library_hash_covers_headers_beside_the_source(tmp_path, monkeypatch):
+    """A library is named by the hash of its source, every header under
+    csrc/ (any of which it may include) and the flags: editing a header
+    names a new library, so a stale one is never loaded."""
+    from ray_tpu_torch.ops import _build
+
+    (tmp_path / "k.cu").write_text('#include "k.cuh"\n')
+    (tmp_path / "inc").mkdir()
+    (tmp_path / "k.cuh").write_text("constexpr int kTile = 64;\n")
+    (tmp_path / "inc" / "deep.cuh").write_text("// nested\n")
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    first = _build.library_path("k")
+    assert first == _build.library_path("k") and first.name.startswith("k-")
+    (tmp_path / "k.cuh").write_text("constexpr int kTile = 128;\n")
+    second = _build.library_path("k")
+    (tmp_path / "inc" / "deep.cuh").write_text("// nested, edited\n")
+    third = _build.library_path("k")
+    (tmp_path / "other.cu").write_text("// another library's source\n")
+    assert len({first, second, third}) == 3 and _build.library_path("k") == third
+    monkeypatch.setattr(_build, "NVCC_FLAGS", (*_build.NVCC_FLAGS, "-lineinfo"))
+    assert _build.library_path("k") != third
 
 
 def test_mha_auto_takes_plain_path_on_cpu_and_rejects_unknown_impl():
