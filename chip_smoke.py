@@ -18,20 +18,21 @@ Phases, each printing one JSON line:
   1. card     nvidia-smi's name and power limit, torch's device name;
      build    each kernel's registers and spills (ptxas -v) and its counts of
               tensor-core instructions (HMMA for mma.sync, HGMMA for wgmma,
-              in cuobjdump -sass); every Hopper forward (*_sm90) kernel must
-              have HGMMA, no spill and no wgmma that ptxas serialized, every
-              mma.sync backward (*_tc) kernel HMMA and no spill;
+              in cuobjdump -sass); every Hopper kernel (*_sm90: the forward
+              and both backward kernels) must have HGMMA, no spill and no
+              wgmma that ptxas serialized;
   2. kernels  every kernel against its plain version, element by element
               (f32 with TF32 off and bf16; causal and not; head_dim 64 and
               128; T in 1, 100, 192, 1000, 1024; T = 300 on S = 1000 keys
-              without the mask; GQA through `mha`), then at the slice's
+              without the mask (head_dim 64 and 128), T = 1000 on S = 300
+              with it (128); GQA through `mha`), then at the slice's
               shape (batch 8) and the bench's (batch 32) the kernel's time,
               the plain version's, F.scaled_dot_product_attention's (a
               yardstick only: the port never calls it), the bound, the
               useful TFLOP/s, the share of the bound reached (bound_ms /
-              ms) and, for the forward, the host's us per call; and where
-              the forward spends a K/V tile, in SM cycles, from a build
-              with its cycle stamps (kernel_ab --timeline);
+              ms) and the host's us per call; and where the forward and
+              the backward kernels spend a streamed tile, in SM cycles,
+              from a build with their cycle stamps (kernel_ab --timeline);
   3. forward  transformer_apply at GPT-2-small widths through the kernels and
               through the plain attention in bf16, each against the same
               weights run in f32;
@@ -483,13 +484,13 @@ def card() -> dict:
 
 _KERNEL_NAME = re.compile(r"((?:fwd|bwd_dq|bwd_dkv)_kernel(?:_tc|_sm90)?)"
                           r"I((?:Li\d+E|Lb[01]E|f|13__nv_bfloat16)+)E")
-# bf16 kernels in the build: the Hopper forward fwd_kernel_sm90 (wgmma:
-# HGMMA in the SASS) and the backward bwd_dq_kernel_tc and bwd_dkv_kernel_tc
-# (mma.sync: HMMA), each over D x CAUSAL (x WRITE_LSE for the forward).
-N_SM90_KERNELS, N_TC_KERNELS = 8, 8
+# bf16 kernels in the build, all Hopper kernels (wgmma: HGMMA in the SASS):
+# the forward fwd_kernel_sm90 over D x CAUSAL x WRITE_LSE and the backward
+# bwd_dq_kernel_sm90 and bwd_dkv_kernel_sm90, each over D x CAUSAL.
+N_SM90_KERNELS = 8 + 4 + 4
 _TEMPLATE_ARG = re.compile(r"Li(\d+)E|Lb([01])E|(13__nv_bfloat16|f)")
 _SERIALIZED = re.compile(r"wgmma\.mma_async instructions are serialized due to (.*) "
-                         r"in the function '([^']+)'")
+                         r"(?:in|for) the function '([^']+)'")
 
 
 def kernel_label(mangled: str) -> str:
@@ -542,28 +543,29 @@ def sass_mma(sass: str) -> dict:
 
 def build_report(build) -> dict:
     """Registers, spills and tensor-core instruction counts of each kernel of
-    the flash library; fails unless all N_SM90_KERNELS Hopper forward
-    kernels are there, each with HGMMA, no spill and no serialized wgmma,
-    and all N_TC_KERNELS mma.sync backward kernels, each with HMMA and no
-    spill."""
+    the flash library; fails unless all N_SM90_KERNELS Hopper kernels are
+    there, each with HGMMA, no spill and no serialized wgmma."""
     lib = build.library_path("flash_attention")
     regs = ptxas_report(lib.with_suffix(".log").read_text())
     sass = subprocess.run([build.tool("cuobjdump"), "-sass", str(lib)], capture_output=True,
                           text=True, timeout=300, check=True).stdout
     report = {name: {**regs.get(name, {}), **n} for name, n in sorted(sass_mma(sass).items())}
 
-    def no_spill(r):
-        return r.get("spill_stores") == 0 and r.get("spill_loads") == 0
+    check_sm90(report)
+    return report
+
+
+def check_sm90(report: dict) -> None:
+    """Fails unless the report holds N_SM90_KERNELS Hopper kernels, each
+    with HGMMA, no spill and no wgmma that ptxas serialized."""
+    def ok(r):
+        return (r.get("hgmma", 0) > 0 and r.get("spill_stores") == 0 and r.get("spill_loads") == 0
+                and "wgmma_serialized" not in r)
 
     sm90 = {name: r for name, r in report.items() if "_sm90<" in name}
-    check(len(sm90) == N_SM90_KERNELS and all(r["hgmma"] > 0 and no_spill(r) and "wgmma_serialized" not in r
-                                              for r in sm90.values()),
-          f"want {N_SM90_KERNELS} Hopper forward kernels, each with HGMMA, no spill and no "
+    check(len(sm90) == N_SM90_KERNELS and all(ok(r) for r in sm90.values()),
+          f"want {N_SM90_KERNELS} Hopper kernels, each with HGMMA, no spill and no "
           f"serialized wgmma: {sm90}")
-    tc = {name: r for name, r in report.items() if "_tc<" in name}
-    check(len(tc) == N_TC_KERNELS and all(r["hmma"] > 0 and no_spill(r) for r in tc.values()),
-          f"want {N_TC_KERNELS} mma.sync backward kernels, each with HMMA and no spill: {tc}")
-    return report
 
 
 # ----------------------------------------------------------------- phase 2
@@ -581,7 +583,9 @@ def kernel_cases(fa, dev, gen, gen_more) -> None:
                   for causal in (True, False)]
         shapes += [(D, T, T, causal, gen_more) for D in (64, 128) for T in (1, 100)
                    for causal in (True, False)]
-        for D, T, S, causal, g in shapes + [(64, 300, 1000, False, gen_more)]:
+        shapes += [(64, 300, 1000, False, gen_more), (128, 300, 1000, False, gen_more),
+                   (128, 1000, 300, True, gen_more)]
+        for D, T, S, causal, g in shapes:
             q, k, v, do = (torch.randn(4, n, D, device=dev, generator=g).to(dtype)
                            for n in (T, S, S, T))
             scale = D ** -0.5
@@ -668,9 +672,9 @@ def gqa_case(fa, dev, gen, dtype) -> None:
 
 def kernel_timings(fa, dev, gen, cfg, batch: int = BATCH) -> dict:
     """Each kernel at the shapes the train step gives it at `batch` (bf16,
-    causal, [B*H, T, D]): its time, its plain version's, the library call's
-    and its bound; for the forward also the host's us per call (the tensor
-    maps are encoded at each). Returns {key: row}."""
+    causal, [B*H, T, D]): its time, its plain version's, the library call's,
+    its bound and the host's us per call (every bf16 kernel encodes its
+    tensor maps at each call). Returns {key: row}."""
     BH, T, D = batch * cfg.n_heads, SEQ, cfg.head_dim
     dt = cfg.dtype
     q, k, v, do = (torch.randn(BH, T, D, device=dev, generator=gen).to(dt) for _ in range(4))
@@ -745,8 +749,7 @@ def kernel_timings(fa, dev, gen, cfg, batch: int = BATCH) -> dict:
             "tflops": flops / ms * 1e-9,  # useful flops, no recompute, no hi/lo split
             "bound_share": max(t_ops, t_bytes) / ms,
         }
-        if key in ("fwd", "fwd_lse"):
-            rows[key]["host_us"] = host_us(kernel_fns[key])
+        rows[key]["host_us"] = host_us(kernel_fns[key])
     emit({"phase": "kernels", "shape": [BH, T, D], "dtype": str(dt).split(".")[-1], "causal": True,
           "timings": rows, "sdpa_fwd_ms": sdpa_fwd_ms, "sdpa_bwd_ms": sdpa_bwd_ms,
           "sdpa_fwd_bwd_ms": sdpa_fwd_bwd_ms, "port_fwd_bwd_ms": port_fwd_bwd_ms})
@@ -1003,7 +1006,7 @@ def profile_phase(run_step, step_ms: float, phase: str = "profile", scopes=None)
         by_name[name] = by_name.get(name, 0.0) + ms
         fam = kernel_family(name)
         if fam == "flash (this repo)":
-            m = re.search(r"\w+_kernel(?:_tc)?<[^>]*>", name)  # demangled: drop the arguments
+            m = re.search(r"\w+_kernel(?:_tc|_sm90)?<[^>]*>", name)  # demangled: drop the arguments
             key = m.group(0) if m else kernel_label(name)
             flash[key] = flash.get(key, 0.0) + ms
         families[fam] = families.get(fam, 0.0) + ms
@@ -3985,8 +3988,8 @@ def main() -> int:
     kernel_cases(fa, dev, gen, gen_more)
     rows = kernel_timings(fa, dev, gen, cfg)
     kernel_timings(fa, dev, gen_more, cfg, batch=4 * BATCH)  # the bench's batch: emitted, not in the line
-    # Where the forward spends a K/V tile, in SM cycles (the stamped build).
-    emit({"phase": "kernels", "fwd_timeline_cycles": kernel_ab.timeline(dev)})
+    # Where B1, B3 and B4 spend a streamed tile, in SM cycles (the stamped build).
+    emit({"phase": "kernels", "timeline_cycles": kernel_ab.timeline(dev)})
 
     tokens = torch.randint(0, cfg.vocab_size, (BATCH, SEQ), device=dev, generator=gen)
     fwd_launches = forward_phase(tr, fa, cfg, dev, gen, tokens)

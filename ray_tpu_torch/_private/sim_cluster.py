@@ -164,8 +164,6 @@ class SimCluster:
             persist_backend="replicated" if self.ha else None,
         )
         self.gcs_addr = await self.gcs_server.start()
-        if self.ha:
-            await self._arm_standby()
         sem = asyncio.Semaphore(_BOOT_CONCURRENCY)
 
         async def boot(_i: int) -> None:
@@ -173,6 +171,14 @@ class SimCluster:
                 await self._add_node_async(dict(self.resources))
 
         await asyncio.gather(*(boot(i) for i in range(self.num_nodes)))
+        # The standby is armed once every node has registered. It watches
+        # the leader's lease on this same loop, so a stall of the loop past
+        # the lease (the boot storm on a loaded host) reads to it as the
+        # leader's death; a promotion then fences the leader mid-boot, and a
+        # raylet's first registration, unlike its later reconnects, does not
+        # survive the lost connection.
+        if self.ha:
+            await self._arm_standby()
 
     async def _add_node_async(
         self, resources: Dict[str, float]

@@ -5,8 +5,8 @@
 //   bf16 inputs (the train step's)          f32 inputs
 //   fwd_kernel_sm90<.., WRITE_LSE=false>    fwd_kernel<.., WRITE_LSE=false>  <- _attn_fwd_kernel      (B1)
 //   fwd_kernel_sm90<.., WRITE_LSE=true>     fwd_kernel<.., WRITE_LSE=true>   <- _attn_fwd_kernel_lse  (B2)
-//   bwd_dq_kernel_tc                        bwd_dq_kernel                    <- _attn_bwd_dq_kernel   (B3)
-//   bwd_dkv_kernel_tc                       bwd_dkv_kernel                   <- _attn_bwd_dkv_kernel  (B4)
+//   bwd_dq_kernel_sm90                      bwd_dq_kernel                    <- _attn_bwd_dq_kernel   (B3)
+//   bwd_dkv_kernel_sm90                     bwd_dkv_kernel                   <- _attn_bwd_dkv_kernel  (B4)
 //
 // Layout [BH, T, D] for q/do/o and [BH, S, D] for k/v, row-major and
 // contiguous; lse and delta are [BH, T] f32; dq, dk and dv are f32. D is 64
@@ -30,9 +30,10 @@
 // Each is split into hi = bf16(x) and lo = bf16(x - hi), both multiplied into
 // the same f32 sum: the error falls to ~2^-16 of x, and the kernels compute
 // what the TPU kernels' f32 dots compute. The split costs 1.5x the useful
-// tensor flops.
+// tensor flops in the forward, 12D flops a (q, k) pair for 8D useful in
+// bwd_dkv, 8D for 6D in bwd_dq.
 //
-// The bf16 forward (fwd_kernel_sm90, last section) is built from Hopper's
+// The bf16 forward (fwd_kernel_sm90, its own section) is built from Hopper's
 // own parts, as FlashAttention-3 is:
 //   1. Work split. A persistent grid, one block per SM, takes work items of
 //      (128-row q tile, bh) in units of two q tiles of one head, the longest
@@ -77,28 +78,69 @@
 // third consumer (192 rows, 160 registers each) moved the contention to the
 // exp unit and issue slots without a gain.
 
-// The bf16 backward kernels (*_tc) run on mma.sync m16n8k16 (bf16
-// operands, f32 sums), fed from shared memory by ldmatrix, and the streamed
-// tiles arrive by cp.async into a two-stage ring, so the next tile's load
-// overlaps this tile's products.
-//   * mma.sync takes its A operand in the layout of its own accumulator, so
-//     both terms of the split go straight from registers into the next
-//     product.
-//   * Tiles of 64 rows, 4 warps, each warp owning 16 rows of the block's
-//     resident operand (q rows in bwd_dq, k rows in bwd_dkv), whose
-//     fragments and sums stay in registers. Shared rows are padded by 16
-//     bytes so the 8 row addresses of an ldmatrix hit 8 distinct bank
-//     groups. Rows at or past T or S are zero-filled by cp.async (src-size
-//     0), never read: in a flat [BH*T, D] view they would be the next head's
-//     rows.
-//   * Each streamed tile is walked in chunks of 16 columns (q columns in
-//     bwd_dkv, keys in bwd_dq): S, dP, P and dS of a chunk live in 8
-//     registers each, so only the warp's own rows stay resident (dK and dV
-//     in bwd_dkv; Q, dO and dQ fragments in bwd_dq), and D = 128 fits 4
-//     warps without a spill. On the causal diagonal, bwd_dq skips the chunks
-//     that lie wholly above the warp's rows.
-//   * Tile loads are unrolled to a fixed count per thread: a loop bounded by
-//     threadIdx.x compiles to ~300 instructions with branches per tile.
+// The bf16 backward (bwd_dkv_kernel_sm90, bwd_dq_kernel_sm90, the last
+// section) is built from the forward's parts, as two kernels, and runs
+// where the forward does: at the train step's shape its CUDA-core work,
+// not the bytes or the tensor cores, sets the pace (cycle stamps of a tile
+// a consumer warpgroup streams, on an H100, `kernel_ab --timeline`: in
+// bwd_dkv ~800 issuing S^T, dP^T and the last tile's products, ~700-800
+// making P^T and dS^T (32 exp2 a thread a tile), ~400-450 splitting them;
+// the tensor cores busy about two thirds of the time).
+//   1. Two kernels, each output row written by one block with its sums in
+//      one order: no atomics, so a train step's losses repeat bitwise run
+//      to run (chip_smoke.py phases 6, 14c and 14d require it), where
+//      FlashAttention-3's fused backward adds dq with float atomics. The
+//      price: both recompute S and dP.
+//   2. bwd_dkv: work items of 128 k rows of one head, in the forward's
+//      persistent units (the longest causal item with the shortest); a
+//      producer warpgroup's one warp loads K and V once an item by TMA and
+//      streams the Q and dO tiles (64 q rows; 32 at D = 128) of the q tiles
+//      that see the item through a 4-stage mbarrier ring. Two consumer
+//      warpgroups of 64 k rows each compute S^T = K.Q^T and dP^T = V.dO^T on
+//      SS wgmma, P^T and dS^T in registers, and dV += P^T.dO, dK += dS^T.Q
+//      on RS wgmma with dO and Q MN-major (V's role in the forward's P.V),
+//      dK and dV held in registers for the item. With D = 64, tile t's S^T
+//      and dP^T are issued with tile t-1's products, so P^T and dS^T are
+//      made while the tensor cores run the last tile's; at D = 128, dK and
+//      dV take 128 of 240 registers, so tiles are 32 q rows (64 spilled)
+//      and a tile's products go in turn (pipelined, 32-row tiles spilled
+//      too). A causal warpgroup skips the q tiles wholly above its rows
+//      (warpgroup 1's first 64 q rows of an item).
+//   3. bwd_dq: the forward's structure without the online max (lse is
+//      known, nothing is rescaled): items of 128 q rows, Q and dO loaded
+//      once, K and V tiles of 64 keys through the ring, S = Q.K^T and dP =
+//      dO.V^T on SS wgmma (V K-major, as K), dQ += dS.K on RS wgmma (K
+//      MN-major); tile kt's S and dP issued with tile kt-1's product, the
+//      two consumers issuing in turn (named barriers: 0.0669 ms at [96,
+//      1024, 64] against 0.0738 without). 128-key tiles left no registers
+//      for two tiles and ptxas serialized the wgmma (0.0882 ms).
+//   4. lse and delta: their [BH, T] f32 rows are 4T bytes apart, not a
+//      multiple of 16 for every T (T = 1), so TMA cannot load them. In
+//      bwd_dkv the producer warp's 32 lanes copy a tile's by cp.async into
+//      shared slots beside its Q/dO stage, each lane's copies counted on
+//      the stage's full barrier (cp.async.mbarrier.arrive.noinc: 1 + 32
+//      arrivals); bwd_dq's consumers load their own rows' once an item.
+//      Both zero-fill past T, and q rows at or past T are masked
+//      explicitly (with Q zero-filled, S = 0 and lse = 0 would give P = 1).
+//   5. Rows past T or S come from the 3-D [BH, rows, D] tensor maps' zero
+//      fill, never from the next head (tests/test_torch_cuda.py's flat-map
+//      mutant puts inf there).
+//   6. The split: hi = x with its low 16 bits cleared (bf16 toward zero,
+//      one byte permute packs a pair) and lo = bf16(x - hi) to nearest, so
+//      one conversion a pair instead of two (the split ~534 -> ~400 cycles
+//      a tile in bwd_dkv); the error stays under 2^-16 of x and unbiased.
+//      dS is split before its scale, taken once on dK and dQ when the item
+//      ends (one multiply an element less).
+//   7. wgmma serialization and registers: the first product of S and dP
+//      takes its sums write-only (wgmma_ss_fresh), else the last tile's
+//      values stay alive across the loop and bwd_dkv at D = 128 spilled
+//      and ptxas serialized its wgmma; the warpgroup index comes from a
+//      shuffle, the first tile is peeled and barrier arrivals are
+//      predicates, as in the forward. The 128-byte swizzle's 1024-byte
+//      alignment holds for every TMA destination: each Q/dO stage is a
+//      multiple of 1024 bytes and the lse/delta slots lie past all tiles.
+//   8. Host time: each call encodes four tensor maps (30-60 us a call on
+//      the card's host, about the parent's; not cached by pointer).
 // f32 inputs keep the first kernels below: the tensor cores take f32 only as
 // TF32 or through a three-way bf16 split, and the f32 path exists for the
 // tests.
@@ -138,13 +180,9 @@ constexpr int NT = 256;   // threads: 16 row groups (ty) x 16 lanes (tx)
 constexpr float BIG_NEG = -1e30f;  // masked score, as _BIG_NEG in the reference
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 
 template <typename T> __device__ __forceinline__ T from_f32(float x);
 template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 // Stage rows [row0, row0 + 64) of an [n, D] matrix into a [64][D + 1] f32
 // tile. Rows at or past n are written as 0 and never read from memory.
@@ -528,60 +566,24 @@ __global__ void __launch_bounds__(NT) bwd_dkv_kernel(
   }
 }
 
-// ================================================= tensor-core kernels (bf16)
+// ===================================================== Hopper kernels (bf16)
 
 using bf16 = __nv_bfloat16;
-
-constexpr int TC_THREADS = 128;  // 4 warps, 16 rows of the resident tile each
-constexpr int TC_LD_PAD = 8;     // bf16 per shared row past D: 16 bytes
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// 16 bytes global -> shared, in the background; zero-filled when !valid, and
+// 4 bytes global -> shared, in the background; zero-filled when !valid, and
 // then `src` is not read.
-__device__ __forceinline__ void cp_async_16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               ::"r"(smem_u32(dst)), "l"(src), "r"(valid ? 16 : 0) : "memory");
-}
 __device__ __forceinline__ void cp_async_4(void* dst, const void* src, bool valid) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
                ::"r"(smem_u32(dst)), "l"(src), "r"(valid ? 4 : 0) : "memory");
 }
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// Four 8x8 bf16 matrices from shared memory; lane i gives the row address of
-// row i % 8 of matrix i / 8. With .trans each lane gets a column pair
-// instead of a row pair.
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_u32(p)));
-}
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_u32(p)));
-}
-
-// c += a.b for one 16x8 tile: a 16x16 (row), b 16x8 (col), bf16, f32 sum.
-// Lane (g = lane / 4, t = lane % 4) holds c at rows g, g + 8 and columns
-// 2t, 2t + 1: c[0], c[1] on row g, c[2], c[3] on row g + 8.
-__device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                          uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
-      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-// Two adjacent 16x8 tiles that share one A fragment: b as ldsm_x4 gives it.
-__device__ __forceinline__ void mma_pair(float (&c0)[4], float (&c1)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[4]) {
-  mma_16816(c0, a, b[0], b[1]);
-  mma_16816(c1, a, b[2], b[3]);
+// One arrival on the barrier once this thread's cp.asyncs so far have
+// landed; .noinc: the arrival is one of the barrier's expected count.
+__device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(bar) : "memory");
 }
 
 __device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 h) {
@@ -596,14 +598,18 @@ __device__ __forceinline__ void split_bf16x2(float x, float y, uint32_t& hi, uin
   hi = bf16x2_bits(h);
   lo = bf16x2_bits(__floats2bfloat162_rn(x - __low2float(h), y - __high2float(h)));
 }
-// The A fragments (hi and lo) of a 16x16 tile held as the accumulators of
-// its two 16x8 halves: mma's A layout is its accumulator layout.
-__device__ __forceinline__ void split_a(const float (&c0)[4], const float (&c1)[4],
-                                        uint32_t (&hi)[4], uint32_t (&lo)[4]) {
-  split_bf16x2(c0[0], c0[1], hi[0], lo[0]);
-  split_bf16x2(c0[2], c0[3], hi[1], lo[1]);
-  split_bf16x2(c1[0], c1[1], hi[2], lo[2]);
-  split_bf16x2(c1[2], c1[3], hi[3], lo[3]);
+
+// As split_bf16x2, but hi = x with its low 16 bits cleared (bf16 rounded
+// toward zero): one byte permute packs the pair, where rounding to nearest
+// takes a conversion a pair, and conversions, not the products, set the
+// backward's pace. x - hi is exact and below one bf16 ulp of x, so the
+// error |x - hi - lo| stays under 2^-16 |x| (2^-17 with hi rounded to
+// nearest).
+__device__ __forceinline__ void split_bf16x2_trunc(float x, float y, uint32_t& hi, uint32_t& lo) {
+  const uint32_t xb = __float_as_uint(x), yb = __float_as_uint(y);
+  asm("prmt.b32 %0, %1, %2, 0x7632;\n" : "=r"(hi) : "r"(xb), "r"(yb));
+  lo = bf16x2_bits(__floats2bfloat162_rn(x - __uint_as_float(xb & 0xFFFF0000u),
+                                         y - __uint_as_float(yb & 0xFFFF0000u)));
 }
 
 __device__ __forceinline__ float quad_max(float x) {
@@ -613,299 +619,6 @@ __device__ __forceinline__ float quad_max(float x) {
 __device__ __forceinline__ float quad_sum(float x) {
   x += __shfl_xor_sync(0xffffffffu, x, 1);
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
-// Rows [row0, row0 + ROWS) of an [n, D] bf16 matrix into shared rows of
-// D + TC_LD_PAD, by cp.async; rows at or past n are zero-filled.
-template <int ROWS, int D>
-__device__ __forceinline__ void tile_async(bf16* dst, const bf16* __restrict__ src, int row0, int n) {
-  constexpr int CHUNKS = D / 8;  // 16-byte chunks per row
-  static_assert(ROWS * CHUNKS % TC_THREADS == 0, "every thread copies the same count");
-#pragma unroll
-  for (int i = 0; i < ROWS * CHUNKS / TC_THREADS; ++i) {
-    const int e = threadIdx.x + i * TC_THREADS, r = e / CHUNKS, c = e % CHUNKS, g = row0 + r;
-    cp_async_16(dst + r * (D + TC_LD_PAD) + c * 8, src + static_cast<size_t>(g < n ? g : 0) * D + c * 8,
-                g < n);
-  }
-}
-
-// Lane offsets into a 16x16 tile for ldsm_x4: (A_ROW, A_COL) gives the four
-// matrices in A-fragment order (rows 0-7 | 8-15, then columns 8-15), which is
-// also the B order of a [k][n] tile loaded with .trans; (N_ROW, N_COL) gives
-// the B fragments of two 8-wide n tiles from an [n][k] tile.
-__device__ __forceinline__ int a_row(int lane) { return lane % 8 + 8 * (lane / 8 % 2); }
-__device__ __forceinline__ int a_col(int lane) { return 8 * (lane / 16); }
-__device__ __forceinline__ int n_row(int lane) { return lane % 8 + 8 * (lane / 16); }
-__device__ __forceinline__ int n_col(int lane) { return 8 * (lane / 8 % 2); }
-
-// P^T = exp(S^T * scale - lse) and dS^T = P^T (dP^T - delta) scale of one
-// 16 x 16 chunk (k rows x q columns), in place of S^T in s and dP^T in dp;
-// 0 where masked (MASK). i0 is the column of s[0][0] within the q tile, r0
-// this lane's first k row.
-template <bool MASK, bool CAUSAL>
-__device__ __forceinline__ void chunk_grads(float (&s)[2][4], float (&dp)[2][4], const float* lst,
-                                            const float* dlst, int i0, int r0, int q0, int seq_q,
-                                            int seq_k, float scale) {
-#pragma unroll
-  for (int j = 0; j < 2; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int i = i0 + j * 8 + e % 2, kp = r0 + 8 * (e / 2), qp = q0 + i;
-      const bool ok = !MASK || (kp < seq_k && qp < seq_q && (!CAUSAL || qp >= kp));
-      const float p = ok ? expf(s[j][e] * scale - lst[i]) : 0.f;
-      s[j][e] = p;
-      dp[j][e] = ok ? p * (dp[j][e] - dlst[i]) * scale : 0.f;
-    }
-}
-
-// P = exp(S * scale - lse) and dS = P (dP - delta) scale of one 16 x 16
-// chunk (q rows x k columns), in place of dP in dp; 0 where masked (MASK).
-// r0 is this lane's first q row, c0 the k position of s[0][0]; lr and dl
-// hold the lse and delta of rows r0 and r0 + 8.
-template <bool MASK, bool CAUSAL>
-__device__ __forceinline__ void chunk_grads_q(const float (&s)[2][4], float (&dp)[2][4],
-                                              const float (&lr)[2], const float (&dl)[2], int r0,
-                                              int c0, int seq_k, float scale) {
-#pragma unroll
-  for (int j = 0; j < 2; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int qp = r0 + 8 * (e / 2), kp = c0 + j * 8 + e % 2;
-      const bool ok = !MASK || (kp < seq_k && (!CAUSAL || qp >= kp));
-      const float p = expf(s[j][e] * scale - lr[e / 2]);
-      dp[j][e] = ok ? p * (dp[j][e] - dl[e / 2]) * scale : 0.f;
-    }
-}
-
-// ------------------------------------------------- backward dq (tensor cores)
-// Replaces _attn_bwd_dq_kernel for bf16. One block per (64-row q tile, bh);
-// warp w owns q rows 16w..16w+15 and keeps their Q and dO fragments, lse,
-// delta and dQ in registers. K and V tiles stream through a two-stage ring.
-// Each k tile is taken 16 keys at a time: S = Q.K^T and dP = dO.V^T, P and
-// dS in registers, then dQ += dS_hi.K + dS_lo.K. Rows past T are computed
-// from zeros and never written: a dq row depends on its own dS row only.
-template <int D, bool CAUSAL>
-__global__ void __launch_bounds__(TC_THREADS, D <= 64 ? 3 : 1) bwd_dq_kernel_tc(
-    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-    const bf16* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
-    float* __restrict__ dq, int seq_q, int seq_k, float scale) {
-  constexpr int LD = D + TC_LD_PAD, KC = D / 16, DT = D / 8;
-  extern __shared__ __align__(16) unsigned char tc_smem_dq[];
-  bf16* qs = reinterpret_cast<bf16*>(tc_smem_dq);  // [BQ][LD]
-  bf16* dos = qs + BQ * LD;                        // [BQ][LD]
-  bf16* ks = dos + BQ * LD;                        // [2][BK][LD]
-  bf16* vs = ks + 2 * BK * LD;                     // [2][BK][LD]
-
-  const int bh = blockIdx.y;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;  // the longest causal rows start first
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, tg = lane % 4;
-  const int r0 = q0 + warp * 16 + lane / 4;  // this lane's rows: r0 and r0 + 8
-  q += static_cast<size_t>(bh) * seq_q * D;
-  dout += static_cast<size_t>(bh) * seq_q * D;
-  dq += static_cast<size_t>(bh) * seq_q * D;
-  k += static_cast<size_t>(bh) * seq_k * D;
-  v += static_cast<size_t>(bh) * seq_k * D;
-  lse += static_cast<size_t>(bh) * seq_q;
-  delta += static_cast<size_t>(bh) * seq_q;
-
-  int n_k_tiles = (seq_k + BK - 1) / BK;
-  if (CAUSAL) n_k_tiles = min(n_k_tiles, (q0 + BQ - 1) / BK + 1);  // stop at the diagonal tile
-
-  tile_async<BQ, D>(qs, q, q0, seq_q);
-  tile_async<BQ, D>(dos, dout, q0, seq_q);
-  cp_async_commit();
-  tile_async<BK, D>(ks, k, 0, seq_k);
-  tile_async<BK, D>(vs, v, 0, seq_k);
-  cp_async_commit();
-  float lr[2], dl[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int qp = r0 + 8 * r;
-    lr[r] = qp < seq_q ? lse[qp] : 0.f;
-    dl[r] = qp < seq_q ? delta[qp] : 0.f;
-  }
-  cp_async_wait<1>();
-  __syncthreads();
-  uint32_t qf[KC][4], dof[KC][4];
-#pragma unroll
-  for (int kc = 0; kc < KC; ++kc) {
-    ldsm_x4(qf[kc], qs + (warp * 16 + a_row(lane)) * LD + kc * 16 + a_col(lane));
-    ldsm_x4(dof[kc], dos + (warp * 16 + a_row(lane)) * LD + kc * 16 + a_col(lane));
-  }
-
-  float dqa[DT][4] = {};
-
-  for (int kt = 0; kt < n_k_tiles; ++kt) {
-    const int st = kt & 1, k0 = kt * BK;
-    cp_async_wait<0>();  // tile kt is in, for every thread after the barrier, which
-    __syncthreads();     // also means every warp is done with tile kt - 1's stage
-    if (kt + 1 < n_k_tiles) {  // so the next tile loads there while this one is multiplied
-      tile_async<BK, D>(ks + (st ^ 1) * BK * LD, k, k0 + BK, seq_k);
-      tile_async<BK, D>(vs + (st ^ 1) * BK * LD, v, k0 + BK, seq_k);
-      cp_async_commit();
-    }
-    const bf16* kst = ks + st * BK * LD;
-    const bf16* vst = vs + st * BK * LD;
-    // Only a tile on the diagonal or past seq_k has masked entries.
-    const bool edge = k0 + BK > seq_k || (CAUSAL && k0 + BK - 1 > q0);
-
-#pragma unroll
-    for (int c = 0; c < BK / 16; ++c) {  // 16 keys at a time
-      // On the diagonal, a chunk wholly above this warp's rows adds nothing.
-      if (CAUSAL && k0 + c * 16 > q0 + warp * 16 + 15) break;
-      float s[2][4] = {}, dp[2][4] = {};
-#pragma unroll
-      for (int kc = 0; kc < KC; ++kc) {
-        uint32_t b[4];
-        ldsm_x4(b, kst + (c * 16 + n_row(lane)) * LD + kc * 16 + n_col(lane));
-        mma_pair(s[0], s[1], qf[kc], b);
-        ldsm_x4(b, vst + (c * 16 + n_row(lane)) * LD + kc * 16 + n_col(lane));
-        mma_pair(dp[0], dp[1], dof[kc], b);
-      }
-      if (edge)
-        chunk_grads_q<true, CAUSAL>(s, dp, lr, dl, r0, k0 + c * 16 + 2 * tg, seq_k, scale);
-      else
-        chunk_grads_q<false, CAUSAL>(s, dp, lr, dl, r0, k0 + c * 16 + 2 * tg, seq_k, scale);
-      uint32_t ds_hi[4], ds_lo[4];
-      split_a(dp[0], dp[1], ds_hi, ds_lo);
-#pragma unroll
-      for (int j = 0; j < D / 16; ++j) {
-        uint32_t b[4];
-        ldsm_x4_trans(b, kst + (c * 16 + a_row(lane)) * LD + j * 16 + a_col(lane));
-        mma_pair(dqa[2 * j], dqa[2 * j + 1], ds_hi, b);
-        mma_pair(dqa[2 * j], dqa[2 * j + 1], ds_lo, b);
-      }
-    }
-  }
-  cp_async_wait<0>();
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int qp = r0 + 8 * r;
-    if (qp >= seq_q) continue;
-#pragma unroll
-    for (int j = 0; j < DT; ++j)
-      *reinterpret_cast<float2*>(dq + static_cast<size_t>(qp) * D + j * 8 + 2 * tg) =
-          make_float2(dqa[j][2 * r], dqa[j][2 * r + 1]);
-  }
-}
-
-// ------------------------------------------------ backward dkv (tensor cores)
-// Replaces _attn_bwd_dkv_kernel for bf16. One block per (64-row k tile, bh);
-// warp w owns k rows 16w..16w+15 and accumulates their dK and dV in
-// registers. Q, dO, lse and delta tiles of the q tiles that can see this k
-// tile stream through a two-stage ring. Each q tile is taken 16 q columns
-// at a time: S^T = K.Q^T and dP^T = V.dO^T (so the warp's rows are its k
-// rows), P^T = exp(S^T * scale - lse) masked, dS^T = P^T (dP^T - delta) scale,
-// then dV += P^T_hi.dO + P^T_lo.dO and dK += dS^T_hi.Q + dS^T_lo.Q.
-template <int D, bool CAUSAL>
-__global__ void __launch_bounds__(TC_THREADS, D <= 64 ? 3 : 1) bwd_dkv_kernel_tc(
-    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-    const bf16* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
-    float* __restrict__ dk, float* __restrict__ dv, int seq_q, int seq_k, float scale) {
-  constexpr int LD = D + TC_LD_PAD, KC = D / 16, DT = D / 8;
-  extern __shared__ __align__(16) unsigned char tc_smem_dkv[];
-  bf16* ks = reinterpret_cast<bf16*>(tc_smem_dkv);  // [BK][LD]
-  bf16* vs = ks + BK * LD;                          // [BK][LD]
-  bf16* qs = vs + BK * LD;                          // [2][BQ][LD]
-  bf16* dos = qs + 2 * BQ * LD;                     // [2][BQ][LD]
-  float* ls = reinterpret_cast<float*>(dos + 2 * BQ * LD);  // [2][BQ] lse
-  float* dls = ls + 2 * BQ;                                 // [2][BQ] delta
-
-  const int bh = blockIdx.y, k0 = blockIdx.x * BK;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, tg = lane % 4;
-  const int r0 = k0 + warp * 16 + lane / 4;  // this lane's k rows: r0 and r0 + 8
-  q += static_cast<size_t>(bh) * seq_q * D;
-  dout += static_cast<size_t>(bh) * seq_q * D;
-  k += static_cast<size_t>(bh) * seq_k * D;
-  v += static_cast<size_t>(bh) * seq_k * D;
-  dk += static_cast<size_t>(bh) * seq_k * D;
-  dv += static_cast<size_t>(bh) * seq_k * D;
-  lse += static_cast<size_t>(bh) * seq_q;
-  delta += static_cast<size_t>(bh) * seq_q;
-
-  const int n_q_tiles = (seq_q + BQ - 1) / BQ;
-  // The reference's skip: q tile qi sees k tile ki iff qi*bq + bq - 1 >= ki*bk.
-  const int qt0 = CAUSAL ? k0 / BQ : 0;
-
-  auto load_q_tile = [&](int stage, int qt) {
-    const int q0 = qt * BQ;
-    tile_async<BQ, D>(qs + stage * BQ * LD, q, q0, seq_q);
-    tile_async<BQ, D>(dos + stage * BQ * LD, dout, q0, seq_q);
-    static_assert(2 * BQ == TC_THREADS, "one lse or delta entry per thread");
-    const int i = threadIdx.x % BQ, qp = q0 + i;
-    const bool is_lse = threadIdx.x < BQ;
-    cp_async_4((is_lse ? ls : dls) + stage * BQ + i, (is_lse ? lse : delta) + (qp < seq_q ? qp : 0),
-               qp < seq_q);
-  };
-
-  tile_async<BK, D>(ks, k, k0, seq_k);
-  tile_async<BK, D>(vs, v, k0, seq_k);
-  if (qt0 < n_q_tiles) load_q_tile(0, qt0);
-  cp_async_commit();
-
-  float dka[DT][4] = {}, dva[DT][4] = {};
-
-  for (int qt = qt0; qt < n_q_tiles; ++qt) {
-    const int st = (qt - qt0) & 1, q0 = qt * BQ;
-    cp_async_wait<0>();  // q tile qt is in, for every thread after the barrier, which
-    __syncthreads();     // also means every warp is done with the previous stage
-    if (qt + 1 < n_q_tiles) {  // so the next q tile loads there while this one is multiplied
-      load_q_tile(st ^ 1, qt + 1);
-      cp_async_commit();
-    }
-    const bf16* qst = qs + st * BQ * LD;
-    const bf16* dost = dos + st * BQ * LD;
-    const float* lst = ls + st * BQ;
-    const float* dlst = dls + st * BQ;
-    // Only a tile that crosses the diagonal or the end of T or S has masked entries.
-    const bool edge = q0 + BQ > seq_q || k0 + BK > seq_k || (CAUSAL && q0 < k0 + BK - 1);
-
-#pragma unroll
-    for (int c = 0; c < BQ / 16; ++c) {  // 16 q columns at a time
-      float s[2][4] = {}, dp[2][4] = {};
-#pragma unroll
-      for (int kc = 0; kc < KC; ++kc) {
-        uint32_t ka[4], va[4], b[4];
-        ldsm_x4(ka, ks + (warp * 16 + a_row(lane)) * LD + kc * 16 + a_col(lane));
-        ldsm_x4(va, vs + (warp * 16 + a_row(lane)) * LD + kc * 16 + a_col(lane));
-        ldsm_x4(b, qst + (c * 16 + n_row(lane)) * LD + kc * 16 + n_col(lane));
-        mma_pair(s[0], s[1], ka, b);
-        ldsm_x4(b, dost + (c * 16 + n_row(lane)) * LD + kc * 16 + n_col(lane));
-        mma_pair(dp[0], dp[1], va, b);
-      }
-      if (edge)
-        chunk_grads<true, CAUSAL>(s, dp, lst, dlst, c * 16 + 2 * tg, r0, q0, seq_q, seq_k, scale);
-      else
-        chunk_grads<false, CAUSAL>(s, dp, lst, dlst, c * 16 + 2 * tg, r0, q0, seq_q, seq_k, scale);
-      uint32_t p_hi[4], p_lo[4], ds_hi[4], ds_lo[4];
-      split_a(s[0], s[1], p_hi, p_lo);
-      split_a(dp[0], dp[1], ds_hi, ds_lo);
-#pragma unroll
-      for (int j = 0; j < D / 16; ++j) {
-        uint32_t b[4];
-        ldsm_x4_trans(b, dost + (c * 16 + a_row(lane)) * LD + j * 16 + a_col(lane));
-        mma_pair(dva[2 * j], dva[2 * j + 1], p_hi, b);
-        mma_pair(dva[2 * j], dva[2 * j + 1], p_lo, b);
-        ldsm_x4_trans(b, qst + (c * 16 + a_row(lane)) * LD + j * 16 + a_col(lane));
-        mma_pair(dka[2 * j], dka[2 * j + 1], ds_hi, b);
-        mma_pair(dka[2 * j], dka[2 * j + 1], ds_lo, b);
-      }
-    }
-  }
-  cp_async_wait<0>();
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int kp = r0 + 8 * r;
-    if (kp >= seq_k) continue;
-#pragma unroll
-    for (int j = 0; j < DT; ++j) {
-      const size_t at = static_cast<size_t>(kp) * D + j * 8 + 2 * tg;
-      *reinterpret_cast<float2*>(dk + at) = make_float2(dka[j][2 * r], dka[j][2 * r + 1]);
-      *reinterpret_cast<float2*>(dv + at) = make_float2(dva[j][2 * r], dva[j][2 * r + 1]);
-    }
-  }
 }
 
 // ============================================== forward on Hopper (bf16, sm_90a)
@@ -934,6 +647,13 @@ struct FwdCfg {
   // + 1024: the dynamic base is aligned up to the swizzle's 1024-byte period.
   static constexpr int BYTES = Q_BYTES + 2 * STAGES * KV_BYTES + BAR_BYTES + 1024;
 };
+
+// The dynamic shared base aligned up to the 128-byte swizzle's 1024-byte
+// period: the swizzle is a function of the shared address bits, so TMA and
+// the wgmma descriptors agree on it only from a 1024-byte aligned base.
+__device__ __forceinline__ bf16* swizzle_base(unsigned char* smem) {
+  return reinterpret_cast<bf16*>(smem + (1024 - smem_u32(smem) % 1024) % 1024);
+}
 
 __device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
@@ -1033,6 +753,18 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a, uint64_t b)
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "l"(a), "l"(b), "n"(SCALE_D));
 }
+template <int SCALE_D>
+__device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15 "
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "n"(SCALE_D));
+}
 __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
@@ -1087,6 +819,55 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "n"(1));
+}
+
+// wgmma_ss<0> with write-only sums: the compiler keeps no earlier value of
+// d alive into the product, as the read-write operands of wgmma_ss make it
+// do (the backward has no registers to spare for that at D = 128).
+__device__ __forceinline__ void wgmma_ss_fresh(float (&d)[16], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, 0, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15 "
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      :
+        "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]), "=f"(d[5]), "=f"(d[6]), "=f"(d[7]),
+        "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]), "=f"(d[12]), "=f"(d[13]), "=f"(d[14]), "=f"(d[15])
+      : "l"(a), "l"(b));
+}
+__device__ __forceinline__ void wgmma_ss_fresh(float (&d)[32], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, 0, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31 "
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      :
+        "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]), "=f"(d[5]), "=f"(d[6]), "=f"(d[7]),
+        "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]), "=f"(d[12]), "=f"(d[13]), "=f"(d[14]), "=f"(d[15]),
+        "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), "=f"(d[19]), "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]),
+        "=f"(d[24]), "=f"(d[25]), "=f"(d[26]), "=f"(d[27]), "=f"(d[28]), "=f"(d[29]), "=f"(d[30]), "=f"(d[31])
+      : "l"(a), "l"(b));
+}
+__device__ __forceinline__ void wgmma_ss_fresh(float (&d)[64], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, 0, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63 "
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      :
+        "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]), "=f"(d[5]), "=f"(d[6]), "=f"(d[7]),
+        "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]), "=f"(d[12]), "=f"(d[13]), "=f"(d[14]), "=f"(d[15]),
+        "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), "=f"(d[19]), "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]),
+        "=f"(d[24]), "=f"(d[25]), "=f"(d[26]), "=f"(d[27]), "=f"(d[28]), "=f"(d[29]), "=f"(d[30]), "=f"(d[31]),
+        "=f"(d[32]), "=f"(d[33]), "=f"(d[34]), "=f"(d[35]), "=f"(d[36]), "=f"(d[37]), "=f"(d[38]), "=f"(d[39]),
+        "=f"(d[40]), "=f"(d[41]), "=f"(d[42]), "=f"(d[43]), "=f"(d[44]), "=f"(d[45]), "=f"(d[46]), "=f"(d[47]),
+        "=f"(d[48]), "=f"(d[49]), "=f"(d[50]), "=f"(d[51]), "=f"(d[52]), "=f"(d[53]), "=f"(d[54]), "=f"(d[55]),
+        "=f"(d[56]), "=f"(d[57]), "=f"(d[58]), "=f"(d[59]), "=f"(d[60]), "=f"(d[61]), "=f"(d[62]), "=f"(d[63])
+      : "l"(a), "l"(b));
 }
 
 __device__ __forceinline__ float ex2(float x) {
@@ -1157,27 +938,35 @@ __device__ __forceinline__ void softmax_tile(float (&s)[N], float (&m)[2], float
 // P (s after the softmax) as the A operand of P.V: the accumulator's 16-key
 // group c is the A fragment of keys 16c..16c+15, split into hi = bf16(P) and
 // lo = bf16(P - hi) (a P rounded once misses the limits: see the header).
-template <int N>
+// TRUNC (the backward's): split_bf16x2_trunc.
+template <bool TRUNC = false, int N>
 __device__ __forceinline__ void split_p(const float (&s)[N], uint32_t (&hi)[N / 8][4], uint32_t (&lo)[N / 8][4]) {
 #pragma unroll
   for (int c = 0; c < N / 8; ++c)
 #pragma unroll
-    for (int r = 0; r < 4; ++r) split_bf16x2(s[8 * c + 2 * r], s[8 * c + 2 * r + 1], hi[c][r], lo[c][r]);
+    for (int r = 0; r < 4; ++r)
+      if (TRUNC)
+        split_bf16x2_trunc(s[8 * c + 2 * r], s[8 * c + 2 * r + 1], hi[c][r], lo[c][r]);
+      else
+        split_bf16x2(s[8 * c + 2 * r], s[8 * c + 2 * r + 1], hi[c][r], lo[c][r]);
 }
 
 // S = Q.K^T of one tile: Q (this warpgroup's 64 rows at q_addr) and K (the
 // stage's 2N rows at k_addr), both K-major, 16 columns of D per wgmma.
 // Within a 128-byte swizzled row, the k-th 16 columns start 32k bytes in.
-template <int D, int N>
+// FRESH: the first product takes s as write-only (wgmma_ss_fresh).
+template <int D, bool FRESH = false, int N>
 __device__ __forceinline__ void issue_s(float (&s)[N], uint32_t q_addr, uint32_t k_addr) {
 #pragma unroll
   for (int kc = 0; kc < D / 16; ++kc) {
     const uint64_t a = smem_desc(q_addr + kc / 4 * FWD_BQ * 128 + kc % 4 * 32, 16, 1024);
     const uint64_t b = smem_desc(k_addr + kc / 4 * 2 * N * 128 + kc % 4 * 32, 16, 1024);
-    if (kc == 0)
-      wgmma_ss<0>(s, a, b);
-    else
+    if (kc > 0)
       wgmma_ss<1>(s, a, b);
+    else if (FRESH)
+      wgmma_ss_fresh(s, a, b);
+    else
+      wgmma_ss<0>(s, a, b);
   }
 }
 
@@ -1195,23 +984,26 @@ __device__ __forceinline__ void issue_pv(float (&acc)[D / 2], const uint32_t (&p
   }
 }
 
-#ifdef RT_FWD_TIMELINE
-// Cycle stamps of block 0's two consumers (their thread 0) for each K/V tile
-// after an item's first, [consumer][tile][event]: 0 the tile's K and V
-// landed, 1 S and the previous tile's P.V issued, 2 S in, 3 softmax done,
-// 4 P.V in, 5 P split. Only ray_tpu_torch/ops/kernel_ab.py's timeline build
-// defines RT_FWD_TIMELINE (chip_smoke.py phase 2 reads it through
-// rt_fwd_timeline); the library the port loads has no stamps.
-constexpr int FWD_TIMELINE_TILES = 64;
-__device__ long long fwd_timeline[2][FWD_TIMELINE_TILES][6];
-__device__ __forceinline__ void fwd_stamp(int wg, int tile, int ev, bool pred) {
-  long long* at = &fwd_timeline[wg][min(tile, FWD_TIMELINE_TILES - 1)][ev];
+#ifdef RT_TIMELINE
+// Cycle stamps of block 0's two consumers (their thread 0) for each tile an
+// item streams after its first, [kernel][consumer][tile][event]. Kernel 0 is
+// the forward (events: 0 the tile's K and V landed, 1 S and the previous
+// tile's P.V issued, 2 S in, 3 softmax done, 4 P.V in, 5 P split), 1 bwd_dq
+// and 2 bwd_dkv (0 the tile landed, 1 S, dP and the previous tile's
+// products issued, 2 S and dP in, 3 P and dS made, 4 the previous tile's
+// products in, 5 split). Only ray_tpu_torch/ops/kernel_ab.py's timeline
+// build defines RT_TIMELINE (chip_smoke.py phase 2 reads it through
+// rt_timeline); the library the port loads has no stamps.
+constexpr int TIMELINE_TILES = 64;
+__device__ long long timeline[3][2][TIMELINE_TILES][6];
+__device__ __forceinline__ void stamp(int kernel, int wg, int tile, int ev, bool pred) {
+  long long* at = &timeline[kernel][wg][min(tile, TIMELINE_TILES - 1)][ev];
   asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %2, 0;\n@p st.global.b64 [%0], %1;\n}\n" ::"l"(at),
                "l"(clock64()), "r"(static_cast<int>(pred)) : "memory");
 }
-#define FWD_STAMP(tile, ev) fwd_stamp(wg, tile, ev, blockIdx.x == 0 && tid == 0)
+#define STAMP(kernel, tile, ev) stamp(kernel, wg, tile, ev, blockIdx.x == 0 && tid == 0)
 #else
-#define FWD_STAMP(tile, ev)
+#define STAMP(kernel, tile, ev)
 #endif
 
 // K/V tiles a q tile starting at row q0 takes: all of S, or with CAUSAL
@@ -1222,10 +1014,11 @@ __device__ __forceinline__ int kv_tiles(int q0, int seq_k) {
   return CAUSAL ? min(n, (q0 + FWD_BQ - 1) / BN + 1) : n;
 }
 
-// Work comes in units of two q tiles of one head, q tile n_qt - 1 - p and q
-// tile p (the middle one alone when n_qt is odd), so causal units hold like
-// work, and the blocks at work at one time share a few heads' K and V in L2.
-// Item j of unit u: its head and first q row; false past the unit's last.
+// Work comes in units of two 128-row tiles of one head (q tiles in the
+// forward and in bwd_dq, k tiles in bwd_dkv), tile n_qt - 1 - p and tile p
+// (the middle one alone when n_qt is odd), so causal units hold like work,
+// and the blocks at work at one time share a few heads' streamed operands in
+// L2. Item j of unit u: its head and first row; false past the unit's last.
 __device__ __forceinline__ bool unit_item(int u, int j, int n_qt, int& head, int& q0) {
   const int n_pairs = (n_qt + 1) / 2, p = u % n_pairs, qt = j == 0 ? n_qt - 1 - p : p;
   head = u / n_pairs;
@@ -1244,10 +1037,7 @@ __global__ void __launch_bounds__(FWD_THREADS, 1) fwd_kernel_sm90(
   using Cfg = FwdCfg<D>;
   constexpr int BN = Cfg::BN, STAGES = Cfg::STAGES;
   extern __shared__ unsigned char fwd_smem[];
-  // The 128-byte swizzle is a function of the shared address bits, with a
-  // period of 1024 bytes: TMA and the wgmma descriptors agree on it only
-  // from a 1024-byte aligned base.
-  bf16* qs = reinterpret_cast<bf16*>(fwd_smem + (1024 - smem_u32(fwd_smem) % 1024) % 1024);
+  bf16* qs = swizzle_base(fwd_smem);
   bf16* ks = qs + FWD_BQ * D;       // [STAGES][D / 64][BN][64]
   bf16* vs = ks + STAGES * BN * D;  // [STAGES][D / 64][BN][64]
   const uint32_t q_full = smem_u32(vs + STAGES * BN * D);  // the item's Q landed
@@ -1330,7 +1120,7 @@ __global__ void __launch_bounds__(FWD_THREADS, 1) fwd_kernel_sm90(
         for (int kt = 1; kt < n_kv_tiles; ++kt) {
           const int st = (it + kt) % STAGES, prev = (it + kt - 1) % STAGES;
           mbar_wait(full_bar + 8 * st, (it + kt) / STAGES & 1);
-          FWD_STAMP(it + kt, 0);
+          STAMP(0, it + kt, 0);
           bar_sync(1 + wg);
           keep(s);
           keep(acc);
@@ -1341,26 +1131,26 @@ __global__ void __launch_bounds__(FWD_THREADS, 1) fwd_kernel_sm90(
           wgmma_commit();
           issue_pv<D>(acc, p_hi, p_lo, smem_u32(vs + prev * BN * D));
           wgmma_commit();
-          FWD_STAMP(it + kt, 1);
+          STAMP(0, it + kt, 1);
           keep(s);
           keep(acc);
           bar_arrive_if(2 - wg, wg == 0 || kt + 1 < n_kv_tiles);
           wgmma_wait<1>();  // S_kt is in
           keep(s);
-          FWD_STAMP(it + kt, 2);
+          STAMP(0, it + kt, 2);
           mbar_arrive_if(q_empty, tid == 0 && kt + 1 == n_kv_tiles);
           softmax_tile<CAUSAL>(s, m, l, alpha, kt * BN, row0, r0, tg, seq_k, sl2);
-          FWD_STAMP(it + kt, 3);
+          STAMP(0, it + kt, 3);
           wgmma_wait<0>();  // P_{kt-1}.V_{kt-1} is in: its P and its stage are free
           keep(acc);
           keep(p_hi);
           keep(p_lo);
-          FWD_STAMP(it + kt, 4);
+          STAMP(0, it + kt, 4);
           mbar_arrive_if(empty_bar + 8 * prev, tid == 0);
 #pragma unroll
           for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[i % 4 / 2];
           split_p(s, p_hi, p_lo);
-          FWD_STAMP(it + kt, 5);
+          STAMP(0, it + kt, 5);
         }
         it += n_kv_tiles;
         const int last = (it - 1) % STAGES;
@@ -1389,6 +1179,524 @@ __global__ void __launch_bounds__(FWD_THREADS, 1) fwd_kernel_sm90(
                 __floats2bfloat162_rn(acc[4 * c + 2 * r] * linv, acc[4 * c + 2 * r + 1] * linv);
           if (WRITE_LSE && tg == 0) lse[static_cast<size_t>(head) * seq_q + qp] = m[r] * LN2 + logf(lsafe);
         }
+      }
+  }
+}
+
+// ============================================= backward on Hopper (bf16, sm_90a)
+//
+// bwd_dkv_kernel_sm90 replaces _attn_bwd_dkv_kernel (B4) and
+// bwd_dq_kernel_sm90 _attn_bwd_dq_kernel (B3) of
+// ray_tpu/ops/flash_attention.py for bf16 inputs, with the tile math of its
+// _bwd_tile. See the file's header for what bounds them and why they are
+// built this way. Both use the forward's layout, producer and wgmma parts;
+// neither uses an atomic, so every sum is taken in one order on every run.
+
+// bwd_dkv: 128 k rows an item (64 per consumer warpgroup), K and V loaded
+// once an item; Q, dO, lse and delta stream in tiles of BQ q rows.
+template <int D>
+struct DkvCfg {
+  // q rows per tile (the N of S^T = K.Q^T). At D = 128, dK and dV take 128
+  // of a consumer thread's 240 registers, and a 64-row tile's S^T, dP^T and
+  // their split operands (64 more) left ptxas spilling.
+  static constexpr int BQ = D == 64 ? 64 : 32;
+  static constexpr int STAGES = 4;
+  // Tile t's S^T and dP^T beside tile t-1's split operands, which dK and dV
+  // at D = 128 leave no room for.
+  static constexpr bool PIPE = D == 64;
+  static constexpr int KV_BYTES = FWD_BQ * D * 2;  // an item's K or V
+  static constexpr int QT_BYTES = BQ * D * 2;      // one Q or dO tile
+  static constexpr int STAT_BYTES = 2 * BQ * 4;    // one tile's lse and delta
+  static constexpr int BAR_BYTES = 8 * (2 + 2 * STAGES);
+  static constexpr int BYTES = 2 * KV_BYTES + STAGES * (2 * QT_BYTES + STAT_BYTES) + BAR_BYTES + 1024;
+};
+
+// bwd_dq: 128 q rows an item, Q and dO loaded once an item; K and V stream
+// in tiles of BN keys, as in the forward.
+template <int D>
+struct DqCfg {
+  // Keys per K/V tile: S and dP of tile kt beside tile kt-1's split dS, in
+  // the consumers' registers.
+  static constexpr int BN = 64;
+  static constexpr int STAGES = 4;
+  static constexpr int Q_BYTES = FWD_BQ * D * 2;  // an item's Q or dO
+  static constexpr int KV_BYTES = BN * D * 2;     // one K or V tile
+  static constexpr int BAR_BYTES = 8 * (2 + 2 * STAGES);
+  static constexpr int BYTES = 2 * Q_BYTES + 2 * STAGES * KV_BYTES + BAR_BYTES + 1024;
+};
+
+// P^T = exp(S^T * scale - lse) and dS^T / scale = P^T (dP^T - delta) of one
+// tile (k rows x q columns) in place of S^T in s and dP^T in dp, 0 where
+// masked (MASK); the scale is taken once, on dK, when the item ends. The q
+// columns' lse and delta come from the stage's shared slots `stat` ([lse |
+// delta], BQ each); this thread's accumulator column group j holds columns
+// 8j + 2tg and 8j + 2tg + 1 of rows r0 and r0 + 8. exp2 with scale *
+// log2(e) folded into one FMA, as in the forward.
+template <bool MASK, bool CAUSAL, int N>
+__device__ __forceinline__ void dkv_grads(float (&s)[N], float (&dp)[N], const float* stat, int q0,
+                                          int r0, int tg, int seq_q, int seq_k, float sl2) {
+  constexpr int BQ = 2 * N;
+#pragma unroll
+  for (int j = 0; j < N / 4; ++j) {
+    const float2 l = *reinterpret_cast<const float2*>(stat + 8 * j + 2 * tg);
+    const float2 d = *reinterpret_cast<const float2*>(stat + BQ + 8 * j + 2 * tg);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = 4 * j + e, qp = q0 + 8 * j + 2 * tg + e % 2, kp = r0 + 8 * (e / 2);
+      const bool ok = !MASK || (qp < seq_q && kp < seq_k && (!CAUSAL || qp >= kp));
+      const float p = ex2(fmaf(s[i], sl2, -(e % 2 ? l.y : l.x) * LOG2E));
+      s[i] = ok ? p : 0.f;
+      dp[i] = ok ? p * (dp[i] - (e % 2 ? d.y : d.x)) : 0.f;
+    }
+  }
+}
+
+// P = exp(S * scale - lse) and dS / scale = P (dP - delta) of one tile (q
+// rows x keys) in place of dP in dp, 0 where masked (MASK; the scale is
+// taken once, on dQ, when the item ends); lse2 = lse * log2(e) and dl =
+// delta of this thread's rows r0 and r0 + 8; c0 is the key of s[0]. Rows
+// past T are not masked: a dq row depends on its own dS row only, and
+// those rows are not written.
+template <bool MASK, bool CAUSAL, int N>
+__device__ __forceinline__ void dq_grads(const float (&s)[N], float (&dp)[N], const float (&lse2)[2],
+                                         const float (&dl)[2], int r0, int c0, int seq_k, float sl2) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    const int r = i % 4 / 2, qp = r0 + 8 * r, kp = c0 + 8 * (i / 4) + i % 2;
+    const bool ok = !MASK || (kp < seq_k && (!CAUSAL || qp >= kp));
+    const float p = ex2(fmaf(s[i], sl2, -lse2[r]));
+    dp[i] = ok ? p * (dp[i] - dl[r]) : 0.f;
+  }
+}
+
+// This thread's rows r0 and r0 + 8 of a 64-row f32 accumulator (D / 8
+// column groups of 8, as wgmma lays them out) into rows of `out`, up to n.
+template <int D>
+__device__ __forceinline__ void store_rows(float* out, const float (&acc)[D / 2], int r0, int tg, int n) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r0 + 8 * r;
+    if (row >= n) continue;
+#pragma unroll
+    for (int c = 0; c < D / 8; ++c)
+      *reinterpret_cast<float2*>(out + static_cast<size_t>(row) * D + c * 8 + 2 * tg) =
+          make_float2(acc[4 * c + 2 * r], acc[4 * c + 2 * r + 1]);
+  }
+}
+
+// Persistent, in units of two 128-row k tiles (unit_item). Per item the
+// producer loads K and V once, then streams the Q and dO tiles of the q
+// tiles that see it (with CAUSAL from q0 = k0: the reference's skip, q tile
+// qi sees k tile ki iff qi*bq + bq - 1 >= ki*bk) with their lse and delta.
+// A consumer warpgroup owns 64 k rows: per q tile S^T = K.Q^T and dP^T =
+// V.dO^T (SS), P^T and dS^T in registers, then dV += P^T_hi.dO + P^T_lo.dO
+// and dK += dS^T_hi.Q + dS^T_lo.Q (RS, dO and Q MN-major); dK and dV stay
+// in registers until the item ends.
+template <int D, bool CAUSAL>
+__global__ void __launch_bounds__(FWD_THREADS, 1) bwd_dkv_kernel_sm90(
+    const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap k_map,
+    const __grid_constant__ CUtensorMap v_map, const __grid_constant__ CUtensorMap do_map,
+    const float* __restrict__ lse, const float* __restrict__ delta, float* __restrict__ dk,
+    float* __restrict__ dv, int bh, int seq_q, int seq_k, float scale) {
+  using Cfg = DkvCfg<D>;
+  constexpr int BQ = Cfg::BQ, STAGES = Cfg::STAGES;
+  extern __shared__ unsigned char dkv_smem[];
+  bf16* ks = swizzle_base(dkv_smem);  // [D / 64][128][64]
+  bf16* vs = ks + FWD_BQ * D;         // [D / 64][128][64]
+  bf16* qs = vs + FWD_BQ * D;         // [STAGES][D / 64][BQ][64]
+  bf16* dos = qs + STAGES * BQ * D;   // [STAGES][D / 64][BQ][64]
+  float* stats = reinterpret_cast<float*>(dos + STAGES * BQ * D);  // [STAGES][lse | delta][BQ]
+  const uint32_t kv_full = smem_u32(stats + STAGES * 2 * BQ);  // the item's K and V landed
+  const uint32_t kv_empty = kv_full + 8;                       // both consumers are done with them
+  const uint32_t full_bar = kv_empty + 8;                      // [STAGES]: the stage's tiles and stats landed
+  const uint32_t empty_bar = full_bar + 8 * STAGES;            // [STAGES]: both consumers are done with it
+
+  const int n_kt = (seq_k + FWD_BQ - 1) / FWD_BQ, n_units = (n_kt + 1) / 2 * bh;
+  const int n_qt = (seq_q + BQ - 1) / BQ;
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    mbar_init(kv_empty, 2);
+    for (int st = 0; st < STAGES; ++st) {
+      mbar_init(full_bar + 8 * st, 1 + 32);  // the TMA's arrival and one per producer lane's cp.asyncs
+      mbar_init(empty_bar + 8 * st, 2);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  if (wg == 2) {  // producer: one warp; lane 0 issues the TMA loads, every lane copies stats
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x < 256 + 32) {
+      const int lane = threadIdx.x % 32;
+      int it = 0, n = 0, head, k0;  // Q/dO tiles (the ring's position) and items loaded
+      for (int u = blockIdx.x; u < n_units; u += gridDim.x)
+        for (int j = 0; j < 2 && unit_item(u, j, n_kt, head, k0); ++j, ++n) {
+          mbar_wait(kv_empty, (n & 1) ^ 1);  // passes at once for the first item
+          if (lane == 0) {
+            mbar_expect_tx(kv_full, 2 * Cfg::KV_BYTES);
+            load_rows<FWD_BQ, D>(ks, &k_map, kv_full, head, k0);
+            load_rows<FWD_BQ, D>(vs, &v_map, kv_full, head, k0);
+          }
+          const float* lse_h = lse + static_cast<size_t>(head) * seq_q;
+          const float* delta_h = delta + static_cast<size_t>(head) * seq_q;
+          for (int qt = CAUSAL ? k0 / BQ : 0; qt < n_qt; ++qt, ++it) {
+            const int st = it % STAGES;
+            const uint32_t full = full_bar + 8 * st;
+            mbar_wait(empty_bar + 8 * st, (it / STAGES & 1) ^ 1);  // passes at once on the first lap
+            if (lane == 0) {
+              mbar_expect_tx(full, 2 * Cfg::QT_BYTES);  // rows past T are zero-filled and counted
+              load_rows<BQ, D>(qs + st * BQ * D, &q_map, full, head, qt * BQ);
+              load_rows<BQ, D>(dos + st * BQ * D, &do_map, full, head, qt * BQ);
+            }
+            // lse and delta rows are 4 * T bytes apart, no multiple of 16 for
+            // every T, so they come by cp.async, zero-filled past T.
+            float* stat = stats + st * 2 * BQ;
+#pragma unroll
+            for (int c = 0; c < BQ / 32; ++c) {
+              const int i = lane + 32 * c, qp = qt * BQ + i;
+              const bool in = qp < seq_q;
+              cp_async_4(stat + i, lse_h + (in ? qp : 0), in);
+              cp_async_4(stat + BQ + i, delta_h + (in ? qp : 0), in);
+            }
+            cp_async_arrive(full);
+          }
+        }
+    }
+  } else {  // consumer warpgroup wg: k rows [k0 + 64 wg, k0 + 64 wg + 64) of each item
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32, tg = lane % 4;
+    const float sl2 = scale * LOG2E;
+    const uint32_t k_addr = smem_u32(ks) + wg * 64 * 128, v_addr = smem_u32(vs) + wg * 64 * 128;
+    float s[BQ / 2], dp[BQ / 2], dka[D / 2], dva[D / 2];
+    uint32_t p_hi[BQ / 16][4], p_lo[BQ / 16][4], ds_hi[BQ / 16][4], ds_lo[BQ / 16][4];
+    auto q_addr = [&](int st) { return smem_u32(qs + st * BQ * D); };
+    auto do_addr = [&](int st) { return smem_u32(dos + st * BQ * D); };
+    auto keep_split = [&] {
+      keep(p_hi);
+      keep(p_lo);
+      keep(ds_hi);
+      keep(ds_lo);
+    };
+    // S^T = K.Q^T and dP^T = V.dO^T of the tile in stage st, issued.
+    auto issue_sdp = [&](int st) {
+      issue_s<D, true>(s, k_addr, q_addr(st));
+      issue_s<D, true>(dp, v_addr, do_addr(st));
+    };
+    // dV += P^T.dO and dK += dS^T.Q of the tile in stage st, issued.
+    auto issue_dkv = [&](int st) {
+      issue_pv<D>(dva, p_hi, p_lo, do_addr(st));
+      issue_pv<D>(dka, ds_hi, ds_lo, q_addr(st));
+    };
+    // P^T and dS^T of the tile at q0 (stage st) in place of S^T and dP^T.
+    // Only a tile that crosses the diagonal or the end of T or S has masked
+    // entries.
+    auto grads = [&](int st, int q0, int row0, int r0) {
+      const float* stat = stats + st * 2 * BQ;
+      if (q0 + BQ > seq_q || row0 + 64 > seq_k || (CAUSAL && q0 < row0 + 63))
+        dkv_grads<true, CAUSAL>(s, dp, stat, q0, r0, tg, seq_q, seq_k, sl2);
+      else
+        dkv_grads<false, CAUSAL>(s, dp, stat, q0, r0, tg, seq_q, seq_k, sl2);
+    };
+    auto split = [&] {
+      split_p<true>(s, p_hi, p_lo);
+      split_p<true>(dp, ds_hi, ds_lo);
+    };
+
+    int it = 0, n = 0, head, k0;  // Q/dO tiles and items consumed
+    for (int u = blockIdx.x; u < n_units; u += gridDim.x)
+      for (int j = 0; j < 2 && unit_item(u, j, n_kt, head, k0); ++j, ++n) {
+        const int row0 = k0 + wg * 64;
+        const int r0 = row0 + warp * 16 + lane / 4;  // this thread's k rows: r0 and r0 + 8
+        const int qt0 = CAUSAL ? k0 / BQ : 0, n_t = max(n_qt - qt0, 0);
+#pragma unroll
+        for (int i = 0; i < D / 2; ++i) dka[i] = dva[i] = 0.f;
+        mbar_wait(kv_full, n & 1);
+        // With CAUSAL, the item's first q tiles up to row0 lie wholly above
+        // this warpgroup's rows (warpgroup 1's first 64 q rows): it waits for
+        // each and frees its stage, and adds nothing.
+        const int t0 = min(CAUSAL ? wg * 64 / BQ : 0, n_t);
+        for (int t = 0; t < t0; ++t) {
+          const int st = (it + t) % STAGES;
+          mbar_wait(full_bar + 8 * st, (it + t) / STAGES & 1);
+          mbar_arrive_if(empty_bar + 8 * st, tid == 0);
+        }
+        if constexpr (Cfg::PIPE) {
+          if (t0 < n_t) {
+            // Tile t's S^T and dP^T are issued with tile t-1's dK and dV
+            // products, so tile t's P^T and dS^T are made while the tensor
+            // cores run tile t-1's.
+            int st = (it + t0) % STAGES;
+            mbar_wait(full_bar + 8 * st, (it + t0) / STAGES & 1);
+            wgmma_fence();
+            issue_sdp(st);
+            wgmma_commit();
+            keep(s);
+            keep(dp);
+            wgmma_wait<0>();
+            keep(s);
+            keep(dp);
+            mbar_arrive_if(kv_empty, tid == 0 && t0 + 1 == n_t);  // the last S^T: K and V may go
+            grads(st, (qt0 + t0) * BQ, row0, r0);
+            split();
+            for (int t = t0 + 1; t < n_t; ++t) {
+              const int prev = st;
+              st = (it + t) % STAGES;
+              mbar_wait(full_bar + 8 * st, (it + t) / STAGES & 1);
+              STAMP(2, it + t, 0);
+              keep(dka);
+              keep(dva);
+              keep_split();
+              wgmma_fence();
+              issue_sdp(st);
+              wgmma_commit();
+              issue_dkv(prev);
+              wgmma_commit();
+              keep(s);
+              keep(dp);
+              keep(dka);
+              keep(dva);
+              STAMP(2, it + t, 1);
+              wgmma_wait<1>();  // S^T and dP^T of tile t are in
+              keep(s);
+              keep(dp);
+              STAMP(2, it + t, 2);
+              mbar_arrive_if(kv_empty, tid == 0 && t + 1 == n_t);
+              grads(st, (qt0 + t) * BQ, row0, r0);
+              STAMP(2, it + t, 3);
+              wgmma_wait<0>();  // tile t-1's products are in: its stage and its split are free
+              keep(dka);
+              keep(dva);
+              keep_split();
+              STAMP(2, it + t, 4);
+              mbar_arrive_if(empty_bar + 8 * prev, tid == 0);
+              split();
+              STAMP(2, it + t, 5);
+            }
+            keep(dka);
+            keep(dva);
+            keep_split();
+            wgmma_fence();
+            issue_dkv(st);
+            wgmma_commit();
+            keep(dka);
+            keep(dva);
+            wgmma_wait<0>();
+            keep(dka);
+            keep(dva);
+            keep_split();
+            mbar_arrive_if(empty_bar + 8 * st, tid == 0);
+          }
+        } else {
+          // Without the registers to hold two tiles' operands (D = 128): each
+          // tile's products in turn.
+          for (int t = t0; t < n_t; ++t) {
+            const int st = (it + t) % STAGES;
+            mbar_wait(full_bar + 8 * st, (it + t) / STAGES & 1);
+            wgmma_fence();
+            issue_sdp(st);
+            wgmma_commit();
+            keep(s);
+            keep(dp);
+            wgmma_wait<0>();
+            keep(s);
+            keep(dp);
+            mbar_arrive_if(kv_empty, tid == 0 && t + 1 == n_t);
+            grads(st, (qt0 + t) * BQ, row0, r0);
+            split();
+            keep(dka);
+            keep(dva);
+            keep_split();
+            wgmma_fence();
+            issue_dkv(st);
+            wgmma_commit();
+            keep(dka);
+            keep(dva);
+            wgmma_wait<0>();
+            keep(dka);
+            keep(dva);
+            keep_split();
+            mbar_arrive_if(empty_bar + 8 * st, tid == 0);
+          }
+        }
+        it += n_t;
+        mbar_arrive_if(kv_empty, tid == 0 && t0 >= n_t);  // no q tile of the item sees these rows
+        const size_t at = static_cast<size_t>(head) * seq_k * D;
+#pragma unroll
+        for (int i = 0; i < D / 2; ++i) dka[i] *= scale;
+        store_rows<D>(dk + at, dka, r0, tg, seq_k);
+        store_rows<D>(dv + at, dva, r0, tg, seq_k);
+      }
+  }
+}
+
+// Persistent, in the forward's units of two 128-row q tiles. Per item the
+// producer loads Q and dO once, then streams the K and V tiles up to the
+// diagonal (kv_tiles). A consumer warpgroup owns 64 q rows: per K/V tile
+// S = Q.K^T and dP = dO.V^T (SS), P and dS in registers (lse is known:
+// nothing is rescaled), then dQ += dS_hi.K + dS_lo.K (RS, K MN-major, as V
+// in the forward's P.V).
+template <int D, bool CAUSAL>
+__global__ void __launch_bounds__(FWD_THREADS, 1) bwd_dq_kernel_sm90(
+    const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap k_map,
+    const __grid_constant__ CUtensorMap v_map, const __grid_constant__ CUtensorMap do_map,
+    const float* __restrict__ lse, const float* __restrict__ delta, float* __restrict__ dq, int bh,
+    int seq_q, int seq_k, float scale) {
+  using Cfg = DqCfg<D>;
+  constexpr int BN = Cfg::BN, STAGES = Cfg::STAGES;
+  extern __shared__ unsigned char dq_smem[];
+  bf16* qs = swizzle_base(dq_smem);   // [D / 64][128][64]
+  bf16* dos = qs + FWD_BQ * D;        // [D / 64][128][64]
+  bf16* ks = dos + FWD_BQ * D;        // [STAGES][D / 64][BN][64]
+  bf16* vs = ks + STAGES * BN * D;    // [STAGES][D / 64][BN][64]
+  const uint32_t qdo_full = smem_u32(vs + STAGES * BN * D);  // the item's Q and dO landed
+  const uint32_t qdo_empty = qdo_full + 8;                     // both consumers are done with them
+  const uint32_t full_bar = qdo_empty + 8;                   // [STAGES]: the stage's K and V landed
+  const uint32_t empty_bar = full_bar + 8 * STAGES;        // [STAGES]: both consumers are done with it
+
+  const int n_qt = (seq_q + FWD_BQ - 1) / FWD_BQ, n_units = (n_qt + 1) / 2 * bh;
+  if (threadIdx.x == 0) {
+    mbar_init(qdo_full, 1);
+    mbar_init(qdo_empty, 2);
+    for (int st = 0; st < STAGES; ++st) {
+      mbar_init(full_bar + 8 * st, 1);
+      mbar_init(empty_bar + 8 * st, 2);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  if (wg == 2) {  // producer: one thread keeps Q, dO and the ring full
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == 256) {
+      int it = 0, n = 0, head, q0;  // K/V tiles (the ring's position) and items loaded
+      for (int u = blockIdx.x; u < n_units; u += gridDim.x)
+        for (int j = 0; j < 2 && unit_item(u, j, n_qt, head, q0); ++j, ++n) {
+          const int n_kv_tiles = kv_tiles<CAUSAL, BN>(q0, seq_k);
+          mbar_wait(qdo_empty, (n & 1) ^ 1);  // passes at once for the first item
+          mbar_expect_tx(qdo_full, 2 * Cfg::Q_BYTES);
+          load_rows<FWD_BQ, D>(qs, &q_map, qdo_full, head, q0);
+          load_rows<FWD_BQ, D>(dos, &do_map, qdo_full, head, q0);
+          for (int kt = 0; kt < n_kv_tiles; ++kt, ++it) {
+            const int st = it % STAGES;
+            mbar_wait(empty_bar + 8 * st, (it / STAGES & 1) ^ 1);  // passes at once on the first lap
+            const uint32_t ring_full = full_bar + 8 * st;
+            mbar_expect_tx(ring_full, 2 * Cfg::KV_BYTES);  // out-of-range rows are zero-filled and counted
+            load_rows<BN, D>(ks + st * BN * D, &k_map, ring_full, head, kt * BN);
+            load_rows<BN, D>(vs + st * BN * D, &v_map, ring_full, head, kt * BN);
+          }
+        }
+    }
+  } else {  // consumer warpgroup wg: q rows [q0 + 64 wg, q0 + 64 wg + 64) of each item
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32, tg = lane % 4;
+    const float sl2 = scale * LOG2E;
+    const uint32_t q_addr = smem_u32(qs) + wg * 64 * 128, do_addr = smem_u32(dos) + wg * 64 * 128;
+    float s[BN / 2], dp[BN / 2], dqa[D / 2];
+    uint32_t ds_hi[BN / 16][4], ds_lo[BN / 16][4];
+    auto k_addr = [&](int st) { return smem_u32(ks + st * BN * D); };
+    // S = Q.K^T and dP = dO.V^T of the tile in stage st, issued.
+    auto issue_sdp = [&](int st) {
+      issue_s<D, true>(s, q_addr, k_addr(st));
+      issue_s<D, true>(dp, do_addr, smem_u32(vs + st * BN * D));
+    };
+
+    int it = 0, n = 0, head, q0;  // K/V tiles and items consumed
+    for (int u = blockIdx.x; u < n_units; u += gridDim.x)
+      for (int j = 0; j < 2 && unit_item(u, j, n_qt, head, q0); ++j, ++n) {
+        const int n_kv_tiles = kv_tiles<CAUSAL, BN>(q0, seq_k);
+        const int row0 = q0 + wg * 64;
+        const int r0 = row0 + warp * 16 + lane / 4;  // this thread's rows: r0 and r0 + 8
+        float lse2[2], dl[2];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int qp = r0 + 8 * r;
+          const size_t at = static_cast<size_t>(head) * seq_q + qp;
+          lse2[r] = qp < seq_q ? lse[at] * LOG2E : 0.f;
+          dl[r] = qp < seq_q ? delta[at] : 0.f;
+        }
+        // dS of the tile at k0 in place of dP, split into hi and lo. Only a
+        // tile on the diagonal or past seq_k has masked entries.
+        auto grads = [&](int k0) {
+          if (k0 + BN > seq_k || (CAUSAL && k0 + BN - 1 > row0))
+            dq_grads<true, CAUSAL>(s, dp, lse2, dl, r0, k0 + 2 * tg, seq_k, sl2);
+          else
+            dq_grads<false, CAUSAL>(s, dp, lse2, dl, r0, k0 + 2 * tg, seq_k, sl2);
+        };
+#pragma unroll
+        for (int i = 0; i < D / 2; ++i) dqa[i] = 0.f;
+        mbar_wait(qdo_full, n & 1);
+        // As the forward: tile kt's S and dP are issued with tile kt-1's dQ
+        // product and the consumers issue in turn, so tile kt's dS is made
+        // while the tensor cores run tile kt-1's.
+        bar_arrive_if(1, wg == 1);  // warpgroup 0 issues first
+        int st = it % STAGES;
+        mbar_wait(full_bar + 8 * st, it / STAGES & 1);
+        bar_sync(1 + wg);
+        wgmma_fence();
+        issue_sdp(st);
+        wgmma_commit();
+        keep(s);
+        keep(dp);
+        bar_arrive_if(2 - wg, wg == 0 || n_kv_tiles > 1);  // the other warpgroup's turn
+        wgmma_wait<0>();
+        keep(s);
+        keep(dp);
+        mbar_arrive_if(qdo_empty, tid == 0 && n_kv_tiles == 1);  // the item's last S: Q and dO may go
+        grads(0);
+        split_p<true>(dp, ds_hi, ds_lo);
+        for (int kt = 1; kt < n_kv_tiles; ++kt) {
+          const int prev = st;
+          st = (it + kt) % STAGES;
+          mbar_wait(full_bar + 8 * st, (it + kt) / STAGES & 1);
+          STAMP(1, it + kt, 0);
+          bar_sync(1 + wg);
+          keep(dqa);
+          keep(ds_hi);
+          keep(ds_lo);
+          wgmma_fence();
+          issue_sdp(st);
+          wgmma_commit();
+          issue_pv<D>(dqa, ds_hi, ds_lo, k_addr(prev));  // dQ += dS.K
+          wgmma_commit();
+          keep(s);
+          keep(dp);
+          keep(dqa);
+          STAMP(1, it + kt, 1);
+          bar_arrive_if(2 - wg, wg == 0 || kt + 1 < n_kv_tiles);
+          wgmma_wait<1>();  // S and dP of tile kt are in
+          keep(s);
+          keep(dp);
+          STAMP(1, it + kt, 2);
+          mbar_arrive_if(qdo_empty, tid == 0 && kt + 1 == n_kv_tiles);
+          grads(kt * BN);
+          STAMP(1, it + kt, 3);
+          wgmma_wait<0>();  // tile kt-1's product is in: its stage and its split are free
+          keep(dqa);
+          keep(ds_hi);
+          keep(ds_lo);
+          STAMP(1, it + kt, 4);
+          mbar_arrive_if(empty_bar + 8 * prev, tid == 0);
+          split_p<true>(dp, ds_hi, ds_lo);
+          STAMP(1, it + kt, 5);
+        }
+        it += n_kv_tiles;
+        keep(dqa);
+        keep(ds_hi);
+        keep(ds_lo);
+        wgmma_fence();
+        issue_pv<D>(dqa, ds_hi, ds_lo, k_addr(st));
+        wgmma_commit();
+        keep(dqa);
+        wgmma_wait<0>();
+        keep(dqa);
+        keep(ds_hi);
+        keep(ds_lo);
+        mbar_arrive_if(empty_bar + 8 * st, tid == 0);
+#pragma unroll
+        for (int i = 0; i < D / 2; ++i) dqa[i] *= scale;
+        store_rows<D>(dq + static_cast<size_t>(head) * seq_q * D, dqa, r0, tg, seq_q);
       }
   }
 }
@@ -1512,25 +1820,36 @@ cudaError_t encode_rows(CUtensorMap* map, const void* ptr, int heads, int rows, 
   return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-template <int D>
-cudaError_t fwd_sm90(const void* q, const void* k, const void* v, void* o, float* lse, int bh,
-                     int seq_q, int seq_k, float scale, bool causal, cudaStream_t stream) {
-  CUtensorMap qm, km, vm;
-  cudaError_t err = encode_rows(&qm, q, bh, seq_q, D, FWD_BQ);
-  if (err == cudaSuccess) err = encode_rows(&km, k, bh, seq_k, D, FwdCfg<D>::BN);
-  if (err == cudaSuccess) err = encode_rows(&vm, v, bh, seq_k, D, FwdCfg<D>::BN);
-  if (err != cudaSuccess) return err;
-  // One block per SM (or per unit of work, if fewer), each walking its units.
+// Blocks for a persistent kernel of `units` units of work: one per SM, or
+// one per unit if there are fewer.
+cudaError_t persistent_grid(int units, dim3& grid) {
   constexpr int kMaxDevices = 64;
   static int sm_count[kMaxDevices] = {};
   int dev = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
   if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
   if (sm_count[dev] == 0 &&
       (err = cudaDeviceGetAttribute(&sm_count[dev], cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
     return err;
+  grid = dim3(min(units, sm_count[dev]));
+  return cudaSuccess;
+}
+
+// Units of two 128-row tiles (unit_item) over `rows` rows of each of bh heads.
+int units_of(int rows, int bh) { return ((rows + FWD_BQ - 1) / FWD_BQ + 1) / 2 * bh; }
+
+template <int D>
+cudaError_t fwd_sm90(const void* q, const void* k, const void* v, void* o, float* lse, int bh,
+                     int seq_q, int seq_k, float scale, bool causal, cudaStream_t stream) {
+  CUtensorMap qm, km, vm;
+  dim3 grid;
+  cudaError_t err = encode_rows(&qm, q, bh, seq_q, D, FWD_BQ);
+  if (err == cudaSuccess) err = encode_rows(&km, k, bh, seq_k, D, FwdCfg<D>::BN);
+  if (err == cudaSuccess) err = encode_rows(&vm, v, bh, seq_k, D, FwdCfg<D>::BN);
+  if (err == cudaSuccess) err = persistent_grid(units_of(seq_q, bh), grid);
+  if (err != cudaSuccess) return err;
   const size_t smem = FwdCfg<D>::BYTES;
-  const dim3 grid(min(((seq_q + FWD_BQ - 1) / FWD_BQ + 1) / 2 * bh, sm_count[dev]));
   bf16* ot = static_cast<bf16*>(o);
   if (causal) {
     return lse ? launch<fwd_kernel_sm90<D, true, true>, FWD_THREADS>(grid, smem, stream, qm, km, vm, ot,
@@ -1545,35 +1864,41 @@ cudaError_t fwd_sm90(const void* q, const void* k, const void* v, void* o, float
 }
 
 template <int D>
-cudaError_t bwd_dkv_tc(const void* q, const void* k, const void* v, const void* dout,
-                       const float* lse, const float* delta, float* dk, float* dv, int bh,
-                       int seq_q, int seq_k, float scale, bool causal, cudaStream_t stream) {
-  const size_t smem = sizeof(bf16) * (2 * BK + 4 * BQ) * (D + TC_LD_PAD) + sizeof(float) * 4 * BQ;
-  const dim3 grid((seq_k + BK - 1) / BK, bh);
-  const bf16* qt = static_cast<const bf16*>(q);
-  const bf16* kt = static_cast<const bf16*>(k);
-  const bf16* vt = static_cast<const bf16*>(v);
-  const bf16* dot = static_cast<const bf16*>(dout);
-  return causal ? launch<bwd_dkv_kernel_tc<D, true>, TC_THREADS>(
-                      grid, smem, stream, qt, kt, vt, dot, lse, delta, dk, dv, seq_q, seq_k, scale)
-                : launch<bwd_dkv_kernel_tc<D, false>, TC_THREADS>(
-                      grid, smem, stream, qt, kt, vt, dot, lse, delta, dk, dv, seq_q, seq_k, scale);
+cudaError_t bwd_dkv_sm90(const void* q, const void* k, const void* v, const void* dout,
+                         const float* lse, const float* delta, float* dk, float* dv, int bh,
+                         int seq_q, int seq_k, float scale, bool causal, cudaStream_t stream) {
+  CUtensorMap qm, km, vm, dom;
+  dim3 grid;
+  cudaError_t err = encode_rows(&qm, q, bh, seq_q, D, DkvCfg<D>::BQ);
+  if (err == cudaSuccess) err = encode_rows(&dom, dout, bh, seq_q, D, DkvCfg<D>::BQ);
+  if (err == cudaSuccess) err = encode_rows(&km, k, bh, seq_k, D, FWD_BQ);
+  if (err == cudaSuccess) err = encode_rows(&vm, v, bh, seq_k, D, FWD_BQ);
+  if (err == cudaSuccess) err = persistent_grid(units_of(seq_k, bh), grid);
+  if (err != cudaSuccess) return err;
+  const size_t smem = DkvCfg<D>::BYTES;
+  return causal ? launch<bwd_dkv_kernel_sm90<D, true>, FWD_THREADS>(
+                      grid, smem, stream, qm, km, vm, dom, lse, delta, dk, dv, bh, seq_q, seq_k, scale)
+                : launch<bwd_dkv_kernel_sm90<D, false>, FWD_THREADS>(
+                      grid, smem, stream, qm, km, vm, dom, lse, delta, dk, dv, bh, seq_q, seq_k, scale);
 }
 
 template <int D>
-cudaError_t bwd_dq_tc(const void* q, const void* k, const void* v, const void* dout,
-                      const float* lse, const float* delta, float* dq, int bh, int seq_q,
-                      int seq_k, float scale, bool causal, cudaStream_t stream) {
-  const size_t smem = sizeof(bf16) * (2 * BQ + 4 * BK) * (D + TC_LD_PAD);
-  const dim3 grid((seq_q + BQ - 1) / BQ, bh);
-  const bf16* qt = static_cast<const bf16*>(q);
-  const bf16* kt = static_cast<const bf16*>(k);
-  const bf16* vt = static_cast<const bf16*>(v);
-  const bf16* dot = static_cast<const bf16*>(dout);
-  return causal ? launch<bwd_dq_kernel_tc<D, true>, TC_THREADS>(
-                      grid, smem, stream, qt, kt, vt, dot, lse, delta, dq, seq_q, seq_k, scale)
-                : launch<bwd_dq_kernel_tc<D, false>, TC_THREADS>(
-                      grid, smem, stream, qt, kt, vt, dot, lse, delta, dq, seq_q, seq_k, scale);
+cudaError_t bwd_dq_sm90(const void* q, const void* k, const void* v, const void* dout,
+                        const float* lse, const float* delta, float* dq, int bh, int seq_q,
+                        int seq_k, float scale, bool causal, cudaStream_t stream) {
+  CUtensorMap qm, km, vm, dom;
+  dim3 grid;
+  cudaError_t err = encode_rows(&qm, q, bh, seq_q, D, FWD_BQ);
+  if (err == cudaSuccess) err = encode_rows(&dom, dout, bh, seq_q, D, FWD_BQ);
+  if (err == cudaSuccess) err = encode_rows(&km, k, bh, seq_k, D, DqCfg<D>::BN);
+  if (err == cudaSuccess) err = encode_rows(&vm, v, bh, seq_k, D, DqCfg<D>::BN);
+  if (err == cudaSuccess) err = persistent_grid(units_of(seq_q, bh), grid);
+  if (err != cudaSuccess) return err;
+  const size_t smem = DqCfg<D>::BYTES;
+  return causal ? launch<bwd_dq_kernel_sm90<D, true>, FWD_THREADS>(
+                      grid, smem, stream, qm, km, vm, dom, lse, delta, dq, bh, seq_q, seq_k, scale)
+                : launch<bwd_dq_kernel_sm90<D, false>, FWD_THREADS>(
+                      grid, smem, stream, qm, km, vm, dom, lse, delta, dq, bh, seq_q, seq_k, scale);
 }
 
 }  // namespace
@@ -1603,7 +1928,7 @@ int rt_flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse
 int rt_flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
                     const void* lse, const void* delta, void* dq, int bh, int seq_q, int seq_k,
                     int head_dim, float scale, int causal, int dtype, void* stream) {
-  RT_DISPATCH(bwd_dq, bwd_dq_tc, q, k, v, dout, static_cast<const float*>(lse),
+  RT_DISPATCH(bwd_dq, bwd_dq_sm90, q, k, v, dout, static_cast<const float*>(lse),
               static_cast<const float*>(delta), static_cast<float*>(dq), bh, seq_q, seq_k, scale,
               causal != 0, static_cast<cudaStream_t>(stream))
 }
@@ -1611,20 +1936,20 @@ int rt_flash_bwd_dq(const void* q, const void* k, const void* v, const void* dou
 int rt_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
                      const void* lse, const void* delta, void* dk, void* dv, int bh, int seq_q,
                      int seq_k, int head_dim, float scale, int causal, int dtype, void* stream) {
-  RT_DISPATCH(bwd_dkv, bwd_dkv_tc, q, k, v, dout, static_cast<const float*>(lse),
+  RT_DISPATCH(bwd_dkv, bwd_dkv_sm90, q, k, v, dout, static_cast<const float*>(lse),
               static_cast<const float*>(delta), static_cast<float*>(dk), static_cast<float*>(dv),
               bh, seq_q, seq_k, scale, causal != 0, static_cast<cudaStream_t>(stream))
 }
 
 const char* rt_error_string(int err) { return cudaGetErrorString(static_cast<cudaError_t>(err)); }
 
-#ifdef RT_FWD_TIMELINE
-// Copies the stamps into dst (host memory, [2][64][6] int64) and clears them.
-int rt_fwd_timeline(void* dst) {
+#ifdef RT_TIMELINE
+// Copies the stamps into dst (host memory, [3][2][64][6] int64) and clears them.
+int rt_timeline(void* dst) {
   void* at = nullptr;
-  cudaError_t err = cudaMemcpyFromSymbol(dst, fwd_timeline, sizeof(fwd_timeline));
-  if (err == cudaSuccess) err = cudaGetSymbolAddress(&at, fwd_timeline);
-  if (err == cudaSuccess) err = cudaMemset(at, 0, sizeof(fwd_timeline));
+  cudaError_t err = cudaMemcpyFromSymbol(dst, timeline, sizeof(timeline));
+  if (err == cudaSuccess) err = cudaGetSymbolAddress(&at, timeline);
+  if (err == cudaSuccess) err = cudaMemset(at, 0, sizeof(timeline));
   return static_cast<int>(err);
 }
 #endif

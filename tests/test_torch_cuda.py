@@ -125,23 +125,46 @@ def test_batch_of_one_forward_through_the_kernels(dev):
     assert _err(got, want) <= ATOL
 
 
+# B3's K/V tile count, in its producer and its consumers (the forward's
+# lines read the same up to their next line).
+_DQ_TILES = "const int n_kv_tiles = kv_tiles<CAUSAL, BN>(q0, seq_k);"
+_DQ_PRODUCER = _DQ_TILES + "\n          mbar_wait(qdo_empty"
+_DQ_CONSUMER = _DQ_TILES + "\n        const int row0 = q0 + wg * 64;\n" \
+    "        const int r0 = row0 + warp * 16 + lane / 4;  // this thread's rows: r0 and r0 + 8\n" \
+    "        float lse2[2], dl[2];"
+
+
+def _dq_tiles(expr):
+    """B3's producer and consumers both taking `expr` K/V tiles an item."""
+    return [(_DQ_PRODUCER, _DQ_PRODUCER.replace("kv_tiles<CAUSAL, BN>(q0, seq_k)", expr)),
+            (_DQ_CONSUMER, _DQ_CONSUMER.replace("kv_tiles<CAUSAL, BN>(q0, seq_k)", expr))]
+
+
+# 2-D [heads * rows, D] tensor maps, in place of the 3-D [heads, rows, D]
+# ones: a box's rows past the head's end come from the next head.
+_FLAT_MAPS = [
+    ("const cuuint64_t dims[3] = {cuuint64_t(D), cuuint64_t(rows), cuuint64_t(heads)};",
+     "const cuuint64_t dims[3] = {cuuint64_t(D), cuuint64_t(rows) * heads, 1};"),
+    ("const cuuint64_t strides[2] = {cuuint64_t(D) * 2, cuuint64_t(rows) * D * 2};",
+     "const cuuint64_t strides[2] = {cuuint64_t(D) * 2, cuuint64_t(rows) * heads * D * 2};"),
+]
+
 # Deliberately broken copies of the kernels' source, each built into the
 # test's own directory and bound in place of the real library, to show that
-# chip_smoke.py's limits fail a subtly wrong bf16 (tensor-core) kernel:
-# {name: [(line, broken line), ...]}; each line occurs once in the source.
+# chip_smoke.py's limits fail a subtly wrong bf16 (Hopper) kernel: {name:
+# [(text, broken text), ...]}; each text occurs once in the source. The
+# name's first word says which kernel must miss: fwd, dq (B3), dkv (B4) or
+# bwd (both).
 MUTANTS = {
-    # fwd_kernel_sm90 drops the last, partial key tile.
+    # fwd_kernel_sm90 (and bwd_dq_kernel_sm90, which shares kv_tiles) drops
+    # the last, partial key tile.
     "fwd_drops_partial_key_tile": [("const int n = (seq_k + BN - 1) / BN;",
                                     "const int n = seq_k / BN;")],
     # fwd_kernel_sm90 rounds P to bf16 once: it drops the P_lo.V product.
     "fwd_drops_lo_term": [("wgmma_rs(acc, p_lo[c], b);", "")],
-    # fwd_kernel_sm90 reads q, k and v through 2-D [BH*S, D] tensor maps:
-    # rows past S come from the next head instead of TMA's zero fill.
-    "fwd_flat_tensor_maps": [
-        ("const cuuint64_t dims[3] = {cuuint64_t(D), cuuint64_t(rows), cuuint64_t(heads)};",
-         "const cuuint64_t dims[3] = {cuuint64_t(D), cuuint64_t(rows) * heads, 1};"),
-        ("const cuuint64_t strides[2] = {cuuint64_t(D) * 2, cuuint64_t(rows) * D * 2};",
-         "const cuuint64_t strides[2] = {cuuint64_t(D) * 2, cuuint64_t(rows) * heads * D * 2};"),
+    # fwd_kernel_sm90 reads q, k and v through flat tensor maps: rows past S
+    # come from the next head instead of TMA's zero fill.
+    "fwd_flat_tensor_maps": _FLAT_MAPS + [
         ("load_rows<FWD_BQ, D>(qs, &q_map, q_full, head, q0);",
          "load_rows<FWD_BQ, D>(qs, &q_map, q_full, 0, head * seq_q + q0);"),
         ("load_rows<BN, D>(ks + st * BN * D, &k_map, full, head, kt * BN);",
@@ -149,17 +172,50 @@ MUTANTS = {
         ("load_rows<BN, D>(vs + st * BN * D, &v_map, full, head, kt * BN);",
          "load_rows<BN, D>(vs + st * BN * D, &v_map, full, 0, head * seq_k + kt * BN);"),
     ],
-    # bwd_dkv_kernel_tc drops the last q tile.
-    "dkv_drops_last_q_tile": [("const int n_q_tiles = (seq_q + BQ - 1) / BQ;",
-                               "const int n_q_tiles = (seq_q + BQ - 1) / BQ - 1;")],
-    # bwd_dq_kernel_tc rounds dS to bf16 once: it drops the lo term of dS.K.
-    "dq_drops_lo_term": [("mma_pair(dqa[2 * j], dqa[2 * j + 1], ds_lo, b);", "")],
-    # bwd_dq_kernel_tc drops the last, partial key tile.
-    "dq_drops_partial_key_tile": [("int n_k_tiles = (seq_k + BK - 1) / BK;",
-                                   "int n_k_tiles = seq_k / BK;")],
-    # bwd_dq_kernel_tc stops one tile short of the causal diagonal.
-    "dq_drops_diagonal_tile": [("n_k_tiles = min(n_k_tiles, (q0 + BQ - 1) / BK + 1);",
-                                "n_k_tiles = min(n_k_tiles, (q0 + BQ - 1) / BK);")],
+    # bwd_dkv_kernel_sm90 drops the last q tile.
+    "dkv_drops_last_q_tile": [("const int n_qt = (seq_q + BQ - 1) / BQ;",
+                               "const int n_qt = (seq_q + BQ - 1) / BQ - 1;")],
+    # bwd_dkv_kernel_sm90 starts a causal item one q tile past the diagonal.
+    "dkv_drops_diagonal_tile": [
+        ("for (int qt = CAUSAL ? k0 / BQ : 0; qt < n_qt; ++qt, ++it) {",
+         "for (int qt = CAUSAL ? k0 / BQ + 1 : 0; qt < n_qt; ++qt, ++it) {"),
+        ("const int qt0 = CAUSAL ? k0 / BQ : 0, n_t = max(n_qt - qt0, 0);",
+         "const int qt0 = CAUSAL ? k0 / BQ + 1 : 0, n_t = max(n_qt - qt0, 0);")],
+    # bwd_dkv_kernel_sm90 rounds P^T to bf16 once: its lo term is zero.
+    "dkv_drops_lo_term": [("      split_p<true>(s, p_hi, p_lo);\n",
+                           "      split_p<true>(s, p_hi, p_lo);\n"
+                           "      for (auto& c : p_lo) for (auto& r : c) r = 0;\n")],
+    # bwd_dq_kernel_sm90 rounds dS to bf16 once: its lo term is zero.
+    "dq_drops_lo_term": [
+        ("        split_p<true>(dp, ds_hi, ds_lo);\n        for (int kt = 1;",
+         "        split_p<true>(dp, ds_hi, ds_lo);\n"
+         "        for (auto& c : ds_lo) for (auto& r : c) r = 0;\n        for (int kt = 1;"),
+        ("          split_p<true>(dp, ds_hi, ds_lo);\n          STAMP(1",
+         "          split_p<true>(dp, ds_hi, ds_lo);\n"
+         "          for (auto& c : ds_lo) for (auto& r : c) r = 0;\n          STAMP(1")],
+    # bwd_dq_kernel_sm90 drops the last, partial key tile.
+    "dq_drops_partial_key_tile": _dq_tiles("kv_tiles<CAUSAL, BN>(q0, seq_k / BN * BN)"),
+    # bwd_dq_kernel_sm90 stops one tile short of the causal diagonal.
+    "dq_drops_diagonal_tile": _dq_tiles("kv_tiles<CAUSAL, BN>(q0 - BN, seq_k)"),
+    # Both backward kernels read q, k, v and do through flat tensor maps.
+    "bwd_flat_tensor_maps": _FLAT_MAPS + [
+        ("load_rows<FWD_BQ, D>(ks, &k_map, kv_full, head, k0);",
+         "load_rows<FWD_BQ, D>(ks, &k_map, kv_full, 0, head * seq_k + k0);"),
+        ("load_rows<FWD_BQ, D>(vs, &v_map, kv_full, head, k0);",
+         "load_rows<FWD_BQ, D>(vs, &v_map, kv_full, 0, head * seq_k + k0);"),
+        ("load_rows<BQ, D>(qs + st * BQ * D, &q_map, full, head, qt * BQ);",
+         "load_rows<BQ, D>(qs + st * BQ * D, &q_map, full, 0, head * seq_q + qt * BQ);"),
+        ("load_rows<BQ, D>(dos + st * BQ * D, &do_map, full, head, qt * BQ);",
+         "load_rows<BQ, D>(dos + st * BQ * D, &do_map, full, 0, head * seq_q + qt * BQ);"),
+        ("load_rows<FWD_BQ, D>(qs, &q_map, qdo_full, head, q0);",
+         "load_rows<FWD_BQ, D>(qs, &q_map, qdo_full, 0, head * seq_q + q0);"),
+        ("load_rows<FWD_BQ, D>(dos, &do_map, qdo_full, head, q0);",
+         "load_rows<FWD_BQ, D>(dos, &do_map, qdo_full, 0, head * seq_q + q0);"),
+        ("load_rows<BN, D>(ks + st * BN * D, &k_map, ring_full, head, kt * BN);",
+         "load_rows<BN, D>(ks + st * BN * D, &k_map, ring_full, 0, head * seq_k + kt * BN);"),
+        ("load_rows<BN, D>(vs + st * BN * D, &v_map, ring_full, head, kt * BN);",
+         "load_rows<BN, D>(vs + st * BN * D, &v_map, ring_full, 0, head * seq_k + kt * BN);"),
+    ],
 }
 
 
@@ -181,20 +237,28 @@ def mutant(dev, request, tmp_path, monkeypatch):
 @pytest.mark.parametrize("mutant", list(MUTANTS), indirect=True)
 def test_smoke_limits_catch_a_broken_kernel(dev, mutant):
     """Each broken kernel misses chip_smoke.py's limits in one of the two
-    causal modes at T = 1000 (a partial last tile). The keys past T are
+    causal modes at T = 1000 (a partial last tile). The rows past T or S are
     masked, so rows read from the next head in their place change nothing
     unless they hold a value that survives a zero weight: for the flat-map
-    mutant the inputs are the first 4 heads of 5 and V's first rows of every
-    later head are inf (the TPU kernel zeroes V's padding rows against just
-    this), and only head 0, whose own values are all finite, is compared."""
+    mutants the inputs are the first 4 heads of 5 and the first rows of
+    every later head are inf (the TPU kernels zero the padding rows against
+    just this) in V for the forward and in q, k, v and do for the backward,
+    and only head 0, whose own values are all finite, is compared."""
     cs = importlib.import_module("chip_smoke")
     g = torch.Generator(device=dev).manual_seed(0)
     q, k, v, do = (torch.randn(4, 1000, 64, device=dev, generator=g).bfloat16() for _ in range(4))
     heads = slice(None)
-    if mutant == "fwd_flat_tensor_maps":
-        v5 = torch.cat([v, torch.randn(1, 1000, 64, device=dev, generator=g).bfloat16()])
-        v5[1:, :24] = float("inf")  # the rows a flat map reads for the partial tile of the head before
-        v, heads = v5[:4], slice(0, 1)
+    if mutant.endswith("flat_tensor_maps"):
+        def next_heads_inf(x):  # the rows a flat map reads for the partial tile of the head before
+            x5 = torch.cat([x, torch.randn(1, 1000, 64, device=dev, generator=g).bfloat16()])
+            x5[1:, :24] = float("inf")
+            return x5[:4]
+
+        if mutant.startswith("fwd"):
+            v = next_heads_inf(v)
+        else:
+            q, k, v, do = (next_heads_inf(x) for x in (q, k, v, do))
+        heads = slice(0, 1)
     scale = 0.125
     worst = {}
     for causal in (False, True):
@@ -203,16 +267,18 @@ def test_smoke_limits_catch_a_broken_kernel(dev, mutant):
         args = (q, k, v, do, ref_lse, delta)
         _, ratios = cs.compare({
             "fwd": [(fa.flash_fwd(q, k, v, causal=causal, scale=scale)[heads], ref_o[heads])],
-            "bwd_dq": [(fa.flash_bwd_dq(*args, causal=causal, scale=scale),
-                        fa._flash_bwd_dq_ref(*args, causal, scale))],
-            "bwd_dkv": list(zip(fa.flash_bwd_dkv(*args, causal=causal, scale=scale),
-                                fa._flash_bwd_dkv_ref(*args, causal, scale))),
+            "bwd_dq": [(fa.flash_bwd_dq(*args, causal=causal, scale=scale)[heads],
+                        fa._flash_bwd_dq_ref(*args, causal, scale)[heads])],
+            "bwd_dkv": [(got[heads], want[heads]) for got, want in
+                        zip(fa.flash_bwd_dkv(*args, causal=causal, scale=scale),
+                            fa._flash_bwd_dkv_ref(*args, causal, scale))],
         })
         for key, r in ratios.items():
             if not r <= worst.get(key, 0.0):  # NaN (inf times a zero weight) counts as worst
                 worst[key] = r
-    broken = {"fwd": "fwd", "dq": "bwd_dq", "dkv": "bwd_dkv"}[mutant.split("_")[0]]
-    assert not worst[broken] <= 1.0, worst
+    broken = {"fwd": ["fwd"], "dq": ["bwd_dq"], "dkv": ["bwd_dkv"],
+              "bwd": ["bwd_dq", "bwd_dkv"]}[mutant.split("_")[0]]
+    assert not any(worst[key] <= 1.0 for key in broken), worst
 
 
 @pytest.mark.parametrize("mutant", [None, "dkv_drops_last_q_tile", "dq_drops_diagonal_tile"],

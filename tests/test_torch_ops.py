@@ -324,14 +324,166 @@ def test_sm90_forward_arithmetic_holds_the_smoke_limits(D, T, causal):
     assert all(r > 1.0 for r in once.values()), once
 
 
+# The Hopper backward's tiles (csrc/flash_attention.cu, DkvCfg and DqCfg):
+# 128 resident rows a work item, 64 per consumer warpgroup; bwd_dkv streams
+# q tiles of 64 rows (32 at D = 128), bwd_dq K/V tiles of 64 keys.
+SM90_DKV_BQ, SM90_DQ_BN = {64: 64, 128: 32}, 64
+
+
+def _split_trunc(x, split=True):
+    """The backward's hi/lo split: hi = x with its low 16 bits cleared (bf16
+    toward zero), lo = bf16(x - hi) to nearest; not split, x rounded to bf16
+    once."""
+    if not split:
+        return [x.bfloat16().float()]
+    hi = (x.view(torch.int32) & -65536).view(torch.float32)
+    return [hi, (x - hi).bfloat16().float()]
+
+
+def _rows(x, r0, n):
+    """Rows [r0, r0 + n) of [BH, R, ...] x, zero past its end (TMA's fill)."""
+    out = torch.zeros((x.shape[0], n) + tuple(x.shape[2:]), dtype=torch.float32)
+    m = max(0, min(n, x.shape[1] - r0))
+    out[:, :m] = x[:, r0:r0 + m].float()
+    return out
+
+
+def _exp2_fma(s, sl2, sub):
+    """ex2(fmaf(s, sl2, -sub)): the FMA rounds once."""
+    return torch.exp2((s.double() * sl2.double() - sub.double()).float())
+
+
+def _dkv_sm90_emulation(q, k, v, do, lse, delta, causal, scale, split=True):
+    """bwd_dkv_kernel_sm90's arithmetic in torch, tile by tile in its order
+    and sizes: per item of 128 k rows, each 64-row warpgroup walks the q
+    tiles that see its item (from q0 = k0 when causal, skipping those wholly
+    above its rows), takes the masked path only on tiles that cross the
+    diagonal or the end of T or S, makes P^T = exp2(S^T * scale * log2(e) -
+    lse * log2(e)) and dS^T / scale = P^T (dP^T - delta), splits each into hi
+    (truncated) and lo, and adds both products into f32 dK and dV; dK takes
+    the scale when the item ends. Returns (dk, dv), [BH, S, D] f32."""
+    BH, T, D = q.shape
+    S, bq = k.shape[1], SM90_DKV_BQ[D]
+    f32 = torch.float32
+    sl2 = torch.tensor(scale, dtype=f32) * torch.tensor(_LOG2E, dtype=f32)
+    lse2 = lse.float() * torch.tensor(_LOG2E, dtype=f32)
+    dk, dv = (torch.zeros(BH, S, D, dtype=f32) for _ in range(2))
+    n_qt = -(-T // bq)
+    for k0 in range(0, S, SM90_BQ):
+        for row0 in (k0, k0 + 64):  # the two consumer warpgroups
+            kk, vv = _rows(k, row0, 64), _rows(v, row0, 64)
+            kp = torch.arange(row0, row0 + 64)[:, None]
+            dka, dva = (torch.zeros(BH, 64, D, dtype=f32) for _ in range(2))
+            qt0 = k0 // bq if causal else 0
+            t0 = (row0 - k0) // bq if causal else 0
+            for qt in range(qt0 + t0, n_qt):
+                q0 = qt * bq
+                qq, dd = _rows(q, q0, bq), _rows(do, q0, bq)
+                l2, dl = _rows(lse2[..., None], q0, bq)[..., 0], _rows(delta[..., None], q0, bq)[..., 0]
+                st = torch.einsum("bkd,bqd->bkq", kk, qq)
+                dpt = torch.einsum("bkd,bqd->bkq", vv, dd)
+                p = _exp2_fma(st, sl2, l2[:, None, :])
+                ds = p * (dpt - dl[:, None, :])
+                if q0 + bq > T or row0 + 64 > S or (causal and q0 < row0 + 63):
+                    qp = torch.arange(q0, q0 + bq)[None, :]
+                    ok = (qp < T) & (kp < S) & ((qp >= kp) if causal else True)
+                    p, ds = torch.where(ok, p, 0.0), torch.where(ok, ds, 0.0)
+                for t in _split_trunc(p, split):
+                    dva += torch.einsum("bkq,bqd->bkd", t, dd)
+                for t in _split_trunc(ds, split):
+                    dka += torch.einsum("bkq,bqd->bkd", t, qq)
+            n = max(0, min(64, S - row0))
+            dk[:, row0:row0 + n] = (dka * scale)[:, :n]
+            dv[:, row0:row0 + n] = dva[:, :n]
+    return dk, dv
+
+
+def _dq_sm90_emulation(q, k, v, do, lse, delta, causal, scale, split=True):
+    """bwd_dq_kernel_sm90's arithmetic in torch, tile by tile in its order
+    and sizes: per item of 128 q rows, each 64-row warpgroup walks the K/V
+    tiles up to the item's diagonal, takes the masked path only on tiles on
+    the diagonal or past S, makes P and dS / scale = P (dP - delta), splits
+    dS into hi (truncated) and lo and adds both products into f32 dQ, which
+    takes the scale when the item ends. Returns dq, [BH, T, D] f32."""
+    BH, T, D = q.shape
+    S, bn = k.shape[1], SM90_DQ_BN
+    f32 = torch.float32
+    sl2 = torch.tensor(scale, dtype=f32) * torch.tensor(_LOG2E, dtype=f32)
+    lse2 = lse.float() * torch.tensor(_LOG2E, dtype=f32)
+    dq = torch.zeros(BH, T, D, dtype=f32)
+    for q0 in range(0, T, SM90_BQ):
+        n = -(-S // bn)
+        if causal:
+            n = min(n, (q0 + SM90_BQ - 1) // bn + 1)  # stop at the diagonal tile
+        for row0 in (q0, q0 + 64):
+            qq, dd = _rows(q, row0, 64), _rows(do, row0, 64)
+            l2, dl = _rows(lse2[..., None], row0, 64), _rows(delta[..., None], row0, 64)
+            qp = torch.arange(row0, row0 + 64)[:, None]
+            dqa = torch.zeros(BH, 64, D, dtype=f32)
+            for k0 in range(0, n * bn, bn):
+                kk, vv = _rows(k, k0, bn), _rows(v, k0, bn)
+                s = torch.einsum("bqd,bkd->bqk", qq, kk)
+                dp = torch.einsum("bqd,bkd->bqk", dd, vv)
+                p = _exp2_fma(s, sl2, l2)
+                ds = p * (dp - dl)
+                if k0 + bn > S or (causal and k0 + bn - 1 > row0):
+                    kp = torch.arange(k0, k0 + bn)[None, :]
+                    ok = (kp < S) & ((qp >= kp) if causal else True)
+                    ds = torch.where(ok, ds, 0.0)
+                for t in _split_trunc(ds, split):
+                    dqa += torch.einsum("bqk,bkd->bqd", t, kk)
+            m = max(0, min(64, T - row0))
+            dq[:, row0:row0 + m] = (dqa * scale)[:, :m]
+    return dq
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("T,S", [(1, 1), (100, 100), (1000, 1000), (100, 300), (300, 100)])
+@pytest.mark.parametrize("D", [64, 128])
+def test_sm90_backward_arithmetic_holds_the_smoke_limits(D, T, S, causal):
+    """The Hopper backward's arithmetic (B3 and B4), emulated on bf16 inputs,
+    against the plain versions and against the Pallas kernels (interpret
+    mode) within chip_smoke.py's limits, on the plain forward's lse and
+    delta; with P and dS rounded to bf16 once instead of split, it misses
+    them where a long row sums many products (T = S = 1000)."""
+    cs = importlib.import_module("chip_smoke")
+    rs = np.random.RandomState(13)
+    q, do = (rs.randn(2, T, D).astype(np.float32) for _ in range(2))
+    k, v = (rs.randn(2, S, D).astype(np.float32) for _ in range(2))
+    scale = D ** -0.5
+    tq, tk, tv, tdo = (_t(x).bfloat16() for x in (q, k, v, do))
+    ref_o, lse = _flash_fwd_ref(tq, tk, tv, causal, scale, with_lse=True)
+    delta = (tdo.float() * ref_o.float()).sum(-1)
+    args = (tq, tk, tv, tdo, lse, delta)
+    dq = _dq_sm90_emulation(*args, causal, scale)
+    dk, dv = _dkv_sm90_emulation(*args, causal, scale)
+    ref_dq = _flash_bwd_dq_ref(*args, causal, scale)
+    ref_dk, ref_dv = _flash_bwd_dkv_ref(*args, causal, scale)
+    jq, jk, jv, jdo = (jnp.asarray(x).astype(jnp.bfloat16) for x in (q, k, v, do))
+    jl, jd = (jnp.broadcast_to(jnp.asarray(x.numpy())[..., None], (2, T, 8)) for x in (lse, delta))
+    kw = dict(causal=causal, scale=scale, block_q=128, block_k=128, interpret=True)
+    pallas_dq = _t(np.asarray(_flash_bwd_dq(jq, jk, jv, jdo, jl, jd, **kw)))
+    pallas_dk, pallas_dv = (_t(np.asarray(x)) for x in _flash_bwd_dkv(jq, jk, jv, jdo, jl, jd, **kw))
+    _, ratios = cs.compare({"plain_dq": [(dq, ref_dq)], "plain_dkv": [(dk, ref_dk), (dv, ref_dv)],
+                            "pallas_dq": [(dq, pallas_dq)],
+                            "pallas_dkv": [(dk, pallas_dk), (dv, pallas_dv)]})
+    assert all(r <= 1.0 for r in ratios.values()), ratios
+    if T == S == 1000:
+        once_dq = _dq_sm90_emulation(*args, causal, scale, split=False)
+        once_dk, once_dv = _dkv_sm90_emulation(*args, causal, scale, split=False)
+        _, once = cs.compare({"dq": [(once_dq, ref_dq)], "dkv": [(once_dk, ref_dk), (once_dv, ref_dv)]})
+        assert all(r > 1.0 for r in once.values()), once
+
+
 @pytest.mark.parametrize("broken", ["ds_rounded_once", "drops_diagonal_tile"])
 def test_gradient_check_sees_a_lost_tile_not_a_once_rounded_ds(broken, monkeypatch):
     """chip_smoke.py's first-step gradient check, run here through the plain
     versions with dq broken as two of tests/test_torch_cuda.py's mutants
-    break bwd_dq_kernel_tc, on that file's model. A dq that loses each q
-    tile's diagonal key tile fails the check. A dq whose dS was rounded to
-    bf16 once passes it: that error is below the bf16 path's own, so only
-    the element limits of phase 2 catch it."""
+    break bwd_dq_kernel_sm90, on that file's model. A dq that stops one
+    64-key tile short of each 128-row item's diagonal (which loses the
+    diagonal keys of the item's second 64 rows) fails the check. A dq whose
+    dS was rounded to bf16 once passes it: that error is below the bf16
+    path's own, so only the element limits of phase 2 catch it."""
     cs = importlib.import_module("chip_smoke")
     fa = importlib.import_module("ray_tpu_torch.ops.flash_attention")
     tr = importlib.import_module("ray_tpu_torch.models.transformer")
@@ -340,9 +492,9 @@ def test_gradient_check_sees_a_lost_tile_not_a_once_rounded_ds(broken, monkeypat
         _, ds = _bwd_tile_ref(q, k, v, do, lse, delta, causal, scale)
         if broken == "ds_rounded_once":
             ds = ds.bfloat16().float()
-        else:  # the kernel's 64-row tiles: keep only key tiles left of the diagonal
-            tile = torch.arange(q.shape[1]) // 64
-            ds = ds * (tile[None, :] < tile[:, None])
+        else:  # keys up to the end of the 64-key tile before the item's last
+            rows, keys = torch.arange(q.shape[1]), torch.arange(k.shape[1])
+            ds = ds * (keys[None, :] < (rows // 128 * 128 + 64)[:, None])
         return torch.einsum("bts,bsd->btd", ds, k.float())
 
     monkeypatch.setattr(fa, "_flash_bwd_dq_ref", broken_dq)
@@ -362,9 +514,10 @@ def test_gradient_check_sees_a_lost_tile_not_a_once_rounded_ds(broken, monkeypat
 
 def test_build_report_parsers():
     """chip_smoke.py's readers of ptxas -v and cuobjdump -sass output: the
-    Hopper forward's mangled names (nvcc's file-scoped anonymous namespace,
-    CUtensorMap parameters), its HGMMA (wgmma) apart from HMMA (mma.sync),
-    and ptxas's warning where it serialized a kernel's wgmma."""
+    Hopper kernels' mangled names (nvcc's file-scoped anonymous namespace,
+    CUtensorMap parameters), their HGMMA (wgmma) apart from HMMA (mma.sync),
+    and ptxas's warnings where it serialized a kernel's wgmma, in either of
+    its wordings."""
     cs = importlib.import_module("chip_smoke")
     fwd = "_ZN12_GLOBAL__N_113fwd_kernel_tcILi64ELb1ELb0EEEvPK13__nv_bfloat16S3_S3_PS1_Pfiif"
     sm90 = ("_ZN51_GLOBAL__N__c4b42d03_18_flash_attention_cu_e1dd8ece15fwd_kernel_sm90ILi64ELb1ELb0EEEv"
@@ -373,6 +526,11 @@ def test_build_report_parsers():
     dq = "_ZN12_GLOBAL__N_113bwd_dq_kernelI13__nv_bfloat16Li128ELb0EEEvPKT_S4_S4_S4_PKfS6_Pfiif"
     dq_tc = "_ZN12_GLOBAL__N_116bwd_dq_kernel_tcILi64ELb1EEEvPK13__nv_bfloat16S3_S3_S3_PKfS5_Pfiif"
     old = "_ZN12_GLOBAL__N_110fwd_kernelIfLi64ELb1ELb1EEEvPKT_S4_S4_PS2_Pfiif"
+    ns = "_ZN51_GLOBAL__N__c4b42d03_18_flash_attention_cu_e1dd8ece"
+    dkv_sm90 = ns + "19bwd_dkv_kernel_sm90ILi128ELb0EEEv14CUtensorMap_stS1_S1_S1_PKfS3_PfS4_iiif"
+    dq_sm90 = ns + "18bwd_dq_kernel_sm90ILi64ELb1EEEv14CUtensorMap_stS1_S1_S1_PKfS3_Pfiiif"
+    assert cs.kernel_label(dkv_sm90) == "bwd_dkv_kernel_sm90<128,false>"
+    assert cs.kernel_label(dq_sm90) == "bwd_dq_kernel_sm90<64,true>"
     assert cs.kernel_label(fwd) == "fwd_kernel_tc<64,true,false>"
     assert cs.kernel_label(sm90) == "fwd_kernel_sm90<64,true,false>"
     assert cs.kernel_label(sm90_nc) == "fwd_kernel_sm90<128,false,true>"
@@ -394,13 +552,27 @@ def test_build_report_parsers():
            "ptxas info    : Used 168 registers, used 16 barriers\n"
            "ptxas info    : (C7520) Potential Performance Loss: wgmma.mma_async instructions are "
            "serialized due to program dependence on compiler-inserted WG.AR in divergent path in the "
-           f"function '{sm90}'\n")
+           f"function '{sm90}'\n"
+           f"ptxas info    : Compiling entry function '{dkv_sm90}' for 'sm_90a'\n"
+           f"ptxas info    : Function properties for {dkv_sm90}\n"
+           "    24 bytes stack frame, 20 bytes spill stores, 24 bytes spill loads\n"
+           "ptxas info    : Used 168 registers, used 16 barriers\n"
+           "ptxas info    : (C7512) Potential Performance Loss: wgmma.mma_async instructions are "
+           f"serialized due to insufficient register resources for the function '{dkv_sm90}'\n"
+           f"ptxas info    : Compiling entry function '{dq_sm90}' for 'sm_90a'\n"
+           f"ptxas info    : Function properties for {dq_sm90}\n"
+           "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+           "ptxas info    : Used 168 registers, used 16 barriers\n")
     assert cs.ptxas_report(log) == {
         "fwd_kernel_tc<64,true,false>": {"registers": 168, "spill_stores": 8, "spill_loads": 12},
         "bwd_dq_kernel_tc<64,true>": {"registers": 154, "spill_stores": 0, "spill_loads": 0},
         "fwd_kernel_sm90<64,true,false>": {
             "registers": 168, "spill_stores": 0, "spill_loads": 0,
-            "wgmma_serialized": "program dependence on compiler-inserted WG.AR in divergent path"}}
+            "wgmma_serialized": "program dependence on compiler-inserted WG.AR in divergent path"},
+        "bwd_dkv_kernel_sm90<128,false>": {
+            "registers": 168, "spill_stores": 20, "spill_loads": 24,
+            "wgmma_serialized": "insufficient register resources"},
+        "bwd_dq_kernel_sm90<64,true>": {"registers": 168, "spill_stores": 0, "spill_loads": 0}}
     sass = (f"\t\tFunction : {fwd}\n        /*0100*/  HMMA.16816.F32.BF16 R4, R8, R12, R4 ;\n"
             "        /*0110*/  HMMA.16816.F32.BF16 R16, R8, R14, R16 ;\n"
             f"\t\tFunction : {sm90}\n"
@@ -408,11 +580,25 @@ def test_build_report_parsers():
             "        /*0210*/  HGMMA.64x64x16.F32.BF16 R88, R152, gdesc[UR8], R88, gsb0 ;\n"
             "        /*0220*/  WARPGROUP.DEPBAR.LE gsb0, 0x0 ;\n"
             f"\t\tFunction : {dq_tc}\n        /*0100*/  HMMA.16816.F32.BF16 R4, R8, R12, R4 ;\n"
-            f"\t\tFunction : {old}\n        /*0100*/  FFMA R1, R2, R3, R1 ;\n")
+            f"\t\tFunction : {old}\n        /*0100*/  FFMA R1, R2, R3, R1 ;\n"
+            f"\t\tFunction : {dq_sm90}\n"
+            "        /*0300*/  HGMMA.64x64x16.F32.BF16 R24, gdesc[UR4], RZ, !UPT, gsb0 ;\n")
     assert cs.sass_mma(sass) == {"fwd_kernel_tc<64,true,false>": {"hmma": 2, "hgmma": 0},
                                  "fwd_kernel_sm90<64,true,false>": {"hmma": 0, "hgmma": 2},
                                  "bwd_dq_kernel_tc<64,true>": {"hmma": 1, "hgmma": 0},
-                                 "fwd_kernel<f32,64,true,true>": {"hmma": 0, "hgmma": 0}}
+                                 "fwd_kernel<f32,64,true,true>": {"hmma": 0, "hgmma": 0},
+                                 "bwd_dq_kernel_sm90<64,true>": {"hmma": 0, "hgmma": 1}}
+    # The build check refuses a Hopper kernel that spills or whose wgmma ptxas
+    # serialized, and a build without all of them.
+    good = {"hgmma": 8, "spill_stores": 0, "spill_loads": 0}
+    report = {f"fwd_kernel_sm90<{i}>": dict(good) for i in range(cs.N_SM90_KERNELS)}
+    cs.check_sm90(report)
+    for bad in ({"spill_stores": 4}, {"wgmma_serialized": "insufficient register resources"},
+                {"hgmma": 0}):
+        with pytest.raises(cs.SmokeFailure):
+            cs.check_sm90({**report, "fwd_kernel_sm90<0>": {**good, **bad}})
+    with pytest.raises(cs.SmokeFailure):
+        cs.check_sm90({k: r for k, r in report.items() if k != "fwd_kernel_sm90<0>"})
 
 
 def test_library_hash_covers_headers_beside_the_source(tmp_path, monkeypatch):

@@ -354,6 +354,10 @@ COPIED = [
 # The modules of the copy that differ from ray_tpu's after the rename, and
 # why. Editing this list is how a later slice lets them drift on purpose.
 DIFFERS = {
+    "_private/sim_cluster.py": "an HA sim arms its standby once every node has registered "
+                               "(ray_tpu arms it before the boot, where a stall of the shared "
+                               "loop past the lease promotes it and fails a raylet's first "
+                               "registration)",
     "__init__.py": "the runtime API merged beside `models` and `ops`, which load lazily",
     "remote_function.py": "num_gpus maps to 'GPU' (num_tpus to 'TPU' in ray_tpu)",
     "_private/serialization.py": "a torch-tensor reducer (CUDA tensors come back as CPU "

@@ -150,6 +150,64 @@ def test_sim_autoscaler_scales_to_500_nodes():
         cluster.shutdown()
 
 
+@pytest.mark.timeout(300)
+def test_sim_ha_boot_survives_a_loop_stall(monkeypatch):
+    """An HA sim's boot on a loaded host: right after a lease renewal, while
+    the raylets register, the sim's loop stalls past the leader's lease (2 s
+    against 1 + 1/3 s). Its standby watches the lease on that same loop, so
+    armed before the boot it reads the stall as the leader's death and
+    promotes mid-boot (the storm test's failure at start). Armed once every
+    node has registered, it does not: start() completes with every node
+    registered under the first leader, and the standby still promotes when
+    the GCS host is then lost."""
+    import asyncio
+    import os
+    import shutil
+    import tempfile
+
+    from ray_tpu_torch._private import gcs_ha
+    from ray_tpu_torch._private.sim_cluster import SimCluster
+
+    n = 64  # two waves of _BOOT_CONCURRENCY
+    booted, stalled = [], []
+    add_node, write_leadership = SimCluster._add_node_async, gcs_ha.write_leadership
+
+    async def slow_add_node(self, resources):
+        raylet = await add_node(self, resources)
+        booted.append(raylet.node_id)
+        await asyncio.sleep(0.5)  # the first wave holds the boot slots past a renewal
+        return raylet
+
+    def stalling_write(store, term, addr):
+        write_leadership(store, term, addr)
+        if booted and len(booted) < n and not stalled:
+            stalled.append(len(booted))
+            time.sleep(2.0)  # the whole loop: raylets, leader and standby
+
+    monkeypatch.setattr(SimCluster, "_add_node_async", slow_add_node)
+    monkeypatch.setattr(gcs_ha, "write_leadership", stalling_write)
+    tmp = tempfile.mkdtemp(prefix="ha_stall_")
+    cluster = SimCluster(
+        n,
+        persist_path=os.path.join(tmp, "gcs.wal"),
+        ha=True,
+        env={
+            "RAY_TPU_GCS_LEADER_LEASE_S": "1.0",
+            "RAY_TPU_GCS_STANDBY_POLL_S": "0.05",
+        },
+    )
+    try:
+        cluster.start()
+        first = cluster.gcs_server
+        assert stalled and len(cluster.raylets) == n
+        assert not cluster.gcs_standby.promoted.is_set() and not first.fenced
+        assert cluster.run(cluster.kill_gcs_host_async(), timeout=60)
+        assert cluster.gcs_server is not first and cluster.gcs_standby is not None
+    finally:
+        cluster.shutdown()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 @pytest.mark.timeout(1800)
 def test_sim_1000_node_failover_reconnect_storm():
     """HA failover at the scale bar: 1000 in-process raylets lose the GCS
