@@ -9,8 +9,9 @@ answering GPT-2-small requests under loadgen, Tune trials that are GPU
 trainers, the port as a GPU cluster: cluster_utils, the CLI, a job,
 the state API, the dashboard, client mode and a workflow of GPU steps, and
 its scale-out: the native extensions, an autoscaled GPU node and ray_perf,
-and chaos: the port's lint gate, the chaos suite and a nemesis against GPU
-work.
+chaos: the port's lint gate, the chaos suite and a nemesis against GPU
+work, and the kernels at the head dims of the JAX package's example,
+Phi-3-mini and Gemma-2B.
 
     python3 chip_smoke.py            # needs one CUDA card, nvcc, the checkout
 
@@ -19,15 +20,21 @@ Phases, each printing one JSON line:
      build    each kernel's registers and spills (ptxas -v) and its counts of
               tensor-core instructions (HMMA for mma.sync, HGMMA for wgmma,
               in cuobjdump -sass); every Hopper kernel (*_sm90: the forward
-              and both backward kernels) must have HGMMA, no spill and no
-              wgmma that ptxas serialized;
+              and both backward kernels, at each of the widths 64, 96, 128
+              and 256: 32) must have HGMMA, no spill and no wgmma that
+              ptxas serialized;
   2. kernels  every kernel against its plain version, element by element
               (f32 with TF32 off and bf16; causal and not; head_dim 64 and
               128; T in 1, 100, 192, 1000, 1024; T = 300 on S = 1000 keys
               without the mask (head_dim 64 and 128), T = 1000 on S = 300
-              with it (128); GQA through `mha`), then at the slice's
-              shape (batch 8) and the bench's (batch 32) the kernel's time,
-              the plain version's, F.scaled_dot_product_attention's (a
+              with it (128); head_dim 32, 80, 96, 192 and 256 (32, 80 and
+              192 padded to the next width) at T in 1, 100, 1000 and T =
+              1000 on S = 300 with the mask; GQA through `mha`), then at
+              the slice's shape (batch 8), the bench's (batch 32) and phase
+              17's ([128, 2048, 96], [32, 2048, 256], [64, 256, 32], the
+              last padded: its pad and cut copies' ms), and the f32
+              kernels at [96, 1024, 64] and [32, 2048, 256]: the kernel's
+              time, the plain version's, F.scaled_dot_product_attention's (a
               yardstick only: the port never calls it), the bound, the
               useful TFLOP/s, the share of the bound reached (bound_ms /
               ms) and the host's us per call; and where the forward and
@@ -96,8 +103,8 @@ Phases, each printing one JSON line:
  11. rllib    RLlib on the port, no gymnasium needed: (a) every learner
               (PPO separate and shared, IMPALA, APPO, DQN, CQL, SAC at
               (256, 256), BC, MARWIL) on cuda, TF32 off, against the same
-              learner on the CPU: loss, metrics and gradients, then three
-              update_from_batch steps; (b) PPO learns the numpy CartPole of
+              learner on the CPU in f64: loss, metrics and gradients, then
+              three update_from_batch steps; (b) PPO learns the numpy CartPole of
               ray_tpu_torch.testing at cartpole-ppo.yaml's settings, two CPU
               runner actors of four envs and the learner on cuda, to
               RL_THRESHOLD within RL_MAX_ITERS iterations: env steps/s, the
@@ -173,8 +180,10 @@ Phases, each printing one JSON line:
               ray_tpu_torch._private.ray_perf --json` on the card: every
               key of the reference's main and
               the CUDA keys (NCCL at world 1, the CUDA IPC device edge)
-              above 0; with loadgen's smoke through benchmarks/perf_gate.py
-              against its floors, whose misses are printed as data;
+              above 0 (the store's eviction grace at 1 s, as the spill
+              bench otherwise waits out its 10 s); with loadgen's smoke
+              through benchmarks/perf_gate.py against its floors, whose
+              misses are printed as data;
  16. chaos    (a) `python -m ray_tpu_torch.devtools.lint`, the port's
               static gate over its tree: clean within its 120 s budget,
               each pass's seconds; (b) `python -m ray_tpu_torch.chaos
@@ -191,10 +200,24 @@ Phases, each printing one JSON line:
               bitwise; then every raylet's leases and store settled, no
               acknowledged answer lost, the replacement's GPU available
               1.0, and the seconds from each kill to its answer;
+ 17. head_dims the kernels at other head dims, through the port's entry
+              points: (a) the JAX package's example (EXAMPLE, head dim 32,
+              padded to 64), its loop of 20 AdamW steps on a new batch
+              each, in a one-worker GPU TorchTrainer: its losses bitwise
+              the same run's bare here; (b) Phi-3-mini's widths (head dim
+              96) and (c) Gemma-2B's attention and matrix widths in the JAX
+              package's architecture (head dim 256, one kv head), each cut
+              to WIDE_LAYERS layers at WIDE_BATCH x WIDE_SEQ: bf16 logits and
+              first gradients through the kernels within phases 3 and 4's
+              ratios of f32, then a warm-up and WIDE_STEPS steps (the loss
+              falls), tokens/s and MFU, and two profiled steps (device ms
+              by kernel family, idle share); (d) one served batch at (b)'s
+              widths: device ms, B1 once a layer at head dim 96;
 then the kernels line, with each kernel's launches in phases 3, 4, 6, the
-bench's transformer phase and phases 9-16 (none in 11: RLlib's modules
+bench's transformer phase and phases 9-17 (none in 11: RLlib's modules
 are MLPs; the reference and timing runs this script makes itself in 12,
-13, 14, 15 and 16 are not counted, nor 16's killed attempt). Any failure
+13, 14, 15, 16 and 17 are not counted, nor 16's killed attempt), one entry
+a kernel and width launched (64; 96 and 256 in phase 17). Any failure
 exits non-zero. The last line is the ok line.
 """
 
@@ -324,9 +347,13 @@ NCCL_GROUP, STORE_GROUP, DAG_GROUP = "smoke_nccl", "smoke_store", "smoke_dag"
 # learner on cuda; RL_THRESHOLD within RL_MAX_ITERS iterations. 11a holds
 # every learner (SAC at its default (256, 256)) on cuda, TF32 off, against
 # the same learner on the CPU on one batch of RL_CHECK_ROWS rows (IMPALA and
-# APPO: [RL_FRAGMENT, RL_ENVS] fragments), lr RL_CHECK_LR. Both do f32
-# arithmetic and differ in summation order (cuBLAS against the CPU's
-# GEMMs), ~1e-7 relative per product, so:
+# APPO: [RL_FRAGMENT, RL_ENVS] fragments), lr RL_CHECK_LR. The CPU learner
+# runs in f64 from the same f32 weights and batch: an f32 CPU learner's
+# rounding depends on the host's CPU kernels, and where a gradient leaf is a
+# sum that cancels (PPO's value bias) that alone came to 3.5e-5 relative L2
+# against the card on one host and 6e-7 on another. So the card's f32
+# arithmetic is held to one reference on every host, ~1e-7 relative per
+# product:
 #  - loss and every metric: |cuda - cpu| <= RL_METRIC_TOL * max(1, |cpu|);
 #  - each gradient leaf: relative L2 within RL_GRAD_REL;
 #  - every parameter after each of RL_UPDATES updates: within
@@ -380,7 +407,11 @@ TUNE_LRS, TUNE_GPU, TUNE_BATCH, TUNE_STEPS = (3e-4, 1e-3), 0.5, 4, 5
 CLUSTER_BATCH, CLUSTER_HEAD_CPUS, CLIENT_PINGS, WORKFLOW_STEPS = 8, 4, 20, 3
 # Phase 15: scale-out. 15b's autoscaler waits AUTOSCALE_UPSCALE_S of unmet
 # demand before it launches, and terminates a node idle AUTOSCALE_IDLE_S.
-AUTOSCALE_UPSCALE_S, AUTOSCALE_IDLE_S = 0.5, 5.0
+# 15c runs ray_perf with the object store's eviction grace at
+# PERF_EVICTION_GRACE_S (the runtime's default 10 s): its spill bench's
+# oversubscribed pass otherwise waits out the grace, ~230 s of the smoke's
+# time limit; its rates are data, not gated.
+AUTOSCALE_UPSCALE_S, AUTOSCALE_IDLE_S, PERF_EVICTION_GRACE_S = 0.5, 5.0, 1.0
 # Phase 16: chaos. 16b runs the chaos CLI's smoke suite over CHAOS_SEEDS
 # seeds and its determinism check on CHAOS_DETERMINISM_SCENARIO. 16c's tasks
 # run 14a's forward on NEMESIS_SEEDS with max_retries NEMESIS_RETRIES; the
@@ -389,6 +420,32 @@ AUTOSCALE_UPSCALE_S, AUTOSCALE_IDLE_S = 0.5, 5.0
 CHAOS_SEEDS, CHAOS_DETERMINISM_SCENARIO = 2, "chunk_loss"
 NEMESIS_SEEDS, NEMESIS_RETRIES = (SEED + 16, SEED + 17), 3
 NEMESIS_HOLD_S, NEMESIS_IN_FORWARD_S = 120.0, 1.0
+
+# Phase 2's cases at the head dims past GPT-2 small's 64 and 128: off the
+# kernels' widths (32, 80, 192: padded to 64, 96, 256) and on them (96, 256).
+WIDE_HEAD_DIMS = (32, 80, 96, 192, 256)
+# Phase 17: the head dims the JAX package's architecture takes past GPT-2
+# small's. 17a: the JAX package's own example (examples/train_transformer.py:
+# 22-25, head dim 32), its loop of EXAMPLE_STEPS AdamW(3e-4) steps on a new
+# batch each, in a one-worker GPU TorchTrainer and bare here, bitwise.
+# 17b: Phi-3-mini's widths (its config.json: hidden 3072, 32 heads and kv
+# heads, intermediate 8192, vocab 32064, untied, rope_theta 10000; head dim
+# 96); 17c: Gemma-2B's attention and matrix widths (hidden 2048, 8 heads, 1
+# kv head, intermediate 16384, vocab 256000, tied; head dim 256) in the JAX
+# package's architecture, which has SwiGLU where Gemma has GeGLU and no
+# embedding scale: that configuration of this model, not Gemma. Both cut to
+# WIDE_LAYERS layers (from 32 and 18), at WIDE_BATCH x WIDE_SEQ, held as
+# phases 3 and 4 hold GPT-2 small, then a warm-up and WIDE_STEPS steps on
+# one batch. 17d: one served batch of SERVE_MAX_BATCH prompts at 17b's
+# widths (no remat) under inference_mode.
+EXAMPLE = dict(vocab_size=1024, d_model=256, n_layers=4, n_heads=8, max_seq_len=256,
+               dtype=torch.bfloat16, remat=True)
+EXAMPLE_BATCH, EXAMPLE_STEPS = 8, 20
+PHI3_MINI = dict(vocab_size=32064, d_model=3072, n_heads=32, n_kv_heads=32, d_ff=8192,
+                 tied_embeddings=False, rope_theta=10_000.0)
+GEMMA_2B = dict(vocab_size=256000, d_model=2048, n_heads=8, n_kv_heads=1, d_ff=16384,
+                tied_embeddings=True)
+WIDE_LAYERS, WIDE_BATCH, WIDE_SEQ, WIDE_STEPS = 2, 2, 2048, 5
 
 KERNELS = [  # name, launch-count key, TPU kernel it replaces
     ("flash_fwd", "fwd", "ray_tpu/ops/flash_attention.py:35"),
@@ -486,8 +543,9 @@ _KERNEL_NAME = re.compile(r"((?:fwd|bwd_dq|bwd_dkv)_kernel(?:_tc|_sm90)?)"
                           r"I((?:Li\d+E|Lb[01]E|f|13__nv_bfloat16)+)E")
 # bf16 kernels in the build, all Hopper kernels (wgmma: HGMMA in the SASS):
 # the forward fwd_kernel_sm90 over D x CAUSAL x WRITE_LSE and the backward
-# bwd_dq_kernel_sm90 and bwd_dkv_kernel_sm90, each over D x CAUSAL.
-N_SM90_KERNELS = 8 + 4 + 4
+# bwd_dq_kernel_sm90 and bwd_dkv_kernel_sm90, each over D x CAUSAL, D in
+# the kernels' four widths (64, 96, 128, 256).
+N_SM90_KERNELS = 4 * (4 + 2 + 2)
 _TEMPLATE_ARG = re.compile(r"Li(\d+)E|Lb([01])E|(13__nv_bfloat16|f)")
 _SERIALIZED = re.compile(r"wgmma\.mma_async instructions are serialized due to (.*) "
                          r"(?:in|for) the function '([^']+)'")
@@ -570,12 +628,13 @@ def check_sm90(report: dict) -> None:
 
 # ----------------------------------------------------------------- phase 2
 
-def kernel_cases(fa, dev, gen, gen_more) -> None:
+def kernel_cases(fa, dev, gen, gen_more, gen_widths) -> None:
     """Every kernel against its plain version on the listed cases. Prints
     each case's max abs error and worst error-to-limit ratio (F32_ATOL,
     BF16_RTOL, BF16_ATOL) per kernel. The cases T in 1, 100 and S != T
-    draw from gen_more, the others from gen in the order they always have,
-    so the later phases' inputs do not move when a case is added."""
+    draw from gen_more, those at WIDE_HEAD_DIMS from gen_widths, the others
+    from gen in the order they always have, so the later phases' inputs do
+    not move when a case is added."""
     worst = {key: {"max_abs_err": 0.0, "err_to_limit": 0.0} for _, key, _ in KERNELS}
     cases = 0
     for dtype in (torch.float32, torch.bfloat16):
@@ -585,6 +644,9 @@ def kernel_cases(fa, dev, gen, gen_more) -> None:
                    for causal in (True, False)]
         shapes += [(64, 300, 1000, False, gen_more), (128, 300, 1000, False, gen_more),
                    (128, 1000, 300, True, gen_more)]
+        shapes += [(D, T, T, causal, gen_widths) for D in WIDE_HEAD_DIMS for T in (1, 100, 1000)
+                   for causal in (True, False)]
+        shapes += [(D, 1000, 300, True, gen_widths) for D in WIDE_HEAD_DIMS]
         for D, T, S, causal, g in shapes:
             q, k, v, do = (torch.randn(4, n, D, device=dev, generator=g).to(dtype)
                            for n in (T, S, S, T))
@@ -603,8 +665,8 @@ def kernel_cases(fa, dev, gen, gen_more) -> None:
                 "bwd_dq": [(dq, ref_dq)],
                 "bwd_dkv": [(dk, ref_dk), (dv, ref_dv)],
             })
-            case = dict(dtype=str(dtype).split(".")[-1], D=D, T=T, S=S, causal=causal,
-                        max_abs_err=errs, err_to_limit=ratios)
+            case = dict(dtype=str(dtype).split(".")[-1], D=D, width=fa.kernel_width(D, dev), T=T, S=S,
+                        causal=causal, max_abs_err=errs, err_to_limit=ratios)
             emit({"phase": "kernels", "case": case})
             check_ratios(ratios, case)
             for key in errs:
@@ -670,12 +732,15 @@ def gqa_case(fa, dev, gen, dtype) -> None:
     check_ratios(ratios, {"gqa": case})
 
 
-def kernel_timings(fa, dev, gen, cfg, batch: int = BATCH) -> dict:
-    """Each kernel at the shapes the train step gives it at `batch` (bf16,
-    causal, [B*H, T, D]): its time, its plain version's, the library call's,
-    its bound and the host's us per call (every bf16 kernel encodes its
-    tensor maps at each call). Returns {key: row}."""
-    BH, T, D = batch * cfg.n_heads, SEQ, cfg.head_dim
+def kernel_timings(fa, dev, gen, cfg, batch: int = BATCH, seq: int = SEQ) -> dict:
+    """Each kernel at the shapes the train step of `cfg` gives it at `batch`
+    x `seq` (bf16, causal, [B*H, T, D]): its time, its plain version's, the
+    library call's, its bound and the host's us per call (every bf16 kernel
+    encodes its tensor maps at each call). A head dim off the kernels'
+    widths runs padded (the wrappers' own padding: each call pads its
+    inputs and cuts its outputs), and the line gives those copies' device
+    ms. Returns {key: row}."""
+    BH, T, D = batch * cfg.n_heads, seq, cfg.head_dim
     dt = cfg.dtype
     q, k, v, do = (torch.randn(BH, T, D, device=dev, generator=gen).to(dt) for _ in range(4))
     scale = D ** -0.5
@@ -750,9 +815,16 @@ def kernel_timings(fa, dev, gen, cfg, batch: int = BATCH) -> dict:
             "bound_share": max(t_ops, t_bytes) / ms,
         }
         rows[key]["host_us"] = host_us(kernel_fns[key])
-    emit({"phase": "kernels", "shape": [BH, T, D], "dtype": str(dt).split(".")[-1], "causal": True,
-          "timings": rows, "sdpa_fwd_ms": sdpa_fwd_ms, "sdpa_bwd_ms": sdpa_bwd_ms,
-          "sdpa_fwd_bwd_ms": sdpa_fwd_bwd_ms, "port_fwd_bwd_ms": port_fwd_bwd_ms})
+    width = fa.kernel_width(D, dev)
+    line = {"phase": "kernels", "shape": [BH, T, D], "width": width, "dtype": str(dt).split(".")[-1],
+            "causal": True, "timings": rows, "sdpa_fwd_ms": sdpa_fwd_ms, "sdpa_bwd_ms": sdpa_bwd_ms,
+            "sdpa_fwd_bwd_ms": sdpa_fwd_bwd_ms, "port_fwd_bwd_ms": port_fwd_bwd_ms}
+    if width != D:  # the padded route's copies: q, k, v and do padded, o, dq, dk, dv cut
+        outs = [torch.empty(BH, T, width, dtype=dt, device=dev),
+                *(torch.empty(BH, T, width, device=dev) for _ in range(3))]
+        line["pad_ms"] = time_ms(lambda: fa._pad(width, q, k, v, do))
+        line["cut_ms"] = time_ms(lambda: [fa._cut(x, D) for x in outs])
+    emit(line)
     return rows
 
 
@@ -760,6 +832,14 @@ def kernel_timings(fa, dev, gen, cfg, batch: int = BATCH) -> dict:
 
 def forward_phase(tr, fa, cfg, dev, gen, tokens) -> dict:
     model = tr.transformer_init(cfg, gen, device=dev)
+    return logits_check(tr, fa, cfg, dev, model, tokens, {"phase": "forward"})
+
+
+def logits_check(tr, fa, cfg, dev, model, tokens, line: dict) -> dict:
+    """transformer_apply on `tokens` through the kernels and through the
+    plain attention in bf16, each against the same weights run in f32;
+    emits `line` with the errors and fails past LOGITS_MEAN_RATIO and
+    LOGITS_MAX_RATIO. Returns the kernels' launches."""
     plain = tr.Transformer(dataclasses.replace(cfg, attention_impl="torch"), dev)
     plain.load_state_dict(model.state_dict())
     fa.reset_launches()
@@ -768,19 +848,21 @@ def forward_phase(tr, fa, cfg, dev, gen, tokens) -> dict:
         torch.cuda.synchronize()
         launches = dict(fa.launches)
         ref = tr.transformer_apply(plain, tokens)
+        del plain
         f32 = tr.Transformer(dataclasses.replace(cfg, attention_impl="torch", dtype=torch.float32), dev)
         f32.load_state_dict(model.state_dict())
         truth = tr.transformer_apply(f32, tokens)
+        del f32
     errs = {name: {"max_abs_err": max_err(x, truth),
                    "mean_abs_err": float((x - truth).abs().mean())}
             for name, x in (("kernel_bf16", logits), ("plain_bf16", ref))}
-    line = {"phase": "forward", "shape": list(logits.shape), "vs_f32": errs,
+    line = {**line, "shape": list(logits.shape), "vs_f32": errs,
             "kernel_vs_plain_max_abs_err": max_err(logits, ref),
             "f32_max_abs": float(truth.abs().max()),
             "f32_mean_abs": float(truth.abs().mean()),
             "ratio_bounds": [LOGITS_MEAN_RATIO, LOGITS_MAX_RATIO], "launches": launches}
     emit(line)
-    check(tuple(logits.shape) == (BATCH, SEQ, cfg.vocab_size), "logits have the wrong shape")
+    check(tuple(logits.shape) == (*tokens.shape, cfg.vocab_size), "logits have the wrong shape")
     check(bool(torch.isfinite(logits).all()), "logits are not finite")
     k, p = errs["kernel_bf16"], errs["plain_bf16"]
     check(k["mean_abs_err"] <= LOGITS_MEAN_RATIO * p["mean_abs_err"]
@@ -798,9 +880,10 @@ def first_grads(tr, model, batch) -> tuple:
     return float(loss.detach()), grads
 
 
-def grads_check(tr, cfg, dev, model, batch) -> None:
+def grads_check(tr, cfg, dev, model, batch, line=None) -> None:
     """The first step's loss and every parameter's gradient through the
-    kernels, against the plain path in bf16 and in f32 on the same weights."""
+    kernels, against the plain path in bf16 and in f32 on the same weights;
+    emitted as phase 4's line unless `line` is given."""
     loss, grads = first_grads(tr, model, batch)
     ref = {}
     for name, c in (("plain_bf16", dataclasses.replace(cfg, attention_impl="torch")),
@@ -817,7 +900,7 @@ def grads_check(tr, cfg, dev, model, batch) -> None:
 
     ratios = {n: rel(grads, n) / max(rel(ref["plain_bf16"][1], n), 1e-12) for n in truth}
     worst = sorted(ratios, key=ratios.get)[-3:]
-    emit({"phase": "train", "first_step": {
+    emit({**(line or {"phase": "train"}), "first_step": {
         "loss": loss, "loss_plain_bf16": ref["plain_bf16"][0], "loss_plain_f32": ref["plain_f32"][0],
         "loss_bound": LOSS_BOUND, "grad_ratio_bound": GRAD_RATIO,
         "worst_grad_ratio": {n: ratios[n] for n in worst},
@@ -2114,13 +2197,17 @@ def rl_inputs(name, learner, batch, noise):
 
 def rl_learner_parity() -> dict:
     """11a: every learner on cuda (TF32 off) against the same learner on the
-    CPU, same seed, weights and batch: loss, metrics and gradients of one
-    backward, then RL_UPDATES update_from_batch steps (metrics and every
+    CPU in f64, same seed, weights and batch: loss, metrics and gradients of
+    one backward, then RL_UPDATES update_from_batch steps (metrics and every
     parameter after each). Returns {case: errors}."""
     import numpy as np
 
     from ray_tpu_torch.rllib.core.rl_module import RLModuleSpec, tree_of
     from ray_tpu_torch.testing import rl_learner_cases
+
+    def f64(arrays):
+        return {k: v.astype(np.float64) if v.dtype.kind == "f" else v
+                for k, v in ((k, np.asarray(v)) for k, v in arrays.items())}
 
     out = {}
     cases = rl_learner_cases(seed=SEED, n=RL_CHECK_ROWS, T=RL_FRAGMENT, envs=RL_ENVS,
@@ -2129,24 +2216,29 @@ def rl_learner_parity() -> dict:
         cls = getattr(importlib.import_module(f"ray_tpu_torch.rllib.algorithms.{case['module']}"),
                       case["cls"])
         args = (case["cfg"],) if case["cfg"] is not None else ()
-        pair = [cls(RLModuleSpec(**case["spec"]), *args, lr=RL_CHECK_LR, seed=SEED, device=d)
-                for d in ("cuda", "cpu")]
+        # The spec's dtype casts the module's f32 draws, so both start equal.
+        pair = [cls(RLModuleSpec(**case["spec"], dtype=dtype), *args, lr=RL_CHECK_LR, seed=SEED,
+                    device=d) for d, dtype in (("cuda", torch.float32), ("cpu", torch.float64))]
         gpu, cpu = pair
         check(all(p.is_cuda for p in gpu.module.parameters()), f"{name}'s learner is not on cuda")
+        check(all(p.dtype == torch.float64 for p in cpu.module.parameters()),
+              f"{name}'s CPU learner is not in f64")
         start = rl_tree_err(gpu.get_weights(), cpu.get_weights())
         rng = np.random.RandomState(SEED)
         n, act_dim = len(case["batch"]["obs"]), case["spec"].get("act_dim", 0)
         noise = [rng.randn(n, max(act_dim, 1)).astype(np.float32) for _ in range(2)]
+        batches = [case["batch"], f64(case["batch"])]
+        noises = [noise, [x.astype(np.float64) for x in noise]]
         t0 = time.perf_counter()
-        metrics = [learner._to_host(learner._backward(rl_inputs(name, learner, case["batch"], noise)))
-                   for learner in pair]
+        metrics = [learner._to_host(learner._backward(rl_inputs(name, learner, b, z)))
+                   for learner, b, z in zip(pair, batches, noises)]
         grads = rl_tree_err(*(tree_of(l.module, lambda p: p.grad) for l in pair))
         row = {"init_max_abs": start[0], "metric_err": rl_metric_err(*metrics),
                "loss": [metrics[0]["total_loss"], metrics[1]["total_loss"]],
                "grad_max_abs": grads[0], "grad_rel_l2": grads[1], "update_metric_err": [],
                "update_max_abs": []}
         for _ in range(RL_UPDATES):
-            m = [learner.update_from_batch(case["batch"]) for learner in pair]
+            m = [learner.update_from_batch(b) for learner, b in zip(pair, batches)]
             row["update_metric_err"].append(rl_metric_err(*m))
             row["update_max_abs"].append(rl_tree_err(gpu.get_weights(), cpu.get_weights())[0])
         row["seconds"] = time.perf_counter() - t0
@@ -3650,7 +3742,9 @@ def perf_run(work: str) -> dict:
     perf_json, serve_json = os.path.join(work, "perf.json"), os.path.join(work, "serve.json")
     t0 = time.perf_counter()
     perf = subprocess.run([sys.executable, "-m", "ray_tpu_torch._private.ray_perf", "--json",
-                           perf_json], cwd=ROOT, capture_output=True, text=True, timeout=900)
+                           perf_json], cwd=ROOT, capture_output=True, text=True, timeout=900,
+                          env={**os.environ, "RAY_TPU_OBJECT_STORE_EVICTION_GRACE_S":
+                               str(PERF_EVICTION_GRACE_S)})
     perf_s = time.perf_counter() - t0
     check(perf.returncode == 0 and os.path.exists(perf_json),
           f"ray_perf exited {perf.returncode}: {perf.stdout[-2000:]} {perf.stderr[-3000:]}")
@@ -3953,6 +4047,181 @@ def chaos_phase() -> dict:
     return nemesis["launches"]
 
 
+# ---------------------------------------------------------------- phase 17
+
+def example_steps(dev) -> dict:
+    """17a's run on `dev`: examples/train_transformer.py's loop, ported:
+    EXAMPLE's weights and then a new batch of EXAMPLE_BATCH sequences each
+    step, all drawn from one generator (SEED + 31), EXAMPLE_STEPS AdamW(3e-4)
+    steps. Returns the losses, the mean step ms and the flash launches, by
+    kernel and by the width each ran at."""
+    from ray_tpu_torch.models import transformer as tr
+
+    fa = importlib.import_module("ray_tpu_torch.ops.flash_attention")
+    cfg = tr.TransformerConfig(**EXAMPLE)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 31)
+    init_state, step = tr.make_train_step(cfg, dev)
+    state = init_state(gen)
+    fa.reset_launches()
+    losses = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(EXAMPLE_STEPS):
+        raw = torch.randint(0, cfg.vocab_size, (EXAMPLE_BATCH, cfg.max_seq_len + 1), device=dev,
+                            generator=gen)
+        state, m = step(state, {"tokens": raw[:, :-1].contiguous(), "targets": raw[:, 1:].contiguous()})
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    return {"losses": [float(x) for x in losses],
+            "step_ms": (time.perf_counter() - t0) / EXAMPLE_STEPS * 1e3,
+            "launches": dict(fa.launches), "launches_by_width": dict(fa.launches_by_width)}
+
+
+def example_loop(config) -> None:
+    """17a's train loop in a runtime worker: example_steps on get_device()."""
+    from ray_tpu_torch import train
+    from ray_tpu_torch.train.torch import get_device
+
+    dev = get_device()
+    run = example_steps(dev)
+    train.report({"summary": {**run, "device": str(dev), "forbidden_modules": forbidden_modules()}})
+
+
+def example_run(dev) -> dict:
+    """17a: the JAX package's example through a one-worker GPU TorchTrainer,
+    its losses bitwise those of the same run bare here."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.air import RunConfig, ScalingConfig
+    from ray_tpu_torch.train.torch import TorchTrainer
+
+    bare = example_steps(dev)
+    storage = os.path.join(ROOT, "build", "chip_smoke_example")
+    shutil.rmtree(storage, ignore_errors=True)
+    t0 = time.time()
+    rt.init(num_cpus=2)
+    try:
+        result = TorchTrainer(
+            example_loop, train_loop_config={},
+            scaling_config=ScalingConfig(num_workers=1, use_gpu=True),
+            run_config=RunConfig(name="example", storage_path=storage)).fit()
+    finally:
+        rt.shutdown()
+        shutil.rmtree(storage, ignore_errors=True)
+    worker = result.metrics_history[-1]["summary"]
+    line = {"config": {k: str(v) for k, v in EXAMPLE.items()},
+            "head_dim": EXAMPLE["d_model"] // EXAMPLE["n_heads"], "batch": EXAMPLE_BATCH, "steps": EXAMPLE_STEPS, "bare": bare,
+            "worker": worker, "fit_s": time.time() - t0,
+            "loss_bitwise_equal_to_bare": worker["losses"] == bare["losses"],
+            # a new batch of uniform tokens each step: the loss only nears ln(vocab)
+            "mean_loss_first_last_5": [sum(bare["losses"][:5]) / 5, sum(bare["losses"][-5:]) / 5]}
+    emit({"phase": "head_dims", "part": "17a", **line})
+    check(worker["device"].startswith("cuda") and not worker["forbidden_modules"],
+          f"17a's worker ran on {worker['device']} with {worker['forbidden_modules']}")
+    check(all(math.isfinite(x) for x in bare["losses"]), "17a: a loss is not finite")
+    check(line["loss_bitwise_equal_to_bare"], f"17a: the worker's losses are not the bare run's: "
+                                              f"{worker['losses']} against {bare['losses']}")
+    check(worker["launches"] == bare["launches"] and worker["launches"]["bwd_dkv"] > 0,
+          f"17a: launches {worker['launches']} against the bare run's {bare['launches']}")
+    return worker["launches_by_width"]
+
+
+def wide_model_run(tr, fa, part: str, widths: dict, dev, gen) -> dict:
+    """17b or 17c: a model of `widths` (cut to WIDE_LAYERS layers) at
+    WIDE_BATCH x WIDE_SEQ: the bf16 logits and the first step's gradients
+    through the kernels and through the plain attention, each against the
+    same weights in f32 (phases 3 and 4's bounds); then a warm-up and
+    WIDE_STEPS make_train_step steps on one batch, tokens/s and MFU, and
+    two more profiled (profile_phase). Returns the flash launches of all
+    but the profiled steps (the logits' B1 too) by width."""
+    from ray_tpu_torch.device import peak_bf16_flops
+
+    cfg = tr.TransformerConfig(**widths, n_layers=WIDE_LAYERS, max_seq_len=WIDE_SEQ,
+                               dtype=torch.bfloat16, remat=True)
+    raw = torch.randint(0, cfg.vocab_size, (WIDE_BATCH, WIDE_SEQ + 1), device=dev, generator=gen)
+    batch = {"tokens": raw[:, :-1].contiguous(), "targets": raw[:, 1:].contiguous()}
+    model = tr.transformer_init(cfg, gen, device=dev)
+    head = {"phase": "head_dims", "part": part, "head_dim": cfg.head_dim,
+            "reduced": {"n_layers": WIDE_LAYERS, "seq": WIDE_SEQ, "batch": WIDE_BATCH}}
+    logits_check(tr, fa, cfg, dev, model, batch["tokens"], {**head, "check": "logits"})
+    grads_check(tr, cfg, dev, model, batch, {**head, "check": "grads"})
+    init_state, step = tr.make_train_step(cfg, dev)
+    state = init_state(model=model)
+    torch.cuda.reset_peak_memory_stats()
+    before = dict(fa.launches_by_width)  # the logits' and the first gradients' (logits_check reset them)
+    state, m = step(state, batch)  # warm-up
+    losses = [m["loss"]]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(WIDE_STEPS):
+        state, m = step(state, batch)
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / WIDE_STEPS * 1e3
+    losses = [float(x) for x in losses]
+    launches = dict(fa.launches_by_width)
+    per_step = {k: (n - before.get(k, 0)) / (WIDE_STEPS + 1) for k, n in launches.items()}
+    tokens_per_s = WIDE_BATCH * WIDE_SEQ / step_ms * 1e3
+    peak = peak_bf16_flops(torch.cuda.get_device_name(0))
+    line = {**head, "params": sum(p.numel() for p in state["model"].parameters()),
+            "losses": losses, "step_ms": step_ms, "tokens_per_s": tokens_per_s,
+            "useful_mfu": tr.flops_per_token(cfg, WIDE_SEQ) * tokens_per_s / peak,
+            "hardware_mfu": tr.hardware_flops_per_token(cfg, WIDE_SEQ) * tokens_per_s / peak,
+            "peak_flops": peak, "max_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "launches_per_step": per_step, "launches": launches}
+    emit(line)
+    profile_phase(lambda: step(state, batch), step_ms, phase=f"head_dims_{part}_profile")
+    del state, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    check(all(math.isfinite(x) for x in losses), f"{part}: a loss is not finite")
+    check(losses[-1] < losses[0], f"{part}: the loss did not fall: {losses}")
+    check(line["hardware_mfu"] < 1.0, f"{part}: hardware-MFU is not below 1")
+    check(launches.get(f"bwd_dkv@{fa.kernel_width(cfg.head_dim, dev)}", 0) > 0,
+          f"{part}: the kernels at head dim {cfg.head_dim} were not launched: {launches}")
+    return launches
+
+
+def served_wide_batch(tr, fa, dev) -> dict:
+    """17d: one served batch (SERVE_MAX_BATCH prompts of SERVE_PROMPT_LENS
+    tokens, right-padded, inference_mode) at 17b's widths: its device ms
+    and the B1 launches it makes. Returns the launches by width."""
+    cfg = tr.TransformerConfig(**PHI3_MINI, n_layers=WIDE_LAYERS, max_seq_len=WIDE_SEQ,
+                               dtype=torch.bfloat16)
+    model = tr.transformer_init(cfg, torch.Generator(device=dev).manual_seed(SEED + 33), device=dev)
+    prompts = serve_prompts(SERVE_MAX_BATCH, SEED + 33, cfg.vocab_size)
+    times = batch_times(tr, model, prompts, dev)
+    fa.reset_launches()
+    logp, _ = serve_batch(tr, model, prompts, dev)
+    launches = dict(fa.launches_by_width)
+    emit({"phase": "head_dims", "part": "17d", "head_dim": cfg.head_dim, **times,
+          "launches": dict(fa.launches), "launches_by_width": launches})
+    del model
+    check(logp.shape == (len(prompts), cfg.vocab_size) and bool(torch.isfinite(torch.from_numpy(logp)).all()),
+          "17d: the served log-probs are not finite")
+    check(fa.launches["fwd"] == cfg.n_layers and launches.get(f"fwd@{cfg.head_dim}") == cfg.n_layers,
+          f"17d: B1 at head dim {cfg.head_dim} was not launched once a layer: {launches}")
+    return launches
+
+
+def head_dims_phase(tr, fa, dev) -> dict:
+    """Phase 17: the kernels at the JAX package's example's, Phi-3-mini's and
+    Gemma-2B's head dims (32, 96, 256). Returns the flash launches of
+    17a's worker, 17b-17c's steps and 17d's batch, by width."""
+    t0 = time.perf_counter()
+    parts = {"17a": example_run(dev)}
+    gen = torch.Generator(device=dev).manual_seed(SEED + 32)
+    parts["17b"] = wide_model_run(tr, fa, "17b", PHI3_MINI, dev, gen)
+    parts["17c"] = wide_model_run(tr, fa, "17c", GEMMA_2B, dev, gen)
+    parts["17d"] = served_wide_batch(tr, fa, dev)
+    launches = {}
+    for counts in parts.values():
+        for key, n in counts.items():
+            launches[key] = launches.get(key, 0) + n
+    emit({"phase": "head_dims", "launches_by_width": launches, "nvidia_smi": card()["nvidia_smi"],
+          "seconds": time.perf_counter() - t0})
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3983,11 +4252,22 @@ def main() -> int:
           "kernels": build_report(_build)})
 
     cfg = tr.TransformerConfig(**GPT2_SMALL)
-    # Phase 2's cases beyond its first ones draw from their own generator.
+    # Phase 2's cases beyond its first ones draw from their own generators.
     gen_more = torch.Generator(device=dev).manual_seed(SEED + 2)
-    kernel_cases(fa, dev, gen, gen_more)
-    rows = kernel_timings(fa, dev, gen, cfg)
+    gen_widths = torch.Generator(device=dev).manual_seed(SEED + 30)
+    kernel_cases(fa, dev, gen, gen_more, gen_widths)
+    rows = {64: kernel_timings(fa, dev, gen, cfg)}
     kernel_timings(fa, dev, gen_more, cfg, batch=4 * BATCH)  # the bench's batch: emitted, not in the line
+    # Phase 17's shapes at batch 4 (the example's at its batch 8), bf16.
+    for widths, batch, seq in ((PHI3_MINI, 4, WIDE_SEQ), (GEMMA_2B, 4, WIDE_SEQ),
+                               (EXAMPLE, EXAMPLE_BATCH, EXAMPLE["max_seq_len"])):
+        wide = tr.TransformerConfig(**{**widths, "dtype": torch.bfloat16})
+        rows[wide.head_dim] = kernel_timings(fa, dev, gen_widths, wide, batch=batch, seq=seq)
+    # The f32 kernels (the CUDA cores'; TF32 off for SDPA too) at GPT-2
+    # small's shape and 17c's: emitted, not in the line (the main path is bf16).
+    for widths, batch in ((GPT2_SMALL, BATCH), (GEMMA_2B, 4)):
+        f32 = tr.TransformerConfig(**{**widths, "dtype": torch.float32})
+        kernel_timings(fa, dev, gen_widths, f32, batch=batch, seq=SEQ if widths is GPT2_SMALL else WIDE_SEQ)
     # Where B1, B3 and B4 spend a streamed tile, in SM cycles (the stamped build).
     emit({"phase": "kernels", "timeline_cycles": kernel_ab.timeline(dev)})
 
@@ -4021,15 +4301,26 @@ def main() -> int:
     cluster_launches = cluster_phase(dev)
     scale_out_launches = scale_out_phase()
     chaos_launches = chaos_phase()
+    gc.collect()
+    torch.cuda.empty_cache()
+    wide_launches = head_dims_phase(tr, fa, dev)
 
+    # One entry a kernel and width the main path launched: phases 3-16 run
+    # GPT-2 small's 64 only; phase 17 runs 64 (17a, padded from 32), 96 and
+    # 256. Each width's numbers are phase 2's at its shape (64: GPT-2 small
+    # at batch 8; 96 and 256: 17b's and 17c's at batch 4).
     kernels = []
     for name, key, replaces in KERNELS:
         n = (fwd_launches[key] + train_launches[key] + trainer_launches[key] + bench_launches[key]
              + mesh_launches[key] + collective_launches[key] + rllib_launches[key]
              + serve_launches[key] + tune_launches[key] + cluster_launches[key]
              + scale_out_launches[key] + chaos_launches[key])
-        kernels.append({"name": name, "route": "cuda", "source": SOURCE, "replaces": replaces,
-                        "launches": n, **rows[key]})
+        for width in (64, 96, 256):
+            launched = wide_launches.get(f"{key}@{width}", 0) + (n if width == 64 else 0)
+            kernels.append({"name": name if width == 64 else f"{name}_d{width}", "route": "cuda",
+                            "source": SOURCE, "replaces": replaces, "head_dim": width,
+                            "launches": launched, **rows[width][key]})
+            check(launched > 0, f"{name} at head dim {width} was not launched on the main path")
         check(n > 0, f"{name} was not launched on the main path")
     emit({"phase": "total", "seconds": time.perf_counter() - started})
     print(info["nvidia_smi"], flush=True)

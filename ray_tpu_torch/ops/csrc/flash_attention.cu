@@ -9,8 +9,10 @@
 //   bwd_dkv_kernel_sm90                     bwd_dkv_kernel                   <- _attn_bwd_dkv_kernel  (B4)
 //
 // Layout [BH, T, D] for q/do/o and [BH, S, D] for k/v, row-major and
-// contiguous; lse and delta are [BH, T] f32; dq, dk and dv are f32. D is 64
-// or 128. All sums are f32.
+// contiguous; lse and delta are [BH, T] f32; dq, dk and dv are f32. D is 64,
+// 96, 128 or 256; the wrappers (flash_attention.py) run any other head dim
+// up to 256, as the TPU kernels take any, at the next of these, zero-padded.
+// All sums are f32.
 //
 // What bounds them on the card. The least time for the work is set by the
 // bytes at the train step's shape (causal, T = 1024, D = 64: ~256 flops per
@@ -145,9 +147,35 @@
 // TF32 or through a three-way bf16 split, and the f32 path exists for the
 // tests.
 //
+// The Hopper kernels at D = 256 (Gemma-2B's head dim) and 96 (Phi-3-mini's).
+// A consumer thread has 240 registers and a block 227 KB of shared memory;
+// at 256 an output's f32 sums for 64 rows take 128 of those registers, and
+// Q for 128 rows 64 KB. So:
+//   * forward: 32-key K/V tiles in a ring of four stages (S and P 32
+//     registers; Q plus the ring 192 KB); P.V is two m64n128 products a
+//     16-key group, into the two halves of the sums (wgmma_rs_at).
+//   * bwd_dq: Q and dO of the item 128 KB, so 32-key K/V tiles in three
+//     stages (224 KB); dQ as the forward's sums. Still pipelined (tile kt's
+//     S and dP with tile kt-1's dQ product): 0.2288 ms at [32, 2048, 256]
+//     against 0.2351 with each tile's products in turn, on an H100.
+//   * bwd_dkv: dK and dV would take 256 registers: the consumers make them
+//     in two passes over the item's q tiles, 128 columns each, recomputing
+//     S^T and dP^T (their exp and split: 4/3 the tensor work of one pass,
+//     twice the CUDA-core work); K and V stay loaded for both passes.
+//   * the wgmma descriptors of a tile are its first plus constant offsets,
+//     made at each use: descriptors of a resident operand held across the
+//     tile loop took registers that D = 256 does not have (ptxas spilled).
+// D = 96 is 192 bytes a row, which no swizzle spans: its tiles are three
+// 32-column boxes with the 64-byte swizzle (Lay), the descriptors take that
+// swizzle, and P.V is one m64n96 product. Its forward takes D = 64's
+// 128-key tiles, and bwd_dkv pipelines 32-row q tiles (dK and dV take 96
+// registers, not 128).
+//
 // The first kernels (f32 only) do their arithmetic on the f32 CUDA cores
 // (67 TFLOP/s, not the tensor cores' 989), and that is what bounds them: a
-// forward at the train shape is 13 GFLOP, at least 0.19 ms there.
+// forward at the train shape is 13 GFLOP, at least 0.19 ms there. They take
+// any D that is a multiple of 16; at D = 256 the backward kernels stream
+// 32-row tiles (BC), as 64 would need more than a block's shared memory.
 // What their design does about it:
 //   * The TPU kernels carry the online-softmax state (m, l, acc) in VMEM
 //     scratch from one sequential grid step to the next. Blocks on Hopper
@@ -184,11 +212,11 @@ __device__ __forceinline__ float to_f32(float x) { return x; }
 template <typename T> __device__ __forceinline__ T from_f32(float x);
 template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
 
-// Stage rows [row0, row0 + 64) of an [n, D] matrix into a [64][D + 1] f32
-// tile. Rows at or past n are written as 0 and never read from memory.
-template <typename T, int D>
+// Stage rows [row0, row0 + ROWS) of an [n, D] matrix into a [ROWS][D + 1]
+// f32 tile. Rows at or past n are written as 0 and never read from memory.
+template <typename T, int D, int ROWS = 64>
 __device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src, int row0, int n) {
-  for (int e = threadIdx.x; e < 64 * D; e += NT) {
+  for (int e = threadIdx.x; e < ROWS * D; e += NT) {
     const int r = e / D, c = e % D;
     const int g = row0 + r;
     dst[r * (D + 1) + c] = g < n ? to_f32(src[static_cast<size_t>(g) * D + c]) : 0.f;
@@ -324,20 +352,21 @@ __global__ void __launch_bounds__(NT) fwd_kernel(
 
 // ------------------------------------------------------------ backward dq
 // Replaces _attn_bwd_dq_kernel (tile math of _bwd_tile). One block per
-// (q tile, bh); loops over k tiles. Per tile it re-derives
+// (q tile, bh); loops over k tiles of BC keys (64; 32 at D = 256, where 64
+// would take more than a block's shared memory). Per tile it re-derives
 // p = exp(s - lse) and ds = p * (do.v^T - delta) * scale, then dq += ds.k.
-template <typename T, int D, bool CAUSAL>
+template <typename T, int D, int BC, bool CAUSAL>
 __global__ void __launch_bounds__(NT) bwd_dq_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const T* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
     float* __restrict__ dq, int seq_q, int seq_k, float scale) {
-  constexpr int LD = D + 1, LP = BK + 1, DC = D / 16;
+  constexpr int LD = D + 1, LP = BC + 1, DC = D / 16, JN = BC / 16;
   extern __shared__ float smem[];
   float* qs = smem;             // [BQ][LD]
   float* dos = qs + BQ * LD;    // [BQ][LD]
-  float* ks = dos + BQ * LD;    // [BK][LD]
-  float* vs = ks + BK * LD;     // [BK][LD]
-  float* dss = vs + BK * LD;    // [BQ][LP]
+  float* ks = dos + BQ * LD;    // [BC][LD]
+  float* vs = ks + BC * LD;     // [BC][LD]
+  float* dss = vs + BC * LD;    // [BQ][LP]
 
   const int bh = blockIdx.y, q0 = blockIdx.x * BQ;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
@@ -362,38 +391,38 @@ __global__ void __launch_bounds__(NT) bwd_dq_kernel(
     for (int c = 0; c < DC; ++c) acc[i][c] = 0.f;
   }
 
-  int nk = (seq_k + BK - 1) / BK;
-  if (CAUSAL) nk = min(nk, (q0 + BQ - 1) / BK + 1);
+  int nk = (seq_k + BC - 1) / BC;
+  if (CAUSAL) nk = min(nk, (q0 + BQ - 1) / BC + 1);
 
   for (int kt = 0; kt < nk; ++kt) {
-    const int k0 = kt * BK;
+    const int k0 = kt * BC;
     __syncthreads();
-    load_tile<T, D>(ks, k, k0, seq_k);
-    load_tile<T, D>(vs, v, k0, seq_k);
+    load_tile<T, D, BC>(ks, k, k0, seq_k);
+    load_tile<T, D, BC>(vs, v, k0, seq_k);
     __syncthreads();
 
-    float s[4][4], dp[4][4];
+    float s[4][JN], dp[4][JN];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+      for (int j = 0; j < JN; ++j) s[i][j] = dp[i][j] = 0.f;
 #pragma unroll 4
     for (int d = 0; d < D; ++d) {
-      float a[4], g[4], b[4], w[4];
+      float a[4], g[4], b[JN], w[JN];
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         a[i] = qs[(ty * 4 + i) * LD + d];
         g[i] = dos[(ty * 4 + i) * LD + d];
       }
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < JN; ++j) {
         b[j] = ks[(tx + 16 * j) * LD + d];
         w[j] = vs[(tx + 16 * j) * LD + d];
       }
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
+        for (int j = 0; j < JN; ++j) {
           s[i][j] = fmaf(a[i], b[j], s[i][j]);
           dp[i][j] = fmaf(g[i], w[j], dp[i][j]);
         }
@@ -403,7 +432,7 @@ __global__ void __launch_bounds__(NT) bwd_dq_kernel(
     for (int i = 0; i < 4; ++i) {
       const int qp = q0 + ty * 4 + i;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < JN; ++j) {
         const int kp = k0 + tx + 16 * j;
         const bool ok = kp < seq_k && qp < seq_q && (!CAUSAL || qp >= kp);
         const float p = ok ? expf(s[i][j] * scale - lr[i]) : 0.f;
@@ -413,7 +442,7 @@ __global__ void __launch_bounds__(NT) bwd_dq_kernel(
     __syncthreads();
 
 #pragma unroll 4
-    for (int c = 0; c < BK; ++c) {
+    for (int c = 0; c < BC; ++c) {
       float ds[4];
 #pragma unroll
       for (int i = 0; i < 4; ++i) ds[i] = dss[(ty * 4 + i) * LP + c];
@@ -437,24 +466,25 @@ __global__ void __launch_bounds__(NT) bwd_dq_kernel(
 
 // ----------------------------------------------------------- backward dkv
 // Replaces _attn_bwd_dkv_kernel. One block per (k tile, bh); loops over the
-// q tiles that can see it, so dk and dv need no atomics. The
-// score tile is computed transposed (k rows x q columns) so that each
-// thread's rows are the k rows whose dk and dv it accumulates.
-template <typename T, int D, bool CAUSAL>
+// q tiles (of BC rows: 64; 32 at D = 256, as in bwd_dq) that can see it, so
+// dk and dv need no atomics. The score tile is computed transposed (k rows
+// x q columns) so that each thread's rows are the k rows whose dk and dv it
+// accumulates.
+template <typename T, int D, int BC, bool CAUSAL>
 __global__ void __launch_bounds__(NT) bwd_dkv_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const T* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
     float* __restrict__ dk, float* __restrict__ dv, int seq_q, int seq_k, float scale) {
-  constexpr int LD = D + 1, LP = BQ + 1, DC = D / 16;
+  constexpr int LD = D + 1, LP = BC + 1, DC = D / 16, JN = BC / 16;
   extern __shared__ float smem[];
   float* ks = smem;             // [BK][LD]
   float* vs = ks + BK * LD;     // [BK][LD]
-  float* qs = vs + BK * LD;     // [BQ][LD]
-  float* dos = qs + BQ * LD;    // [BQ][LD]
-  float* ps = dos + BQ * LD;    // [BK][LP]  p transposed
+  float* qs = vs + BK * LD;     // [BC][LD]
+  float* dos = qs + BC * LD;    // [BC][LD]
+  float* ps = dos + BC * LD;    // [BK][LP]  p transposed
   float* dss = ps + BK * LP;    // [BK][LP]  ds transposed
-  float* ls = dss + BK * LP;    // [BQ] lse of the q tile
-  float* dls = ls + BQ;         // [BQ] delta of the q tile
+  float* ls = dss + BK * LP;    // [BC] lse of the q tile
+  float* dls = ls + BC;         // [BC] delta of the q tile
 
   const int bh = blockIdx.y, k0 = blockIdx.x * BK;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
@@ -476,44 +506,44 @@ __global__ void __launch_bounds__(NT) bwd_dkv_kernel(
 #pragma unroll
     for (int c = 0; c < DC; ++c) dka[i][c] = dva[i][c] = 0.f;
 
-  const int nq = (seq_q + BQ - 1) / BQ;
+  const int nq = (seq_q + BC - 1) / BC;
   // The reference's skip: q tile qi sees k tile ki iff qi*bq + bq - 1 >= ki*bk.
-  const int qt0 = CAUSAL ? k0 / BQ : 0;
+  const int qt0 = CAUSAL ? k0 / BC : 0;
 
   for (int qt = qt0; qt < nq; ++qt) {
-    const int q0 = qt * BQ;
+    const int q0 = qt * BC;
     __syncthreads();
-    load_tile<T, D>(qs, q, q0, seq_q);
-    load_tile<T, D>(dos, dout, q0, seq_q);
-    if (threadIdx.x < BQ) {
+    load_tile<T, D, BC>(qs, q, q0, seq_q);
+    load_tile<T, D, BC>(dos, dout, q0, seq_q);
+    if (threadIdx.x < BC) {
       const int qp = q0 + threadIdx.x;
       ls[threadIdx.x] = qp < seq_q ? lse[qp] : 0.f;
       dls[threadIdx.x] = qp < seq_q ? delta[qp] : 0.f;
     }
     __syncthreads();
 
-    float s[4][4], dp[4][4];
+    float s[4][JN], dp[4][JN];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+      for (int j = 0; j < JN; ++j) s[i][j] = dp[i][j] = 0.f;
 #pragma unroll 4
     for (int d = 0; d < D; ++d) {
-      float a[4], w[4], b[4], g[4];
+      float a[4], w[4], b[JN], g[JN];
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         a[i] = ks[(ty * 4 + i) * LD + d];
         w[i] = vs[(ty * 4 + i) * LD + d];
       }
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < JN; ++j) {
         b[j] = qs[(tx + 16 * j) * LD + d];
         g[j] = dos[(tx + 16 * j) * LD + d];
       }
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
+        for (int j = 0; j < JN; ++j) {
           s[i][j] = fmaf(a[i], b[j], s[i][j]);
           dp[i][j] = fmaf(w[i], g[j], dp[i][j]);
         }
@@ -523,7 +553,7 @@ __global__ void __launch_bounds__(NT) bwd_dkv_kernel(
     for (int i = 0; i < 4; ++i) {
       const int kp = k0 + ty * 4 + i;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < JN; ++j) {
         const int r = tx + 16 * j, qp = q0 + r;
         const bool ok = kp < seq_k && qp < seq_q && (!CAUSAL || qp >= kp);
         const float p = ok ? expf(s[i][j] * scale - ls[r]) : 0.f;
@@ -534,7 +564,7 @@ __global__ void __launch_bounds__(NT) bwd_dkv_kernel(
     __syncthreads();
 
 #pragma unroll 4
-    for (int c = 0; c < BQ; ++c) {
+    for (int c = 0; c < BC; ++c) {
       float p[4], ds[4];
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
@@ -633,19 +663,40 @@ constexpr int FWD_THREADS = 384;  // warpgroups 0 and 1 consume, warpgroup 2 loa
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 
-// Tile sizes and shared memory of one block, in bytes. Every tile is a stack
-// of 64-column boxes as TMA writes them with the 128-byte swizzle:
-// [D / 64][rows][64]. At D = 128 a tile of 64 keys keeps S, P (hi and lo)
-// and the output sums within the consumers' 240 registers.
+// How a bf16 tile of D columns lies in shared memory: a stack of boxes of BW
+// columns as TMA writes them, [D / BW][rows][BW], each box row swizzled over
+// its RB bytes. D a multiple of 64: 64-column boxes, 128-byte rows and the
+// 128-byte swizzle. D = 96 (192 bytes a row, no swizzle's width): three
+// 32-column boxes, 64-byte rows and the 64-byte swizzle. ATOM is the
+// swizzle's period, 8 rows; a row holds KPB of wgmma's 16-column k steps.
+template <int D>
+struct Lay {
+  static_assert(D % 64 == 0 || D == 96, "the Hopper kernels take D = 64, 96, 128 or 256");
+  static constexpr int BW = D % 64 == 0 ? 64 : 32;
+  static constexpr int RB = 2 * BW;
+  static constexpr int ATOM = 8 * RB;
+  static constexpr int KPB = BW / 16;
+  static constexpr uint64_t DESC_SWIZZLE = BW == 64 ? 1 : 2;  // wgmma descriptor: 128B, 64B
+};
+
+// Tile sizes and shared memory of one block, in bytes. At D = 128 a tile
+// of 64 keys keeps S, P (hi and lo) and the output sums within the
+// consumers' 240 registers; at D = 96, 128 keys do (0.3153 ms against
+// 0.3261 for 64 at [128, 2048, 96] on an H100; Q plus the ring 216 KB). At
+// D = 256 the output sums alone take 128 of them and Q 64 KB of shared
+// memory: 32-key tiles in a ring of four stages (192 KB in all); 64-key
+// tiles in two stages spilled and took 0.2221 ms against 0.2064 at
+// [32, 2048, 256].
 template <int D>
 struct FwdCfg {
-  static constexpr int BN = D == 64 ? 128 : 64;  // keys per K/V tile (the N of S = Q.K^T)
-  static constexpr int STAGES = 4;               // K/V ring depth
+  static constexpr int BN = D <= 96 ? 128 : D == 256 ? 32 : 64;  // keys per K/V tile (the N of S = Q.K^T)
+  static constexpr int STAGES = 4;                               // K/V ring depth
   static constexpr int Q_BYTES = FWD_BQ * D * 2;
   static constexpr int KV_BYTES = BN * D * 2;  // one K or one V tile
   static constexpr int BAR_BYTES = 8 * (2 + 2 * STAGES);
   // + 1024: the dynamic base is aligned up to the swizzle's 1024-byte period.
   static constexpr int BYTES = Q_BYTES + 2 * STAGES * KV_BYTES + BAR_BYTES + 1024;
+  static_assert(BYTES <= 232448, "a block has 227 KB of shared memory");
 };
 
 // The dynamic shared base aligned up to the 128-byte swizzle's 1024-byte
@@ -686,7 +737,7 @@ __device__ __forceinline__ void bar_arrive_if(int id, bool pred) {
                ::"r"(id), "r"(static_cast<int>(pred)) : "memory");
 }
 
-// One box [64 columns, `rows` rows, 1 head] of a 3-D [heads, rows, D] map at
+// One box [BW columns, `rows` rows, 1 head] of a 3-D [heads, rows, D] map at
 // (column c0, row, head) into shared memory; completion counts on `bar`.
 __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint32_t bar, int c0,
                                             int row, int head) {
@@ -696,19 +747,22 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(row), "r"(head)
       : "memory");
 }
-// Rows [row, row + ROWS) of head `head`, all D columns, one box per 64.
+// Rows [row, row + ROWS) of head `head`, all D columns, one box per BW.
 template <int ROWS, int D>
 __device__ __forceinline__ void load_rows(bf16* dst, const CUtensorMap* map, uint32_t bar, int head,
                                           int row) {
+  constexpr int BW = Lay<D>::BW;
 #pragma unroll
-  for (int c = 0; c < D / 64; ++c) tma_load_3d(dst + c * ROWS * 64, map, bar, c * 64, row, head);
+  for (int c = 0; c < D / BW; ++c) tma_load_3d(dst + c * ROWS * BW, map, bar, c * BW, row, head);
 }
 
-// A wgmma shared-memory descriptor of a 128B-swizzled operand: start address,
-// leading and stride byte offsets (in 16-byte units), layout 1 = 128B swizzle.
+// A wgmma shared-memory descriptor of an operand laid out as Lay<D>: start
+// address, leading and stride byte offsets (in 16-byte units), and the
+// swizzle (1 = 128B, 2 = 64B).
+template <int D>
 __device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | static_cast<uint64_t>(lbo >> 4) << 16 |
-         static_cast<uint64_t>(sbo >> 4) << 32 | 1ull << 62;
+         static_cast<uint64_t>(sbo >> 4) << 32 | Lay<D>::DESC_SWIZZLE << 62;
 }
 
 __device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
@@ -818,6 +872,47 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
         "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "n"(1));
+}
+__device__ __forceinline__ void wgmma_rs(float (&d)[48], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47 "
+      "}, {%48, %49, %50, %51}, %52, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "n"(1));
+}
+// m64n128k16 RS into d[OFF, OFF + 64): 128 columns of a wider accumulator,
+// laid out as wgmma lays out its first 128 (D = 256: OFF 0 and 64).
+template <int OFF, int M>
+__device__ __forceinline__ void wgmma_rs_at(float (&d)[M], const uint32_t (&a)[4], uint64_t b) {
+  static_assert(OFF + 64 <= M, "the product's sums lie in d");
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63 "
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[OFF + 0]), "+f"(d[OFF + 1]), "+f"(d[OFF + 2]), "+f"(d[OFF + 3]), "+f"(d[OFF + 4]), "+f"(d[OFF + 5]), "+f"(d[OFF + 6]), "+f"(d[OFF + 7]),
+        "+f"(d[OFF + 8]), "+f"(d[OFF + 9]), "+f"(d[OFF + 10]), "+f"(d[OFF + 11]), "+f"(d[OFF + 12]), "+f"(d[OFF + 13]), "+f"(d[OFF + 14]), "+f"(d[OFF + 15]),
+        "+f"(d[OFF + 16]), "+f"(d[OFF + 17]), "+f"(d[OFF + 18]), "+f"(d[OFF + 19]), "+f"(d[OFF + 20]), "+f"(d[OFF + 21]), "+f"(d[OFF + 22]), "+f"(d[OFF + 23]),
+        "+f"(d[OFF + 24]), "+f"(d[OFF + 25]), "+f"(d[OFF + 26]), "+f"(d[OFF + 27]), "+f"(d[OFF + 28]), "+f"(d[OFF + 29]), "+f"(d[OFF + 30]), "+f"(d[OFF + 31]),
+        "+f"(d[OFF + 32]), "+f"(d[OFF + 33]), "+f"(d[OFF + 34]), "+f"(d[OFF + 35]), "+f"(d[OFF + 36]), "+f"(d[OFF + 37]), "+f"(d[OFF + 38]), "+f"(d[OFF + 39]),
+        "+f"(d[OFF + 40]), "+f"(d[OFF + 41]), "+f"(d[OFF + 42]), "+f"(d[OFF + 43]), "+f"(d[OFF + 44]), "+f"(d[OFF + 45]), "+f"(d[OFF + 46]), "+f"(d[OFF + 47]),
+        "+f"(d[OFF + 48]), "+f"(d[OFF + 49]), "+f"(d[OFF + 50]), "+f"(d[OFF + 51]), "+f"(d[OFF + 52]), "+f"(d[OFF + 53]), "+f"(d[OFF + 54]), "+f"(d[OFF + 55]),
+        "+f"(d[OFF + 56]), "+f"(d[OFF + 57]), "+f"(d[OFF + 58]), "+f"(d[OFF + 59]), "+f"(d[OFF + 60]), "+f"(d[OFF + 61]), "+f"(d[OFF + 62]), "+f"(d[OFF + 63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "n"(1));
 }
 
@@ -951,16 +1046,25 @@ __device__ __forceinline__ void split_p(const float (&s)[N], uint32_t (&hi)[N / 
         split_bf16x2(s[8 * c + 2 * r], s[8 * c + 2 * r + 1], hi[c][r], lo[c][r]);
 }
 
-// S = Q.K^T of one tile: Q (this warpgroup's 64 rows at q_addr) and K (the
-// stage's 2N rows at k_addr), both K-major, 16 columns of D per wgmma.
-// Within a 128-byte swizzled row, the k-th 16 columns start 32k bytes in.
-// FRESH: the first product takes s as write-only (wgmma_ss_fresh).
+// S = Q.K^T of one tile: Q (this warpgroup's 64 rows at q_addr, in boxes of
+// FWD_BQ rows) and K (the stage's 2N rows at k_addr), both K-major, 16
+// columns of D per wgmma. Within a swizzled box row, the k-th 16 columns
+// start 32k bytes in. FRESH: the first product takes s as write-only
+// (wgmma_ss_fresh).
 template <int D, bool FRESH = false, int N>
 __device__ __forceinline__ void issue_s(float (&s)[N], uint32_t q_addr, uint32_t k_addr) {
+  using L = Lay<D>;
+  // Each k step's descriptor is the tile's first plus its offset (16-byte
+  // units, within the address field), made at each call: descriptors of a
+  // resident operand (Q) held across the loop take registers the D = 256
+  // kernels do not have.
+  asm volatile("" : "+r"(q_addr), "+r"(k_addr));
+  const uint64_t a0 = smem_desc<D>(q_addr, 16, L::ATOM), b0 = smem_desc<D>(k_addr, 16, L::ATOM);
 #pragma unroll
   for (int kc = 0; kc < D / 16; ++kc) {
-    const uint64_t a = smem_desc(q_addr + kc / 4 * FWD_BQ * 128 + kc % 4 * 32, 16, 1024);
-    const uint64_t b = smem_desc(k_addr + kc / 4 * 2 * N * 128 + kc % 4 * 32, 16, 1024);
+    const int box = kc / L::KPB, at = kc % L::KPB * 32;
+    const uint64_t a = a0 + ((box * FWD_BQ * L::RB + at) >> 4);
+    const uint64_t b = b0 + ((box * 2 * N * L::RB + at) >> 4);
     if (kc > 0)
       wgmma_ss<1>(s, a, b);
     else if (FRESH)
@@ -971,16 +1075,29 @@ __device__ __forceinline__ void issue_s(float (&s)[N], uint32_t q_addr, uint32_t
 }
 
 // acc += P_hi.V + P_lo.V of one tile, 16 keys per wgmma pair. V is the
-// MN-major B operand: 8 keys of 128 bytes a 1024-byte swizzle atom (SBO),
-// its 64-column boxes 16 NC * 128 bytes apart (LBO), NC groups of 16 keys.
+// MN-major B operand: 8 keys a swizzle atom (SBO), its boxes of BW columns
+// 16 NC rows apart (LBO), NC groups of 16 keys. At D = 256 each pair is two
+// products of 128 columns (boxes 0-1 into acc[0, 64), 2-3 into acc[64, 128)).
 template <int D, int NC>
 __device__ __forceinline__ void issue_pv(float (&acc)[D / 2], const uint32_t (&p_hi)[NC][4],
                                          const uint32_t (&p_lo)[NC][4], uint32_t v_addr) {
+  using L = Lay<D>;
+  constexpr int BOX = 16 * NC * L::RB;
+  asm volatile("" : "+r"(v_addr));  // as in issue_s
+  const uint64_t b0 = smem_desc<D>(v_addr, BOX, L::ATOM);
 #pragma unroll
   for (int c = 0; c < NC; ++c) {
-    const uint64_t b = smem_desc(v_addr + c * 16 * 128, 16 * NC * 128, 1024);
-    wgmma_rs(acc, p_hi[c], b);
-    wgmma_rs(acc, p_lo[c], b);
+    const uint64_t b = b0 + ((c * 16 * L::RB) >> 4);
+    if constexpr (D == 256) {
+      const uint64_t b1 = b + ((2 * BOX) >> 4);
+      wgmma_rs_at<0>(acc, p_hi[c], b);
+      wgmma_rs_at<0>(acc, p_lo[c], b);
+      wgmma_rs_at<64>(acc, p_hi[c], b1);
+      wgmma_rs_at<64>(acc, p_lo[c], b1);
+    } else {
+      wgmma_rs(acc, p_hi[c], b);
+      wgmma_rs(acc, p_lo[c], b);
+    }
   }
 }
 
@@ -1084,7 +1201,7 @@ __global__ void __launch_bounds__(FWD_THREADS, 1) fwd_kernel_sm90(
     asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
     const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32, tg = lane % 4;
     const float sl2 = scale * LOG2E;
-    const uint32_t q_addr = smem_u32(qs) + wg * 64 * 128;
+    const uint32_t q_addr = smem_u32(qs) + wg * 64 * Lay<D>::RB;
     float s[BN / 2], acc[D / 2], alpha[2];
     uint32_t p_hi[BN / 16][4], p_lo[BN / 16][4];
 
@@ -1198,17 +1315,26 @@ template <int D>
 struct DkvCfg {
   // q rows per tile (the N of S^T = K.Q^T). At D = 128, dK and dV take 128
   // of a consumer thread's 240 registers, and a 64-row tile's S^T, dP^T and
-  // their split operands (64 more) left ptxas spilling.
+  // their split operands (64 more) left ptxas spilling; D = 96 takes 128's
+  // 32-row tiles.
   static constexpr int BQ = D == 64 ? 64 : 32;
-  static constexpr int STAGES = 4;
+  // At D = 256, dK and dV would take 256 registers a thread: the consumers
+  // make them in two passes over the item's q tiles, 128 columns each
+  // (DA), and recompute S^T and dP^T in the second (K, V 128 KB for the
+  // item, Q and dO tiles 32 KB a stage).
+  static constexpr int PASSES = D == 256 ? 2 : 1;
+  static constexpr int DA = D / PASSES;
+  static constexpr int STAGES = D == 256 ? 3 : 4;
   // Tile t's S^T and dP^T beside tile t-1's split operands, which dK and dV
-  // at D = 128 leave no room for.
-  static constexpr bool PIPE = D == 64;
+  // at D = 128 and up leave no room for (at 96 0.5116 ms against 0.6261 in
+  // turn at [128, 2048, 96] on an H100).
+  static constexpr bool PIPE = D <= 96;
   static constexpr int KV_BYTES = FWD_BQ * D * 2;  // an item's K or V
   static constexpr int QT_BYTES = BQ * D * 2;      // one Q or dO tile
   static constexpr int STAT_BYTES = 2 * BQ * 4;    // one tile's lse and delta
   static constexpr int BAR_BYTES = 8 * (2 + 2 * STAGES);
   static constexpr int BYTES = 2 * KV_BYTES + STAGES * (2 * QT_BYTES + STAT_BYTES) + BAR_BYTES + 1024;
+  static_assert(BYTES <= 232448, "a block has 227 KB of shared memory");
 };
 
 // bwd_dq: 128 q rows an item, Q and dO loaded once an item; K and V stream
@@ -1216,13 +1342,15 @@ struct DkvCfg {
 template <int D>
 struct DqCfg {
   // Keys per K/V tile: S and dP of tile kt beside tile kt-1's split dS, in
-  // the consumers' registers.
-  static constexpr int BN = 64;
-  static constexpr int STAGES = 4;
+  // the consumers' registers. At D = 256 an item's Q and dO take 128 KB:
+  // 32-key tiles, three stages (224 KB in all).
+  static constexpr int BN = D == 256 ? 32 : 64;
+  static constexpr int STAGES = D == 256 ? 3 : 4;
   static constexpr int Q_BYTES = FWD_BQ * D * 2;  // an item's Q or dO
   static constexpr int KV_BYTES = BN * D * 2;     // one K or V tile
   static constexpr int BAR_BYTES = 8 * (2 + 2 * STAGES);
   static constexpr int BYTES = 2 * Q_BYTES + 2 * STAGES * KV_BYTES + BAR_BYTES + 1024;
+  static_assert(BYTES <= 232448, "a block has 227 KB of shared memory");
 };
 
 // P^T = exp(S^T * scale - lse) and dS^T / scale = P^T (dP^T - delta) of one
@@ -1269,17 +1397,19 @@ __device__ __forceinline__ void dq_grads(const float (&s)[N], float (&dp)[N], co
   }
 }
 
-// This thread's rows r0 and r0 + 8 of a 64-row f32 accumulator (D / 8
-// column groups of 8, as wgmma lays them out) into rows of `out`, up to n.
-template <int D>
-__device__ __forceinline__ void store_rows(float* out, const float (&acc)[D / 2], int r0, int tg, int n) {
+// This thread's rows r0 and r0 + 8 of a 64-row f32 accumulator of DA
+// columns (DA / 8 column groups of 8, as wgmma lays them out) into rows of
+// `out`, ld floats apart, up to n.
+template <int DA>
+__device__ __forceinline__ void store_rows(float* out, const float (&acc)[DA / 2], int r0, int tg, int n,
+                                           int ld) {
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = r0 + 8 * r;
     if (row >= n) continue;
 #pragma unroll
-    for (int c = 0; c < D / 8; ++c)
-      *reinterpret_cast<float2*>(out + static_cast<size_t>(row) * D + c * 8 + 2 * tg) =
+    for (int c = 0; c < DA / 8; ++c)
+      *reinterpret_cast<float2*>(out + static_cast<size_t>(row) * ld + c * 8 + 2 * tg) =
           make_float2(acc[4 * c + 2 * r], acc[4 * c + 2 * r + 1]);
   }
 }
@@ -1299,7 +1429,7 @@ __global__ void __launch_bounds__(FWD_THREADS, 1) bwd_dkv_kernel_sm90(
     const float* __restrict__ lse, const float* __restrict__ delta, float* __restrict__ dk,
     float* __restrict__ dv, int bh, int seq_q, int seq_k, float scale) {
   using Cfg = DkvCfg<D>;
-  constexpr int BQ = Cfg::BQ, STAGES = Cfg::STAGES;
+  constexpr int BQ = Cfg::BQ, STAGES = Cfg::STAGES, DA = Cfg::DA;
   extern __shared__ unsigned char dkv_smem[];
   bf16* ks = swizzle_base(dkv_smem);  // [D / 64][128][64]
   bf16* vs = ks + FWD_BQ * D;         // [D / 64][128][64]
@@ -1340,35 +1470,36 @@ __global__ void __launch_bounds__(FWD_THREADS, 1) bwd_dkv_kernel_sm90(
           }
           const float* lse_h = lse + static_cast<size_t>(head) * seq_q;
           const float* delta_h = delta + static_cast<size_t>(head) * seq_q;
-          for (int qt = CAUSAL ? k0 / BQ : 0; qt < n_qt; ++qt, ++it) {
-            const int st = it % STAGES;
-            const uint32_t full = full_bar + 8 * st;
-            mbar_wait(empty_bar + 8 * st, (it / STAGES & 1) ^ 1);  // passes at once on the first lap
-            if (lane == 0) {
-              mbar_expect_tx(full, 2 * Cfg::QT_BYTES);  // rows past T are zero-filled and counted
-              load_rows<BQ, D>(qs + st * BQ * D, &q_map, full, head, qt * BQ);
-              load_rows<BQ, D>(dos + st * BQ * D, &do_map, full, head, qt * BQ);
-            }
-            // lse and delta rows are 4 * T bytes apart, no multiple of 16 for
-            // every T, so they come by cp.async, zero-filled past T.
-            float* stat = stats + st * 2 * BQ;
+          for (int pass = 0; pass < Cfg::PASSES; ++pass)
+            for (int qt = CAUSAL ? k0 / BQ : 0; qt < n_qt; ++qt, ++it) {
+              const int st = it % STAGES;
+              const uint32_t full = full_bar + 8 * st;
+              mbar_wait(empty_bar + 8 * st, (it / STAGES & 1) ^ 1);  // passes at once on the first lap
+              if (lane == 0) {
+                mbar_expect_tx(full, 2 * Cfg::QT_BYTES);  // rows past T are zero-filled and counted
+                load_rows<BQ, D>(qs + st * BQ * D, &q_map, full, head, qt * BQ);
+                load_rows<BQ, D>(dos + st * BQ * D, &do_map, full, head, qt * BQ);
+              }
+              // lse and delta rows are 4 * T bytes apart, no multiple of 16 for
+              // every T, so they come by cp.async, zero-filled past T.
+              float* stat = stats + st * 2 * BQ;
 #pragma unroll
-            for (int c = 0; c < BQ / 32; ++c) {
-              const int i = lane + 32 * c, qp = qt * BQ + i;
-              const bool in = qp < seq_q;
-              cp_async_4(stat + i, lse_h + (in ? qp : 0), in);
-              cp_async_4(stat + BQ + i, delta_h + (in ? qp : 0), in);
+              for (int c = 0; c < BQ / 32; ++c) {
+                const int i = lane + 32 * c, qp = qt * BQ + i;
+                const bool in = qp < seq_q;
+                cp_async_4(stat + i, lse_h + (in ? qp : 0), in);
+                cp_async_4(stat + BQ + i, delta_h + (in ? qp : 0), in);
+              }
+              cp_async_arrive(full);
             }
-            cp_async_arrive(full);
-          }
         }
     }
   } else {  // consumer warpgroup wg: k rows [k0 + 64 wg, k0 + 64 wg + 64) of each item
     asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
     const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32, tg = lane % 4;
     const float sl2 = scale * LOG2E;
-    const uint32_t k_addr = smem_u32(ks) + wg * 64 * 128, v_addr = smem_u32(vs) + wg * 64 * 128;
-    float s[BQ / 2], dp[BQ / 2], dka[D / 2], dva[D / 2];
+    const uint32_t k_addr = smem_u32(ks) + wg * 64 * Lay<D>::RB, v_addr = smem_u32(vs) + wg * 64 * Lay<D>::RB;
+    float s[BQ / 2], dp[BQ / 2], dka[DA / 2], dva[DA / 2];
     uint32_t p_hi[BQ / 16][4], p_lo[BQ / 16][4], ds_hi[BQ / 16][4], ds_lo[BQ / 16][4];
     auto q_addr = [&](int st) { return smem_u32(qs + st * BQ * D); };
     auto do_addr = [&](int st) { return smem_u32(dos + st * BQ * D); };
@@ -1383,10 +1514,12 @@ __global__ void __launch_bounds__(FWD_THREADS, 1) bwd_dkv_kernel_sm90(
       issue_s<D, true>(s, k_addr, q_addr(st));
       issue_s<D, true>(dp, v_addr, do_addr(st));
     };
-    // dV += P^T.dO and dK += dS^T.Q of the tile in stage st, issued.
-    auto issue_dkv = [&](int st) {
-      issue_pv<D>(dva, p_hi, p_lo, do_addr(st));
-      issue_pv<D>(dka, ds_hi, ds_lo, q_addr(st));
+    // dV += P^T.dO and dK += dS^T.Q of the tile in stage st, issued: the
+    // DA columns of pass `pass` (dO's and Q's boxes from its first).
+    auto issue_dkv = [&](int st, int pass) {
+      const uint32_t at = pass * (DA / Lay<D>::BW) * BQ * Lay<D>::RB;
+      issue_pv<DA>(dva, p_hi, p_lo, do_addr(st) + at);
+      issue_pv<DA>(dka, ds_hi, ds_lo, q_addr(st) + at);
     };
     // P^T and dS^T of the tile at q0 (stage st) in place of S^T and dP^T.
     // Only a tile that crosses the diagonal or the end of T or S has masked
@@ -1409,123 +1542,126 @@ __global__ void __launch_bounds__(FWD_THREADS, 1) bwd_dkv_kernel_sm90(
         const int row0 = k0 + wg * 64;
         const int r0 = row0 + warp * 16 + lane / 4;  // this thread's k rows: r0 and r0 + 8
         const int qt0 = CAUSAL ? k0 / BQ : 0, n_t = max(n_qt - qt0, 0);
-#pragma unroll
-        for (int i = 0; i < D / 2; ++i) dka[i] = dva[i] = 0.f;
         mbar_wait(kv_full, n & 1);
         // With CAUSAL, the item's first q tiles up to row0 lie wholly above
         // this warpgroup's rows (warpgroup 1's first 64 q rows): it waits for
         // each and frees its stage, and adds nothing.
         const int t0 = min(CAUSAL ? wg * 64 / BQ : 0, n_t);
-        for (int t = 0; t < t0; ++t) {
-          const int st = (it + t) % STAGES;
-          mbar_wait(full_bar + 8 * st, (it + t) / STAGES & 1);
-          mbar_arrive_if(empty_bar + 8 * st, tid == 0);
-        }
-        if constexpr (Cfg::PIPE) {
-          if (t0 < n_t) {
-            // Tile t's S^T and dP^T are issued with tile t-1's dK and dV
-            // products, so tile t's P^T and dS^T are made while the tensor
-            // cores run tile t-1's.
-            int st = (it + t0) % STAGES;
-            mbar_wait(full_bar + 8 * st, (it + t0) / STAGES & 1);
-            wgmma_fence();
-            issue_sdp(st);
-            wgmma_commit();
-            keep(s);
-            keep(dp);
-            wgmma_wait<0>();
-            keep(s);
-            keep(dp);
-            mbar_arrive_if(kv_empty, tid == 0 && t0 + 1 == n_t);  // the last S^T: K and V may go
-            grads(st, (qt0 + t0) * BQ, row0, r0);
-            split();
-            for (int t = t0 + 1; t < n_t; ++t) {
-              const int prev = st;
-              st = (it + t) % STAGES;
-              mbar_wait(full_bar + 8 * st, (it + t) / STAGES & 1);
-              STAMP(2, it + t, 0);
+        const size_t at = static_cast<size_t>(head) * seq_k * D;
+        for (int pass = 0; pass < Cfg::PASSES; ++pass) {
+          const bool last = pass + 1 == Cfg::PASSES;  // K and V may go after its last S^T
+#pragma unroll
+          for (int i = 0; i < DA / 2; ++i) dka[i] = dva[i] = 0.f;
+          for (int t = 0; t < t0; ++t) {
+            const int st = (it + t) % STAGES;
+            mbar_wait(full_bar + 8 * st, (it + t) / STAGES & 1);
+            mbar_arrive_if(empty_bar + 8 * st, tid == 0);
+          }
+          if constexpr (Cfg::PIPE) {
+            if (t0 < n_t) {
+              // Tile t's S^T and dP^T are issued with tile t-1's dK and dV
+              // products, so tile t's P^T and dS^T are made while the tensor
+              // cores run tile t-1's.
+              int st = (it + t0) % STAGES;
+              mbar_wait(full_bar + 8 * st, (it + t0) / STAGES & 1);
+              wgmma_fence();
+              issue_sdp(st);
+              wgmma_commit();
+              keep(s);
+              keep(dp);
+              wgmma_wait<0>();
+              keep(s);
+              keep(dp);
+              mbar_arrive_if(kv_empty, tid == 0 && last && t0 + 1 == n_t);  // the last S^T: K and V may go
+              grads(st, (qt0 + t0) * BQ, row0, r0);
+              split();
+              for (int t = t0 + 1; t < n_t; ++t) {
+                const int prev = st;
+                st = (it + t) % STAGES;
+                mbar_wait(full_bar + 8 * st, (it + t) / STAGES & 1);
+                STAMP(2, it + t, 0);
+                keep(dka);
+                keep(dva);
+                keep_split();
+                wgmma_fence();
+                issue_sdp(st);
+                wgmma_commit();
+                issue_dkv(prev, pass);
+                wgmma_commit();
+                keep(s);
+                keep(dp);
+                keep(dka);
+                keep(dva);
+                STAMP(2, it + t, 1);
+                wgmma_wait<1>();  // S^T and dP^T of tile t are in
+                keep(s);
+                keep(dp);
+                STAMP(2, it + t, 2);
+                mbar_arrive_if(kv_empty, tid == 0 && last && t + 1 == n_t);
+                grads(st, (qt0 + t) * BQ, row0, r0);
+                STAMP(2, it + t, 3);
+                wgmma_wait<0>();  // tile t-1's products are in: its stage and its split are free
+                keep(dka);
+                keep(dva);
+                keep_split();
+                STAMP(2, it + t, 4);
+                mbar_arrive_if(empty_bar + 8 * prev, tid == 0);
+                split();
+                STAMP(2, it + t, 5);
+              }
               keep(dka);
               keep(dva);
               keep_split();
               wgmma_fence();
-              issue_sdp(st);
+              issue_dkv(st, pass);
               wgmma_commit();
-              issue_dkv(prev);
-              wgmma_commit();
-              keep(s);
-              keep(dp);
               keep(dka);
               keep(dva);
-              STAMP(2, it + t, 1);
-              wgmma_wait<1>();  // S^T and dP^T of tile t are in
-              keep(s);
-              keep(dp);
-              STAMP(2, it + t, 2);
-              mbar_arrive_if(kv_empty, tid == 0 && t + 1 == n_t);
-              grads(st, (qt0 + t) * BQ, row0, r0);
-              STAMP(2, it + t, 3);
-              wgmma_wait<0>();  // tile t-1's products are in: its stage and its split are free
+              wgmma_wait<0>();
               keep(dka);
               keep(dva);
               keep_split();
-              STAMP(2, it + t, 4);
-              mbar_arrive_if(empty_bar + 8 * prev, tid == 0);
-              split();
-              STAMP(2, it + t, 5);
+              mbar_arrive_if(empty_bar + 8 * st, tid == 0);
             }
-            keep(dka);
-            keep(dva);
-            keep_split();
-            wgmma_fence();
-            issue_dkv(st);
-            wgmma_commit();
-            keep(dka);
-            keep(dva);
-            wgmma_wait<0>();
-            keep(dka);
-            keep(dva);
-            keep_split();
-            mbar_arrive_if(empty_bar + 8 * st, tid == 0);
+          } else {
+            // Without the registers to hold two tiles' operands (D = 128 and
+            // up): each tile's products in turn.
+            for (int t = t0; t < n_t; ++t) {
+              const int st = (it + t) % STAGES;
+              mbar_wait(full_bar + 8 * st, (it + t) / STAGES & 1);
+              wgmma_fence();
+              issue_sdp(st);
+              wgmma_commit();
+              keep(s);
+              keep(dp);
+              wgmma_wait<0>();
+              keep(s);
+              keep(dp);
+              mbar_arrive_if(kv_empty, tid == 0 && last && t + 1 == n_t);
+              grads(st, (qt0 + t) * BQ, row0, r0);
+              split();
+              keep(dka);
+              keep(dva);
+              keep_split();
+              wgmma_fence();
+              issue_dkv(st, pass);
+              wgmma_commit();
+              keep(dka);
+              keep(dva);
+              wgmma_wait<0>();
+              keep(dka);
+              keep(dva);
+              keep_split();
+              mbar_arrive_if(empty_bar + 8 * st, tid == 0);
+            }
           }
-        } else {
-          // Without the registers to hold two tiles' operands (D = 128): each
-          // tile's products in turn.
-          for (int t = t0; t < n_t; ++t) {
-            const int st = (it + t) % STAGES;
-            mbar_wait(full_bar + 8 * st, (it + t) / STAGES & 1);
-            wgmma_fence();
-            issue_sdp(st);
-            wgmma_commit();
-            keep(s);
-            keep(dp);
-            wgmma_wait<0>();
-            keep(s);
-            keep(dp);
-            mbar_arrive_if(kv_empty, tid == 0 && t + 1 == n_t);
-            grads(st, (qt0 + t) * BQ, row0, r0);
-            split();
-            keep(dka);
-            keep(dva);
-            keep_split();
-            wgmma_fence();
-            issue_dkv(st);
-            wgmma_commit();
-            keep(dka);
-            keep(dva);
-            wgmma_wait<0>();
-            keep(dka);
-            keep(dva);
-            keep_split();
-            mbar_arrive_if(empty_bar + 8 * st, tid == 0);
-          }
-        }
-        it += n_t;
-        mbar_arrive_if(kv_empty, tid == 0 && t0 >= n_t);  // no q tile of the item sees these rows
-        const size_t at = static_cast<size_t>(head) * seq_k * D;
+          it += n_t;
 #pragma unroll
-        for (int i = 0; i < D / 2; ++i) dka[i] *= scale;
-        store_rows<D>(dk + at, dka, r0, tg, seq_k);
-        store_rows<D>(dv + at, dva, r0, tg, seq_k);
+          for (int i = 0; i < DA / 2; ++i) dka[i] *= scale;
+          store_rows<DA>(dk + at + pass * DA, dka, r0, tg, seq_k, D);
+          store_rows<DA>(dv + at + pass * DA, dva, r0, tg, seq_k, D);
+        }
+        mbar_arrive_if(kv_empty, tid == 0 && t0 >= n_t);  // no q tile of the item sees these rows
       }
   }
 }
@@ -1592,7 +1728,7 @@ __global__ void __launch_bounds__(FWD_THREADS, 1) bwd_dq_kernel_sm90(
     asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
     const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32, tg = lane % 4;
     const float sl2 = scale * LOG2E;
-    const uint32_t q_addr = smem_u32(qs) + wg * 64 * 128, do_addr = smem_u32(dos) + wg * 64 * 128;
+    const uint32_t q_addr = smem_u32(qs) + wg * 64 * Lay<D>::RB, do_addr = smem_u32(dos) + wg * 64 * Lay<D>::RB;
     float s[BN / 2], dp[BN / 2], dqa[D / 2];
     uint32_t ds_hi[BN / 16][4], ds_lo[BN / 16][4];
     auto k_addr = [&](int st) { return smem_u32(ks + st * BN * D); };
@@ -1696,7 +1832,7 @@ __global__ void __launch_bounds__(FWD_THREADS, 1) bwd_dq_kernel_sm90(
         mbar_arrive_if(empty_bar + 8 * st, tid == 0);
 #pragma unroll
         for (int i = 0; i < D / 2; ++i) dqa[i] *= scale;
-        store_rows<D>(dq + static_cast<size_t>(head) * seq_q * D, dqa, r0, tg, seq_q);
+        store_rows<D>(dq + static_cast<size_t>(head) * seq_q * D, dqa, r0, tg, seq_q, D);
       }
   }
 }
@@ -1728,7 +1864,8 @@ cudaError_t launch(dim3 grid, size_t smem, cudaStream_t stream, Args... args) {
 template <typename T, int D>
 cudaError_t fwd(const void* q, const void* k, const void* v, void* o, float* lse, int bh,
                 int seq_q, int seq_k, float scale, bool causal, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (BQ * (D + 1) + 2 * BK * (D + 1) + BQ * (BK + 1));
+  constexpr size_t smem = sizeof(float) * (BQ * (D + 1) + 2 * BK * (D + 1) + BQ * (BK + 1));
+  static_assert(smem <= 232448, "a block has 227 KB of shared memory");
   const dim3 grid((seq_q + BQ - 1) / BQ, bh);
   const T* qt = static_cast<const T*>(q);
   const T* kt = static_cast<const T*>(k);
@@ -1746,37 +1883,45 @@ cudaError_t fwd(const void* q, const void* k, const void* v, void* o, float* lse
                                                       seq_q, seq_k, scale);
 }
 
+// The f32 backward kernels' streamed tile: 64 rows, 32 at D = 256.
+template <int D>
+constexpr int f32_bc() { return D > 128 ? 32 : 64; }
+
 template <typename T, int D>
 cudaError_t bwd_dq(const void* q, const void* k, const void* v, const void* dout,
                    const float* lse, const float* delta, float* dq, int bh, int seq_q, int seq_k,
                    float scale, bool causal, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (2 * BQ * (D + 1) + 2 * BK * (D + 1) + BQ * (BK + 1));
+  constexpr int BC = f32_bc<D>();
+  constexpr size_t smem = sizeof(float) * (2 * BQ * (D + 1) + 2 * BC * (D + 1) + BQ * (BC + 1));
+  static_assert(smem <= 232448, "a block has 227 KB of shared memory");
   const dim3 grid((seq_q + BQ - 1) / BQ, bh);
   const T* qt = static_cast<const T*>(q);
   const T* kt = static_cast<const T*>(k);
   const T* vt = static_cast<const T*>(v);
   const T* dot = static_cast<const T*>(dout);
-  return causal ? launch<bwd_dq_kernel<T, D, true>>(grid, smem, stream, qt, kt, vt, dot, lse,
-                                                    delta, dq, seq_q, seq_k, scale)
-                : launch<bwd_dq_kernel<T, D, false>>(grid, smem, stream, qt, kt, vt, dot, lse,
-                                                     delta, dq, seq_q, seq_k, scale);
+  return causal ? launch<bwd_dq_kernel<T, D, BC, true>>(grid, smem, stream, qt, kt, vt, dot, lse,
+                                                        delta, dq, seq_q, seq_k, scale)
+                : launch<bwd_dq_kernel<T, D, BC, false>>(grid, smem, stream, qt, kt, vt, dot, lse,
+                                                         delta, dq, seq_q, seq_k, scale);
 }
 
 template <typename T, int D>
 cudaError_t bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
                     const float* lse, const float* delta, float* dk, float* dv, int bh,
                     int seq_q, int seq_k, float scale, bool causal, cudaStream_t stream) {
-  const size_t smem =
-      sizeof(float) * (2 * BK * (D + 1) + 2 * BQ * (D + 1) + 2 * BK * (BQ + 1) + 2 * BQ);
+  constexpr int BC = f32_bc<D>();
+  constexpr size_t smem =
+      sizeof(float) * (2 * BK * (D + 1) + 2 * BC * (D + 1) + 2 * BK * (BC + 1) + 2 * BC);
+  static_assert(smem <= 232448, "a block has 227 KB of shared memory");
   const dim3 grid((seq_k + BK - 1) / BK, bh);
   const T* qt = static_cast<const T*>(q);
   const T* kt = static_cast<const T*>(k);
   const T* vt = static_cast<const T*>(v);
   const T* dot = static_cast<const T*>(dout);
-  return causal ? launch<bwd_dkv_kernel<T, D, true>>(grid, smem, stream, qt, kt, vt, dot, lse,
-                                                     delta, dk, dv, seq_q, seq_k, scale)
-                : launch<bwd_dkv_kernel<T, D, false>>(grid, smem, stream, qt, kt, vt, dot, lse,
-                                                      delta, dk, dv, seq_q, seq_k, scale);
+  return causal ? launch<bwd_dkv_kernel<T, D, BC, true>>(grid, smem, stream, qt, kt, vt, dot, lse,
+                                                         delta, dk, dv, seq_q, seq_k, scale)
+                : launch<bwd_dkv_kernel<T, D, BC, false>>(grid, smem, stream, qt, kt, vt, dot, lse,
+                                                          delta, dk, dv, seq_q, seq_k, scale);
 }
 
 // cuTensorMapEncodeTiled, taken from the driver through the runtime, so the
@@ -1803,19 +1948,22 @@ EncodeTiledFn encode_tiled() {
 }
 
 // A contiguous [heads, rows, D] bf16 tensor as a 3-D TMA map read in boxes of
-// 64 columns by box_rows rows of one head, 128-byte swizzled. A box's rows
-// past `rows` are zero-filled: they never come from the next head. TMA needs
-// the base 16-byte aligned and every stride a multiple of 16 bytes: the
-// wrapper checks the first, and D in {64, 128} gives the second.
-cudaError_t encode_rows(CUtensorMap* map, const void* ptr, int heads, int rows, int D, int box_rows) {
+// Lay<D>::BW columns by box_rows rows of one head, swizzled over a box row's
+// bytes (Lay<D>). A box's rows past `rows` are zero-filled: they never come
+// from the next head. TMA needs the base 16-byte aligned and every stride a
+// multiple of 16 bytes: the wrapper checks the first, and D in {64, 96,
+// 128, 256} gives the second.
+template <int D>
+cudaError_t encode_rows(CUtensorMap* map, const void* ptr, int heads, int rows, int box_rows) {
   const EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
   const cuuint64_t dims[3] = {cuuint64_t(D), cuuint64_t(rows), cuuint64_t(heads)};
   const cuuint64_t strides[2] = {cuuint64_t(D) * 2, cuuint64_t(rows) * D * 2};  // bytes, dims 1 and 2
-  const cuuint32_t box[3] = {64, cuuint32_t(box_rows), 1}, unit[3] = {1, 1, 1};
+  const cuuint32_t box[3] = {Lay<D>::BW, cuuint32_t(box_rows), 1}, unit[3] = {1, 1, 1};
+  const CUtensorMapSwizzle swizzle = Lay<D>::BW == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
   const CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
                               strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                              CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                              swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
@@ -1844,9 +1992,9 @@ cudaError_t fwd_sm90(const void* q, const void* k, const void* v, void* o, float
                      int seq_q, int seq_k, float scale, bool causal, cudaStream_t stream) {
   CUtensorMap qm, km, vm;
   dim3 grid;
-  cudaError_t err = encode_rows(&qm, q, bh, seq_q, D, FWD_BQ);
-  if (err == cudaSuccess) err = encode_rows(&km, k, bh, seq_k, D, FwdCfg<D>::BN);
-  if (err == cudaSuccess) err = encode_rows(&vm, v, bh, seq_k, D, FwdCfg<D>::BN);
+  cudaError_t err = encode_rows<D>(&qm, q, bh, seq_q, FWD_BQ);
+  if (err == cudaSuccess) err = encode_rows<D>(&km, k, bh, seq_k, FwdCfg<D>::BN);
+  if (err == cudaSuccess) err = encode_rows<D>(&vm, v, bh, seq_k, FwdCfg<D>::BN);
   if (err == cudaSuccess) err = persistent_grid(units_of(seq_q, bh), grid);
   if (err != cudaSuccess) return err;
   const size_t smem = FwdCfg<D>::BYTES;
@@ -1869,10 +2017,10 @@ cudaError_t bwd_dkv_sm90(const void* q, const void* k, const void* v, const void
                          int seq_q, int seq_k, float scale, bool causal, cudaStream_t stream) {
   CUtensorMap qm, km, vm, dom;
   dim3 grid;
-  cudaError_t err = encode_rows(&qm, q, bh, seq_q, D, DkvCfg<D>::BQ);
-  if (err == cudaSuccess) err = encode_rows(&dom, dout, bh, seq_q, D, DkvCfg<D>::BQ);
-  if (err == cudaSuccess) err = encode_rows(&km, k, bh, seq_k, D, FWD_BQ);
-  if (err == cudaSuccess) err = encode_rows(&vm, v, bh, seq_k, D, FWD_BQ);
+  cudaError_t err = encode_rows<D>(&qm, q, bh, seq_q, DkvCfg<D>::BQ);
+  if (err == cudaSuccess) err = encode_rows<D>(&dom, dout, bh, seq_q, DkvCfg<D>::BQ);
+  if (err == cudaSuccess) err = encode_rows<D>(&km, k, bh, seq_k, FWD_BQ);
+  if (err == cudaSuccess) err = encode_rows<D>(&vm, v, bh, seq_k, FWD_BQ);
   if (err == cudaSuccess) err = persistent_grid(units_of(seq_k, bh), grid);
   if (err != cudaSuccess) return err;
   const size_t smem = DkvCfg<D>::BYTES;
@@ -1888,10 +2036,10 @@ cudaError_t bwd_dq_sm90(const void* q, const void* k, const void* v, const void*
                         int seq_k, float scale, bool causal, cudaStream_t stream) {
   CUtensorMap qm, km, vm, dom;
   dim3 grid;
-  cudaError_t err = encode_rows(&qm, q, bh, seq_q, D, FWD_BQ);
-  if (err == cudaSuccess) err = encode_rows(&dom, dout, bh, seq_q, D, FWD_BQ);
-  if (err == cudaSuccess) err = encode_rows(&km, k, bh, seq_k, D, DqCfg<D>::BN);
-  if (err == cudaSuccess) err = encode_rows(&vm, v, bh, seq_k, D, DqCfg<D>::BN);
+  cudaError_t err = encode_rows<D>(&qm, q, bh, seq_q, FWD_BQ);
+  if (err == cudaSuccess) err = encode_rows<D>(&dom, dout, bh, seq_q, FWD_BQ);
+  if (err == cudaSuccess) err = encode_rows<D>(&km, k, bh, seq_k, DqCfg<D>::BN);
+  if (err == cudaSuccess) err = encode_rows<D>(&vm, v, bh, seq_k, DqCfg<D>::BN);
   if (err == cudaSuccess) err = persistent_grid(units_of(seq_q, bh), grid);
   if (err != cudaSuccess) return err;
   const size_t smem = DqCfg<D>::BYTES;
@@ -1904,16 +2052,20 @@ cudaError_t bwd_dq_sm90(const void* q, const void* k, const void* v, const void*
 }  // namespace
 
 // ------------------------------------------------------------ C interface
-// dtype: 0 = float32, 1 = bfloat16. head_dim: 64 or 128. Each function
+// dtype: 0 = float32, 1 = bfloat16. head_dim: 64, 96, 128 or 256 (the
+// wrappers pad any other width up to 256 to the next of them). Each function
 // returns the cudaError_t of its launch (0 on success); the kernel runs on
 // `stream` and nothing here synchronises or allocates. f32 goes to F32_FN,
 // the CUDA-core kernels; bf16 to BF16_FN, the tensor-core kernels.
 
-#define RT_DISPATCH(F32_FN, BF16_FN, ...)                                              \
-  if (dtype == 0 && head_dim == 64) return F32_FN<float, 64>(__VA_ARGS__);             \
-  if (dtype == 0 && head_dim == 128) return F32_FN<float, 128>(__VA_ARGS__);           \
-  if (dtype == 1 && head_dim == 64) return BF16_FN<64>(__VA_ARGS__);                   \
-  if (dtype == 1 && head_dim == 128) return BF16_FN<128>(__VA_ARGS__);                 \
+#define RT_WIDTH(W, F32_FN, BF16_FN, ...) \
+  if (head_dim == W) return dtype == 0 ? F32_FN<float, W>(__VA_ARGS__) : BF16_FN<W>(__VA_ARGS__);
+#define RT_DISPATCH(F32_FN, BF16_FN, ...)                                 \
+  if (dtype != 0 && dtype != 1) return static_cast<int>(cudaErrorInvalidValue); \
+  RT_WIDTH(64, F32_FN, BF16_FN, __VA_ARGS__)                              \
+  RT_WIDTH(96, F32_FN, BF16_FN, __VA_ARGS__)                              \
+  RT_WIDTH(128, F32_FN, BF16_FN, __VA_ARGS__)                             \
+  RT_WIDTH(256, F32_FN, BF16_FN, __VA_ARGS__)                             \
   return static_cast<int>(cudaErrorInvalidValue);
 
 extern "C" {

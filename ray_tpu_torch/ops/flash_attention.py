@@ -12,11 +12,22 @@ For bf16 inputs (the train step's) all four run on the tensor cores; f32
 inputs run on the f32 CUDA cores. Either way every sum is f32 and the plain
 versions below are what they compute.
 
+The kernels are built for head dims 64, 96, 128 and 256 (`WIDTHS`); the
+TPU kernels take any. Any other head dim up to 256 runs at the next of
+those widths, its q, k, v (and do) zero-padded: q.k^T, the softmax, lse and
+delta = rowsum(do * o) are unchanged by zero columns, and the padded
+columns of o, dq, dk and dv are zero and cut away. The scale stays the
+caller's (1/sqrt of the unpadded width). `flash_attention`, the autograd
+function and ring attention pad once a call, in the copy to [BH, T, D]
+they make anyway; the wrappers pad what they are given directly. The CPU
+path pads too, so the CPU tests run the route the card runs.
+
 Each wrapper launches its kernel for a CUDA tensor and raises on anything
 the kernel does not take; for a CPU tensor it runs its plain PyTorch
 version (`_flash_*_ref`), which repeats the kernel's arithmetic densely and
 is what the CPU tests hold against the JAX package. `launches` counts the
-kernel launches of each wrapper.
+kernel launches of each wrapper, `launches_by_width` the same launches by
+the width the kernel ran at ("fwd@256").
 
 `_FlashAttention` is the autograd function around them, mirroring the
 reference's custom_vjp: the forward saves (q, k, v, o, lse); the backward
@@ -34,15 +45,24 @@ import torch
 _BIG_NEG = -1e30
 
 launches: Dict[str, int] = {"fwd": 0, "fwd_lse": 0, "bwd_dq": 0, "bwd_dkv": 0}
+launches_by_width: Dict[str, int] = {}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (64, 128)
+WIDTHS = (64, 96, 128, 256)  # the head dims the kernels are built for
 _lib: Optional[ctypes.CDLL] = None
 
 
 def reset_launches() -> None:
     for name in launches:
         launches[name] = 0
+    launches_by_width.clear()
+
+
+def _count(key: str, width: int) -> None:
+    """One launch of `key`'s kernel at `width`."""
+    launches[key] += 1
+    at = f"{key}@{width}"
+    launches_by_width[at] = launches_by_width.get(at, 0) + 1
 
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -65,6 +85,29 @@ def _kernels() -> ctypes.CDLL:
 
         _lib = _bind(_build.load("flash_attention"))
     return _lib
+
+
+def kernel_width(head_dim: int, device) -> int:
+    """The head dim an attention of `head_dim` runs at: the next of WIDTHS.
+    On the CPU a head dim past them runs unpadded (the plain versions take
+    any); on the card it raises."""
+    for width in WIDTHS:
+        if head_dim <= width:
+            return width
+    if torch.device(device).type == "cpu":
+        return head_dim
+    raise ValueError(f"flash kernels take head_dim up to {WIDTHS[-1]}, got {head_dim}")
+
+
+def _pad(width: int, *xs) -> list:
+    """Each tensor zero-padded on its last axis to `width`."""
+    return [x if x.shape[-1] == width else torch.nn.functional.pad(x, (0, width - x.shape[-1]))
+            for x in xs]
+
+
+def _cut(x, head_dim: int):
+    """x's first head_dim columns, contiguous (x itself if it has no more)."""
+    return x if x.shape[-1] == head_dim else x[..., :head_dim].contiguous()
 
 
 def _check_err(err: int, what: str) -> None:
@@ -93,8 +136,8 @@ def _check_inputs(q, k, v, *rest) -> None:
     BH, T, D = q.shape
     if k.shape[0] != BH or k.shape[2] != D:
         raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} disagree")
-    if D not in _HEAD_DIMS:
-        raise ValueError(f"flash kernels take head_dim in {_HEAD_DIMS}, got {D}")
+    if not 0 < D <= WIDTHS[-1]:
+        raise ValueError(f"flash kernels take head_dim up to {WIDTHS[-1]}, got {D}")
     if not 0 < BH <= 65535 or T == 0 or k.shape[1] == 0:
         raise ValueError(f"flash kernels need 0 < BH <= 65535 and T, S > 0; got {q.shape}, {k.shape}")
 
@@ -176,9 +219,15 @@ def _torch_attention_bhtd(q, k, v, *, causal: bool, scale: float):
 
 def flash_fwd(q, k, v, *, causal: bool, scale: float, with_lse: bool = False):
     """Attention forward on [BH, T, D]: o, or (o, lse [BH, T] f32) with_lse."""
+    if q.device.type != "cpu":
+        _check_inputs(q, k, v)
+    D = q.shape[-1]
+    width = kernel_width(D, q.device)
+    if width != D:
+        out = flash_fwd(*_pad(width, q, k, v), causal=causal, scale=scale, with_lse=with_lse)
+        return (_cut(out[0], D), out[1]) if with_lse else _cut(out, D)
     if q.device.type == "cpu":
         return _flash_fwd_ref(q, k, v, causal, scale, with_lse)
-    _check_inputs(q, k, v)
     if not scale > 0:  # the kernel takes the row max before it scales
         raise ValueError(f"flash_fwd needs scale > 0, got {scale}")
     BH, T, D = q.shape
@@ -191,16 +240,21 @@ def flash_fwd(q, k, v, *, causal: bool, scale: float, with_lse: bool = False):
             int(causal), _DTYPES[q.dtype], _stream(q.device),
         )
     _check_err(err, "flash_fwd")
-    launches["fwd_lse" if with_lse else "fwd"] += 1
+    _count("fwd_lse" if with_lse else "fwd", D)
     return (o, lse) if with_lse else o
 
 
 def flash_bwd_dq(q, k, v, do, lse, delta, *, causal: bool, scale: float):
     """dq [BH, T, D] f32 from the saved forward and delta = rowsum(do * o)."""
+    if q.device.type != "cpu":
+        _check_inputs(q, k, v, do)
+        _check_stats(q, lse, delta)
+    D = q.shape[-1]
+    width = kernel_width(D, q.device)
+    if width != D:
+        return _cut(flash_bwd_dq(*_pad(width, q, k, v, do), lse, delta, causal=causal, scale=scale), D)
     if q.device.type == "cpu":
         return _flash_bwd_dq_ref(q, k, v, do, lse, delta, causal, scale)
-    _check_inputs(q, k, v, do)
-    _check_stats(q, lse, delta)
     BH, T, D = q.shape
     dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
@@ -210,16 +264,22 @@ def flash_bwd_dq(q, k, v, do, lse, delta, *, causal: bool, scale: float):
             _DTYPES[q.dtype], _stream(q.device),
         )
     _check_err(err, "flash_bwd_dq")
-    launches["bwd_dq"] += 1
+    _count("bwd_dq", D)
     return dq
 
 
 def flash_bwd_dkv(q, k, v, do, lse, delta, *, causal: bool, scale: float):
     """(dk, dv), each [BH, S, D] f32."""
+    if q.device.type != "cpu":
+        _check_inputs(q, k, v, do)
+        _check_stats(q, lse, delta)
+    D = q.shape[-1]
+    width = kernel_width(D, q.device)
+    if width != D:
+        dk, dv = flash_bwd_dkv(*_pad(width, q, k, v, do), lse, delta, causal=causal, scale=scale)
+        return _cut(dk, D), _cut(dv, D)
     if q.device.type == "cpu":
         return _flash_bwd_dkv_ref(q, k, v, do, lse, delta, causal, scale)
-    _check_inputs(q, k, v, do)
-    _check_stats(q, lse, delta)
     BH, T, D = q.shape
     dk = torch.empty(k.shape, dtype=torch.float32, device=q.device)
     dv = torch.empty(v.shape, dtype=torch.float32, device=q.device)
@@ -230,53 +290,63 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, *, causal: bool, scale: float):
             int(causal), _DTYPES[q.dtype], _stream(q.device),
         )
     _check_err(err, "flash_bwd_dkv")
-    launches["bwd_dkv"] += 1
+    _count("bwd_dkv", D)
     return dk, dv
 
 
 class _FlashAttention(torch.autograd.Function):
-    """Flash attention on [BH, T, D] with the tiled recompute backward."""
+    """Flash attention on [BH, T, D] with the tiled recompute backward. A
+    head dim off the kernels' widths is padded once: the padded q, k, v and
+    o are saved, and do is padded once in the backward."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, scale: float):
+        D = q.shape[-1]
+        q, k, v = _pad(kernel_width(D, q.device), q, k, v)
         o, lse = flash_fwd(q, k, v, causal=causal, scale=scale, with_lse=True)
         ctx.save_for_backward(q, k, v, o, lse)
-        ctx.causal, ctx.scale = causal, scale
-        return o
+        ctx.causal, ctx.scale, ctx.head_dim = causal, scale, D
+        return _cut(o, D)
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
-        do = do.contiguous()
+        (do,) = _pad(q.shape[-1], do.contiguous())
         delta = (do.float() * o.float()).sum(-1)
         dq = flash_bwd_dq(q, k, v, do, lse, delta, causal=ctx.causal, scale=ctx.scale)
         dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, causal=ctx.causal, scale=ctx.scale)
-        return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None
+        D = ctx.head_dim
+        return _cut(dq.to(q.dtype), D), _cut(dk.to(k.dtype), D), _cut(dv.to(v.dtype), D), None, None
 
 
-def _to_bhtd(x, rep: int):
-    """[B, T, Hk, D] -> [B*Hk*rep, T, D], contiguous, each kv head repeated
-    `rep` times in a row (jnp.repeat on the head axis). With B = 1 the
-    reshape alone is a strided view, which the kernels refuse."""
+def _to_bhtd(x, rep: int, width: Optional[int] = None):
+    """[B, T, Hk, D] -> [B*Hk*rep, T, width], contiguous, each kv head
+    repeated `rep` times in a row (jnp.repeat on the head axis) and zero
+    columns past D up to `width` (default D), in the one copy the transpose
+    takes. With B = 1 the reshape alone is a strided view, which the
+    kernels refuse."""
     if rep > 1:
         x = x.repeat_interleave(rep, dim=2)
     B, T, H, D = x.shape
-    return x.transpose(1, 2).reshape(B * H, T, D).contiguous()
+    (x,) = _pad(width or D, x.transpose(1, 2))
+    return x.reshape(B * H, T, x.shape[-1]).contiguous()
 
 
 def flash_attention(q, k, v, *, causal: bool = False, scale: Optional[float] = None):
     """Flash attention on [B, T, H, D] inputs (grouped-query: H_kv may divide H)
-    through the kernels (their plain versions for CPU tensors)."""
+    through the kernels (their plain versions for CPU tensors), at the
+    kernels' next width up from D (kernel_width)."""
     B, T, H, D = q.shape
     if scale is None:
         scale = 1.0 / math.sqrt(D)
     rep = H // k.shape[2]
-    qf, kf, vf = _to_bhtd(q, 1), _to_bhtd(k, rep), _to_bhtd(v, rep)
+    width = kernel_width(D, q.device)
+    qf, kf, vf = _to_bhtd(q, 1, width), _to_bhtd(k, rep, width), _to_bhtd(v, rep, width)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         of = _FlashAttention.apply(qf, kf, vf, causal, scale)
     else:
         of = flash_fwd(qf, kf, vf, causal=causal, scale=scale)
-    return of.reshape(B, H, T, D).transpose(1, 2)
+    return of[..., :D].reshape(B, H, T, D).transpose(1, 2)
 
 
 def mha(q, k, v, *, causal: bool = False, scale: Optional[float] = None,

@@ -5,6 +5,7 @@ show where this checkout's forward spends a tile (`--timeline`).
     git archive <rev> ray_tpu_torch/ops/csrc | tar -x -C build/parent
     python -m ray_tpu_torch.ops.kernel_ab build/parent/ray_tpu_torch/ops/csrc/flash_attention.cu
     python -m ray_tpu_torch.ops.kernel_ab --timeline
+    python -m ray_tpu_torch.ops.kernel_ab --head-dim 256 build/parent/.../flash_attention.cu
 
 Every source (this checkout's first) is built with the package's nvcc flags,
 all at once, into `build/ray_tpu_torch/ab/`, and each build's forward and
@@ -12,7 +13,10 @@ backward are checked against the plain versions at the first shape (the
 backward on the plain forward's lse and delta). Then each is timed in
 turns, this checkout's build, the others, the others again in reverse and
 this one's again, so a drift of the card's clock falls on every side
-alike. bf16, causal, on [B*H, T, D] inputs from a seed. Prints one JSON
+alike. bf16, causal, on [B*H, T, D] inputs from a seed, at the shapes of
+`--head-dim` (SHAPES: 64, the default, GPT-2 small's; 32, 96 and 256 the
+JAX package's example's, Phi-3-mini's and Gemma-2B's attention widths; any
+other D at [96, 1024, D]), scale 1/sqrt(D). Prints one JSON
 line: the card, each build's worst error-to-limit ratio, the host's us to
 queue a call of each kernel at the first shape, and its ms per shape and
 kernel (the mean of its two turns, each a mean of `--reps` calls, and both
@@ -44,8 +48,25 @@ from ray_tpu_torch.ops import _build
 # The module, not the package's `flash_attention` function of the same name.
 fa = importlib.import_module("ray_tpu_torch.ops.flash_attention")
 
-SHAPES = ((96, 1024, 64), (384, 1024, 64))  # GPT-2 small at batch 8 and 32: [B*H, T, D]
+# [B*H, T, D] by head dim: GPT-2 small at batch 8 and 32 (64), the JAX
+# package's example at batch 8 (32), Phi-3-mini's and Gemma-2B's widths at
+# batch 4 and T 2048 (96, 256).
+SHAPES_BY_HEAD_DIM = {
+    64: ((96, 1024, 64), (384, 1024, 64)),
+    32: ((64, 256, 32),),
+    96: ((128, 2048, 96),),
+    256: ((32, 2048, 256),),
+}
+SHAPES = SHAPES_BY_HEAD_DIM[64]
 SCALE = 64 ** -0.5
+
+
+def set_head_dim(head_dim: int) -> None:
+    """Time and check at `head_dim`'s shapes (SHAPES_BY_HEAD_DIM, else
+    [96, 1024, head_dim]) with scale 1/sqrt(head_dim)."""
+    global SHAPES, SCALE
+    SHAPES = SHAPES_BY_HEAD_DIM.get(head_dim, ((96, 1024, head_dim),))
+    SCALE = head_dim ** -0.5
 # chip_smoke.py's limits: a bf16 o within BF16_RTOL * |plain| + BF16_ATOL of
 # the plain version, an f32 lse, dq, dk or dv within F32_ATOL.
 BF16_RTOL, BF16_ATOL, F32_ATOL = 2.0 ** -7, 1e-4, 2e-4
@@ -178,6 +199,9 @@ def timeline(dev) -> dict:
                     run = np.diff(idx) == 1  # from a tile's landing to the next one's
                     periods.append(np.diff(consumer[idx, 0])[run])
                 steps, periods = np.concatenate(steps), np.concatenate(periods)
+                if not len(steps):  # a kernel with no stamps at this width (B4 in turn, D > 64)
+                    out[key]["x".join(map(str, shape))] = {"tiles": 0}
+                    continue
                 out[key]["x".join(map(str, shape))] = {
                     "tiles": len(steps),
                     **{name: float(statistics.median(steps[:, i]))
@@ -194,10 +218,12 @@ def main(argv=None) -> int:
     ap.add_argument("sources", nargs="*", type=Path, help="other flash_attention.cu files")
     ap.add_argument("--reps", type=int, default=50)
     ap.add_argument("--timeline", action="store_true", help="where this checkout's kernels spend a tile")
+    ap.add_argument("--head-dim", type=int, default=64, help="the shapes' head dim (SHAPES_BY_HEAD_DIM)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("kernel_ab: no CUDA device", file=sys.stderr)
         return 2
+    set_head_dim(args.head_dim)
     dev = torch.device("cuda")
     if args.timeline:
         print(json.dumps({"card": _card(), "cycles": timeline(dev)}), flush=True)

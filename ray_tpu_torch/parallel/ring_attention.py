@@ -33,7 +33,13 @@ from typing import Optional
 
 import torch
 
-from ray_tpu_torch.ops.flash_attention import flash_bwd_dkv, flash_bwd_dq, flash_fwd
+from ray_tpu_torch.ops.flash_attention import (
+    _to_bhtd,
+    flash_bwd_dkv,
+    flash_bwd_dq,
+    flash_fwd,
+    kernel_width,
+)
 
 _BIG_NEG = -1e30
 
@@ -248,9 +254,12 @@ def _ring_bthd(q, k, v, ring, causal: bool, scale: Optional[float], impl: str):
         raise ValueError(f"unknown ring attention impl {impl!r}")
     if scale is None:
         scale = 1.0 / math.sqrt(D)
-    qf, kf, vf = (x.transpose(1, 2).reshape(B * H, T, D).contiguous() for x in (q, k, v))
+    # The kernel route runs at the kernels' next width up from D: padded
+    # once here, not at each hop (flash_attention.kernel_width).
+    width = kernel_width(D, q.device) if impl == "kernel" else D
+    qf, kf, vf = (_to_bhtd(x, 1, width) for x in (q, k, v))
     o = _RingAttention.apply(qf, kf, vf, ring, causal, scale, impl)
-    return o.reshape(B, H, T, D).transpose(1, 2)
+    return o[..., :D].reshape(B, H, T, D).transpose(1, 2)
 
 
 def ring_attention(q, k, v, group=None, causal: bool = False, scale: Optional[float] = None,

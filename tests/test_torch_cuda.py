@@ -69,12 +69,12 @@ def test_kernels_match_plain_versions(dev, causal, T, D, dtype):
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     q = torch.randn(2, 64, 64, device=dev)
+    wide = torch.randn(2, 64, 264, device=dev)
     lse = torch.zeros(2, 64, device=dev)
     refused = [
         lambda: fa.flash_fwd(q.half(), q.half(), q.half(), causal=True, scale=1.0),  # dtype
         lambda: fa.flash_fwd(q, q.bfloat16(), q, causal=True, scale=1.0),  # mixed dtypes
-        lambda: fa.flash_fwd(q[..., :32].contiguous(), q[..., :32].contiguous(),
-                             q[..., :32].contiguous(), causal=True, scale=1.0),  # head_dim 32
+        lambda: fa.flash_fwd(wide, wide, wide, causal=True, scale=1.0),  # head_dim 264 > 256
         lambda: fa.flash_fwd(q.transpose(1, 2), q, q, causal=True, scale=1.0),  # strides
         lambda: fa.flash_fwd(q, q.cpu(), q, causal=True, scale=1.0),  # devices
         lambda: fa.flash_bwd_dq(q, q, q, q, lse[:, :32], lse, causal=True, scale=1.0),
@@ -85,6 +85,75 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
         with pytest.raises(ValueError):
             call()
     assert fa.launches == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("D", [32, 80, 96, 192, 256])
+def test_kernels_match_plain_versions_at_head_dim(dev, D, causal, dtype):
+    """The kernels at head dims past 64 and 128: 96 and 256 natively, 32,
+    80 and 192 padded to the next of those; T != S, a partial last tile.
+    chip_smoke.py's limits, and the launches count at the width run."""
+    cs = importlib.import_module("chip_smoke")
+    g = torch.Generator(device=dev).manual_seed(D)
+    T, S = 1000, 300 if causal else 700
+    q, do = (torch.randn(3, T, D, device=dev, generator=g).to(dtype) for _ in range(2))
+    k, v = (torch.randn(3, S, D, device=dev, generator=g).to(dtype) for _ in range(2))
+    scale = D ** -0.5
+    fa.reset_launches()
+    o, lse = fa.flash_fwd(q, k, v, causal=causal, scale=scale, with_lse=True)
+    ref_o, ref_lse = fa._flash_fwd_ref(q, k, v, causal, scale, True)
+    delta = (do.float() * ref_o.float()).sum(-1)
+    args = (q, k, v, do, ref_lse, delta)
+    _, ratios = cs.compare({
+        "fwd": [(fa.flash_fwd(q, k, v, causal=causal, scale=scale), ref_o)],
+        "fwd_lse": [(o, ref_o), (lse, ref_lse)],
+        "bwd_dq": [(fa.flash_bwd_dq(*args, causal=causal, scale=scale),
+                    fa._flash_bwd_dq_ref(*args, causal, scale))],
+        "bwd_dkv": list(zip(fa.flash_bwd_dkv(*args, causal=causal, scale=scale),
+                            fa._flash_bwd_dkv_ref(*args, causal, scale))),
+    })
+    assert all(r <= 1.0 for r in ratios.values()), ratios
+    width = fa.kernel_width(D, dev)
+    assert fa.launches_by_width == {f"{key}@{width}": 1 for key in fa.launches}
+
+
+@pytest.mark.parametrize("D", [8, 80, 200])
+def test_entry_points_take_any_head_dim(dev, D):
+    """mha, the autograd function and the ring's kernel route (loopback,
+    four shards) at head dims off the kernels' widths, f32, GQA: outputs and
+    gradients within ATOL of the plain attention, every launch at the next
+    width."""
+    from ray_tpu_torch.parallel import ring_attention_loopback
+
+    g = torch.Generator(device=dev).manual_seed(D)
+    B, T, H, Hk = 2, 256, 4, 2
+    q, do = (torch.randn(B, T, H, D, device=dev, generator=g) for _ in range(2))
+    k, v = (torch.randn(B, T, Hk, D, device=dev, generator=g) for _ in range(2))
+    width = fa.kernel_width(D, dev)
+
+    def run(attend, *xs, grad=do):
+        leaves = [t.clone().requires_grad_(True) for t in xs]
+        o = attend(*leaves)
+        return [o, *torch.autograd.grad(o, leaves, grad)]
+
+    want = run(lambda *x: fa.mha(*x, causal=True, impl="torch"), q, k, v)
+    fa.reset_launches()
+    got = run(lambda *x: fa.mha(*x, causal=True, impl="kernel"), q, k, v)
+    assert all(_err(a, b) <= ATOL for a, b in zip(got, want))
+    kr, vr = (t.repeat_interleave(H // Hk, dim=2) for t in (k, v))
+    want_rep = run(lambda *x: fa.mha(*x, causal=True, impl="torch"), q, kr, vr)
+    got_ring = run(lambda *x: ring_attention_loopback(*x, 4, causal=True, impl="kernel"), q, kr, vr)
+    assert all(_err(a, b) <= ATOL for a, b in zip(got_ring, want_rep))
+
+    def bhtd(x):
+        return x.transpose(1, 2).reshape(B * H, T, D).contiguous()
+
+    got_fn = run(lambda *x: fa._FlashAttention.apply(*x, True, D ** -0.5), bhtd(q), bhtd(kr), bhtd(vr),
+                 grad=bhtd(do))
+    assert all(_err(a, bhtd(b)) <= ATOL for a, b in zip(got_fn, want_rep))
+    assert fa.launches["bwd_dkv"] > 0
+    assert all(key.endswith(f"@{width}") for key in fa.launches_by_width), fa.launches_by_width
 
 
 def test_small_model_through_the_kernels_matches_plain_path(dev):

@@ -230,8 +230,8 @@ def test_tensor_core_operands_need_the_hi_lo_split(D, causal):
 
 # The Hopper forward's tiles (csrc/flash_attention.cu, FWD_BQ and FwdCfg):
 # 128 q rows a work item, two consumer warpgroups of 64; 128 keys a K/V tile
-# at D = 64, 64 at D = 128.
-SM90_BQ, SM90_BN = 128, {64: 128, 128: 64}
+# at D = 64 and 96, 64 at D = 128, 32 at 256.
+SM90_BQ, SM90_BN = 128, {64: 128, 96: 128, 128: 64, 256: 32}
 _LOG2E, _LN2 = 1.4426950408889634, 0.6931471805599453
 
 
@@ -305,6 +305,19 @@ def test_sm90_forward_arithmetic_holds_the_smoke_limits(D, T, causal):
     plain version and against the Pallas kernel (interpret mode) within
     chip_smoke.py's limits; with P rounded once instead of split, it misses
     them."""
+    _check_sm90_forward(D, T, causal)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("T", [192, 1000])
+@pytest.mark.parametrize("D", [96, 256])
+def test_sm90_forward_arithmetic_at_wide_head_dims(D, T, causal):
+    """As test_sm90_forward_arithmetic_holds_the_smoke_limits, with the
+    tiles of the D = 96 and D = 256 forward."""
+    _check_sm90_forward(D, T, causal)
+
+
+def _check_sm90_forward(D, T, causal):
     cs = importlib.import_module("chip_smoke")
     q, k, v = _qkv(11, 2, T, D, n=3)
     scale = D ** -0.5
@@ -326,8 +339,10 @@ def test_sm90_forward_arithmetic_holds_the_smoke_limits(D, T, causal):
 
 # The Hopper backward's tiles (csrc/flash_attention.cu, DkvCfg and DqCfg):
 # 128 resident rows a work item, 64 per consumer warpgroup; bwd_dkv streams
-# q tiles of 64 rows (32 at D = 128), bwd_dq K/V tiles of 64 keys.
-SM90_DKV_BQ, SM90_DQ_BN = {64: 64, 128: 32}, 64
+# q tiles of 64 rows (32 at D = 96, 128 and 256; at 256 in two passes of
+# 128 columns, which recompute every element's terms in the same order, so
+# the emulation needs no passes), bwd_dq K/V tiles of 64 keys (32 at 256).
+SM90_DKV_BQ, SM90_DQ_BN = {64: 64, 96: 32, 128: 32, 256: 32}, {64: 64, 96: 64, 128: 64, 256: 32}
 
 
 def _split_trunc(x, split=True):
@@ -406,7 +421,7 @@ def _dq_sm90_emulation(q, k, v, do, lse, delta, causal, scale, split=True):
     dS into hi (truncated) and lo and adds both products into f32 dQ, which
     takes the scale when the item ends. Returns dq, [BH, T, D] f32."""
     BH, T, D = q.shape
-    S, bn = k.shape[1], SM90_DQ_BN
+    S, bn = k.shape[1], SM90_DQ_BN[D]
     f32 = torch.float32
     sl2 = torch.tensor(scale, dtype=f32) * torch.tensor(_LOG2E, dtype=f32)
     lse2 = lse.float() * torch.tensor(_LOG2E, dtype=f32)
@@ -446,6 +461,19 @@ def test_sm90_backward_arithmetic_holds_the_smoke_limits(D, T, S, causal):
     mode) within chip_smoke.py's limits, on the plain forward's lse and
     delta; with P and dS rounded to bf16 once instead of split, it misses
     them where a long row sums many products (T = S = 1000)."""
+    _check_sm90_backward(D, T, S, causal)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("T,S", [(1, 1), (100, 100), (1000, 1000), (100, 300), (300, 100)])
+@pytest.mark.parametrize("D", [96, 256])
+def test_sm90_backward_arithmetic_at_wide_head_dims(D, T, S, causal):
+    """As test_sm90_backward_arithmetic_holds_the_smoke_limits, with the
+    tiles of the D = 96 and D = 256 backward kernels."""
+    _check_sm90_backward(D, T, S, causal)
+
+
+def _check_sm90_backward(D, T, S, causal):
     cs = importlib.import_module("chip_smoke")
     rs = np.random.RandomState(13)
     q, do = (rs.randn(2, T, D).astype(np.float32) for _ in range(2))
