@@ -10,8 +10,9 @@ trainers, the port as a GPU cluster: cluster_utils, the CLI, a job,
 the state API, the dashboard, client mode and a workflow of GPU steps, and
 its scale-out: the native extensions, an autoscaled GPU node and ray_perf,
 chaos: the port's lint gate, the chaos suite and a nemesis against GPU
-work, and the kernels at the head dims of the JAX package's example,
-Phi-3-mini and Gemma-2B.
+work, the kernels at the head dims of the JAX package's example,
+Phi-3-mini and Gemma-2B, and at every call the TPU kernels take past
+those: head dim 512 in a train step and 66,560 heads in one call.
 
     python3 chip_smoke.py            # needs one CUDA card, nvcc, the checkout
 
@@ -20,8 +21,8 @@ Phases, each printing one JSON line:
      build    each kernel's registers and spills (ptxas -v) and its counts of
               tensor-core instructions (HMMA for mma.sync, HGMMA for wgmma,
               in cuobjdump -sass); every Hopper kernel (*_sm90: the forward
-              and both backward kernels, at each of the widths 64, 96, 128
-              and 256: 32) must have HGMMA, no spill and no wgmma that
+              and both backward kernels, at each of the widths 64, 96, 128,
+              256 and 512: 40) must have HGMMA, no spill and no wgmma that
               ptxas serialized;
   2. kernels  every kernel against its plain version, element by element
               (f32 with TF32 off and bf16; causal and not; head_dim 64 and
@@ -29,13 +30,21 @@ Phases, each printing one JSON line:
               without the mask (head_dim 64 and 128), T = 1000 on S = 300
               with it (128); head_dim 32, 80, 96, 192 and 256 (32, 80 and
               192 padded to the next width) at T in 1, 100, 1000 and T =
-              1000 on S = 300 with the mask; GQA through `mha`), then at
+              1000 on S = 300 with the mask; the same at head dims 320,
+              384 and 512 (320 and 384 padded to 512); GQA through `mha`;
+              BH = 65536 and 66,560 heads in one call, and B1-B4 at
+              [65600, 256, 128] bf16 (BH*T*D past 2^31 elements) held on
+              sampled heads, the last among them, against the plain
+              versions run on those heads alone), then at
               the slice's shape (batch 8), the bench's (batch 32) and phase
               17's ([128, 2048, 96], [32, 2048, 256], [64, 256, 32], the
-              last padded: its pad and cut copies' ms), and the f32
-              kernels at [96, 1024, 64] and [32, 2048, 256]: the kernel's
+              last padded: its pad and cut copies' ms), phase 18's
+              ([16, 2048, 512], [66560, 64, 96]) and [16, 2048, 320]
+              (padded to 512), and the f32 kernels at [96, 1024, 64],
+              [32, 2048, 256] and [16, 2048, 512]: the kernel's
               time, the plain version's, F.scaled_dot_product_attention's (a
-              yardstick only: the port never calls it), the bound, the
+              yardstick only: the port never calls it; with the backends
+              that take the inputs), the bound, the
               useful TFLOP/s, the share of the bound reached (bound_ms /
               ms) and the host's us per call; and where the forward and
               the backward kernels spend a streamed tile, in SM cycles,
@@ -213,12 +222,22 @@ Phases, each printing one JSON line:
               falls), tokens/s and MFU, and two profiled steps (device ms
               by kernel family, idle share); (d) one served batch at (b)'s
               widths: device ms, B1 once a layer at head dim 96;
+ 18. wide     the calls the TPU kernels take past phase 17's, through the
+              port's entry points: (a) the JAX package's architecture at
+              head dim 512 (WIDE_512: d_model 2048, 4 heads, 1 kv head),
+              WIDE_LAYERS layers at WIDE_BATCH x WIDE_SEQ, held and timed as
+              17b and 17c are (B2-B4 at 512); (b) a no-grad scoring forward
+              at 17b's widths of SCORE_BATCH x SCORE_SEQ tokens, 66,560
+              heads in one B1 call a layer: its f32 logits held by phase
+              3's ratios against the plain attention's, its host ms,
+              device ms and launches;
 then the kernels line, with each kernel's launches in phases 3, 4, 6, the
-bench's transformer phase and phases 9-17 (none in 11: RLlib's modules
+bench's transformer phase and phases 9-18 (none in 11: RLlib's modules
 are MLPs; the reference and timing runs this script makes itself in 12,
-13, 14, 15, 16 and 17 are not counted, nor 16's killed attempt), one entry
-a kernel and width launched (64; 96 and 256 in phase 17). Any failure
-exits non-zero. The last line is the ok line.
+13, 14, 15, 16, 17 and 18 are not counted, nor 16's killed attempt), one
+entry a kernel and width launched (64; 96 and 256 in phase 17, 512 in
+18a) and one for B1 at 66,560 heads (18b). Any failure exits non-zero.
+The last line is the ok line.
 """
 
 from __future__ import annotations
@@ -446,6 +465,26 @@ PHI3_MINI = dict(vocab_size=32064, d_model=3072, n_heads=32, n_kv_heads=32, d_ff
 GEMMA_2B = dict(vocab_size=256000, d_model=2048, n_heads=8, n_kv_heads=1, d_ff=16384,
                 tied_embeddings=True)
 WIDE_LAYERS, WIDE_BATCH, WIDE_SEQ, WIDE_STEPS = 2, 2, 2048, 5
+# Phase 2's cases past 256 (320 and 384 padded to 512) and its calls of
+# more than 65535 heads: BH_CASES [BH, T, D] held whole against the plain
+# versions, and HUGE_CASE, whose BH * T * D passes 2^31 elements (~4.3 GB
+# an operand), held on HUGE_HEADS (the last among them), each against the
+# plain versions run on that head alone (heads are independent: exact).
+WIDER_HEAD_DIMS = (320, 384, 512)
+BH_CASES = ((65536, 64, 64, True), (66560, 64, 96, False))
+HUGE_CASE, HUGE_HEADS = (65600, 256, 128), (0, 1, 32799, 65598, 65599)
+# Phase 18: the calls past phase 17's. 18a: the JAX package's architecture
+# (ray_tpu/models/transformer.py:38-68) at head dim 512: d_model 2048, 4
+# heads on 1 kv head, d_ff 5504, vocab 32000, tied (no published model has
+# this head dim; it is the one the TPU kernels take and the port took
+# last), WIDE_LAYERS layers at WIDE_BATCH x WIDE_SEQ, as 17c. 18b: a
+# scoring batch at 17b's widths (Phi-3-mini's, 32 heads), SCORE_BATCH x
+# SCORE_SEQ tokens: 66,560 heads in one call; its references run in
+# SCORE_CHUNKS chunks of the batch (attention is per sequence), so three
+# [2080, 64, 32064] f32 logits are never held at once.
+WIDE_512 = dict(vocab_size=32000, d_model=2048, n_heads=4, n_kv_heads=1, d_ff=5504,
+                tied_embeddings=True)
+SCORE_BATCH, SCORE_SEQ, SCORE_CHUNKS = 2080, 64, 8
 
 KERNELS = [  # name, launch-count key, TPU kernel it replaces
     ("flash_fwd", "fwd", "ray_tpu/ops/flash_attention.py:35"),
@@ -544,8 +583,8 @@ _KERNEL_NAME = re.compile(r"((?:fwd|bwd_dq|bwd_dkv)_kernel(?:_tc|_sm90)?)"
 # bf16 kernels in the build, all Hopper kernels (wgmma: HGMMA in the SASS):
 # the forward fwd_kernel_sm90 over D x CAUSAL x WRITE_LSE and the backward
 # bwd_dq_kernel_sm90 and bwd_dkv_kernel_sm90, each over D x CAUSAL, D in
-# the kernels' four widths (64, 96, 128, 256).
-N_SM90_KERNELS = 4 * (4 + 2 + 2)
+# the kernels' five widths (64, 96, 128, 256, 512).
+N_SM90_KERNELS = 5 * (4 + 2 + 2)
 _TEMPLATE_ARG = re.compile(r"Li(\d+)E|Lb([01])E|(13__nv_bfloat16|f)")
 _SERIALIZED = re.compile(r"wgmma\.mma_async instructions are serialized due to (.*) "
                          r"(?:in|for) the function '([^']+)'")
@@ -628,13 +667,14 @@ def check_sm90(report: dict) -> None:
 
 # ----------------------------------------------------------------- phase 2
 
-def kernel_cases(fa, dev, gen, gen_more, gen_widths) -> None:
+def kernel_cases(fa, dev, gen, gen_more, gen_widths, gen_wider) -> None:
     """Every kernel against its plain version on the listed cases. Prints
     each case's max abs error and worst error-to-limit ratio (F32_ATOL,
     BF16_RTOL, BF16_ATOL) per kernel. The cases T in 1, 100 and S != T
-    draw from gen_more, those at WIDE_HEAD_DIMS from gen_widths, the others
-    from gen in the order they always have, so the later phases' inputs do
-    not move when a case is added."""
+    draw from gen_more, those at WIDE_HEAD_DIMS from gen_widths, those at
+    WIDER_HEAD_DIMS from gen_wider, the others from gen in the order they
+    always have, so the later phases' inputs do not move when a case is
+    added."""
     worst = {key: {"max_abs_err": 0.0, "err_to_limit": 0.0} for _, key, _ in KERNELS}
     cases = 0
     for dtype in (torch.float32, torch.bfloat16):
@@ -647,6 +687,9 @@ def kernel_cases(fa, dev, gen, gen_more, gen_widths) -> None:
         shapes += [(D, T, T, causal, gen_widths) for D in WIDE_HEAD_DIMS for T in (1, 100, 1000)
                    for causal in (True, False)]
         shapes += [(D, 1000, 300, True, gen_widths) for D in WIDE_HEAD_DIMS]
+        shapes += [(D, T, T, causal, gen_wider) for D in WIDER_HEAD_DIMS for T in (1, 100, 1000)
+                   for causal in (True, False)]
+        shapes += [(D, 1000, 300, True, gen_wider) for D in WIDER_HEAD_DIMS]
         for D, T, S, causal, g in shapes:
             q, k, v, do = (torch.randn(4, n, D, device=dev, generator=g).to(dtype)
                            for n in (T, S, S, T))
@@ -679,6 +722,93 @@ def kernel_cases(fa, dev, gen, gen_more, gen_widths) -> None:
         cases += 1
     emit({"phase": "kernels", "cases": cases, "worst": worst,
           "limits": {"f32_atol": F32_ATOL, "bf16_rtol": BF16_RTOL, "bf16_atol": BF16_ATOL}})
+
+
+def heads_cases(fa, dev, gen) -> None:
+    """Calls of more than 65535 heads, which the TPU kernels' grid takes:
+    each BH_CASES shape at both dtypes, every kernel against its plain
+    version on the whole call; then HUGE_CASE in bf16, causal, whose
+    operands pass 2^31 elements, every kernel on the whole call and held on
+    the HUGE_HEADS heads against its plain version on each head alone (lse
+    and delta from the kernel's own forward, as the autograd function forms
+    them). Prints one line a case with its errors, by phase 2's limits."""
+    for BH, T, D, causal in BH_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, do = (torch.randn(BH, T, D, device=dev, generator=gen).to(dtype) for _ in range(4))
+            scale = D ** -0.5
+            ref_o, ref_lse = fa._flash_fwd_ref(q, k, v, causal, scale, True)
+            delta = (do.float() * ref_o.float()).sum(-1)
+            args = (q, k, v, do, ref_lse, delta)
+            o, lse = fa.flash_fwd(q, k, v, causal=causal, scale=scale, with_lse=True)
+            pairs = {"fwd": [(fa.flash_fwd(q, k, v, causal=causal, scale=scale), ref_o)],
+                     "fwd_lse": [(o, ref_o), (lse, ref_lse)]}
+            del o, lse, ref_o
+            pairs["bwd_dq"] = [(fa.flash_bwd_dq(*args, causal=causal, scale=scale),
+                                fa._flash_bwd_dq_ref(*args, causal, scale))]
+            errs, ratios = compare(pairs)
+            dkv_errs, dkv_ratios = compare({"bwd_dkv": list(zip(
+                fa.flash_bwd_dkv(*args, causal=causal, scale=scale),
+                fa._flash_bwd_dkv_ref(*args, causal, scale)))})
+            errs.update(dkv_errs)
+            ratios.update(dkv_ratios)
+            case = {"dtype": str(dtype).split(".")[-1], "BH": BH, "T": T, "D": D, "causal": causal,
+                    "max_abs_err": errs, "err_to_limit": ratios}
+            emit({"phase": "kernels", "heads": case})
+            check_ratios(ratios, {"heads": case})
+            del q, k, v, do, args, pairs
+            torch.cuda.empty_cache()
+    BH, T, D = HUGE_CASE
+    q, k, v, do = (torch.randn(BH, T, D, device=dev, generator=gen, dtype=torch.bfloat16) for _ in range(4))
+    scale = D ** -0.5
+    t0 = time.perf_counter()
+    o, lse = fa.flash_fwd(q, k, v, causal=True, scale=scale, with_lse=True)
+    o1 = fa.flash_fwd(q, k, v, causal=True, scale=scale)
+    delta = (do.float() * o.float()).sum(-1)
+    dq = fa.flash_bwd_dq(q, k, v, do, lse, delta, causal=True, scale=scale)
+    torch.cuda.synchronize()
+    pairs = {key: [] for _, key, _ in KERNELS}
+    for h in HUGE_HEADS:
+        hq, hk, hv, hdo = (x[h:h + 1] for x in (q, k, v, do))
+        ref_o, ref_lse = fa._flash_fwd_ref(hq, hk, hv, True, scale, True)
+        pairs["fwd"].append((o1[h:h + 1], ref_o))
+        pairs["fwd_lse"] += [(o[h:h + 1], ref_o), (lse[h:h + 1], ref_lse)]
+        pairs["bwd_dq"].append((dq[h:h + 1], fa._flash_bwd_dq_ref(
+            hq, hk, hv, hdo, lse[h:h + 1], delta[h:h + 1], True, scale)))
+    del o1, dq
+    dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, delta, causal=True, scale=scale)
+    torch.cuda.synchronize()
+    for h in HUGE_HEADS:
+        ref_dk, ref_dv = fa._flash_bwd_dkv_ref(*(x[h:h + 1] for x in (q, k, v, do, lse, delta)),
+                                               True, scale)
+        pairs["bwd_dkv"] += [(dk[h:h + 1], ref_dk), (dv[h:h + 1], ref_dv)]
+    errs, ratios = compare(pairs)
+    case = {"dtype": "bfloat16", "BH": BH, "T": T, "D": D, "causal": True,
+            "elements_per_operand": BH * T * D, "heads_held": list(HUGE_HEADS),
+            "seconds": time.perf_counter() - t0, "max_abs_err": errs, "err_to_limit": ratios}
+    emit({"phase": "kernels", "heads": case})
+    check_ratios(ratios, {"heads": case})
+    del q, k, v, do, o, lse, delta, dk, dv, pairs
+    torch.cuda.empty_cache()
+
+
+def sdpa_backends(q, k, v) -> list:
+    """The F.scaled_dot_product_attention backends that take these [B, H, T,
+    D] inputs with the causal mask (cuDNN, flash, memory-efficient, math,
+    each tried alone); the yardstick's call is served by PyTorch's pick
+    among them (past 256 only the memory-efficient and math ones take bf16,
+    and PyTorch prefers the first)."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    taken = []
+    for backend in (SDPBackend.CUDNN_ATTENTION, SDPBackend.FLASH_ATTENTION,
+                    SDPBackend.EFFICIENT_ATTENTION, SDPBackend.MATH):
+        try:
+            with torch.no_grad(), sdpa_kernel([backend]):
+                F.scaled_dot_product_attention(q, k, v, is_causal=True)
+            taken.append(backend.name)
+        except RuntimeError:
+            pass
+    return taken
 
 
 def gqa_case(fa, dev, gen, dtype) -> None:
@@ -818,7 +948,8 @@ def kernel_timings(fa, dev, gen, cfg, batch: int = BATCH, seq: int = SEQ) -> dic
     width = fa.kernel_width(D, dev)
     line = {"phase": "kernels", "shape": [BH, T, D], "width": width, "dtype": str(dt).split(".")[-1],
             "causal": True, "timings": rows, "sdpa_fwd_ms": sdpa_fwd_ms, "sdpa_bwd_ms": sdpa_bwd_ms,
-            "sdpa_fwd_bwd_ms": sdpa_fwd_bwd_ms, "port_fwd_bwd_ms": port_fwd_bwd_ms}
+            "sdpa_fwd_bwd_ms": sdpa_fwd_bwd_ms, "port_fwd_bwd_ms": port_fwd_bwd_ms,
+            "sdpa_backends": sdpa_backends(sq.detach(), sk.detach(), sv.detach())}
     if width != D:  # the padded route's copies: q, k, v and do padded, o, dq, dk, dv cut
         outs = [torch.empty(BH, T, width, dtype=dt, device=dev),
                 *(torch.empty(BH, T, width, device=dev) for _ in range(3))]
@@ -4125,8 +4256,8 @@ def example_run(dev) -> dict:
     return worker["launches_by_width"]
 
 
-def wide_model_run(tr, fa, part: str, widths: dict, dev, gen) -> dict:
-    """17b or 17c: a model of `widths` (cut to WIDE_LAYERS layers) at
+def wide_model_run(tr, fa, part: str, widths: dict, dev, gen, phase: str = "head_dims") -> dict:
+    """17b, 17c or 18a: a model of `widths` (cut to WIDE_LAYERS layers) at
     WIDE_BATCH x WIDE_SEQ: the bf16 logits and the first step's gradients
     through the kernels and through the plain attention, each against the
     same weights in f32 (phases 3 and 4's bounds); then a warm-up and
@@ -4140,7 +4271,7 @@ def wide_model_run(tr, fa, part: str, widths: dict, dev, gen) -> dict:
     raw = torch.randint(0, cfg.vocab_size, (WIDE_BATCH, WIDE_SEQ + 1), device=dev, generator=gen)
     batch = {"tokens": raw[:, :-1].contiguous(), "targets": raw[:, 1:].contiguous()}
     model = tr.transformer_init(cfg, gen, device=dev)
-    head = {"phase": "head_dims", "part": part, "head_dim": cfg.head_dim,
+    head = {"phase": phase, "part": part, "head_dim": cfg.head_dim,
             "reduced": {"n_layers": WIDE_LAYERS, "seq": WIDE_SEQ, "batch": WIDE_BATCH}}
     logits_check(tr, fa, cfg, dev, model, batch["tokens"], {**head, "check": "logits"})
     grads_check(tr, cfg, dev, model, batch, {**head, "check": "grads"})
@@ -4169,7 +4300,7 @@ def wide_model_run(tr, fa, part: str, widths: dict, dev, gen) -> dict:
             "peak_flops": peak, "max_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
             "launches_per_step": per_step, "launches": launches}
     emit(line)
-    profile_phase(lambda: step(state, batch), step_ms, phase=f"head_dims_{part}_profile")
+    profile_phase(lambda: step(state, batch), step_ms, phase=f"{phase}_{part}_profile")
     del state, model
     gc.collect()
     torch.cuda.empty_cache()
@@ -4222,6 +4353,105 @@ def head_dims_phase(tr, fa, dev) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------- phase 18
+
+def scoring_batch(tr, fa, dev) -> dict:
+    """18b: one no-grad forward of SCORE_BATCH x SCORE_SEQ tokens at 17b's
+    widths through transformer_apply, B * H = 66,560 heads in one B1 call
+    a layer: its host ms (mean of two runs, synchronised), device ms and
+    launches (one profiled run), and its f32 logits held by phase 3's
+    ratios: no further from the same weights in f32 than the plain
+    attention in bf16 is. The references run in SCORE_CHUNKS chunks of the
+    batch (each sequence's attention is its own). Returns the launches by
+    width."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = tr.TransformerConfig(**PHI3_MINI, n_layers=WIDE_LAYERS, max_seq_len=SCORE_SEQ,
+                               dtype=torch.bfloat16)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 41)
+    model = tr.transformer_init(cfg, gen, device=dev)
+    tokens = torch.randint(0, cfg.vocab_size, (SCORE_BATCH, SCORE_SEQ), device=dev, generator=gen)
+
+    def score():
+        with torch.no_grad():
+            return tr.transformer_apply(model, tokens)
+
+    score()  # each run's logits are dropped at once: one is 17 GB
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(2):
+        score()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) / 2 * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        score()
+        torch.cuda.synchronize()
+    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+    device_ms = sum(e.time_range.elapsed_us() / 1e3 for e in device)
+    flash_ms = sum(e.time_range.elapsed_us() / 1e3 for e in device if kernel_family(e.name).startswith("flash"))
+    fa.reset_launches()
+    logits = score()
+    torch.cuda.synchronize()
+    launches, by_width = dict(fa.launches), dict(fa.launches_by_width)
+
+    refs = {}
+    for name, c in (("plain_bf16", dataclasses.replace(cfg, attention_impl="torch")),
+                    ("f32", dataclasses.replace(cfg, attention_impl="torch", dtype=torch.float32))):
+        refs[name] = tr.Transformer(c, dev)
+        refs[name].load_state_dict(model.state_dict())
+    err = {name: {"max": 0.0, "sum": 0.0} for name in ("kernel_bf16", "plain_bf16")}
+    f32_max = 0.0
+    with torch.no_grad():
+        for rows in torch.arange(SCORE_BATCH, device=dev).chunk(SCORE_CHUNKS):
+            truth = tr.transformer_apply(refs["f32"], tokens[rows])
+            f32_max = max(f32_max, float(truth.abs().max()))
+            for name, x in (("kernel_bf16", logits[rows]),
+                            ("plain_bf16", tr.transformer_apply(refs["plain_bf16"], tokens[rows]))):
+                e = (x - truth).abs()
+                err[name]["max"] = max(err[name]["max"], float(e.max()))
+                err[name]["sum"] += float(e.sum(dtype=torch.float64))
+                del e
+            del truth
+    n = logits.numel()
+    errs = {name: {"max_abs_err": e["max"], "mean_abs_err": e["sum"] / n} for name, e in err.items()}
+    heads = SCORE_BATCH * cfg.n_heads
+    line = {"phase": "wide", "part": "18b", "head_dim": cfg.head_dim, "batch": SCORE_BATCH,
+            "seq": SCORE_SEQ, "heads_per_call": heads, "shape": list(logits.shape),
+            "host_ms": host_ms, "device_ms": device_ms, "flash_device_ms": flash_ms,
+            "device_launches": len(device), "idle_share": 1 - device_ms / host_ms,
+            "vs_f32": errs, "f32_max_abs": f32_max, "ratio_bounds": [LOGITS_MEAN_RATIO, LOGITS_MAX_RATIO],
+            "launches": launches, "launches_by_width": by_width,
+            "max_memory_gib": torch.cuda.max_memory_allocated() / 2**30}
+    emit(line)
+    finite = bool(torch.isfinite(logits).all())
+    del logits, refs, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    check(finite, "18b: logits are not finite")
+    k, p = errs["kernel_bf16"], errs["plain_bf16"]
+    check(k["mean_abs_err"] <= LOGITS_MEAN_RATIO * p["mean_abs_err"]
+          and k["max_abs_err"] <= LOGITS_MAX_RATIO * p["max_abs_err"],
+          f"18b: kernel-path logits further from f32 than the plain path's: {errs}")
+    check(launches == {"fwd": cfg.n_layers, "fwd_lse": 0, "bwd_dq": 0, "bwd_dkv": 0}
+          and by_width == {f"fwd@{cfg.head_dim}": cfg.n_layers} and heads > 65535,
+          f"18b: B1 was not launched once a layer on {heads} heads: {launches}, {by_width}")
+    return by_width
+
+
+def wide_phase(tr, fa, dev) -> tuple:
+    """Phase 18: head dim 512 through a train step (18a) and 66,560 heads in
+    one call through a scoring forward (18b). Returns the flash launches of
+    each, by width."""
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 42)
+    train = wide_model_run(tr, fa, "18a", WIDE_512, dev, gen, phase="wide")
+    scoring = scoring_batch(tr, fa, dev)
+    emit({"phase": "wide", "launches_by_width": {"18a": train, "18b": scoring},
+          "nvidia_smi": card()["nvidia_smi"], "seconds": time.perf_counter() - t0})
+    return train, scoring
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4255,7 +4485,9 @@ def main() -> int:
     # Phase 2's cases beyond its first ones draw from their own generators.
     gen_more = torch.Generator(device=dev).manual_seed(SEED + 2)
     gen_widths = torch.Generator(device=dev).manual_seed(SEED + 30)
-    kernel_cases(fa, dev, gen, gen_more, gen_widths)
+    gen_wider = torch.Generator(device=dev).manual_seed(SEED + 40)
+    kernel_cases(fa, dev, gen, gen_more, gen_widths, gen_wider)
+    heads_cases(fa, dev, gen_wider)
     rows = {64: kernel_timings(fa, dev, gen, cfg)}
     kernel_timings(fa, dev, gen_more, cfg, batch=4 * BATCH)  # the bench's batch: emitted, not in the line
     # Phase 17's shapes at batch 4 (the example's at its batch 8), bf16.
@@ -4263,11 +4495,20 @@ def main() -> int:
                                (EXAMPLE, EXAMPLE_BATCH, EXAMPLE["max_seq_len"])):
         wide = tr.TransformerConfig(**{**widths, "dtype": torch.bfloat16})
         rows[wide.head_dim] = kernel_timings(fa, dev, gen_widths, wide, batch=batch, seq=seq)
+    # Phase 18's: 18a's at batch 4 ([16, 2048, 512]), the same at head dim
+    # 320 (padded to 512), and 18b's call of 66,560 heads, bf16.
+    rows[512] = kernel_timings(fa, dev, gen_wider, tr.TransformerConfig(**WIDE_512), batch=4, seq=WIDE_SEQ)
+    kernel_timings(fa, dev, gen_wider, tr.TransformerConfig(**{**WIDE_512, "d_model": 1280}),
+                   batch=4, seq=WIDE_SEQ)
+    rows["bh"] = kernel_timings(fa, dev, gen_wider, tr.TransformerConfig(**PHI3_MINI),
+                                batch=SCORE_BATCH, seq=SCORE_SEQ)
     # The f32 kernels (the CUDA cores'; TF32 off for SDPA too) at GPT-2
-    # small's shape and 17c's: emitted, not in the line (the main path is bf16).
-    for widths, batch in ((GPT2_SMALL, BATCH), (GEMMA_2B, 4)):
+    # small's shape, 17c's and 18a's: emitted, not in the line (the main
+    # path is bf16).
+    for widths, batch in ((GPT2_SMALL, BATCH), (GEMMA_2B, 4), (WIDE_512, 4)):
         f32 = tr.TransformerConfig(**{**widths, "dtype": torch.float32})
-        kernel_timings(fa, dev, gen_widths, f32, batch=batch, seq=SEQ if widths is GPT2_SMALL else WIDE_SEQ)
+        kernel_timings(fa, dev, gen_widths if widths is not WIDE_512 else gen_wider, f32, batch=batch,
+                       seq=SEQ if widths is GPT2_SMALL else WIDE_SEQ)
     # Where B1, B3 and B4 spend a streamed tile, in SM cycles (the stamped build).
     emit({"phase": "kernels", "timeline_cycles": kernel_ab.timeline(dev)})
 
@@ -4304,24 +4545,36 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     wide_launches = head_dims_phase(tr, fa, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    wide512_launches, scoring_launches = wide_phase(tr, fa, dev)
+    for key, n in wide512_launches.items():
+        wide_launches[key] = wide_launches.get(key, 0) + n
 
     # One entry a kernel and width the main path launched: phases 3-16 run
     # GPT-2 small's 64 only; phase 17 runs 64 (17a, padded from 32), 96 and
-    # 256. Each width's numbers are phase 2's at its shape (64: GPT-2 small
-    # at batch 8; 96 and 256: 17b's and 17c's at batch 4).
+    # 256; 18a 512. Each width's numbers are phase 2's at its shape (64:
+    # GPT-2 small at batch 8; 96, 256 and 512: 17b's, 17c's and 18a's at
+    # batch 4). B1 at 66,560 heads (18b) has an entry of its own, with phase
+    # 2's numbers at [66560, 64, 96].
     kernels = []
     for name, key, replaces in KERNELS:
         n = (fwd_launches[key] + train_launches[key] + trainer_launches[key] + bench_launches[key]
              + mesh_launches[key] + collective_launches[key] + rllib_launches[key]
              + serve_launches[key] + tune_launches[key] + cluster_launches[key]
              + scale_out_launches[key] + chaos_launches[key])
-        for width in (64, 96, 256):
+        for width in (64, 96, 256, 512):
             launched = wide_launches.get(f"{key}@{width}", 0) + (n if width == 64 else 0)
             kernels.append({"name": name if width == 64 else f"{name}_d{width}", "route": "cuda",
                             "source": SOURCE, "replaces": replaces, "head_dim": width,
                             "launches": launched, **rows[width][key]})
             check(launched > 0, f"{name} at head dim {width} was not launched on the main path")
         check(n > 0, f"{name} was not launched on the main path")
+    launched = scoring_launches.get("fwd@96", 0)
+    kernels.append({"name": "flash_fwd_d96_bh66560", "route": "cuda", "source": SOURCE,
+                    "replaces": KERNELS[0][2], "head_dim": 96, "heads_per_call": SCORE_BATCH * 32,
+                    "launches": launched, **rows["bh"]["fwd"]})
+    check(launched > 0, "flash_fwd at 66,560 heads was not launched on the main path")
     emit({"phase": "total", "seconds": time.perf_counter() - started})
     print(info["nvidia_smi"], flush=True)
     emit({"kernels": kernels})

@@ -1142,6 +1142,18 @@ class ActorSubmitter:
             raise ActorUnavailableError(
                 f"actor {self.actor_id[:8]} died while task {wire['name']!r} was in flight"
             )
+        except rpc.RpcError as e:
+            if "no handler for method" not in str(e):
+                raise
+            # The actor's address answered, but not as an actor worker: the
+            # worker died and another process took its port before the GCS
+            # heard of the death. As a lost connection: the next submit
+            # re-resolves.
+            self.conn = None
+            raise ActorUnavailableError(
+                f"actor {self.actor_id[:8]}'s address {self.addr} is served by another "
+                f"process: its worker is gone"
+            )
 
 
 def function_id_of(pickled: bytes) -> str:

@@ -631,6 +631,11 @@ class _RpcProtocol(asyncio.Protocol):
 
     def connection_made(self, transport) -> None:
         self.transport = transport
+        if self._conn._closed:
+            # Torn down before its transport existed (its server stopped
+            # while accepting it): nothing closed the socket then, and its
+            # peer would wait forever on replies that are never sent.
+            transport.close()
 
     def connection_lost(self, exc) -> None:
         for w in self._drain_waiters:
@@ -1531,6 +1536,7 @@ class Server:
         self._blob_factories: Dict[str, Callable] = {}
         self._server: Optional[asyncio.AbstractServer] = None
         self.connections: set = set()
+        self._stopping = False
         self._on_disconnect: Optional[Callable[[Connection], None]] = None
         # Per-dispatch ``(method, seconds)`` hook, copied onto every
         # accepted connection (service-latency telemetry; see Connection).
@@ -1570,11 +1576,18 @@ class Server:
             blob_factories=self._blob_factories,
             dispatch_observer=self.dispatch_observer,
         )
-        self.connections.add(conn)
+        if self._stopping:
+            # Accepted while stop() closes the listeners: close it as soon
+            # as its transport exists (connection_made), or it outlives the
+            # server unanswered.
+            conn._teardown()
+        else:
+            self.connections.add(conn)
         return conn._protocol
 
     async def start(self) -> Tuple[str, int]:
         loop = asyncio.get_running_loop()
+        self._stopping = False
         self._server = await loop.create_server(
             self._make_protocol, self._host, self._port
         )
@@ -1605,6 +1618,7 @@ class Server:
             self._on_disconnect(conn)
 
     async def stop(self) -> None:
+        self._stopping = True
         if self._server is not None:
             self._server.close()
         if getattr(self, "_uds_server", None) is not None:

@@ -10,9 +10,12 @@
 //
 // Layout [BH, T, D] for q/do/o and [BH, S, D] for k/v, row-major and
 // contiguous; lse and delta are [BH, T] f32; dq, dk and dv are f32. D is 64,
-// 96, 128 or 256; the wrappers (flash_attention.py) run any other head dim
-// up to 256, as the TPU kernels take any, at the next of these, zero-padded.
-// All sums are f32.
+// 96, 128, 256 or 512; the wrappers (flash_attention.py) run any other head
+// dim up to 512, as the TPU kernels take any, at the next of these,
+// zero-padded. Any number of heads BH, as the TPU kernels' grid takes: the
+// Hopper kernels are persistent and the f32 kernels fold the head into
+// gridDim.x; every offset into a tensor is formed in size_t. All sums are
+// f32.
 //
 // What bounds them on the card. The least time for the work is set by the
 // bytes at the train step's shape (causal, T = 1024, D = 64: ~256 flops per
@@ -171,11 +174,33 @@
 // 128-key tiles, and bwd_dkv pipelines 32-row q tiles (dK and dV take 96
 // registers, not 128).
 //
+// The Hopper kernels at D = 512. An item's 128 rows no longer fit: Q alone
+// would take 128 KB and an output's sums for 64 rows 256 registers a thread.
+// So at 512 an item is 64 rows (Items<512>) and the two consumer warpgroups
+// split its output columns instead of its rows: both make S (and dP) for the
+// item's 64 rows over all 512 columns, each holds the sums of its own 256
+// output columns (in 128 registers, as at 256), and the streamed tiles are
+// shared. The price is S and dP made twice, on the tensor cores:
+//   * forward: Q 64 KB, 32-key K/V tiles in two stages (192 KB); warpgroup
+//     w makes O's columns [256 w, 256 w + 256) from V's boxes 4w-4w+3, and
+//     warpgroup 0 writes lse (both hold the same m and l);
+//   * bwd_dq: Q and dO 128 KB, 16-key K/V tiles (m64n16 S and dP) in three
+//     stages (224 KB); dQ's columns split as O's;
+//   * bwd_dkv: K and V 128 KB, 16-row Q/dO tiles in three stages; each
+//     warpgroup's 256 dK and dV columns in two passes of 128, recomputing
+//     S^T and dP^T (four times S^T's tensor work, as a price of no atomics).
+// Past 512, Q, K and V tiles of 64 rows no longer leave room for a stream:
+// the wrappers refuse D > 512.
+//
 // The first kernels (f32 only) do their arithmetic on the f32 CUDA cores
 // (67 TFLOP/s, not the tensor cores' 989), and that is what bounds them: a
 // forward at the train shape is 13 GFLOP, at least 0.19 ms there. They take
 // any D that is a multiple of 16; at D = 256 the backward kernels stream
-// 32-row tiles (BC), as 64 would need more than a block's shared memory.
+// 32-row tiles (BC), as 64 would need more than a block's shared memory, and
+// at D = 512 the forward streams 16-key tiles and the backward kernels own
+// 32 rows (R = 2 rows a thread group) and stream 16 (F32Cfg; each block
+// ~200 KB). A block takes tile blockIdx.x % tiles of head blockIdx.x /
+// tiles: gridDim.y would stop at 65535 heads.
 // What their design does about it:
 //   * The TPU kernels carry the online-softmax state (m, l, acc) in VMEM
 //     scratch from one sequential grid step to the next. Blocks on Hopper
@@ -202,8 +227,6 @@
 
 namespace {
 
-constexpr int BQ = 64;    // q rows per tile
-constexpr int BK = 64;    // k rows per tile
 constexpr int NT = 256;   // threads: 16 row groups (ty) x 16 lanes (tx)
 constexpr float BIG_NEG = -1e30f;  // masked score, as _BIG_NEG in the reference
 
@@ -214,7 +237,7 @@ template <> __device__ __forceinline__ float from_f32<float>(float x) { return x
 
 // Stage rows [row0, row0 + ROWS) of an [n, D] matrix into a [ROWS][D + 1]
 // f32 tile. Rows at or past n are written as 0 and never read from memory.
-template <typename T, int D, int ROWS = 64>
+template <typename T, int D, int ROWS>
 __device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src, int row0, int n) {
   for (int e = threadIdx.x; e < ROWS * D; e += NT) {
     const int r = e / D, c = e % D;
@@ -237,72 +260,73 @@ __device__ __forceinline__ float group_sum(float x) {
 
 // ---------------------------------------------------------------- forward
 // Replaces _attn_fwd_kernel (WRITE_LSE = false) and _attn_fwd_kernel_lse
-// (WRITE_LSE = true). One block per (q tile, bh); online softmax over the k
-// tiles, as the TPU kernel does over its innermost grid axis.
-template <typename T, int D, bool CAUSAL, bool WRITE_LSE>
+// (WRITE_LSE = true). One block per (q tile of 16 R rows, bh); online softmax
+// over the k tiles of BC keys, as the TPU kernel does over its innermost grid
+// axis.
+template <typename T, int D, int R, int BC, bool CAUSAL, bool WRITE_LSE>
 __global__ void __launch_bounds__(NT) fwd_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     T* __restrict__ o, float* __restrict__ lse, int seq_q, int seq_k, float scale) {
-  constexpr int LD = D + 1, LP = BK + 1, DC = D / 16;
+  constexpr int QR = 16 * R, LD = D + 1, LP = BC + 1, DC = D / 16, JN = BC / 16;
   extern __shared__ float smem[];
-  float* qs = smem;           // [BQ][LD]
-  float* ks = qs + BQ * LD;   // [BK][LD]
-  float* vs = ks + BK * LD;   // [BK][LD]
-  float* ps = vs + BK * LD;   // [BQ][LP]
+  float* qs = smem;           // [QR][LD]
+  float* ks = qs + QR * LD;   // [BC][LD]
+  float* vs = ks + BC * LD;   // [BC][LD]
+  float* ps = vs + BC * LD;   // [QR][LP]
 
-  const int bh = blockIdx.y, q0 = blockIdx.x * BQ;
+  const int n_qt = (seq_q + QR - 1) / QR, bh = blockIdx.x / n_qt, q0 = blockIdx.x % n_qt * QR;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   q += static_cast<size_t>(bh) * seq_q * D;
   o += static_cast<size_t>(bh) * seq_q * D;
   k += static_cast<size_t>(bh) * seq_k * D;
   v += static_cast<size_t>(bh) * seq_k * D;
 
-  load_tile<T, D>(qs, q, q0, seq_q);
+  load_tile<T, D, QR>(qs, q, q0, seq_q);
 
-  float m[4], l[4], acc[4][DC];
+  float m[R], l[R], acc[R][DC];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < R; ++i) {
     m[i] = BIG_NEG;
     l[i] = 0.f;
 #pragma unroll
     for (int c = 0; c < DC; ++c) acc[i][c] = 0.f;
   }
 
-  int nk = (seq_k + BK - 1) / BK;
-  if (CAUSAL) nk = min(nk, (q0 + BQ - 1) / BK + 1);  // skip tiles above the diagonal
+  int nk = (seq_k + BC - 1) / BC;
+  if (CAUSAL) nk = min(nk, (q0 + QR - 1) / BC + 1);  // skip tiles above the diagonal
 
   for (int kt = 0; kt < nk; ++kt) {
-    const int k0 = kt * BK;
+    const int k0 = kt * BC;
     __syncthreads();  // the previous tile's readers are done with ks/vs/ps
-    load_tile<T, D>(ks, k, k0, seq_k);
-    load_tile<T, D>(vs, v, k0, seq_k);
+    load_tile<T, D, BC>(ks, k, k0, seq_k);
+    load_tile<T, D, BC>(vs, v, k0, seq_k);
     __syncthreads();
 
-    float s[4][4];
+    float s[R][JN];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < R; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+      for (int j = 0; j < JN; ++j) s[i][j] = 0.f;
 #pragma unroll 8
     for (int d = 0; d < D; ++d) {
-      float a[4], b[4];
+      float a[R], b[JN];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = qs[(ty * 4 + i) * LD + d];
+      for (int i = 0; i < R; ++i) a[i] = qs[(ty * R + i) * LD + d];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = ks[(tx + 16 * j) * LD + d];
+      for (int j = 0; j < JN; ++j) b[j] = ks[(tx + 16 * j) * LD + d];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < R; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(a[i], b[j], s[i][j]);
+        for (int j = 0; j < JN; ++j) s[i][j] = fmaf(a[i], b[j], s[i][j]);
     }
 
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qp = q0 + ty * 4 + i;
-      bool ok[4];
+    for (int i = 0; i < R; ++i) {
+      const int qp = q0 + ty * R + i;
+      bool ok[JN];
       float mc = BIG_NEG;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < JN; ++j) {
         const int kp = k0 + tx + 16 * j;
         ok[j] = kp < seq_k && (!CAUSAL || qp >= kp);
         s[i][j] = ok[j] ? s[i][j] * scale : BIG_NEG;
@@ -312,9 +336,9 @@ __global__ void __launch_bounds__(NT) fwd_kernel(
       const float alpha = expf(m[i] - mn);
       float rs = 0.f;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < JN; ++j) {
         const float p = ok[j] ? expf(s[i][j] - mn) : 0.f;
-        ps[(ty * 4 + i) * LP + tx + 16 * j] = p;
+        ps[(ty * R + i) * LP + tx + 16 * j] = p;
         rs += p;
       }
       l[i] = l[i] * alpha + group_sum(rs);
@@ -325,22 +349,22 @@ __global__ void __launch_bounds__(NT) fwd_kernel(
     __syncthreads();
 
 #pragma unroll 4
-    for (int c = 0; c < BK; ++c) {
-      float p[4];
+    for (int c = 0; c < BC; ++c) {
+      float p[R];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) p[i] = ps[(ty * 4 + i) * LP + c];
+      for (int i = 0; i < R; ++i) p[i] = ps[(ty * R + i) * LP + c];
 #pragma unroll
       for (int jj = 0; jj < DC; ++jj) {
         const float vv = vs[c * LD + tx + 16 * jj];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][jj] = fmaf(p[i], vv, acc[i][jj]);
+        for (int i = 0; i < R; ++i) acc[i][jj] = fmaf(p[i], vv, acc[i][jj]);
       }
     }
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qp = q0 + ty * 4 + i;
+  for (int i = 0; i < R; ++i) {
+    const int qp = q0 + ty * R + i;
     if (qp >= seq_q) continue;
     const float lsafe = fmaxf(l[i], 1e-30f);
 #pragma unroll
@@ -352,23 +376,23 @@ __global__ void __launch_bounds__(NT) fwd_kernel(
 
 // ------------------------------------------------------------ backward dq
 // Replaces _attn_bwd_dq_kernel (tile math of _bwd_tile). One block per
-// (q tile, bh); loops over k tiles of BC keys (64; 32 at D = 256, where 64
-// would take more than a block's shared memory). Per tile it re-derives
-// p = exp(s - lse) and ds = p * (do.v^T - delta) * scale, then dq += ds.k.
-template <typename T, int D, int BC, bool CAUSAL>
+// (q tile of 16 R rows, bh); loops over k tiles of BC keys (F32Cfg). Per
+// tile it re-derives p = exp(s - lse) and ds = p * (do.v^T - delta) * scale,
+// then dq += ds.k.
+template <typename T, int D, int R, int BC, bool CAUSAL>
 __global__ void __launch_bounds__(NT) bwd_dq_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const T* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
     float* __restrict__ dq, int seq_q, int seq_k, float scale) {
-  constexpr int LD = D + 1, LP = BC + 1, DC = D / 16, JN = BC / 16;
+  constexpr int QR = 16 * R, LD = D + 1, LP = BC + 1, DC = D / 16, JN = BC / 16;
   extern __shared__ float smem[];
-  float* qs = smem;             // [BQ][LD]
-  float* dos = qs + BQ * LD;    // [BQ][LD]
-  float* ks = dos + BQ * LD;    // [BC][LD]
+  float* qs = smem;             // [QR][LD]
+  float* dos = qs + QR * LD;    // [QR][LD]
+  float* ks = dos + QR * LD;    // [BC][LD]
   float* vs = ks + BC * LD;     // [BC][LD]
-  float* dss = vs + BC * LD;    // [BQ][LP]
+  float* dss = vs + BC * LD;    // [QR][LP]
 
-  const int bh = blockIdx.y, q0 = blockIdx.x * BQ;
+  const int n_qt = (seq_q + QR - 1) / QR, bh = blockIdx.x / n_qt, q0 = blockIdx.x % n_qt * QR;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   q += static_cast<size_t>(bh) * seq_q * D;
   dout += static_cast<size_t>(bh) * seq_q * D;
@@ -378,13 +402,13 @@ __global__ void __launch_bounds__(NT) bwd_dq_kernel(
   lse += static_cast<size_t>(bh) * seq_q;
   delta += static_cast<size_t>(bh) * seq_q;
 
-  load_tile<T, D>(qs, q, q0, seq_q);
-  load_tile<T, D>(dos, dout, q0, seq_q);
+  load_tile<T, D, QR>(qs, q, q0, seq_q);
+  load_tile<T, D, QR>(dos, dout, q0, seq_q);
 
-  float lr[4], dl[4], acc[4][DC];
+  float lr[R], dl[R], acc[R][DC];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qp = q0 + ty * 4 + i;
+  for (int i = 0; i < R; ++i) {
+    const int qp = q0 + ty * R + i;
     lr[i] = qp < seq_q ? lse[qp] : 0.f;
     dl[i] = qp < seq_q ? delta[qp] : 0.f;
 #pragma unroll
@@ -392,7 +416,7 @@ __global__ void __launch_bounds__(NT) bwd_dq_kernel(
   }
 
   int nk = (seq_k + BC - 1) / BC;
-  if (CAUSAL) nk = min(nk, (q0 + BQ - 1) / BC + 1);
+  if (CAUSAL) nk = min(nk, (q0 + QR - 1) / BC + 1);
 
   for (int kt = 0; kt < nk; ++kt) {
     const int k0 = kt * BC;
@@ -401,18 +425,18 @@ __global__ void __launch_bounds__(NT) bwd_dq_kernel(
     load_tile<T, D, BC>(vs, v, k0, seq_k);
     __syncthreads();
 
-    float s[4][JN], dp[4][JN];
+    float s[R][JN], dp[R][JN];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < R; ++i)
 #pragma unroll
       for (int j = 0; j < JN; ++j) s[i][j] = dp[i][j] = 0.f;
 #pragma unroll 4
     for (int d = 0; d < D; ++d) {
-      float a[4], g[4], b[JN], w[JN];
+      float a[R], g[R], b[JN], w[JN];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        a[i] = qs[(ty * 4 + i) * LD + d];
-        g[i] = dos[(ty * 4 + i) * LD + d];
+      for (int i = 0; i < R; ++i) {
+        a[i] = qs[(ty * R + i) * LD + d];
+        g[i] = dos[(ty * R + i) * LD + d];
       }
 #pragma unroll
       for (int j = 0; j < JN; ++j) {
@@ -420,7 +444,7 @@ __global__ void __launch_bounds__(NT) bwd_dq_kernel(
         w[j] = vs[(tx + 16 * j) * LD + d];
       }
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < R; ++i)
 #pragma unroll
         for (int j = 0; j < JN; ++j) {
           s[i][j] = fmaf(a[i], b[j], s[i][j]);
@@ -429,35 +453,35 @@ __global__ void __launch_bounds__(NT) bwd_dq_kernel(
     }
 
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qp = q0 + ty * 4 + i;
+    for (int i = 0; i < R; ++i) {
+      const int qp = q0 + ty * R + i;
 #pragma unroll
       for (int j = 0; j < JN; ++j) {
         const int kp = k0 + tx + 16 * j;
         const bool ok = kp < seq_k && qp < seq_q && (!CAUSAL || qp >= kp);
         const float p = ok ? expf(s[i][j] * scale - lr[i]) : 0.f;
-        dss[(ty * 4 + i) * LP + tx + 16 * j] = ok ? p * (dp[i][j] - dl[i]) * scale : 0.f;
+        dss[(ty * R + i) * LP + tx + 16 * j] = ok ? p * (dp[i][j] - dl[i]) * scale : 0.f;
       }
     }
     __syncthreads();
 
 #pragma unroll 4
     for (int c = 0; c < BC; ++c) {
-      float ds[4];
+      float ds[R];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) ds[i] = dss[(ty * 4 + i) * LP + c];
+      for (int i = 0; i < R; ++i) ds[i] = dss[(ty * R + i) * LP + c];
 #pragma unroll
       for (int jj = 0; jj < DC; ++jj) {
         const float kv = ks[c * LD + tx + 16 * jj];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][jj] = fmaf(ds[i], kv, acc[i][jj]);
+        for (int i = 0; i < R; ++i) acc[i][jj] = fmaf(ds[i], kv, acc[i][jj]);
       }
     }
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qp = q0 + ty * 4 + i;
+  for (int i = 0; i < R; ++i) {
+    const int qp = q0 + ty * R + i;
     if (qp >= seq_q) continue;
 #pragma unroll
     for (int jj = 0; jj < DC; ++jj) dq[static_cast<size_t>(qp) * D + tx + 16 * jj] = acc[i][jj];
@@ -465,28 +489,28 @@ __global__ void __launch_bounds__(NT) bwd_dq_kernel(
 }
 
 // ----------------------------------------------------------- backward dkv
-// Replaces _attn_bwd_dkv_kernel. One block per (k tile, bh); loops over the
-// q tiles (of BC rows: 64; 32 at D = 256, as in bwd_dq) that can see it, so
-// dk and dv need no atomics. The score tile is computed transposed (k rows
-// x q columns) so that each thread's rows are the k rows whose dk and dv it
+// Replaces _attn_bwd_dkv_kernel. One block per (k tile of 16 R rows, bh);
+// loops over the q tiles (of BC rows, F32Cfg) that can see it, so dk and dv
+// need no atomics. The score tile is computed transposed (k rows x q
+// columns) so that each thread's rows are the k rows whose dk and dv it
 // accumulates.
-template <typename T, int D, int BC, bool CAUSAL>
+template <typename T, int D, int R, int BC, bool CAUSAL>
 __global__ void __launch_bounds__(NT) bwd_dkv_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const T* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
     float* __restrict__ dk, float* __restrict__ dv, int seq_q, int seq_k, float scale) {
-  constexpr int LD = D + 1, LP = BC + 1, DC = D / 16, JN = BC / 16;
+  constexpr int KR = 16 * R, LD = D + 1, LP = BC + 1, DC = D / 16, JN = BC / 16;
   extern __shared__ float smem[];
-  float* ks = smem;             // [BK][LD]
-  float* vs = ks + BK * LD;     // [BK][LD]
-  float* qs = vs + BK * LD;     // [BC][LD]
+  float* ks = smem;             // [KR][LD]
+  float* vs = ks + KR * LD;     // [KR][LD]
+  float* qs = vs + KR * LD;     // [BC][LD]
   float* dos = qs + BC * LD;    // [BC][LD]
-  float* ps = dos + BC * LD;    // [BK][LP]  p transposed
-  float* dss = ps + BK * LP;    // [BK][LP]  ds transposed
-  float* ls = dss + BK * LP;    // [BC] lse of the q tile
+  float* ps = dos + BC * LD;    // [KR][LP]  p transposed
+  float* dss = ps + KR * LP;    // [KR][LP]  ds transposed
+  float* ls = dss + KR * LP;    // [BC] lse of the q tile
   float* dls = ls + BC;         // [BC] delta of the q tile
 
-  const int bh = blockIdx.y, k0 = blockIdx.x * BK;
+  const int n_kt = (seq_k + KR - 1) / KR, bh = blockIdx.x / n_kt, k0 = blockIdx.x % n_kt * KR;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   q += static_cast<size_t>(bh) * seq_q * D;
   dout += static_cast<size_t>(bh) * seq_q * D;
@@ -497,12 +521,12 @@ __global__ void __launch_bounds__(NT) bwd_dkv_kernel(
   lse += static_cast<size_t>(bh) * seq_q;
   delta += static_cast<size_t>(bh) * seq_q;
 
-  load_tile<T, D>(ks, k, k0, seq_k);
-  load_tile<T, D>(vs, v, k0, seq_k);
+  load_tile<T, D, KR>(ks, k, k0, seq_k);
+  load_tile<T, D, KR>(vs, v, k0, seq_k);
 
-  float dka[4][DC], dva[4][DC];
+  float dka[R][DC], dva[R][DC];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < R; ++i)
 #pragma unroll
     for (int c = 0; c < DC; ++c) dka[i][c] = dva[i][c] = 0.f;
 
@@ -522,18 +546,18 @@ __global__ void __launch_bounds__(NT) bwd_dkv_kernel(
     }
     __syncthreads();
 
-    float s[4][JN], dp[4][JN];
+    float s[R][JN], dp[R][JN];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < R; ++i)
 #pragma unroll
       for (int j = 0; j < JN; ++j) s[i][j] = dp[i][j] = 0.f;
 #pragma unroll 4
     for (int d = 0; d < D; ++d) {
-      float a[4], w[4], b[JN], g[JN];
+      float a[R], w[R], b[JN], g[JN];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        a[i] = ks[(ty * 4 + i) * LD + d];
-        w[i] = vs[(ty * 4 + i) * LD + d];
+      for (int i = 0; i < R; ++i) {
+        a[i] = ks[(ty * R + i) * LD + d];
+        w[i] = vs[(ty * R + i) * LD + d];
       }
 #pragma unroll
       for (int j = 0; j < JN; ++j) {
@@ -541,7 +565,7 @@ __global__ void __launch_bounds__(NT) bwd_dkv_kernel(
         g[j] = dos[(tx + 16 * j) * LD + d];
       }
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < R; ++i)
 #pragma unroll
         for (int j = 0; j < JN; ++j) {
           s[i][j] = fmaf(a[i], b[j], s[i][j]);
@@ -550,33 +574,33 @@ __global__ void __launch_bounds__(NT) bwd_dkv_kernel(
     }
 
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int kp = k0 + ty * 4 + i;
+    for (int i = 0; i < R; ++i) {
+      const int kp = k0 + ty * R + i;
 #pragma unroll
       for (int j = 0; j < JN; ++j) {
         const int r = tx + 16 * j, qp = q0 + r;
         const bool ok = kp < seq_k && qp < seq_q && (!CAUSAL || qp >= kp);
         const float p = ok ? expf(s[i][j] * scale - ls[r]) : 0.f;
-        ps[(ty * 4 + i) * LP + r] = p;
-        dss[(ty * 4 + i) * LP + r] = ok ? p * (dp[i][j] - dls[r]) * scale : 0.f;
+        ps[(ty * R + i) * LP + r] = p;
+        dss[(ty * R + i) * LP + r] = ok ? p * (dp[i][j] - dls[r]) * scale : 0.f;
       }
     }
     __syncthreads();
 
 #pragma unroll 4
     for (int c = 0; c < BC; ++c) {
-      float p[4], ds[4];
+      float p[R], ds[R];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        p[i] = ps[(ty * 4 + i) * LP + c];
-        ds[i] = dss[(ty * 4 + i) * LP + c];
+      for (int i = 0; i < R; ++i) {
+        p[i] = ps[(ty * R + i) * LP + c];
+        ds[i] = dss[(ty * R + i) * LP + c];
       }
 #pragma unroll
       for (int jj = 0; jj < DC; ++jj) {
         const float g = dos[c * LD + tx + 16 * jj];
         const float a = qs[c * LD + tx + 16 * jj];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
+        for (int i = 0; i < R; ++i) {
           dva[i][jj] = fmaf(p[i], g, dva[i][jj]);
           dka[i][jj] = fmaf(ds[i], a, dka[i][jj]);
         }
@@ -585,8 +609,8 @@ __global__ void __launch_bounds__(NT) bwd_dkv_kernel(
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int kp = k0 + ty * 4 + i;
+  for (int i = 0; i < R; ++i) {
+    const int kp = k0 + ty * R + i;
     if (kp >= seq_k) continue;
 #pragma unroll
     for (int jj = 0; jj < DC; ++jj) {
@@ -671,12 +695,26 @@ constexpr float LN2 = 0.6931471805599453f;
 // swizzle's period, 8 rows; a row holds KPB of wgmma's 16-column k steps.
 template <int D>
 struct Lay {
-  static_assert(D % 64 == 0 || D == 96, "the Hopper kernels take D = 64, 96, 128 or 256");
+  static_assert(D % 64 == 0 || D == 96, "the Hopper kernels take D = 64, 96, 128, 256 or 512");
   static constexpr int BW = D % 64 == 0 ? 64 : 32;
   static constexpr int RB = 2 * BW;
   static constexpr int ATOM = 8 * RB;
   static constexpr int KPB = BW / 16;
   static constexpr uint64_t DESC_SWIZZLE = BW == 64 ? 1 : 2;  // wgmma descriptor: 128B, 64B
+};
+
+// The rows of a work item and how its two consumer warpgroups share it: up
+// to D = 256, 128 rows, 64 a warpgroup; at D = 512 (COLS), 64 rows, both
+// warpgroups on all of them, warpgroup w holding output columns [OUT w,
+// OUT w + OUT) (see the file's header).
+template <int D>
+struct Items {
+  static constexpr bool COLS = D == 512;
+  static constexpr int ROWS = COLS ? 64 : FWD_BQ;
+  static constexpr int OUT = COLS ? D / 2 : D;
+  // A warpgroup's first row in the item and its first output column.
+  __device__ static int row(int wg) { return COLS ? 0 : wg * 64; }
+  __device__ static int col(int wg) { return COLS ? wg * OUT : 0; }
 };
 
 // Tile sizes and shared memory of one block, in bytes. At D = 128 a tile
@@ -686,12 +724,13 @@ struct Lay {
 // D = 256 the output sums alone take 128 of them and Q 64 KB of shared
 // memory: 32-key tiles in a ring of four stages (192 KB in all); 64-key
 // tiles in two stages spilled and took 0.2221 ms against 0.2064 at
-// [32, 2048, 256].
+// [32, 2048, 256]. At D = 512, Q of the item's 64 rows 64 KB and 32-key
+// tiles in two stages (192 KB in all).
 template <int D>
 struct FwdCfg {
-  static constexpr int BN = D <= 96 ? 128 : D == 256 ? 32 : 64;  // keys per K/V tile (the N of S = Q.K^T)
-  static constexpr int STAGES = 4;                               // K/V ring depth
-  static constexpr int Q_BYTES = FWD_BQ * D * 2;
+  static constexpr int BN = D <= 96 ? 128 : D >= 256 ? 32 : 64;  // keys per K/V tile (the N of S = Q.K^T)
+  static constexpr int STAGES = D == 512 ? 2 : 4;                // K/V ring depth
+  static constexpr int Q_BYTES = Items<D>::ROWS * D * 2;
   static constexpr int KV_BYTES = BN * D * 2;  // one K or one V tile
   static constexpr int BAR_BYTES = 8 * (2 + 2 * STAGES);
   // + 1024: the dynamic base is aligned up to the swizzle's 1024-byte period.
@@ -819,6 +858,16 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t a, uint64_t b)
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
       : "l"(a), "l"(b), "n"(SCALE_D));
 }
+template <int SCALE_D>
+__device__ __forceinline__ void wgmma_ss(float (&d)[8], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7 "
+      "}, %8, %9, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(a), "l"(b), "n"(SCALE_D));
+}
 __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
@@ -919,6 +968,15 @@ __device__ __forceinline__ void wgmma_rs_at(float (&d)[M], const uint32_t (&a)[4
 // wgmma_ss<0> with write-only sums: the compiler keeps no earlier value of
 // d alive into the product, as the read-write operands of wgmma_ss make it
 // do (the backward has no registers to spare for that at D = 128).
+__device__ __forceinline__ void wgmma_ss_fresh(float (&d)[8], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, 0, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7 "
+      "}, %8, %9, p, 1, 1, 0, 0;\n}\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]), "=f"(d[5]), "=f"(d[6]), "=f"(d[7])
+      : "l"(a), "l"(b));
+}
 __device__ __forceinline__ void wgmma_ss_fresh(float (&d)[16], uint64_t a, uint64_t b) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, 0, 0;\n"
@@ -1047,11 +1105,11 @@ __device__ __forceinline__ void split_p(const float (&s)[N], uint32_t (&hi)[N / 
 }
 
 // S = Q.K^T of one tile: Q (this warpgroup's 64 rows at q_addr, in boxes of
-// FWD_BQ rows) and K (the stage's 2N rows at k_addr), both K-major, 16
-// columns of D per wgmma. Within a swizzled box row, the k-th 16 columns
-// start 32k bytes in. FRESH: the first product takes s as write-only
-// (wgmma_ss_fresh).
-template <int D, bool FRESH = false, int N>
+// AROWS rows, an item's) and K (the stage's 2N rows at k_addr), both
+// K-major, 16 columns of D per wgmma. Within a swizzled box row, the k-th 16
+// columns start 32k bytes in. FRESH: the first product takes s as
+// write-only (wgmma_ss_fresh).
+template <int D, int AROWS, bool FRESH = false, int N>
 __device__ __forceinline__ void issue_s(float (&s)[N], uint32_t q_addr, uint32_t k_addr) {
   using L = Lay<D>;
   // Each k step's descriptor is the tile's first plus its offset (16-byte
@@ -1063,7 +1121,7 @@ __device__ __forceinline__ void issue_s(float (&s)[N], uint32_t q_addr, uint32_t
 #pragma unroll
   for (int kc = 0; kc < D / 16; ++kc) {
     const int box = kc / L::KPB, at = kc % L::KPB * 32;
-    const uint64_t a = a0 + ((box * FWD_BQ * L::RB + at) >> 4);
+    const uint64_t a = a0 + ((box * AROWS * L::RB + at) >> 4);
     const uint64_t b = b0 + ((box * 2 * N * L::RB + at) >> 4);
     if (kc > 0)
       wgmma_ss<1>(s, a, b);
@@ -1123,46 +1181,50 @@ __device__ __forceinline__ void stamp(int kernel, int wg, int tile, int ev, bool
 #define STAMP(kernel, tile, ev)
 #endif
 
-// K/V tiles a q tile starting at row q0 takes: all of S, or with CAUSAL
-// none above the diagonal.
-template <bool CAUSAL, int BN>
+// K/V tiles a q tile of ROWS rows starting at row q0 takes: all of S, or
+// with CAUSAL none above the diagonal.
+template <bool CAUSAL, int BN, int ROWS>
 __device__ __forceinline__ int kv_tiles(int q0, int seq_k) {
   const int n = (seq_k + BN - 1) / BN;
-  return CAUSAL ? min(n, (q0 + FWD_BQ - 1) / BN + 1) : n;
+  return CAUSAL ? min(n, (q0 + ROWS - 1) / BN + 1) : n;
 }
 
-// Work comes in units of two 128-row tiles of one head (q tiles in the
+// Work comes in units of two ROWS-row tiles of one head (q tiles in the
 // forward and in bwd_dq, k tiles in bwd_dkv), tile n_qt - 1 - p and tile p
 // (the middle one alone when n_qt is odd), so causal units hold like work,
 // and the blocks at work at one time share a few heads' streamed operands in
 // L2. Item j of unit u: its head and first row; false past the unit's last.
+template <int ROWS>
 __device__ __forceinline__ bool unit_item(int u, int j, int n_qt, int& head, int& q0) {
   const int n_pairs = (n_qt + 1) / 2, p = u % n_pairs, qt = j == 0 ? n_qt - 1 - p : p;
   head = u / n_pairs;
-  q0 = qt * FWD_BQ;
+  q0 = qt * ROWS;
   return j == 0 || qt != n_qt - 1 - p;
 }
 
 // Persistent: block b takes units b, b + gridDim.x, ... of the
 // (n_qt + 1) / 2 * bh units. The K/V ring runs on across items, and the
 // next item's Q loads while this item's last products and its stores run.
+// At D = 512 both consumers take the item's rows and half its columns each
+// (Items).
 template <int D, bool CAUSAL, bool WRITE_LSE>
 __global__ void __launch_bounds__(FWD_THREADS, 1) fwd_kernel_sm90(
     const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap k_map,
     const __grid_constant__ CUtensorMap v_map, bf16* __restrict__ o, float* __restrict__ lse, int bh,
     int seq_q, int seq_k, float scale) {
   using Cfg = FwdCfg<D>;
-  constexpr int BN = Cfg::BN, STAGES = Cfg::STAGES;
+  using It = Items<D>;
+  constexpr int BN = Cfg::BN, STAGES = Cfg::STAGES, ROWS = It::ROWS, OUT = It::OUT;
   extern __shared__ unsigned char fwd_smem[];
-  bf16* qs = swizzle_base(fwd_smem);
-  bf16* ks = qs + FWD_BQ * D;       // [STAGES][D / 64][BN][64]
+  bf16* qs = swizzle_base(fwd_smem);  // [D / 64][ROWS][64]
+  bf16* ks = qs + ROWS * D;           // [STAGES][D / 64][BN][64]
   bf16* vs = ks + STAGES * BN * D;  // [STAGES][D / 64][BN][64]
   const uint32_t q_full = smem_u32(vs + STAGES * BN * D);  // the item's Q landed
   const uint32_t q_empty = q_full + 8;                     // both consumers are done with Q
   const uint32_t full_bar = q_empty + 8;                   // [STAGES]: the stage's K and V landed
   const uint32_t empty_bar = full_bar + 8 * STAGES;        // [STAGES]: both consumers are done with it
 
-  const int n_qt = (seq_q + FWD_BQ - 1) / FWD_BQ, n_units = (n_qt + 1) / 2 * bh;
+  const int n_qt = (seq_q + ROWS - 1) / ROWS, n_units = (n_qt + 1) / 2 * bh;
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
     mbar_init(q_empty, 2);
@@ -1182,11 +1244,11 @@ __global__ void __launch_bounds__(FWD_THREADS, 1) fwd_kernel_sm90(
     if (threadIdx.x == 256) {
       int it = 0, n = 0, head, q0;  // K/V tiles (the ring's position) and items loaded
       for (int u = blockIdx.x; u < n_units; u += gridDim.x)
-        for (int j = 0; j < 2 && unit_item(u, j, n_qt, head, q0); ++j, ++n) {
-          const int n_kv_tiles = kv_tiles<CAUSAL, BN>(q0, seq_k);
+        for (int j = 0; j < 2 && unit_item<ROWS>(u, j, n_qt, head, q0); ++j, ++n) {
+          const int n_kv_tiles = kv_tiles<CAUSAL, BN, ROWS>(q0, seq_k);
           mbar_wait(q_empty, (n & 1) ^ 1);  // passes at once for the first item
           mbar_expect_tx(q_full, Cfg::Q_BYTES);
-          load_rows<FWD_BQ, D>(qs, &q_map, q_full, head, q0);
+          load_rows<ROWS, D>(qs, &q_map, q_full, head, q0);
           for (int kt = 0; kt < n_kv_tiles; ++kt, ++it) {
             const int st = it % STAGES;
             mbar_wait(empty_bar + 8 * st, (it / STAGES & 1) ^ 1);  // passes at once on the first lap
@@ -1197,22 +1259,24 @@ __global__ void __launch_bounds__(FWD_THREADS, 1) fwd_kernel_sm90(
           }
         }
     }
-  } else {  // consumer warpgroup wg: q rows [q0 + 64 wg, q0 + 64 wg + 64) of each item
+  } else {  // consumer warpgroup wg: q rows [q0 + row(wg), + 64) of each item, columns [col(wg), + OUT)
     asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
     const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32, tg = lane % 4;
     const float sl2 = scale * LOG2E;
-    const uint32_t q_addr = smem_u32(qs) + wg * 64 * Lay<D>::RB;
-    float s[BN / 2], acc[D / 2], alpha[2];
+    const uint32_t q_addr = smem_u32(qs) + It::row(wg) * Lay<D>::RB;
+    // This warpgroup's output columns of a V stage: its boxes, BN rows each.
+    const uint32_t v_at = It::col(wg) / Lay<D>::BW * BN * Lay<D>::RB;
+    float s[BN / 2], acc[OUT / 2], alpha[2];
     uint32_t p_hi[BN / 16][4], p_lo[BN / 16][4];
 
     int it = 0, n = 0, head, q0;  // K/V tiles and items consumed
     for (int u = blockIdx.x; u < n_units; u += gridDim.x)
-      for (int j = 0; j < 2 && unit_item(u, j, n_qt, head, q0); ++j, ++n) {
-        const int n_kv_tiles = kv_tiles<CAUSAL, BN>(q0, seq_k);
-        const int row0 = q0 + wg * 64;
+      for (int j = 0; j < 2 && unit_item<ROWS>(u, j, n_qt, head, q0); ++j, ++n) {
+        const int n_kv_tiles = kv_tiles<CAUSAL, BN, ROWS>(q0, seq_k);
+        const int row0 = q0 + It::row(wg);
         const int r0 = row0 + warp * 16 + lane / 4;  // this thread's rows: r0 and r0 + 8
 #pragma unroll
-        for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+        for (int i = 0; i < OUT / 2; ++i) acc[i] = 0.f;
         float m[2] = {BIG_NEG, BIG_NEG}, l[2] = {0.f, 0.f};  // l: this thread's part of the row sum
 
         mbar_wait(q_full, n & 1);
@@ -1222,7 +1286,7 @@ __global__ void __launch_bounds__(FWD_THREADS, 1) fwd_kernel_sm90(
         bar_sync(1 + wg);
         keep(s);
         wgmma_fence();
-        issue_s<D>(s, q_addr, smem_u32(ks + it % STAGES * BN * D));
+        issue_s<D, ROWS>(s, q_addr, smem_u32(ks + it % STAGES * BN * D));
         wgmma_commit();
         keep(s);
         bar_arrive_if(2 - wg, wg == 0 || n_kv_tiles > 1);  // the other warpgroup's turn
@@ -1244,9 +1308,9 @@ __global__ void __launch_bounds__(FWD_THREADS, 1) fwd_kernel_sm90(
           keep(p_hi);
           keep(p_lo);
           wgmma_fence();
-          issue_s<D>(s, q_addr, smem_u32(ks + st * BN * D));
+          issue_s<D, ROWS>(s, q_addr, smem_u32(ks + st * BN * D));
           wgmma_commit();
-          issue_pv<D>(acc, p_hi, p_lo, smem_u32(vs + prev * BN * D));
+          issue_pv<OUT>(acc, p_hi, p_lo, smem_u32(vs + prev * BN * D) + v_at);
           wgmma_commit();
           STAMP(0, it + kt, 1);
           keep(s);
@@ -1265,7 +1329,7 @@ __global__ void __launch_bounds__(FWD_THREADS, 1) fwd_kernel_sm90(
           STAMP(0, it + kt, 4);
           mbar_arrive_if(empty_bar + 8 * prev, tid == 0);
 #pragma unroll
-          for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[i % 4 / 2];
+          for (int i = 0; i < OUT / 2; ++i) acc[i] *= alpha[i % 4 / 2];
           split_p(s, p_hi, p_lo);
           STAMP(0, it + kt, 5);
         }
@@ -1275,7 +1339,7 @@ __global__ void __launch_bounds__(FWD_THREADS, 1) fwd_kernel_sm90(
         keep(p_hi);
         keep(p_lo);
         wgmma_fence();
-        issue_pv<D>(acc, p_hi, p_lo, smem_u32(vs + last * BN * D));
+        issue_pv<OUT>(acc, p_hi, p_lo, smem_u32(vs + last * BN * D) + v_at);
         wgmma_commit();
         keep(acc);
         wgmma_wait<0>();
@@ -1289,12 +1353,14 @@ __global__ void __launch_bounds__(FWD_THREADS, 1) fwd_kernel_sm90(
           const int qp = r0 + 8 * r;
           const float lsafe = fmaxf(quad_sum(l[r]), 1e-30f), linv = 1.f / lsafe;
           if (qp >= seq_q) continue;
-          bf16* orow = o + (static_cast<size_t>(head) * seq_q + qp) * D;
+          bf16* orow = o + (static_cast<size_t>(head) * seq_q + qp) * D + It::col(wg);
 #pragma unroll
-          for (int c = 0; c < D / 8; ++c)
+          for (int c = 0; c < OUT / 8; ++c)
             *reinterpret_cast<__nv_bfloat162*>(orow + c * 8 + 2 * tg) =
                 __floats2bfloat162_rn(acc[4 * c + 2 * r] * linv, acc[4 * c + 2 * r + 1] * linv);
-          if (WRITE_LSE && tg == 0) lse[static_cast<size_t>(head) * seq_q + qp] = m[r] * LN2 + logf(lsafe);
+          // With COLS both warpgroups hold the row's m and l: warpgroup 0 writes lse.
+          if (WRITE_LSE && tg == 0 && It::col(wg) == 0)
+            lse[static_cast<size_t>(head) * seq_q + qp] = m[r] * LN2 + logf(lsafe);
         }
       }
   }
@@ -1309,27 +1375,29 @@ __global__ void __launch_bounds__(FWD_THREADS, 1) fwd_kernel_sm90(
 // built this way. Both use the forward's layout, producer and wgmma parts;
 // neither uses an atomic, so every sum is taken in one order on every run.
 
-// bwd_dkv: 128 k rows an item (64 per consumer warpgroup), K and V loaded
-// once an item; Q, dO, lse and delta stream in tiles of BQ q rows.
+// bwd_dkv: 128 k rows an item (64 per consumer warpgroup; at D = 512, 64
+// rows for both, Items), K and V loaded once an item; Q, dO, lse and delta
+// stream in tiles of BQ q rows.
 template <int D>
 struct DkvCfg {
   // q rows per tile (the N of S^T = K.Q^T). At D = 128, dK and dV take 128
   // of a consumer thread's 240 registers, and a 64-row tile's S^T, dP^T and
   // their split operands (64 more) left ptxas spilling; D = 96 takes 128's
-  // 32-row tiles.
-  static constexpr int BQ = D == 64 ? 64 : 32;
+  // 32-row tiles. At 512, 16-row tiles: K and V of the item take 128 KB.
+  static constexpr int BQ = D == 64 ? 64 : D == 512 ? 16 : 32;
   // At D = 256, dK and dV would take 256 registers a thread: the consumers
   // make them in two passes over the item's q tiles, 128 columns each
   // (DA), and recompute S^T and dP^T in the second (K, V 128 KB for the
-  // item, Q and dO tiles 32 KB a stage).
-  static constexpr int PASSES = D == 256 ? 2 : 1;
-  static constexpr int DA = D / PASSES;
-  static constexpr int STAGES = D == 256 ? 3 : 4;
+  // item, Q and dO tiles 32 KB a stage). At 512 each warpgroup's 256
+  // columns (Items::OUT) take the same two passes.
+  static constexpr int PASSES = D >= 256 ? 2 : 1;
+  static constexpr int DA = Items<D>::OUT / PASSES;
+  static constexpr int STAGES = D >= 256 ? 3 : 4;
   // Tile t's S^T and dP^T beside tile t-1's split operands, which dK and dV
   // at D = 128 and up leave no room for (at 96 0.5116 ms against 0.6261 in
   // turn at [128, 2048, 96] on an H100).
   static constexpr bool PIPE = D <= 96;
-  static constexpr int KV_BYTES = FWD_BQ * D * 2;  // an item's K or V
+  static constexpr int KV_BYTES = Items<D>::ROWS * D * 2;  // an item's K or V
   static constexpr int QT_BYTES = BQ * D * 2;      // one Q or dO tile
   static constexpr int STAT_BYTES = 2 * BQ * 4;    // one tile's lse and delta
   static constexpr int BAR_BYTES = 8 * (2 + 2 * STAGES);
@@ -1337,16 +1405,17 @@ struct DkvCfg {
   static_assert(BYTES <= 232448, "a block has 227 KB of shared memory");
 };
 
-// bwd_dq: 128 q rows an item, Q and dO loaded once an item; K and V stream
-// in tiles of BN keys, as in the forward.
+// bwd_dq: 128 q rows an item (64 at D = 512, Items), Q and dO loaded once an
+// item; K and V stream in tiles of BN keys, as in the forward.
 template <int D>
 struct DqCfg {
   // Keys per K/V tile: S and dP of tile kt beside tile kt-1's split dS, in
   // the consumers' registers. At D = 256 an item's Q and dO take 128 KB:
-  // 32-key tiles, three stages (224 KB in all).
-  static constexpr int BN = D == 256 ? 32 : 64;
-  static constexpr int STAGES = D == 256 ? 3 : 4;
-  static constexpr int Q_BYTES = FWD_BQ * D * 2;  // an item's Q or dO
+  // 32-key tiles, three stages (224 KB in all); at 512 they take 128 KB for
+  // 64 rows: 16-key tiles, three stages (224 KB).
+  static constexpr int BN = D == 512 ? 16 : D == 256 ? 32 : 64;
+  static constexpr int STAGES = D >= 256 ? 3 : 4;
+  static constexpr int Q_BYTES = Items<D>::ROWS * D * 2;  // an item's Q or dO
   static constexpr int KV_BYTES = BN * D * 2;     // one K or V tile
   static constexpr int BAR_BYTES = 8 * (2 + 2 * STAGES);
   static constexpr int BYTES = 2 * Q_BYTES + 2 * STAGES * KV_BYTES + BAR_BYTES + 1024;
@@ -1429,11 +1498,12 @@ __global__ void __launch_bounds__(FWD_THREADS, 1) bwd_dkv_kernel_sm90(
     const float* __restrict__ lse, const float* __restrict__ delta, float* __restrict__ dk,
     float* __restrict__ dv, int bh, int seq_q, int seq_k, float scale) {
   using Cfg = DkvCfg<D>;
-  constexpr int BQ = Cfg::BQ, STAGES = Cfg::STAGES, DA = Cfg::DA;
+  using It = Items<D>;
+  constexpr int BQ = Cfg::BQ, STAGES = Cfg::STAGES, DA = Cfg::DA, ROWS = It::ROWS;
   extern __shared__ unsigned char dkv_smem[];
-  bf16* ks = swizzle_base(dkv_smem);  // [D / 64][128][64]
-  bf16* vs = ks + FWD_BQ * D;         // [D / 64][128][64]
-  bf16* qs = vs + FWD_BQ * D;         // [STAGES][D / 64][BQ][64]
+  bf16* ks = swizzle_base(dkv_smem);  // [D / 64][ROWS][64]
+  bf16* vs = ks + ROWS * D;           // [D / 64][ROWS][64]
+  bf16* qs = vs + ROWS * D;           // [STAGES][D / 64][BQ][64]
   bf16* dos = qs + STAGES * BQ * D;   // [STAGES][D / 64][BQ][64]
   float* stats = reinterpret_cast<float*>(dos + STAGES * BQ * D);  // [STAGES][lse | delta][BQ]
   const uint32_t kv_full = smem_u32(stats + STAGES * 2 * BQ);  // the item's K and V landed
@@ -1441,7 +1511,7 @@ __global__ void __launch_bounds__(FWD_THREADS, 1) bwd_dkv_kernel_sm90(
   const uint32_t full_bar = kv_empty + 8;                      // [STAGES]: the stage's tiles and stats landed
   const uint32_t empty_bar = full_bar + 8 * STAGES;            // [STAGES]: both consumers are done with it
 
-  const int n_kt = (seq_k + FWD_BQ - 1) / FWD_BQ, n_units = (n_kt + 1) / 2 * bh;
+  const int n_kt = (seq_k + ROWS - 1) / ROWS, n_units = (n_kt + 1) / 2 * bh;
   const int n_qt = (seq_q + BQ - 1) / BQ;
   if (threadIdx.x == 0) {
     mbar_init(kv_full, 1);
@@ -1461,12 +1531,12 @@ __global__ void __launch_bounds__(FWD_THREADS, 1) bwd_dkv_kernel_sm90(
       const int lane = threadIdx.x % 32;
       int it = 0, n = 0, head, k0;  // Q/dO tiles (the ring's position) and items loaded
       for (int u = blockIdx.x; u < n_units; u += gridDim.x)
-        for (int j = 0; j < 2 && unit_item(u, j, n_kt, head, k0); ++j, ++n) {
+        for (int j = 0; j < 2 && unit_item<ROWS>(u, j, n_kt, head, k0); ++j, ++n) {
           mbar_wait(kv_empty, (n & 1) ^ 1);  // passes at once for the first item
           if (lane == 0) {
             mbar_expect_tx(kv_full, 2 * Cfg::KV_BYTES);
-            load_rows<FWD_BQ, D>(ks, &k_map, kv_full, head, k0);
-            load_rows<FWD_BQ, D>(vs, &v_map, kv_full, head, k0);
+            load_rows<ROWS, D>(ks, &k_map, kv_full, head, k0);
+            load_rows<ROWS, D>(vs, &v_map, kv_full, head, k0);
           }
           const float* lse_h = lse + static_cast<size_t>(head) * seq_q;
           const float* delta_h = delta + static_cast<size_t>(head) * seq_q;
@@ -1481,24 +1551,28 @@ __global__ void __launch_bounds__(FWD_THREADS, 1) bwd_dkv_kernel_sm90(
                 load_rows<BQ, D>(dos + st * BQ * D, &do_map, full, head, qt * BQ);
               }
               // lse and delta rows are 4 * T bytes apart, no multiple of 16 for
-              // every T, so they come by cp.async, zero-filled past T.
+              // every T, so they come by cp.async, zero-filled past T (a
+              // lane past BQ copies nothing and still arrives).
               float* stat = stats + st * 2 * BQ;
 #pragma unroll
-              for (int c = 0; c < BQ / 32; ++c) {
+              for (int c = 0; c < (BQ + 31) / 32; ++c) {
                 const int i = lane + 32 * c, qp = qt * BQ + i;
                 const bool in = qp < seq_q;
-                cp_async_4(stat + i, lse_h + (in ? qp : 0), in);
-                cp_async_4(stat + BQ + i, delta_h + (in ? qp : 0), in);
+                if (i < BQ) {
+                  cp_async_4(stat + i, lse_h + (in ? qp : 0), in);
+                  cp_async_4(stat + BQ + i, delta_h + (in ? qp : 0), in);
+                }
               }
               cp_async_arrive(full);
             }
         }
     }
-  } else {  // consumer warpgroup wg: k rows [k0 + 64 wg, k0 + 64 wg + 64) of each item
+  } else {  // consumer warpgroup wg: k rows [k0 + row(wg), + 64) of each item, columns [col(wg), + OUT)
     asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
     const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32, tg = lane % 4;
     const float sl2 = scale * LOG2E;
-    const uint32_t k_addr = smem_u32(ks) + wg * 64 * Lay<D>::RB, v_addr = smem_u32(vs) + wg * 64 * Lay<D>::RB;
+    const uint32_t k_addr = smem_u32(ks) + It::row(wg) * Lay<D>::RB;
+    const uint32_t v_addr = smem_u32(vs) + It::row(wg) * Lay<D>::RB;
     float s[BQ / 2], dp[BQ / 2], dka[DA / 2], dva[DA / 2];
     uint32_t p_hi[BQ / 16][4], p_lo[BQ / 16][4], ds_hi[BQ / 16][4], ds_lo[BQ / 16][4];
     auto q_addr = [&](int st) { return smem_u32(qs + st * BQ * D); };
@@ -1511,13 +1585,15 @@ __global__ void __launch_bounds__(FWD_THREADS, 1) bwd_dkv_kernel_sm90(
     };
     // S^T = K.Q^T and dP^T = V.dO^T of the tile in stage st, issued.
     auto issue_sdp = [&](int st) {
-      issue_s<D, true>(s, k_addr, q_addr(st));
-      issue_s<D, true>(dp, v_addr, do_addr(st));
+      issue_s<D, ROWS, true>(s, k_addr, q_addr(st));
+      issue_s<D, ROWS, true>(dp, v_addr, do_addr(st));
     };
+    // The DA columns a pass makes: this warpgroup's columns, in passes.
+    auto chunk = [&](int pass) { return It::col(wg) / DA + pass; };
     // dV += P^T.dO and dK += dS^T.Q of the tile in stage st, issued: the
     // DA columns of pass `pass` (dO's and Q's boxes from its first).
     auto issue_dkv = [&](int st, int pass) {
-      const uint32_t at = pass * (DA / Lay<D>::BW) * BQ * Lay<D>::RB;
+      const uint32_t at = chunk(pass) * (DA / Lay<D>::BW) * BQ * Lay<D>::RB;
       issue_pv<DA>(dva, p_hi, p_lo, do_addr(st) + at);
       issue_pv<DA>(dka, ds_hi, ds_lo, q_addr(st) + at);
     };
@@ -1538,15 +1614,15 @@ __global__ void __launch_bounds__(FWD_THREADS, 1) bwd_dkv_kernel_sm90(
 
     int it = 0, n = 0, head, k0;  // Q/dO tiles and items consumed
     for (int u = blockIdx.x; u < n_units; u += gridDim.x)
-      for (int j = 0; j < 2 && unit_item(u, j, n_kt, head, k0); ++j, ++n) {
-        const int row0 = k0 + wg * 64;
+      for (int j = 0; j < 2 && unit_item<ROWS>(u, j, n_kt, head, k0); ++j, ++n) {
+        const int row0 = k0 + It::row(wg);
         const int r0 = row0 + warp * 16 + lane / 4;  // this thread's k rows: r0 and r0 + 8
         const int qt0 = CAUSAL ? k0 / BQ : 0, n_t = max(n_qt - qt0, 0);
         mbar_wait(kv_full, n & 1);
         // With CAUSAL, the item's first q tiles up to row0 lie wholly above
         // this warpgroup's rows (warpgroup 1's first 64 q rows): it waits for
         // each and frees its stage, and adds nothing.
-        const int t0 = min(CAUSAL ? wg * 64 / BQ : 0, n_t);
+        const int t0 = min(CAUSAL ? It::row(wg) / BQ : 0, n_t);
         const size_t at = static_cast<size_t>(head) * seq_k * D;
         for (int pass = 0; pass < Cfg::PASSES; ++pass) {
           const bool last = pass + 1 == Cfg::PASSES;  // K and V may go after its last S^T
@@ -1658,8 +1734,8 @@ __global__ void __launch_bounds__(FWD_THREADS, 1) bwd_dkv_kernel_sm90(
           it += n_t;
 #pragma unroll
           for (int i = 0; i < DA / 2; ++i) dka[i] *= scale;
-          store_rows<DA>(dk + at + pass * DA, dka, r0, tg, seq_k, D);
-          store_rows<DA>(dv + at + pass * DA, dva, r0, tg, seq_k, D);
+          store_rows<DA>(dk + at + chunk(pass) * DA, dka, r0, tg, seq_k, D);
+          store_rows<DA>(dv + at + chunk(pass) * DA, dva, r0, tg, seq_k, D);
         }
         mbar_arrive_if(kv_empty, tid == 0 && t0 >= n_t);  // no q tile of the item sees these rows
       }
@@ -1679,18 +1755,19 @@ __global__ void __launch_bounds__(FWD_THREADS, 1) bwd_dq_kernel_sm90(
     const float* __restrict__ lse, const float* __restrict__ delta, float* __restrict__ dq, int bh,
     int seq_q, int seq_k, float scale) {
   using Cfg = DqCfg<D>;
-  constexpr int BN = Cfg::BN, STAGES = Cfg::STAGES;
+  using It = Items<D>;
+  constexpr int BN = Cfg::BN, STAGES = Cfg::STAGES, ROWS = It::ROWS, OUT = It::OUT;
   extern __shared__ unsigned char dq_smem[];
-  bf16* qs = swizzle_base(dq_smem);   // [D / 64][128][64]
-  bf16* dos = qs + FWD_BQ * D;        // [D / 64][128][64]
-  bf16* ks = dos + FWD_BQ * D;        // [STAGES][D / 64][BN][64]
+  bf16* qs = swizzle_base(dq_smem);   // [D / 64][ROWS][64]
+  bf16* dos = qs + ROWS * D;          // [D / 64][ROWS][64]
+  bf16* ks = dos + ROWS * D;          // [STAGES][D / 64][BN][64]
   bf16* vs = ks + STAGES * BN * D;    // [STAGES][D / 64][BN][64]
   const uint32_t qdo_full = smem_u32(vs + STAGES * BN * D);  // the item's Q and dO landed
   const uint32_t qdo_empty = qdo_full + 8;                     // both consumers are done with them
   const uint32_t full_bar = qdo_empty + 8;                   // [STAGES]: the stage's K and V landed
   const uint32_t empty_bar = full_bar + 8 * STAGES;        // [STAGES]: both consumers are done with it
 
-  const int n_qt = (seq_q + FWD_BQ - 1) / FWD_BQ, n_units = (n_qt + 1) / 2 * bh;
+  const int n_qt = (seq_q + ROWS - 1) / ROWS, n_units = (n_qt + 1) / 2 * bh;
   if (threadIdx.x == 0) {
     mbar_init(qdo_full, 1);
     mbar_init(qdo_empty, 2);
@@ -1708,12 +1785,12 @@ __global__ void __launch_bounds__(FWD_THREADS, 1) bwd_dq_kernel_sm90(
     if (threadIdx.x == 256) {
       int it = 0, n = 0, head, q0;  // K/V tiles (the ring's position) and items loaded
       for (int u = blockIdx.x; u < n_units; u += gridDim.x)
-        for (int j = 0; j < 2 && unit_item(u, j, n_qt, head, q0); ++j, ++n) {
-          const int n_kv_tiles = kv_tiles<CAUSAL, BN>(q0, seq_k);
+        for (int j = 0; j < 2 && unit_item<ROWS>(u, j, n_qt, head, q0); ++j, ++n) {
+          const int n_kv_tiles = kv_tiles<CAUSAL, BN, ROWS>(q0, seq_k);
           mbar_wait(qdo_empty, (n & 1) ^ 1);  // passes at once for the first item
           mbar_expect_tx(qdo_full, 2 * Cfg::Q_BYTES);
-          load_rows<FWD_BQ, D>(qs, &q_map, qdo_full, head, q0);
-          load_rows<FWD_BQ, D>(dos, &do_map, qdo_full, head, q0);
+          load_rows<ROWS, D>(qs, &q_map, qdo_full, head, q0);
+          load_rows<ROWS, D>(dos, &do_map, qdo_full, head, q0);
           for (int kt = 0; kt < n_kv_tiles; ++kt, ++it) {
             const int st = it % STAGES;
             mbar_wait(empty_bar + 8 * st, (it / STAGES & 1) ^ 1);  // passes at once on the first lap
@@ -1724,25 +1801,28 @@ __global__ void __launch_bounds__(FWD_THREADS, 1) bwd_dq_kernel_sm90(
           }
         }
     }
-  } else {  // consumer warpgroup wg: q rows [q0 + 64 wg, q0 + 64 wg + 64) of each item
+  } else {  // consumer warpgroup wg: q rows [q0 + row(wg), + 64) of each item, columns [col(wg), + OUT)
     asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
     const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32, tg = lane % 4;
     const float sl2 = scale * LOG2E;
-    const uint32_t q_addr = smem_u32(qs) + wg * 64 * Lay<D>::RB, do_addr = smem_u32(dos) + wg * 64 * Lay<D>::RB;
-    float s[BN / 2], dp[BN / 2], dqa[D / 2];
+    const uint32_t q_addr = smem_u32(qs) + It::row(wg) * Lay<D>::RB;
+    const uint32_t do_addr = smem_u32(dos) + It::row(wg) * Lay<D>::RB;
+    // This warpgroup's dQ columns of a K stage: its boxes, BN rows each.
+    const uint32_t k_at = It::col(wg) / Lay<D>::BW * BN * Lay<D>::RB;
+    float s[BN / 2], dp[BN / 2], dqa[OUT / 2];
     uint32_t ds_hi[BN / 16][4], ds_lo[BN / 16][4];
     auto k_addr = [&](int st) { return smem_u32(ks + st * BN * D); };
     // S = Q.K^T and dP = dO.V^T of the tile in stage st, issued.
     auto issue_sdp = [&](int st) {
-      issue_s<D, true>(s, q_addr, k_addr(st));
-      issue_s<D, true>(dp, do_addr, smem_u32(vs + st * BN * D));
+      issue_s<D, ROWS, true>(s, q_addr, k_addr(st));
+      issue_s<D, ROWS, true>(dp, do_addr, smem_u32(vs + st * BN * D));
     };
 
     int it = 0, n = 0, head, q0;  // K/V tiles and items consumed
     for (int u = blockIdx.x; u < n_units; u += gridDim.x)
-      for (int j = 0; j < 2 && unit_item(u, j, n_qt, head, q0); ++j, ++n) {
-        const int n_kv_tiles = kv_tiles<CAUSAL, BN>(q0, seq_k);
-        const int row0 = q0 + wg * 64;
+      for (int j = 0; j < 2 && unit_item<ROWS>(u, j, n_qt, head, q0); ++j, ++n) {
+        const int n_kv_tiles = kv_tiles<CAUSAL, BN, ROWS>(q0, seq_k);
+        const int row0 = q0 + It::row(wg);
         const int r0 = row0 + warp * 16 + lane / 4;  // this thread's rows: r0 and r0 + 8
         float lse2[2], dl[2];
 #pragma unroll
@@ -1761,7 +1841,7 @@ __global__ void __launch_bounds__(FWD_THREADS, 1) bwd_dq_kernel_sm90(
             dq_grads<false, CAUSAL>(s, dp, lse2, dl, r0, k0 + 2 * tg, seq_k, sl2);
         };
 #pragma unroll
-        for (int i = 0; i < D / 2; ++i) dqa[i] = 0.f;
+        for (int i = 0; i < OUT / 2; ++i) dqa[i] = 0.f;
         mbar_wait(qdo_full, n & 1);
         // As the forward: tile kt's S and dP are issued with tile kt-1's dQ
         // product and the consumers issue in turn, so tile kt's dS is made
@@ -1794,7 +1874,7 @@ __global__ void __launch_bounds__(FWD_THREADS, 1) bwd_dq_kernel_sm90(
           wgmma_fence();
           issue_sdp(st);
           wgmma_commit();
-          issue_pv<D>(dqa, ds_hi, ds_lo, k_addr(prev));  // dQ += dS.K
+          issue_pv<OUT>(dqa, ds_hi, ds_lo, k_addr(prev) + k_at);  // dQ += dS.K
           wgmma_commit();
           keep(s);
           keep(dp);
@@ -1822,7 +1902,7 @@ __global__ void __launch_bounds__(FWD_THREADS, 1) bwd_dq_kernel_sm90(
         keep(ds_hi);
         keep(ds_lo);
         wgmma_fence();
-        issue_pv<D>(dqa, ds_hi, ds_lo, k_addr(st));
+        issue_pv<OUT>(dqa, ds_hi, ds_lo, k_addr(st) + k_at);
         wgmma_commit();
         keep(dqa);
         wgmma_wait<0>();
@@ -1831,8 +1911,8 @@ __global__ void __launch_bounds__(FWD_THREADS, 1) bwd_dq_kernel_sm90(
         keep(ds_lo);
         mbar_arrive_if(empty_bar + 8 * st, tid == 0);
 #pragma unroll
-        for (int i = 0; i < D / 2; ++i) dqa[i] *= scale;
-        store_rows<D>(dq + static_cast<size_t>(head) * seq_q * D, dqa, r0, tg, seq_q, D);
+        for (int i = 0; i < OUT / 2; ++i) dqa[i] *= scale;
+        store_rows<OUT>(dq + static_cast<size_t>(head) * seq_q * D + It::col(wg), dqa, r0, tg, seq_q, D);
       }
   }
 }
@@ -1861,67 +1941,90 @@ cudaError_t launch(dim3 grid, size_t smem, cudaStream_t stream, Args... args) {
   return cudaGetLastError();
 }
 
+// The f32 kernels' tiles by head dim: R rows a thread group (16 R rows a
+// block) and BC rows a streamed tile. Up to 256 the forward takes 64 q rows
+// and 64-key tiles, and the backward 64 rows and 64-row tiles (32 past 128);
+// at 512 the forward 16-key tiles and the backward 32 rows and 16-row tiles,
+// so each block fits in 227 KB.
+template <int D>
+struct F32Cfg {
+  static constexpr int FWD_R = 4, FWD_BC = D == 512 ? 16 : 64;
+  static constexpr int BWD_R = D == 512 ? 2 : 4, BWD_BC = D == 512 ? 16 : D > 128 ? 32 : 64;
+};
+
+// A block per tile of `rows` rows (16 r a tile) of each of bh heads, in
+// gridDim.x, which takes up to 2^31 - 1 blocks.
+cudaError_t head_grid(int rows, int r, int bh, dim3& grid) {
+  const long long blocks = static_cast<long long>((rows + 16 * r - 1) / (16 * r)) * bh;
+  if (blocks > 0x7FFFFFFF) return cudaErrorInvalidValue;
+  grid = dim3(static_cast<unsigned>(blocks));
+  return cudaSuccess;
+}
+
 template <typename T, int D>
 cudaError_t fwd(const void* q, const void* k, const void* v, void* o, float* lse, int bh,
                 int seq_q, int seq_k, float scale, bool causal, cudaStream_t stream) {
-  constexpr size_t smem = sizeof(float) * (BQ * (D + 1) + 2 * BK * (D + 1) + BQ * (BK + 1));
+  constexpr int R = F32Cfg<D>::FWD_R, BC = F32Cfg<D>::FWD_BC, QR = 16 * R;
+  constexpr size_t smem = sizeof(float) * (QR * (D + 1) + 2 * BC * (D + 1) + QR * (BC + 1));
   static_assert(smem <= 232448, "a block has 227 KB of shared memory");
-  const dim3 grid((seq_q + BQ - 1) / BQ, bh);
+  dim3 grid;
+  const cudaError_t err = head_grid(seq_q, R, bh, grid);
+  if (err != cudaSuccess) return err;
   const T* qt = static_cast<const T*>(q);
   const T* kt = static_cast<const T*>(k);
   const T* vt = static_cast<const T*>(v);
   T* ot = static_cast<T*>(o);
   if (causal) {
-    return lse ? launch<fwd_kernel<T, D, true, true>>(grid, smem, stream, qt, kt, vt, ot, lse,
-                                                      seq_q, seq_k, scale)
-               : launch<fwd_kernel<T, D, true, false>>(grid, smem, stream, qt, kt, vt, ot, lse,
-                                                       seq_q, seq_k, scale);
+    return lse ? launch<fwd_kernel<T, D, R, BC, true, true>>(grid, smem, stream, qt, kt, vt, ot, lse,
+                                                             seq_q, seq_k, scale)
+               : launch<fwd_kernel<T, D, R, BC, true, false>>(grid, smem, stream, qt, kt, vt, ot, lse,
+                                                              seq_q, seq_k, scale);
   }
-  return lse ? launch<fwd_kernel<T, D, false, true>>(grid, smem, stream, qt, kt, vt, ot, lse,
-                                                     seq_q, seq_k, scale)
-             : launch<fwd_kernel<T, D, false, false>>(grid, smem, stream, qt, kt, vt, ot, lse,
-                                                      seq_q, seq_k, scale);
+  return lse ? launch<fwd_kernel<T, D, R, BC, false, true>>(grid, smem, stream, qt, kt, vt, ot, lse,
+                                                            seq_q, seq_k, scale)
+             : launch<fwd_kernel<T, D, R, BC, false, false>>(grid, smem, stream, qt, kt, vt, ot, lse,
+                                                             seq_q, seq_k, scale);
 }
-
-// The f32 backward kernels' streamed tile: 64 rows, 32 at D = 256.
-template <int D>
-constexpr int f32_bc() { return D > 128 ? 32 : 64; }
 
 template <typename T, int D>
 cudaError_t bwd_dq(const void* q, const void* k, const void* v, const void* dout,
                    const float* lse, const float* delta, float* dq, int bh, int seq_q, int seq_k,
                    float scale, bool causal, cudaStream_t stream) {
-  constexpr int BC = f32_bc<D>();
-  constexpr size_t smem = sizeof(float) * (2 * BQ * (D + 1) + 2 * BC * (D + 1) + BQ * (BC + 1));
+  constexpr int R = F32Cfg<D>::BWD_R, BC = F32Cfg<D>::BWD_BC, QR = 16 * R;
+  constexpr size_t smem = sizeof(float) * (2 * QR * (D + 1) + 2 * BC * (D + 1) + QR * (BC + 1));
   static_assert(smem <= 232448, "a block has 227 KB of shared memory");
-  const dim3 grid((seq_q + BQ - 1) / BQ, bh);
+  dim3 grid;
+  const cudaError_t err = head_grid(seq_q, R, bh, grid);
+  if (err != cudaSuccess) return err;
   const T* qt = static_cast<const T*>(q);
   const T* kt = static_cast<const T*>(k);
   const T* vt = static_cast<const T*>(v);
   const T* dot = static_cast<const T*>(dout);
-  return causal ? launch<bwd_dq_kernel<T, D, BC, true>>(grid, smem, stream, qt, kt, vt, dot, lse,
-                                                        delta, dq, seq_q, seq_k, scale)
-                : launch<bwd_dq_kernel<T, D, BC, false>>(grid, smem, stream, qt, kt, vt, dot, lse,
-                                                         delta, dq, seq_q, seq_k, scale);
+  return causal ? launch<bwd_dq_kernel<T, D, R, BC, true>>(grid, smem, stream, qt, kt, vt, dot, lse,
+                                                           delta, dq, seq_q, seq_k, scale)
+                : launch<bwd_dq_kernel<T, D, R, BC, false>>(grid, smem, stream, qt, kt, vt, dot, lse,
+                                                            delta, dq, seq_q, seq_k, scale);
 }
 
 template <typename T, int D>
 cudaError_t bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
                     const float* lse, const float* delta, float* dk, float* dv, int bh,
                     int seq_q, int seq_k, float scale, bool causal, cudaStream_t stream) {
-  constexpr int BC = f32_bc<D>();
+  constexpr int R = F32Cfg<D>::BWD_R, BC = F32Cfg<D>::BWD_BC, KR = 16 * R;
   constexpr size_t smem =
-      sizeof(float) * (2 * BK * (D + 1) + 2 * BC * (D + 1) + 2 * BK * (BC + 1) + 2 * BC);
+      sizeof(float) * (2 * KR * (D + 1) + 2 * BC * (D + 1) + 2 * KR * (BC + 1) + 2 * BC);
   static_assert(smem <= 232448, "a block has 227 KB of shared memory");
-  const dim3 grid((seq_k + BK - 1) / BK, bh);
+  dim3 grid;
+  const cudaError_t err = head_grid(seq_k, R, bh, grid);
+  if (err != cudaSuccess) return err;
   const T* qt = static_cast<const T*>(q);
   const T* kt = static_cast<const T*>(k);
   const T* vt = static_cast<const T*>(v);
   const T* dot = static_cast<const T*>(dout);
-  return causal ? launch<bwd_dkv_kernel<T, D, BC, true>>(grid, smem, stream, qt, kt, vt, dot, lse,
-                                                         delta, dk, dv, seq_q, seq_k, scale)
-                : launch<bwd_dkv_kernel<T, D, BC, false>>(grid, smem, stream, qt, kt, vt, dot, lse,
-                                                          delta, dk, dv, seq_q, seq_k, scale);
+  return causal ? launch<bwd_dkv_kernel<T, D, R, BC, true>>(grid, smem, stream, qt, kt, vt, dot, lse,
+                                                            delta, dk, dv, seq_q, seq_k, scale)
+                : launch<bwd_dkv_kernel<T, D, R, BC, false>>(grid, smem, stream, qt, kt, vt, dot, lse,
+                                                             delta, dk, dv, seq_q, seq_k, scale);
 }
 
 // cuTensorMapEncodeTiled, taken from the driver through the runtime, so the
@@ -1952,7 +2055,7 @@ EncodeTiledFn encode_tiled() {
 // bytes (Lay<D>). A box's rows past `rows` are zero-filled: they never come
 // from the next head. TMA needs the base 16-byte aligned and every stride a
 // multiple of 16 bytes: the wrapper checks the first, and D in {64, 96,
-// 128, 256} gives the second.
+// 128, 256, 512} gives the second.
 template <int D>
 cudaError_t encode_rows(CUtensorMap* map, const void* ptr, int heads, int rows, int box_rows) {
   const EncodeTiledFn encode = encode_tiled();
@@ -1984,18 +2087,28 @@ cudaError_t persistent_grid(int units, dim3& grid) {
   return cudaSuccess;
 }
 
-// Units of two 128-row tiles (unit_item) over `rows` rows of each of bh heads.
-int units_of(int rows, int bh) { return ((rows + FWD_BQ - 1) / FWD_BQ + 1) / 2 * bh; }
+// Units of two ROWS-row tiles (unit_item) over `rows` rows of each of bh
+// heads; the kernels count units in int.
+template <int ROWS>
+cudaError_t units_of(int rows, int bh, int& units) {
+  const long long n = static_cast<long long>(((rows + ROWS - 1) / ROWS + 1) / 2) * bh;
+  if (n > 0x7FFFFFFF) return cudaErrorInvalidValue;
+  units = static_cast<int>(n);
+  return cudaSuccess;
+}
 
 template <int D>
 cudaError_t fwd_sm90(const void* q, const void* k, const void* v, void* o, float* lse, int bh,
                      int seq_q, int seq_k, float scale, bool causal, cudaStream_t stream) {
+  constexpr int ROWS = Items<D>::ROWS;
   CUtensorMap qm, km, vm;
   dim3 grid;
-  cudaError_t err = encode_rows<D>(&qm, q, bh, seq_q, FWD_BQ);
+  int units = 0;
+  cudaError_t err = encode_rows<D>(&qm, q, bh, seq_q, ROWS);
   if (err == cudaSuccess) err = encode_rows<D>(&km, k, bh, seq_k, FwdCfg<D>::BN);
   if (err == cudaSuccess) err = encode_rows<D>(&vm, v, bh, seq_k, FwdCfg<D>::BN);
-  if (err == cudaSuccess) err = persistent_grid(units_of(seq_q, bh), grid);
+  if (err == cudaSuccess) err = units_of<ROWS>(seq_q, bh, units);
+  if (err == cudaSuccess) err = persistent_grid(units, grid);
   if (err != cudaSuccess) return err;
   const size_t smem = FwdCfg<D>::BYTES;
   bf16* ot = static_cast<bf16*>(o);
@@ -2015,13 +2128,16 @@ template <int D>
 cudaError_t bwd_dkv_sm90(const void* q, const void* k, const void* v, const void* dout,
                          const float* lse, const float* delta, float* dk, float* dv, int bh,
                          int seq_q, int seq_k, float scale, bool causal, cudaStream_t stream) {
+  constexpr int ROWS = Items<D>::ROWS;
   CUtensorMap qm, km, vm, dom;
   dim3 grid;
+  int units = 0;
   cudaError_t err = encode_rows<D>(&qm, q, bh, seq_q, DkvCfg<D>::BQ);
   if (err == cudaSuccess) err = encode_rows<D>(&dom, dout, bh, seq_q, DkvCfg<D>::BQ);
-  if (err == cudaSuccess) err = encode_rows<D>(&km, k, bh, seq_k, FWD_BQ);
-  if (err == cudaSuccess) err = encode_rows<D>(&vm, v, bh, seq_k, FWD_BQ);
-  if (err == cudaSuccess) err = persistent_grid(units_of(seq_k, bh), grid);
+  if (err == cudaSuccess) err = encode_rows<D>(&km, k, bh, seq_k, ROWS);
+  if (err == cudaSuccess) err = encode_rows<D>(&vm, v, bh, seq_k, ROWS);
+  if (err == cudaSuccess) err = units_of<ROWS>(seq_k, bh, units);
+  if (err == cudaSuccess) err = persistent_grid(units, grid);
   if (err != cudaSuccess) return err;
   const size_t smem = DkvCfg<D>::BYTES;
   return causal ? launch<bwd_dkv_kernel_sm90<D, true>, FWD_THREADS>(
@@ -2034,13 +2150,16 @@ template <int D>
 cudaError_t bwd_dq_sm90(const void* q, const void* k, const void* v, const void* dout,
                         const float* lse, const float* delta, float* dq, int bh, int seq_q,
                         int seq_k, float scale, bool causal, cudaStream_t stream) {
+  constexpr int ROWS = Items<D>::ROWS;
   CUtensorMap qm, km, vm, dom;
   dim3 grid;
-  cudaError_t err = encode_rows<D>(&qm, q, bh, seq_q, FWD_BQ);
-  if (err == cudaSuccess) err = encode_rows<D>(&dom, dout, bh, seq_q, FWD_BQ);
+  int units = 0;
+  cudaError_t err = encode_rows<D>(&qm, q, bh, seq_q, ROWS);
+  if (err == cudaSuccess) err = encode_rows<D>(&dom, dout, bh, seq_q, ROWS);
   if (err == cudaSuccess) err = encode_rows<D>(&km, k, bh, seq_k, DqCfg<D>::BN);
   if (err == cudaSuccess) err = encode_rows<D>(&vm, v, bh, seq_k, DqCfg<D>::BN);
-  if (err == cudaSuccess) err = persistent_grid(units_of(seq_q, bh), grid);
+  if (err == cudaSuccess) err = units_of<ROWS>(seq_q, bh, units);
+  if (err == cudaSuccess) err = persistent_grid(units, grid);
   if (err != cudaSuccess) return err;
   const size_t smem = DqCfg<D>::BYTES;
   return causal ? launch<bwd_dq_kernel_sm90<D, true>, FWD_THREADS>(
@@ -2052,8 +2171,8 @@ cudaError_t bwd_dq_sm90(const void* q, const void* k, const void* v, const void*
 }  // namespace
 
 // ------------------------------------------------------------ C interface
-// dtype: 0 = float32, 1 = bfloat16. head_dim: 64, 96, 128 or 256 (the
-// wrappers pad any other width up to 256 to the next of them). Each function
+// dtype: 0 = float32, 1 = bfloat16. head_dim: 64, 96, 128, 256 or 512 (the
+// wrappers pad any other width up to 512 to the next of them). Each function
 // returns the cudaError_t of its launch (0 on success); the kernel runs on
 // `stream` and nothing here synchronises or allocates. f32 goes to F32_FN,
 // the CUDA-core kernels; bf16 to BF16_FN, the tensor-core kernels.
@@ -2066,6 +2185,7 @@ cudaError_t bwd_dq_sm90(const void* q, const void* k, const void* v, const void*
   RT_WIDTH(96, F32_FN, BF16_FN, __VA_ARGS__)                              \
   RT_WIDTH(128, F32_FN, BF16_FN, __VA_ARGS__)                             \
   RT_WIDTH(256, F32_FN, BF16_FN, __VA_ARGS__)                             \
+  RT_WIDTH(512, F32_FN, BF16_FN, __VA_ARGS__)                             \
   return static_cast<int>(cudaErrorInvalidValue);
 
 extern "C" {

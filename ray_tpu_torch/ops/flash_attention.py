@@ -12,15 +12,18 @@ For bf16 inputs (the train step's) all four run on the tensor cores; f32
 inputs run on the f32 CUDA cores. Either way every sum is f32 and the plain
 versions below are what they compute.
 
-The kernels are built for head dims 64, 96, 128 and 256 (`WIDTHS`); the
-TPU kernels take any. Any other head dim up to 256 runs at the next of
+The kernels are built for head dims 64, 96, 128, 256 and 512 (`WIDTHS`);
+the TPU kernels take any. Any other head dim up to 512 runs at the next of
 those widths, its q, k, v (and do) zero-padded: q.k^T, the softmax, lse and
 delta = rowsum(do * o) are unchanged by zero columns, and the padded
 columns of o, dq, dk and dv are zero and cut away. The scale stays the
 caller's (1/sqrt of the unpadded width). `flash_attention`, the autograd
 function and ring attention pad once a call, in the copy to [BH, T, D]
 they make anyway; the wrappers pad what they are given directly. The CPU
-path pads too, so the CPU tests run the route the card runs.
+path pads too, so the CPU tests run the route the card runs. Past 512 the
+wrappers refuse a CUDA tensor: a block's shared memory holds no 64-row Q,
+K and V tiles beside a stream of others. Any number of heads BH is taken,
+as the TPU kernels' grid takes any.
 
 Each wrapper launches its kernel for a CUDA tensor and raises on anything
 the kernel does not take; for a CPU tensor it runs its plain PyTorch
@@ -48,7 +51,7 @@ launches: Dict[str, int] = {"fwd": 0, "fwd_lse": 0, "bwd_dq": 0, "bwd_dkv": 0}
 launches_by_width: Dict[str, int] = {}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-WIDTHS = (64, 96, 128, 256)  # the head dims the kernels are built for
+WIDTHS = (64, 96, 128, 256, 512)  # the head dims the kernels are built for
 _lib: Optional[ctypes.CDLL] = None
 
 
@@ -116,6 +119,20 @@ def _check_err(err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {err}: {msg}")
 
 
+def check_shapes(q_shape, k_shape, v_shape) -> None:
+    """Raise unless the kernels take q [BH, T, D] and k, v [BH, S, D] of
+    these shapes: any BH, T and S above 0, D up to the widest width."""
+    if len(q_shape) != 3 or len(k_shape) != 3 or tuple(k_shape) != tuple(v_shape):
+        raise ValueError(f"flash kernels take q [BH,T,D], k/v [BH,S,D]; got {q_shape}, {k_shape}, {v_shape}")
+    BH, T, D = q_shape
+    if k_shape[0] != BH or k_shape[2] != D:
+        raise ValueError(f"q {tuple(q_shape)} and k {tuple(k_shape)} disagree")
+    if not 0 < D <= WIDTHS[-1]:
+        raise ValueError(f"flash kernels take head_dim up to {WIDTHS[-1]}, got {D}")
+    if BH == 0 or T == 0 or k_shape[1] == 0:
+        raise ValueError(f"flash kernels need BH, T, S > 0; got {tuple(q_shape)}, {tuple(k_shape)}")
+
+
 def _check_inputs(q, k, v, *rest) -> None:
     """Raise unless the kernels take these [BH, T, D] / [BH, S, D] tensors."""
     for t in (q, k, v, *rest):
@@ -131,15 +148,7 @@ def _check_inputs(q, k, v, *rest) -> None:
             raise ValueError("flash kernels load rows 16 bytes at a time: tensors must be 16-byte aligned")
     if q.dtype not in _DTYPES:
         raise ValueError(f"flash kernels take float32 or bfloat16, got {q.dtype}")
-    if q.dim() != 3 or k.shape != v.shape or k.dim() != 3:
-        raise ValueError(f"flash kernels take q [BH,T,D], k/v [BH,S,D]; got {q.shape}, {k.shape}, {v.shape}")
-    BH, T, D = q.shape
-    if k.shape[0] != BH or k.shape[2] != D:
-        raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} disagree")
-    if not 0 < D <= WIDTHS[-1]:
-        raise ValueError(f"flash kernels take head_dim up to {WIDTHS[-1]}, got {D}")
-    if not 0 < BH <= 65535 or T == 0 or k.shape[1] == 0:
-        raise ValueError(f"flash kernels need 0 < BH <= 65535 and T, S > 0; got {q.shape}, {k.shape}")
+    check_shapes(q.shape, k.shape, v.shape)
 
 
 def _check_stats(q, *stats) -> None:

@@ -15,8 +15,8 @@ turns, this checkout's build, the others, the others again in reverse and
 this one's again, so a drift of the card's clock falls on every side
 alike. bf16, causal, on [B*H, T, D] inputs from a seed, at the shapes of
 `--head-dim` (SHAPES: 64, the default, GPT-2 small's; 32, 96 and 256 the
-JAX package's example's, Phi-3-mini's and Gemma-2B's attention widths; any
-other D at [96, 1024, D]), scale 1/sqrt(D). Prints one JSON
+JAX package's example's, Phi-3-mini's and Gemma-2B's attention widths; 512
+chip_smoke.py's 18a's; any other D at [96, 1024, D]), scale 1/sqrt(D). Prints one JSON
 line: the card, each build's worst error-to-limit ratio, the host's us to
 queue a call of each kernel at the first shape, and its ms per shape and
 kernel (the mean of its two turns, each a mean of `--reps` calls, and both
@@ -50,12 +50,14 @@ fa = importlib.import_module("ray_tpu_torch.ops.flash_attention")
 
 # [B*H, T, D] by head dim: GPT-2 small at batch 8 and 32 (64), the JAX
 # package's example at batch 8 (32), Phi-3-mini's and Gemma-2B's widths at
-# batch 4 and T 2048 (96, 256).
+# batch 4 and T 2048 (96, 256), and the head-dim-512 configuration of
+# chip_smoke.py's phase 18 at batch 4 (512).
 SHAPES_BY_HEAD_DIM = {
     64: ((96, 1024, 64), (384, 1024, 64)),
     32: ((64, 256, 32),),
     96: ((128, 2048, 96),),
     256: ((32, 2048, 256),),
+    512: ((16, 2048, 512),),
 }
 SHAPES = SHAPES_BY_HEAD_DIM[64]
 SCALE = 64 ** -0.5

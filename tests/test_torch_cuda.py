@@ -69,12 +69,12 @@ def test_kernels_match_plain_versions(dev, causal, T, D, dtype):
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     q = torch.randn(2, 64, 64, device=dev)
-    wide = torch.randn(2, 64, 264, device=dev)
+    wide = torch.randn(2, 64, 520, device=dev)
     lse = torch.zeros(2, 64, device=dev)
     refused = [
         lambda: fa.flash_fwd(q.half(), q.half(), q.half(), causal=True, scale=1.0),  # dtype
         lambda: fa.flash_fwd(q, q.bfloat16(), q, causal=True, scale=1.0),  # mixed dtypes
-        lambda: fa.flash_fwd(wide, wide, wide, causal=True, scale=1.0),  # head_dim 264 > 256
+        lambda: fa.flash_fwd(wide, wide, wide, causal=True, scale=1.0),  # head_dim 520 > 512
         lambda: fa.flash_fwd(q.transpose(1, 2), q, q, causal=True, scale=1.0),  # strides
         lambda: fa.flash_fwd(q, q.cpu(), q, causal=True, scale=1.0),  # devices
         lambda: fa.flash_bwd_dq(q, q, q, q, lse[:, :32], lse, causal=True, scale=1.0),
@@ -89,10 +89,11 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("D", [32, 80, 96, 192, 256])
+@pytest.mark.parametrize("D", [32, 80, 96, 192, 256, 320, 384, 512])
 def test_kernels_match_plain_versions_at_head_dim(dev, D, causal, dtype):
-    """The kernels at head dims past 64 and 128: 96 and 256 natively, 32,
-    80 and 192 padded to the next of those; T != S, a partial last tile.
+    """The kernels at head dims past 64 and 128: 96, 256 and 512 natively,
+    32, 80, 192, 320 and 384 padded to the next of those; T != S, a partial
+    last tile.
     chip_smoke.py's limits, and the launches count at the width run."""
     cs = importlib.import_module("chip_smoke")
     g = torch.Generator(device=dev).manual_seed(D)
@@ -116,6 +117,43 @@ def test_kernels_match_plain_versions_at_head_dim(dev, D, causal, dtype):
     assert all(r <= 1.0 for r in ratios.values()), ratios
     width = fa.kernel_width(D, dev)
     assert fa.launches_by_width == {f"{key}@{width}": 1 for key in fa.launches}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("BH,D,causal", [(65536, 64, True), (66560, 96, False)])
+def test_kernels_take_more_than_65535_heads(dev, BH, D, causal, dtype):
+    """More heads in one call than a grid's y dimension holds, as the TPU
+    kernels' grid takes: every kernel against its plain version on the
+    whole call, by chip_smoke.py's limits."""
+    cs = importlib.import_module("chip_smoke")
+    g = torch.Generator(device=dev).manual_seed(BH)
+    q, k, v, do = (torch.randn(BH, 64, D, device=dev, generator=g).to(dtype) for _ in range(4))
+    scale = D ** -0.5
+    ref_o, ref_lse = fa._flash_fwd_ref(q, k, v, causal, scale, True)
+    delta = (do.float() * ref_o.float()).sum(-1)
+    args = (q, k, v, do, ref_lse, delta)
+    o, lse = fa.flash_fwd(q, k, v, causal=causal, scale=scale, with_lse=True)
+    _, ratios = cs.compare({
+        "fwd": [(fa.flash_fwd(q, k, v, causal=causal, scale=scale), ref_o)],
+        "fwd_lse": [(o, ref_o), (lse, ref_lse)],
+        "bwd_dq": [(fa.flash_bwd_dq(*args, causal=causal, scale=scale),
+                    fa._flash_bwd_dq_ref(*args, causal, scale))],
+        "bwd_dkv": list(zip(fa.flash_bwd_dkv(*args, causal=causal, scale=scale),
+                            fa._flash_bwd_dkv_ref(*args, causal, scale))),
+    })
+    assert all(r <= 1.0 for r in ratios.values()), ratios
+
+
+def test_kernels_past_two_to_the_31_elements_on_sampled_heads(dev, monkeypatch):
+    """[65600, 256, 128] bf16: each operand holds more than 2^31 elements,
+    so a head's offset overflows an int. B1-B4 on the whole call, held on
+    sampled heads (the first, the middle and the last) against the plain
+    versions run on each head alone (chip_smoke.py's heads_cases)."""
+    cs = importlib.import_module("chip_smoke")
+    assert cs.HUGE_CASE[0] * cs.HUGE_CASE[1] * cs.HUGE_CASE[2] > 2**31
+    assert cs.HUGE_HEADS[-1] == cs.HUGE_CASE[0] - 1
+    monkeypatch.setattr(cs, "BH_CASES", ())  # the huge case alone
+    cs.heads_cases(fa, dev, torch.Generator(device=dev).manual_seed(0))
 
 
 @pytest.mark.parametrize("D", [8, 80, 200])
@@ -196,17 +234,17 @@ def test_batch_of_one_forward_through_the_kernels(dev):
 
 # B3's K/V tile count, in its producer and its consumers (the forward's
 # lines read the same up to their next line).
-_DQ_TILES = "const int n_kv_tiles = kv_tiles<CAUSAL, BN>(q0, seq_k);"
+_DQ_TILES = "const int n_kv_tiles = kv_tiles<CAUSAL, BN, ROWS>(q0, seq_k);"
 _DQ_PRODUCER = _DQ_TILES + "\n          mbar_wait(qdo_empty"
-_DQ_CONSUMER = _DQ_TILES + "\n        const int row0 = q0 + wg * 64;\n" \
+_DQ_CONSUMER = _DQ_TILES + "\n        const int row0 = q0 + It::row(wg);\n" \
     "        const int r0 = row0 + warp * 16 + lane / 4;  // this thread's rows: r0 and r0 + 8\n" \
     "        float lse2[2], dl[2];"
 
 
 def _dq_tiles(expr):
     """B3's producer and consumers both taking `expr` K/V tiles an item."""
-    return [(_DQ_PRODUCER, _DQ_PRODUCER.replace("kv_tiles<CAUSAL, BN>(q0, seq_k)", expr)),
-            (_DQ_CONSUMER, _DQ_CONSUMER.replace("kv_tiles<CAUSAL, BN>(q0, seq_k)", expr))]
+    return [(_DQ_PRODUCER, _DQ_PRODUCER.replace("kv_tiles<CAUSAL, BN, ROWS>(q0, seq_k)", expr)),
+            (_DQ_CONSUMER, _DQ_CONSUMER.replace("kv_tiles<CAUSAL, BN, ROWS>(q0, seq_k)", expr))]
 
 
 # 2-D [heads * rows, D] tensor maps, in place of the 3-D [heads, rows, D]
@@ -234,8 +272,8 @@ MUTANTS = {
     # fwd_kernel_sm90 reads q, k and v through flat tensor maps: rows past S
     # come from the next head instead of TMA's zero fill.
     "fwd_flat_tensor_maps": _FLAT_MAPS + [
-        ("load_rows<FWD_BQ, D>(qs, &q_map, q_full, head, q0);",
-         "load_rows<FWD_BQ, D>(qs, &q_map, q_full, 0, head * seq_q + q0);"),
+        ("load_rows<ROWS, D>(qs, &q_map, q_full, head, q0);",
+         "load_rows<ROWS, D>(qs, &q_map, q_full, 0, head * seq_q + q0);"),
         ("load_rows<BN, D>(ks + st * BN * D, &k_map, full, head, kt * BN);",
          "load_rows<BN, D>(ks + st * BN * D, &k_map, full, 0, head * seq_k + kt * BN);"),
         ("load_rows<BN, D>(vs + st * BN * D, &v_map, full, head, kt * BN);",
@@ -263,23 +301,23 @@ MUTANTS = {
          "          split_p<true>(dp, ds_hi, ds_lo);\n"
          "          for (auto& c : ds_lo) for (auto& r : c) r = 0;\n          STAMP(1")],
     # bwd_dq_kernel_sm90 drops the last, partial key tile.
-    "dq_drops_partial_key_tile": _dq_tiles("kv_tiles<CAUSAL, BN>(q0, seq_k / BN * BN)"),
+    "dq_drops_partial_key_tile": _dq_tiles("kv_tiles<CAUSAL, BN, ROWS>(q0, seq_k / BN * BN)"),
     # bwd_dq_kernel_sm90 stops one tile short of the causal diagonal.
-    "dq_drops_diagonal_tile": _dq_tiles("kv_tiles<CAUSAL, BN>(q0 - BN, seq_k)"),
+    "dq_drops_diagonal_tile": _dq_tiles("kv_tiles<CAUSAL, BN, ROWS>(q0 - BN, seq_k)"),
     # Both backward kernels read q, k, v and do through flat tensor maps.
     "bwd_flat_tensor_maps": _FLAT_MAPS + [
-        ("load_rows<FWD_BQ, D>(ks, &k_map, kv_full, head, k0);",
-         "load_rows<FWD_BQ, D>(ks, &k_map, kv_full, 0, head * seq_k + k0);"),
-        ("load_rows<FWD_BQ, D>(vs, &v_map, kv_full, head, k0);",
-         "load_rows<FWD_BQ, D>(vs, &v_map, kv_full, 0, head * seq_k + k0);"),
+        ("load_rows<ROWS, D>(ks, &k_map, kv_full, head, k0);",
+         "load_rows<ROWS, D>(ks, &k_map, kv_full, 0, head * seq_k + k0);"),
+        ("load_rows<ROWS, D>(vs, &v_map, kv_full, head, k0);",
+         "load_rows<ROWS, D>(vs, &v_map, kv_full, 0, head * seq_k + k0);"),
         ("load_rows<BQ, D>(qs + st * BQ * D, &q_map, full, head, qt * BQ);",
          "load_rows<BQ, D>(qs + st * BQ * D, &q_map, full, 0, head * seq_q + qt * BQ);"),
         ("load_rows<BQ, D>(dos + st * BQ * D, &do_map, full, head, qt * BQ);",
          "load_rows<BQ, D>(dos + st * BQ * D, &do_map, full, 0, head * seq_q + qt * BQ);"),
-        ("load_rows<FWD_BQ, D>(qs, &q_map, qdo_full, head, q0);",
-         "load_rows<FWD_BQ, D>(qs, &q_map, qdo_full, 0, head * seq_q + q0);"),
-        ("load_rows<FWD_BQ, D>(dos, &do_map, qdo_full, head, q0);",
-         "load_rows<FWD_BQ, D>(dos, &do_map, qdo_full, 0, head * seq_q + q0);"),
+        ("load_rows<ROWS, D>(qs, &q_map, qdo_full, head, q0);",
+         "load_rows<ROWS, D>(qs, &q_map, qdo_full, 0, head * seq_q + q0);"),
+        ("load_rows<ROWS, D>(dos, &do_map, qdo_full, head, q0);",
+         "load_rows<ROWS, D>(dos, &do_map, qdo_full, 0, head * seq_q + q0);"),
         ("load_rows<BN, D>(ks + st * BN * D, &k_map, ring_full, head, kt * BN);",
          "load_rows<BN, D>(ks + st * BN * D, &k_map, ring_full, 0, head * seq_k + kt * BN);"),
         ("load_rows<BN, D>(vs + st * BN * D, &v_map, ring_full, head, kt * BN);",
@@ -288,12 +326,28 @@ MUTANTS = {
 }
 
 
+# Broken copies of the D = 512 kernels, where the two consumer warpgroups
+# split an item's output columns (Items<512>): each makes the other's
+# columns, or the same ones.
+WIDE_MUTANTS = {
+    # fwd_kernel_sm90: both warpgroups take V's first 256 columns.
+    "fwd_cols_share_v": [("const uint32_t v_at = It::col(wg) / Lay<D>::BW * BN * Lay<D>::RB;",
+                          "const uint32_t v_at = 0;")],
+    # bwd_dq_kernel_sm90: both warpgroups take K's first 256 columns.
+    "dq_cols_share_k": [("const uint32_t k_at = It::col(wg) / Lay<D>::BW * BN * Lay<D>::RB;",
+                         "const uint32_t k_at = 0;")],
+    # bwd_dkv_kernel_sm90: both warpgroups make and store columns 0-255.
+    "dkv_cols_share_passes": [("auto chunk = [&](int pass) { return It::col(wg) / DA + pass; };",
+                               "auto chunk = [&](int pass) { return pass; };")],
+}
+
+
 @pytest.fixture
 def mutant(dev, request, tmp_path, monkeypatch):
     if request.param is None:
         return None
     src = (_build.CSRC / "flash_attention.cu").read_text()
-    for line, broken in MUTANTS[request.param]:
+    for line, broken in {**MUTANTS, **WIDE_MUTANTS}[request.param]:
         assert src.count(line) == 1
         src = src.replace(line, broken, 1)
     cu, so = tmp_path / "mutant.cu", tmp_path / "mutant.so"
@@ -348,6 +402,33 @@ def test_smoke_limits_catch_a_broken_kernel(dev, mutant):
     broken = {"fwd": ["fwd"], "dq": ["bwd_dq"], "dkv": ["bwd_dkv"],
               "bwd": ["bwd_dq", "bwd_dkv"]}[mutant.split("_")[0]]
     assert not any(worst[key] <= 1.0 for key in broken), worst
+
+
+@pytest.mark.parametrize("mutant", list(WIDE_MUTANTS), indirect=True)
+def test_smoke_limits_catch_a_broken_kernel_at_head_dim_512(dev, mutant):
+    """Each broken D = 512 kernel misses chip_smoke.py's limits in one of
+    the two causal modes at T = 1000, bf16."""
+    cs = importlib.import_module("chip_smoke")
+    g = torch.Generator(device=dev).manual_seed(0)
+    q, k, v, do = (torch.randn(4, 1000, 512, device=dev, generator=g).bfloat16() for _ in range(4))
+    scale = 512 ** -0.5
+    worst = {}
+    for causal in (False, True):
+        ref_o, ref_lse = fa._flash_fwd_ref(q, k, v, causal, scale, True)
+        delta = (do.float() * ref_o.float()).sum(-1)
+        args = (q, k, v, do, ref_lse, delta)
+        _, ratios = cs.compare({
+            "fwd": [(fa.flash_fwd(q, k, v, causal=causal, scale=scale), ref_o)],
+            "bwd_dq": [(fa.flash_bwd_dq(*args, causal=causal, scale=scale),
+                        fa._flash_bwd_dq_ref(*args, causal, scale))],
+            "bwd_dkv": list(zip(fa.flash_bwd_dkv(*args, causal=causal, scale=scale),
+                                fa._flash_bwd_dkv_ref(*args, causal, scale))),
+        })
+        for key, r in ratios.items():
+            if not r <= worst.get(key, 0.0):  # NaN counts as worst
+                worst[key] = r
+    broken = {"fwd": "fwd", "dq": "bwd_dq", "dkv": "bwd_dkv"}[mutant.split("_")[0]]
+    assert not worst[broken] <= 1.0, worst
 
 
 @pytest.mark.parametrize("mutant", [None, "dkv_drops_last_q_tile", "dq_drops_diagonal_tile"],

@@ -268,7 +268,7 @@ def test_quorum_election_exhausts_clean():
     assert report.schedules > 100
 
 
-@pytest.mark.timeout(400)
+@pytest.mark.slow
 def test_ha_promotion_exhausts_clean():
     # Measured space: 29369 schedules (~1 min); budget leaves headroom so
     # the assert fails loudly if the scenario ever grows past exhaustibility.

@@ -1,11 +1,13 @@
 """The port's attention at every head dim the TPU kernels take, on the CPU:
 its plain versions (what each kernel computes) against the JAX package's
 Pallas kernels in interpret mode at head dims off and on the kernels' widths
-(32, 80, 96, 256), the padded route (a head dim zero-padded to the next
-width the CUDA kernels are built for) against the same attention unpadded,
-and the port's Transformer at head dims 96, 256 and 32 against the JAX
-model on the same weights. Inputs come from numpy with a seed; both sides
-run in f32 (JAX at matmul precision "highest")."""
+(32, 80, 96, 256, 320, 512), the padded route (a head dim zero-padded to the
+next width the CUDA kernels are built for) against the same attention
+unpadded, the port's Transformer at head dims 96, 256, 32 and 512 against
+the JAX model on the same weights, and the shape rules the kernels' calls
+are held to (any number of heads, as the TPU kernels' grid takes). Inputs
+come from numpy with a seed; both sides run in f32 (JAX at matmul
+precision "highest")."""
 
 import importlib
 
@@ -38,6 +40,11 @@ FWD_ATOL, GRAD_ATOL = 3e-5, 2e-4
 # the padded columns add exact zeros; only a matmul's blocking over the
 # longer row may reorder them.
 PAD_ATOL = 1e-6
+# Past 256 (padded to 512) the CPU's matmuls block the 512-column rows
+# otherwise than the unpadded ones, so the f32 sums are taken in another
+# order: up to 3.3e-6 apart here at outputs of order 1-10 (a few f32 ulps).
+# A wrong pad, cut or scale is of order 1.
+PAD_WIDE_ATOL = 1e-5
 
 
 def _rand(rs, *shape):
@@ -50,7 +57,7 @@ def _t(x):
 
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("T", [64, 192])  # 192 exercises the reference's 128-row block padding
-@pytest.mark.parametrize("D", [32, 80, 96, 256])
+@pytest.mark.parametrize("D", [32, 80, 96, 256, 320, 512])
 def test_attention_matches_pallas_at_head_dim(D, T, causal):
     """flash_attention's forward and gradients on [B, T, H, D] against the
     JAX flash_attention (Pallas, interpret mode): o within FWD_ATOL, dq, dk
@@ -99,13 +106,14 @@ def test_gqa_at_head_dim_256_matches_pallas(causal):
 
 
 @pytest.mark.parametrize("D,width", [(8, 64), (32, 64), (65, 96), (80, 96), (100, 128), (192, 256),
-                                     (256, 256), (300, 300)])
+                                     (256, 256), (300, 512), (320, 512), (384, 512), (512, 512),
+                                     (513, 513), (640, 640)])
 def test_kernel_width(D, width):
-    """A head dim runs at the next of the kernels' widths; past 256 only the
+    """A head dim runs at the next of the kernels' widths; past 512 only the
     CPU's plain versions take it."""
     assert fa.kernel_width(D, "cpu") == width
     if D > fa.WIDTHS[-1]:
-        with pytest.raises(ValueError, match="up to 256"):
+        with pytest.raises(ValueError, match="up to 512"):
             fa.kernel_width(D, "cuda")
     else:
         assert fa.kernel_width(D, "cuda") == width
@@ -117,6 +125,17 @@ def test_padded_wrappers_match_unpadded_plain_versions(D, causal):
     """Each wrapper at a head dim off the kernels' widths pads q, k, v (and
     do) to the next width and cuts its outputs back: o, lse, dq, dk and dv
     within PAD_ATOL of the plain versions run unpadded, on T != S."""
+    _padded_wrappers_vs_unpadded(D, causal, PAD_ATOL)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("D", [320, 384])
+def test_padded_wrappers_past_256_match_unpadded_plain_versions(D, causal):
+    """As above, at head dims padded to 512: within PAD_WIDE_ATOL."""
+    _padded_wrappers_vs_unpadded(D, causal, PAD_WIDE_ATOL)
+
+
+def _padded_wrappers_vs_unpadded(D, causal, atol):
     T, S, scale = 70, 130, D ** -0.5
     rs = np.random.RandomState(D)
     q, do = _t(_rand(rs, 3, T, D)), _t(_rand(rs, 3, T, D))
@@ -133,7 +152,7 @@ def test_padded_wrappers_match_unpadded_plain_versions(D, causal):
             *fa._flash_bwd_dkv_ref(*args, causal, scale)]
     for g, r in zip(got, want):
         assert g.shape == r.shape
-        np.testing.assert_allclose(g.numpy(), r.numpy(), atol=PAD_ATOL, rtol=0)
+        np.testing.assert_allclose(g.numpy(), r.numpy(), atol=atol, rtol=0)
 
 
 @pytest.mark.parametrize("D", [32, 80])
@@ -142,6 +161,15 @@ def test_padded_attention_matches_unpadded(D, monkeypatch):
     kernels' widths (padded once, in the copy to [BH, T, D]) against the
     same calls with D made one of the widths (nothing padded): o and the
     three gradients within PAD_ATOL, GQA with 4 query heads on 2 kv heads."""
+    _padded_attention_vs_unpadded(D, monkeypatch, PAD_ATOL)
+
+
+def test_padded_attention_past_256_matches_unpadded(monkeypatch):
+    """As above at head dim 320, padded to 512: within PAD_WIDE_ATOL."""
+    _padded_attention_vs_unpadded(320, monkeypatch, PAD_WIDE_ATOL)
+
+
+def _padded_attention_vs_unpadded(D, monkeypatch, atol):
     B, T, H, Hk = 2, 96, 4, 2
     rs = np.random.RandomState(D + 1)
     q, w = _rand(rs, B, T, H, D), _rand(rs, B, T, H, D)
@@ -163,7 +191,7 @@ def test_padded_attention_matches_unpadded(D, monkeypatch):
     unpadded = run()
     for a, b in zip(padded, unpadded):
         assert a.shape == b.shape
-        np.testing.assert_allclose(a.numpy(), b.numpy(), atol=PAD_ATOL, rtol=0)
+        np.testing.assert_allclose(a.numpy(), b.numpy(), atol=atol, rtol=0)
 
 
 @pytest.mark.parametrize("causal", [True, False])
@@ -188,12 +216,14 @@ def test_ring_kernel_route_pads_once_and_matches_plain_route(causal):
 
 
 # The port's Transformer against the JAX model at head dims 96 (Phi-3-mini's),
-# 256 (Gemma-2B's, one kv head) and 32 (the JAX package's example's, GQA):
-# 2 layers at small widths, f32, as tests/test_torch_transformer.py holds it.
+# 256 (Gemma-2B's, one kv head), 32 (the JAX package's example's, GQA) and
+# 512 (the widest the kernels are built for, 2 heads): 2 layers at small
+# widths, f32, as tests/test_torch_transformer.py holds it.
 HEAD_DIM_CONFIGS = {
     96: dict(d_model=192, n_heads=2, n_kv_heads=2),
     256: dict(d_model=256, n_heads=1, n_kv_heads=1),
     32: dict(d_model=128, n_heads=4, n_kv_heads=2),
+    512: dict(d_model=1024, n_heads=2, n_kv_heads=2),
 }
 ATOL, RTOL = 2e-5, 1e-4
 
@@ -221,3 +251,46 @@ def test_transformer_at_head_dim_matches_jax(head_dim):
     got = dict(jax.tree_util.tree_leaves_with_path(params_to_numpy(model, grads=True)))
     for path, want in jax.tree_util.tree_leaves_with_path(jax.tree.map(np.asarray, ref_grads)):
         np.testing.assert_allclose(got[path], want, atol=ATOL, rtol=RTOL, err_msg=str(path))
+
+
+@pytest.mark.parametrize("BH", [1, 65535, 65536, 66560, 2**20])
+def test_shape_rules_take_any_number_of_heads(BH):
+    """The kernels' shape rules (check_shapes, which the wrappers apply to
+    CUDA tensors) take any number of heads in one call, as the Pallas
+    grid (BH, num_q, num_k) does, at every width up to 512."""
+    for D in (64, 96, 320, 512):
+        fa.check_shapes((BH, 64, D), (BH, 100, D), (BH, 100, D))
+
+
+@pytest.mark.parametrize("q,k,v,match", [
+    ((4, 64, 513), (4, 64, 513), (4, 64, 513), "up to 512"),
+    ((0, 64, 64), (0, 64, 64), (0, 64, 64), "BH, T, S > 0"),
+    ((4, 0, 64), (4, 64, 64), (4, 64, 64), "BH, T, S > 0"),
+    ((4, 64, 64), (4, 0, 64), (4, 0, 64), "BH, T, S > 0"),
+    ((4, 64, 64), (5, 64, 64), (5, 64, 64), "disagree"),
+    ((4, 64, 64), (4, 64, 64), (4, 32, 64), "k/v"),
+    ((4, 64), (4, 64, 64), (4, 64, 64), "k/v"),
+])
+def test_shape_rules_refuse_what_the_kernels_do_not_take(q, k, v, match):
+    with pytest.raises(ValueError, match=match):
+        fa.check_shapes(q, k, v)
+
+
+def test_many_heads_on_the_cpu_match_per_head_calls():
+    """66,560 heads in one call of each wrapper (the CPU's plain versions)
+    against the same wrapper on sampled heads alone, the last among them:
+    heads are independent, so the two agree exactly."""
+    BH, T, D = 66560, 4, 8
+    rs = np.random.RandomState(7)
+    q, k, v, do = (_t(_rand(rs, BH, T, D)) for _ in range(4))
+    o, lse = fa.flash_fwd(q, k, v, causal=True, scale=D ** -0.5, with_lse=True)
+    delta = (do * o).sum(-1)
+    dq = fa.flash_bwd_dq(q, k, v, do, lse, delta, causal=True, scale=D ** -0.5)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, delta, causal=True, scale=D ** -0.5)
+    for h in (0, 1, 33279, BH - 1):
+        one = [x[h:h + 1] for x in (q, k, v, do, lse, delta)]
+        o1, lse1 = fa.flash_fwd(*one[:3], causal=True, scale=D ** -0.5, with_lse=True)
+        dq1 = fa.flash_bwd_dq(*one, causal=True, scale=D ** -0.5)
+        dk1, dv1 = fa.flash_bwd_dkv(*one, causal=True, scale=D ** -0.5)
+        for whole, alone in ((o, o1), (lse, lse1), (dq, dq1), (dk, dk1), (dv, dv1)):
+            np.testing.assert_allclose(whole[h:h + 1].numpy(), alone.numpy(), atol=PAD_ATOL, rtol=0)

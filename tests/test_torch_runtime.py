@@ -377,7 +377,15 @@ DIFFERS = {
                                "attempt); a streaming generator that fails keeps the "
                                "generator it published (ray_tpu overwrites it with the error, "
                                "so a get after the failure raises and the produced items are "
-                               "lost to it)",
+                               "lost to it); a push to an actor's address that another "
+                               "process now serves (no PushActorTask handler: the worker "
+                               "died and its port was taken before the GCS heard) fails as "
+                               "ActorUnavailableError, which callers retry (ray_tpu stores "
+                               "the bare RpcError as the task's result)",
+    "_private/rpc.py": "a connection accepted while its server stops is closed once its "
+                       "transport exists (ray_tpu leaves it open when stop() tears it down "
+                       "before connection_made, or when the accept finishes after stop(): "
+                       "its peer then waits forever on replies that never come)",
     "_private/object_store.py": "release_many keeps the holds that follow values "
                                 "(hold_for_value, release_value_holds)",
     "_private/node.py": "num_gpus, and the registry's GPU detection when no GPU count is given",
@@ -552,3 +560,82 @@ def test_zero_copy_values_outlive_their_refs(monkeypatch):
         assert sum(plasma.value_held.values()) <= 1, plasma.value_held
     finally:
         ray_tpu_torch.shutdown()
+
+
+def test_actor_push_to_an_address_another_process_serves_is_unavailable():
+    """An actor's worker died and another process's server took its port
+    before the GCS heard: the GCS still names the old address, and a push
+    there is answered with "no handler for method 'PushActorTask'". The
+    submitter fails the task as ActorUnavailableError (which callers and
+    retries treat as a lost actor) and drops the connection, so the next
+    submit resolves the actor again; it never stores the bare RpcError."""
+    import asyncio
+
+    from ray_tpu_torch._private.common import ActorUnavailableError
+    from ray_tpu_torch._private.core_worker import ActorSubmitter
+
+    async def run():
+        other = rpc.Server()  # another process's server, on the dead worker's port
+        addr = await other.start()
+        resolved = []
+
+        class Gcs:
+            async def call(self, method, payload):
+                resolved.append(method)
+                return {"actor": {"state": "ALIVE", "num_restarts": 0, "addr": list(addr)}}
+
+        class Core:
+            gcs = Gcs()
+
+            async def connect_to(self, at):
+                return await rpc.connect(*at)
+
+        sub = ActorSubmitter(Core(), "a" * 32)
+        try:
+            for _ in range(2):
+                with pytest.raises(ActorUnavailableError, match="served by another process"):
+                    await sub.submit({"name": "pid", "actor_id": "a" * 32})
+                assert sub.conn is None
+        finally:
+            await other.stop()
+        assert resolved == ["GetActor", "GetActor"]  # each submit resolved anew
+
+    asyncio.run(run())
+
+
+def test_a_connection_accepted_while_its_server_stops_is_closed():
+    """A server stopping while the loop accepts a connection: the accept has
+    made the connection's protocol but not yet its transport when stop()
+    tears the server's connections down, or makes the protocol after that.
+    Either way the connection's socket is closed once its transport exists,
+    so its peer sees the loss and redials; left open, it waits forever on
+    replies a stopped server never sends (a raylet re-registering with a
+    demoted GCS leader held its reconnect lock so, and never joined the new
+    leader)."""
+    import asyncio
+
+    class Transport:
+        closed = False
+
+        def close(self):
+            self.closed = True
+
+    async def run():
+        server = rpc.Server()
+        await server.start()
+        mid_accept = server._make_protocol()  # the accept's first step, before stop()
+        await server.stop()
+        after_stop = server._make_protocol()  # an accept the loop finishes after stop()
+        for proto in (mid_accept, after_stop):
+            transport = Transport()
+            proto.connection_made(transport)
+            assert transport.closed
+        assert not server.connections
+        await server.start()  # a restarted server serves again
+        kept = server._make_protocol()
+        transport = Transport()
+        kept.connection_made(transport)
+        assert not transport.closed and len(server.connections) == 1
+        await server.stop()
+
+    asyncio.run(run())
