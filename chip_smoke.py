@@ -20,10 +20,11 @@ Phases, each printing one JSON line:
   1. card     nvidia-smi's name and power limit, torch's device name;
      build    each kernel's registers and spills (ptxas -v) and its counts of
               tensor-core instructions (HMMA for mma.sync, HGMMA for wgmma,
-              in cuobjdump -sass); every Hopper kernel (*_sm90: the forward
-              and both backward kernels, at each of the widths 64, 96, 128,
-              256 and 512: 40) must have HGMMA, no spill and no wgmma that
-              ptxas serialized;
+              in cuobjdump -sass); every Hopper kernel (*_sm90: the bf16
+              forward and both backward kernels, at each of the widths 64,
+              96, 128, 256 and 512: 40; *_sm90_f32: the f32 forward at 64,
+              96, 128 and 256: 16) must have HGMMA, no spill and no wgmma
+              that ptxas serialized;
   2. kernels  every kernel against its plain version, element by element
               (f32 with TF32 off and bf16; causal and not; head_dim 64 and
               128; T in 1, 100, 192, 1000, 1024; T = 300 on S = 1000 keys
@@ -41,17 +42,26 @@ Phases, each printing one JSON line:
               last padded: its pad and cut copies' ms), phase 18's
               ([16, 2048, 512], [66560, 64, 96]) and [16, 2048, 320]
               (padded to 512), and the f32 kernels at [96, 1024, 64],
-              [32, 2048, 256] and [16, 2048, 512]: the kernel's
+              [32, 2048, 256], [16, 2048, 512], [96, 1024, 128] (bf16
+              too) and [128, 2048, 96], with the f32 forward's split pass
+              (bitwise its plain version; f32 bounds at PEAK_F32_SPLIT, the
+              CUDA cores' share beside them): the kernel's
               time, the plain version's, F.scaled_dot_product_attention's (a
               yardstick only: the port never calls it; with the backends
               that take the inputs), the bound, the
               useful TFLOP/s, the share of the bound reached (bound_ms /
-              ms) and the host's us per call; and where the forward and
-              the backward kernels spend a streamed tile, in SM cycles,
-              from a build with their cycle stamps (kernel_ab --timeline);
+              ms) and the host's us per call; which kernels an f32 B1 and
+              B2 launch at each width, by the profiler's names (64-256: the
+              split pass and fwd_kernel_sm90_f32); and where the forward
+              and the backward kernels (bf16) and the f32 forward spend a
+              streamed tile, in SM cycles, from a build with their cycle
+              stamps (kernel_ab --timeline);
   3. forward  transformer_apply at GPT-2-small widths through the kernels and
               through the plain attention in bf16, each against the same
-              weights run in f32;
+              weights run in f32; then those weights built in f32 through
+              the kernels (B1 on the tensor cores through the split pass,
+              once a layer) against the plain attention in f32, within
+              F32_LOGITS_ATOL;
   4. train    the first step's loss and gradients through the kernels and
               through the plain attention in bf16, each against f32; then
               make_train_step: a warm-up and ten steps on one repeated
@@ -196,7 +206,7 @@ Phases, each printing one JSON line:
  16. chaos    (a) `python -m ray_tpu_torch.devtools.lint`, the port's
               static gate over its tree: clean within its 120 s budget,
               each pass's seconds; (b) `python -m ray_tpu_torch.chaos
-              --suite smoke --seeds 2`: every seed of every scenario
+              --suite smoke --seeds 1`: every seed of every scenario
               converges with every invariant held (each seed's fault count
               and seconds), and `--check-determinism` on one scenario gives
               the digests that run used; (c) the port's Nemesis against GPU
@@ -236,7 +246,9 @@ bench's transformer phase and phases 9-18 (none in 11: RLlib's modules
 are MLPs; the reference and timing runs this script makes itself in 12,
 13, 14, 15, 16, 17 and 18 are not counted, nor 16's killed attempt), one
 entry a kernel and width launched (64; 96 and 256 in phase 17, 512 in
-18a) and one for B1 at 66,560 heads (18b). Any failure exits non-zero.
+18a), one for B1 at 66,560 heads (18b) and the f32 route at 64: B1 (phase
+3's f32 forward), B2 (9b's f32 ring hops) and their split pass. Any
+failure exits non-zero.
 The last line is the ok line.
 """
 
@@ -269,6 +281,12 @@ BATCH, SEQ, TRAIN_STEPS = 8, 1024, 10
 PEAK_BF16 = 989e12
 PEAK_F32 = 67e12
 HBM_BYTES_PER_S = 3.35e12
+# The least time for f32 attention: f32 products within F32_ATOL take three
+# bf16 products each on the tensor cores (hi.hi + hi.lo + lo.hi of each
+# operand's two bf16 parts; two miss it: tests/test_torch_f32_forward.py),
+# so its useful flops run at a third of the bf16 rate, above the CUDA
+# cores' PEAK_F32 (still reported beside it, as bound_share_cuda_cores).
+PEAK_F32_SPLIT = PEAK_BF16 / 3
 # Kernel against its plain version, element by element. Both take the same
 # inputs, do f32 arithmetic (TF32 off) and differ only in the order they sum.
 #  - f32 outputs (lse, dq, dk, dv always; o from f32 inputs): within
@@ -281,6 +299,13 @@ HBM_BYTES_PER_S = 3.35e12
 #    holds the small outputs too, which an absolute one would not.
 F32_ATOL = 2e-4
 BF16_RTOL, BF16_ATOL = 2.0 ** -7, 1e-4
+# Phase 3's f32 forward: GPT-2 small built in f32 through the kernels
+# against the same weights through the plain attention in f32. The two
+# differ only in attention, which phase 2 holds to F32_ATOL on unit-scale
+# inputs per call; at this initialisation attention's inputs are smaller
+# than that and the layers after it shrink an error (0.02-scale weights), so
+# the logits are held to the same F32_ATOL.
+F32_LOGITS_ATOL = F32_ATOL
 # Logits: the kernel path and the plain path both run in bf16 and round at
 # different places, and an ulp of difference spreads through 12 random-init
 # layers. So each is held against the same weights run in f32 through the
@@ -432,11 +457,13 @@ CLUSTER_BATCH, CLUSTER_HEAD_CPUS, CLIENT_PINGS, WORKFLOW_STEPS = 8, 4, 20, 3
 # time limit; its rates are data, not gated.
 AUTOSCALE_UPSCALE_S, AUTOSCALE_IDLE_S, PERF_EVICTION_GRACE_S = 0.5, 5.0, 1.0
 # Phase 16: chaos. 16b runs the chaos CLI's smoke suite over CHAOS_SEEDS
-# seeds and its determinism check on CHAOS_DETERMINISM_SCENARIO. 16c's tasks
+# seeds and its determinism check on CHAOS_DETERMINISM_SCENARIO (one seed,
+# every scenario: two took ~44 s of the smoke's 1200 s on a slow host).
+# 16c's tasks
 # run 14a's forward on NEMESIS_SEEDS with max_retries NEMESIS_RETRIES; the
 # first's first attempt forwards in a loop once it is inside its forward, for
 # at most NEMESIS_HOLD_S, and is killed NEMESIS_IN_FORWARD_S after it says so.
-CHAOS_SEEDS, CHAOS_DETERMINISM_SCENARIO = 2, "chunk_loss"
+CHAOS_SEEDS, CHAOS_DETERMINISM_SCENARIO = 1, "chunk_loss"
 NEMESIS_SEEDS, NEMESIS_RETRIES = (SEED + 16, SEED + 17), 3
 NEMESIS_HOLD_S, NEMESIS_IN_FORWARD_S = 120.0, 1.0
 
@@ -567,6 +594,13 @@ def time_ms(fn, reps: int = 20) -> float:
     raise SmokeFailure("the host could not queue the timed calls ahead of the card")
 
 
+def timed(fn) -> float:
+    """Seconds that fn() takes."""
+    t0 = time.perf_counter()
+    fn()
+    return time.perf_counter() - t0
+
+
 def card() -> dict:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -578,13 +612,15 @@ def card() -> dict:
 
 # ------------------------------------------------------------ build report
 
-_KERNEL_NAME = re.compile(r"((?:fwd|bwd_dq|bwd_dkv)_kernel(?:_tc|_sm90)?)"
+_KERNEL_NAME = re.compile(r"((?:fwd|bwd_dq|bwd_dkv)_kernel(?:_tc|_sm90(?:_f32)?)?)"
                           r"I((?:Li\d+E|Lb[01]E|f|13__nv_bfloat16)+)E")
-# bf16 kernels in the build, all Hopper kernels (wgmma: HGMMA in the SASS):
-# the forward fwd_kernel_sm90 over D x CAUSAL x WRITE_LSE and the backward
+# The Hopper kernels in the build (wgmma: HGMMA in the SASS): the bf16
+# forward fwd_kernel_sm90 over D x CAUSAL x WRITE_LSE and the bf16 backward
 # bwd_dq_kernel_sm90 and bwd_dkv_kernel_sm90, each over D x CAUSAL, D in
-# the kernels' five widths (64, 96, 128, 256, 512).
-N_SM90_KERNELS = 5 * (4 + 2 + 2)
+# the kernels' five widths (64, 96, 128, 256, 512); and the f32 forward
+# fwd_kernel_sm90_f32 over D x CAUSAL x WRITE_LSE, D in 64, 96, 128, 256.
+N_SM90_KERNELS = 5 * (4 + 2 + 2) + 4 * 4
+_SM90 = re.compile(r"_sm90(?:_f32)?<")
 _TEMPLATE_ARG = re.compile(r"Li(\d+)E|Lb([01])E|(13__nv_bfloat16|f)")
 _SERIALIZED = re.compile(r"wgmma\.mma_async instructions are serialized due to (.*) "
                          r"(?:in|for) the function '([^']+)'")
@@ -659,7 +695,7 @@ def check_sm90(report: dict) -> None:
         return (r.get("hgmma", 0) > 0 and r.get("spill_stores") == 0 and r.get("spill_loads") == 0
                 and "wgmma_serialized" not in r)
 
-    sm90 = {name: r for name, r in report.items() if "_sm90<" in name}
+    sm90 = {name: r for name, r in report.items() if _SM90.search(name)}
     check(len(sm90) == N_SM90_KERNELS and all(ok(r) for r in sm90.values()),
           f"want {N_SM90_KERNELS} Hopper kernels, each with HGMMA, no spill and no "
           f"serialized wgmma: {sm90}")
@@ -926,7 +962,7 @@ def kernel_timings(fa, dev, gen, cfg, batch: int = BATCH, seq: int = SEQ) -> dic
         "bwd_dq": (6 * D * pairs, 4 * mat * elt + 2 * BH * T * 4 + mat * 4),
         "bwd_dkv": (8 * D * pairs, 4 * mat * elt + 2 * BH * T * 4 + 2 * mat * 4),
     }
-    peak = PEAK_BF16 if dt == torch.bfloat16 else PEAK_F32
+    peak = PEAK_BF16 if dt == torch.bfloat16 else PEAK_F32_SPLIT
     host_us = importlib.import_module("ray_tpu_torch.ops.kernel_ab").host_us
     rows = {}
     for _, key, _ in KERNELS:
@@ -944,7 +980,13 @@ def kernel_timings(fa, dev, gen, cfg, batch: int = BATCH, seq: int = SEQ) -> dic
             "tflops": flops / ms * 1e-9,  # useful flops, no recompute, no hi/lo split
             "bound_share": max(t_ops, t_bytes) / ms,
         }
-        rows[key]["host_us"] = host_us(kernel_fns[key])
+        if dt == torch.float32:  # the bound at the CUDA cores' rate, as the CUDA-core kernels set it
+            rows[key]["bound_share_cuda_cores"] = max(flops / PEAK_F32 * 1e3, t_bytes) / ms
+        # ~50 ms of device work at most: 200 calls of a bf16 kernel, 20 of a
+        # 10 ms CUDA-core one (200 of those held the card 2 s a kernel).
+        rows[key]["host_us"] = host_us(kernel_fns[key], calls=max(20, min(200, int(50 / ms))))
+    if dt == torch.float32 and D in fa.SPLIT_WIDTHS:
+        rows["split"] = split_timing(fa, q, k, v)
     width = fa.kernel_width(D, dev)
     line = {"phase": "kernels", "shape": [BH, T, D], "width": width, "dtype": str(dt).split(".")[-1],
             "causal": True, "timings": rows, "sdpa_fwd_ms": sdpa_fwd_ms, "sdpa_bwd_ms": sdpa_bwd_ms,
@@ -959,11 +1001,87 @@ def kernel_timings(fa, dev, gen, cfg, batch: int = BATCH, seq: int = SEQ) -> dic
     return rows
 
 
+def split_timing(fa, q, k, v) -> dict:
+    """The f32 forward's split pass on q, k, v: bitwise against its plain
+    version (max_abs_err 0), its time, the plain version's and its bound
+    (bytes: each element read as f32 and written as two bf16 parts)."""
+    got = fa.split_parts(q, k, v)
+    err = max(max_err(a, fa._split_ref(x)) for a, x in zip(got, (q, k, v)))
+    check(err == 0, f"the split pass is off its plain version by {err}")
+    t_bytes = 8 * (q.numel() + k.numel() + v.numel()) / HBM_BYTES_PER_S * 1e3
+    ms = time_ms(lambda: fa.split_parts(q, k, v))
+    return {"max_abs_err": err, "ms": ms, "plain_ms": time_ms(lambda: [fa._split_ref(x) for x in (q, k, v)],
+                                                               reps=5),
+            "bound_ms": t_bytes, "bound_by": "bytes", "library_ms": None, "bound_share": t_bytes / ms}
+
+
+def f32_route(fa, dev) -> None:
+    """Which kernels an f32 B1 and B2 call launches at each width, by the
+    profiler's kernel names: at 64-256 the split pass and
+    fwd_kernel_sm90_f32 (never the CUDA-core fwd_kernel<float, ...>), at 512 the
+    CUDA-core kernel; and the wrappers' f32_launches agree."""
+    from torch.profiler import ProfilerActivity, profile
+
+    line = {}
+    for D in fa.WIDTHS:
+        q, k, v = (torch.randn(2, 300, D, device=dev) for _ in range(3))
+        fa.reset_launches()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fa.flash_fwd(q, k, v, causal=True, scale=D ** -0.5)
+            fa.flash_fwd(q, k, v, causal=True, scale=D ** -0.5, with_lse=True)
+            torch.cuda.synchronize()
+        names = sorted({m.group(0) for e in prof.events()
+                        for m in [re.search(r"\w+_kernel(?:_sm90_f32)?(?:<[^>]*>)?", e.name)] if m})
+        hopper = D in fa.SPLIT_WIDTHS
+        line[D] = {"kernels": names, "f32_launches": dict(fa.f32_launches)}
+        want = [f"fwd_kernel_sm90_f32<{D}, true, false>", f"fwd_kernel_sm90_f32<{D}, true, true>",
+                "split_kernel"] if hopper else [f"fwd_kernel<float, {D}, 4, 16, true, false>",
+                                                f"fwd_kernel<float, {D}, 4, 16, true, true>"]
+        check(names == sorted(want) and fa.f32_launches == {"split": 2 * hopper, "fwd": hopper,
+                                                            "fwd_lse": hopper},
+              f"f32 B1 and B2 at head dim {D} launched {line[D]}")
+    emit({"phase": "kernels", "f32_route": line})
+
+
 # ------------------------------------------------------------- phases 3, 4
 
-def forward_phase(tr, fa, cfg, dev, gen, tokens) -> dict:
+def forward_phase(tr, fa, cfg, dev, gen, tokens) -> tuple:
+    """Phase 3: the bf16 forward (logits_check), then the same weights in f32
+    through the kernels (f32_forward_check). Returns both runs' launches."""
     model = tr.transformer_init(cfg, gen, device=dev)
-    return logits_check(tr, fa, cfg, dev, model, tokens, {"phase": "forward"})
+    launches = logits_check(tr, fa, cfg, dev, model, tokens, {"phase": "forward"})
+    return launches, f32_forward_check(tr, fa, cfg, dev, model, tokens)
+
+
+def f32_forward_check(tr, fa, cfg, dev, model, tokens) -> dict:
+    """transformer_apply of `model`'s weights built in f32, through the
+    kernels (B1 on the tensor cores through the split pass) and through the
+    plain attention; fails unless the logits are finite, of their shape and
+    within F32_LOGITS_ATOL. Returns the kernel run's f32 launches
+    (fa.f32_launches)."""
+    def build(impl):
+        m = tr.Transformer(dataclasses.replace(cfg, attention_impl=impl, dtype=torch.float32), dev)
+        m.load_state_dict(model.state_dict())
+        return m
+
+    kernel = build("kernel")
+    fa.reset_launches()
+    with torch.no_grad():
+        logits = tr.transformer_apply(kernel, tokens)
+        torch.cuda.synchronize()
+        launches, f32 = dict(fa.launches), dict(fa.f32_launches)
+        del kernel
+        truth = tr.transformer_apply(build("torch"), tokens)
+    err = max_err(logits, truth)
+    emit({"phase": "forward", "dtype": "float32", "shape": list(logits.shape), "max_abs_err": err,
+          "mean_abs_err": float((logits - truth).abs().mean()), "bound": F32_LOGITS_ATOL,
+          "f32_max_abs": float(truth.abs().max()), "launches": launches, "f32_launches": f32})
+    check(tuple(logits.shape) == (*tokens.shape, cfg.vocab_size) and bool(torch.isfinite(logits).all()),
+          "f32 logits are not finite or have the wrong shape")
+    check(err <= F32_LOGITS_ATOL, f"f32 logits through the kernels {err} off the plain path's")
+    check(f32["fwd"] == cfg.n_layers and f32["split"] == cfg.n_layers,
+          f"the f32 forward did not run B1 through the split pass once a layer: {f32}")
+    return f32
 
 
 def logits_check(tr, fa, cfg, dev, model, tokens, line: dict) -> dict:
@@ -1114,7 +1232,7 @@ def run_steps(step, state, batch, save=None) -> dict:
 
 
 def kernel_family(name: str) -> str:
-    if any(s in name for s in ("fwd_kernel", "bwd_dq_kernel", "bwd_dkv_kernel")):
+    if any(s in name for s in ("fwd_kernel", "bwd_dq_kernel", "bwd_dkv_kernel", "split_kernel")):
         return "flash (this repo)"
     if any(s in name.lower() for s in ("conv", "fprop", "dgrad", "wgrad", "cudnn")):
         return "conv (cuDNN)"
@@ -1220,7 +1338,7 @@ def profile_phase(run_step, step_ms: float, phase: str = "profile", scopes=None)
         by_name[name] = by_name.get(name, 0.0) + ms
         fam = kernel_family(name)
         if fam == "flash (this repo)":
-            m = re.search(r"\w+_kernel(?:_tc|_sm90)?<[^>]*>", name)  # demangled: drop the arguments
+            m = re.search(r"\w+_kernel(?:_tc|_sm90(?:_f32)?)?<[^>]*>", name)  # demangled: drop the arguments
             key = m.group(0) if m else kernel_label(name)
             flash[key] = flash.get(key, 0.0) + ms
         families[fam] = families.get(fam, 0.0) + ms
@@ -1793,6 +1911,7 @@ def ring_phase(fa, dev, gen) -> dict:
     B, T, H, D = RING_SHAPE
     S, scale = RING_SHARDS, D ** -0.5
     launches = {key: 0 for _, key, _ in KERNELS}
+    launches.update(fwd_lse_f32=0, split_f32=0)  # the f32 hops' B2 on the tensor cores
 
     def bhtd(x):
         return x.transpose(1, 2).reshape(B * H, T, D)
@@ -1807,8 +1926,10 @@ def ring_phase(fa, dev, gen) -> dict:
             got = [o, *torch.autograd.grad(o, leaves, do)]
             torch.cuda.synchronize()
             hops = dict(fa.launches)
-            for key in launches:
+            for _, key, _ in KERNELS:
                 launches[key] += hops[key]
+            launches["fwd_lse_f32"] += fa.f32_launches["fwd_lse"]
+            launches["split_f32"] += fa.f32_launches["split"]
             qf, kf, vf, dof = (bhtd(t) for t in (q, k, v, do))
             o_ref, lse = fa._flash_fwd_ref(qf, kf, vf, causal, scale, True)
             o_ring = bhtd(got[0].detach())
@@ -1961,6 +2082,7 @@ def mesh_phase(tr, fa, cfg, dev, gen) -> dict:
     torch.cuda.empty_cache()
     worker = mesh_trainer_phase(cfg, sharded["losses"])
     launches = {key: sharded["launches"][key] + ring[key] + worker[key] for _, key, _ in KERNELS}
+    launches.update(fwd_lse_f32=ring["fwd_lse_f32"], split_f32=ring["split_f32"])
     emit({"phase": "mesh", "seconds": time.perf_counter() - t0, "launches": launches})
     return launches
 
@@ -4474,10 +4596,13 @@ def main() -> int:
 
     t0 = time.perf_counter()
     kernel_ab = importlib.import_module("ray_tpu_torch.ops.kernel_ab")
-    with ThreadPoolExecutor() as pool:  # one nvcc a library, all at once
-        for built in [pool.submit(_build.build, name) for name in _build.sources()] + [
-                pool.submit(kernel_ab.timeline_library)]:
-            built.result()
+    # One nvcc a library, all at once; the stamped build, which only phase
+    # 2's last step loads, goes on compiling under phase 2's cases.
+    pool = ThreadPoolExecutor()
+    timeline_built = pool.submit(kernel_ab.timeline_library)
+    for built in [pool.submit(_build.build, name) for name in _build.sources()]:
+        built.result()
+    pool.shutdown(wait=False)
     emit({"phase": "build", "sources": _build.sources(), "seconds": time.perf_counter() - t0,
           "kernels": build_report(_build)})
 
@@ -4502,18 +4627,31 @@ def main() -> int:
                    batch=4, seq=WIDE_SEQ)
     rows["bh"] = kernel_timings(fa, dev, gen_wider, tr.TransformerConfig(**PHI3_MINI),
                                 batch=SCORE_BATCH, seq=SCORE_SEQ)
-    # The f32 kernels (the CUDA cores'; TF32 off for SDPA too) at GPT-2
-    # small's shape, 17c's and 18a's: emitted, not in the line (the main
-    # path is bf16).
+    # The f32 kernels (TF32 off for SDPA too; B1 and B2 on the tensor cores
+    # through the split pass up to 256, B3 and B4 on the CUDA cores) at
+    # GPT-2 small's shape (phase 3's f32 forward: its row goes in the line),
+    # 17c's and 18a's, then at head dim 128 ([96, 1024, 128], GPT-2 small's
+    # batch and heads at d_model 1536; bf16 too) and 17b's ([128, 2048, 96]).
+    f32_rows = None
     for widths, batch in ((GPT2_SMALL, BATCH), (GEMMA_2B, 4), (WIDE_512, 4)):
         f32 = tr.TransformerConfig(**{**widths, "dtype": torch.float32})
-        kernel_timings(fa, dev, gen_widths if widths is not WIDE_512 else gen_wider, f32, batch=batch,
-                       seq=SEQ if widths is GPT2_SMALL else WIDE_SEQ)
-    # Where B1, B3 and B4 spend a streamed tile, in SM cycles (the stamped build).
+        row = kernel_timings(fa, dev, gen_widths if widths is not WIDE_512 else gen_wider, f32, batch=batch,
+                             seq=SEQ if widths is GPT2_SMALL else WIDE_SEQ)
+        f32_rows = f32_rows or row
+    for dtype in (torch.float32, torch.bfloat16):
+        kernel_timings(fa, dev, gen_wider, tr.TransformerConfig(**{**GPT2_SMALL, "d_model": 1536,
+                                                                    "dtype": dtype}))
+    kernel_timings(fa, dev, gen_wider, tr.TransformerConfig(**{**PHI3_MINI, "dtype": torch.float32}),
+                   batch=4, seq=WIDE_SEQ)
+    f32_route(fa, dev)
+    # Where B1, B3 and B4 (bf16) and B1 (f32) spend a streamed tile, in SM
+    # cycles (the stamped build).
+    emit({"phase": "kernels", "timeline_build_wait_s": timed(timeline_built.result)})
     emit({"phase": "kernels", "timeline_cycles": kernel_ab.timeline(dev)})
+    emit({"phase": "kernels", "dtype": "float32", "timeline_cycles": kernel_ab.timeline(dev, torch.float32)})
 
     tokens = torch.randint(0, cfg.vocab_size, (BATCH, SEQ), device=dev, generator=gen)
-    fwd_launches = forward_phase(tr, fa, cfg, dev, gen, tokens)
+    fwd_launches, f32_fwd_launches = forward_phase(tr, fa, cfg, dev, gen, tokens)
     train_launches, run_step, step_ms = train_phase(tr, fa, cfg, dev, gen)
     profile_phase(run_step, step_ms)
     del run_step  # phase 4's model and optimizer
@@ -4575,6 +4713,17 @@ def main() -> int:
                     "replaces": KERNELS[0][2], "head_dim": 96, "heads_per_call": SCORE_BATCH * 32,
                     "launches": launched, **rows["bh"]["fwd"]})
     check(launched > 0, "flash_fwd at 66,560 heads was not launched on the main path")
+    # f32 at head dim 64: B1 in phase 3's f32 forward, B2 in 9b's f32 ring
+    # hops, the split pass in both; phase 2's numbers at [96, 1024, 64] f32.
+    for name, launched, replaces, row in (
+            ("flash_fwd_f32", f32_fwd_launches["fwd"], KERNELS[0][2], f32_rows["fwd"]),
+            ("flash_fwd_lse_f32", mesh_launches["fwd_lse_f32"], KERNELS[1][2], f32_rows["fwd_lse"]),
+            ("split_f32", f32_fwd_launches["split"] + mesh_launches["split_f32"],
+             f"none: the f32 B1/B2 route's operand split ({KERNELS[0][2]}, :109 at f32)",
+             f32_rows["split"])):
+        kernels.append({"name": name, "route": "cuda", "source": SOURCE, "replaces": replaces,
+                        "head_dim": 64, "dtype": "float32", "launches": launched, **row})
+        check(launched > 0, f"{name} was not launched on the main path")
     emit({"phase": "total", "seconds": time.perf_counter() - started})
     print(info["nvidia_smi"], flush=True)
     emit({"kernels": kernels})

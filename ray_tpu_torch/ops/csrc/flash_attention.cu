@@ -3,10 +3,13 @@
 //
 // Replaces the four Pallas TPU kernels of ray_tpu/ops/flash_attention.py:
 //   bf16 inputs (the train step's)          f32 inputs
-//   fwd_kernel_sm90<.., WRITE_LSE=false>    fwd_kernel<.., WRITE_LSE=false>  <- _attn_fwd_kernel      (B1)
-//   fwd_kernel_sm90<.., WRITE_LSE=true>     fwd_kernel<.., WRITE_LSE=true>   <- _attn_fwd_kernel_lse  (B2)
-//   bwd_dq_kernel_sm90                      bwd_dq_kernel                    <- _attn_bwd_dq_kernel   (B3)
-//   bwd_dkv_kernel_sm90                     bwd_dkv_kernel                   <- _attn_bwd_dkv_kernel  (B4)
+//   fwd_kernel_sm90<.., WRITE_LSE=false>    fwd_kernel_sm90_f32<.., WRITE_LSE=false>  <- _attn_fwd_kernel      (B1)
+//   fwd_kernel_sm90<.., WRITE_LSE=true>     fwd_kernel_sm90_f32<.., WRITE_LSE=true>   <- _attn_fwd_kernel_lse  (B2)
+//   bwd_dq_kernel_sm90                      bwd_dq_kernel                             <- _attn_bwd_dq_kernel   (B3)
+//   bwd_dkv_kernel_sm90                     bwd_dkv_kernel                            <- _attn_bwd_dkv_kernel  (B4)
+// The f32 forward at D = 512 is still the CUDA-core fwd_kernel<float, 512,
+// ..>, and the f32 forward at 64-256 takes its operands from split_kernel,
+// which replaces no TPU kernel (see "The f32 forward" below).
 //
 // Layout [BH, T, D] for q/do/o and [BH, S, D] for k/v, row-major and
 // contiguous; lse and delta are [BH, T] f32; dq, dk and dv are f32. D is 64,
@@ -146,9 +149,48 @@
 //      multiple of 1024 bytes and the lse/delta slots lie past all tiles.
 //   8. Host time: each call encodes four tensor maps (30-60 us a call on
 //      the card's host, about the parent's; not cached by pointer).
-// f32 inputs keep the first kernels below: the tensor cores take f32 only as
-// TF32 or through a three-way bf16 split, and the f32 path exists for the
-// tests.
+//
+// The f32 forward (fwd_kernel_sm90_f32, after the bf16 forward) runs f32
+// attention on the bf16 tensor cores: every f32 call of flash_attention,
+// mha, the autograd function, a transformer built in f32 and the ring's
+// and Ulysses' kernel routes takes it at D = 64, 96, 128 and 256.
+//   1. The split. split_kernel writes each f32 operand x of q, k and v as
+//      hi = bf16(x) and lo = bf16(x - hi) (to nearest; |x - hi - lo| <=
+//      2^-16 |x|), and the kernel splits P the same way on chip (split_p).
+//      Each product is then three bf16 products summed into f32: a.b =
+//      a_hi.b_hi + a_hi.b_lo + a_lo.b_hi, leaving out a_lo.b_lo and the
+//      parts' own error (each at most 2^-16 of |a||b|). The emulation of this
+//      kernel in tests/test_torch_f32_forward.py settled that set: at D =
+//      64-256, T = 192 and 1000, causal or not, it stays within 1.96e-5 of
+//      the f32 plain version (F32_ATOL is 2e-4; the card's worst in phase
+//      2's cases is of that order), and with any one of the three products
+//      of S or of P.V left out (P.V without P_lo.V_hi is P rounded once) it
+//      misses F32_ATOL by 10x or more at every width. A
+//      third part (x = hi + mid + lo, six products) would take S and o to
+//      ~1e-6, which no check of the port asks for, at twice the tensor
+//      work and 1.5x the bytes of the parts.
+//   2. Why bf16 parts and not TF32: wgmma reads TF32 from shared memory only
+//      K-major (the transpose bits exist for 16-bit types only), so P.V
+//      would need each V tile transposed on chip, and TF32's accumulator
+//      fragment is not its A fragment; with bf16 parts the bf16 forward's
+//      machinery serves unchanged: Lay<D>'s TMA boxes and swizzles, the
+//      descriptors, RS P.V with P straight from the S fragment, the
+//      persistent units and the producer warpgroup.
+//   3. What bounds it: the tensor work, six bf16 products a (q, key) pair
+//      and column where the bf16 forward does three (S once, P.V twice),
+//      and, beside it, the bytes of the parts: split_kernel moves 8 bytes
+//      an element (4 in, 4 out) and the forward reads 4. The least time for
+//      f32 attention within F32_ATOL on this card is three bf16 products at
+//      989 TFLOP/s, ~330 TFLOP/s of useful work (chip_smoke.py PEAK_F32_SPLIT).
+//   4. Tiles (F32FwdCfg): the parts take 4 bytes an element, so the kernel
+//      at D has the bytes of the bf16 forward at 2D. Items of 128 q rows at
+//      every width; K and V stream through rings of their own, so K_kt's
+//      stage is refilled as soon as S_kt is in, while P_{kt-1}.V_{kt-1}
+//      still holds V's. D = 256 streams 16-key tiles (Q's parts 128 KB).
+//   5. The split is a pass of its own, once a call, so each part is read by
+//      TMA as the bf16 kernel reads bf16: its bytes (two a byte of f32 q, k
+//      and v, ~0.6 ms a GB of them at 3.35 TB/s) are the price of that;
+//      splitting on chip would save them.
 //
 // The Hopper kernels at D = 256 (Gemma-2B's head dim) and 96 (Phi-3-mini's).
 // A consumer thread has 240 registers and a block 227 KB of shared memory;
@@ -192,15 +234,17 @@
 // Past 512, Q, K and V tiles of 64 rows no longer leave room for a stream:
 // the wrappers refuse D > 512.
 //
-// The first kernels (f32 only) do their arithmetic on the f32 CUDA cores
-// (67 TFLOP/s, not the tensor cores' 989), and that is what bounds them: a
-// forward at the train shape is 13 GFLOP, at least 0.19 ms there. They take
-// any D that is a multiple of 16; at D = 256 the backward kernels stream
-// 32-row tiles (BC), as 64 would need more than a block's shared memory, and
-// at D = 512 the forward streams 16-key tiles and the backward kernels own
+// The first kernels (the f32 backward at every width, and the f32 forward at
+// D = 512 only) do their arithmetic on the f32 CUDA cores (67 TFLOP/s, not
+// the tensor cores' 989), and that is what bounds them. They take any D
+// that is a multiple of 16; at D = 256 the backward kernels stream 32-row
+// tiles (BC), as 64 would need more than a block's shared memory, and at
+// D = 512 the forward streams 16-key tiles and the backward kernels own
 // 32 rows (R = 2 rows a thread group) and stream 16 (F32Cfg; each block
 // ~200 KB). A block takes tile blockIdx.x % tiles of head blockIdx.x /
-// tiles: gridDim.y would stop at 65535 heads.
+// tiles: gridDim.y would stop at 65535 heads. The f32 forward at 512 stays
+// here: a 64-row Q in parts takes 128 KB there and leaves no room for a
+// stream unless S's contraction is streamed over chunks of D.
 // What their design does about it:
 //   * The TPU kernels carry the online-softmax state (m, l, acc) in VMEM
 //     scratch from one sequential grid step to the next. Blocks on Hopper
@@ -1166,11 +1210,12 @@ __device__ __forceinline__ void issue_pv(float (&acc)[D / 2], const uint32_t (&p
 // tile's P.V issued, 2 S in, 3 softmax done, 4 P.V in, 5 P split), 1 bwd_dq
 // and 2 bwd_dkv (0 the tile landed, 1 S, dP and the previous tile's
 // products issued, 2 S and dP in, 3 P and dS made, 4 the previous tile's
-// products in, 5 split). Only ray_tpu_torch/ops/kernel_ab.py's timeline
-// build defines RT_TIMELINE (chip_smoke.py phase 2 reads it through
-// rt_timeline); the library the port loads has no stamps.
+// products in, 5 split), 3 the f32 forward (the forward's events). Only
+// ray_tpu_torch/ops/kernel_ab.py's timeline build defines RT_TIMELINE
+// (chip_smoke.py phase 2 reads it through rt_timeline); the library the
+// port loads has no stamps.
 constexpr int TIMELINE_TILES = 64;
-__device__ long long timeline[3][2][TIMELINE_TILES][6];
+__device__ long long timeline[4][2][TIMELINE_TILES][6];
 __device__ __forceinline__ void stamp(int kernel, int wg, int tile, int ev, bool pred) {
   long long* at = &timeline[kernel][wg][min(tile, TIMELINE_TILES - 1)][ev];
   asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %2, 0;\n@p st.global.b64 [%0], %1;\n}\n" ::"l"(at),
@@ -1361,6 +1406,312 @@ __global__ void __launch_bounds__(FWD_THREADS, 1) fwd_kernel_sm90(
           // With COLS both warpgroups hold the row's m and l: warpgroup 0 writes lse.
           if (WRITE_LSE && tg == 0 && It::col(wg) == 0)
             lse[static_cast<size_t>(head) * seq_q + qp] = m[r] * LN2 + logf(lsafe);
+        }
+      }
+  }
+}
+
+// ============================================== forward on Hopper (f32, sm_90a)
+//
+// fwd_kernel_sm90_f32 replaces _attn_fwd_kernel (WRITE_LSE = false, B1) and
+// _attn_fwd_kernel_lse (WRITE_LSE = true, B2) for f32 inputs at D = 64, 96,
+// 128 and 256, on the tensor cores. See the file's header for the split, the
+// product set and what bounds the kernel; split_kernel below makes its
+// operands.
+
+// split_kernel replaces no TPU kernel (the TPU's matrix unit takes f32
+// operands): it is the f32 forward's first pass. It reads each element of
+// q, k and v once as f32 and writes hi = bf16(x) and lo = bf16(x - hi)
+// (both to nearest; x - hi is exact in f32), each part a [BH, rows, D] bf16
+// tensor, [q hi | q lo | k hi | k lo | v hi | v lo] in `parts`, so the
+// forward reads them by TMA as it reads bf16 operands. Bound by bytes (4 in
+// and 4 out an element): one 16-byte load and two 8-byte stores a thread a
+// step, every access coalesced. n_q and n_kv count float4s (D is a multiple
+// of 4); blockIdx.y picks q (0), k (1) or v (2).
+__global__ void __launch_bounds__(256) split_kernel(const float4* __restrict__ q,
+                                                    const float4* __restrict__ k,
+                                                    const float4* __restrict__ v, uint2* __restrict__ parts,
+                                                    size_t n_q, size_t n_kv) {
+  const float4* x = blockIdx.y == 0 ? q : blockIdx.y == 1 ? k : v;
+  const size_t n = blockIdx.y == 0 ? n_q : n_kv;
+  uint2* hi = parts + (blockIdx.y == 0 ? 0 : 2 * n_q + (blockIdx.y - 1) * 2 * n_kv);
+  uint2* lo = hi + n;
+  for (size_t i = blockIdx.x * size_t(256) + threadIdx.x; i < n; i += size_t(gridDim.x) * 256) {
+    const float4 e = x[i];
+    uint2 h, l;
+    split_bf16x2(e.x, e.y, h.x, l.x);
+    split_bf16x2(e.z, e.w, h.y, l.y);
+    hi[i] = h;
+    lo[i] = l;
+  }
+}
+
+// Tiles and shared memory of fwd_kernel_sm90_f32, in bytes. Each operand
+// comes in two bf16 parts, 4 bytes an element, so the kernel at D has the
+// bytes of the bf16 one at 2D. Items of 128 q rows (64 a consumer) at
+// every width; K and V in rings of their own (a K stage is free once S is
+// in, a V stage once P.V is), STAGES each:
+//   D = 64: 128-key tiles, 3 stages (Q 32 KB, the rings 192 KB);
+//   D = 96: 64 keys, 3 stages (48 KB, 144 KB);
+//   D = 128: 64 keys, 2 stages (64 KB, 128 KB);
+//   D = 256: 16 keys, 3 stages (128 KB, 96 KB): Q's parts for 128 rows take
+//     half of the block's shared memory and the output sums 128 of a
+//     consumer's 240 registers.
+template <int D>
+struct F32FwdCfg {
+  static constexpr int BN = D == 64 ? 128 : D == 256 ? 16 : 64;  // keys per K/V tile
+  static constexpr int STAGES = D == 128 ? 2 : 3;                 // K stages, and V stages
+  static constexpr int Q_PART = FWD_BQ * D * 2;                    // one part of an item's Q
+  static constexpr int KV_PART = BN * D * 2;                       // one part of a K or V tile
+  // Byte offsets from the aligned base: Q's parts, the K ring and the V ring
+  // ([STAGES][2 parts] tiles each), then the barriers: q_full, q_empty, and
+  // [STAGES] each of k_full, k_empty, v_full, v_empty.
+  static constexpr int K_AT = 2 * Q_PART, V_AT = K_AT + 2 * STAGES * KV_PART;
+  static constexpr int BAR_AT = V_AT + 2 * STAGES * KV_PART;
+  static constexpr int BYTES = BAR_AT + 8 * (2 + 4 * STAGES) + 1024;
+  static_assert(BYTES <= 232448, "a block has 227 KB of shared memory");
+  // The producer's registers (setmaxnreg; each consumer gets 240 less half
+  // the producer's excess over 24, so the three warpgroups keep 3 x 168). At
+  // D = 256 the producer's eight TMA loads a tile (four boxes, two parts)
+  // spilled in 24 registers; 40 there leave the consumers 232, no spill.
+  static constexpr int PRODUCER_REGS = D == 256 ? 40 : 24;
+};
+
+// load_rows into the shared address dst: the f32 forward keeps every shared
+// address as one base plus constants, so its producer (24 registers) holds
+// no pointers.
+template <int ROWS, int D>
+__device__ __forceinline__ void load_rows_at(uint32_t dst, const CUtensorMap* map, uint32_t bar, int head,
+                                             int row) {
+  constexpr int BW = Lay<D>::BW;
+#pragma unroll
+  for (int c = 0; c < D / BW; ++c)
+    asm volatile(
+        "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+        " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst + c * ROWS * BW * 2),
+        "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c * BW), "r"(row), "r"(head)
+        : "memory");
+}
+
+// s += Q.K^T of one tile, as issue_s, every product added to s.
+template <int D, int AROWS, int N>
+__device__ __forceinline__ void issue_s_add(float (&s)[N], uint32_t q_addr, uint32_t k_addr) {
+  using L = Lay<D>;
+  asm volatile("" : "+r"(q_addr), "+r"(k_addr));
+  const uint64_t a0 = smem_desc<D>(q_addr, 16, L::ATOM), b0 = smem_desc<D>(k_addr, 16, L::ATOM);
+#pragma unroll
+  for (int kc = 0; kc < D / 16; ++kc) {
+    const int box = kc / L::KPB, at = kc % L::KPB * 32;
+    wgmma_ss<1>(s, a0 + ((box * AROWS * L::RB + at) >> 4), b0 + ((box * 2 * N * L::RB + at) >> 4));
+  }
+}
+
+// S = Q_hi.K_hi^T + Q_hi.K_lo^T + Q_lo.K_hi^T of one tile (the lo part of
+// each operand lies q_lo and k_lo bytes past its hi part): the product set
+// within phase 2's f32 limit (Q_lo.K_lo^T, at most 2^-16 of |Q||K|, is left out).
+template <int D, int AROWS, int N>
+__device__ __forceinline__ void issue_s_split(float (&s)[N], uint32_t q_addr, uint32_t k_addr, uint32_t q_lo,
+                                              uint32_t k_lo) {
+  issue_s<D, AROWS, true>(s, q_addr, k_addr);
+  issue_s_add<D, AROWS>(s, q_addr, k_addr + k_lo);
+  issue_s_add<D, AROWS>(s, q_addr + q_lo, k_addr);
+}
+
+// acc += P.V of one tile for one part P of P and one part of V, as issue_pv.
+template <int D, int NC>
+__device__ __forceinline__ void issue_pv_part(float (&acc)[D / 2], const uint32_t (&p)[NC][4], uint32_t v_addr) {
+  using L = Lay<D>;
+  constexpr int BOX = 16 * NC * L::RB;
+  asm volatile("" : "+r"(v_addr));
+  const uint64_t b0 = smem_desc<D>(v_addr, BOX, L::ATOM);
+#pragma unroll
+  for (int c = 0; c < NC; ++c) {
+    const uint64_t b = b0 + ((c * 16 * L::RB) >> 4);
+    if constexpr (D == 256) {
+      wgmma_rs_at<0>(acc, p[c], b);
+      wgmma_rs_at<64>(acc, p[c], b + ((2 * BOX) >> 4));
+    } else {
+      wgmma_rs(acc, p[c], b);
+    }
+  }
+}
+
+// acc += P_hi.V_hi + P_lo.V_hi + P_hi.V_lo (V's lo part v_lo bytes past its
+// hi part; P_lo.V_lo left out, as in S).
+template <int D, int NC>
+__device__ __forceinline__ void issue_pv_split(float (&acc)[D / 2], const uint32_t (&p_hi)[NC][4],
+                                               const uint32_t (&p_lo)[NC][4], uint32_t v_addr, uint32_t v_lo) {
+  issue_pv_part<D>(acc, p_hi, v_addr);
+  issue_pv_part<D>(acc, p_lo, v_addr);
+  issue_pv_part<D>(acc, p_hi, v_addr + v_lo);
+}
+
+// fwd_kernel_sm90's persistent units, producer and consumer pipeline, with
+// each operand in two parts: the maps are 3-D over [2 BH, rows, D], head h's
+// hi part at head h and its lo part at head h + bh. The producer loads an
+// item's Q (both parts) once, and each K/V tile's K into the K ring and its
+// V into the V ring. A consumer issues S_kt = Q.K_kt^T (three products)
+// with P_{kt-1}.V_{kt-1} (three), frees K_kt's stage once S_kt is in, runs
+// tile kt's softmax while P_{kt-1}.V_{kt-1} is on the tensor cores, and
+// frees V_{kt-1}'s stage once that is in. o is f32.
+template <int D, bool CAUSAL, bool WRITE_LSE>
+__global__ void __launch_bounds__(FWD_THREADS, 1) fwd_kernel_sm90_f32(
+    const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap k_map,
+    const __grid_constant__ CUtensorMap v_map, float* __restrict__ o, float* __restrict__ lse, int bh,
+    int seq_q, int seq_k, float scale) {
+  using Cfg = F32FwdCfg<D>;
+  constexpr int BN = Cfg::BN, STAGES = Cfg::STAGES, ROWS = FWD_BQ;
+  constexpr int QP = Cfg::Q_PART, KP = Cfg::KV_PART;  // bytes of one part of Q, of a K or V tile
+  extern __shared__ unsigned char fwd_f32_smem[];
+  // Q: [2 parts][D / BW][ROWS][BW] at sm; each K and V stage [2 parts][D / BW][BN][BW].
+  const uint32_t sm = smem_u32(swizzle_base(fwd_f32_smem));
+  const uint32_t q_full = sm + Cfg::BAR_AT;        // the item's Q landed
+  const uint32_t q_empty = q_full + 8;             // both consumers are done with Q
+  const uint32_t k_full = q_empty + 8;             // [STAGES]: the stage's K landed
+  const uint32_t k_empty = k_full + 8 * STAGES;    // [STAGES]: both consumers' S are in
+  const uint32_t v_full = k_empty + 8 * STAGES;    // [STAGES]: the stage's V landed
+  const uint32_t v_empty = v_full + 8 * STAGES;    // [STAGES]: both consumers' P.V are in
+  auto k_at = [&](int st) { return sm + Cfg::K_AT + st * 2 * KP; };
+  auto v_at = [&](int st) { return sm + Cfg::V_AT + st * 2 * KP; };
+
+  const int n_qt = (seq_q + ROWS - 1) / ROWS, n_units = (n_qt + 1) / 2 * bh;
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    mbar_init(q_empty, 2);
+    for (int st = 0; st < STAGES; ++st) {
+      mbar_init(k_full + 8 * st, 1);
+      mbar_init(k_empty + 8 * st, 2);
+      mbar_init(v_full + 8 * st, 1);
+      mbar_init(v_empty + 8 * st, 2);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  if (wg == 2) {  // producer: one thread keeps Q and both rings full
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(Cfg::PRODUCER_REGS));
+    if (threadIdx.x == 256) {
+      int it = 0, n = 0, head, q0;
+      for (int u = blockIdx.x; u < n_units; u += gridDim.x)
+        for (int j = 0; j < 2 && unit_item<ROWS>(u, j, n_qt, head, q0); ++j, ++n) {
+          const int n_kv_tiles = kv_tiles<CAUSAL, BN, ROWS>(q0, seq_k);
+          mbar_wait(q_empty, (n & 1) ^ 1);
+          mbar_expect_tx(q_full, 2 * Cfg::Q_PART);
+          for (int part = 0; part < 2; ++part)  // hi, then lo
+            load_rows_at<ROWS, D>(sm + part * QP, &q_map, q_full, head + part * bh, q0);
+          for (int kt = 0; kt < n_kv_tiles; ++kt, ++it) {
+            const int st = it % STAGES, parity = (it / STAGES & 1) ^ 1;
+            mbar_wait(k_empty + 8 * st, parity);
+            mbar_expect_tx(k_full + 8 * st, 2 * KP);
+            for (int part = 0; part < 2; ++part)
+              load_rows_at<BN, D>(k_at(st) + part * KP, &k_map, k_full + 8 * st, head + part * bh, kt * BN);
+            mbar_wait(v_empty + 8 * st, parity);
+            mbar_expect_tx(v_full + 8 * st, 2 * KP);
+            for (int part = 0; part < 2; ++part)
+              load_rows_at<BN, D>(v_at(st) + part * KP, &v_map, v_full + 8 * st, head + part * bh, kt * BN);
+          }
+        }
+    }
+  } else {  // consumer warpgroup wg: q rows [q0 + 64 wg, + 64) of each item
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(240 - (Cfg::PRODUCER_REGS - 24) / 2));
+    const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32, tg = lane % 4;
+    const float sl2 = scale * LOG2E;
+    const uint32_t q_addr = sm + wg * 64 * Lay<D>::RB;
+    float s[BN / 2], acc[D / 2], alpha[2];
+    uint32_t p_hi[BN / 16][4], p_lo[BN / 16][4];
+
+    int it = 0, n = 0, head, q0;
+    for (int u = blockIdx.x; u < n_units; u += gridDim.x)
+      for (int j = 0; j < 2 && unit_item<ROWS>(u, j, n_qt, head, q0); ++j, ++n) {
+        const int n_kv_tiles = kv_tiles<CAUSAL, BN, ROWS>(q0, seq_k);
+        const int row0 = q0 + wg * 64;
+        const int r0 = row0 + warp * 16 + lane / 4;  // this thread's rows: r0 and r0 + 8
+#pragma unroll
+        for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+        float m[2] = {BIG_NEG, BIG_NEG}, l[2] = {0.f, 0.f};
+
+        mbar_wait(q_full, n & 1);
+        bar_arrive_if(1, wg == 1);  // warpgroup 0 issues first
+        const int st0 = it % STAGES;
+        mbar_wait(k_full + 8 * st0, it / STAGES & 1);
+        bar_sync(1 + wg);
+        keep(s);
+        wgmma_fence();
+        issue_s_split<D, ROWS>(s, q_addr, k_at(st0), QP, KP);
+        wgmma_commit();
+        keep(s);
+        bar_arrive_if(2 - wg, wg == 0 || n_kv_tiles > 1);
+        wgmma_wait<0>();
+        keep(s);
+        mbar_arrive_if(k_empty + 8 * st0, tid == 0);
+        mbar_arrive_if(q_empty, tid == 0 && n_kv_tiles == 1);
+        softmax_tile<CAUSAL>(s, m, l, alpha, 0, row0, r0, tg, seq_k, sl2);
+        split_p(s, p_hi, p_lo);
+        for (int kt = 1; kt < n_kv_tiles; ++kt) {
+          const int st = (it + kt) % STAGES, prev = (it + kt - 1) % STAGES;
+          mbar_wait(k_full + 8 * st, (it + kt) / STAGES & 1);
+          mbar_wait(v_full + 8 * prev, (it + kt - 1) / STAGES & 1);
+          STAMP(3, it + kt, 0);
+          bar_sync(1 + wg);
+          keep(s);
+          keep(acc);
+          keep(p_hi);
+          keep(p_lo);
+          wgmma_fence();
+          issue_s_split<D, ROWS>(s, q_addr, k_at(st), QP, KP);
+          wgmma_commit();
+          issue_pv_split<D>(acc, p_hi, p_lo, v_at(prev), KP);
+          wgmma_commit();
+          STAMP(3, it + kt, 1);
+          keep(s);
+          keep(acc);
+          bar_arrive_if(2 - wg, wg == 0 || kt + 1 < n_kv_tiles);
+          wgmma_wait<1>();  // S_kt is in: K_kt's stage is free
+          keep(s);
+          STAMP(3, it + kt, 2);
+          mbar_arrive_if(k_empty + 8 * st, tid == 0);
+          mbar_arrive_if(q_empty, tid == 0 && kt + 1 == n_kv_tiles);
+          softmax_tile<CAUSAL>(s, m, l, alpha, kt * BN, row0, r0, tg, seq_k, sl2);
+          STAMP(3, it + kt, 3);
+          wgmma_wait<0>();  // P_{kt-1}.V_{kt-1} is in: its P and V's stage are free
+          keep(acc);
+          keep(p_hi);
+          keep(p_lo);
+          STAMP(3, it + kt, 4);
+          mbar_arrive_if(v_empty + 8 * prev, tid == 0);
+#pragma unroll
+          for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[i % 4 / 2];
+          split_p(s, p_hi, p_lo);
+          STAMP(3, it + kt, 5);
+        }
+        it += n_kv_tiles;
+        const int last = (it - 1) % STAGES;
+        mbar_wait(v_full + 8 * last, (it - 1) / STAGES & 1);
+        keep(acc);
+        keep(p_hi);
+        keep(p_lo);
+        wgmma_fence();
+        issue_pv_split<D>(acc, p_hi, p_lo, v_at(last), KP);
+        wgmma_commit();
+        keep(acc);
+        wgmma_wait<0>();
+        keep(acc);
+        keep(p_hi);
+        keep(p_lo);
+        mbar_arrive_if(v_empty + 8 * last, tid == 0);
+
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int qp = r0 + 8 * r;
+          const float lsafe = fmaxf(quad_sum(l[r]), 1e-30f), linv = 1.f / lsafe;
+          if (qp >= seq_q) continue;
+          float* orow = o + (static_cast<size_t>(head) * seq_q + qp) * D;
+#pragma unroll
+          for (int c = 0; c < D / 8; ++c)
+            *reinterpret_cast<float2*>(orow + c * 8 + 2 * tg) =
+                make_float2(acc[4 * c + 2 * r] * linv, acc[4 * c + 2 * r + 1] * linv);
+          if (WRITE_LSE && tg == 0) lse[static_cast<size_t>(head) * seq_q + qp] = m[r] * LN2 + logf(lsafe);
         }
       }
   }
@@ -1942,10 +2293,10 @@ cudaError_t launch(dim3 grid, size_t smem, cudaStream_t stream, Args... args) {
 }
 
 // The f32 kernels' tiles by head dim: R rows a thread group (16 R rows a
-// block) and BC rows a streamed tile. Up to 256 the forward takes 64 q rows
-// and 64-key tiles, and the backward 64 rows and 64-row tiles (32 past 128);
-// at 512 the forward 16-key tiles and the backward 32 rows and 16-row tiles,
-// so each block fits in 227 KB.
+// block) and BC rows a streamed tile. Up to 256 the backward takes 64 rows
+// and 64-row tiles (32 past 128); at 512 the forward 16-key tiles and the
+// backward 32 rows and 16-row tiles, so each block fits in 227 KB. The
+// forward is built at 512 only (64-256 run fwd_kernel_sm90_f32).
 template <int D>
 struct F32Cfg {
   static constexpr int FWD_R = 4, FWD_BC = D == 512 ? 16 : 64;
@@ -2124,6 +2475,36 @@ cudaError_t fwd_sm90(const void* q, const void* k, const void* v, void* o, float
                                                                       lse, bh, seq_q, seq_k, scale);
 }
 
+// q, k and v are split_kernel's parts, each [2 bh, rows, D] bf16 (the hi
+// part of head h at head h, its lo part at head h + bh); o is f32. The maps'
+// head coordinate is an int: bh up to 2^30 - 1.
+template <int D>
+cudaError_t fwd_sm90_f32(const void* q, const void* k, const void* v, void* o, float* lse, int bh,
+                         int seq_q, int seq_k, float scale, bool causal, cudaStream_t stream) {
+  if (bh > 0x3FFFFFFF) return cudaErrorInvalidValue;
+  CUtensorMap qm, km, vm;
+  dim3 grid;
+  int units = 0;
+  cudaError_t err = encode_rows<D>(&qm, q, 2 * bh, seq_q, FWD_BQ);
+  if (err == cudaSuccess) err = encode_rows<D>(&km, k, 2 * bh, seq_k, F32FwdCfg<D>::BN);
+  if (err == cudaSuccess) err = encode_rows<D>(&vm, v, 2 * bh, seq_k, F32FwdCfg<D>::BN);
+  if (err == cudaSuccess) err = units_of<FWD_BQ>(seq_q, bh, units);
+  if (err == cudaSuccess) err = persistent_grid(units, grid);
+  if (err != cudaSuccess) return err;
+  const size_t smem = F32FwdCfg<D>::BYTES;
+  float* ot = static_cast<float*>(o);
+  if (causal) {
+    return lse ? launch<fwd_kernel_sm90_f32<D, true, true>, FWD_THREADS>(grid, smem, stream, qm, km, vm, ot,
+                                                                          lse, bh, seq_q, seq_k, scale)
+               : launch<fwd_kernel_sm90_f32<D, true, false>, FWD_THREADS>(grid, smem, stream, qm, km, vm,
+                                                                           ot, lse, bh, seq_q, seq_k, scale);
+  }
+  return lse ? launch<fwd_kernel_sm90_f32<D, false, true>, FWD_THREADS>(grid, smem, stream, qm, km, vm, ot,
+                                                                         lse, bh, seq_q, seq_k, scale)
+             : launch<fwd_kernel_sm90_f32<D, false, false>, FWD_THREADS>(grid, smem, stream, qm, km, vm, ot,
+                                                                          lse, bh, seq_q, seq_k, scale);
+}
+
 template <int D>
 cudaError_t bwd_dkv_sm90(const void* q, const void* k, const void* v, const void* dout,
                          const float* lse, const float* delta, float* dk, float* dv, int bh,
@@ -2171,11 +2552,14 @@ cudaError_t bwd_dq_sm90(const void* q, const void* k, const void* v, const void*
 }  // namespace
 
 // ------------------------------------------------------------ C interface
-// dtype: 0 = float32, 1 = bfloat16. head_dim: 64, 96, 128, 256 or 512 (the
-// wrappers pad any other width up to 512 to the next of them). Each function
-// returns the cudaError_t of its launch (0 on success); the kernel runs on
-// `stream` and nothing here synchronises or allocates. f32 goes to F32_FN,
-// the CUDA-core kernels; bf16 to BF16_FN, the tensor-core kernels.
+// dtype: 0 = float32, 1 = bfloat16, 2 = float32 as rt_split's parts (the
+// forward's only). head_dim: 64, 96, 128, 256 or 512 (the wrappers pad any
+// other width up to 512 to the next of them). Each function returns the
+// cudaError_t of its launch (0 on success); the kernel runs on `stream` and
+// nothing here synchronises or allocates. In the backward, f32 goes to
+// F32_FN, the CUDA-core kernels, and bf16 to BF16_FN, the tensor-core ones.
+// The forward takes f32 at 64-256 as parts only (dtype 2:
+// fwd_kernel_sm90_f32) and at 512 as f32 (dtype 0: the CUDA-core kernel).
 
 #define RT_WIDTH(W, F32_FN, BF16_FN, ...) \
   if (head_dim == W) return dtype == 0 ? F32_FN<float, W>(__VA_ARGS__) : BF16_FN<W>(__VA_ARGS__);
@@ -2193,8 +2577,40 @@ extern "C" {
 int rt_flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int bh,
                  int seq_q, int seq_k, int head_dim, float scale, int causal, int dtype,
                  void* stream) {
-  RT_DISPATCH(fwd, fwd_sm90, q, k, v, o, static_cast<float*>(lse), bh, seq_q, seq_k, scale,
-              causal != 0, static_cast<cudaStream_t>(stream))
+#define RT_FWD(W, FN)                                                                         \
+  if (head_dim == W)                                                                          \
+    return FN(q, k, v, o, static_cast<float*>(lse), bh, seq_q, seq_k, scale, causal != 0, \
+              static_cast<cudaStream_t>(stream));
+  if (dtype == 1) {
+    RT_FWD(64, fwd_sm90<64>)
+    RT_FWD(96, fwd_sm90<96>)
+    RT_FWD(128, fwd_sm90<128>)
+    RT_FWD(256, fwd_sm90<256>)
+    RT_FWD(512, fwd_sm90<512>)
+  } else if (dtype == 2) {
+    RT_FWD(64, fwd_sm90_f32<64>)
+    RT_FWD(96, fwd_sm90_f32<96>)
+    RT_FWD(128, fwd_sm90_f32<128>)
+    RT_FWD(256, fwd_sm90_f32<256>)
+  } else if (dtype == 0) {
+    RT_FWD(512, (fwd<float, 512>))
+  }
+#undef RT_FWD
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The f32 forward's first pass: q ([BH, T, D]), k and v ([BH, S, D]) f32 into
+// `parts`, 2 * (n_q + 2 n_kv) bf16 (split_kernel); n_q and n_kv count
+// elements, each a multiple of 4, and every pointer is 16-byte aligned.
+int rt_split(const void* q, const void* k, const void* v, void* parts, long long n_q, long long n_kv,
+             void* stream) {
+  if (n_q <= 0 || n_kv <= 0 || n_q % 4 || n_kv % 4) return static_cast<int>(cudaErrorInvalidValue);
+  const long long most = (n_q > n_kv ? n_q : n_kv) / 4;
+  const dim3 grid(static_cast<unsigned>(most / 256 + 1 < 4096 ? most / 256 + 1 : 4096), 3);
+  split_kernel<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float4*>(q), static_cast<const float4*>(k), static_cast<const float4*>(v),
+      static_cast<uint2*>(parts), static_cast<size_t>(n_q / 4), static_cast<size_t>(n_kv / 4));
+  return static_cast<int>(cudaGetLastError());
 }
 
 int rt_flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
@@ -2216,7 +2632,7 @@ int rt_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* do
 const char* rt_error_string(int err) { return cudaGetErrorString(static_cast<cudaError_t>(err)); }
 
 #ifdef RT_TIMELINE
-// Copies the stamps into dst (host memory, [3][2][64][6] int64) and clears them.
+// Copies the stamps into dst (host memory, [4][2][64][6] int64) and clears them.
 int rt_timeline(void* dst) {
   void* at = nullptr;
   cudaError_t err = cudaMemcpyFromSymbol(dst, timeline, sizeof(timeline));

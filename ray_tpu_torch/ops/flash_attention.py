@@ -8,9 +8,14 @@ become the CUDA kernels of `csrc/flash_attention.cu`, bound with ctypes:
   flash_bwd_dq               <- _attn_bwd_dq_kernel   (B3)
   flash_bwd_dkv              <- _attn_bwd_dkv_kernel  (B4)
 
-For bf16 inputs (the train step's) all four run on the tensor cores; f32
-inputs run on the f32 CUDA cores. Either way every sum is f32 and the plain
-versions below are what they compute.
+For bf16 inputs (the train step's) all four run on the tensor cores. f32
+inputs at head dims 64-256 run the forward on the tensor cores too: a split
+pass (`split_parts`, which replaces no TPU kernel) writes each f32 operand
+as two bf16 parts, hi = bf16(x) and lo = bf16(x - hi), and the forward sums
+three bf16 products for each f32 one (hi.hi + hi.lo + lo.hi), within
+chip_smoke.py's f32 limit of the f32 plain version. The f32 backward, and
+the f32 forward at 512, run on the f32 CUDA cores. Every sum is f32 and the
+plain versions below are what the kernels compute.
 
 The kernels are built for head dims 64, 96, 128, 256 and 512 (`WIDTHS`);
 the TPU kernels take any. Any other head dim up to 512 runs at the next of
@@ -30,7 +35,9 @@ the kernel does not take; for a CPU tensor it runs its plain PyTorch
 version (`_flash_*_ref`), which repeats the kernel's arithmetic densely and
 is what the CPU tests hold against the JAX package. `launches` counts the
 kernel launches of each wrapper, `launches_by_width` the same launches by
-the width the kernel ran at ("fwd@256").
+the width the kernel ran at ("fwd@256"), and `f32_launches` the f32
+forward's tensor-core route: its split passes ("split") and its forward
+kernels ("fwd", "fwd_lse"), which `launches` counts too.
 
 `_FlashAttention` is the autograd function around them, mirroring the
 reference's custom_vjp: the forward saves (q, k, v, o, lse); the backward
@@ -49,15 +56,19 @@ _BIG_NEG = -1e30
 
 launches: Dict[str, int] = {"fwd": 0, "fwd_lse": 0, "bwd_dq": 0, "bwd_dkv": 0}
 launches_by_width: Dict[str, int] = {}
+f32_launches: Dict[str, int] = {"split": 0, "fwd": 0, "fwd_lse": 0}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_PARTS = 2  # rt_flash_fwd's dtype code for f32 operands given as split_parts' parts
 WIDTHS = (64, 96, 128, 256, 512)  # the head dims the kernels are built for
+SPLIT_WIDTHS = (64, 96, 128, 256)  # where f32 runs the forward on the tensor cores
 _lib: Optional[ctypes.CDLL] = None
 
 
 def reset_launches() -> None:
-    for name in launches:
-        launches[name] = 0
+    for counts in (launches, f32_launches):
+        for name in counts:
+            counts[name] = 0
     launches_by_width.clear()
 
 
@@ -74,7 +85,11 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.rt_flash_fwd.argtypes = [P, P, P, P, P, I, I, I, I, F, I, I, P]
     lib.rt_flash_bwd_dq.argtypes = [P, P, P, P, P, P, P, I, I, I, I, F, I, I, P]
     lib.rt_flash_bwd_dkv.argtypes = [P, P, P, P, P, P, P, P, I, I, I, I, F, I, I, P]
-    for fn in (lib.rt_flash_fwd, lib.rt_flash_bwd_dq, lib.rt_flash_bwd_dkv):
+    fns = [lib.rt_flash_fwd, lib.rt_flash_bwd_dq, lib.rt_flash_bwd_dkv]
+    if hasattr(lib, "rt_split"):  # builds before the f32 forward's split have none
+        lib.rt_split.argtypes = [P, P, P, P, ctypes.c_longlong, ctypes.c_longlong, P]
+        fns.append(lib.rt_split)
+    for fn in fns:
         fn.restype = ctypes.c_int
     lib.rt_error_string.argtypes = [ctypes.c_int]
     lib.rt_error_string.restype = ctypes.c_char_p
@@ -184,6 +199,14 @@ def _flash_fwd_ref(q, k, v, causal: bool, scale: float, with_lse: bool = False):
     return o, (m + torch.log(l)).squeeze(-1)
 
 
+def _split_ref(x):
+    """Plain version of the split pass on one f32 tensor: [2, *x.shape] bf16,
+    hi = bf16(x) and lo = bf16(x - hi), both rounded to nearest (x - hi is
+    exact in f32)."""
+    hi = x.to(torch.bfloat16)
+    return torch.stack([hi, (x - hi.float()).to(torch.bfloat16)])
+
+
 def _bwd_tile_ref(q, k, v, do, lse, delta, causal: bool, scale: float):
     """Shared recompute of both backward plain versions (as _bwd_tile):
     returns (p, ds), both [BH, T, S] f32."""
@@ -226,8 +249,30 @@ def _torch_attention_bhtd(q, k, v, *, causal: bool, scale: float):
 
 # ------------------------------------------------------------------ wrappers
 
+def split_parts(q, k, v):
+    """The split pass of the f32 forward: f32 q [BH, T, D] and k, v [BH, S,
+    D] as their bf16 parts, each [2, BH, rows, D] (hi, then lo), views of
+    one buffer. One launch of the split kernel for CUDA tensors (D a multiple
+    of 4), its plain version (`_split_ref`) for CPU ones."""
+    if q.device.type == "cpu":
+        return tuple(_split_ref(x) for x in (q, k, v))
+    _check_inputs(q, k, v)
+    if q.dtype != torch.float32 or q.shape[-1] % 4:
+        raise ValueError(f"the split pass takes f32 with head_dim a multiple of 4, got {q.dtype}, {q.shape}")
+    parts = torch.empty(2 * (q.numel() + 2 * k.numel()), dtype=torch.bfloat16, device=q.device)
+    with torch.cuda.device(q.device):
+        err = _kernels().rt_split(q.data_ptr(), k.data_ptr(), v.data_ptr(), parts.data_ptr(),
+                                  q.numel(), k.numel(), _stream(q.device))
+    _check_err(err, "split_parts")
+    f32_launches["split"] += 1
+    pq, pk, pv = parts.split([2 * q.numel(), 2 * k.numel(), 2 * v.numel()])
+    return pq.view(2, *q.shape), pk.view(2, *k.shape), pv.view(2, *v.shape)
+
+
 def flash_fwd(q, k, v, *, causal: bool, scale: float, with_lse: bool = False):
-    """Attention forward on [BH, T, D]: o, or (o, lse [BH, T] f32) with_lse."""
+    """Attention forward on [BH, T, D]: o, or (o, lse [BH, T] f32) with_lse.
+    f32 CUDA tensors at SPLIT_WIDTHS go through split_parts, then the f32
+    Hopper kernel."""
     if q.device.type != "cpu":
         _check_inputs(q, k, v)
     D = q.shape[-1]
@@ -242,14 +287,19 @@ def flash_fwd(q, k, v, *, causal: bool, scale: float, with_lse: bool = False):
     BH, T, D = q.shape
     o = torch.empty_like(q)
     lse = torch.empty((BH, T), dtype=torch.float32, device=q.device) if with_lse else None
+    split = q.dtype == torch.float32 and D in SPLIT_WIDTHS
+    operands, dtype = (split_parts(q, k, v), _PARTS) if split else ((q, k, v), _DTYPES[q.dtype])
     with torch.cuda.device(q.device):
         err = _kernels().rt_flash_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            *(x.data_ptr() for x in operands), o.data_ptr(),
             lse.data_ptr() if with_lse else None, BH, T, k.shape[1], D, scale,
-            int(causal), _DTYPES[q.dtype], _stream(q.device),
+            int(causal), dtype, _stream(q.device),
         )
     _check_err(err, "flash_fwd")
-    _count("fwd_lse" if with_lse else "fwd", D)
+    key = "fwd_lse" if with_lse else "fwd"
+    _count(key, D)
+    if split:
+        f32_launches[key] += 1
     return (o, lse) if with_lse else o
 
 

@@ -1,11 +1,12 @@
-"""Time the bf16 flash kernels (B1-B4) of other builds of
+"""Time the flash kernels (B1-B4) of other builds of
 `csrc/flash_attention.cu` against this checkout's, in turns on one card; or
-show where this checkout's forward spends a tile (`--timeline`).
+show where this checkout's kernels spend a tile (`--timeline`).
 
     git archive <rev> ray_tpu_torch/ops/csrc | tar -x -C build/parent
     python -m ray_tpu_torch.ops.kernel_ab build/parent/ray_tpu_torch/ops/csrc/flash_attention.cu
     python -m ray_tpu_torch.ops.kernel_ab --timeline
     python -m ray_tpu_torch.ops.kernel_ab --head-dim 256 build/parent/.../flash_attention.cu
+    python -m ray_tpu_torch.ops.kernel_ab --dtype float32 build/parent/.../flash_attention.cu
 
 Every source (this checkout's first) is built with the package's nvcc flags,
 all at once, into `build/ray_tpu_torch/ab/`, and each build's forward and
@@ -13,10 +14,12 @@ backward are checked against the plain versions at the first shape (the
 backward on the plain forward's lse and delta). Then each is timed in
 turns, this checkout's build, the others, the others again in reverse and
 this one's again, so a drift of the card's clock falls on every side
-alike. bf16, causal, on [B*H, T, D] inputs from a seed, at the shapes of
+alike. bf16 (or `--dtype float32`), causal, on [B*H, T, D] inputs from a seed, at the shapes of
 `--head-dim` (SHAPES: 64, the default, GPT-2 small's; 32, 96 and 256 the
 JAX package's example's, Phi-3-mini's and Gemma-2B's attention widths; 512
-chip_smoke.py's 18a's; any other D at [96, 1024, D]), scale 1/sqrt(D). Prints one JSON
+chip_smoke.py's 18a's; any other D at [96, 1024, D]), scale 1/sqrt(D). At
+f32, a build that has no split pass (rt_split) runs its f32 forward on its
+CUDA-core kernel at every width, as it did. Prints one JSON
 line: the card, each build's worst error-to-limit ratio, the host's us to
 queue a call of each kernel at the first shape, and its ms per shape and
 kernel (the mean of its two turns, each a mean of `--reps` calls, and both
@@ -25,7 +28,8 @@ turns).
 `--timeline` builds this checkout's source with RT_TIMELINE, which stamps
 the SM's cycle counter in block 0's two consumer warpgroups at each step of
 every streamed tile after an item's first, runs B1, B3 and B4 once each at
-each shape, and prints the median cycles a tile spends in each step.
+each shape (at f32 B1 only: the f32 backward kernels have no stamps), and
+prints the median cycles a tile spends in each step.
 """
 
 from __future__ import annotations
@@ -61,6 +65,7 @@ SHAPES_BY_HEAD_DIM = {
 }
 SHAPES = SHAPES_BY_HEAD_DIM[64]
 SCALE = 64 ** -0.5
+DTYPE = torch.bfloat16
 
 
 def set_head_dim(head_dim: int) -> None:
@@ -73,8 +78,9 @@ def set_head_dim(head_dim: int) -> None:
 # the plain version, an f32 lse, dq, dk or dv within F32_ATOL.
 BF16_RTOL, BF16_ATOL, F32_ATOL = 2.0 ** -7, 1e-4, 2e-4
 # The kernels' stamps (timeline in the source): [kernel][consumer][tile][event],
-# and the steps between a tile's events, by kernel.
-TIMELINE_SHAPE = (3, 2, 64, 6)
+# the steps between a tile's events, by kernel, and each dtype's stamped
+# kernels by their index in the stamps.
+TIMELINE_SHAPE = (4, 2, 64, 6)
 _BWD_STEPS = ("issue S, dP and the previous products", "S and dP in", "P and dS",
               "previous products in", "split")
 TIMELINE_STEPS = {
@@ -82,9 +88,12 @@ TIMELINE_STEPS = {
     "bwd_dq": _BWD_STEPS,
     "bwd_dkv": _BWD_STEPS,
 }
+TIMELINE_KERNELS = {torch.bfloat16: {"fwd": 0, "bwd_dq": 1, "bwd_dkv": 2}, torch.float32: {"fwd": 3}}
 
 
 def _err_to_limit(o, lse, ref_o, ref_lse) -> float:
+    if o.dtype == torch.float32:
+        return max(_f32_err_to_limit(o, ref_o), _f32_err_to_limit(lse, ref_lse))
     o_err = ((o.float() - ref_o.float()).abs() / (BF16_RTOL * ref_o.float().abs() + BF16_ATOL)).max()
     return max(float(o_err), _f32_err_to_limit(lse, ref_lse))
 
@@ -102,23 +111,38 @@ def _card() -> str:
                           capture_output=True, text=True).stdout.strip()
 
 
-def _inputs(dev):
-    """{shape: (q, k, v, do, lse, delta)}: bf16 q, k, v and do from a seed,
-    and the backward's lse and delta from the plain forward."""
+def _inputs(dev, dtype=None):
+    """{shape: (q, k, v, do, lse, delta)}: q, k, v and do (DTYPE) from a
+    seed, and the backward's lse and delta from the plain forward."""
     gen = torch.Generator(device=dev).manual_seed(0)
     out = {}
     for shape in SHAPES:
-        q, k, v, do = (torch.randn(shape, device=dev, generator=gen).bfloat16() for _ in range(4))
+        q, k, v, do = (torch.randn(shape, device=dev, generator=gen).to(dtype or DTYPE) for _ in range(4))
         o, lse = fa._flash_fwd_ref(q, k, v, True, SCALE, True)
         out[shape] = (q, k, v, do, lse, (do.float() * o.float()).sum(-1))
     return out
 
 
+def _fwd(q, k, v, with_lse: bool = False):
+    """B1 (B2 with_lse) through the loaded build: the wrapper's route, or, for
+    f32 on a build without the split pass, that build's f32 kernel, which
+    took f32 pointers at every width."""
+    if q.dtype != torch.float32 or hasattr(fa._lib, "rt_split"):
+        return fa.flash_fwd(q, k, v, causal=True, scale=SCALE, with_lse=with_lse)
+    BH, T, D = q.shape
+    o = torch.empty_like(q)
+    lse = torch.empty((BH, T), dtype=torch.float32, device=q.device) if with_lse else None
+    err = fa._lib.rt_flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                               lse.data_ptr() if with_lse else None, BH, T, k.shape[1], D, SCALE, 1, 0,
+                               fa._stream(q.device))
+    fa._check_err(err, "flash_fwd (f32, no split pass)")
+    return (o, lse) if with_lse else o
+
+
 # Each kernel's call on (q, k, v, do, lse, delta).
 CALLS = {
-    "fwd": lambda q, k, v, do, lse, delta: fa.flash_fwd(q, k, v, causal=True, scale=SCALE),
-    "fwd_lse": lambda q, k, v, do, lse, delta: fa.flash_fwd(q, k, v, causal=True, scale=SCALE,
-                                                            with_lse=True),
+    "fwd": lambda q, k, v, do, lse, delta: _fwd(q, k, v),
+    "fwd_lse": lambda q, k, v, do, lse, delta: _fwd(q, k, v, with_lse=True),
     "bwd_dq": lambda *a: fa.flash_bwd_dq(*a, causal=True, scale=SCALE),
     "bwd_dkv": lambda *a: fa.flash_bwd_dkv(*a, causal=True, scale=SCALE),
 }
@@ -174,20 +198,21 @@ def timeline_library() -> Path:
     return _build.compile_source(src, _library(src, "-timeline"), ("-DRT_TIMELINE",))
 
 
-def timeline(dev) -> dict:
+def timeline(dev, dtype=torch.bfloat16) -> dict:
     """{kernel: {shape: {step: median cycles a tile spends in it}}} from the
-    stamps of B1, B3 and B4."""
+    stamps of B1, B3 and B4 (bf16) or of B1 (f32)."""
     import numpy as np
 
     lib = fa._bind(ctypes.CDLL(str(timeline_library())))
     lib.rt_timeline.argtypes = [ctypes.c_void_p]
     lib.rt_timeline.restype = ctypes.c_int
     saved, fa._lib = fa._lib, lib
-    out = {key: {} for key in TIMELINE_STEPS}
+    kernels = TIMELINE_KERNELS[dtype]
+    out = {key: {} for key in kernels}
     try:
         stamps = np.zeros(TIMELINE_SHAPE, dtype=np.int64)
-        for shape, args in _inputs(dev).items():
-            for kernel, key in enumerate(TIMELINE_STEPS):
+        for shape, args in _inputs(dev, dtype).items():
+            for key, kernel in kernels.items():
                 lib.rt_timeline(stamps.ctypes.data)  # clears what an earlier run left
                 CALLS[key](*args)
                 torch.cuda.synchronize()
@@ -221,14 +246,18 @@ def main(argv=None) -> int:
     ap.add_argument("--reps", type=int, default=50)
     ap.add_argument("--timeline", action="store_true", help="where this checkout's kernels spend a tile")
     ap.add_argument("--head-dim", type=int, default=64, help="the shapes' head dim (SHAPES_BY_HEAD_DIM)")
+    ap.add_argument("--dtype", choices=("bfloat16", "float32"), default="bfloat16")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("kernel_ab: no CUDA device", file=sys.stderr)
         return 2
+    global DTYPE
     set_head_dim(args.head_dim)
+    DTYPE = getattr(torch, args.dtype)
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain versions in f32, as chip_smoke.py runs them
     dev = torch.device("cuda")
     if args.timeline:
-        print(json.dumps({"card": _card(), "cycles": timeline(dev)}), flush=True)
+        print(json.dumps({"card": _card(), "dtype": args.dtype, "cycles": timeline(dev, DTYPE)}), flush=True)
         return 0
     sources = [_build.CSRC / "flash_attention.cu", *args.sources]
     names = ["this", *(str(s) for s in args.sources)]
@@ -237,7 +266,7 @@ def main(argv=None) -> int:
     libs = {name: fa._bind(ctypes.CDLL(str(p))) for name, p in zip(names, paths)}
     inputs = _inputs(dev)
     first = inputs[SHAPES[0]]
-    out = {"card": _card(), "shapes": [list(s) for s in SHAPES], "builds": {}}
+    out = {"card": _card(), "dtype": args.dtype, "shapes": [list(s) for s in SHAPES], "builds": {}}
     turns = {name: {} for name in names}
     saved = fa._lib
     try:

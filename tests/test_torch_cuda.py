@@ -43,9 +43,10 @@ def _err(a, b):
 @pytest.mark.parametrize("T", [192, 1000])
 @pytest.mark.parametrize("D", [64, 128])
 def test_kernels_match_plain_versions(dev, causal, T, D, dtype):
-    """f32 runs the CUDA-core kernels, bf16 the tensor-core ones; both are
-    held to chip_smoke.py's limits: ATOL for f32 outputs, one bf16 ulp for
-    the bf16 o."""
+    """f32 runs the forward on the tensor cores through the split pass and
+    the backward on the CUDA cores, bf16 all four on the tensor cores; both
+    are held to chip_smoke.py's limits: ATOL for f32 outputs, one bf16 ulp
+    for the bf16 o."""
     cs = importlib.import_module("chip_smoke")
     g = torch.Generator(device=dev).manual_seed(T + D)
     q, k, v, do = (torch.randn(3, T, D, device=dev, generator=g).to(dtype) for _ in range(4))
@@ -342,12 +343,36 @@ WIDE_MUTANTS = {
 }
 
 
+# Broken copies of the f32 forward (fwd_kernel_sm90_f32): each must miss
+# chip_smoke.py's F32_ATOL on f32 inputs.
+F32_MUTANTS = {
+    # S without Q_lo.K_hi^T: K's lo part still counts, Q's not.
+    "f32_drops_s_cross_product": [("  issue_s_add<D, AROWS>(s, q_addr + q_lo, k_addr);\n", "")],
+    # P.V without P_hi.V_lo: V rounded once to bf16.
+    "f32_drops_pv_cross_product": [("  issue_pv_part<D>(acc, p_hi, v_addr + v_lo);\n", "")],
+    # P.V without P_lo.V_hi: P rounded once to bf16 (split in one part, not two).
+    "f32_rounds_p_once": [("  issue_pv_part<D>(acc, p_lo, v_addr);\n", "")],
+    # Flat [2 heads * rows, D] maps: rows past S come from the next head (or
+    # the next part) instead of TMA's zero fill.
+    "f32_flat_tensor_maps": _FLAT_MAPS + [
+        ("load_rows_at<ROWS, D>(sm + part * QP, &q_map, q_full, head + part * bh, q0);",
+         "load_rows_at<ROWS, D>(sm + part * QP, &q_map, q_full, 0, (head + part * bh) * seq_q + q0);"),
+        ("load_rows_at<BN, D>(k_at(st) + part * KP, &k_map, k_full + 8 * st, head + part * bh, kt * BN);",
+         "load_rows_at<BN, D>(k_at(st) + part * KP, &k_map, k_full + 8 * st, 0, "
+         "(head + part * bh) * seq_k + kt * BN);"),
+        ("load_rows_at<BN, D>(v_at(st) + part * KP, &v_map, v_full + 8 * st, head + part * bh, kt * BN);",
+         "load_rows_at<BN, D>(v_at(st) + part * KP, &v_map, v_full + 8 * st, 0, "
+         "(head + part * bh) * seq_k + kt * BN);"),
+    ],
+}
+
+
 @pytest.fixture
 def mutant(dev, request, tmp_path, monkeypatch):
     if request.param is None:
         return None
     src = (_build.CSRC / "flash_attention.cu").read_text()
-    for line, broken in {**MUTANTS, **WIDE_MUTANTS}[request.param]:
+    for line, broken in {**MUTANTS, **WIDE_MUTANTS, **F32_MUTANTS}[request.param]:
         assert src.count(line) == 1
         src = src.replace(line, broken, 1)
     cu, so = tmp_path / "mutant.cu", tmp_path / "mutant.so"
@@ -402,6 +427,58 @@ def test_smoke_limits_catch_a_broken_kernel(dev, mutant):
     broken = {"fwd": ["fwd"], "dq": ["bwd_dq"], "dkv": ["bwd_dkv"],
               "bwd": ["bwd_dq", "bwd_dkv"]}[mutant.split("_")[0]]
     assert not any(worst[key] <= 1.0 for key in broken), worst
+
+
+@pytest.mark.parametrize("mutant", list(F32_MUTANTS), indirect=True)
+def test_smoke_limits_catch_a_broken_f32_forward(dev, mutant):
+    """Each broken f32 forward misses chip_smoke.py's F32_ATOL (o or lse) in
+    one of the two causal modes at T = 1000 (a partial last tile), at head
+    dim 64 and at 256 (its 16-key tiles). For the flat-map mutant the
+    inputs are the first 4 heads of 5, the first rows of every later head
+    inf in V (their lo parts NaN), and only head 0 is compared, as in
+    test_smoke_limits_catch_a_broken_kernel."""
+    cs = importlib.import_module("chip_smoke")
+    g = torch.Generator(device=dev).manual_seed(0)
+    worst = 0.0
+    for D in (64, 256):
+        q, k, v = (torch.randn(4, 1000, D, device=dev, generator=g) for _ in range(3))
+        heads = slice(None)
+        if mutant == "f32_flat_tensor_maps":
+            v5 = torch.cat([v, torch.randn(1, 1000, D, device=dev, generator=g)])
+            v5[1:, :24] = float("inf")
+            v, heads = v5[:4], slice(0, 1)
+        for causal in (False, True):
+            o, lse = fa.flash_fwd(q, k, v, causal=causal, scale=D ** -0.5, with_lse=True)
+            ref_o, ref_lse = fa._flash_fwd_ref(q, k, v, causal, D ** -0.5, True)
+            _, ratios = cs.compare({"fwd_lse": [(o[heads], ref_o[heads]), (lse[heads], ref_lse[heads])]})
+            r = ratios["fwd_lse"]
+            worst = r if not r <= worst else worst  # NaN counts as worst
+    assert not worst <= 1.0, worst
+
+
+def test_split_pass_is_its_plain_version_bitwise(dev):
+    """The split kernel against _split_ref, bitwise, on seeded normals, large
+    and tiny normals and subnormals on bf16's grid, both signs; q, k and v
+    of different lengths land in their own parts."""
+    g = torch.Generator(device=dev).manual_seed(1)
+    mags = torch.cat([torch.ones(2048, device=dev),
+                      2.0 ** torch.randint(-126, 127, (2048,), device=dev, generator=g).float()])
+    x = torch.randn(4096, device=dev, generator=g) * mags
+    x[:128] = torch.randint(1, 128, (128,), device=dev, generator=g).float() * 2.0 ** -133
+    q = x.view(2, 32, 64)
+    k, v = (torch.randn(2, 48, 64, device=dev, generator=g) for _ in range(2))
+    fa.reset_launches()
+    parts = fa.split_parts(q, k, v)
+    assert fa.f32_launches["split"] == 1
+    for part, t in zip(parts, (q, k, v)):
+        assert torch.equal(part, fa._split_ref(t))
+
+
+def test_f32_forward_route_by_width(dev):
+    """f32 B1 and B2 at 64-256 go through one split pass each and the f32
+    Hopper kernel, at 512 through the CUDA-core kernel, by the profiler's
+    kernel names and f32_launches (chip_smoke.py's f32_route)."""
+    importlib.import_module("chip_smoke").f32_route(fa, dev)
 
 
 @pytest.mark.parametrize("mutant", list(WIDE_MUTANTS), indirect=True)
