@@ -22,9 +22,9 @@ Phases, each printing one JSON line:
               tensor-core instructions (HMMA for mma.sync, HGMMA for wgmma,
               in cuobjdump -sass); every Hopper kernel (*_sm90: the bf16
               forward and both backward kernels, at each of the widths 64,
-              96, 128, 256 and 512: 40; *_sm90_f32: the f32 forward at 64,
-              96, 128 and 256: 16) must have HGMMA, no spill and no wgmma
-              that ptxas serialized;
+              96, 128, 256 and 512: 40; *_sm90_f32: the f32 forward and
+              both f32 backward kernels at 64, 96, 128 and 256: 32) must
+              have HGMMA, no spill and no wgmma that ptxas serialized;
   2. kernels  every kernel against its plain version, element by element
               (f32 with TF32 off and bf16; causal and not; head_dim 64 and
               128; T in 1, 100, 192, 1000, 1024; T = 300 on S = 1000 keys
@@ -43,17 +43,19 @@ Phases, each printing one JSON line:
               ([16, 2048, 512], [66560, 64, 96]) and [16, 2048, 320]
               (padded to 512), and the f32 kernels at [96, 1024, 64],
               [32, 2048, 256], [16, 2048, 512], [96, 1024, 128] (bf16
-              too) and [128, 2048, 96], with the f32 forward's split pass
-              (bitwise its plain version; f32 bounds at PEAK_F32_SPLIT, the
-              CUDA cores' share beside them): the kernel's
+              too) and [128, 2048, 96], with the f32 route's split passes
+              (bitwise their plain version; f32 bounds at PEAK_F32_SPLIT, the
+              CUDA cores' share beside them; the f32 B3 and B4 timed on
+              their parts, and with the backward's split of do beside
+              SDPA's f32 backward): the kernel's
               time, the plain version's, F.scaled_dot_product_attention's (a
               yardstick only: the port never calls it; with the backends
               that take the inputs), the bound, the
               useful TFLOP/s, the share of the bound reached (bound_ms /
-              ms) and the host's us per call; which kernels an f32 B1 and
-              B2 launch at each width, by the profiler's names (64-256: the
-              split pass and fwd_kernel_sm90_f32); and where the forward
-              and the backward kernels (bf16) and the f32 forward spend a
+              ms) and the host's us per call; which kernels an f32 B1-B4
+              launch at each width, by the profiler's names (64-256: the
+              split pass and the *_sm90_f32 kernels); and where the forward
+              and the backward kernels (bf16 and f32) spend a
               streamed tile, in SM cycles, from a build with their cycle
               stamps (kernel_ab --timeline);
   3. forward  transformer_apply at GPT-2-small widths through the kernels and
@@ -63,7 +65,11 @@ Phases, each printing one JSON line:
               once a layer) against the plain attention in f32, within
               F32_LOGITS_ATOL;
   4. train    the first step's loss and gradients through the kernels and
-              through the plain attention in bf16, each against f32; then
+              through the plain attention in bf16, each against f32; the
+              same weights built in f32 through the kernels (B2-B4 on the
+              tensor cores through the split passes, B3 and B4 once a
+              layer): loss within F32_ATOL and every gradient within
+              F32_GRAD_REL of the plain f32 path's; then
               make_train_step: a warm-up and ten steps on one repeated
               batch; losses, tokens/s, useful- and hardware-MFU;
   5. profile  where a train step spends its device time, by kernel family,
@@ -247,8 +253,8 @@ are MLPs; the reference and timing runs this script makes itself in 12,
 13, 14, 15, 16, 17 and 18 are not counted, nor 16's killed attempt), one
 entry a kernel and width launched (64; 96 and 256 in phase 17, 512 in
 18a), one for B1 at 66,560 heads (18b) and the f32 route at 64: B1 (phase
-3's f32 forward), B2 (9b's f32 ring hops) and their split pass. Any
-failure exits non-zero.
+3's f32 forward), B2 (9b's f32 ring hops and phase 4's f32 step), B3 and
+B4 (both of those) and their split passes. Any failure exits non-zero.
 The last line is the ok line.
 """
 
@@ -323,6 +329,14 @@ GRAD_RATIO = 1.25
 # and batch: ln(V) plus O(0.1) at random init, so this is a weak check
 # beside the gradients'; the two differ by rounding only.
 LOSS_BOUND = 1e-3
+# Phase 4's f32 first step: GPT-2 small built in f32 through the kernels
+# (B2-B4 on the tensor cores) against the plain attention in f32 on the
+# same weights and batch: the loss within F32_ATOL and every parameter's
+# gradient within F32_GRAD_REL, relative L2, of the plain path's. The two
+# differ only in attention, held to F32_ATOL on unit-scale inputs per call;
+# the bf16 kernel path sits near 1e-2 of f32, and a lost cross product in
+# dq, dk or dv (a bf16-rounded operand, ~2^-9 of it) shows in wq, wk, wv.
+F32_GRAD_REL = 1e-3
 # Phase 6: the trainer's worker against the bare run, the same code on the
 # same card in two processes, and the resumed fit against the first: every
 # loss within LOSS_BOUND. The trainer checkpoints after step TRAINER_SAVE_AT,
@@ -526,7 +540,14 @@ class SmokeFailure(Exception):
     pass
 
 
+_T0 = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase's line also says when it was written
+    (t_s, seconds since this script started)."""
+    if "phase" in obj:
+        obj = {**obj, "t_s": time.perf_counter() - _T0}
     print(json.dumps(obj), flush=True)
 
 
@@ -618,8 +639,10 @@ _KERNEL_NAME = re.compile(r"((?:fwd|bwd_dq|bwd_dkv)_kernel(?:_tc|_sm90(?:_f32)?)
 # forward fwd_kernel_sm90 over D x CAUSAL x WRITE_LSE and the bf16 backward
 # bwd_dq_kernel_sm90 and bwd_dkv_kernel_sm90, each over D x CAUSAL, D in
 # the kernels' five widths (64, 96, 128, 256, 512); and the f32 forward
-# fwd_kernel_sm90_f32 over D x CAUSAL x WRITE_LSE, D in 64, 96, 128, 256.
-N_SM90_KERNELS = 5 * (4 + 2 + 2) + 4 * 4
+# fwd_kernel_sm90_f32 over D x CAUSAL x WRITE_LSE and the f32 backward
+# bwd_dq_kernel_sm90_f32 and bwd_dkv_kernel_sm90_f32 over D x CAUSAL, D in
+# 64, 96, 128, 256.
+N_SM90_KERNELS = 5 * (4 + 2 + 2) + 4 * (4 + 2 + 2)
 _SM90 = re.compile(r"_sm90(?:_f32)?<")
 _TEMPLATE_ARG = re.compile(r"Li(\d+)E|Lb([01])E|(13__nv_bfloat16|f)")
 _SERIALIZED = re.compile(r"wgmma\.mma_async instructions are serialized due to (.*) "
@@ -905,7 +928,10 @@ def kernel_timings(fa, dev, gen, cfg, batch: int = BATCH, seq: int = SEQ) -> dic
     encodes its tensor maps at each call). A head dim off the kernels'
     widths runs padded (the wrappers' own padding: each call pads its
     inputs and cuts its outputs), and the line gives those copies' device
-    ms. Returns {key: row}."""
+    ms. On the f32 route (fa.parts_route) B3 and B4 are timed on parts made
+    beforehand, and the line gives the backward's work as the autograd
+    function does it (do split, then B3 and B4 on the forward's parts)
+    beside SDPA's backward. Returns {key: row}."""
     BH, T, D = batch * cfg.n_heads, seq, cfg.head_dim
     dt = cfg.dtype
     q, k, v, do = (torch.randn(BH, T, D, device=dev, generator=gen).to(dt) for _ in range(4))
@@ -931,6 +957,15 @@ def kernel_timings(fa, dev, gen, cfg, batch: int = BATCH, seq: int = SEQ) -> dic
         "bwd_dq": lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta, causal=True, scale=scale),
         "bwd_dkv": lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta, causal=True, scale=scale),
     }
+    parts = fa.split_parts(q, k, v, do) if fa.parts_route(q) else None
+    if parts is not None:  # the f32 B3 and B4 alone, on their operands' parts
+        kernel_fns["bwd_dq"] = lambda: fa.flash_bwd_dq_parts(parts, lse, delta, causal=True, scale=scale)
+        kernel_fns["bwd_dkv"] = lambda: fa.flash_bwd_dkv_parts(parts, lse, delta, causal=True, scale=scale)
+
+        def autograd_bwd():  # _FlashAttention.backward's kernels on the forward's saved parts
+            both = (*parts[:3], *fa.split_parts(do))
+            return (fa.flash_bwd_dq_parts(both, lse, delta, causal=True, scale=scale),
+                    fa.flash_bwd_dkv_parts(both, lse, delta, causal=True, scale=scale))
     plain_fns = {
         "fwd": lambda: fa._flash_fwd_ref(q, k, v, True, scale),
         "fwd_lse": lambda: fa._flash_fwd_ref(q, k, v, True, scale, True),
@@ -985,13 +1020,15 @@ def kernel_timings(fa, dev, gen, cfg, batch: int = BATCH, seq: int = SEQ) -> dic
         # ~50 ms of device work at most: 200 calls of a bf16 kernel, 20 of a
         # 10 ms CUDA-core one (200 of those held the card 2 s a kernel).
         rows[key]["host_us"] = host_us(kernel_fns[key], calls=max(20, min(200, int(50 / ms))))
-    if dt == torch.float32 and D in fa.SPLIT_WIDTHS:
-        rows["split"] = split_timing(fa, q, k, v)
     width = fa.kernel_width(D, dev)
     line = {"phase": "kernels", "shape": [BH, T, D], "width": width, "dtype": str(dt).split(".")[-1],
             "causal": True, "timings": rows, "sdpa_fwd_ms": sdpa_fwd_ms, "sdpa_bwd_ms": sdpa_bwd_ms,
             "sdpa_fwd_bwd_ms": sdpa_fwd_bwd_ms, "port_fwd_bwd_ms": port_fwd_bwd_ms,
             "sdpa_backends": sdpa_backends(sq.detach(), sk.detach(), sv.detach())}
+    if parts is not None:
+        rows["split"] = split_timing(fa, q, k, v)
+        rows["split_bwd"] = split_timing(fa, do)
+        line["bwd_with_split_ms"] = time_ms(autograd_bwd)
     if width != D:  # the padded route's copies: q, k, v and do padded, o, dq, dk, dv cut
         outs = [torch.empty(BH, T, width, dtype=dt, device=dev),
                 *(torch.empty(BH, T, width, device=dev) for _ in range(3))]
@@ -1001,45 +1038,59 @@ def kernel_timings(fa, dev, gen, cfg, batch: int = BATCH, seq: int = SEQ) -> dic
     return rows
 
 
-def split_timing(fa, q, k, v) -> dict:
-    """The f32 forward's split pass on q, k, v: bitwise against its plain
-    version (max_abs_err 0), its time, the plain version's and its bound
-    (bytes: each element read as f32 and written as two bf16 parts)."""
-    got = fa.split_parts(q, k, v)
-    err = max(max_err(a, fa._split_ref(x)) for a, x in zip(got, (q, k, v)))
+def split_timing(fa, *xs) -> dict:
+    """The f32 route's split pass on xs (the forward's q, k, v; the
+    backward's do): bitwise against its plain version (max_abs_err 0), its
+    time, the plain version's and its bound (bytes: each element read as
+    f32 and written as two bf16 parts)."""
+    got = fa.split_parts(*xs)
+    err = max(max_err(a, fa._split_ref(x)) for a, x in zip(got, xs))
     check(err == 0, f"the split pass is off its plain version by {err}")
-    t_bytes = 8 * (q.numel() + k.numel() + v.numel()) / HBM_BYTES_PER_S * 1e3
-    ms = time_ms(lambda: fa.split_parts(q, k, v))
-    return {"max_abs_err": err, "ms": ms, "plain_ms": time_ms(lambda: [fa._split_ref(x) for x in (q, k, v)],
-                                                               reps=5),
+    t_bytes = 8 * sum(x.numel() for x in xs) / HBM_BYTES_PER_S * 1e3
+    ms = time_ms(lambda: fa.split_parts(*xs))
+    return {"max_abs_err": err, "ms": ms, "plain_ms": time_ms(lambda: [fa._split_ref(x) for x in xs], reps=5),
             "bound_ms": t_bytes, "bound_by": "bytes", "library_ms": None, "bound_share": t_bytes / ms}
 
 
+# This repo's flash kernels (and the split pass) in a profiler event's name,
+# as the profiler demangles it: "bwd_dq_kernel_sm90_f32<64, true>".
+_FLASH_NAME = re.compile(r"\b(?:fwd|bwd_dq|bwd_dkv|split)_kernel(?:_sm90_f32)?(?:<[^>]*>)?")
+
+
+def flash_kernel_names(prof) -> list:
+    """The sorted names of this repo's kernels a profile saw."""
+    return sorted({m.group(0) for e in prof.events() for m in [_FLASH_NAME.search(e.name)] if m})
+
+
 def f32_route(fa, dev) -> None:
-    """Which kernels an f32 B1 and B2 call launches at each width, by the
-    profiler's kernel names: at 64-256 the split pass and
-    fwd_kernel_sm90_f32 (never the CUDA-core fwd_kernel<float, ...>), at 512 the
-    CUDA-core kernel; and the wrappers' f32_launches agree."""
+    """Which kernels an f32 B1, B2 and the autograd function's backward
+    (B3, B4) launch at each width, by the profiler's kernel names: at
+    64-256 the split pass and the *_sm90_f32 kernels (never the CUDA-core
+    fwd_kernel<float, ...> or bwd_*_kernel<float, ...>), the backward's
+    split on do alone; at 512 the CUDA-core kernels; and the wrappers'
+    f32_launches agree."""
     from torch.profiler import ProfilerActivity, profile
 
     line = {}
     for D in fa.WIDTHS:
-        q, k, v = (torch.randn(2, 300, D, device=dev) for _ in range(3))
+        q, k, v, do = (torch.randn(2, 300, D, device=dev) for _ in range(4))
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
         fa.reset_launches()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             fa.flash_fwd(q, k, v, causal=True, scale=D ** -0.5)
-            fa.flash_fwd(q, k, v, causal=True, scale=D ** -0.5, with_lse=True)
+            torch.autograd.grad(fa._FlashAttention.apply(*leaves, True, D ** -0.5), leaves, do)
             torch.cuda.synchronize()
-        names = sorted({m.group(0) for e in prof.events()
-                        for m in [re.search(r"\w+_kernel(?:_sm90_f32)?(?:<[^>]*>)?", e.name)] if m})
+        names = flash_kernel_names(prof)
         hopper = D in fa.SPLIT_WIDTHS
         line[D] = {"kernels": names, "f32_launches": dict(fa.f32_launches)}
-        want = [f"fwd_kernel_sm90_f32<{D}, true, false>", f"fwd_kernel_sm90_f32<{D}, true, true>",
-                "split_kernel"] if hopper else [f"fwd_kernel<float, {D}, 4, 16, true, false>",
-                                                f"fwd_kernel<float, {D}, 4, 16, true, true>"]
-        check(names == sorted(want) and fa.f32_launches == {"split": 2 * hopper, "fwd": hopper,
-                                                            "fwd_lse": hopper},
-              f"f32 B1 and B2 at head dim {D} launched {line[D]}")
+        want = ([f"fwd_kernel_sm90_f32<{D}, true, false>", f"fwd_kernel_sm90_f32<{D}, true, true>",
+                 f"bwd_dq_kernel_sm90_f32<{D}, true>", f"bwd_dkv_kernel_sm90_f32<{D}, true>", "split_kernel"]
+                if hopper else
+                [f"fwd_kernel<float, {D}, 4, 16, true, false>", f"fwd_kernel<float, {D}, 4, 16, true, true>",
+                 f"bwd_dq_kernel<float, {D}, 2, 16, true>", f"bwd_dkv_kernel<float, {D}, 2, 16, true>"])
+        check(names == sorted(want) and fa.f32_launches == {
+                  "split": 3 * hopper, "fwd": hopper, "fwd_lse": hopper, "bwd_dq": hopper, "bwd_dkv": hopper},
+              f"f32 B1-B4 at head dim {D} launched {line[D]}")
     emit({"phase": "kernels", "f32_route": line})
 
 
@@ -1129,10 +1180,12 @@ def first_grads(tr, model, batch) -> tuple:
     return float(loss.detach()), grads
 
 
-def grads_check(tr, cfg, dev, model, batch, line=None) -> None:
+def grads_check(tr, cfg, dev, model, batch, line=None, f32=False):
     """The first step's loss and every parameter's gradient through the
     kernels, against the plain path in bf16 and in f32 on the same weights;
-    emitted as phase 4's line unless `line` is given."""
+    emitted as phase 4's line unless `line` is given. With f32, then the
+    same weights built in f32 through the kernels (f32_grads_check), whose
+    f32 launches it returns."""
     loss, grads = first_grads(tr, model, batch)
     ref = {}
     for name, c in (("plain_bf16", dataclasses.replace(cfg, attention_impl="torch")),
@@ -1160,6 +1213,44 @@ def grads_check(tr, cfg, dev, model, batch, line=None) -> None:
     check(abs(loss - ref["plain_bf16"][0]) <= LOSS_BOUND, "first loss off the plain path")
     check(all(math.isfinite(r) and r <= GRAD_RATIO for r in ratios.values()),
           f"gradients through the kernels further from f32 than the plain path's: {worst}")
+    if f32:
+        return f32_grads_check(tr, cfg, dev, model, batch, ref["plain_f32"], line)
+    return None
+
+
+def f32_grads_check(tr, cfg, dev, model, batch, truth, line=None) -> dict:
+    """`model`'s weights built in f32 through the kernels (B2-B4 on the
+    tensor cores through the split passes): the first loss within F32_ATOL
+    and every parameter's gradient within F32_GRAD_REL (relative L2) of
+    `truth`, the plain f32 path's (loss, grads) on the same weights and
+    batch; B3 and B4 once a layer, one split pass for each forward (remat
+    runs a layer's forward again in the backward) and one for each
+    backward. Returns the run's fa.f32_launches."""
+    fa = importlib.import_module("ray_tpu_torch.ops.flash_attention")
+    m = tr.Transformer(dataclasses.replace(cfg, attention_impl="kernel", dtype=torch.float32), dev)
+    m.load_state_dict(model.state_dict())
+    fa.reset_launches()
+    loss, grads = first_grads(tr, m, batch)
+    torch.cuda.synchronize()
+    launches = dict(fa.f32_launches)
+    del m
+    rel = {n: float(torch.linalg.vector_norm(grads[n] - g) / torch.linalg.vector_norm(g))
+           for n, g in truth[1].items()}
+    worst = sorted(rel, key=rel.get)[-3:]
+    emit({**(line or {"phase": "train"}), "first_step_f32": {
+        "loss": loss, "loss_plain_f32": truth[0], "loss_err": abs(loss - truth[0]), "loss_bound": F32_ATOL,
+        "grad_rel_bound": F32_GRAD_REL, "worst_grad_rel": {n: rel[n] for n in worst},
+        "rel_err_vs_plain_f32": {n: rel[n] for n in ("blocks.0.wq", "blocks.0.wk", "blocks.0.wv",
+                                                      f"blocks.{cfg.n_layers - 1}.wk")},
+        "f32_launches": launches}})
+    check(math.isfinite(loss) and abs(loss - truth[0]) <= F32_ATOL, "f32 first loss off the plain f32 path")
+    check(all(math.isfinite(r) and r <= F32_GRAD_REL for r in rel.values()),
+          f"f32 gradients through the kernels off the plain f32 path's: {worst}")
+    n = cfg.n_layers
+    check(launches["bwd_dq"] == n and launches["bwd_dkv"] == n and launches["fwd_lse"] >= n
+          and launches["split"] == launches["fwd_lse"] + n,
+          f"the f32 step did not run B2-B4 through the split passes once a layer: {launches}")
+    return launches
 
 
 def train_phase(tr, fa, cfg, dev, gen) -> tuple:
@@ -1168,7 +1259,7 @@ def train_phase(tr, fa, cfg, dev, gen) -> tuple:
     raw = torch.randint(0, cfg.vocab_size, (BATCH, SEQ + 1), device=dev, generator=gen)
     batch = {"tokens": raw[:, :-1].contiguous(), "targets": raw[:, 1:].contiguous()}
     model = tr.transformer_init(cfg, gen, device=dev)
-    grads_check(tr, cfg, dev, model, batch)
+    f32_launches = grads_check(tr, cfg, dev, model, batch, f32=True)
     init_state, step = tr.make_train_step(cfg, dev)
     state = init_state(model=model)
 
@@ -1195,7 +1286,7 @@ def train_phase(tr, fa, cfg, dev, gen) -> tuple:
     check(all(math.isfinite(x) for x in losses), "a loss is not finite")
     check(losses[-1] < losses[0], "the loss did not fall")
     check(line["hardware_mfu"] < 1.0, "hardware-MFU is not below 1")
-    return launches, lambda: step(state, batch), line["step_ms"]
+    return launches, lambda: step(state, batch), line["step_ms"], f32_launches
 
 
 def run_steps(step, state, batch, save=None) -> dict:
@@ -1911,7 +2002,8 @@ def ring_phase(fa, dev, gen) -> dict:
     B, T, H, D = RING_SHAPE
     S, scale = RING_SHARDS, D ** -0.5
     launches = {key: 0 for _, key, _ in KERNELS}
-    launches.update(fwd_lse_f32=0, split_f32=0)  # the f32 hops' B2 on the tensor cores
+    # the f32 hops' B2-B4 on the tensor cores and their split passes
+    launches.update(fwd_lse_f32=0, bwd_dq_f32=0, bwd_dkv_f32=0, split_f32=0)
 
     def bhtd(x):
         return x.transpose(1, 2).reshape(B * H, T, D)
@@ -1928,8 +2020,8 @@ def ring_phase(fa, dev, gen) -> dict:
             hops = dict(fa.launches)
             for _, key, _ in KERNELS:
                 launches[key] += hops[key]
-            launches["fwd_lse_f32"] += fa.f32_launches["fwd_lse"]
-            launches["split_f32"] += fa.f32_launches["split"]
+            for key in ("fwd_lse", "bwd_dq", "bwd_dkv", "split"):
+                launches[f"{key}_f32"] += fa.f32_launches[key]
             qf, kf, vf, dof = (bhtd(t) for t in (q, k, v, do))
             o_ref, lse = fa._flash_fwd_ref(qf, kf, vf, causal, scale, True)
             o_ring = bhtd(got[0].detach())
@@ -2082,7 +2174,7 @@ def mesh_phase(tr, fa, cfg, dev, gen) -> dict:
     torch.cuda.empty_cache()
     worker = mesh_trainer_phase(cfg, sharded["losses"])
     launches = {key: sharded["launches"][key] + ring[key] + worker[key] for _, key, _ in KERNELS}
-    launches.update(fwd_lse_f32=ring["fwd_lse_f32"], split_f32=ring["split_f32"])
+    launches.update({f"{key}_f32": ring[f"{key}_f32"] for key in ("fwd_lse", "bwd_dq", "bwd_dkv", "split")})
     emit({"phase": "mesh", "seconds": time.perf_counter() - t0, "launches": launches})
     return launches
 
@@ -3985,24 +4077,36 @@ def autoscale_run(work: str, bare: dict) -> dict:
     return line
 
 
-def perf_run(work: str) -> dict:
-    """15c: `python -m ray_tpu_torch._private.ray_perf --json` on the card,
-    every key of the reference's main and the CUDA keys above 0; then that
-    JSON and loadgen's smoke through benchmarks/perf_gate.py against its
-    floors, whose misses are data (the floors are a 1-core Xeon's)."""
-    from ray_tpu_torch._private import ray_perf
-
-    perf_json, serve_json = os.path.join(work, "perf.json"), os.path.join(work, "serve.json")
+def ray_perf_run(work: str, name: str, *argv) -> tuple:
+    """`python -m ray_tpu_torch._private.ray_perf --json <work>/<name>.json
+    *argv`: (its results, its seconds)."""
+    perf_json = os.path.join(work, f"{name}.json")
     t0 = time.perf_counter()
     perf = subprocess.run([sys.executable, "-m", "ray_tpu_torch._private.ray_perf", "--json",
-                           perf_json], cwd=ROOT, capture_output=True, text=True, timeout=900,
-                          env={**os.environ, "RAY_TPU_OBJECT_STORE_EVICTION_GRACE_S":
-                               str(PERF_EVICTION_GRACE_S)})
-    perf_s = time.perf_counter() - t0
+                           perf_json, *argv], cwd=ROOT, capture_output=True, text=True,
+                          timeout=900, env={**os.environ, "RAY_TPU_OBJECT_STORE_EVICTION_GRACE_S":
+                                            str(PERF_EVICTION_GRACE_S)})
+    seconds = time.perf_counter() - t0
     check(perf.returncode == 0 and os.path.exists(perf_json),
-          f"ray_perf exited {perf.returncode}: {perf.stdout[-2000:]} {perf.stderr[-3000:]}")
+          f"ray_perf {argv} exited {perf.returncode}: {perf.stdout[-2000:]} {perf.stderr[-3000:]}")
     with open(perf_json) as f:
-        results = json.load(f)
+        return json.load(f), seconds
+
+
+def perf_run(work: str, host: tuple) -> dict:
+    """15c: ray_perf on the card, every key of the reference's main and the
+    CUDA keys above 0, as one `--device cuda` run gives them: `host` is the
+    host benches' (results, seconds) from host_checks (`--device cpu`), and
+    the device suites run here (`--device-only`). Then those keys and
+    loadgen's smoke through benchmarks/perf_gate.py against its floors,
+    whose misses are data (the floors are a 1-core Xeon's)."""
+    from ray_tpu_torch._private import ray_perf
+
+    device, device_s = ray_perf_run(work, "perf_device", "--device-only")
+    results = {**host[0], **device}
+    perf_json, serve_json = os.path.join(work, "perf.json"), os.path.join(work, "serve.json")
+    with open(perf_json, "w") as f:
+        json.dump(results, f, indent=2)
     want = ray_perf.result_keys(os.path.join(ROOT, "ray_tpu_torch", "_private", "ray_perf.py"))
     want |= set(ray_perf.CUDA_KEYS)
     t1 = time.perf_counter()
@@ -4014,9 +4118,11 @@ def perf_run(work: str) -> dict:
     gate = subprocess.run([sys.executable, os.path.join("benchmarks", "perf_gate.py"), perf_json,
                            serve_json], cwd=ROOT, capture_output=True, text=True, timeout=120)
     misses = [x.strip() for x in gate.stderr.splitlines() if x.startswith("  ")]
-    line = {"ray_perf_s": perf_s, "loadgen_s": loadgen_s, "results": results,
+    line = {"ray_perf_host_s": host[1], "ray_perf_device_s": device_s, "loadgen_s": loadgen_s,
+            "results": results,
             "gate_rc": gate.returncode, "gate_misses": misses, "gate_table": gate.stdout,
             "host_cpus": os.cpu_count(), "host_cpu": cpu_model()}
+    check(set(host[0]).isdisjoint(device), f"ray_perf's host and device keys overlap: {results}")
     check(want <= set(results), f"ray_perf lacks {sorted(want - set(results))}")
     check(all(v > 0 for k, v in results.items()), f"ray_perf values not above 0: "
           f"{ {k: v for k, v in results.items() if not v > 0} }")
@@ -4032,10 +4138,11 @@ def cpu_model() -> str:
     return names[0] if names else "unknown"
 
 
-def scale_out_phase() -> dict:
+def scale_out_phase(host: dict) -> dict:
     """Phase 15: the runtime's native extensions (15a), an autoscaled GPU
-    node (15b) and ray_perf with its gate (15c). Returns the flash launches
-    of 15b's task and job (the bare run here is not counted)."""
+    node (15b) and ray_perf with its gate (15c; its host benches ran in
+    host_checks). Returns the flash launches of 15b's task and job (the
+    bare run here is not counted)."""
     t_phase = time.perf_counter()
     work = os.path.join(ROOT, "build", "chip_smoke_scale_out")
     shutil.rmtree(work, ignore_errors=True)
@@ -4046,7 +4153,7 @@ def scale_out_phase() -> dict:
         bare = cluster_forward(SEED + 14)
         line["15b"] = autoscale_run(work, bare)
         emit({"phase": "scale_out", "part": "15b", **line["15b"]})
-        line["15c"] = perf_run(work)
+        line["15c"] = perf_run(work, host["15c"])
     finally:
         shutil.rmtree(work, ignore_errors=True)
     launches = {key: line["15b"]["task_launches"][key] + line["15b"]["job_launches"][key]
@@ -4272,19 +4379,38 @@ def nemesis_run(work: str) -> dict:
     return line
 
 
-def chaos_phase() -> dict:
+def host_checks() -> dict:
+    """The checks that touch no card: 16a, 16b and 15c's host benches
+    (`ray_perf --device cpu`: its results and seconds), one after another.
+    main runs them on a thread of their own under phases 1-7 (the build,
+    and work whose numbers the card sets: phase 2 holds the stream while it
+    queues) and reads them in phases 15 and 16. The device suites of 15c
+    and 16c run there, with the host to themselves."""
+    t0 = time.perf_counter()
+    work = os.path.join(ROOT, "build", "chip_smoke_host")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    try:
+        out = {"16a": lint_run(), "16b": chaos_run(work),
+               "15c": ray_perf_run(work, "perf_host", "--device", "cpu")}
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return {**out, "seconds": time.perf_counter() - t0}
+
+
+def chaos_phase(host: dict) -> dict:
     """Phase 16: the port's lint gate (16a), the chaos CLI's smoke suite and
-    determinism check (16b) and the Nemesis against GPU work (16c). Returns
-    the flash launches of 16c's forwards that returned (the killed attempt's
-    and the bare runs here are not counted)."""
+    determinism check (16b), both run in host_checks, and the Nemesis
+    against GPU work (16c). Returns the flash launches of 16c's forwards
+    that returned (the killed attempt's and the bare runs here are not
+    counted)."""
     t_phase = time.perf_counter()
     work = os.path.join(ROOT, "build", "chip_smoke_chaos")
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
     try:
-        lint = lint_run()
+        lint, chaos = host["16a"], host["16b"]
         emit({"phase": "chaos", "part": "16a", **lint})
-        chaos = chaos_run(work)
         emit({"phase": "chaos", "part": "16b", **chaos})
         nemesis = nemesis_run(work)
         emit({"phase": "chaos", "part": "16c", **nemesis})
@@ -4594,6 +4720,13 @@ def main() -> int:
     info = card()
     emit({"phase": "card", **info})
 
+    # The checks that touch no card go on under phases 1-7 (this process
+    # built the runtime's native extensions at its import above, as 15a
+    # wants, before any of them starts).
+    host_lane = ThreadPoolExecutor(max_workers=1)
+    host_done = host_lane.submit(host_checks)
+    host_lane.shutdown(wait=False)
+
     t0 = time.perf_counter()
     kernel_ab = importlib.import_module("ray_tpu_torch.ops.kernel_ab")
     # One nvcc a library, all at once; the stamped build, which only phase
@@ -4611,6 +4744,7 @@ def main() -> int:
     gen_more = torch.Generator(device=dev).manual_seed(SEED + 2)
     gen_widths = torch.Generator(device=dev).manual_seed(SEED + 30)
     gen_wider = torch.Generator(device=dev).manual_seed(SEED + 40)
+    t_kernels = time.perf_counter()
     kernel_cases(fa, dev, gen, gen_more, gen_widths, gen_wider)
     heads_cases(fa, dev, gen_wider)
     rows = {64: kernel_timings(fa, dev, gen, cfg)}
@@ -4649,16 +4783,23 @@ def main() -> int:
     emit({"phase": "kernels", "timeline_build_wait_s": timed(timeline_built.result)})
     emit({"phase": "kernels", "timeline_cycles": kernel_ab.timeline(dev)})
     emit({"phase": "kernels", "dtype": "float32", "timeline_cycles": kernel_ab.timeline(dev, torch.float32)})
+    emit({"phase": "kernels", "seconds": time.perf_counter() - t_kernels})
 
     tokens = torch.randint(0, cfg.vocab_size, (BATCH, SEQ), device=dev, generator=gen)
     fwd_launches, f32_fwd_launches = forward_phase(tr, fa, cfg, dev, gen, tokens)
-    train_launches, run_step, step_ms = train_phase(tr, fa, cfg, dev, gen)
+    train_launches, run_step, step_ms, f32_step_launches = train_phase(tr, fa, cfg, dev, gen)
     profile_phase(run_step, step_ms)
     del run_step  # phase 4's model and optimizer
     gc.collect()
     torch.cuda.empty_cache()
     trainer_launches = trainer_phase(cfg, dev, _build)
     resnet_phase(dev, gen)
+    # The bench's rates and phases 9-16 want the host to themselves.
+    host_wait_s = timed(host_done.result)
+    host = host_done.result()
+    emit({"phase": "host_checks", "seconds": host["seconds"], "wait_s": host_wait_s,
+          "16a_s": host["16a"]["wall_s"], "16b_seed_s": [s["s"] for s in host["16b"]["seeds"]],
+          "15c_ray_perf_host_s": host["15c"][1]})
     gc.collect()
     torch.cuda.empty_cache()  # the bench's processes need the card's memory
     bench_launches = bench_phase()
@@ -4678,8 +4819,8 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     cluster_launches = cluster_phase(dev)
-    scale_out_launches = scale_out_phase()
-    chaos_launches = chaos_phase()
+    scale_out_launches = scale_out_phase(host)
+    chaos_launches = chaos_phase(host)
     gc.collect()
     torch.cuda.empty_cache()
     wide_launches = head_dims_phase(tr, fa, dev)
@@ -4713,13 +4854,20 @@ def main() -> int:
                     "replaces": KERNELS[0][2], "head_dim": 96, "heads_per_call": SCORE_BATCH * 32,
                     "launches": launched, **rows["bh"]["fwd"]})
     check(launched > 0, "flash_fwd at 66,560 heads was not launched on the main path")
-    # f32 at head dim 64: B1 in phase 3's f32 forward, B2 in 9b's f32 ring
-    # hops, the split pass in both; phase 2's numbers at [96, 1024, 64] f32.
+    # f32 at head dim 64: B1 in phase 3's f32 forward, B2-B4 in 9b's f32
+    # ring hops and phase 4's f32 first step, the split pass in all three;
+    # phase 2's numbers at [96, 1024, 64] f32 (B3 and B4 on their parts).
+    f32_step = f32_step_launches
     for name, launched, replaces, row in (
             ("flash_fwd_f32", f32_fwd_launches["fwd"], KERNELS[0][2], f32_rows["fwd"]),
-            ("flash_fwd_lse_f32", mesh_launches["fwd_lse_f32"], KERNELS[1][2], f32_rows["fwd_lse"]),
-            ("split_f32", f32_fwd_launches["split"] + mesh_launches["split_f32"],
-             f"none: the f32 B1/B2 route's operand split ({KERNELS[0][2]}, :109 at f32)",
+            ("flash_fwd_lse_f32", mesh_launches["fwd_lse_f32"] + f32_step["fwd_lse"], KERNELS[1][2],
+             f32_rows["fwd_lse"]),
+            ("flash_bwd_dq_f32", mesh_launches["bwd_dq_f32"] + f32_step["bwd_dq"], KERNELS[2][2],
+             f32_rows["bwd_dq"]),
+            ("flash_bwd_dkv_f32", mesh_launches["bwd_dkv_f32"] + f32_step["bwd_dkv"], KERNELS[3][2],
+             f32_rows["bwd_dkv"]),
+            ("split_f32", f32_fwd_launches["split"] + mesh_launches["split_f32"] + f32_step["split"],
+             f"none: the f32 route's operand split ({KERNELS[0][2]}, :109, :289, :328 at f32)",
              f32_rows["split"])):
         kernels.append({"name": name, "route": "cuda", "source": SOURCE, "replaces": replaces,
                         "head_dim": 64, "dtype": "float32", "launches": launched, **row})

@@ -1,7 +1,7 @@
 """Control-plane microbenchmarks (port of the reference's
 python/ray/_private/ray_perf.py:93-288 suite set).
 
-Run: python -m ray_tpu_torch._private.ray_perf [--json PATH] [--device cpu]
+Run: python -m ray_tpu_torch._private.ray_perf [--json PATH] [--device cpu | --device-only]
 
 Suites: trivial task throughput (sync + pipelined), actor call throughput
 (1:1 sync, 1:1 async batch, n:n), put/get small objects. Each prints a
@@ -13,7 +13,7 @@ paths on device tensors and add their own keys: an NCCL group at world 1
 against the store group on cuda:0 (``collective_allreduce_nccl_cuda_*``)
 and a compiled DAG's device edge between two GPU actors, which goes by
 CUDA IPC (``dag_channel_cuda_ipc_per_s``). ``--device cpu`` runs only the
-reference's key set.
+reference's key set, ``--device-only`` only the device suites.
 """
 
 from __future__ import annotations
@@ -836,6 +836,16 @@ def _bench_cuda() -> Dict[str, float]:
     return results
 
 
+def device_main(json_path: str = "") -> Dict[str, float]:
+    """The device suites alone (CUDA_KEYS), written to `json_path` as main
+    writes its results."""
+    results = _bench_cuda()
+    if json_path:
+        with open(json_path, "w") as f:
+            json.dump(results, f, indent=2)
+    return results
+
+
 def main(json_path: str = "", device: str = "cuda") -> Dict[str, float]:
     if device not in ("cuda", "cpu"):
         raise ValueError(f"device must be 'cuda' or 'cpu', got {device!r}")
@@ -986,6 +996,12 @@ if __name__ == "__main__":
         "host benches alone",
     )
     parser.add_argument(
+        "--device-only",
+        action="store_true",
+        help="run the device suites alone (needs a card); with --device "
+        "cpu in another process, the keys of one --device cuda run",
+    )
+    parser.add_argument(
         "--collective-child",
         action="store_true",
         help="internal: run the collective allreduce bench body "
@@ -994,5 +1010,7 @@ if __name__ == "__main__":
     args = parser.parse_args()
     if args.collective_child:
         _collective_child_main()
+    elif args.device_only:
+        device_main(args.json)
     else:
         main(args.json, args.device)

@@ -5,11 +5,12 @@
 //   bf16 inputs (the train step's)          f32 inputs
 //   fwd_kernel_sm90<.., WRITE_LSE=false>    fwd_kernel_sm90_f32<.., WRITE_LSE=false>  <- _attn_fwd_kernel      (B1)
 //   fwd_kernel_sm90<.., WRITE_LSE=true>     fwd_kernel_sm90_f32<.., WRITE_LSE=true>   <- _attn_fwd_kernel_lse  (B2)
-//   bwd_dq_kernel_sm90                      bwd_dq_kernel                             <- _attn_bwd_dq_kernel   (B3)
-//   bwd_dkv_kernel_sm90                     bwd_dkv_kernel                            <- _attn_bwd_dkv_kernel  (B4)
-// The f32 forward at D = 512 is still the CUDA-core fwd_kernel<float, 512,
-// ..>, and the f32 forward at 64-256 takes its operands from split_kernel,
-// which replaces no TPU kernel (see "The f32 forward" below).
+//   bwd_dq_kernel_sm90                      bwd_dq_kernel_sm90_f32                    <- _attn_bwd_dq_kernel   (B3)
+//   bwd_dkv_kernel_sm90                     bwd_dkv_kernel_sm90_f32                   <- _attn_bwd_dkv_kernel  (B4)
+// The f32 kernels take their operands from split_kernel, which replaces no
+// TPU kernel (see "The f32 forward" and "The f32 backward" below), at D =
+// 64-256; at D = 512 f32 still runs on the CUDA-core fwd_kernel,
+// bwd_dq_kernel and bwd_dkv_kernel<float, 512, ..>.
 //
 // Layout [BH, T, D] for q/do/o and [BH, S, D] for k/v, row-major and
 // contiguous; lse and delta are [BH, T] f32; dq, dk and dv are f32. D is 64,
@@ -192,6 +193,37 @@
 //      and v, ~0.6 ms a GB of them at 3.35 TB/s) are the price of that;
 //      splitting on chip would save them.
 //
+// The f32 backward (bwd_dq_kernel_sm90_f32, bwd_dkv_kernel_sm90_f32) is the
+// bf16 backward's two kernels with every operand in parts (their bodies,
+// bwd_dq_body and bwd_dkv_body, take P = 1 or 2 parts), so it keeps their
+// persistent units, producer warpgroup, mbarrier rings, cp.async stat slots
+// and no atomics: a train step's f32 gradients repeat bitwise.
+//   1. Operands. q, k, v and do as split_kernel's hi and lo parts, each part
+//      a head of a [2 BH, rows, D] map, loaded side by side into a stage; the
+//      autograd function saves the forward's parts of q, k and v and splits
+//      do alone, and the ring's hop splits its four once for both kernels.
+//   2. Products. S and dP (S^T and dP^T in bwd_dkv) on SS wgmma, dQ, dK and
+//      dV on RS wgmma with P and dS split on chip (the bf16 backward's
+//      split: hi by truncation, lo to nearest), each as three bf16 products
+//      (hi.hi + hi.lo + lo.hi). tests/test_torch_f32_backward.py emulated
+//      both kernels tile by tile: at D = 64-256, T = 192 and 1000, T != S,
+//      causal or not, within 0.5 of F32_ATOL of the f32 plain versions, and
+//      any of the five products with one of its three left out misses
+//      F32_ATOL by 18x or more.
+//   3. Tiles (DqCfg<D, 2>, DkvCfg<D, 2>). Registers are bf16's at D, shared
+//      memory bf16's at 2D: bwd_dq 64-key K/V tiles at 64 (4 stages), 32
+//      at 96 (4) and 128 (3), and at 256 the 64-row items of bf16 at 512
+//      (Items<256, true>: both consumer warpgroups make S and dP for the
+//      item's rows, each holds 128 of dQ's columns) with 16-key tiles;
+//      bwd_dkv 64-row Q/dO tiles at 64, 32 at 96 and 128, 16 at 256 (64-row
+//      items, each warpgroup's 128 dK and dV columns in one pass). At 128
+//      and 256 the producer, with twice the TMA loads a tile, takes 40
+//      registers (DkvCfg::PRODUCER_REGS) and each consumer 232.
+//   4. What bounds them: as the f32 forward, three bf16 products a product,
+//      ~330 TFLOP/s of useful work; at 256 the m64n16 S and dP products,
+//      which re-read their A operand from shared memory for 16 columns and
+//      are made twice (once a warpgroup).
+
 // The Hopper kernels at D = 256 (Gemma-2B's head dim) and 96 (Phi-3-mini's).
 // A consumer thread has 240 registers and a block 227 KB of shared memory;
 // at 256 an output's f32 sums for 64 rows take 128 of those registers, and
@@ -234,17 +266,15 @@
 // Past 512, Q, K and V tiles of 64 rows no longer leave room for a stream:
 // the wrappers refuse D > 512.
 //
-// The first kernels (the f32 backward at every width, and the f32 forward at
-// D = 512 only) do their arithmetic on the f32 CUDA cores (67 TFLOP/s, not
-// the tensor cores' 989), and that is what bounds them. They take any D
-// that is a multiple of 16; at D = 256 the backward kernels stream 32-row
-// tiles (BC), as 64 would need more than a block's shared memory, and at
-// D = 512 the forward streams 16-key tiles and the backward kernels own
-// 32 rows (R = 2 rows a thread group) and stream 16 (F32Cfg; each block
-// ~200 KB). A block takes tile blockIdx.x % tiles of head blockIdx.x /
-// tiles: gridDim.y would stop at 65535 heads. The f32 forward at 512 stays
-// here: a 64-row Q in parts takes 128 KB there and leaves no room for a
-// stream unless S's contraction is streamed over chunks of D.
+// The first kernels (f32 at D = 512 only: the forward and both backward
+// kernels) do their arithmetic on the f32 CUDA cores (67 TFLOP/s, not the
+// tensor cores' 989), and that is what bounds them. At D = 512 the forward
+// streams 16-key tiles and the backward kernels own 32 rows (R = 2 rows a
+// thread group) and stream 16 (F32Cfg; each block ~200 KB). A block takes
+// tile blockIdx.x % tiles of head blockIdx.x / tiles: gridDim.y would stop
+// at 65535 heads. They stay at 512: a 64-row Q in parts takes 128 KB there
+// and leaves no room for a stream unless S's contraction is streamed over
+// chunks of D.
 // What their design does about it:
 //   * The TPU kernels carry the online-softmax state (m, l, acc) in VMEM
 //     scratch from one sequential grid step to the next. Blocks on Hopper
@@ -750,10 +780,11 @@ struct Lay {
 // The rows of a work item and how its two consumer warpgroups share it: up
 // to D = 256, 128 rows, 64 a warpgroup; at D = 512 (COLS), 64 rows, both
 // warpgroups on all of them, warpgroup w holding output columns [OUT w,
-// OUT w + OUT) (see the file's header).
-template <int D>
+// OUT w + OUT) (see the file's header). The f32 backward, whose operands
+// come in two parts, takes COLS at D = 256: it has the bytes of bf16 at 2D.
+template <int D, bool COLS_ = D == 512>
 struct Items {
-  static constexpr bool COLS = D == 512;
+  static constexpr bool COLS = COLS_;
   static constexpr int ROWS = COLS ? 64 : FWD_BQ;
   static constexpr int OUT = COLS ? D / 2 : D;
   // A warpgroup's first row in the item and its first output column.
@@ -1210,12 +1241,13 @@ __device__ __forceinline__ void issue_pv(float (&acc)[D / 2], const uint32_t (&p
 // tile's P.V issued, 2 S in, 3 softmax done, 4 P.V in, 5 P split), 1 bwd_dq
 // and 2 bwd_dkv (0 the tile landed, 1 S, dP and the previous tile's
 // products issued, 2 S and dP in, 3 P and dS made, 4 the previous tile's
-// products in, 5 split), 3 the f32 forward (the forward's events). Only
+// products in, 5 split), 3 the f32 forward (the forward's events), 4 and
+// 5 the f32 bwd_dq and bwd_dkv (the backward's events). Only
 // ray_tpu_torch/ops/kernel_ab.py's timeline build defines RT_TIMELINE
 // (chip_smoke.py phase 2 reads it through rt_timeline); the library the
 // port loads has no stamps.
 constexpr int TIMELINE_TILES = 64;
-__device__ long long timeline[4][2][TIMELINE_TILES][6];
+__device__ long long timeline[6][2][TIMELINE_TILES][6];
 __device__ __forceinline__ void stamp(int kernel, int wg, int tile, int ev, bool pred) {
   long long* at = &timeline[kernel][wg][min(tile, TIMELINE_TILES - 1)][ev];
   asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %2, 0;\n@p st.global.b64 [%0], %1;\n}\n" ::"l"(at),
@@ -1420,21 +1452,26 @@ __global__ void __launch_bounds__(FWD_THREADS, 1) fwd_kernel_sm90(
 // operands.
 
 // split_kernel replaces no TPU kernel (the TPU's matrix unit takes f32
-// operands): it is the f32 forward's first pass. It reads each element of
-// q, k and v once as f32 and writes hi = bf16(x) and lo = bf16(x - hi)
-// (both to nearest; x - hi is exact in f32), each part a [BH, rows, D] bf16
-// tensor, [q hi | q lo | k hi | k lo | v hi | v lo] in `parts`, so the
-// forward reads them by TMA as it reads bf16 operands. Bound by bytes (4 in
-// and 4 out an element): one 16-byte load and two 8-byte stores a thread a
-// step, every access coalesced. n_q and n_kv count float4s (D is a multiple
-// of 4); blockIdx.y picks q (0), k (1) or v (2).
-__global__ void __launch_bounds__(256) split_kernel(const float4* __restrict__ q,
-                                                    const float4* __restrict__ k,
-                                                    const float4* __restrict__ v, uint2* __restrict__ parts,
-                                                    size_t n_q, size_t n_kv) {
-  const float4* x = blockIdx.y == 0 ? q : blockIdx.y == 1 ? k : v;
-  const size_t n = blockIdx.y == 0 ? n_q : n_kv;
-  uint2* hi = parts + (blockIdx.y == 0 ? 0 : 2 * n_q + (blockIdx.y - 1) * 2 * n_kv);
+// operands): it is the f32 route's first pass, once a forward (q, k and v)
+// and once a backward (do, the forward's parts of q, k and v saved; or all
+// four). It reads each element of up to four f32 operands once and writes
+// hi = bf16(x) and lo = bf16(x - hi) (both to nearest; x - hi is exact in
+// f32), each part a [BH, rows, D] bf16 tensor, [x0 hi | x0 lo | x1 hi | x1
+// lo | ...] in `parts`, so the kernels read them by TMA as they read bf16
+// operands. Bound by bytes (4 in and 4 out an element): one 16-byte load
+// and two 8-byte stores a thread a step, every access coalesced. n0-n3
+// count each operand's float4s (D is a multiple of 4); blockIdx.y picks the
+// operand. The operands are __restrict__ parameters, not an array of
+// pointers: read through one (a struct's, indexed by blockIdx.y) the loads
+// were not known apart from the stores, and the pass took 1.75x as long.
+__global__ void __launch_bounds__(256) split_kernel(const float4* __restrict__ x0, const float4* __restrict__ x1,
+                                                    const float4* __restrict__ x2, const float4* __restrict__ x3,
+                                                    uint2* __restrict__ parts, size_t n0, size_t n1, size_t n2,
+                                                    size_t n3) {
+  const unsigned y = blockIdx.y;
+  const float4* x = y == 0 ? x0 : y == 1 ? x1 : y == 2 ? x2 : x3;
+  const size_t n = y == 0 ? n0 : y == 1 ? n1 : y == 2 ? n2 : n3;
+  uint2* hi = parts + 2 * ((y > 0 ? n0 : 0) + (y > 1 ? n1 : 0) + (y > 2 ? n2 : 0));  // uint2s: 4 bf16
   uint2* lo = hi + n;
   for (size_t i = blockIdx.x * size_t(256) + threadIdx.x; i < n; i += size_t(gridDim.x) * 256) {
     const float4 e = x[i];
@@ -1726,51 +1763,75 @@ __global__ void __launch_bounds__(FWD_THREADS, 1) fwd_kernel_sm90_f32(
 // built this way. Both use the forward's layout, producer and wgmma parts;
 // neither uses an atomic, so every sum is taken in one order on every run.
 
-// bwd_dkv: 128 k rows an item (64 per consumer warpgroup; at D = 512, 64
-// rows for both, Items), K and V loaded once an item; Q, dO, lse and delta
-// stream in tiles of BQ q rows.
-template <int D>
+// The tiles of both backward kernels for operands in P parts: P = 1, bf16;
+// P = 2, the f32 backward's bf16 hi and lo parts (split_kernel), each part
+// a head of a [2 BH, rows, D] tensor. Two parts take 4 bytes an element, so
+// the f32 kernels at D have the shared-memory bytes of the bf16 ones at 2D
+// (Items<D, D * P == 512>: 64-row items at f32 D = 256) and the registers
+// of the bf16 ones at D.
+
+// bwd_dkv: 128 k rows an item (64 per consumer warpgroup; at D * P = 512,
+// 64 rows for both, Items), K and V loaded once an item; Q, dO, lse and
+// delta stream in tiles of BQ q rows.
+template <int D, int P = 1>
 struct DkvCfg {
+  using It = Items<D, D * P == 512>;
   // q rows per tile (the N of S^T = K.Q^T). At D = 128, dK and dV take 128
   // of a consumer thread's 240 registers, and a 64-row tile's S^T, dP^T and
   // their split operands (64 more) left ptxas spilling; D = 96 takes 128's
-  // 32-row tiles. At 512, 16-row tiles: K and V of the item take 128 KB.
-  static constexpr int BQ = D == 64 ? 64 : D == 512 ? 16 : 32;
-  // At D = 256, dK and dV would take 256 registers a thread: the consumers
-  // make them in two passes over the item's q tiles, 128 columns each
-  // (DA), and recompute S^T and dP^T in the second (K, V 128 KB for the
-  // item, Q and dO tiles 32 KB a stage). At 512 each warpgroup's 256
-  // columns (Items::OUT) take the same two passes.
-  static constexpr int PASSES = D >= 256 ? 2 : 1;
-  static constexpr int DA = Items<D>::OUT / PASSES;
-  static constexpr int STAGES = D >= 256 ? 3 : 4;
+  // 32-row tiles. At D * P = 512, 16-row tiles: K and V of the item take
+  // 128 KB.
+  static constexpr int BQ = D == 64 ? 64 : D * P == 512 ? 16 : 32;
+  // At bf16 D = 256, dK and dV would take 256 registers a thread: the
+  // consumers make them in two passes over the item's q tiles, 128 columns
+  // each (DA), and recompute S^T and dP^T in the second (K, V 128 KB for
+  // the item, Q and dO tiles 32 KB a stage). At 512 each warpgroup's 256
+  // columns (Items::OUT) take the same two passes; at f32 256 each
+  // warpgroup's 128 take one.
+  static constexpr int PASSES = P == 1 && D >= 256 ? 2 : 1;
+  static constexpr int DA = It::OUT / PASSES;
+  static constexpr int STAGES = D * P >= 256 ? 3 : 4;
   // Tile t's S^T and dP^T beside tile t-1's split operands, which dK and dV
   // at D = 128 and up leave no room for (at 96 0.5116 ms against 0.6261 in
   // turn at [128, 2048, 96] on an H100).
   static constexpr bool PIPE = D <= 96;
-  static constexpr int KV_BYTES = Items<D>::ROWS * D * 2;  // an item's K or V
-  static constexpr int QT_BYTES = BQ * D * 2;      // one Q or dO tile
-  static constexpr int STAT_BYTES = 2 * BQ * 4;    // one tile's lse and delta
+  static constexpr int KV_PART = It::ROWS * D * 2;  // one part of an item's K or V
+  static constexpr int QT_PART = BQ * D * 2;        // one part of a Q or dO tile
+  static constexpr int KV_BYTES = P * KV_PART;      // an item's K or V
+  static constexpr int QT_BYTES = P * QT_PART;      // one Q or dO tile
+  static constexpr int STAT_BYTES = 2 * BQ * 4;     // one tile's lse and delta
   static constexpr int BAR_BYTES = 8 * (2 + 2 * STAGES);
   static constexpr int BYTES = 2 * KV_BYTES + STAGES * (2 * QT_BYTES + STAT_BYTES) + BAR_BYTES + 1024;
   static_assert(BYTES <= 232448, "a block has 227 KB of shared memory");
+  // The producer warpgroup's registers (setmaxnreg; the consumers get 240
+  // less half its excess over 24). The f32 kernels' producer issues twice
+  // the TMA loads a tile, and at D >= 128 (the f32 forward spilled its
+  // producer at 24 with eight loads a tile) takes 40.
+  static constexpr int PRODUCER_REGS = P == 2 && D >= 128 ? 40 : 24;
 };
 
-// bwd_dq: 128 q rows an item (64 at D = 512, Items), Q and dO loaded once an
-// item; K and V stream in tiles of BN keys, as in the forward.
-template <int D>
+// bwd_dq: 128 q rows an item (64 at D * P = 512, Items), Q and dO loaded
+// once an item; K and V stream in tiles of BN keys, as in the forward.
+template <int D, int P = 1>
 struct DqCfg {
+  using It = Items<D, D * P == 512>;
   // Keys per K/V tile: S and dP of tile kt beside tile kt-1's split dS, in
-  // the consumers' registers. At D = 256 an item's Q and dO take 128 KB:
-  // 32-key tiles, three stages (224 KB in all); at 512 they take 128 KB for
-  // 64 rows: 16-key tiles, three stages (224 KB).
-  static constexpr int BN = D == 512 ? 16 : D == 256 ? 32 : 64;
-  static constexpr int STAGES = D >= 256 ? 3 : 4;
-  static constexpr int Q_BYTES = Items<D>::ROWS * D * 2;  // an item's Q or dO
-  static constexpr int KV_BYTES = BN * D * 2;     // one K or V tile
+  // the consumers' registers. At D * P = 256 an item's Q and dO take 128
+  // KB: 32-key tiles, three stages (224 KB in all); at 512 they take 128 KB
+  // for 64 rows: 16-key tiles, three stages (224 KB). At f32 96 they take
+  // 96 KB: 32-key tiles in four stages (192 KB; 0.7908 ms against 0.8883
+  // for 64-key tiles in two stages, which left a tile ~3000 of its ~5700
+  // cycles waiting for its load, at [128, 2048, 96] on an H100).
+  static constexpr int BN = D * P == 512 ? 16 : D * P == 256 || D * P == 192 ? 32 : 64;
+  static constexpr int STAGES = D * P >= 256 ? 3 : 4;
+  static constexpr int Q_PART = It::ROWS * D * 2;  // one part of an item's Q or dO
+  static constexpr int KV_PART = BN * D * 2;       // one part of a K or V tile
+  static constexpr int Q_BYTES = P * Q_PART;       // an item's Q or dO
+  static constexpr int KV_BYTES = P * KV_PART;     // one K or V tile
   static constexpr int BAR_BYTES = 8 * (2 + 2 * STAGES);
   static constexpr int BYTES = 2 * Q_BYTES + 2 * STAGES * KV_BYTES + BAR_BYTES + 1024;
   static_assert(BYTES <= 232448, "a block has 227 KB of shared memory");
+  static constexpr int PRODUCER_REGS = P == 2 && D >= 128 ? 40 : 24;  // as DkvCfg's
 };
 
 // P^T = exp(S^T * scale - lse) and dS^T / scale = P^T (dP^T - delta) of one
@@ -1841,22 +1902,27 @@ __device__ __forceinline__ void store_rows(float* out, const float (&acc)[DA / 2
 // A consumer warpgroup owns 64 k rows: per q tile S^T = K.Q^T and dP^T =
 // V.dO^T (SS), P^T and dS^T in registers, then dV += P^T_hi.dO + P^T_lo.dO
 // and dK += dS^T_hi.Q + dS^T_lo.Q (RS, dO and Q MN-major); dK and dV stay
-// in registers until the item ends.
-template <int D, bool CAUSAL>
-__global__ void __launch_bounds__(FWD_THREADS, 1) bwd_dkv_kernel_sm90(
-    const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap k_map,
-    const __grid_constant__ CUtensorMap v_map, const __grid_constant__ CUtensorMap do_map,
+// in registers until the item ends. With P = 2 (the f32 backward) every
+// operand comes in its hi and lo parts, each part a head of its [2 bh,
+// rows, D] map (head h's lo part at head h + bh), loaded side by side; each
+// product is three bf16 products: S^T = K_hi.Q_hi^T + K_hi.Q_lo^T +
+// K_lo.Q_hi^T (dP^T likewise), dV += P^T_hi.dO_hi + P^T_lo.dO_hi +
+// P^T_hi.dO_lo (dK likewise).
+template <int D, bool CAUSAL, int P>
+__device__ __forceinline__ void bwd_dkv_body(
+    const CUtensorMap* q_map, const CUtensorMap* k_map, const CUtensorMap* v_map, const CUtensorMap* do_map,
     const float* __restrict__ lse, const float* __restrict__ delta, float* __restrict__ dk,
     float* __restrict__ dv, int bh, int seq_q, int seq_k, float scale) {
-  using Cfg = DkvCfg<D>;
-  using It = Items<D>;
+  using Cfg = DkvCfg<D, P>;
+  using It = typename Cfg::It;
   constexpr int BQ = Cfg::BQ, STAGES = Cfg::STAGES, DA = Cfg::DA, ROWS = It::ROWS;
+  [[maybe_unused]] constexpr int TL = P == 1 ? 2 : 5;  // the stamps' kernel (RT_TIMELINE)
   extern __shared__ unsigned char dkv_smem[];
-  bf16* ks = swizzle_base(dkv_smem);  // [D / 64][ROWS][64]
-  bf16* vs = ks + ROWS * D;           // [D / 64][ROWS][64]
-  bf16* qs = vs + ROWS * D;           // [STAGES][D / 64][BQ][64]
-  bf16* dos = qs + STAGES * BQ * D;   // [STAGES][D / 64][BQ][64]
-  float* stats = reinterpret_cast<float*>(dos + STAGES * BQ * D);  // [STAGES][lse | delta][BQ]
+  bf16* ks = swizzle_base(dkv_smem);     // [P][D / BW][ROWS][BW]
+  bf16* vs = ks + P * ROWS * D;          // [P][D / BW][ROWS][BW]
+  bf16* qs = vs + P * ROWS * D;          // [STAGES][P][D / BW][BQ][BW]
+  bf16* dos = qs + STAGES * P * BQ * D;  // [STAGES][P][D / BW][BQ][BW]
+  float* stats = reinterpret_cast<float*>(dos + STAGES * P * BQ * D);  // [STAGES][lse | delta][BQ]
   const uint32_t kv_full = smem_u32(stats + STAGES * 2 * BQ);  // the item's K and V landed
   const uint32_t kv_empty = kv_full + 8;                       // both consumers are done with them
   const uint32_t full_bar = kv_empty + 8;                      // [STAGES]: the stage's tiles and stats landed
@@ -1877,7 +1943,7 @@ __global__ void __launch_bounds__(FWD_THREADS, 1) bwd_dkv_kernel_sm90(
 
   const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
   if (wg == 2) {  // producer: one warp; lane 0 issues the TMA loads, every lane copies stats
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(Cfg::PRODUCER_REGS));
     if (threadIdx.x < 256 + 32) {
       const int lane = threadIdx.x % 32;
       int it = 0, n = 0, head, k0;  // Q/dO tiles (the ring's position) and items loaded
@@ -1886,8 +1952,11 @@ __global__ void __launch_bounds__(FWD_THREADS, 1) bwd_dkv_kernel_sm90(
           mbar_wait(kv_empty, (n & 1) ^ 1);  // passes at once for the first item
           if (lane == 0) {
             mbar_expect_tx(kv_full, 2 * Cfg::KV_BYTES);
-            load_rows<ROWS, D>(ks, &k_map, kv_full, head, k0);
-            load_rows<ROWS, D>(vs, &v_map, kv_full, head, k0);
+#pragma unroll
+            for (int part = 0; part < P; ++part) {  // hi, then lo
+              load_rows<ROWS, D>(ks + part * ROWS * D, k_map, kv_full, head + part * bh, k0);
+              load_rows<ROWS, D>(vs + part * ROWS * D, v_map, kv_full, head + part * bh, k0);
+            }
           }
           const float* lse_h = lse + static_cast<size_t>(head) * seq_q;
           const float* delta_h = delta + static_cast<size_t>(head) * seq_q;
@@ -1898,8 +1967,11 @@ __global__ void __launch_bounds__(FWD_THREADS, 1) bwd_dkv_kernel_sm90(
               mbar_wait(empty_bar + 8 * st, (it / STAGES & 1) ^ 1);  // passes at once on the first lap
               if (lane == 0) {
                 mbar_expect_tx(full, 2 * Cfg::QT_BYTES);  // rows past T are zero-filled and counted
-                load_rows<BQ, D>(qs + st * BQ * D, &q_map, full, head, qt * BQ);
-                load_rows<BQ, D>(dos + st * BQ * D, &do_map, full, head, qt * BQ);
+#pragma unroll
+                for (int part = 0; part < P; ++part) {
+                  load_rows<BQ, D>(qs + (st * P + part) * BQ * D, q_map, full, head + part * bh, qt * BQ);
+                  load_rows<BQ, D>(dos + (st * P + part) * BQ * D, do_map, full, head + part * bh, qt * BQ);
+                }
               }
               // lse and delta rows are 4 * T bytes apart, no multiple of 16 for
               // every T, so they come by cp.async, zero-filled past T (a
@@ -1919,25 +1991,31 @@ __global__ void __launch_bounds__(FWD_THREADS, 1) bwd_dkv_kernel_sm90(
         }
     }
   } else {  // consumer warpgroup wg: k rows [k0 + row(wg), + 64) of each item, columns [col(wg), + OUT)
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(240 - (Cfg::PRODUCER_REGS - 24) / 2));
     const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32, tg = lane % 4;
     const float sl2 = scale * LOG2E;
     const uint32_t k_addr = smem_u32(ks) + It::row(wg) * Lay<D>::RB;
     const uint32_t v_addr = smem_u32(vs) + It::row(wg) * Lay<D>::RB;
     float s[BQ / 2], dp[BQ / 2], dka[DA / 2], dva[DA / 2];
     uint32_t p_hi[BQ / 16][4], p_lo[BQ / 16][4], ds_hi[BQ / 16][4], ds_lo[BQ / 16][4];
-    auto q_addr = [&](int st) { return smem_u32(qs + st * BQ * D); };
-    auto do_addr = [&](int st) { return smem_u32(dos + st * BQ * D); };
+    auto q_addr = [&](int st) { return smem_u32(qs + st * P * BQ * D); };
+    auto do_addr = [&](int st) { return smem_u32(dos + st * P * BQ * D); };
     auto keep_split = [&] {
       keep(p_hi);
       keep(p_lo);
       keep(ds_hi);
       keep(ds_lo);
     };
-    // S^T = K.Q^T and dP^T = V.dO^T of the tile in stage st, issued.
+    // S^T = K.Q^T and dP^T = V.dO^T of the tile in stage st, issued (each
+    // part's lo part one part's bytes past its hi part).
     auto issue_sdp = [&](int st) {
-      issue_s<D, ROWS, true>(s, k_addr, q_addr(st));
-      issue_s<D, ROWS, true>(dp, v_addr, do_addr(st));
+      if constexpr (P == 1) {
+        issue_s<D, ROWS, true>(s, k_addr, q_addr(st));
+        issue_s<D, ROWS, true>(dp, v_addr, do_addr(st));
+      } else {
+        issue_s_split<D, ROWS>(s, k_addr, q_addr(st), Cfg::KV_PART, Cfg::QT_PART);
+        issue_s_split<D, ROWS>(dp, v_addr, do_addr(st), Cfg::KV_PART, Cfg::QT_PART);
+      }
     };
     // The DA columns a pass makes: this warpgroup's columns, in passes.
     auto chunk = [&](int pass) { return It::col(wg) / DA + pass; };
@@ -1945,8 +2023,13 @@ __global__ void __launch_bounds__(FWD_THREADS, 1) bwd_dkv_kernel_sm90(
     // DA columns of pass `pass` (dO's and Q's boxes from its first).
     auto issue_dkv = [&](int st, int pass) {
       const uint32_t at = chunk(pass) * (DA / Lay<D>::BW) * BQ * Lay<D>::RB;
-      issue_pv<DA>(dva, p_hi, p_lo, do_addr(st) + at);
-      issue_pv<DA>(dka, ds_hi, ds_lo, q_addr(st) + at);
+      if constexpr (P == 1) {
+        issue_pv<DA>(dva, p_hi, p_lo, do_addr(st) + at);
+        issue_pv<DA>(dka, ds_hi, ds_lo, q_addr(st) + at);
+      } else {
+        issue_pv_split<DA>(dva, p_hi, p_lo, do_addr(st) + at, Cfg::QT_PART);
+        issue_pv_split<DA>(dka, ds_hi, ds_lo, q_addr(st) + at, Cfg::QT_PART);
+      }
     };
     // P^T and dS^T of the tile at q0 (stage st) in place of S^T and dP^T.
     // Only a tile that crosses the diagonal or the end of T or S has masked
@@ -2006,7 +2089,7 @@ __global__ void __launch_bounds__(FWD_THREADS, 1) bwd_dkv_kernel_sm90(
                 const int prev = st;
                 st = (it + t) % STAGES;
                 mbar_wait(full_bar + 8 * st, (it + t) / STAGES & 1);
-                STAMP(2, it + t, 0);
+                STAMP(TL, it + t, 0);
                 keep(dka);
                 keep(dva);
                 keep_split();
@@ -2019,22 +2102,22 @@ __global__ void __launch_bounds__(FWD_THREADS, 1) bwd_dkv_kernel_sm90(
                 keep(dp);
                 keep(dka);
                 keep(dva);
-                STAMP(2, it + t, 1);
+                STAMP(TL, it + t, 1);
                 wgmma_wait<1>();  // S^T and dP^T of tile t are in
                 keep(s);
                 keep(dp);
-                STAMP(2, it + t, 2);
+                STAMP(TL, it + t, 2);
                 mbar_arrive_if(kv_empty, tid == 0 && last && t + 1 == n_t);
                 grads(st, (qt0 + t) * BQ, row0, r0);
-                STAMP(2, it + t, 3);
+                STAMP(TL, it + t, 3);
                 wgmma_wait<0>();  // tile t-1's products are in: its stage and its split are free
                 keep(dka);
                 keep(dva);
                 keep_split();
-                STAMP(2, it + t, 4);
+                STAMP(TL, it + t, 4);
                 mbar_arrive_if(empty_bar + 8 * prev, tid == 0);
                 split();
-                STAMP(2, it + t, 5);
+                STAMP(TL, it + t, 5);
               }
               keep(dka);
               keep(dva);
@@ -2093,27 +2176,49 @@ __global__ void __launch_bounds__(FWD_THREADS, 1) bwd_dkv_kernel_sm90(
   }
 }
 
+// B4 on bf16 operands.
+template <int D, bool CAUSAL>
+__global__ void __launch_bounds__(FWD_THREADS, 1) bwd_dkv_kernel_sm90(
+    const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap k_map,
+    const __grid_constant__ CUtensorMap v_map, const __grid_constant__ CUtensorMap do_map,
+    const float* __restrict__ lse, const float* __restrict__ delta, float* __restrict__ dk,
+    float* __restrict__ dv, int bh, int seq_q, int seq_k, float scale) {
+  bwd_dkv_body<D, CAUSAL, 1>(&q_map, &k_map, &v_map, &do_map, lse, delta, dk, dv, bh, seq_q, seq_k, scale);
+}
+
+// B4 on f32 operands given as split_kernel's parts (the f32 backward).
+template <int D, bool CAUSAL>
+__global__ void __launch_bounds__(FWD_THREADS, 1) bwd_dkv_kernel_sm90_f32(
+    const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap k_map,
+    const __grid_constant__ CUtensorMap v_map, const __grid_constant__ CUtensorMap do_map,
+    const float* __restrict__ lse, const float* __restrict__ delta, float* __restrict__ dk,
+    float* __restrict__ dv, int bh, int seq_q, int seq_k, float scale) {
+  bwd_dkv_body<D, CAUSAL, 2>(&q_map, &k_map, &v_map, &do_map, lse, delta, dk, dv, bh, seq_q, seq_k, scale);
+}
+
 // Persistent, in the forward's units of two 128-row q tiles. Per item the
 // producer loads Q and dO once, then streams the K and V tiles up to the
 // diagonal (kv_tiles). A consumer warpgroup owns 64 q rows: per K/V tile
 // S = Q.K^T and dP = dO.V^T (SS), P and dS in registers (lse is known:
 // nothing is rescaled), then dQ += dS_hi.K + dS_lo.K (RS, K MN-major, as V
-// in the forward's P.V).
-template <int D, bool CAUSAL>
-__global__ void __launch_bounds__(FWD_THREADS, 1) bwd_dq_kernel_sm90(
-    const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap k_map,
-    const __grid_constant__ CUtensorMap v_map, const __grid_constant__ CUtensorMap do_map,
+// in the forward's P.V). With P = 2 (the f32 backward) the operands come
+// in parts, as in bwd_dkv_body: S = Q_hi.K_hi^T + Q_hi.K_lo^T +
+// Q_lo.K_hi^T (dP likewise) and dQ += dS_hi.K_hi + dS_lo.K_hi + dS_hi.K_lo.
+template <int D, bool CAUSAL, int P>
+__device__ __forceinline__ void bwd_dq_body(
+    const CUtensorMap* q_map, const CUtensorMap* k_map, const CUtensorMap* v_map, const CUtensorMap* do_map,
     const float* __restrict__ lse, const float* __restrict__ delta, float* __restrict__ dq, int bh,
     int seq_q, int seq_k, float scale) {
-  using Cfg = DqCfg<D>;
-  using It = Items<D>;
+  using Cfg = DqCfg<D, P>;
+  using It = typename Cfg::It;
   constexpr int BN = Cfg::BN, STAGES = Cfg::STAGES, ROWS = It::ROWS, OUT = It::OUT;
+  [[maybe_unused]] constexpr int TL = P == 1 ? 1 : 4;  // the stamps' kernel (RT_TIMELINE)
   extern __shared__ unsigned char dq_smem[];
-  bf16* qs = swizzle_base(dq_smem);   // [D / 64][ROWS][64]
-  bf16* dos = qs + ROWS * D;          // [D / 64][ROWS][64]
-  bf16* ks = dos + ROWS * D;          // [STAGES][D / 64][BN][64]
-  bf16* vs = ks + STAGES * BN * D;    // [STAGES][D / 64][BN][64]
-  const uint32_t qdo_full = smem_u32(vs + STAGES * BN * D);  // the item's Q and dO landed
+  bf16* qs = swizzle_base(dq_smem);     // [P][D / BW][ROWS][BW]
+  bf16* dos = qs + P * ROWS * D;        // [P][D / BW][ROWS][BW]
+  bf16* ks = dos + P * ROWS * D;        // [STAGES][P][D / BW][BN][BW]
+  bf16* vs = ks + STAGES * P * BN * D;  // [STAGES][P][D / BW][BN][BW]
+  const uint32_t qdo_full = smem_u32(vs + STAGES * P * BN * D);  // the item's Q and dO landed
   const uint32_t qdo_empty = qdo_full + 8;                     // both consumers are done with them
   const uint32_t full_bar = qdo_empty + 8;                   // [STAGES]: the stage's K and V landed
   const uint32_t empty_bar = full_bar + 8 * STAGES;        // [STAGES]: both consumers are done with it
@@ -2132,7 +2237,7 @@ __global__ void __launch_bounds__(FWD_THREADS, 1) bwd_dq_kernel_sm90(
 
   const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
   if (wg == 2) {  // producer: one thread keeps Q, dO and the ring full
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(Cfg::PRODUCER_REGS));
     if (threadIdx.x == 256) {
       int it = 0, n = 0, head, q0;  // K/V tiles (the ring's position) and items loaded
       for (int u = blockIdx.x; u < n_units; u += gridDim.x)
@@ -2140,20 +2245,26 @@ __global__ void __launch_bounds__(FWD_THREADS, 1) bwd_dq_kernel_sm90(
           const int n_kv_tiles = kv_tiles<CAUSAL, BN, ROWS>(q0, seq_k);
           mbar_wait(qdo_empty, (n & 1) ^ 1);  // passes at once for the first item
           mbar_expect_tx(qdo_full, 2 * Cfg::Q_BYTES);
-          load_rows<ROWS, D>(qs, &q_map, qdo_full, head, q0);
-          load_rows<ROWS, D>(dos, &do_map, qdo_full, head, q0);
+#pragma unroll
+          for (int part = 0; part < P; ++part) {  // hi, then lo
+            load_rows<ROWS, D>(qs + part * ROWS * D, q_map, qdo_full, head + part * bh, q0);
+            load_rows<ROWS, D>(dos + part * ROWS * D, do_map, qdo_full, head + part * bh, q0);
+          }
           for (int kt = 0; kt < n_kv_tiles; ++kt, ++it) {
             const int st = it % STAGES;
             mbar_wait(empty_bar + 8 * st, (it / STAGES & 1) ^ 1);  // passes at once on the first lap
             const uint32_t ring_full = full_bar + 8 * st;
             mbar_expect_tx(ring_full, 2 * Cfg::KV_BYTES);  // out-of-range rows are zero-filled and counted
-            load_rows<BN, D>(ks + st * BN * D, &k_map, ring_full, head, kt * BN);
-            load_rows<BN, D>(vs + st * BN * D, &v_map, ring_full, head, kt * BN);
+#pragma unroll
+            for (int part = 0; part < P; ++part) {
+              load_rows<BN, D>(ks + (st * P + part) * BN * D, k_map, ring_full, head + part * bh, kt * BN);
+              load_rows<BN, D>(vs + (st * P + part) * BN * D, v_map, ring_full, head + part * bh, kt * BN);
+            }
           }
         }
     }
   } else {  // consumer warpgroup wg: q rows [q0 + row(wg), + 64) of each item, columns [col(wg), + OUT)
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(240 - (Cfg::PRODUCER_REGS - 24) / 2));
     const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32, tg = lane % 4;
     const float sl2 = scale * LOG2E;
     const uint32_t q_addr = smem_u32(qs) + It::row(wg) * Lay<D>::RB;
@@ -2162,11 +2273,24 @@ __global__ void __launch_bounds__(FWD_THREADS, 1) bwd_dq_kernel_sm90(
     const uint32_t k_at = It::col(wg) / Lay<D>::BW * BN * Lay<D>::RB;
     float s[BN / 2], dp[BN / 2], dqa[OUT / 2];
     uint32_t ds_hi[BN / 16][4], ds_lo[BN / 16][4];
-    auto k_addr = [&](int st) { return smem_u32(ks + st * BN * D); };
-    // S = Q.K^T and dP = dO.V^T of the tile in stage st, issued.
+    auto k_addr = [&](int st) { return smem_u32(ks + st * P * BN * D); };
+    // S = Q.K^T and dP = dO.V^T of the tile in stage st, issued (each lo
+    // part one part's bytes past its hi part).
     auto issue_sdp = [&](int st) {
-      issue_s<D, ROWS, true>(s, q_addr, k_addr(st));
-      issue_s<D, ROWS, true>(dp, do_addr, smem_u32(vs + st * BN * D));
+      if constexpr (P == 1) {
+        issue_s<D, ROWS, true>(s, q_addr, k_addr(st));
+        issue_s<D, ROWS, true>(dp, do_addr, smem_u32(vs + st * BN * D));
+      } else {
+        issue_s_split<D, ROWS>(s, q_addr, k_addr(st), Cfg::Q_PART, Cfg::KV_PART);
+        issue_s_split<D, ROWS>(dp, do_addr, smem_u32(vs + st * P * BN * D), Cfg::Q_PART, Cfg::KV_PART);
+      }
+    };
+    // dQ += dS.K of the tile in stage st, issued: this warpgroup's columns.
+    auto issue_dq = [&](int st) {
+      if constexpr (P == 1)
+        issue_pv<OUT>(dqa, ds_hi, ds_lo, k_addr(st) + k_at);
+      else
+        issue_pv_split<OUT>(dqa, ds_hi, ds_lo, k_addr(st) + k_at, Cfg::KV_PART);
     };
 
     int it = 0, n = 0, head, q0;  // K/V tiles and items consumed
@@ -2217,7 +2341,7 @@ __global__ void __launch_bounds__(FWD_THREADS, 1) bwd_dq_kernel_sm90(
           const int prev = st;
           st = (it + kt) % STAGES;
           mbar_wait(full_bar + 8 * st, (it + kt) / STAGES & 1);
-          STAMP(1, it + kt, 0);
+          STAMP(TL, it + kt, 0);
           bar_sync(1 + wg);
           keep(dqa);
           keep(ds_hi);
@@ -2225,35 +2349,35 @@ __global__ void __launch_bounds__(FWD_THREADS, 1) bwd_dq_kernel_sm90(
           wgmma_fence();
           issue_sdp(st);
           wgmma_commit();
-          issue_pv<OUT>(dqa, ds_hi, ds_lo, k_addr(prev) + k_at);  // dQ += dS.K
+          issue_dq(prev);
           wgmma_commit();
           keep(s);
           keep(dp);
           keep(dqa);
-          STAMP(1, it + kt, 1);
+          STAMP(TL, it + kt, 1);
           bar_arrive_if(2 - wg, wg == 0 || kt + 1 < n_kv_tiles);
           wgmma_wait<1>();  // S and dP of tile kt are in
           keep(s);
           keep(dp);
-          STAMP(1, it + kt, 2);
+          STAMP(TL, it + kt, 2);
           mbar_arrive_if(qdo_empty, tid == 0 && kt + 1 == n_kv_tiles);
           grads(kt * BN);
-          STAMP(1, it + kt, 3);
+          STAMP(TL, it + kt, 3);
           wgmma_wait<0>();  // tile kt-1's product is in: its stage and its split are free
           keep(dqa);
           keep(ds_hi);
           keep(ds_lo);
-          STAMP(1, it + kt, 4);
+          STAMP(TL, it + kt, 4);
           mbar_arrive_if(empty_bar + 8 * prev, tid == 0);
           split_p<true>(dp, ds_hi, ds_lo);
-          STAMP(1, it + kt, 5);
+          STAMP(TL, it + kt, 5);
         }
         it += n_kv_tiles;
         keep(dqa);
         keep(ds_hi);
         keep(ds_lo);
         wgmma_fence();
-        issue_pv<OUT>(dqa, ds_hi, ds_lo, k_addr(st) + k_at);
+        issue_dq(st);
         wgmma_commit();
         keep(dqa);
         wgmma_wait<0>();
@@ -2266,6 +2390,26 @@ __global__ void __launch_bounds__(FWD_THREADS, 1) bwd_dq_kernel_sm90(
         store_rows<OUT>(dq + static_cast<size_t>(head) * seq_q * D + It::col(wg), dqa, r0, tg, seq_q, D);
       }
   }
+}
+
+// B3 on bf16 operands.
+template <int D, bool CAUSAL>
+__global__ void __launch_bounds__(FWD_THREADS, 1) bwd_dq_kernel_sm90(
+    const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap k_map,
+    const __grid_constant__ CUtensorMap v_map, const __grid_constant__ CUtensorMap do_map,
+    const float* __restrict__ lse, const float* __restrict__ delta, float* __restrict__ dq, int bh,
+    int seq_q, int seq_k, float scale) {
+  bwd_dq_body<D, CAUSAL, 1>(&q_map, &k_map, &v_map, &do_map, lse, delta, dq, bh, seq_q, seq_k, scale);
+}
+
+// B3 on f32 operands given as split_kernel's parts (the f32 backward).
+template <int D, bool CAUSAL>
+__global__ void __launch_bounds__(FWD_THREADS, 1) bwd_dq_kernel_sm90_f32(
+    const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap k_map,
+    const __grid_constant__ CUtensorMap v_map, const __grid_constant__ CUtensorMap do_map,
+    const float* __restrict__ lse, const float* __restrict__ delta, float* __restrict__ dq, int bh,
+    int seq_q, int seq_k, float scale) {
+  bwd_dq_body<D, CAUSAL, 2>(&q_map, &k_map, &v_map, &do_map, lse, delta, dq, bh, seq_q, seq_k, scale);
 }
 
 // ---------------------------------------------------------------- launchers
@@ -2292,15 +2436,15 @@ cudaError_t launch(dim3 grid, size_t smem, cudaStream_t stream, Args... args) {
   return cudaGetLastError();
 }
 
-// The f32 kernels' tiles by head dim: R rows a thread group (16 R rows a
-// block) and BC rows a streamed tile. Up to 256 the backward takes 64 rows
-// and 64-row tiles (32 past 128); at 512 the forward 16-key tiles and the
-// backward 32 rows and 16-row tiles, so each block fits in 227 KB. The
-// forward is built at 512 only (64-256 run fwd_kernel_sm90_f32).
+// The CUDA-core kernels' tiles, built at D = 512 only (64-256 run the
+// Hopper f32 kernels): R rows a thread group (16 R rows a block) and BC
+// rows a streamed tile; the forward 16-key tiles, the backward 32 rows and
+// 16-row tiles, so each block fits in 227 KB.
 template <int D>
 struct F32Cfg {
-  static constexpr int FWD_R = 4, FWD_BC = D == 512 ? 16 : 64;
-  static constexpr int BWD_R = D == 512 ? 2 : 4, BWD_BC = D == 512 ? 16 : D > 128 ? 32 : 64;
+  static_assert(D == 512, "the CUDA-core f32 kernels run at D = 512 only");
+  static constexpr int FWD_R = 4, FWD_BC = 16;
+  static constexpr int BWD_R = 2, BWD_BC = 16;
 };
 
 // A block per tile of `rows` rows (16 r a tile) of each of bh heads, in
@@ -2505,71 +2649,95 @@ cudaError_t fwd_sm90_f32(const void* q, const void* k, const void* v, void* o, f
                                                                           lse, bh, seq_q, seq_k, scale);
 }
 
-template <int D>
+// The Hopper backward kernels on operands in P parts: P = 1, bf16; P = 2,
+// split_kernel's parts, each operand a [2 bh, rows, D] bf16 tensor (the hi
+// part of head h at head h, its lo part at head h + bh; bh up to 2^30 - 1,
+// as the maps' head coordinate is an int).
+template <int D, int P>
 cudaError_t bwd_dkv_sm90(const void* q, const void* k, const void* v, const void* dout,
                          const float* lse, const float* delta, float* dk, float* dv, int bh,
                          int seq_q, int seq_k, float scale, bool causal, cudaStream_t stream) {
-  constexpr int ROWS = Items<D>::ROWS;
+  using Cfg = DkvCfg<D, P>;
+  constexpr int ROWS = Cfg::It::ROWS;
+  if (bh > 0x7FFFFFFF / P) return cudaErrorInvalidValue;
   CUtensorMap qm, km, vm, dom;
   dim3 grid;
   int units = 0;
-  cudaError_t err = encode_rows<D>(&qm, q, bh, seq_q, DkvCfg<D>::BQ);
-  if (err == cudaSuccess) err = encode_rows<D>(&dom, dout, bh, seq_q, DkvCfg<D>::BQ);
-  if (err == cudaSuccess) err = encode_rows<D>(&km, k, bh, seq_k, ROWS);
-  if (err == cudaSuccess) err = encode_rows<D>(&vm, v, bh, seq_k, ROWS);
+  cudaError_t err = encode_rows<D>(&qm, q, P * bh, seq_q, Cfg::BQ);
+  if (err == cudaSuccess) err = encode_rows<D>(&dom, dout, P * bh, seq_q, Cfg::BQ);
+  if (err == cudaSuccess) err = encode_rows<D>(&km, k, P * bh, seq_k, ROWS);
+  if (err == cudaSuccess) err = encode_rows<D>(&vm, v, P * bh, seq_k, ROWS);
   if (err == cudaSuccess) err = units_of<ROWS>(seq_k, bh, units);
   if (err == cudaSuccess) err = persistent_grid(units, grid);
   if (err != cudaSuccess) return err;
-  const size_t smem = DkvCfg<D>::BYTES;
-  return causal ? launch<bwd_dkv_kernel_sm90<D, true>, FWD_THREADS>(
-                      grid, smem, stream, qm, km, vm, dom, lse, delta, dk, dv, bh, seq_q, seq_k, scale)
-                : launch<bwd_dkv_kernel_sm90<D, false>, FWD_THREADS>(
-                      grid, smem, stream, qm, km, vm, dom, lse, delta, dk, dv, bh, seq_q, seq_k, scale);
+  const size_t smem = Cfg::BYTES;
+  if constexpr (P == 2)
+    return causal ? launch<bwd_dkv_kernel_sm90_f32<D, true>, FWD_THREADS>(
+                        grid, smem, stream, qm, km, vm, dom, lse, delta, dk, dv, bh, seq_q, seq_k, scale)
+                  : launch<bwd_dkv_kernel_sm90_f32<D, false>, FWD_THREADS>(
+                        grid, smem, stream, qm, km, vm, dom, lse, delta, dk, dv, bh, seq_q, seq_k, scale);
+  else
+    return causal ? launch<bwd_dkv_kernel_sm90<D, true>, FWD_THREADS>(
+                        grid, smem, stream, qm, km, vm, dom, lse, delta, dk, dv, bh, seq_q, seq_k, scale)
+                  : launch<bwd_dkv_kernel_sm90<D, false>, FWD_THREADS>(
+                        grid, smem, stream, qm, km, vm, dom, lse, delta, dk, dv, bh, seq_q, seq_k, scale);
 }
 
-template <int D>
+template <int D, int P>
 cudaError_t bwd_dq_sm90(const void* q, const void* k, const void* v, const void* dout,
                         const float* lse, const float* delta, float* dq, int bh, int seq_q,
                         int seq_k, float scale, bool causal, cudaStream_t stream) {
-  constexpr int ROWS = Items<D>::ROWS;
+  using Cfg = DqCfg<D, P>;
+  constexpr int ROWS = Cfg::It::ROWS;
+  if (bh > 0x7FFFFFFF / P) return cudaErrorInvalidValue;
   CUtensorMap qm, km, vm, dom;
   dim3 grid;
   int units = 0;
-  cudaError_t err = encode_rows<D>(&qm, q, bh, seq_q, ROWS);
-  if (err == cudaSuccess) err = encode_rows<D>(&dom, dout, bh, seq_q, ROWS);
-  if (err == cudaSuccess) err = encode_rows<D>(&km, k, bh, seq_k, DqCfg<D>::BN);
-  if (err == cudaSuccess) err = encode_rows<D>(&vm, v, bh, seq_k, DqCfg<D>::BN);
+  cudaError_t err = encode_rows<D>(&qm, q, P * bh, seq_q, ROWS);
+  if (err == cudaSuccess) err = encode_rows<D>(&dom, dout, P * bh, seq_q, ROWS);
+  if (err == cudaSuccess) err = encode_rows<D>(&km, k, P * bh, seq_k, Cfg::BN);
+  if (err == cudaSuccess) err = encode_rows<D>(&vm, v, P * bh, seq_k, Cfg::BN);
   if (err == cudaSuccess) err = units_of<ROWS>(seq_q, bh, units);
   if (err == cudaSuccess) err = persistent_grid(units, grid);
   if (err != cudaSuccess) return err;
-  const size_t smem = DqCfg<D>::BYTES;
-  return causal ? launch<bwd_dq_kernel_sm90<D, true>, FWD_THREADS>(
-                      grid, smem, stream, qm, km, vm, dom, lse, delta, dq, bh, seq_q, seq_k, scale)
-                : launch<bwd_dq_kernel_sm90<D, false>, FWD_THREADS>(
-                      grid, smem, stream, qm, km, vm, dom, lse, delta, dq, bh, seq_q, seq_k, scale);
+  const size_t smem = Cfg::BYTES;
+  if constexpr (P == 2)
+    return causal ? launch<bwd_dq_kernel_sm90_f32<D, true>, FWD_THREADS>(
+                        grid, smem, stream, qm, km, vm, dom, lse, delta, dq, bh, seq_q, seq_k, scale)
+                  : launch<bwd_dq_kernel_sm90_f32<D, false>, FWD_THREADS>(
+                        grid, smem, stream, qm, km, vm, dom, lse, delta, dq, bh, seq_q, seq_k, scale);
+  else
+    return causal ? launch<bwd_dq_kernel_sm90<D, true>, FWD_THREADS>(
+                        grid, smem, stream, qm, km, vm, dom, lse, delta, dq, bh, seq_q, seq_k, scale)
+                  : launch<bwd_dq_kernel_sm90<D, false>, FWD_THREADS>(
+                        grid, smem, stream, qm, km, vm, dom, lse, delta, dq, bh, seq_q, seq_k, scale);
 }
 
 }  // namespace
 
 // ------------------------------------------------------------ C interface
-// dtype: 0 = float32, 1 = bfloat16, 2 = float32 as rt_split's parts (the
-// forward's only). head_dim: 64, 96, 128, 256 or 512 (the wrappers pad any
-// other width up to 512 to the next of them). Each function returns the
-// cudaError_t of its launch (0 on success); the kernel runs on `stream` and
-// nothing here synchronises or allocates. In the backward, f32 goes to
-// F32_FN, the CUDA-core kernels, and bf16 to BF16_FN, the tensor-core ones.
-// The forward takes f32 at 64-256 as parts only (dtype 2:
-// fwd_kernel_sm90_f32) and at 512 as f32 (dtype 0: the CUDA-core kernel).
+// dtype: 0 = float32, 1 = bfloat16, 2 = float32 as rt_split4's parts.
+// head_dim: 64, 96, 128, 256 or 512 (the wrappers pad any other width up
+// to 512 to the next of them). Each function returns the cudaError_t of its
+// launch (0 on success); the kernel runs on `stream` and nothing here
+// synchronises or allocates. bf16 runs the Hopper kernels at every width;
+// f32 runs them at 64-256 as parts only (dtype 2: fwd_kernel_sm90_f32,
+// bwd_dq_kernel_sm90_f32, bwd_dkv_kernel_sm90_f32) and at 512 as f32 (dtype
+// 0: the CUDA-core kernels).
 
-#define RT_WIDTH(W, F32_FN, BF16_FN, ...) \
-  if (head_dim == W) return dtype == 0 ? F32_FN<float, W>(__VA_ARGS__) : BF16_FN<W>(__VA_ARGS__);
-#define RT_DISPATCH(F32_FN, BF16_FN, ...)                                 \
-  if (dtype != 0 && dtype != 1) return static_cast<int>(cudaErrorInvalidValue); \
-  RT_WIDTH(64, F32_FN, BF16_FN, __VA_ARGS__)                              \
-  RT_WIDTH(96, F32_FN, BF16_FN, __VA_ARGS__)                              \
-  RT_WIDTH(128, F32_FN, BF16_FN, __VA_ARGS__)                             \
-  RT_WIDTH(256, F32_FN, BF16_FN, __VA_ARGS__)                             \
-  RT_WIDTH(512, F32_FN, BF16_FN, __VA_ARGS__)                             \
+// In each function, FN(W) names the launcher of width W for the dtype: the
+// Hopper kernels for bf16 (P = 1) at every width and for parts (P = 2) at
+// 64-256, the CUDA-core ones for f32 at 512.
+#define RT_DISPATCH(CALL, HOPPER, CUDA_CORE)                                                      \
+  if (dtype == 1) {                                                                               \
+    CALL(64, (HOPPER<64, 1>)) CALL(96, (HOPPER<96, 1>)) CALL(128, (HOPPER<128, 1>))               \
+    CALL(256, (HOPPER<256, 1>)) CALL(512, (HOPPER<512, 1>))                                       \
+  } else if (dtype == 2) {                                                                        \
+    CALL(64, (HOPPER<64, 2>)) CALL(96, (HOPPER<96, 2>)) CALL(128, (HOPPER<128, 2>))               \
+    CALL(256, (HOPPER<256, 2>))                                                                   \
+  } else if (dtype == 0) {                                                                        \
+    CALL(512, (CUDA_CORE<float, 512>))                                                            \
+  }                                                                                               \
   return static_cast<int>(cudaErrorInvalidValue);
 
 extern "C" {
@@ -2599,40 +2767,59 @@ int rt_flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The f32 forward's first pass: q ([BH, T, D]), k and v ([BH, S, D]) f32 into
-// `parts`, 2 * (n_q + 2 n_kv) bf16 (split_kernel); n_q and n_kv count
-// elements, each a multiple of 4, and every pointer is 16-byte aligned.
-int rt_split(const void* q, const void* k, const void* v, void* parts, long long n_q, long long n_kv,
-             void* stream) {
-  if (n_q <= 0 || n_kv <= 0 || n_q % 4 || n_kv % 4) return static_cast<int>(cudaErrorInvalidValue);
-  const long long most = (n_q > n_kv ? n_q : n_kv) / 4;
-  const dim3 grid(static_cast<unsigned>(most / 256 + 1 < 4096 ? most / 256 + 1 : 4096), 3);
+// The f32 route's split pass: the f32 operands x0-x3 of n0-n3 elements
+// into `parts`, 2 (n0 + n1 + n2 + n3) bf16 (split_kernel). The first
+// operand with n = 0 ends the list (the forward splits q, k and v, the
+// backward do, or q, k, v and do); each n is a multiple of 4 and every
+// pointer is 16-byte aligned.
+int rt_split4(const void* x0, const void* x1, const void* x2, const void* x3, void* parts, long long n0,
+              long long n1, long long n2, long long n3, void* stream) {
+  const long long n[4] = {n0, n1, n2, n3};
+  unsigned count = 0;
+  long long most = 0;
+  while (count < 4 && n[count] > 0) {
+    if (n[count] % 4) return static_cast<int>(cudaErrorInvalidValue);
+    most = n[count] / 4 > most ? n[count] / 4 : most;
+    ++count;
+  }
+  for (unsigned i = count; i < 4; ++i)
+    if (n[i] != 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (count == 0) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(static_cast<unsigned>(most / 256 + 1 < 4096 ? most / 256 + 1 : 4096), count);
   split_kernel<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float4*>(q), static_cast<const float4*>(k), static_cast<const float4*>(v),
-      static_cast<uint2*>(parts), static_cast<size_t>(n_q / 4), static_cast<size_t>(n_kv / 4));
+      static_cast<const float4*>(x0), static_cast<const float4*>(x1), static_cast<const float4*>(x2),
+      static_cast<const float4*>(x3), static_cast<uint2*>(parts), static_cast<size_t>(n0 / 4),
+      static_cast<size_t>(n1 / 4), static_cast<size_t>(n2 / 4), static_cast<size_t>(n3 / 4));
   return static_cast<int>(cudaGetLastError());
 }
 
 int rt_flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
                     const void* lse, const void* delta, void* dq, int bh, int seq_q, int seq_k,
                     int head_dim, float scale, int causal, int dtype, void* stream) {
-  RT_DISPATCH(bwd_dq, bwd_dq_sm90, q, k, v, dout, static_cast<const float*>(lse),
-              static_cast<const float*>(delta), static_cast<float*>(dq), bh, seq_q, seq_k, scale,
-              causal != 0, static_cast<cudaStream_t>(stream))
+#define RT_DQ(W, FN)                                                                                 \
+  if (head_dim == W)                                                                                 \
+    return FN(q, k, v, dout, static_cast<const float*>(lse), static_cast<const float*>(delta),       \
+              static_cast<float*>(dq), bh, seq_q, seq_k, scale, causal != 0, static_cast<cudaStream_t>(stream));
+  RT_DISPATCH(RT_DQ, bwd_dq_sm90, bwd_dq)
+#undef RT_DQ
 }
 
 int rt_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
                      const void* lse, const void* delta, void* dk, void* dv, int bh, int seq_q,
                      int seq_k, int head_dim, float scale, int causal, int dtype, void* stream) {
-  RT_DISPATCH(bwd_dkv, bwd_dkv_sm90, q, k, v, dout, static_cast<const float*>(lse),
-              static_cast<const float*>(delta), static_cast<float*>(dk), static_cast<float*>(dv),
-              bh, seq_q, seq_k, scale, causal != 0, static_cast<cudaStream_t>(stream))
+#define RT_DKV(W, FN)                                                                                \
+  if (head_dim == W)                                                                                 \
+    return FN(q, k, v, dout, static_cast<const float*>(lse), static_cast<const float*>(delta),       \
+              static_cast<float*>(dk), static_cast<float*>(dv), bh, seq_q, seq_k, scale, causal != 0,  \
+              static_cast<cudaStream_t>(stream));
+  RT_DISPATCH(RT_DKV, bwd_dkv_sm90, bwd_dkv)
+#undef RT_DKV
 }
 
 const char* rt_error_string(int err) { return cudaGetErrorString(static_cast<cudaError_t>(err)); }
 
 #ifdef RT_TIMELINE
-// Copies the stamps into dst (host memory, [4][2][64][6] int64) and clears them.
+// Copies the stamps into dst (host memory, [6][2][64][6] int64) and clears them.
 int rt_timeline(void* dst) {
   void* at = nullptr;
   cudaError_t err = cudaMemcpyFromSymbol(dst, timeline, sizeof(timeline));

@@ -9,13 +9,14 @@ become the CUDA kernels of `csrc/flash_attention.cu`, bound with ctypes:
   flash_bwd_dkv              <- _attn_bwd_dkv_kernel  (B4)
 
 For bf16 inputs (the train step's) all four run on the tensor cores. f32
-inputs at head dims 64-256 run the forward on the tensor cores too: a split
-pass (`split_parts`, which replaces no TPU kernel) writes each f32 operand
-as two bf16 parts, hi = bf16(x) and lo = bf16(x - hi), and the forward sums
-three bf16 products for each f32 one (hi.hi + hi.lo + lo.hi), within
-chip_smoke.py's f32 limit of the f32 plain version. The f32 backward, and
-the f32 forward at 512, run on the f32 CUDA cores. Every sum is f32 and the
-plain versions below are what the kernels compute.
+inputs at head dims 64-256 (SPLIT_WIDTHS) run on the tensor cores too: a
+split pass (`split_parts`, which replaces no TPU kernel) writes each f32
+operand as two bf16 parts, hi = bf16(x) and lo = bf16(x - hi), and the
+kernels sum three bf16 products for each f32 one (hi.hi + hi.lo + lo.hi),
+within chip_smoke.py's f32 limit of the f32 plain version. The `*_parts`
+wrappers take those parts; the f32 wrappers split their operands and call
+them. f32 at 512 runs on the f32 CUDA cores. Every sum is f32 and the plain
+versions below are what the kernels compute.
 
 The kernels are built for head dims 64, 96, 128, 256 and 512 (`WIDTHS`);
 the TPU kernels take any. Any other head dim up to 512 runs at the next of
@@ -36,12 +37,14 @@ version (`_flash_*_ref`), which repeats the kernel's arithmetic densely and
 is what the CPU tests hold against the JAX package. `launches` counts the
 kernel launches of each wrapper, `launches_by_width` the same launches by
 the width the kernel ran at ("fwd@256"), and `f32_launches` the f32
-forward's tensor-core route: its split passes ("split") and its forward
-kernels ("fwd", "fwd_lse"), which `launches` counts too.
+tensor-core route: its split passes ("split") and its kernels ("fwd",
+"fwd_lse", "bwd_dq", "bwd_dkv"), which `launches` counts too.
 
 `_FlashAttention` is the autograd function around them, mirroring the
-reference's custom_vjp: the forward saves (q, k, v, o, lse); the backward
-forms delta = rowsum(do * o) in f32 and calls the dq and dk/dv kernels.
+reference's custom_vjp: the forward saves (q, k, v, o, lse), or on the f32
+route the parts of q, k and v in their place (the same bytes, split once a
+forward and backward); the backward forms delta = rowsum(do * o) in f32
+and calls the dq and dk/dv kernels.
 """
 
 from __future__ import annotations
@@ -56,12 +59,12 @@ _BIG_NEG = -1e30
 
 launches: Dict[str, int] = {"fwd": 0, "fwd_lse": 0, "bwd_dq": 0, "bwd_dkv": 0}
 launches_by_width: Dict[str, int] = {}
-f32_launches: Dict[str, int] = {"split": 0, "fwd": 0, "fwd_lse": 0}
+f32_launches: Dict[str, int] = {"split": 0, "fwd": 0, "fwd_lse": 0, "bwd_dq": 0, "bwd_dkv": 0}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_PARTS = 2  # rt_flash_fwd's dtype code for f32 operands given as split_parts' parts
+_PARTS = 2  # the kernels' dtype code for f32 operands given as split_parts' parts
 WIDTHS = (64, 96, 128, 256, 512)  # the head dims the kernels are built for
-SPLIT_WIDTHS = (64, 96, 128, 256)  # where f32 runs the forward on the tensor cores
+SPLIT_WIDTHS = (64, 96, 128, 256)  # where f32 runs on the tensor cores, as parts
 _lib: Optional[ctypes.CDLL] = None
 
 
@@ -85,9 +88,13 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.rt_flash_fwd.argtypes = [P, P, P, P, P, I, I, I, I, F, I, I, P]
     lib.rt_flash_bwd_dq.argtypes = [P, P, P, P, P, P, P, I, I, I, I, F, I, I, P]
     lib.rt_flash_bwd_dkv.argtypes = [P, P, P, P, P, P, P, P, I, I, I, I, F, I, I, P]
+    L = ctypes.c_longlong
     fns = [lib.rt_flash_fwd, lib.rt_flash_bwd_dq, lib.rt_flash_bwd_dkv]
-    if hasattr(lib, "rt_split"):  # builds before the f32 forward's split have none
-        lib.rt_split.argtypes = [P, P, P, P, ctypes.c_longlong, ctypes.c_longlong, P]
+    if hasattr(lib, "rt_split4"):
+        lib.rt_split4.argtypes = [P, P, P, P, P, L, L, L, L, P]
+        fns.append(lib.rt_split4)
+    if hasattr(lib, "rt_split"):  # older builds' forward-only split (kernel_ab times them)
+        lib.rt_split.argtypes = [P, P, P, P, L, L, P]
         fns.append(lib.rt_split)
     for fn in fns:
         fn.restype = ctypes.c_int
@@ -249,30 +256,78 @@ def _torch_attention_bhtd(q, k, v, *, causal: bool, scale: float):
 
 # ------------------------------------------------------------------ wrappers
 
-def split_parts(q, k, v):
-    """The split pass of the f32 forward: f32 q [BH, T, D] and k, v [BH, S,
-    D] as their bf16 parts, each [2, BH, rows, D] (hi, then lo), views of
-    one buffer. One launch of the split kernel for CUDA tensors (D a multiple
-    of 4), its plain version (`_split_ref`) for CPU ones."""
-    if q.device.type == "cpu":
-        return tuple(_split_ref(x) for x in (q, k, v))
-    _check_inputs(q, k, v)
-    if q.dtype != torch.float32 or q.shape[-1] % 4:
-        raise ValueError(f"the split pass takes f32 with head_dim a multiple of 4, got {q.dtype}, {q.shape}")
-    parts = torch.empty(2 * (q.numel() + 2 * k.numel()), dtype=torch.bfloat16, device=q.device)
-    with torch.cuda.device(q.device):
-        err = _kernels().rt_split(q.data_ptr(), k.data_ptr(), v.data_ptr(), parts.data_ptr(),
-                                  q.numel(), k.numel(), _stream(q.device))
+def parts_route(q) -> bool:
+    """Whether the kernels take `q`'s attention as split_parts' parts: f32 on
+    the card at SPLIT_WIDTHS."""
+    return q.device.type == "cuda" and q.dtype == torch.float32 and q.shape[-1] in SPLIT_WIDTHS
+
+
+def split_parts(*xs):
+    """The f32 route's split pass: one to four f32 tensors (q, k, v; do; or
+    q, k, v, do) as their bf16 parts, each [2, *x.shape] (hi, then lo), views
+    of one buffer. One launch of the split kernel for CUDA tensors (contiguous,
+    16-byte aligned, the last dim a multiple of 4), its plain version
+    (`_split_ref`) for CPU ones."""
+    if xs[0].device.type == "cpu":
+        return tuple(_split_ref(x) for x in xs)
+    if not 1 <= len(xs) <= 4:
+        raise ValueError(f"the split pass takes one to four tensors, got {len(xs)}")
+    for x in xs:
+        if (x.device != xs[0].device or x.dtype != torch.float32 or not x.is_contiguous()
+                or x.data_ptr() % 16 or x.shape[-1] % 4 or x.numel() == 0):
+            raise ValueError("the split pass takes contiguous, 16-byte aligned f32 CUDA tensors on one "
+                             f"device, the last dim a multiple of 4; got {x.dtype} {tuple(x.shape)} on {x.device}")
+    parts = torch.empty(2 * sum(x.numel() for x in xs), dtype=torch.bfloat16, device=xs[0].device)
+    pad = 4 - len(xs)
+    with torch.cuda.device(parts.device):
+        err = _kernels().rt_split4(*(x.data_ptr() for x in xs), *(None,) * pad, parts.data_ptr(),
+                                   *(x.numel() for x in xs), *(0,) * pad, _stream(parts.device))
     _check_err(err, "split_parts")
     f32_launches["split"] += 1
-    pq, pk, pv = parts.split([2 * q.numel(), 2 * k.numel(), 2 * v.numel()])
-    return pq.view(2, *q.shape), pk.view(2, *k.shape), pv.view(2, *v.shape)
+    return tuple(p.view(2, *x.shape) for p, x in zip(parts.split([2 * x.numel() for x in xs]), xs))
+
+
+def _check_parts(parts, n: int) -> tuple:
+    """Raise unless `parts` are n of split_parts' outputs the kernels take:
+    contiguous bf16 [2, BH, rows, D] CUDA tensors of one device, D in
+    SPLIT_WIDTHS, q's (and do's) [BH, T, D] and k's, v's [BH, S, D] by the
+    shape rules. Returns the parts."""
+    if len(parts) != n:
+        raise ValueError(f"want the parts of {n} operands, got {len(parts)}")
+    for p in parts:
+        if (p.device.type != "cuda" or p.device != parts[0].device or p.dtype != torch.bfloat16
+                or not p.is_contiguous() or p.data_ptr() % 16 or p.dim() != 4 or p.shape[0] != 2):
+            raise ValueError("the kernels take split_parts' parts: contiguous, 16-byte aligned bf16 "
+                             f"[2, BH, rows, D] CUDA tensors on one device; got {p.dtype} "
+                             f"{tuple(p.shape)} on {p.device}")
+    pq, pk, pv = parts[:3]
+    check_shapes(pq.shape[1:], pk.shape[1:], pv.shape[1:])
+    if n == 4 and parts[3].shape != pq.shape:
+        raise ValueError(f"do's parts {tuple(parts[3].shape)} and q's {tuple(pq.shape)} disagree")
+    if pq.shape[-1] not in SPLIT_WIDTHS:
+        raise ValueError(f"the f32 kernels take parts at head dims {SPLIT_WIDTHS}, got {pq.shape[-1]}")
+    return parts
+
+
+def _launch_fwd(q, k, v, o, lse, causal: bool, scale: float, dtype: int) -> None:
+    """B1 (B2 with lse) into o [BH, T, D] (and lse [BH, T])."""
+    if not scale > 0:  # the kernel takes the row max before it scales
+        raise ValueError(f"flash_fwd needs scale > 0, got {scale}")
+    BH, T, D = o.shape
+    with torch.cuda.device(o.device):
+        err = _kernels().rt_flash_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            None if lse is None else lse.data_ptr(), BH, T, k.shape[-2], D, scale,
+            int(causal), dtype, _stream(o.device),
+        )
+    _check_err(err, "flash_fwd")
+    _count("fwd" if lse is None else "fwd_lse", D)
 
 
 def flash_fwd(q, k, v, *, causal: bool, scale: float, with_lse: bool = False):
     """Attention forward on [BH, T, D]: o, or (o, lse [BH, T] f32) with_lse.
-    f32 CUDA tensors at SPLIT_WIDTHS go through split_parts, then the f32
-    Hopper kernel."""
+    f32 CUDA tensors at SPLIT_WIDTHS go through split_parts, then
+    flash_fwd_parts."""
     if q.device.type != "cpu":
         _check_inputs(q, k, v)
     D = q.shape[-1]
@@ -282,29 +337,55 @@ def flash_fwd(q, k, v, *, causal: bool, scale: float, with_lse: bool = False):
         return (_cut(out[0], D), out[1]) if with_lse else _cut(out, D)
     if q.device.type == "cpu":
         return _flash_fwd_ref(q, k, v, causal, scale, with_lse)
-    if not scale > 0:  # the kernel takes the row max before it scales
-        raise ValueError(f"flash_fwd needs scale > 0, got {scale}")
+    if parts_route(q):
+        return flash_fwd_parts(split_parts(q, k, v), causal=causal, scale=scale, with_lse=with_lse)
     BH, T, D = q.shape
     o = torch.empty_like(q)
     lse = torch.empty((BH, T), dtype=torch.float32, device=q.device) if with_lse else None
-    split = q.dtype == torch.float32 and D in SPLIT_WIDTHS
-    operands, dtype = (split_parts(q, k, v), _PARTS) if split else ((q, k, v), _DTYPES[q.dtype])
-    with torch.cuda.device(q.device):
-        err = _kernels().rt_flash_fwd(
-            *(x.data_ptr() for x in operands), o.data_ptr(),
-            lse.data_ptr() if with_lse else None, BH, T, k.shape[1], D, scale,
-            int(causal), dtype, _stream(q.device),
-        )
-    _check_err(err, "flash_fwd")
-    key = "fwd_lse" if with_lse else "fwd"
-    _count(key, D)
-    if split:
-        f32_launches[key] += 1
+    _launch_fwd(q, k, v, o, lse, causal, scale, _DTYPES[q.dtype])
     return (o, lse) if with_lse else o
 
 
+def flash_fwd_parts(parts, *, causal: bool, scale: float, with_lse: bool = False):
+    """flash_fwd on f32 q, k, v given as split_parts(q, k, v): o [BH, T, D]
+    f32, or (o, lse) with_lse, from the f32 Hopper kernel."""
+    pq, pk, pv = _check_parts(parts, 3)
+    BH, T, D = pq.shape[1:]
+    o = torch.empty((BH, T, D), dtype=torch.float32, device=pq.device)
+    lse = torch.empty((BH, T), dtype=torch.float32, device=pq.device) if with_lse else None
+    _launch_fwd(pq, pk, pv, o, lse, causal, scale, _PARTS)
+    f32_launches["fwd_lse" if with_lse else "fwd"] += 1
+    return (o, lse) if with_lse else o
+
+
+def _launch_bwd_dq(q, k, v, do, lse, delta, dq, causal: bool, scale: float, dtype: int) -> None:
+    BH, T, D = dq.shape
+    with torch.cuda.device(dq.device):
+        err = _kernels().rt_flash_bwd_dq(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), dq.data_ptr(), BH, T, k.shape[-2], D, scale, int(causal),
+            dtype, _stream(dq.device),
+        )
+    _check_err(err, "flash_bwd_dq")
+    _count("bwd_dq", D)
+
+
+def _launch_bwd_dkv(q, k, v, do, lse, delta, dk, dv, causal: bool, scale: float, dtype: int) -> None:
+    BH, S, D = dk.shape
+    with torch.cuda.device(dk.device):
+        err = _kernels().rt_flash_bwd_dkv(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), BH, q.shape[-2], S, D, scale,
+            int(causal), dtype, _stream(dk.device),
+        )
+    _check_err(err, "flash_bwd_dkv")
+    _count("bwd_dkv", D)
+
+
 def flash_bwd_dq(q, k, v, do, lse, delta, *, causal: bool, scale: float):
-    """dq [BH, T, D] f32 from the saved forward and delta = rowsum(do * o)."""
+    """dq [BH, T, D] f32 from the saved forward and delta = rowsum(do * o).
+    f32 CUDA tensors at SPLIT_WIDTHS go through split_parts (q, k, v and do
+    in one launch), then flash_bwd_dq_parts."""
     if q.device.type != "cpu":
         _check_inputs(q, k, v, do)
         _check_stats(q, lse, delta)
@@ -314,21 +395,27 @@ def flash_bwd_dq(q, k, v, do, lse, delta, *, causal: bool, scale: float):
         return _cut(flash_bwd_dq(*_pad(width, q, k, v, do), lse, delta, causal=causal, scale=scale), D)
     if q.device.type == "cpu":
         return _flash_bwd_dq_ref(q, k, v, do, lse, delta, causal, scale)
-    BH, T, D = q.shape
+    if parts_route(q):
+        return flash_bwd_dq_parts(split_parts(q, k, v, do), lse, delta, causal=causal, scale=scale)
     dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
-    with torch.cuda.device(q.device):
-        err = _kernels().rt_flash_bwd_dq(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-            delta.data_ptr(), dq.data_ptr(), BH, T, k.shape[1], D, scale, int(causal),
-            _DTYPES[q.dtype], _stream(q.device),
-        )
-    _check_err(err, "flash_bwd_dq")
-    _count("bwd_dq", D)
+    _launch_bwd_dq(q, k, v, do, lse, delta, dq, causal, scale, _DTYPES[q.dtype])
+    return dq
+
+
+def flash_bwd_dq_parts(parts, lse, delta, *, causal: bool, scale: float):
+    """flash_bwd_dq on f32 q, k, v and do given as their split_parts parts
+    (one tuple of four), from the f32 Hopper kernel."""
+    pq, pk, pv, pdo = _check_parts(parts, 4)
+    _check_stats(pq[0], lse, delta)
+    dq = torch.empty(pq.shape[1:], dtype=torch.float32, device=pq.device)
+    _launch_bwd_dq(pq, pk, pv, pdo, lse, delta, dq, causal, scale, _PARTS)
+    f32_launches["bwd_dq"] += 1
     return dq
 
 
 def flash_bwd_dkv(q, k, v, do, lse, delta, *, causal: bool, scale: float):
-    """(dk, dv), each [BH, S, D] f32."""
+    """(dk, dv), each [BH, S, D] f32. f32 CUDA tensors at SPLIT_WIDTHS go
+    through split_parts, then flash_bwd_dkv_parts."""
     if q.device.type != "cpu":
         _check_inputs(q, k, v, do)
         _check_stats(q, lse, delta)
@@ -339,43 +426,62 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, *, causal: bool, scale: float):
         return _cut(dk, D), _cut(dv, D)
     if q.device.type == "cpu":
         return _flash_bwd_dkv_ref(q, k, v, do, lse, delta, causal, scale)
-    BH, T, D = q.shape
+    if parts_route(q):
+        return flash_bwd_dkv_parts(split_parts(q, k, v, do), lse, delta, causal=causal, scale=scale)
     dk = torch.empty(k.shape, dtype=torch.float32, device=q.device)
     dv = torch.empty(v.shape, dtype=torch.float32, device=q.device)
-    with torch.cuda.device(q.device):
-        err = _kernels().rt_flash_bwd_dkv(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-            delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), BH, T, k.shape[1], D, scale,
-            int(causal), _DTYPES[q.dtype], _stream(q.device),
-        )
-    _check_err(err, "flash_bwd_dkv")
-    _count("bwd_dkv", D)
+    _launch_bwd_dkv(q, k, v, do, lse, delta, dk, dv, causal, scale, _DTYPES[q.dtype])
+    return dk, dv
+
+
+def flash_bwd_dkv_parts(parts, lse, delta, *, causal: bool, scale: float):
+    """flash_bwd_dkv on f32 q, k, v and do given as their split_parts parts,
+    from the f32 Hopper kernel."""
+    pq, pk, pv, pdo = _check_parts(parts, 4)
+    _check_stats(pq[0], lse, delta)
+    dk, dv = (torch.empty(pk.shape[1:], dtype=torch.float32, device=pk.device) for _ in range(2))
+    _launch_bwd_dkv(pq, pk, pv, pdo, lse, delta, dk, dv, causal, scale, _PARTS)
+    f32_launches["bwd_dkv"] += 1
     return dk, dv
 
 
 class _FlashAttention(torch.autograd.Function):
     """Flash attention on [BH, T, D] with the tiled recompute backward. A
     head dim off the kernels' widths is padded once: the padded q, k, v and
-    o are saved, and do is padded once in the backward."""
+    o are saved, and do is padded once in the backward. On the f32 route
+    (parts_route) the forward's parts of q, k and v are saved in their
+    place, so the backward splits do alone."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, scale: float):
         D = q.shape[-1]
         q, k, v = _pad(kernel_width(D, q.device), q, k, v)
-        o, lse = flash_fwd(q, k, v, causal=causal, scale=scale, with_lse=True)
-        ctx.save_for_backward(q, k, v, o, lse)
         ctx.causal, ctx.scale, ctx.head_dim = causal, scale, D
+        ctx.dtypes, ctx.parts = (q.dtype, k.dtype, v.dtype), parts_route(q)
+        if ctx.parts:
+            _check_inputs(q, k, v)
+            q, k, v = split_parts(q, k, v)
+            o, lse = flash_fwd_parts((q, k, v), causal=causal, scale=scale, with_lse=True)
+        else:
+            o, lse = flash_fwd(q, k, v, causal=causal, scale=scale, with_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
         return _cut(o, D)
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
-        (do,) = _pad(q.shape[-1], do.contiguous())
+        (do,) = _pad(o.shape[-1], do.contiguous())
         delta = (do.float() * o.float()).sum(-1)
-        dq = flash_bwd_dq(q, k, v, do, lse, delta, causal=ctx.causal, scale=ctx.scale)
-        dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, causal=ctx.causal, scale=ctx.scale)
+        kw = dict(causal=ctx.causal, scale=ctx.scale)
+        if ctx.parts:
+            parts = (q, k, v, *split_parts(do))
+            dq = flash_bwd_dq_parts(parts, lse, delta, **kw)
+            dk, dv = flash_bwd_dkv_parts(parts, lse, delta, **kw)
+        else:
+            dq = flash_bwd_dq(q, k, v, do, lse, delta, **kw)
+            dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, **kw)
         D = ctx.head_dim
-        return _cut(dq.to(q.dtype), D), _cut(dk.to(k.dtype), D), _cut(dv.to(v.dtype), D), None, None
+        return (*(_cut(g.to(t), D) for g, t in zip((dq, dk, dv), ctx.dtypes)), None, None)
 
 
 def _to_bhtd(x, rep: int, width: Optional[int] = None):

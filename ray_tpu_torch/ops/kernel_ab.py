@@ -18,18 +18,20 @@ alike. bf16 (or `--dtype float32`), causal, on [B*H, T, D] inputs from a seed, a
 `--head-dim` (SHAPES: 64, the default, GPT-2 small's; 32, 96 and 256 the
 JAX package's example's, Phi-3-mini's and Gemma-2B's attention widths; 512
 chip_smoke.py's 18a's; any other D at [96, 1024, D]), scale 1/sqrt(D). At
-f32, a build that has no split pass (rt_split) runs its f32 forward on its
-CUDA-core kernel at every width, as it did. Prints one JSON
-line: the card, each build's worst error-to-limit ratio, the host's us to
-queue a call of each kernel at the first shape, and its ms per shape and
-kernel (the mean of its two turns, each a mean of `--reps` calls, and both
-turns).
+f32 and 64-256 the forward is timed with its split pass and the backward
+kernels on q, k, v and do split beforehand (the f32 kernels alone); a build
+without the backward's split pass (rt_split4) runs its f32 backward on its
+CUDA-core kernels at every width, and its forward through its own split
+pass (rt_split) or, without one, its CUDA-core kernel, as it did. Prints
+one JSON line: the card, each build's worst error-to-limit ratio, the
+host's us to queue a call of each kernel at the first shape, and its ms
+per shape and kernel (the mean of its two turns, each a mean of `--reps`
+calls, and both turns).
 
 `--timeline` builds this checkout's source with RT_TIMELINE, which stamps
 the SM's cycle counter in block 0's two consumer warpgroups at each step of
 every streamed tile after an item's first, runs B1, B3 and B4 once each at
-each shape (at f32 B1 only: the f32 backward kernels have no stamps), and
-prints the median cycles a tile spends in each step.
+each shape, and prints the median cycles a tile spends in each step.
 """
 
 from __future__ import annotations
@@ -80,7 +82,7 @@ BF16_RTOL, BF16_ATOL, F32_ATOL = 2.0 ** -7, 1e-4, 2e-4
 # The kernels' stamps (timeline in the source): [kernel][consumer][tile][event],
 # the steps between a tile's events, by kernel, and each dtype's stamped
 # kernels by their index in the stamps.
-TIMELINE_SHAPE = (4, 2, 64, 6)
+TIMELINE_SHAPE = (6, 2, 64, 6)
 _BWD_STEPS = ("issue S, dP and the previous products", "S and dP in", "P and dS",
               "previous products in", "split")
 TIMELINE_STEPS = {
@@ -88,7 +90,8 @@ TIMELINE_STEPS = {
     "bwd_dq": _BWD_STEPS,
     "bwd_dkv": _BWD_STEPS,
 }
-TIMELINE_KERNELS = {torch.bfloat16: {"fwd": 0, "bwd_dq": 1, "bwd_dkv": 2}, torch.float32: {"fwd": 3}}
+TIMELINE_KERNELS = {torch.bfloat16: {"fwd": 0, "bwd_dq": 1, "bwd_dkv": 2},
+                    torch.float32: {"fwd": 3, "bwd_dq": 4, "bwd_dkv": 5}}
 
 
 def _err_to_limit(o, lse, ref_o, ref_lse) -> float:
@@ -112,39 +115,77 @@ def _card() -> str:
 
 
 def _inputs(dev, dtype=None):
-    """{shape: (q, k, v, do, lse, delta)}: q, k, v and do (DTYPE) from a
-    seed, and the backward's lse and delta from the plain forward."""
+    """{shape: (q, k, v, do, lse, delta, parts)}: q, k, v and do (DTYPE) from
+    a seed, the backward's lse and delta from the plain forward, and, for
+    f32 at SPLIT_WIDTHS, the four's bf16 parts (the split pass's plain
+    version, bitwise the kernel's), else None."""
     gen = torch.Generator(device=dev).manual_seed(0)
     out = {}
     for shape in SHAPES:
         q, k, v, do = (torch.randn(shape, device=dev, generator=gen).to(dtype or DTYPE) for _ in range(4))
         o, lse = fa._flash_fwd_ref(q, k, v, True, SCALE, True)
-        out[shape] = (q, k, v, do, lse, (do.float() * o.float()).sum(-1))
+        parts = tuple(fa._split_ref(x) for x in (q, k, v, do)) if fa.parts_route(q) else None
+        out[shape] = (q, k, v, do, lse, (do.float() * o.float()).sum(-1), parts)
     return out
+
+
+def _older_f32(q) -> bool:
+    """Whether the loaded build predates the f32 backward on parts (no
+    rt_split4) and q is f32: its own f32 routes are taken."""
+    return q.dtype == torch.float32 and not hasattr(fa._lib, "rt_split4")
 
 
 def _fwd(q, k, v, with_lse: bool = False):
     """B1 (B2 with_lse) through the loaded build: the wrapper's route, or, for
-    f32 on a build without the split pass, that build's f32 kernel, which
-    took f32 pointers at every width."""
-    if q.dtype != torch.float32 or hasattr(fa._lib, "rt_split"):
+    f32 on an older build, its own: its split pass (rt_split) and f32
+    Hopper forward, or without one its f32 kernel at every width."""
+    if not _older_f32(q):
         return fa.flash_fwd(q, k, v, causal=True, scale=SCALE, with_lse=with_lse)
     BH, T, D = q.shape
     o = torch.empty_like(q)
     lse = torch.empty((BH, T), dtype=torch.float32, device=q.device) if with_lse else None
-    err = fa._lib.rt_flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                               lse.data_ptr() if with_lse else None, BH, T, k.shape[1], D, SCALE, 1, 0,
+    operands, dtype = (q, k, v), 0
+    if hasattr(fa._lib, "rt_split") and D in fa.SPLIT_WIDTHS:
+        parts = torch.empty(2 * (q.numel() + 2 * k.numel()), dtype=torch.bfloat16, device=q.device)
+        fa._check_err(fa._lib.rt_split(q.data_ptr(), k.data_ptr(), v.data_ptr(), parts.data_ptr(),
+                                       q.numel(), k.numel(), fa._stream(q.device)), "rt_split")
+        operands, dtype = parts.split([2 * q.numel(), 2 * k.numel(), 2 * v.numel()]), fa._PARTS
+    err = fa._lib.rt_flash_fwd(*(x.data_ptr() for x in operands), o.data_ptr(),
+                               lse.data_ptr() if with_lse else None, BH, T, k.shape[1], D, SCALE, 1, dtype,
                                fa._stream(q.device))
-    fa._check_err(err, "flash_fwd (f32, no split pass)")
+    fa._check_err(err, "flash_fwd (f32, an older build)")
     return (o, lse) if with_lse else o
 
 
-# Each kernel's call on (q, k, v, do, lse, delta).
+def _bwd_dq(q, k, v, do, lse, delta, parts):
+    """B3 through the loaded build: the f32 kernel on `parts` where they are
+    given, an older build's f32 CUDA-core kernel, or the wrapper."""
+    if parts is not None and not _older_f32(q):
+        return fa.flash_bwd_dq_parts(parts, lse, delta, causal=True, scale=SCALE)
+    if not _older_f32(q):
+        return fa.flash_bwd_dq(q, k, v, do, lse, delta, causal=True, scale=SCALE)
+    dq = torch.empty_like(q)
+    fa._launch_bwd_dq(q, k, v, do, lse, delta, dq, True, SCALE, 0)
+    return dq
+
+
+def _bwd_dkv(q, k, v, do, lse, delta, parts):
+    """B4 through the loaded build, as _bwd_dq."""
+    if parts is not None and not _older_f32(q):
+        return fa.flash_bwd_dkv_parts(parts, lse, delta, causal=True, scale=SCALE)
+    if not _older_f32(q):
+        return fa.flash_bwd_dkv(q, k, v, do, lse, delta, causal=True, scale=SCALE)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    fa._launch_bwd_dkv(q, k, v, do, lse, delta, dk, dv, True, SCALE, 0)
+    return dk, dv
+
+
+# Each kernel's call on (q, k, v, do, lse, delta, parts).
 CALLS = {
-    "fwd": lambda q, k, v, do, lse, delta: _fwd(q, k, v),
-    "fwd_lse": lambda q, k, v, do, lse, delta: _fwd(q, k, v, with_lse=True),
-    "bwd_dq": lambda *a: fa.flash_bwd_dq(*a, causal=True, scale=SCALE),
-    "bwd_dkv": lambda *a: fa.flash_bwd_dkv(*a, causal=True, scale=SCALE),
+    "fwd": lambda q, k, v, *rest: _fwd(q, k, v),
+    "fwd_lse": lambda q, k, v, *rest: _fwd(q, k, v, with_lse=True),
+    "bwd_dq": _bwd_dq,
+    "bwd_dkv": _bwd_dkv,
 }
 
 
@@ -152,12 +193,13 @@ def err_to_limit(args) -> float:
     """The loaded build's worst error-to-limit ratio over the four kernels
     on `args`, against the plain versions."""
     q, k, v = args[:3]
+    plain = args[:6]
     ref_o, ref_lse = fa._flash_fwd_ref(q, k, v, True, SCALE, True)
     o, lse = CALLS["fwd_lse"](*args)
     ratio = max(_err_to_limit(o, lse, ref_o, ref_lse),
                 _err_to_limit(CALLS["fwd"](*args), lse, ref_o, ref_lse))
-    ratio = max(ratio, _f32_err_to_limit(CALLS["bwd_dq"](*args), fa._flash_bwd_dq_ref(*args, True, SCALE)))
-    for got, want in zip(CALLS["bwd_dkv"](*args), fa._flash_bwd_dkv_ref(*args, True, SCALE)):
+    ratio = max(ratio, _f32_err_to_limit(CALLS["bwd_dq"](*args), fa._flash_bwd_dq_ref(*plain, True, SCALE)))
+    for got, want in zip(CALLS["bwd_dkv"](*args), fa._flash_bwd_dkv_ref(*plain, True, SCALE)):
         ratio = max(ratio, _f32_err_to_limit(got, want))
     return ratio
 
@@ -200,7 +242,7 @@ def timeline_library() -> Path:
 
 def timeline(dev, dtype=torch.bfloat16) -> dict:
     """{kernel: {shape: {step: median cycles a tile spends in it}}} from the
-    stamps of B1, B3 and B4 (bf16) or of B1 (f32)."""
+    stamps of B1, B3 and B4 (bf16, or f32 on the tensor cores)."""
     import numpy as np
 
     lib = fa._bind(ctypes.CDLL(str(timeline_library())))

@@ -15,7 +15,8 @@ Two routes share the hop schedule:
   each hop is one flash forward with LSE (B2), causal on the diagonal, and
   the hops merge by their LSE; the backward runs B3 and B4 per hop with the
   GLOBAL LSE and delta = rowsum(dO * O) of the merged output, which is what
-  the kernels take, so they need no offset.
+  the kernels take, so they need no offset. In f32 each hop's q, k, v and
+  dO are split into their bf16 parts once, for both backward kernels.
 
 The backward is a custom autograd function: the dK/dV accumulators travel
 around the ring with K/V and reach their owner after S hops. The hop math
@@ -36,9 +37,13 @@ import torch
 from ray_tpu_torch.ops.flash_attention import (
     _to_bhtd,
     flash_bwd_dkv,
+    flash_bwd_dkv_parts,
     flash_bwd_dq,
+    flash_bwd_dq_parts,
     flash_fwd,
     kernel_width,
+    parts_route,
+    split_parts,
 )
 
 _BIG_NEG = -1e30
@@ -207,8 +212,14 @@ def _ring_bwd(ring, qs, ks, vs, dos, lses, deltas, causal: bool, scale: float, i
                 case = _hop_case(r, src, causal)
                 if case == "skip":
                     continue
-                dq = flash_bwd_dq(*args, causal=case == "diag", scale=scale)
-                dk, dv = flash_bwd_dkv(*args, causal=case == "diag", scale=scale)
+                kw = dict(causal=case == "diag", scale=scale)
+                if parts_route(qs[i]):  # f32: the hop's operands split once for both kernels
+                    parts = split_parts(*args[:4])
+                    dq = flash_bwd_dq_parts(parts, *args[4:], **kw)
+                    dk, dv = flash_bwd_dkv_parts(parts, *args[4:], **kw)
+                else:
+                    dq = flash_bwd_dq(*args, **kw)
+                    dk, dv = flash_bwd_dkv(*args, **kw)
             dqs[i] += dq
             dks[i] += dk
             dvs[i] += dv

@@ -257,6 +257,24 @@ _FLAT_MAPS = [
      "const cuuint64_t strides[2] = {cuuint64_t(D) * 2, cuuint64_t(rows) * heads * D * 2};"),
 ]
 
+# Both backward kernels' (bf16 and f32: one body, bwd_dq_body and
+# bwd_dkv_body) TMA loads of each operand's rows from flat maps: head h's
+# rows (the lo part's: head h + bh) as rows of one [heads * rows, D] tensor.
+_BWD_FLAT_LOADS = [
+    (f"load_rows<{rows}, D>({dst}, {m}, {bar}, head + part * bh, {row});",
+     f"load_rows<{rows}, D>({dst}, {m}, {bar}, 0, (head + part * bh) * {seq} + {row});")
+    for rows, dst, m, bar, seq, row in (
+        ("ROWS", "ks + part * ROWS * D", "k_map", "kv_full", "seq_k", "k0"),
+        ("ROWS", "vs + part * ROWS * D", "v_map", "kv_full", "seq_k", "k0"),
+        ("BQ", "qs + (st * P + part) * BQ * D", "q_map", "full", "seq_q", "qt * BQ"),
+        ("BQ", "dos + (st * P + part) * BQ * D", "do_map", "full", "seq_q", "qt * BQ"),
+        ("ROWS", "qs + part * ROWS * D", "q_map", "qdo_full", "seq_q", "q0"),
+        ("ROWS", "dos + part * ROWS * D", "do_map", "qdo_full", "seq_q", "q0"),
+        ("BN", "ks + (st * P + part) * BN * D", "k_map", "ring_full", "seq_k", "kt * BN"),
+        ("BN", "vs + (st * P + part) * BN * D", "v_map", "ring_full", "seq_k", "kt * BN"),
+    )
+]
+
 # Deliberately broken copies of the kernels' source, each built into the
 # test's own directory and bound in place of the real library, to show that
 # chip_smoke.py's limits fail a subtly wrong bf16 (Hopper) kernel: {name:
@@ -298,32 +316,15 @@ MUTANTS = {
         ("        split_p<true>(dp, ds_hi, ds_lo);\n        for (int kt = 1;",
          "        split_p<true>(dp, ds_hi, ds_lo);\n"
          "        for (auto& c : ds_lo) for (auto& r : c) r = 0;\n        for (int kt = 1;"),
-        ("          split_p<true>(dp, ds_hi, ds_lo);\n          STAMP(1",
+        ("          split_p<true>(dp, ds_hi, ds_lo);\n          STAMP(TL",
          "          split_p<true>(dp, ds_hi, ds_lo);\n"
-         "          for (auto& c : ds_lo) for (auto& r : c) r = 0;\n          STAMP(1")],
+         "          for (auto& c : ds_lo) for (auto& r : c) r = 0;\n          STAMP(TL")],
     # bwd_dq_kernel_sm90 drops the last, partial key tile.
     "dq_drops_partial_key_tile": _dq_tiles("kv_tiles<CAUSAL, BN, ROWS>(q0, seq_k / BN * BN)"),
     # bwd_dq_kernel_sm90 stops one tile short of the causal diagonal.
     "dq_drops_diagonal_tile": _dq_tiles("kv_tiles<CAUSAL, BN, ROWS>(q0 - BN, seq_k)"),
     # Both backward kernels read q, k, v and do through flat tensor maps.
-    "bwd_flat_tensor_maps": _FLAT_MAPS + [
-        ("load_rows<ROWS, D>(ks, &k_map, kv_full, head, k0);",
-         "load_rows<ROWS, D>(ks, &k_map, kv_full, 0, head * seq_k + k0);"),
-        ("load_rows<ROWS, D>(vs, &v_map, kv_full, head, k0);",
-         "load_rows<ROWS, D>(vs, &v_map, kv_full, 0, head * seq_k + k0);"),
-        ("load_rows<BQ, D>(qs + st * BQ * D, &q_map, full, head, qt * BQ);",
-         "load_rows<BQ, D>(qs + st * BQ * D, &q_map, full, 0, head * seq_q + qt * BQ);"),
-        ("load_rows<BQ, D>(dos + st * BQ * D, &do_map, full, head, qt * BQ);",
-         "load_rows<BQ, D>(dos + st * BQ * D, &do_map, full, 0, head * seq_q + qt * BQ);"),
-        ("load_rows<ROWS, D>(qs, &q_map, qdo_full, head, q0);",
-         "load_rows<ROWS, D>(qs, &q_map, qdo_full, 0, head * seq_q + q0);"),
-        ("load_rows<ROWS, D>(dos, &do_map, qdo_full, head, q0);",
-         "load_rows<ROWS, D>(dos, &do_map, qdo_full, 0, head * seq_q + q0);"),
-        ("load_rows<BN, D>(ks + st * BN * D, &k_map, ring_full, head, kt * BN);",
-         "load_rows<BN, D>(ks + st * BN * D, &k_map, ring_full, 0, head * seq_k + kt * BN);"),
-        ("load_rows<BN, D>(vs + st * BN * D, &v_map, ring_full, head, kt * BN);",
-         "load_rows<BN, D>(vs + st * BN * D, &v_map, ring_full, 0, head * seq_k + kt * BN);"),
-    ],
+    "bwd_flat_tensor_maps": _FLAT_MAPS + _BWD_FLAT_LOADS,
 }
 
 
@@ -367,12 +368,40 @@ F32_MUTANTS = {
 }
 
 
+# Broken copies of the f32 backward (bwd_dq_kernel_sm90_f32,
+# bwd_dkv_kernel_sm90_f32): each must miss chip_smoke.py's F32_ATOL on f32
+# inputs in the kernel its name's second word says (dq, dkv or bwd: both).
+F32_BWD_MUTANTS = {
+    # dQ += dS.K without dS_hi.K_lo: K rounded once to bf16.
+    "f32_dq_drops_ds_k_cross_product": [
+        ("        issue_pv_split<OUT>(dqa, ds_hi, ds_lo, k_addr(st) + k_at, Cfg::KV_PART);\n",
+         "      {\n        issue_pv_part<OUT>(dqa, ds_hi, k_addr(st) + k_at);\n"
+         "        issue_pv_part<OUT>(dqa, ds_lo, k_addr(st) + k_at);\n      }\n")],
+    # dV += P^T.dO without P^T_lo.dO_hi: P rounded once to bf16.
+    "f32_dkv_rounds_p_once": [
+        ("        issue_pv_split<DA>(dva, p_hi, p_lo, do_addr(st) + at, Cfg::QT_PART);\n",
+         "        issue_pv_part<DA>(dva, p_hi, do_addr(st) + at);\n"
+         "        issue_pv_part<DA>(dva, p_hi, do_addr(st) + at + Cfg::QT_PART);\n")],
+    # S (bwd_dq) without Q_lo.K_hi^T and S^T (bwd_dkv) without K_lo.Q_hi^T.
+    "f32_bwd_drops_s_cross_product": [
+        ("        issue_s_split<D, ROWS>(s, q_addr, k_addr(st), Cfg::Q_PART, Cfg::KV_PART);\n",
+         "        issue_s<D, ROWS, true>(s, q_addr, k_addr(st));\n"
+         "        issue_s_add<D, ROWS>(s, q_addr, k_addr(st) + Cfg::KV_PART);\n"),
+        ("        issue_s_split<D, ROWS>(s, k_addr, q_addr(st), Cfg::KV_PART, Cfg::QT_PART);\n",
+         "        issue_s<D, ROWS, true>(s, k_addr, q_addr(st));\n"
+         "        issue_s_add<D, ROWS>(s, k_addr, q_addr(st) + Cfg::QT_PART);\n")],
+    # Flat [2 heads * rows, D] maps: rows past T or S come from the next head
+    # (or the next part) instead of TMA's zero fill.
+    "f32_bwd_flat_tensor_maps": _FLAT_MAPS + _BWD_FLAT_LOADS,
+}
+
+
 @pytest.fixture
 def mutant(dev, request, tmp_path, monkeypatch):
     if request.param is None:
         return None
     src = (_build.CSRC / "flash_attention.cu").read_text()
-    for line, broken in {**MUTANTS, **WIDE_MUTANTS, **F32_MUTANTS}[request.param]:
+    for line, broken in {**MUTANTS, **WIDE_MUTANTS, **F32_MUTANTS, **F32_BWD_MUTANTS}[request.param]:
         assert src.count(line) == 1
         src = src.replace(line, broken, 1)
     cu, so = tmp_path / "mutant.cu", tmp_path / "mutant.so"
@@ -456,6 +485,92 @@ def test_smoke_limits_catch_a_broken_f32_forward(dev, mutant):
     assert not worst <= 1.0, worst
 
 
+@pytest.mark.parametrize("mutant", list(F32_BWD_MUTANTS), indirect=True)
+def test_smoke_limits_catch_a_broken_f32_backward(dev, mutant):
+    """Each broken f32 backward misses chip_smoke.py's F32_ATOL (dq, or dk
+    or dv) in one of the two causal modes at T = 1000 (a partial last
+    tile), at head dim 64 and at 256 (its 64-row items and 16-row tiles).
+    For the flat-map mutant the inputs are the first 4 heads of 5, the
+    first rows of every later head inf in q, k, v and do (their lo parts
+    NaN), and only head 0 is compared, as in
+    test_smoke_limits_catch_a_broken_kernel."""
+    cs = importlib.import_module("chip_smoke")
+    g = torch.Generator(device=dev).manual_seed(0)
+    worst = {}
+    for D in (64, 256):
+        q, k, v, do = (torch.randn(4, 1000, D, device=dev, generator=g) for _ in range(4))
+        heads = slice(None)
+        if mutant == "f32_bwd_flat_tensor_maps":
+            def next_heads_inf(x):
+                x5 = torch.cat([x, torch.randn(1, 1000, D, device=dev, generator=g)])
+                x5[1:, :24] = float("inf")
+                return x5[:4]
+
+            q, k, v, do = (next_heads_inf(x) for x in (q, k, v, do))
+            heads = slice(0, 1)
+        for causal in (False, True):
+            scale = D ** -0.5
+            ref_o, ref_lse = fa._flash_fwd_ref(q[heads], k[heads], v[heads], causal, scale, True)
+            lse = torch.zeros(q.shape[:2], device=dev)
+            delta = torch.zeros(q.shape[:2], device=dev)
+            lse[heads], delta[heads] = ref_lse, (do[heads] * ref_o).sum(-1)
+            args = (q, k, v, do, lse, delta)
+            plain = [x[heads] for x in args]
+            _, ratios = cs.compare({
+                "bwd_dq": [(fa.flash_bwd_dq(*args, causal=causal, scale=scale)[heads],
+                            fa._flash_bwd_dq_ref(*plain, causal, scale))],
+                "bwd_dkv": [(got[heads], want) for got, want in
+                            zip(fa.flash_bwd_dkv(*args, causal=causal, scale=scale),
+                                fa._flash_bwd_dkv_ref(*plain, causal, scale))],
+            })
+            for key, r in ratios.items():
+                if not r <= worst.get(key, 0.0):  # NaN counts as worst
+                    worst[key] = r
+    broken = {"dq": ["bwd_dq"], "dkv": ["bwd_dkv"], "bwd": ["bwd_dq", "bwd_dkv"]}[mutant.split("_")[1]]
+    assert not any(worst[key] <= 1.0 for key in broken), worst
+
+
+def test_f32_backward_route_by_width(dev):
+    """f32 B3 and B4 through their wrappers at 64-256 go through one split
+    pass each (q, k, v and do) and the f32 Hopper kernels, at 512 through
+    the CUDA-core kernels, by the profiler's kernel names and
+    f32_launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cs = importlib.import_module("chip_smoke")
+    for D in fa.WIDTHS:
+        q, k, v, do = (torch.randn(2, 300, D, device=dev) for _ in range(4))
+        o, lse = fa._flash_fwd_ref(q, k, v, True, D ** -0.5, True)
+        args = (q, k, v, do, lse, (do * o).sum(-1))
+        fa.reset_launches()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fa.flash_bwd_dq(*args, causal=True, scale=D ** -0.5)
+            fa.flash_bwd_dkv(*args, causal=True, scale=D ** -0.5)
+            torch.cuda.synchronize()
+        names = cs.flash_kernel_names(prof)
+        hopper = D in fa.SPLIT_WIDTHS
+        want = ([f"bwd_dkv_kernel_sm90_f32<{D}, true>", f"bwd_dq_kernel_sm90_f32<{D}, true>", "split_kernel"]
+                if hopper else [f"bwd_dkv_kernel<float, {D}, 2, 16, true>", f"bwd_dq_kernel<float, {D}, 2, 16, true>"])
+        assert names == sorted(want), (D, names)
+        assert fa.f32_launches == {"split": 2 * hopper, "fwd": 0, "fwd_lse": 0, "bwd_dq": hopper,
+                                   "bwd_dkv": hopper}, (D, fa.f32_launches)
+        assert fa.launches["bwd_dq"] == fa.launches["bwd_dkv"] == 1
+
+
+def test_f32_backward_repeats_bitwise(dev):
+    """Two f32 backward calls of the autograd function on the same inputs
+    give the same gradients bit for bit (no atomics: each output row is
+    written by one block, its sums in one order), at 64 and 256."""
+    g = torch.Generator(device=dev).manual_seed(4)
+    for D in (64, 256):
+        q, k, v, do = (torch.randn(8, 1000, D, device=dev, generator=g) for _ in range(4))
+        runs = []
+        for _ in range(2):
+            leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+            runs.append(torch.autograd.grad(fa._FlashAttention.apply(*leaves, True, D ** -0.5), leaves, do))
+        assert all(torch.equal(a, b) for a, b in zip(*runs)), D
+
+
 def test_split_pass_is_its_plain_version_bitwise(dev):
     """The split kernel against _split_ref, bitwise, on seeded normals, large
     and tiny normals and subnormals on bf16's grid, both signs; q, k and v
@@ -467,11 +582,15 @@ def test_split_pass_is_its_plain_version_bitwise(dev):
     x[:128] = torch.randint(1, 128, (128,), device=dev, generator=g).float() * 2.0 ** -133
     q = x.view(2, 32, 64)
     k, v = (torch.randn(2, 48, 64, device=dev, generator=g) for _ in range(2))
+    do = torch.randn(2, 32, 64, device=dev, generator=g)
     fa.reset_launches()
     parts = fa.split_parts(q, k, v)
     assert fa.f32_launches["split"] == 1
     for part, t in zip(parts, (q, k, v)):
         assert torch.equal(part, fa._split_ref(t))
+    for xs in ((do,), (q, k, v, do)):  # the backward's splits
+        for part, t in zip(fa.split_parts(*xs), xs):
+            assert torch.equal(part, fa._split_ref(t))
 
 
 def test_f32_forward_route_by_width(dev):

@@ -220,16 +220,22 @@ def test_next_smaller_product_set_misses_the_smoke_limit(name):
 
 
 def test_build_check_counts_the_f32_hopper_kernels():
-    """chip_smoke.py's build check reads fwd_kernel_sm90_f32's mangled name
-    and counts its 16 instantiations among the Hopper kernels: a build that
-    lacks one, or where one spills, fails it."""
+    """chip_smoke.py's build check reads the f32 Hopper kernels' mangled
+    names (fwd_kernel_sm90_f32, bwd_dq_kernel_sm90_f32,
+    bwd_dkv_kernel_sm90_f32) and counts their 32 instantiations among the
+    Hopper kernels: a build that lacks one, or where one spills, fails it."""
     ns = "_ZN51_GLOBAL__N__c4b42d03_18_flash_attention_cu_e1dd8ece"
     f32 = ns + "19fwd_kernel_sm90_f32ILi256ELb1ELb0EEEv14CUtensorMap_stS1_S1_PfS2_iiif"
     assert cs.kernel_label(f32) == "fwd_kernel_sm90_f32<256,true,false>"
-    assert cs.N_SM90_KERNELS == 5 * (4 + 2 + 2) + 4 * 4
+    dq = ns + "22bwd_dq_kernel_sm90_f32ILi96ELb0EEEv14CUtensorMap_stS1_S1_S1_PKfS3_Pfiiif"
+    assert cs.kernel_label(dq) == "bwd_dq_kernel_sm90_f32<96,false>"
+    dkv = ns + "23bwd_dkv_kernel_sm90_f32ILi128ELb1EEEv14CUtensorMap_stS1_S1_S1_PKfS3_PfS4_iiif"
+    assert cs.kernel_label(dkv) == "bwd_dkv_kernel_sm90_f32<128,true>"
+    assert cs.N_SM90_KERNELS == 5 * (4 + 2 + 2) + 4 * (4 + 2 + 2)
     good = {"hgmma": 8, "spill_stores": 0, "spill_loads": 0}
     bf16 = {f"fwd_kernel_sm90<{i}>": dict(good) for i in range(40)}
     f32s = {f"fwd_kernel_sm90_f32<{i}>": dict(good) for i in range(16)}
+    f32s.update({f"bwd_{k}_kernel_sm90_f32<{i}>": dict(good) for k in ("dq", "dkv") for i in range(8)})
     cs.check_sm90({**bf16, **f32s, "fwd_kernel<f32,512,true,true>": {"hgmma": 0}})
     with pytest.raises(cs.SmokeFailure):
         cs.check_sm90(bf16)
