@@ -12,7 +12,8 @@ its scale-out: the native extensions, an autoscaled GPU node and ray_perf,
 chaos: the port's lint gate, the chaos suite and a nemesis against GPU
 work, the kernels at the head dims of the JAX package's example,
 Phi-3-mini and Gemma-2B, and at every call the TPU kernels take past
-those: head dim 512 in a train step and 66,560 heads in one call.
+those: head dim 512 in a train step, 66,560 heads in one call, and the
+forward past 512 (head dim 1024) and at f32 512 on the streamed forward.
 
     python3 chip_smoke.py            # needs one CUDA card, nvcc, the checkout
 
@@ -24,6 +25,8 @@ Phases, each printing one JSON line:
               forward and both backward kernels, at each of the widths 64,
               96, 128, 256 and 512: 40; *_sm90_f32: the f32 forward and
               both f32 backward kernels at 64, 96, 128 and 256: 32) must
+              and *_sm90_stream: the streamed forward over P (bf16, f32
+              as parts), CAUSAL and WRITE_LSE, D a runtime value: 8) must
               have HGMMA, no spill and no wgmma that ptxas serialized;
   2. kernels  every kernel against its plain version, element by element
               (f32 with TF32 off and bf16; causal and not; head_dim 64 and
@@ -36,14 +39,20 @@ Phases, each printing one JSON line:
               BH = 65536 and 66,560 heads in one call, and B1-B4 at
               [65600, 256, 128] bf16 (BH*T*D past 2^31 elements) held on
               sampled heads, the last among them, against the plain
-              versions run on those heads alone), then at
+              versions run on those heads alone); B1 and B2 on the
+              streamed forward at head dims 576, 768, 1024 and 2048 (576
+              and 768 padded to 1024) at T in 1, 100, 1000 and T = 1000 on
+              S = 300 with the mask, B3 and B4 refusing those widths, and
+              its column slices agreeing bitwise at 1024; then at
               the slice's shape (batch 8), the bench's (batch 32) and phase
               17's ([128, 2048, 96], [32, 2048, 256], [64, 256, 32], the
               last padded: its pad and cut copies' ms), phase 18's
               ([16, 2048, 512], [66560, 64, 96]) and [16, 2048, 320]
               (padded to 512), and the f32 kernels at [96, 1024, 64],
-              [32, 2048, 256], [16, 2048, 512], [96, 1024, 128] (bf16
-              too) and [128, 2048, 96], with the f32 route's split passes
+              [32, 2048, 256], [16, 2048, 512] (B1 and B2 on the streamed
+              forward), [96, 1024, 128] (bf16 too) and [128, 2048, 96],
+              B1 and B2 at [8, 2048, 1024] and [4, 2048, 2048] in bf16
+              and f32, with the f32 route's split passes
               (bitwise their plain version; f32 bounds at PEAK_F32_SPLIT, the
               CUDA cores' share beside them; the f32 B3 and B4 timed on
               their parts, and with the backward's split of do beside
@@ -54,7 +63,9 @@ Phases, each printing one JSON line:
               useful TFLOP/s, the share of the bound reached (bound_ms /
               ms) and the host's us per call; which kernels an f32 B1-B4
               launch at each width, by the profiler's names (64-256: the
-              split pass and the *_sm90_f32 kernels); and where the forward
+              split pass and the *_sm90_f32 kernels; 512: the split pass,
+              the streamed forward and the CUDA-core backward); and where
+              the forward
               and the backward kernels (bf16 and f32) spend a
               streamed tile, in SM cycles, from a build with their cycle
               stamps (kernel_ab --timeline);
@@ -246,15 +257,24 @@ Phases, each printing one JSON line:
               at 17b's widths of SCORE_BATCH x SCORE_SEQ tokens, 66,560
               heads in one B1 call a layer: its f32 logits held by phase
               3's ratios against the plain attention's, its host ms,
-              device ms and launches;
+              device ms and launches; (c) the streamed forward on the
+              model's paths: the architecture at head dim 1024 (WIDE_1024:
+              d_model 2048, 2 heads) in a no-grad forward held by phase 3's
+              ratios (B1 at 1024 once a layer), and WIDE_512 built in f32,
+              its no-grad forward through the split pass and the streamed
+              forward within F32_LOGITS_ATOL of the plain f32 path and its
+              first step's gradients within F32_GRAD_REL (B2 there, B3 and
+              B4 on the CUDA-core kernels), each with host and device ms
+              and launches;
 then the kernels line, with each kernel's launches in phases 3, 4, 6, the
 bench's transformer phase and phases 9-18 (none in 11: RLlib's modules
 are MLPs; the reference and timing runs this script makes itself in 12,
 13, 14, 15, 16, 17 and 18 are not counted, nor 16's killed attempt), one
 entry a kernel and width launched (64; 96 and 256 in phase 17, 512 in
-18a), one for B1 at 66,560 heads (18b) and the f32 route at 64: B1 (phase
+18a), one for B1 at 66,560 heads (18b), the f32 route at 64: B1 (phase
 3's f32 forward), B2 (9b's f32 ring hops and phase 4's f32 step), B3 and
-B4 (both of those) and their split passes. Any failure exits non-zero.
+B4 (both of those) and their split passes, and 18c's: B1 at 1024, and at
+f32 512 B1, B2, B3, B4 and the split passes. Any failure exits non-zero.
 The last line is the ok line.
 """
 
@@ -526,6 +546,18 @@ HUGE_CASE, HUGE_HEADS = (65600, 256, 128), (0, 1, 32799, 65598, 65599)
 WIDE_512 = dict(vocab_size=32000, d_model=2048, n_heads=4, n_kv_heads=1, d_ff=5504,
                 tied_embeddings=True)
 SCORE_BATCH, SCORE_SEQ, SCORE_CHUNKS = 2080, 64, 8
+# Phase 2's cases past 512, B1 and B2 alone (the backward's width rule stops
+# at 512: B3 and B4 must raise there): off the streamed forward's slices of
+# 512 (576, 768: padded to 1024) and on them (1024, 2048), from a generator
+# of their own. 18c: (a) the JAX package's architecture at head dim 1024
+# (WIDE_1024: WIDE_512 with 2 heads on 2 kv heads; no published model has
+# this head dim: a width the TPU kernels take), WIDE_LAYERS layers at
+# WIDE_BATCH x WIDE_SEQ, a no-grad forward (B1 on the streamed forward, bf16);
+# (b) WIDE_512 built in f32: a no-grad forward through the split pass and
+# the streamed forward at P = 2, and the first step's gradients (B2 there,
+# B3 and B4 on the CUDA-core kernels), against the plain f32 path.
+STREAM_HEAD_DIMS = (576, 768, 1024, 2048)
+WIDE_1024 = dict(WIDE_512, n_heads=2, n_kv_heads=2)
 
 KERNELS = [  # name, launch-count key, TPU kernel it replaces
     ("flash_fwd", "fwd", "ray_tpu/ops/flash_attention.py:35"),
@@ -633,7 +665,7 @@ def card() -> dict:
 
 # ------------------------------------------------------------ build report
 
-_KERNEL_NAME = re.compile(r"((?:fwd|bwd_dq|bwd_dkv)_kernel(?:_tc|_sm90(?:_f32)?)?)"
+_KERNEL_NAME = re.compile(r"((?:fwd|bwd_dq|bwd_dkv)_kernel(?:_tc|_sm90(?:_f32|_stream)?)?)"
                           r"I((?:Li\d+E|Lb[01]E|f|13__nv_bfloat16)+)E")
 # The Hopper kernels in the build (wgmma: HGMMA in the SASS): the bf16
 # forward fwd_kernel_sm90 over D x CAUSAL x WRITE_LSE and the bf16 backward
@@ -641,9 +673,10 @@ _KERNEL_NAME = re.compile(r"((?:fwd|bwd_dq|bwd_dkv)_kernel(?:_tc|_sm90(?:_f32)?)
 # the kernels' five widths (64, 96, 128, 256, 512); and the f32 forward
 # fwd_kernel_sm90_f32 over D x CAUSAL x WRITE_LSE and the f32 backward
 # bwd_dq_kernel_sm90_f32 and bwd_dkv_kernel_sm90_f32 over D x CAUSAL, D in
-# 64, 96, 128, 256.
-N_SM90_KERNELS = 5 * (4 + 2 + 2) + 4 * (4 + 2 + 2)
-_SM90 = re.compile(r"_sm90(?:_f32)?<")
+# 64, 96, 128, 256; and the streamed forward fwd_kernel_sm90_stream over P
+# (1: bf16, 2: f32 as parts) x CAUSAL x WRITE_LSE, D a runtime value.
+N_SM90_KERNELS = 5 * (4 + 2 + 2) + 4 * (4 + 2 + 2) + 2 * 4
+_SM90 = re.compile(r"_sm90(?:_f32|_stream)?<")
 _TEMPLATE_ARG = re.compile(r"Li(\d+)E|Lb([01])E|(13__nv_bfloat16|f)")
 _SERIALIZED = re.compile(r"wgmma\.mma_async instructions are serialized due to (.*) "
                          r"(?:in|for) the function '([^']+)'")
@@ -726,14 +759,61 @@ def check_sm90(report: dict) -> None:
 
 # ----------------------------------------------------------------- phase 2
 
-def kernel_cases(fa, dev, gen, gen_more, gen_widths, gen_wider) -> None:
+def stream_cases(fa, dev, gen) -> int:
+    """B1 and B2 past 512 (STREAM_HEAD_DIMS; the streamed forward, bf16 and
+    f32) against their plain versions at T in 1, 100 and 1000, causal or
+    not, and T = 1000 on S = 300 with the mask, by phase 2's limits; B3 and
+    B4 raise there before any launch. Then the streamed forward's column
+    slices at 1024: with V's second 512 columns a copy of its first, o's two
+    halves are bitwise equal (every slice makes the same S, m and l), and a
+    second call repeats o and lse bitwise. Prints one line a case; returns
+    the number of cases."""
+    cases = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        shapes = [(D, T, T, causal) for D in STREAM_HEAD_DIMS for T in (1, 100, 1000) for causal in (True, False)]
+        shapes += [(D, 1000, 300, True) for D in STREAM_HEAD_DIMS]
+        for D, T, S, causal in shapes:
+            q, k, v, do = (torch.randn(4, n, D, device=dev, generator=gen).to(dtype) for n in (T, S, S, T))
+            scale = D ** -0.5
+            ref_o, ref_lse = fa._flash_fwd_ref(q, k, v, causal, scale, True)
+            o, lse = fa.flash_fwd(q, k, v, causal=causal, scale=scale, with_lse=True)
+            errs, ratios = compare({"fwd": [(fa.flash_fwd(q, k, v, causal=causal, scale=scale), ref_o)],
+                                    "fwd_lse": [(o, ref_o), (lse, ref_lse)]})
+            before = dict(fa.launches)
+            delta = (do.float() * ref_o.float()).sum(-1)
+            refused = []
+            for bwd in (fa.flash_bwd_dq, fa.flash_bwd_dkv):
+                try:
+                    bwd(q, k, v, do, ref_lse, delta, causal=causal, scale=scale)
+                except ValueError:
+                    refused.append(bwd.__name__)
+            case = dict(dtype=str(dtype).split(".")[-1], D=D, width=fa.kernel_width(D, dev, forward=True), T=T,
+                        S=S, causal=causal, max_abs_err=errs, err_to_limit=ratios, bwd_refused=refused)
+            emit({"phase": "kernels", "stream_case": case})
+            check_ratios(ratios, case)
+            check(len(refused) == 2 and fa.launches == before, f"B3 or B4 took head dim {D}: {case}")
+            cases += 1
+        q, k, v = (torch.randn(4, 1000, 1024, device=dev, generator=gen).to(dtype) for _ in range(3))
+        v[..., 512:] = v[..., :512]
+        o, lse = fa.flash_fwd(q, k, v, causal=True, scale=1024 ** -0.5, with_lse=True)
+        again = fa.flash_fwd(q, k, v, causal=True, scale=1024 ** -0.5, with_lse=True)
+        slices = {"dtype": str(dtype).split(".")[-1], "halves_equal": bool(torch.equal(o[..., 512:], o[..., :512])),
+                  "repeats": bool(torch.equal(again[0], o) and torch.equal(again[1], lse))}
+        emit({"phase": "kernels", "stream_slices": slices})
+        check(slices["halves_equal"] and slices["repeats"], f"the streamed forward's slices disagree: {slices}")
+        cases += 1
+    return cases
+
+
+def kernel_cases(fa, dev, gen, gen_more, gen_widths, gen_wider, gen_stream) -> None:
     """Every kernel against its plain version on the listed cases. Prints
     each case's max abs error and worst error-to-limit ratio (F32_ATOL,
     BF16_RTOL, BF16_ATOL) per kernel. The cases T in 1, 100 and S != T
     draw from gen_more, those at WIDE_HEAD_DIMS from gen_widths, those at
     WIDER_HEAD_DIMS from gen_wider, the others from gen in the order they
     always have, so the later phases' inputs do not move when a case is
-    added."""
+    added; the streamed forward's cases past 512 (stream_cases) from
+    gen_stream, after all of those."""
     worst = {key: {"max_abs_err": 0.0, "err_to_limit": 0.0} for _, key, _ in KERNELS}
     cases = 0
     for dtype in (torch.float32, torch.bfloat16):
@@ -779,6 +859,7 @@ def kernel_cases(fa, dev, gen, gen_more, gen_widths, gen_wider) -> None:
     for dtype in (torch.float32, torch.bfloat16):
         gqa_case(fa, dev, gen, dtype)
         cases += 1
+    cases += stream_cases(fa, dev, gen_stream)
     emit({"phase": "kernels", "cases": cases, "worst": worst,
           "limits": {"f32_atol": F32_ATOL, "bf16_rtol": BF16_RTOL, "bf16_atol": BF16_ATOL}})
 
@@ -931,24 +1012,28 @@ def kernel_timings(fa, dev, gen, cfg, batch: int = BATCH, seq: int = SEQ) -> dic
     ms. On the f32 route (fa.parts_route) B3 and B4 are timed on parts made
     beforehand, and the line gives the backward's work as the autograd
     function does it (do split, then B3 and B4 on the forward's parts)
-    beside SDPA's backward. Returns {key: row}."""
+    beside SDPA's backward. Past 512 B1 and B2 alone (the forward's width
+    rule; the backward's stops at 512). Returns {key: row}."""
     BH, T, D = batch * cfg.n_heads, seq, cfg.head_dim
     dt = cfg.dtype
+    width = fa.kernel_width(D, dev, forward=True)
+    keys = [key for _, key, _ in KERNELS if width <= fa.WIDTHS[-1] or key in ("fwd", "fwd_lse")]
+    backward = "bwd_dq" in keys
     q, k, v, do = (torch.randn(BH, T, D, device=dev, generator=gen).to(dt) for _ in range(4))
     scale = D ** -0.5
     o, lse = fa.flash_fwd(q, k, v, causal=True, scale=scale, with_lse=True)
     delta = (do.float() * o.float()).sum(-1)
 
     ref_o, ref_lse = fa._flash_fwd_ref(q, k, v, True, scale, True)
-    errs, ratios = compare({
-        "fwd": [(fa.flash_fwd(q, k, v, causal=True, scale=scale), ref_o)],
-        "fwd_lse": [(o, ref_o), (lse, ref_lse)],
-        "bwd_dq": [(fa.flash_bwd_dq(q, k, v, do, lse, delta, causal=True, scale=scale),
-                    fa._flash_bwd_dq_ref(q, k, v, do, lse, delta, True, scale))],
-        "bwd_dkv": list(zip(fa.flash_bwd_dkv(q, k, v, do, lse, delta, causal=True, scale=scale),
-                            fa._flash_bwd_dkv_ref(q, k, v, do, lse, delta, True, scale))),
-    })
-    del ref_o, ref_lse
+    pairs = {"fwd": [(fa.flash_fwd(q, k, v, causal=True, scale=scale), ref_o)],
+             "fwd_lse": [(o, ref_o), (lse, ref_lse)]}
+    if backward:
+        pairs["bwd_dq"] = [(fa.flash_bwd_dq(q, k, v, do, lse, delta, causal=True, scale=scale),
+                            fa._flash_bwd_dq_ref(q, k, v, do, lse, delta, True, scale))]
+        pairs["bwd_dkv"] = list(zip(fa.flash_bwd_dkv(q, k, v, do, lse, delta, causal=True, scale=scale),
+                                    fa._flash_bwd_dkv_ref(q, k, v, do, lse, delta, True, scale)))
+    errs, ratios = compare(pairs)
+    del ref_o, ref_lse, pairs
     check_ratios(ratios, "the slice's shape")
 
     kernel_fns = {
@@ -977,16 +1062,20 @@ def kernel_timings(fa, dev, gen, cfg, batch: int = BATCH, seq: int = SEQ) -> dic
     sdo = do.view(batch, cfg.n_heads, T, D)
     with torch.no_grad():
         sdpa_fwd_ms = time_ms(lambda: F.scaled_dot_product_attention(sq, sk, sv, is_causal=True))
-    so = F.scaled_dot_product_attention(sq, sk, sv, is_causal=True)
-    sdpa_bwd_ms = time_ms(lambda: torch.autograd.grad(so, (sq, sk, sv), sdo, retain_graph=True))
-    sdpa_fwd_bwd_ms = time_ms(lambda: torch.autograd.grad(
-        F.scaled_dot_product_attention(sq, sk, sv, is_causal=True), (sq, sk, sv), sdo))
-    # The port's forward and backward through its autograd function, the same work.
-    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
-    port_fwd_bwd_ms = time_ms(lambda: torch.autograd.grad(
-        fa._FlashAttention.apply(*leaves, True, scale), leaves, do))
-    library = {"fwd": sdpa_fwd_ms, "fwd_lse": sdpa_fwd_ms,
-               "bwd_dq": sdpa_bwd_ms, "bwd_dkv": sdpa_bwd_ms}
+    library = {"fwd": sdpa_fwd_ms, "fwd_lse": sdpa_fwd_ms}
+    line = {"phase": "kernels", "shape": [BH, T, D], "width": width, "dtype": str(dt).split(".")[-1],
+            "causal": True, "sdpa_fwd_ms": sdpa_fwd_ms}
+    if backward:
+        so = F.scaled_dot_product_attention(sq, sk, sv, is_causal=True)
+        sdpa_bwd_ms = time_ms(lambda: torch.autograd.grad(so, (sq, sk, sv), sdo, retain_graph=True))
+        library["bwd_dq"] = library["bwd_dkv"] = sdpa_bwd_ms
+        line["sdpa_bwd_ms"] = sdpa_bwd_ms
+        line["sdpa_fwd_bwd_ms"] = time_ms(lambda: torch.autograd.grad(
+            F.scaled_dot_product_attention(sq, sk, sv, is_causal=True), (sq, sk, sv), sdo))
+        # The port's forward and backward through its autograd function, the same work.
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        line["port_fwd_bwd_ms"] = time_ms(lambda: torch.autograd.grad(
+            fa._FlashAttention.apply(*leaves, True, scale), leaves, do))
 
     pairs = BH * T * (T + 1) / 2  # (query, key) pairs under the causal mask
     elt = q.element_size()
@@ -1000,7 +1089,7 @@ def kernel_timings(fa, dev, gen, cfg, batch: int = BATCH, seq: int = SEQ) -> dic
     peak = PEAK_BF16 if dt == torch.bfloat16 else PEAK_F32_SPLIT
     host_us = importlib.import_module("ray_tpu_torch.ops.kernel_ab").host_us
     rows = {}
-    for _, key, _ in KERNELS:
+    for key in keys:
         flops, nbytes = work[key]
         t_ops, t_bytes = flops / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
         ms = time_ms(kernel_fns[key])
@@ -1020,15 +1109,13 @@ def kernel_timings(fa, dev, gen, cfg, batch: int = BATCH, seq: int = SEQ) -> dic
         # ~50 ms of device work at most: 200 calls of a bf16 kernel, 20 of a
         # 10 ms CUDA-core one (200 of those held the card 2 s a kernel).
         rows[key]["host_us"] = host_us(kernel_fns[key], calls=max(20, min(200, int(50 / ms))))
-    width = fa.kernel_width(D, dev)
-    line = {"phase": "kernels", "shape": [BH, T, D], "width": width, "dtype": str(dt).split(".")[-1],
-            "causal": True, "timings": rows, "sdpa_fwd_ms": sdpa_fwd_ms, "sdpa_bwd_ms": sdpa_bwd_ms,
-            "sdpa_fwd_bwd_ms": sdpa_fwd_bwd_ms, "port_fwd_bwd_ms": port_fwd_bwd_ms,
-            "sdpa_backends": sdpa_backends(sq.detach(), sk.detach(), sv.detach())}
+    line.update(timings=rows, sdpa_backends=sdpa_backends(sq.detach(), sk.detach(), sv.detach()))
     if parts is not None:
         rows["split"] = split_timing(fa, q, k, v)
         rows["split_bwd"] = split_timing(fa, do)
         line["bwd_with_split_ms"] = time_ms(autograd_bwd)
+    elif fa.parts_route(q, forward=True):  # the streamed f32 forward's split pass, in B1 and B2
+        rows["split"] = split_timing(fa, q, k, v)
     if width != D:  # the padded route's copies: q, k, v and do padded, o, dq, dk, dv cut
         outs = [torch.empty(BH, T, width, dtype=dt, device=dev),
                 *(torch.empty(BH, T, width, device=dev) for _ in range(3))]
@@ -1054,7 +1141,7 @@ def split_timing(fa, *xs) -> dict:
 
 # This repo's flash kernels (and the split pass) in a profiler event's name,
 # as the profiler demangles it: "bwd_dq_kernel_sm90_f32<64, true>".
-_FLASH_NAME = re.compile(r"\b(?:fwd|bwd_dq|bwd_dkv|split)_kernel(?:_sm90_f32)?(?:<[^>]*>)?")
+_FLASH_NAME = re.compile(r"\b(?:fwd|bwd_dq|bwd_dkv|split)_kernel(?:_sm90_(?:f32|stream))?(?:<[^>]*>)?")
 
 
 def flash_kernel_names(prof) -> list:
@@ -1065,10 +1152,11 @@ def flash_kernel_names(prof) -> list:
 def f32_route(fa, dev) -> None:
     """Which kernels an f32 B1, B2 and the autograd function's backward
     (B3, B4) launch at each width, by the profiler's kernel names: at
-    64-256 the split pass and the *_sm90_f32 kernels (never the CUDA-core
-    fwd_kernel<float, ...> or bwd_*_kernel<float, ...>), the backward's
-    split on do alone; at 512 the CUDA-core kernels; and the wrappers'
-    f32_launches agree."""
+    64-256 the split pass and the *_sm90_f32 kernels (never a CUDA-core
+    bwd_*_kernel<float, ...>), the backward's split on do alone; at 512 the
+    split pass and the streamed forward (fwd_kernel_sm90_stream<2, ...>) for
+    B1 and B2, the CUDA-core kernels for B3 and B4 on the f32 q, k and v the
+    autograd function saved; and the wrappers' f32_launches agree."""
     from torch.profiler import ProfilerActivity, profile
 
     line = {}
@@ -1086,10 +1174,11 @@ def f32_route(fa, dev) -> None:
         want = ([f"fwd_kernel_sm90_f32<{D}, true, false>", f"fwd_kernel_sm90_f32<{D}, true, true>",
                  f"bwd_dq_kernel_sm90_f32<{D}, true>", f"bwd_dkv_kernel_sm90_f32<{D}, true>", "split_kernel"]
                 if hopper else
-                [f"fwd_kernel<float, {D}, 4, 16, true, false>", f"fwd_kernel<float, {D}, 4, 16, true, true>",
-                 f"bwd_dq_kernel<float, {D}, 2, 16, true>", f"bwd_dkv_kernel<float, {D}, 2, 16, true>"])
+                ["fwd_kernel_sm90_stream<2, true, false>", "fwd_kernel_sm90_stream<2, true, true>",
+                 f"bwd_dq_kernel<float, {D}, 2, 16, true>", f"bwd_dkv_kernel<float, {D}, 2, 16, true>",
+                 "split_kernel"])
         check(names == sorted(want) and fa.f32_launches == {
-                  "split": 3 * hopper, "fwd": hopper, "fwd_lse": hopper, "bwd_dq": hopper, "bwd_dkv": hopper},
+                  "split": 3 if hopper else 2, "fwd": 1, "fwd_lse": 1, "bwd_dq": hopper, "bwd_dkv": hopper},
               f"f32 B1-B4 at head dim {D} launched {line[D]}")
     emit({"phase": "kernels", "f32_route": line})
 
@@ -1104,12 +1193,12 @@ def forward_phase(tr, fa, cfg, dev, gen, tokens) -> tuple:
     return launches, f32_forward_check(tr, fa, cfg, dev, model, tokens)
 
 
-def f32_forward_check(tr, fa, cfg, dev, model, tokens) -> dict:
+def f32_forward_check(tr, fa, cfg, dev, model, tokens, line=None) -> dict:
     """transformer_apply of `model`'s weights built in f32, through the
     kernels (B1 on the tensor cores through the split pass) and through the
     plain attention; fails unless the logits are finite, of their shape and
-    within F32_LOGITS_ATOL. Returns the kernel run's f32 launches
-    (fa.f32_launches)."""
+    within F32_LOGITS_ATOL. Emits phase 3's line unless `line` is given.
+    Returns the kernel run's f32 launches (fa.f32_launches)."""
     def build(impl):
         m = tr.Transformer(dataclasses.replace(cfg, attention_impl=impl, dtype=torch.float32), dev)
         m.load_state_dict(model.state_dict())
@@ -1124,7 +1213,7 @@ def f32_forward_check(tr, fa, cfg, dev, model, tokens) -> dict:
         del kernel
         truth = tr.transformer_apply(build("torch"), tokens)
     err = max_err(logits, truth)
-    emit({"phase": "forward", "dtype": "float32", "shape": list(logits.shape), "max_abs_err": err,
+    emit({**(line or {"phase": "forward"}), "dtype": "float32", "shape": list(logits.shape), "max_abs_err": err,
           "mean_abs_err": float((logits - truth).abs().mean()), "bound": F32_LOGITS_ATOL,
           "f32_max_abs": float(truth.abs().max()), "launches": launches, "f32_launches": f32})
     check(tuple(logits.shape) == (*tokens.shape, cfg.vocab_size) and bool(torch.isfinite(logits).all()),
@@ -1220,19 +1309,21 @@ def grads_check(tr, cfg, dev, model, batch, line=None, f32=False):
 
 def f32_grads_check(tr, cfg, dev, model, batch, truth, line=None) -> dict:
     """`model`'s weights built in f32 through the kernels (B2-B4 on the
-    tensor cores through the split passes): the first loss within F32_ATOL
-    and every parameter's gradient within F32_GRAD_REL (relative L2) of
-    `truth`, the plain f32 path's (loss, grads) on the same weights and
-    batch; B3 and B4 once a layer, one split pass for each forward (remat
-    runs a layer's forward again in the backward) and one for each
-    backward. Returns the run's fa.f32_launches."""
+    tensor cores through the split passes; at head dim 512 B2 on the
+    streamed forward and B3, B4 on the CUDA-core kernels, on the f32 q, k
+    and v): the first loss within F32_ATOL and every parameter's gradient
+    within F32_GRAD_REL (relative L2) of `truth`, the plain f32 path's
+    (loss, grads) on the same weights and batch; B3 and B4 once a layer, one
+    split pass for each forward (remat runs a layer's forward again in the
+    backward) and, at 64-256, one for each backward. Returns the run's
+    fa.f32_launches."""
     fa = importlib.import_module("ray_tpu_torch.ops.flash_attention")
     m = tr.Transformer(dataclasses.replace(cfg, attention_impl="kernel", dtype=torch.float32), dev)
     m.load_state_dict(model.state_dict())
     fa.reset_launches()
     loss, grads = first_grads(tr, m, batch)
     torch.cuda.synchronize()
-    launches = dict(fa.f32_launches)
+    launches, by_width = dict(fa.f32_launches), dict(fa.launches_by_width)
     del m
     rel = {n: float(torch.linalg.vector_norm(grads[n] - g) / torch.linalg.vector_norm(g))
            for n, g in truth[1].items()}
@@ -1246,10 +1337,11 @@ def f32_grads_check(tr, cfg, dev, model, batch, truth, line=None) -> dict:
     check(math.isfinite(loss) and abs(loss - truth[0]) <= F32_ATOL, "f32 first loss off the plain f32 path")
     check(all(math.isfinite(r) and r <= F32_GRAD_REL for r in rel.values()),
           f"f32 gradients through the kernels off the plain f32 path's: {worst}")
-    n = cfg.n_layers
-    check(launches["bwd_dq"] == n and launches["bwd_dkv"] == n and launches["fwd_lse"] >= n
-          and launches["split"] == launches["fwd_lse"] + n,
-          f"the f32 step did not run B2-B4 through the split passes once a layer: {launches}")
+    n, parts = cfg.n_layers, cfg.head_dim in fa.SPLIT_WIDTHS  # the backward on parts, or on f32
+    check(launches["bwd_dq"] == n * parts and launches["bwd_dkv"] == n * parts and launches["fwd_lse"] >= n
+          and launches["split"] == launches["fwd_lse"] + n * parts
+          and by_width.get(f"bwd_dq@{cfg.head_dim}") == n and by_width.get(f"bwd_dkv@{cfg.head_dim}") == n,
+          f"the f32 step did not run B2-B4 through the split passes once a layer: {launches}, {by_width}")
     return launches
 
 
@@ -4603,6 +4695,33 @@ def head_dims_phase(tr, fa, dev) -> dict:
 
 # ---------------------------------------------------------------- phase 18
 
+def forward_times(run) -> dict:
+    """A no-grad forward `run()` (18b, 18c): its host ms (the mean of two
+    runs after a warm-up, the card synchronised at the ends), and from one
+    profiled run its device ms and launches, the flash kernels' device ms
+    and names, and the device's idle share."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    run()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(2):
+        run()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) / 2 * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+    device_ms = sum(e.time_range.elapsed_us() / 1e3 for e in device)
+    return {"host_ms": host_ms, "device_ms": device_ms, "idle_share": 1 - device_ms / host_ms,
+            "device_launches": len(device),
+            "flash_device_ms": sum(e.time_range.elapsed_us() / 1e3 for e in device
+                                   if kernel_family(e.name).startswith("flash")),
+            "flash_kernels": flash_kernel_names(prof)}
+
+
 def scoring_batch(tr, fa, dev) -> dict:
     """18b: one no-grad forward of SCORE_BATCH x SCORE_SEQ tokens at 17b's
     widths through transformer_apply, B * H = 66,560 heads in one B1 call
@@ -4612,9 +4731,6 @@ def scoring_batch(tr, fa, dev) -> dict:
     attention in bf16 is. The references run in SCORE_CHUNKS chunks of the
     batch (each sequence's attention is its own). Returns the launches by
     width."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     cfg = tr.TransformerConfig(**PHI3_MINI, n_layers=WIDE_LAYERS, max_seq_len=SCORE_SEQ,
                                dtype=torch.bfloat16)
     gen = torch.Generator(device=dev).manual_seed(SEED + 41)
@@ -4625,19 +4741,7 @@ def scoring_batch(tr, fa, dev) -> dict:
         with torch.no_grad():
             return tr.transformer_apply(model, tokens)
 
-    score()  # each run's logits are dropped at once: one is 17 GB
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(2):
-        score()
-    torch.cuda.synchronize()
-    host_ms = (time.perf_counter() - t0) / 2 * 1e3
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        score()
-        torch.cuda.synchronize()
-    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
-    device_ms = sum(e.time_range.elapsed_us() / 1e3 for e in device)
-    flash_ms = sum(e.time_range.elapsed_us() / 1e3 for e in device if kernel_family(e.name).startswith("flash"))
+    times = forward_times(score)  # each run's logits are dropped at once: one is 17 GB
     fa.reset_launches()
     logits = score()
     torch.cuda.synchronize()
@@ -4665,9 +4769,7 @@ def scoring_batch(tr, fa, dev) -> dict:
     errs = {name: {"max_abs_err": e["max"], "mean_abs_err": e["sum"] / n} for name, e in err.items()}
     heads = SCORE_BATCH * cfg.n_heads
     line = {"phase": "wide", "part": "18b", "head_dim": cfg.head_dim, "batch": SCORE_BATCH,
-            "seq": SCORE_SEQ, "heads_per_call": heads, "shape": list(logits.shape),
-            "host_ms": host_ms, "device_ms": device_ms, "flash_device_ms": flash_ms,
-            "device_launches": len(device), "idle_share": 1 - device_ms / host_ms,
+            "seq": SCORE_SEQ, "heads_per_call": heads, "shape": list(logits.shape), **times,
             "vs_f32": errs, "f32_max_abs": f32_max, "ratio_bounds": [LOGITS_MEAN_RATIO, LOGITS_MAX_RATIO],
             "launches": launches, "launches_by_width": by_width,
             "max_memory_gib": torch.cuda.max_memory_allocated() / 2**30}
@@ -4687,17 +4789,81 @@ def scoring_batch(tr, fa, dev) -> dict:
     return by_width
 
 
+def stream_phase(tr, fa, dev) -> dict:
+    """18c: the streamed forward on the model's paths. (a) WIDE_1024 (head
+    dim 1024, bf16): a no-grad forward's logits held by phase 3's ratios
+    against the plain attention's (logits_check), B1 at 1024 once a layer;
+    (b) WIDE_512 built in f32: a no-grad forward through the split pass and
+    the streamed forward at P = 2 within F32_LOGITS_ATOL of the plain f32
+    path (f32_forward_check), by kernel name no CUDA-core forward; then the
+    first step's f32 gradients (f32_grads_check: B2 on the streamed forward,
+    B3 and B4 on the CUDA-core kernels). Each prints its host and device ms
+    and launches. Returns {"a": launches by width, "b": f32 launches of the
+    forward, "b_step": f32 launches of the step, "b_step_by_width": the
+    step's launches by width}."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 43)
+    reduced = {"n_layers": WIDE_LAYERS, "seq": WIDE_SEQ, "batch": WIDE_BATCH}
+    out = {}
+    cfg = tr.TransformerConfig(**WIDE_1024, n_layers=WIDE_LAYERS, max_seq_len=WIDE_SEQ, dtype=torch.bfloat16)
+    n = cfg.n_layers
+    model = tr.transformer_init(cfg, gen, device=dev)
+    tokens = torch.randint(0, cfg.vocab_size, (WIDE_BATCH, WIDE_SEQ), device=dev, generator=gen)
+    head = {"phase": "wide", "part": "18c_a", "head_dim": cfg.head_dim, "reduced": reduced}
+    launches = logits_check(tr, fa, cfg, dev, model, tokens, {**head, "check": "logits"})
+    out["a"] = dict(fa.launches_by_width)
+    with torch.no_grad():
+        times = forward_times(lambda: tr.transformer_apply(model, tokens))
+    emit({**head, **times, "launches": launches, "launches_by_width": out["a"]})
+    check(launches == {"fwd": n, "fwd_lse": 0, "bwd_dq": 0, "bwd_dkv": 0} and out["a"] == {f"fwd@{cfg.head_dim}": n},
+          f"18c(a): B1 at head dim {cfg.head_dim} was not launched once a layer: {launches}, {out['a']}")
+    check(times["flash_kernels"] == ["fwd_kernel_sm90_stream<1, true, false>"],
+          f"18c(a) ran {times['flash_kernels']}")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg = tr.TransformerConfig(**WIDE_512, n_layers=WIDE_LAYERS, max_seq_len=WIDE_SEQ, dtype=torch.bfloat16)
+    model = tr.transformer_init(cfg, gen, device=dev)
+    raw = torch.randint(0, cfg.vocab_size, (WIDE_BATCH, WIDE_SEQ + 1), device=dev, generator=gen)
+    batch = {"tokens": raw[:, :-1].contiguous(), "targets": raw[:, 1:].contiguous()}
+    head = {"phase": "wide", "part": "18c_b", "head_dim": cfg.head_dim, "reduced": reduced}
+    out["b"] = f32_forward_check(tr, fa, cfg, dev, model, batch["tokens"], {**head, "check": "f32_logits"})
+    f32_cfg = dataclasses.replace(cfg, attention_impl="kernel", dtype=torch.float32)
+    kernel = tr.Transformer(f32_cfg, dev)
+    kernel.load_state_dict(model.state_dict())
+    with torch.no_grad():
+        times = forward_times(lambda: tr.transformer_apply(kernel, batch["tokens"]))
+    del kernel
+    emit({**head, **times, "f32_launches": out["b"]})
+    check(sorted(times["flash_kernels"]) == ["fwd_kernel_sm90_stream<2, true, false>", "split_kernel"],
+          f"18c(b)'s f32 forward ran {times['flash_kernels']}")
+    plain = tr.Transformer(dataclasses.replace(f32_cfg, attention_impl="torch"), dev)
+    plain.load_state_dict(model.state_dict())
+    truth = first_grads(tr, plain, batch)
+    del plain
+    out["b_step"] = f32_grads_check(tr, cfg, dev, model, batch, truth, {**head, "check": "f32_grads"})
+    out["b_step_by_width"] = dict(fa.launches_by_width)
+    del model, truth
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def wide_phase(tr, fa, dev) -> tuple:
-    """Phase 18: head dim 512 through a train step (18a) and 66,560 heads in
-    one call through a scoring forward (18b). Returns the flash launches of
-    each, by width."""
+    """Phase 18: head dim 512 through a train step (18a), 66,560 heads in
+    one call through a scoring forward (18b) and the streamed forward on the
+    model's paths (18c: head dim 1024, and f32 at 512). Returns the flash
+    launches of each, by width (18c's as stream_phase returns them)."""
     t0 = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(SEED + 42)
     train = wide_model_run(tr, fa, "18a", WIDE_512, dev, gen, phase="wide")
     scoring = scoring_batch(tr, fa, dev)
-    emit({"phase": "wide", "launches_by_width": {"18a": train, "18b": scoring},
-          "nvidia_smi": card()["nvidia_smi"], "seconds": time.perf_counter() - t0})
-    return train, scoring
+    t_stream = time.perf_counter()
+    stream = stream_phase(tr, fa, dev)
+    emit({"phase": "wide", "launches_by_width": {"18a": train, "18b": scoring, "18c": stream},
+          "nvidia_smi": card()["nvidia_smi"], "seconds": time.perf_counter() - t0,
+          "18c_seconds": time.perf_counter() - t_stream})
+    return train, scoring, stream
 
 
 def main() -> int:
@@ -4744,8 +4910,9 @@ def main() -> int:
     gen_more = torch.Generator(device=dev).manual_seed(SEED + 2)
     gen_widths = torch.Generator(device=dev).manual_seed(SEED + 30)
     gen_wider = torch.Generator(device=dev).manual_seed(SEED + 40)
+    gen_stream = torch.Generator(device=dev).manual_seed(SEED + 50)
     t_kernels = time.perf_counter()
-    kernel_cases(fa, dev, gen, gen_more, gen_widths, gen_wider)
+    kernel_cases(fa, dev, gen, gen_more, gen_widths, gen_wider, gen_stream)
     heads_cases(fa, dev, gen_wider)
     rows = {64: kernel_timings(fa, dev, gen, cfg)}
     kernel_timings(fa, dev, gen_more, cfg, batch=4 * BATCH)  # the bench's batch: emitted, not in the line
@@ -4766,17 +4933,23 @@ def main() -> int:
     # GPT-2 small's shape (phase 3's f32 forward: its row goes in the line),
     # 17c's and 18a's, then at head dim 128 ([96, 1024, 128], GPT-2 small's
     # batch and heads at d_model 1536; bf16 too) and 17b's ([128, 2048, 96]).
-    f32_rows = None
+    f32_rows = {}
     for widths, batch in ((GPT2_SMALL, BATCH), (GEMMA_2B, 4), (WIDE_512, 4)):
         f32 = tr.TransformerConfig(**{**widths, "dtype": torch.float32})
-        row = kernel_timings(fa, dev, gen_widths if widths is not WIDE_512 else gen_wider, f32, batch=batch,
-                             seq=SEQ if widths is GPT2_SMALL else WIDE_SEQ)
-        f32_rows = f32_rows or row
+        f32_rows[f32.head_dim] = kernel_timings(fa, dev, gen_widths if widths is not WIDE_512 else gen_wider, f32,
+                                                batch=batch, seq=SEQ if widths is GPT2_SMALL else WIDE_SEQ)
     for dtype in (torch.float32, torch.bfloat16):
         kernel_timings(fa, dev, gen_wider, tr.TransformerConfig(**{**GPT2_SMALL, "d_model": 1536,
                                                                     "dtype": dtype}))
     kernel_timings(fa, dev, gen_wider, tr.TransformerConfig(**{**PHI3_MINI, "dtype": torch.float32}),
                    batch=4, seq=WIDE_SEQ)
+    # The streamed forward past 512: 18c(a)'s [8, 2048, 1024] and [4, 2048,
+    # 2048] (WIDE_512's d_model on one head), bf16 and f32 (B1 and B2 only).
+    stream_rows = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        for heads in (2, 1):
+            stream = tr.TransformerConfig(**{**WIDE_1024, "n_heads": heads, "n_kv_heads": heads, "dtype": dtype})
+            stream_rows[stream.head_dim, dtype] = kernel_timings(fa, dev, gen_stream, stream, batch=4, seq=WIDE_SEQ)
     f32_route(fa, dev)
     # Where B1, B3 and B4 (bf16) and B1 (f32) spend a streamed tile, in SM
     # cycles (the stamped build).
@@ -4826,7 +4999,7 @@ def main() -> int:
     wide_launches = head_dims_phase(tr, fa, dev)
     gc.collect()
     torch.cuda.empty_cache()
-    wide512_launches, scoring_launches = wide_phase(tr, fa, dev)
+    wide512_launches, scoring_launches, stream_launches = wide_phase(tr, fa, dev)
     for key, n in wide512_launches.items():
         wide_launches[key] = wide_launches.get(key, 0) + n
 
@@ -4857,20 +5030,38 @@ def main() -> int:
     # f32 at head dim 64: B1 in phase 3's f32 forward, B2-B4 in 9b's f32
     # ring hops and phase 4's f32 first step, the split pass in all three;
     # phase 2's numbers at [96, 1024, 64] f32 (B3 and B4 on their parts).
-    f32_step = f32_step_launches
+    f32_step, f32_64, f32_512 = f32_step_launches, f32_rows[64], f32_rows[512]
+    split = f"none: the f32 route's operand split ({KERNELS[0][2]}, :109, :289, :328 at f32)"
     for name, launched, replaces, row in (
-            ("flash_fwd_f32", f32_fwd_launches["fwd"], KERNELS[0][2], f32_rows["fwd"]),
+            ("flash_fwd_f32", f32_fwd_launches["fwd"], KERNELS[0][2], f32_64["fwd"]),
             ("flash_fwd_lse_f32", mesh_launches["fwd_lse_f32"] + f32_step["fwd_lse"], KERNELS[1][2],
-             f32_rows["fwd_lse"]),
+             f32_64["fwd_lse"]),
             ("flash_bwd_dq_f32", mesh_launches["bwd_dq_f32"] + f32_step["bwd_dq"], KERNELS[2][2],
-             f32_rows["bwd_dq"]),
+             f32_64["bwd_dq"]),
             ("flash_bwd_dkv_f32", mesh_launches["bwd_dkv_f32"] + f32_step["bwd_dkv"], KERNELS[3][2],
-             f32_rows["bwd_dkv"]),
+             f32_64["bwd_dkv"]),
             ("split_f32", f32_fwd_launches["split"] + mesh_launches["split_f32"] + f32_step["split"],
-             f"none: the f32 route's operand split ({KERNELS[0][2]}, :109, :289, :328 at f32)",
-             f32_rows["split"])):
+             split, f32_64["split"])):
         kernels.append({"name": name, "route": "cuda", "source": SOURCE, "replaces": replaces,
                         "head_dim": 64, "dtype": "float32", "launches": launched, **row})
+        check(launched > 0, f"{name} was not launched on the main path")
+    # The streamed forward (18c): B1 at head dim 1024 in bf16 (18c(a); phase
+    # 2's numbers at [8, 2048, 1024]), and f32 at 512 (18c(b): B1 in its
+    # forward, B2 and the CUDA-core B3 and B4 in its first step, the split
+    # pass in both; phase 2's numbers at [16, 2048, 512] f32).
+    b, b_step, b_width = stream_launches["b"], stream_launches["b_step"], stream_launches["b_step_by_width"]
+    for name, launched, replaces, head_dim, dtype, row in (
+            ("flash_fwd_d1024", stream_launches["a"].get("fwd@1024", 0), KERNELS[0][2], 1024, "bfloat16",
+             stream_rows[1024, torch.bfloat16]["fwd"]),
+            ("flash_fwd_f32_d512", b["fwd"], KERNELS[0][2], 512, "float32", f32_512["fwd"]),
+            ("flash_fwd_lse_f32_d512", b_step["fwd_lse"], KERNELS[1][2], 512, "float32", f32_512["fwd_lse"]),
+            ("flash_bwd_dq_f32_d512", b_width.get("bwd_dq@512", 0), KERNELS[2][2], 512, "float32",
+             f32_512["bwd_dq"]),
+            ("flash_bwd_dkv_f32_d512", b_width.get("bwd_dkv@512", 0), KERNELS[3][2], 512, "float32",
+             f32_512["bwd_dkv"]),
+            ("split_f32_d512", b["split"] + b_step["split"], split, 512, "float32", f32_512["split"])):
+        kernels.append({"name": name, "route": "cuda", "source": SOURCE, "replaces": replaces,
+                        "head_dim": head_dim, "dtype": dtype, "launches": launched, **row})
         check(launched > 0, f"{name} was not launched on the main path")
     emit({"phase": "total", "seconds": time.perf_counter() - started})
     print(info["nvidia_smi"], flush=True)

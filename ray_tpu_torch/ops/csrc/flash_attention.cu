@@ -7,16 +7,20 @@
 //   fwd_kernel_sm90<.., WRITE_LSE=true>     fwd_kernel_sm90_f32<.., WRITE_LSE=true>   <- _attn_fwd_kernel_lse  (B2)
 //   bwd_dq_kernel_sm90                      bwd_dq_kernel_sm90_f32                    <- _attn_bwd_dq_kernel   (B3)
 //   bwd_dkv_kernel_sm90                     bwd_dkv_kernel_sm90_f32                   <- _attn_bwd_dkv_kernel  (B4)
-// The f32 kernels take their operands from split_kernel, which replaces no
-// TPU kernel (see "The f32 forward" and "The f32 backward" below), at D =
-// 64-256; at D = 512 f32 still runs on the CUDA-core fwd_kernel,
-// bwd_dq_kernel and bwd_dkv_kernel<float, 512, ..>.
+// and, for B1 and B2 past D = 512 (bf16 and f32) and f32 at 512,
+// fwd_kernel_sm90_stream<P, .., WRITE_LSE>, S's contraction streamed over
+// chunks of D (see "The forward past 512" below). The f32 kernels take their
+// operands from split_kernel, which replaces no TPU kernel (see "The f32
+// forward" and "The f32 backward" below), at D = 64-256, and the streamed
+// forward at 512 and past; the f32 backward at D = 512 still runs on the
+// CUDA-core bwd_dq_kernel and bwd_dkv_kernel<float, 512, ..>.
 //
 // Layout [BH, T, D] for q/do/o and [BH, S, D] for k/v, row-major and
 // contiguous; lse and delta are [BH, T] f32; dq, dk and dv are f32. D is 64,
-// 96, 128, 256 or 512; the wrappers (flash_attention.py) run any other head
-// dim up to 512, as the TPU kernels take any, at the next of these,
-// zero-padded. Any number of heads BH, as the TPU kernels' grid takes: the
+// 96, 128, 256 or 512, and for the streamed forward any multiple of 512;
+// the wrappers (flash_attention.py) run any other head dim, as the TPU
+// kernels take any, at the next of these, zero-padded (the backward up to
+// 512). Any number of heads BH, as the TPU kernels' grid takes: the
 // Hopper kernels are persistent and the f32 kernels fold the head into
 // gridDim.x; every offset into a tensor is formed in size_t. All sums are
 // f32.
@@ -263,18 +267,52 @@
 //   * bwd_dkv: K and V 128 KB, 16-row Q/dO tiles in three stages; each
 //     warpgroup's 256 dK and dV columns in two passes of 128, recomputing
 //     S^T and dP^T (four times S^T's tensor work, as a price of no atomics).
-// Past 512, Q, K and V tiles of 64 rows no longer leave room for a stream:
-// the wrappers refuse D > 512.
+// Past 512, Q, K and V tiles of 64 rows no longer leave room for a stream,
+// nor does f32 at 512 (Q's two parts 128 KB): the forward streams S's
+// contraction there (below); the backward's wrappers refuse D > 512.
 //
-// The first kernels (f32 at D = 512 only: the forward and both backward
-// kernels) do their arithmetic on the f32 CUDA cores (67 TFLOP/s, not the
-// tensor cores' 989), and that is what bounds them. At D = 512 the forward
-// streams 16-key tiles and the backward kernels own 32 rows (R = 2 rows a
-// thread group) and stream 16 (F32Cfg; each block ~200 KB). A block takes
-// tile blockIdx.x % tiles of head blockIdx.x / tiles: gridDim.y would stop
-// at 65535 heads. They stay at 512: a 64-row Q in parts takes 128 KB there
-// and leaves no room for a stream unless S's contraction is streamed over
-// chunks of D.
+// The forward past 512 (fwd_kernel_sm90_stream, StreamCfg), bf16 (P = 1)
+// and f32 as split_kernel's parts (P = 2, at 512 too). D is a runtime
+// multiple of 512: one instantiation for each (P, CAUSAL, WRITE_LSE), 8 in
+// all, serves every width.
+//   1. Items and slices. An item is 64 q rows of one head by one slice of
+//      512 output columns; its two consumer warpgroups each hold 256 of
+//      O's columns (128 registers), as the bf16 kernel at 512. A head of
+//      width D takes D / 512 slices, units of their own, slice fastest, so
+//      the blocks at work at one time read one row tile's Q and K from L2.
+//   2. S's contraction, streamed. S = sum_c Q_c.K_c^T over chunks of 128
+//      bf16 bytes a row in all parts (G = 128 columns at P = 1, 64 in two
+//      parts at P = 2; three products a chunk at P = 2, the f32 forward's
+//      set): the producer loads each (Q chunk, K chunk) pair into a ring
+//      (StreamCfg: 64-key tiles in three 32 KB stages at P = 1, 32-key
+//      tiles in four 24 KB ones at P = 2), so an item's Q is re-read from
+//      L2 once for each K/V tile (a Q resident in shared memory would take
+//      128 KB at f32 512 and bf16 1024, and more past them). A consumer
+//      issues chunk c's products once its stage has landed and frees chunk
+//      c - 1's once those are in (one commit group in flight behind the
+//      issue; two, 9-23% slower in turns on an H100, held stages longer).
+//      The cycle stamps (kernel_ab --timeline) put ~70% of a tile in that
+//      issue step: the stream of Q and K chunks from L2 sets the pace.
+//   3. P.V takes the slice's columns of a V tile (BN x 512 x P) from a ring
+//      of two stages of its own; tile kt's S is issued before P_{kt-1}
+//      .V_{kt-1}, whose products run under tile kt's softmax, as in the
+//      bf16 forward.
+//   4. lse. Every slice of a row tile makes S from the same chunks in the
+//      same order with the same instructions, so all slices' m and l agree
+//      bitwise; slice 0's warpgroup 0 writes lse.
+//   5. The tensor work, against the useful 4 D flops a (q, key) pair: both
+//      warpgroups make S and each slice makes it again, so S takes 2 D / 512
+//      times its useful work and P.V once: (2 D / 512 + 1) / 2 the useful
+//      work, 1.5x at 512, 2.5x at 1024, 4.5x at 2048 (times 3 at P = 2, the
+//      bf16 products of each f32 one).
+//
+// The first kernels (f32 at D = 512 only, now both backward kernels) do
+// their arithmetic on the f32 CUDA cores (67 TFLOP/s, not the tensor cores'
+// 989), and that is what bounds them. At D = 512 they own 32 rows (R = 2
+// rows a thread group) and stream 16 (F32Cfg; each block ~200 KB). A block
+// takes tile blockIdx.x % tiles of head blockIdx.x / tiles: gridDim.y would
+// stop at 65535 heads. They stay at 512 until their own streamed
+// contraction (dO and Q in parts take 256 KB for 64 rows).
 // What their design does about it:
 //   * The TPU kernels carry the online-softmax state (m, l, acc) in VMEM
 //     scratch from one sequential grid step to the next. Blocks on Hopper
@@ -306,9 +344,6 @@ constexpr float BIG_NEG = -1e30f;  // masked score, as _BIG_NEG in the reference
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-
 // Stage rows [row0, row0 + ROWS) of an [n, D] matrix into a [ROWS][D + 1]
 // f32 tile. Rows at or past n are written as 0 and never read from memory.
 template <typename T, int D, int ROWS>
@@ -317,134 +352,6 @@ __device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src,
     const int r = e / D, c = e % D;
     const int g = row0 + r;
     dst[r * (D + 1) + c] = g < n ? to_f32(src[static_cast<size_t>(g) * D + c]) : 0.f;
-  }
-}
-
-// Reductions over the 16 lanes that share a row group (half a warp).
-__device__ __forceinline__ float group_max(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-__device__ __forceinline__ float group_sum(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
-
-// ---------------------------------------------------------------- forward
-// Replaces _attn_fwd_kernel (WRITE_LSE = false) and _attn_fwd_kernel_lse
-// (WRITE_LSE = true). One block per (q tile of 16 R rows, bh); online softmax
-// over the k tiles of BC keys, as the TPU kernel does over its innermost grid
-// axis.
-template <typename T, int D, int R, int BC, bool CAUSAL, bool WRITE_LSE>
-__global__ void __launch_bounds__(NT) fwd_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    T* __restrict__ o, float* __restrict__ lse, int seq_q, int seq_k, float scale) {
-  constexpr int QR = 16 * R, LD = D + 1, LP = BC + 1, DC = D / 16, JN = BC / 16;
-  extern __shared__ float smem[];
-  float* qs = smem;           // [QR][LD]
-  float* ks = qs + QR * LD;   // [BC][LD]
-  float* vs = ks + BC * LD;   // [BC][LD]
-  float* ps = vs + BC * LD;   // [QR][LP]
-
-  const int n_qt = (seq_q + QR - 1) / QR, bh = blockIdx.x / n_qt, q0 = blockIdx.x % n_qt * QR;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  q += static_cast<size_t>(bh) * seq_q * D;
-  o += static_cast<size_t>(bh) * seq_q * D;
-  k += static_cast<size_t>(bh) * seq_k * D;
-  v += static_cast<size_t>(bh) * seq_k * D;
-
-  load_tile<T, D, QR>(qs, q, q0, seq_q);
-
-  float m[R], l[R], acc[R][DC];
-#pragma unroll
-  for (int i = 0; i < R; ++i) {
-    m[i] = BIG_NEG;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < DC; ++c) acc[i][c] = 0.f;
-  }
-
-  int nk = (seq_k + BC - 1) / BC;
-  if (CAUSAL) nk = min(nk, (q0 + QR - 1) / BC + 1);  // skip tiles above the diagonal
-
-  for (int kt = 0; kt < nk; ++kt) {
-    const int k0 = kt * BC;
-    __syncthreads();  // the previous tile's readers are done with ks/vs/ps
-    load_tile<T, D, BC>(ks, k, k0, seq_k);
-    load_tile<T, D, BC>(vs, v, k0, seq_k);
-    __syncthreads();
-
-    float s[R][JN];
-#pragma unroll
-    for (int i = 0; i < R; ++i)
-#pragma unroll
-      for (int j = 0; j < JN; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      float a[R], b[JN];
-#pragma unroll
-      for (int i = 0; i < R; ++i) a[i] = qs[(ty * R + i) * LD + d];
-#pragma unroll
-      for (int j = 0; j < JN; ++j) b[j] = ks[(tx + 16 * j) * LD + d];
-#pragma unroll
-      for (int i = 0; i < R; ++i)
-#pragma unroll
-        for (int j = 0; j < JN; ++j) s[i][j] = fmaf(a[i], b[j], s[i][j]);
-    }
-
-#pragma unroll
-    for (int i = 0; i < R; ++i) {
-      const int qp = q0 + ty * R + i;
-      bool ok[JN];
-      float mc = BIG_NEG;
-#pragma unroll
-      for (int j = 0; j < JN; ++j) {
-        const int kp = k0 + tx + 16 * j;
-        ok[j] = kp < seq_k && (!CAUSAL || qp >= kp);
-        s[i][j] = ok[j] ? s[i][j] * scale : BIG_NEG;
-        mc = fmaxf(mc, s[i][j]);
-      }
-      const float mn = fmaxf(m[i], group_max(mc));
-      const float alpha = expf(m[i] - mn);
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < JN; ++j) {
-        const float p = ok[j] ? expf(s[i][j] - mn) : 0.f;
-        ps[(ty * R + i) * LP + tx + 16 * j] = p;
-        rs += p;
-      }
-      l[i] = l[i] * alpha + group_sum(rs);
-      m[i] = mn;
-#pragma unroll
-      for (int c = 0; c < DC; ++c) acc[i][c] *= alpha;
-    }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int c = 0; c < BC; ++c) {
-      float p[R];
-#pragma unroll
-      for (int i = 0; i < R; ++i) p[i] = ps[(ty * R + i) * LP + c];
-#pragma unroll
-      for (int jj = 0; jj < DC; ++jj) {
-        const float vv = vs[c * LD + tx + 16 * jj];
-#pragma unroll
-        for (int i = 0; i < R; ++i) acc[i][jj] = fmaf(p[i], vv, acc[i][jj]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < R; ++i) {
-    const int qp = q0 + ty * R + i;
-    if (qp >= seq_q) continue;
-    const float lsafe = fmaxf(l[i], 1e-30f);
-#pragma unroll
-    for (int jj = 0; jj < DC; ++jj)
-      o[static_cast<size_t>(qp) * D + tx + 16 * jj] = from_f32<T>(acc[i][jj] / lsafe);
-    if (WRITE_LSE && tx == 0) lse[static_cast<size_t>(bh) * seq_q + qp] = m[i] + logf(lsafe);
   }
 }
 
@@ -861,6 +768,15 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(row), "r"(head)
       : "memory");
 }
+// As tma_load_3d, into the shared address dst.
+__device__ __forceinline__ void tma_load_at(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0, int row,
+                                            int head) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar),
+      "r"(c0), "r"(row), "r"(head)
+      : "memory");
+}
 // Rows [row, row + ROWS) of head `head`, all D columns, one box per BW.
 template <int ROWS, int D>
 __device__ __forceinline__ void load_rows(bf16* dst, const CUtensorMap* map, uint32_t bar, int head,
@@ -1242,12 +1158,14 @@ __device__ __forceinline__ void issue_pv(float (&acc)[D / 2], const uint32_t (&p
 // and 2 bwd_dkv (0 the tile landed, 1 S, dP and the previous tile's
 // products issued, 2 S and dP in, 3 P and dS made, 4 the previous tile's
 // products in, 5 split), 3 the f32 forward (the forward's events), 4 and
-// 5 the f32 bwd_dq and bwd_dkv (the backward's events). Only
+// 5 the f32 bwd_dq and bwd_dkv (the backward's events), 6 the streamed
+// forward (0 the tile begins, 1 S issued chunk by chunk, 2 the previous
+// tile's P.V issued, 3 S in, 4 softmax done, 5 P.V in, rescaled, P split). Only
 // ray_tpu_torch/ops/kernel_ab.py's timeline build defines RT_TIMELINE
 // (chip_smoke.py phase 2 reads it through rt_timeline); the library the
 // port loads has no stamps.
 constexpr int TIMELINE_TILES = 64;
-__device__ long long timeline[6][2][TIMELINE_TILES][6];
+__device__ long long timeline[7][2][TIMELINE_TILES][6];
 __device__ __forceinline__ void stamp(int kernel, int wg, int tile, int ev, bool pred) {
   long long* at = &timeline[kernel][wg][min(tile, TIMELINE_TILES - 1)][ev];
   asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %2, 0;\n@p st.global.b64 [%0], %1;\n}\n" ::"l"(at),
@@ -1751,6 +1669,271 @@ __global__ void __launch_bounds__(FWD_THREADS, 1) fwd_kernel_sm90_f32(
           if (WRITE_LSE && tg == 0) lse[static_cast<size_t>(head) * seq_q + qp] = m[r] * LN2 + logf(lsafe);
         }
       }
+  }
+}
+
+// ===================================== forward on Hopper, S's contraction streamed
+//
+// fwd_kernel_sm90_stream replaces _attn_fwd_kernel (WRITE_LSE = false, B1)
+// and _attn_fwd_kernel_lse (WRITE_LSE = true, B2) where an item's Q no
+// longer fits beside a stream of K and V tiles: bf16 (P = 1) past D = 512,
+// f32 as split_kernel's parts (P = 2) at 512 and past. D is a runtime
+// multiple of STREAM_SLICE; see the file's header for the design.
+
+constexpr int STREAM_SLICE = 512;  // output columns of an item: 256 a consumer warpgroup
+
+// Tiles and shared memory of fwd_kernel_sm90_stream, in bytes. An item is
+// 64 q rows by one slice of STREAM_SLICE output columns. S = sum_c Q_c.K_c^T
+// streams over chunks of G columns (128 bf16 bytes a row in all P parts, one
+// or two 64-column boxes a part): each S stage holds an item's Q chunk and
+// a K tile's chunk, through S_STAGES stages; P.V takes the slice's columns
+// of a V tile (BN keys x 512 columns x P parts) from a ring of its own,
+// V_STAGES deep. P = 2: 32-key tiles, 4 x 24 + 2 x 64 = 224 KB; P = 1:
+// 64-key tiles, 3 x 32 + 2 x 64 = 224 KB (Q's re-reads from L2 halved per
+// key: 0.3570 ms against 0.4639 for 32-key tiles in four stages at [8,
+// 2048, 1024], 0.5846 against 0.8006-0.851 at [4, 2048, 2048], in turns on
+// an H100; the f32 kernel's V tiles of 64 keys would take 128 KB a stage).
+template <int P>
+struct StreamCfg {
+  static constexpr int ROWS = 64, BN = P == 1 ? 64 : 32, G = 128 / P;
+  static constexpr int S_STAGES = P == 1 ? 3 : 4, V_STAGES = 2;
+  static constexpr int Q_PART = ROWS * G * 2, K_PART = BN * G * 2;   // one part of a Q, K chunk
+  static constexpr int S_BYTES = P * (Q_PART + K_PART);               // one S stage
+  static constexpr int V_PART = BN * STREAM_SLICE * 2, V_BYTES = P * V_PART;  // one V stage
+  static constexpr int V_AT = S_STAGES * S_BYTES, BAR_AT = V_AT + V_STAGES * V_BYTES;
+  static constexpr int BYTES = BAR_AT + 8 * 2 * (S_STAGES + V_STAGES) + 1024;
+  static_assert(BYTES <= 232448, "a block has 227 KB of shared memory");
+  // The producer's registers: at P = 2 its loop over the parts keeps its
+  // counters and coordinates in 40 (as F32FwdCfg at 256), the consumers
+  // 232; at P = 1 the consumers' 64-key S, P and output sums need 240 (one
+  // instantiation spilled 4 bytes at 232), the producer 24.
+  static constexpr int PRODUCER_REGS = P == 1 ? 24 : 40;
+};
+
+// S (FIRST: S =) += Q_c.K_c^T of one chunk of G columns, Q's 64 rows and
+// K's 2N at q_addr and k_addr, each in P parts (P = 2: the lo part Q_PART
+// and K_PART bytes past the hi part; hi.hi + hi.lo + lo.hi, the f32
+// forward's product set).
+template <int P, bool FIRST, int N>
+__device__ __forceinline__ void issue_s_chunk(float (&s)[N], uint32_t q_addr, uint32_t k_addr) {
+  using Cfg = StreamCfg<P>;
+  constexpr int G = Cfg::G;
+  if constexpr (FIRST && P == 1) {
+    issue_s<G, Cfg::ROWS, true>(s, q_addr, k_addr);
+  } else if constexpr (FIRST) {
+    issue_s_split<G, Cfg::ROWS>(s, q_addr, k_addr, Cfg::Q_PART, Cfg::K_PART);
+  } else {
+    issue_s_add<G, Cfg::ROWS>(s, q_addr, k_addr);
+    if constexpr (P == 2) {
+      issue_s_add<G, Cfg::ROWS>(s, q_addr, k_addr + Cfg::K_PART);
+      issue_s_add<G, Cfg::ROWS>(s, q_addr + Cfg::Q_PART, k_addr);
+    }
+  }
+}
+
+// Work comes in fwd_kernel_sm90's units of two 64-row q tiles of one head,
+// once for each slice of the head's output columns, slice fastest: the
+// blocks at work at one time take the same rows' S from the same Q and K
+// chunks, which L2 then serves. The producer's one thread loads, for each
+// K/V tile of an item, its n_ch (Q chunk, K chunk) pairs into the S ring,
+// then the slice's columns of V into the V ring. Both consumer warpgroups
+// make S over all n_ch chunks for the item's 64 rows, chunk c's products
+// issued once its stage has landed and its stage freed once they are in;
+// then, as fwd_kernel_sm90, P_{kt-1}.V_{kt-1} for its 256 of the slice's
+// columns, tile kt's softmax while that runs on the tensor cores, and the
+// rescale. Every slice of a row tile makes S in the same chunk order, so
+// their m and l agree bitwise; slice 0's warpgroup 0 writes lse. o is bf16
+// (P = 1) or f32 (P = 2), [bh, seq_q, D].
+template <int P, bool CAUSAL, bool WRITE_LSE>
+__global__ void __launch_bounds__(FWD_THREADS, 1) fwd_kernel_sm90_stream(
+    const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap k_map,
+    const __grid_constant__ CUtensorMap v_map, void* __restrict__ o, float* __restrict__ lse, int bh,
+    int seq_q, int seq_k, int D, float scale) {
+  using Cfg = StreamCfg<P>;
+  constexpr int ROWS = Cfg::ROWS, BN = Cfg::BN, G = Cfg::G, SS = Cfg::S_STAGES, VS = Cfg::V_STAGES;
+  constexpr int OUT = STREAM_SLICE / 2;  // a warpgroup's output columns
+  extern __shared__ unsigned char fwd_stream_smem[];
+  // S stage i: [P][G / 64][ROWS][64] of Q, then [P][G / 64][BN][64] of K;
+  // V stage i: [P][STREAM_SLICE / 64][BN][64].
+  const uint32_t sm = smem_u32(swizzle_base(fwd_stream_smem));
+  const uint32_t s_full = sm + Cfg::BAR_AT;      // [SS]: the stage's Q and K chunks landed
+  const uint32_t s_empty = s_full + 8 * SS;      // [SS]: both consumers' products of it are in
+  const uint32_t v_full = s_empty + 8 * SS;      // [VS]: the stage's V landed
+  const uint32_t v_empty = v_full + 8 * VS;      // [VS]: both consumers' P.V are in
+  auto s_at = [&](int i) { return sm + i % SS * Cfg::S_BYTES; };
+  auto v_at = [&](int i) { return sm + Cfg::V_AT + i % VS * Cfg::V_BYTES; };
+
+  const int n_ch = D / G, n_slices = D / STREAM_SLICE;
+  const int n_qt = (seq_q + ROWS - 1) / ROWS, n_units = (n_qt + 1) / 2 * bh * n_slices;
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < SS; ++st) {
+      mbar_init(s_full + 8 * st, 1);
+      mbar_init(s_empty + 8 * st, 2);
+    }
+    for (int st = 0; st < VS; ++st) {
+      mbar_init(v_full + 8 * st, 1);
+      mbar_init(v_empty + 8 * st, 2);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  if (wg == 2) {  // producer: one thread keeps both rings full
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(Cfg::PRODUCER_REGS));
+    if (threadIdx.x == 256) {
+      int is = 0, iv = 0, head, q0;  // S stages and V tiles loaded
+      for (int u = blockIdx.x; u < n_units; u += gridDim.x) {
+        const int slice = u % n_slices;
+        for (int j = 0; j < 2 && unit_item<ROWS>(u / n_slices, j, n_qt, head, q0); ++j) {
+          const int n_kv_tiles = kv_tiles<CAUSAL, BN, ROWS>(q0, seq_k);
+          for (int kt = 0; kt < n_kv_tiles; ++kt, ++iv) {
+            for (int c = 0; c < n_ch; ++c, ++is) {
+              const uint32_t full = s_full + 8 * (is % SS);
+              mbar_wait(s_empty + 8 * (is % SS), (is / SS & 1) ^ 1);  // passes at once on the first lap
+              mbar_expect_tx(full, Cfg::S_BYTES);  // out-of-range rows are zero-filled and counted
+              for (int part = 0; part < P; ++part)
+                for (int b = 0; b < G / 64; ++b) {
+                  tma_load_at(s_at(is) + (part * G / 64 + b) * ROWS * 128, &q_map, full, c * G + 64 * b, q0,
+                              head + part * bh);
+                  tma_load_at(s_at(is) + P * Cfg::Q_PART + (part * G / 64 + b) * BN * 128, &k_map, full,
+                              c * G + 64 * b, kt * BN, head + part * bh);
+                }
+            }
+            const uint32_t full = v_full + 8 * (iv % VS);
+            mbar_wait(v_empty + 8 * (iv % VS), (iv / VS & 1) ^ 1);
+            mbar_expect_tx(full, Cfg::V_BYTES);
+            for (int part = 0; part < P; ++part)
+              for (int b = 0; b < STREAM_SLICE / 64; ++b)
+                tma_load_at(v_at(iv) + (part * STREAM_SLICE / 64 + b) * BN * 128, &v_map, full,
+                            slice * STREAM_SLICE + 64 * b, kt * BN, head + part * bh);
+          }
+        }
+      }
+    }
+  } else {  // consumer warpgroup wg: the item's 64 rows, the slice's columns [OUT wg, OUT wg + OUT)
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(240 - (Cfg::PRODUCER_REGS - 24) / 2));
+    const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32, tg = lane % 4;
+    const float sl2 = scale * LOG2E;
+    const uint32_t v_col = wg * (OUT / 64) * BN * 128;  // this warpgroup's boxes of a V part
+    float s[BN / 2], acc[OUT / 2], alpha[2];
+    uint32_t p_hi[BN / 16][4], p_lo[BN / 16][4];
+
+    // S of one tile over its n_ch chunks (stage `is` on): every chunk's
+    // products but the last are in on return, their stages freed; the
+    // last chunk's are one commit group in flight, its stage still held.
+    auto issue_s_tile = [&](int is) {
+      mbar_wait(s_full + 8 * (is % SS), is / SS & 1);
+      issue_s_chunk<P, true>(s, s_at(is), s_at(is) + P * Cfg::Q_PART);
+      wgmma_commit();
+      keep(s);
+      for (int c = 1; c < n_ch; ++c) {
+        const int i = is + c;
+        mbar_wait(s_full + 8 * (i % SS), i / SS & 1);
+        issue_s_chunk<P, false>(s, s_at(i), s_at(i) + P * Cfg::Q_PART);
+        wgmma_commit();
+        keep(s);
+        wgmma_wait<1>();  // chunk c - 1's products are in: its stage is free
+        keep(s);
+        mbar_arrive_if(s_empty + 8 * ((i - 1) % SS), tid == 0);
+      }
+    };
+    auto issue_pv_tile = [&](int iv) {
+      mbar_wait(v_full + 8 * (iv % VS), iv / VS & 1);
+      if constexpr (P == 1)
+        issue_pv<OUT>(acc, p_hi, p_lo, v_at(iv) + v_col);
+      else
+        issue_pv_split<OUT>(acc, p_hi, p_lo, v_at(iv) + v_col, Cfg::V_PART);
+      wgmma_commit();
+    };
+
+    int is = 0, iv = 0, head, q0;  // S stages and V tiles consumed
+    for (int u = blockIdx.x; u < n_units; u += gridDim.x) {
+      const int slice = u % n_slices;
+      for (int j = 0; j < 2 && unit_item<ROWS>(u / n_slices, j, n_qt, head, q0); ++j) {
+        const int n_kv_tiles = kv_tiles<CAUSAL, BN, ROWS>(q0, seq_k);
+        const int r0 = q0 + warp * 16 + lane / 4;  // this thread's rows: r0 and r0 + 8
+#pragma unroll
+        for (int i = 0; i < OUT / 2; ++i) acc[i] = 0.f;
+        float m[2] = {BIG_NEG, BIG_NEG}, l[2] = {0.f, 0.f};
+
+        // Tile 0: S_0 alone.
+        keep(s);
+        wgmma_fence();
+        issue_s_tile(is);
+        is += n_ch;
+        wgmma_wait<0>();
+        keep(s);
+        mbar_arrive_if(s_empty + 8 * ((is - 1) % SS), tid == 0);
+        softmax_tile<CAUSAL>(s, m, l, alpha, 0, q0, r0, tg, seq_k, sl2);
+        split_p(s, p_hi, p_lo);
+        // Tile kt: S_kt chunk by chunk, then P_{kt-1}.V_{kt-1}; tile kt's
+        // softmax while P_{kt-1}.V_{kt-1} is on the tensor cores.
+        for (int kt = 1; kt < n_kv_tiles; ++kt, ++iv) {
+          STAMP(6, iv, 0);
+          keep(s);
+          keep(acc);
+          keep(p_hi);
+          keep(p_lo);
+          wgmma_fence();
+          issue_s_tile(is);
+          is += n_ch;
+          STAMP(6, iv, 1);
+          issue_pv_tile(iv);
+          STAMP(6, iv, 2);
+          keep(s);
+          keep(acc);
+          wgmma_wait<1>();  // S_kt is in: its last chunk's stage is free
+          keep(s);
+          STAMP(6, iv, 3);
+          mbar_arrive_if(s_empty + 8 * ((is - 1) % SS), tid == 0);
+          softmax_tile<CAUSAL>(s, m, l, alpha, kt * BN, q0, r0, tg, seq_k, sl2);
+          STAMP(6, iv, 4);
+          wgmma_wait<0>();  // P_{kt-1}.V_{kt-1} is in: its P and its V stage are free
+          keep(acc);
+          keep(p_hi);
+          keep(p_lo);
+          mbar_arrive_if(v_empty + 8 * (iv % VS), tid == 0);
+#pragma unroll
+          for (int i = 0; i < OUT / 2; ++i) acc[i] *= alpha[i % 4 / 2];
+          split_p(s, p_hi, p_lo);
+          STAMP(6, iv, 5);
+        }
+        keep(acc);
+        keep(p_hi);
+        keep(p_lo);
+        wgmma_fence();
+        issue_pv_tile(iv);
+        keep(acc);
+        wgmma_wait<0>();
+        keep(acc);
+        keep(p_hi);
+        keep(p_lo);
+        mbar_arrive_if(v_empty + 8 * (iv % VS), tid == 0);
+        ++iv;
+
+        const int col = slice * STREAM_SLICE + wg * OUT;
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int qp = r0 + 8 * r;
+          const float lsafe = fmaxf(quad_sum(l[r]), 1e-30f), linv = 1.f / lsafe;
+          if (qp >= seq_q) continue;
+          const size_t at = (static_cast<size_t>(head) * seq_q + qp) * D + col;
+#pragma unroll
+          for (int c = 0; c < OUT / 8; ++c) {
+            const float x = acc[4 * c + 2 * r] * linv, y = acc[4 * c + 2 * r + 1] * linv;
+            if constexpr (P == 1)
+              *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(o) + at + c * 8 + 2 * tg) =
+                  __floats2bfloat162_rn(x, y);
+            else
+              *reinterpret_cast<float2*>(static_cast<float*>(o) + at + c * 8 + 2 * tg) = make_float2(x, y);
+          }
+          // Every slice holds the row's m and l: slice 0's warpgroup 0 writes lse.
+          if (WRITE_LSE && tg == 0 && slice == 0 && wg == 0)
+            lse[static_cast<size_t>(head) * seq_q + qp] = m[r] * LN2 + logf(lsafe);
+        }
+      }
+    }
   }
 }
 
@@ -2436,14 +2619,12 @@ cudaError_t launch(dim3 grid, size_t smem, cudaStream_t stream, Args... args) {
   return cudaGetLastError();
 }
 
-// The CUDA-core kernels' tiles, built at D = 512 only (64-256 run the
-// Hopper f32 kernels): R rows a thread group (16 R rows a block) and BC
-// rows a streamed tile; the forward 16-key tiles, the backward 32 rows and
-// 16-row tiles, so each block fits in 227 KB.
+// The CUDA-core backward kernels' tiles, built at D = 512 only (64-256 run
+// the Hopper f32 kernels): R rows a thread group (16 R = 32 rows a block)
+// and BC = 16 rows a streamed tile, so each block fits in 227 KB.
 template <int D>
 struct F32Cfg {
   static_assert(D == 512, "the CUDA-core f32 kernels run at D = 512 only");
-  static constexpr int FWD_R = 4, FWD_BC = 16;
   static constexpr int BWD_R = 2, BWD_BC = 16;
 };
 
@@ -2454,31 +2635,6 @@ cudaError_t head_grid(int rows, int r, int bh, dim3& grid) {
   if (blocks > 0x7FFFFFFF) return cudaErrorInvalidValue;
   grid = dim3(static_cast<unsigned>(blocks));
   return cudaSuccess;
-}
-
-template <typename T, int D>
-cudaError_t fwd(const void* q, const void* k, const void* v, void* o, float* lse, int bh,
-                int seq_q, int seq_k, float scale, bool causal, cudaStream_t stream) {
-  constexpr int R = F32Cfg<D>::FWD_R, BC = F32Cfg<D>::FWD_BC, QR = 16 * R;
-  constexpr size_t smem = sizeof(float) * (QR * (D + 1) + 2 * BC * (D + 1) + QR * (BC + 1));
-  static_assert(smem <= 232448, "a block has 227 KB of shared memory");
-  dim3 grid;
-  const cudaError_t err = head_grid(seq_q, R, bh, grid);
-  if (err != cudaSuccess) return err;
-  const T* qt = static_cast<const T*>(q);
-  const T* kt = static_cast<const T*>(k);
-  const T* vt = static_cast<const T*>(v);
-  T* ot = static_cast<T*>(o);
-  if (causal) {
-    return lse ? launch<fwd_kernel<T, D, R, BC, true, true>>(grid, smem, stream, qt, kt, vt, ot, lse,
-                                                             seq_q, seq_k, scale)
-               : launch<fwd_kernel<T, D, R, BC, true, false>>(grid, smem, stream, qt, kt, vt, ot, lse,
-                                                              seq_q, seq_k, scale);
-  }
-  return lse ? launch<fwd_kernel<T, D, R, BC, false, true>>(grid, smem, stream, qt, kt, vt, ot, lse,
-                                                            seq_q, seq_k, scale)
-             : launch<fwd_kernel<T, D, R, BC, false, false>>(grid, smem, stream, qt, kt, vt, ot, lse,
-                                                             seq_q, seq_k, scale);
 }
 
 template <typename T, int D>
@@ -2546,24 +2702,29 @@ EncodeTiledFn encode_tiled() {
 }
 
 // A contiguous [heads, rows, D] bf16 tensor as a 3-D TMA map read in boxes of
-// Lay<D>::BW columns by box_rows rows of one head, swizzled over a box row's
-// bytes (Lay<D>). A box's rows past `rows` are zero-filled: they never come
-// from the next head. TMA needs the base 16-byte aligned and every stride a
-// multiple of 16 bytes: the wrapper checks the first, and D in {64, 96,
-// 128, 256, 512} gives the second.
-template <int D>
-cudaError_t encode_rows(CUtensorMap* map, const void* ptr, int heads, int rows, int box_rows) {
+// `bw` columns (64: the 128-byte swizzle; 32: the 64-byte one, Lay) by
+// box_rows rows of one head. A box's rows past `rows` are zero-filled: they
+// never come from the next head. TMA needs the base 16-byte aligned and
+// every stride a multiple of 16 bytes: the wrapper checks the first, and D
+// in {64, 96, 128, 256} or a multiple of 512 gives the second.
+cudaError_t encode_map(CUtensorMap* map, const void* ptr, int heads, int rows, int D, int bw, int box_rows) {
   const EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
   const cuuint64_t dims[3] = {cuuint64_t(D), cuuint64_t(rows), cuuint64_t(heads)};
   const cuuint64_t strides[2] = {cuuint64_t(D) * 2, cuuint64_t(rows) * D * 2};  // bytes, dims 1 and 2
-  const cuuint32_t box[3] = {Lay<D>::BW, cuuint32_t(box_rows), 1}, unit[3] = {1, 1, 1};
-  const CUtensorMapSwizzle swizzle = Lay<D>::BW == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
+  const cuuint32_t box[3] = {cuuint32_t(bw), cuuint32_t(box_rows), 1}, unit[3] = {1, 1, 1};
+  const CUtensorMapSwizzle swizzle = bw == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
   const CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
                               strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
                               swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// encode_map at a width the Hopper kernels are built for, in Lay<D>'s boxes.
+template <int D>
+cudaError_t encode_rows(CUtensorMap* map, const void* ptr, int heads, int rows, int box_rows) {
+  return encode_map(map, ptr, heads, rows, D, Lay<D>::BW, box_rows);
 }
 
 // Blocks for a persistent kernel of `units` units of work: one per SM, or
@@ -2649,6 +2810,37 @@ cudaError_t fwd_sm90_f32(const void* q, const void* k, const void* v, void* o, f
                                                                           lse, bh, seq_q, seq_k, scale);
 }
 
+// fwd_kernel_sm90_stream on operands in P parts (P = 1: bf16, o bf16; P = 2:
+// split_kernel's parts, [2 bh, rows, D] each, o f32) at any D that is a
+// multiple of STREAM_SLICE; an int counts the units, the slices included.
+template <int P>
+cudaError_t fwd_sm90_stream(const void* q, const void* k, const void* v, void* o, float* lse, int bh,
+                            int seq_q, int seq_k, int D, float scale, bool causal, cudaStream_t stream) {
+  using Cfg = StreamCfg<P>;
+  if (D <= 0 || D % STREAM_SLICE || bh > 0x7FFFFFFF / P) return cudaErrorInvalidValue;
+  CUtensorMap qm, km, vm;
+  dim3 grid;
+  int units = 0;
+  cudaError_t err = encode_map(&qm, q, P * bh, seq_q, D, 64, Cfg::ROWS);
+  if (err == cudaSuccess) err = encode_map(&km, k, P * bh, seq_k, D, 64, Cfg::BN);
+  if (err == cudaSuccess) err = encode_map(&vm, v, P * bh, seq_k, D, 64, Cfg::BN);
+  if (err == cudaSuccess) err = units_of<Cfg::ROWS>(seq_q, bh, units);
+  if (err == cudaSuccess && units > 0x7FFFFFFF / (D / STREAM_SLICE)) err = cudaErrorInvalidValue;
+  if (err == cudaSuccess) err = persistent_grid(units * (D / STREAM_SLICE), grid);
+  if (err != cudaSuccess) return err;
+  const size_t smem = Cfg::BYTES;
+  if (causal) {
+    return lse ? launch<fwd_kernel_sm90_stream<P, true, true>, FWD_THREADS>(grid, smem, stream, qm, km, vm, o,
+                                                                             lse, bh, seq_q, seq_k, D, scale)
+               : launch<fwd_kernel_sm90_stream<P, true, false>, FWD_THREADS>(grid, smem, stream, qm, km, vm, o,
+                                                                              lse, bh, seq_q, seq_k, D, scale);
+  }
+  return lse ? launch<fwd_kernel_sm90_stream<P, false, true>, FWD_THREADS>(grid, smem, stream, qm, km, vm, o,
+                                                                            lse, bh, seq_q, seq_k, D, scale)
+             : launch<fwd_kernel_sm90_stream<P, false, false>, FWD_THREADS>(grid, smem, stream, qm, km, vm, o,
+                                                                             lse, bh, seq_q, seq_k, D, scale);
+}
+
 // The Hopper backward kernels on operands in P parts: P = 1, bf16; P = 2,
 // split_kernel's parts, each operand a [2 bh, rows, D] bf16 tensor (the hi
 // part of head h at head h, its lo part at head h + bh; bh up to 2^30 - 1,
@@ -2718,16 +2910,18 @@ cudaError_t bwd_dq_sm90(const void* q, const void* k, const void* v, const void*
 // ------------------------------------------------------------ C interface
 // dtype: 0 = float32, 1 = bfloat16, 2 = float32 as rt_split4's parts.
 // head_dim: 64, 96, 128, 256 or 512 (the wrappers pad any other width up
-// to 512 to the next of them). Each function returns the cudaError_t of its
-// launch (0 on success); the kernel runs on `stream` and nothing here
-// synchronises or allocates. bf16 runs the Hopper kernels at every width;
-// f32 runs them at 64-256 as parts only (dtype 2: fwd_kernel_sm90_f32,
-// bwd_dq_kernel_sm90_f32, bwd_dkv_kernel_sm90_f32) and at 512 as f32 (dtype
-// 0: the CUDA-core kernels).
+// to 512 to the next of them), and for rt_flash_fwd_stream any multiple of
+// 512. Each function returns the cudaError_t of its launch (0 on success);
+// the kernel runs on `stream` and nothing here synchronises or allocates.
+// bf16 runs the Hopper kernels at every width; f32 runs them at 64-256 as
+// parts (dtype 2: fwd_kernel_sm90_f32, bwd_dq_kernel_sm90_f32,
+// bwd_dkv_kernel_sm90_f32), its forward at 512 and past as parts on the
+// streamed forward, and its backward at 512 as f32 (dtype 0: the CUDA-core
+// kernels).
 
-// In each function, FN(W) names the launcher of width W for the dtype: the
-// Hopper kernels for bf16 (P = 1) at every width and for parts (P = 2) at
-// 64-256, the CUDA-core ones for f32 at 512.
+// In each backward function, FN(W) names the launcher of width W for the
+// dtype: the Hopper kernels for bf16 (P = 1) at every width and for parts
+// (P = 2) at 64-256, the CUDA-core ones for f32 at 512.
 #define RT_DISPATCH(CALL, HOPPER, CUDA_CORE)                                                      \
   if (dtype == 1) {                                                                               \
     CALL(64, (HOPPER<64, 1>)) CALL(96, (HOPPER<96, 1>)) CALL(128, (HOPPER<128, 1>))               \
@@ -2760,10 +2954,20 @@ int rt_flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse
     RT_FWD(96, fwd_sm90_f32<96>)
     RT_FWD(128, fwd_sm90_f32<128>)
     RT_FWD(256, fwd_sm90_f32<256>)
-  } else if (dtype == 0) {
-    RT_FWD(512, (fwd<float, 512>))
   }
 #undef RT_FWD
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// B1 (B2 with lse) with S's contraction streamed (fwd_kernel_sm90_stream):
+// dtype 1 (bf16, o bf16) or 2 (rt_split4's parts, o f32) at any head_dim
+// that is a multiple of 512 (the wrappers zero-pad to one).
+int rt_flash_fwd_stream(const void* q, const void* k, const void* v, void* o, void* lse, int bh, int seq_q,
+                        int seq_k, int head_dim, float scale, int causal, int dtype, void* stream) {
+  float* l = static_cast<float*>(lse);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 1) return fwd_sm90_stream<1>(q, k, v, o, l, bh, seq_q, seq_k, head_dim, scale, causal != 0, st);
+  if (dtype == 2) return fwd_sm90_stream<2>(q, k, v, o, l, bh, seq_q, seq_k, head_dim, scale, causal != 0, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -2819,7 +3023,7 @@ int rt_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* do
 const char* rt_error_string(int err) { return cudaGetErrorString(static_cast<cudaError_t>(err)); }
 
 #ifdef RT_TIMELINE
-// Copies the stamps into dst (host memory, [6][2][64][6] int64) and clears them.
+// Copies the stamps into dst (host memory, [7][2][64][6] int64) and clears them.
 int rt_timeline(void* dst) {
   void* at = nullptr;
   cudaError_t err = cudaMemcpyFromSymbol(dst, timeline, sizeof(timeline));

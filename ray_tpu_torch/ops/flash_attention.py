@@ -15,21 +15,29 @@ operand as two bf16 parts, hi = bf16(x) and lo = bf16(x - hi), and the
 kernels sum three bf16 products for each f32 one (hi.hi + hi.lo + lo.hi),
 within chip_smoke.py's f32 limit of the f32 plain version. The `*_parts`
 wrappers take those parts; the f32 wrappers split their operands and call
-them. f32 at 512 runs on the f32 CUDA cores. Every sum is f32 and the plain
-versions below are what the kernels compute.
+them. The f32 forward at 512 takes the parts too, into the streamed
+forward below; the f32 backward at 512 runs on the f32 CUDA cores. Every
+sum is f32 and the plain versions below are what the kernels compute.
 
-The kernels are built for head dims 64, 96, 128, 256 and 512 (`WIDTHS`);
-the TPU kernels take any. Any other head dim up to 512 runs at the next of
-those widths, its q, k, v (and do) zero-padded: q.k^T, the softmax, lse and
-delta = rowsum(do * o) are unchanged by zero columns, and the padded
-columns of o, dq, dk and dv are zero and cut away. The scale stays the
-caller's (1/sqrt of the unpadded width). `flash_attention`, the autograd
-function and ring attention pad once a call, in the copy to [BH, T, D]
-they make anyway; the wrappers pad what they are given directly. The CPU
-path pads too, so the CPU tests run the route the card runs. Past 512 the
-wrappers refuse a CUDA tensor: a block's shared memory holds no 64-row Q,
-K and V tiles beside a stream of others. Any number of heads BH is taken,
-as the TPU kernels' grid takes any.
+Two width rules (`kernel_width`). The kernels are built for head dims 64,
+96, 128, 256 and 512 (`WIDTHS`), and any other head dim up to 512 runs at
+the next of those widths, its q, k, v (and do) zero-padded: q.k^T, the
+softmax, lse and delta = rowsum(do * o) are unchanged by zero columns, and
+the padded columns of o, dq, dk and dv are zero and cut away. The scale
+stays the caller's (1/sqrt of the unpadded width). The forward (B1, B2:
+`flash_fwd`, `flash_fwd_parts`, and `flash_attention` without gradients,
+which the transformer's scoring and serving paths take) takes any head dim,
+as the TPU kernels do: past 512 it runs at the next multiple of 512
+(`STREAM_SLICE`) on the streamed forward (fwd_kernel_sm90_stream: S's
+contraction streamed over chunks of D, an item's output columns in slices
+of 512), which also takes f32 at 512. The backward's rule (B3, B4, the
+autograd function, ring attention) stops at 512: past it a CUDA tensor is
+refused, and the autograd function refuses before it launches anything
+(`autograd_width`). `flash_attention`, the autograd function and ring
+attention pad once a call, in the copy to [BH, T, D] they make anyway; the
+wrappers pad what they are given directly. The CPU path pads too (the
+forward's rule past 512 as well), so the CPU tests run the route the card
+runs. Any number of heads BH is taken, as the TPU kernels' grid takes any.
 
 Each wrapper launches its kernel for a CUDA tensor and raises on anything
 the kernel does not take; for a CPU tensor it runs its plain PyTorch
@@ -64,7 +72,10 @@ f32_launches: Dict[str, int] = {"split": 0, "fwd": 0, "fwd_lse": 0, "bwd_dq": 0,
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _PARTS = 2  # the kernels' dtype code for f32 operands given as split_parts' parts
 WIDTHS = (64, 96, 128, 256, 512)  # the head dims the kernels are built for
-SPLIT_WIDTHS = (64, 96, 128, 256)  # where f32 runs on the tensor cores, as parts
+SPLIT_WIDTHS = (64, 96, 128, 256)  # where f32 B1-B4 run on the tensor cores, as parts
+# The streamed forward (B1, B2) takes any multiple of STREAM_SLICE: past 512
+# a head dim is padded to the next one; f32 runs it at 512 too, as parts.
+STREAM_SLICE = 512
 _lib: Optional[ctypes.CDLL] = None
 
 
@@ -93,6 +104,9 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     if hasattr(lib, "rt_split4"):
         lib.rt_split4.argtypes = [P, P, P, P, P, L, L, L, L, P]
         fns.append(lib.rt_split4)
+    if hasattr(lib, "rt_flash_fwd_stream"):  # older builds have no streamed forward (kernel_ab times them)
+        lib.rt_flash_fwd_stream.argtypes = lib.rt_flash_fwd.argtypes
+        fns.append(lib.rt_flash_fwd_stream)
     if hasattr(lib, "rt_split"):  # older builds' forward-only split (kernel_ab times them)
         lib.rt_split.argtypes = [P, P, P, P, L, L, P]
         fns.append(lib.rt_split)
@@ -112,16 +126,43 @@ def _kernels() -> ctypes.CDLL:
     return _lib
 
 
-def kernel_width(head_dim: int, device) -> int:
+def kernel_width(head_dim: int, device, *, forward: bool = False) -> int:
     """The head dim an attention of `head_dim` runs at: the next of WIDTHS.
-    On the CPU a head dim past them runs unpadded (the plain versions take
-    any); on the card it raises."""
+    Past them the forward's rule (B1, B2: `forward`) runs the next multiple
+    of STREAM_SLICE, on the card and on the CPU alike; the backward's rule
+    (B3, B4 and whatever runs them: the autograd function, ring attention)
+    runs such a head dim unpadded on the CPU (the plain versions take any)
+    and raises on the card."""
     for width in WIDTHS:
         if head_dim <= width:
             return width
+    if forward:
+        return -(-head_dim // STREAM_SLICE) * STREAM_SLICE
     if torch.device(device).type == "cpu":
         return head_dim
-    raise ValueError(f"flash kernels take head_dim up to {WIDTHS[-1]}, got {head_dim}")
+    raise ValueError(_BWD_WIDTH_REFUSAL.format(head_dim))
+
+
+# The backward kernels past 512 are the next slice of the port (ROADMAP,
+# queue B, B8b); the forward takes any head dim.
+_BWD_WIDTH_REFUSAL = ("the flash backward kernels take head_dim up to 512 (past 512 only the forward is "
+                      "ported: B3, B4 and the autograd function there are queue B's B8b); got {}")
+
+
+def stream_route(width: int, dtype) -> bool:
+    """Whether B1 and B2 at kernel width `width` run the streamed forward
+    (fwd_kernel_sm90_stream): past 512, and f32 at 512."""
+    return width > WIDTHS[-1] or (width == WIDTHS[-1] and dtype == torch.float32)
+
+
+def autograd_width(head_dim: int, dtype, device) -> int:
+    """The width _FlashAttention runs an attention of `head_dim` at, before
+    it launches anything: the backward's rule, so on the card a head dim
+    whose backward is not ported (past 512) raises here, and no forward runs
+    whose backward must fail. dtype: float32 or bfloat16 on the card."""
+    if torch.device(device).type == "cuda" and dtype not in _DTYPES:
+        raise ValueError(f"flash kernels take float32 or bfloat16, got {dtype}")
+    return kernel_width(head_dim, device)
 
 
 def _pad(width: int, *xs) -> list:
@@ -141,22 +182,26 @@ def _check_err(err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {err}: {msg}")
 
 
-def check_shapes(q_shape, k_shape, v_shape) -> None:
+def check_shapes(q_shape, k_shape, v_shape, *, forward: bool = False) -> None:
     """Raise unless the kernels take q [BH, T, D] and k, v [BH, S, D] of
-    these shapes: any BH, T and S above 0, D up to the widest width."""
+    these shapes: any BH, T and S above 0; D above 0, up to the widest width
+    for the backward's kernels, any for the forward's (`forward`)."""
     if len(q_shape) != 3 or len(k_shape) != 3 or tuple(k_shape) != tuple(v_shape):
         raise ValueError(f"flash kernels take q [BH,T,D], k/v [BH,S,D]; got {q_shape}, {k_shape}, {v_shape}")
     BH, T, D = q_shape
     if k_shape[0] != BH or k_shape[2] != D:
         raise ValueError(f"q {tuple(q_shape)} and k {tuple(k_shape)} disagree")
-    if not 0 < D <= WIDTHS[-1]:
-        raise ValueError(f"flash kernels take head_dim up to {WIDTHS[-1]}, got {D}")
+    if D <= 0:
+        raise ValueError(f"flash kernels need head_dim > 0, got {D}")
+    if not forward and D > WIDTHS[-1]:
+        raise ValueError(_BWD_WIDTH_REFUSAL.format(D))
     if BH == 0 or T == 0 or k_shape[1] == 0:
         raise ValueError(f"flash kernels need BH, T, S > 0; got {tuple(q_shape)}, {tuple(k_shape)}")
 
 
-def _check_inputs(q, k, v, *rest) -> None:
-    """Raise unless the kernels take these [BH, T, D] / [BH, S, D] tensors."""
+def _check_inputs(q, k, v, *rest, forward: bool = False) -> None:
+    """Raise unless the kernels (the forward's: `forward`) take these
+    [BH, T, D] / [BH, S, D] tensors."""
     for t in (q, k, v, *rest):
         if t.device.type != "cuda":
             raise ValueError(f"flash kernels need CUDA tensors, got {t.device}")
@@ -170,7 +215,7 @@ def _check_inputs(q, k, v, *rest) -> None:
             raise ValueError("flash kernels load rows 16 bytes at a time: tensors must be 16-byte aligned")
     if q.dtype not in _DTYPES:
         raise ValueError(f"flash kernels take float32 or bfloat16, got {q.dtype}")
-    check_shapes(q.shape, k.shape, v.shape)
+    check_shapes(q.shape, k.shape, v.shape, forward=forward)
 
 
 def _check_stats(q, *stats) -> None:
@@ -256,10 +301,13 @@ def _torch_attention_bhtd(q, k, v, *, causal: bool, scale: float):
 
 # ------------------------------------------------------------------ wrappers
 
-def parts_route(q) -> bool:
-    """Whether the kernels take `q`'s attention as split_parts' parts: f32 on
-    the card at SPLIT_WIDTHS."""
-    return q.device.type == "cuda" and q.dtype == torch.float32 and q.shape[-1] in SPLIT_WIDTHS
+def parts_route(q, *, forward: bool = False) -> bool:
+    """Whether the kernels take `q`'s attention (at its kernel width) as
+    split_parts' parts: f32 on the card at SPLIT_WIDTHS, and for the
+    forward (`forward`) also at 512 and past (the streamed forward)."""
+    D = q.shape[-1]
+    return (q.device.type == "cuda" and q.dtype == torch.float32
+            and (D in SPLIT_WIDTHS or forward and stream_route(D, q.dtype)))
 
 
 def split_parts(*xs):
@@ -290,7 +338,8 @@ def split_parts(*xs):
 def _check_parts(parts, n: int) -> tuple:
     """Raise unless `parts` are n of split_parts' outputs the kernels take:
     contiguous bf16 [2, BH, rows, D] CUDA tensors of one device, D in
-    SPLIT_WIDTHS, q's (and do's) [BH, T, D] and k's, v's [BH, S, D] by the
+    SPLIT_WIDTHS (for the forward's three, n = 3, also a multiple of
+    STREAM_SLICE), q's (and do's) [BH, T, D] and k's, v's [BH, S, D] by the
     shape rules. Returns the parts."""
     if len(parts) != n:
         raise ValueError(f"want the parts of {n} operands, got {len(parts)}")
@@ -301,21 +350,28 @@ def _check_parts(parts, n: int) -> tuple:
                              f"[2, BH, rows, D] CUDA tensors on one device; got {p.dtype} "
                              f"{tuple(p.shape)} on {p.device}")
     pq, pk, pv = parts[:3]
-    check_shapes(pq.shape[1:], pk.shape[1:], pv.shape[1:])
+    forward = n == 3
+    check_shapes(pq.shape[1:], pk.shape[1:], pv.shape[1:], forward=forward)
     if n == 4 and parts[3].shape != pq.shape:
         raise ValueError(f"do's parts {tuple(parts[3].shape)} and q's {tuple(pq.shape)} disagree")
-    if pq.shape[-1] not in SPLIT_WIDTHS:
-        raise ValueError(f"the f32 kernels take parts at head dims {SPLIT_WIDTHS}, got {pq.shape[-1]}")
+    D = pq.shape[-1]
+    if not (D in SPLIT_WIDTHS or forward and D % STREAM_SLICE == 0):
+        raise ValueError(f"the f32 kernels take parts at head dims {SPLIT_WIDTHS}"
+                         f"{' or a multiple of 512' if forward else ''}, got {D}")
     return parts
 
 
 def _launch_fwd(q, k, v, o, lse, causal: bool, scale: float, dtype: int) -> None:
-    """B1 (B2 with lse) into o [BH, T, D] (and lse [BH, T])."""
+    """B1 (B2 with lse) into o [BH, T, D] (and lse [BH, T]): the streamed
+    forward where stream_route says so (o's dtype is the inputs'), else the
+    kernel of width D."""
     if not scale > 0:  # the kernel takes the row max before it scales
         raise ValueError(f"flash_fwd needs scale > 0, got {scale}")
     BH, T, D = o.shape
+    lib = _kernels()
+    fn = lib.rt_flash_fwd_stream if stream_route(D, o.dtype) else lib.rt_flash_fwd
     with torch.cuda.device(o.device):
-        err = _kernels().rt_flash_fwd(
+        err = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             None if lse is None else lse.data_ptr(), BH, T, k.shape[-2], D, scale,
             int(causal), dtype, _stream(o.device),
@@ -325,19 +381,19 @@ def _launch_fwd(q, k, v, o, lse, causal: bool, scale: float, dtype: int) -> None
 
 
 def flash_fwd(q, k, v, *, causal: bool, scale: float, with_lse: bool = False):
-    """Attention forward on [BH, T, D]: o, or (o, lse [BH, T] f32) with_lse.
-    f32 CUDA tensors at SPLIT_WIDTHS go through split_parts, then
-    flash_fwd_parts."""
+    """Attention forward on [BH, T, D]: o, or (o, lse [BH, T] f32) with_lse,
+    at any D (the forward's width rule). f32 CUDA tensors at SPLIT_WIDTHS,
+    512 and past go through split_parts, then flash_fwd_parts."""
     if q.device.type != "cpu":
-        _check_inputs(q, k, v)
+        _check_inputs(q, k, v, forward=True)
     D = q.shape[-1]
-    width = kernel_width(D, q.device)
+    width = kernel_width(D, q.device, forward=True)
     if width != D:
         out = flash_fwd(*_pad(width, q, k, v), causal=causal, scale=scale, with_lse=with_lse)
         return (_cut(out[0], D), out[1]) if with_lse else _cut(out, D)
     if q.device.type == "cpu":
         return _flash_fwd_ref(q, k, v, causal, scale, with_lse)
-    if parts_route(q):
+    if parts_route(q, forward=True):
         return flash_fwd_parts(split_parts(q, k, v), causal=causal, scale=scale, with_lse=with_lse)
     BH, T, D = q.shape
     o = torch.empty_like(q)
@@ -348,7 +404,8 @@ def flash_fwd(q, k, v, *, causal: bool, scale: float, with_lse: bool = False):
 
 def flash_fwd_parts(parts, *, causal: bool, scale: float, with_lse: bool = False):
     """flash_fwd on f32 q, k, v given as split_parts(q, k, v): o [BH, T, D]
-    f32, or (o, lse) with_lse, from the f32 Hopper kernel."""
+    f32, or (o, lse) with_lse, from the f32 Hopper kernel (the streamed one
+    at 512 and past)."""
     pq, pk, pv = _check_parts(parts, 3)
     BH, T, D = pq.shape[1:]
     o = torch.empty((BH, T, D), dtype=torch.float32, device=pq.device)
@@ -450,12 +507,16 @@ class _FlashAttention(torch.autograd.Function):
     head dim off the kernels' widths is padded once: the padded q, k, v and
     o are saved, and do is padded once in the backward. On the f32 route
     (parts_route) the forward's parts of q, k and v are saved in their
-    place, so the backward splits do alone."""
+    place, so the backward splits do alone. At f32 512 the forward takes
+    the streamed forward's parts route but the f32 q, k and v are saved:
+    the backward there is the CUDA-core kernels', on f32 operands (hi + lo
+    does not give x back bitwise). Past 512 on the card it raises before
+    any launch (autograd_width)."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, scale: float):
         D = q.shape[-1]
-        q, k, v = _pad(kernel_width(D, q.device), q, k, v)
+        q, k, v = _pad(autograd_width(D, q.dtype, q.device), q, k, v)
         ctx.causal, ctx.scale, ctx.head_dim = causal, scale, D
         ctx.dtypes, ctx.parts = (q.dtype, k.dtype, v.dtype), parts_route(q)
         if ctx.parts:
@@ -505,9 +566,10 @@ def flash_attention(q, k, v, *, causal: bool = False, scale: Optional[float] = N
     if scale is None:
         scale = 1.0 / math.sqrt(D)
     rep = H // k.shape[2]
-    width = kernel_width(D, q.device)
+    grad = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad)
+    width = autograd_width(D, q.dtype, q.device) if grad else kernel_width(D, q.device, forward=True)
     qf, kf, vf = _to_bhtd(q, 1, width), _to_bhtd(k, rep, width), _to_bhtd(v, rep, width)
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+    if grad:
         of = _FlashAttention.apply(qf, kf, vf, causal, scale)
     else:
         of = flash_fwd(qf, kf, vf, causal=causal, scale=scale)

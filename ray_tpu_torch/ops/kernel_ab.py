@@ -7,6 +7,7 @@ show where this checkout's kernels spend a tile (`--timeline`).
     python -m ray_tpu_torch.ops.kernel_ab --timeline
     python -m ray_tpu_torch.ops.kernel_ab --head-dim 256 build/parent/.../flash_attention.cu
     python -m ray_tpu_torch.ops.kernel_ab --dtype float32 build/parent/.../flash_attention.cu
+    python -m ray_tpu_torch.ops.kernel_ab --dtype float32 --head-dim 512 --timeline
 
 Every source (this checkout's first) is built with the package's nvcc flags,
 all at once, into `build/ray_tpu_torch/ab/`, and each build's forward and
@@ -17,12 +18,15 @@ this one's again, so a drift of the card's clock falls on every side
 alike. bf16 (or `--dtype float32`), causal, on [B*H, T, D] inputs from a seed, at the shapes of
 `--head-dim` (SHAPES: 64, the default, GPT-2 small's; 32, 96 and 256 the
 JAX package's example's, Phi-3-mini's and Gemma-2B's attention widths; 512
-chip_smoke.py's 18a's; any other D at [96, 1024, D]), scale 1/sqrt(D). At
-f32 and 64-256 the forward is timed with its split pass and the backward
-kernels on q, k, v and do split beforehand (the f32 kernels alone); a build
-without the backward's split pass (rt_split4) runs its f32 backward on its
-CUDA-core kernels at every width, and its forward through its own split
-pass (rt_split) or, without one, its CUDA-core kernel, as it did. Prints
+chip_smoke.py's 18a's; 1024 and 2048 the streamed forward's past 512; any
+other D at [96, 1024, D]), scale 1/sqrt(D). Past 512 only B1 and B2 are
+timed (the backward kernels stop at 512). At f32 and 64-256 the forward is
+timed with its split pass and the backward kernels on q, k, v and do split
+beforehand (the f32 kernels alone); a build without the backward's split
+pass (rt_split4) runs its f32 backward on its CUDA-core kernels at every
+width, and its forward through its own split pass (rt_split) or, without
+one, its CUDA-core kernel, as it did; a build without the streamed forward
+(rt_flash_fwd_stream) runs f32 at 512 on its CUDA-core forward. Prints
 one JSON line: the card, each build's worst error-to-limit ratio, the
 host's us to queue a call of each kernel at the first shape, and its ms
 per shape and kernel (the mean of its two turns, each a mean of `--reps`
@@ -31,7 +35,9 @@ calls, and both turns).
 `--timeline` builds this checkout's source with RT_TIMELINE, which stamps
 the SM's cycle counter in block 0's two consumer warpgroups at each step of
 every streamed tile after an item's first, runs B1, B3 and B4 once each at
-each shape, and prints the median cycles a tile spends in each step.
+each shape, and prints the median cycles a tile spends in each step (B1 on
+the streamed forward's steps where the width takes it: f32 at 512, any
+dtype past 512).
 """
 
 from __future__ import annotations
@@ -64,6 +70,8 @@ SHAPES_BY_HEAD_DIM = {
     96: ((128, 2048, 96),),
     256: ((32, 2048, 256),),
     512: ((16, 2048, 512),),
+    1024: ((8, 2048, 1024),),
+    2048: ((4, 2048, 2048),),
 }
 SHAPES = SHAPES_BY_HEAD_DIM[64]
 SCALE = 64 ** -0.5
@@ -82,16 +90,18 @@ BF16_RTOL, BF16_ATOL, F32_ATOL = 2.0 ** -7, 1e-4, 2e-4
 # The kernels' stamps (timeline in the source): [kernel][consumer][tile][event],
 # the steps between a tile's events, by kernel, and each dtype's stamped
 # kernels by their index in the stamps.
-TIMELINE_SHAPE = (6, 2, 64, 6)
+TIMELINE_SHAPE = (7, 2, 64, 6)
 _BWD_STEPS = ("issue S, dP and the previous products", "S and dP in", "P and dS",
               "previous products in", "split")
 TIMELINE_STEPS = {
     "fwd": ("issue S and P.V", "S in", "softmax", "P.V in", "rescale and split P"),
     "bwd_dq": _BWD_STEPS,
     "bwd_dkv": _BWD_STEPS,
+    "fwd_stream": ("issue S chunk by chunk", "P.V issued", "S in", "softmax", "P.V in, rescale and split P"),
 }
 TIMELINE_KERNELS = {torch.bfloat16: {"fwd": 0, "bwd_dq": 1, "bwd_dkv": 2},
                     torch.float32: {"fwd": 3, "bwd_dq": 4, "bwd_dkv": 5}}
+STREAM_TIMELINE_KERNEL = 6  # the streamed forward's stamps, either dtype
 
 
 def _err_to_limit(o, lse, ref_o, ref_lse) -> float:
@@ -135,12 +145,33 @@ def _older_f32(q) -> bool:
     return q.dtype == torch.float32 and not hasattr(fa._lib, "rt_split4")
 
 
+def _streamed(q) -> bool:
+    """Whether this checkout's wrappers run q's forward on the streamed
+    forward (fa.stream_route)."""
+    return fa.stream_route(fa.kernel_width(q.shape[-1], q.device, forward=True), q.dtype)
+
+
+def _older_fwd(q) -> bool:
+    """Whether the loaded build takes its own forward route for q: it
+    predates the f32 backward on parts, or q's forward is the streamed one
+    and the build has none (f32 at 512 then runs its CUDA-core forward)."""
+    return _older_f32(q) or (_streamed(q) and not hasattr(fa._lib, "rt_flash_fwd_stream"))
+
+
+def kernels_at(head_dim: int) -> tuple:
+    """The kernels timed at `head_dim`: B1-B4, or B1 and B2 past 512."""
+    return tuple(CALLS) if head_dim <= fa.WIDTHS[-1] else ("fwd", "fwd_lse")
+
+
 def _fwd(q, k, v, with_lse: bool = False):
-    """B1 (B2 with_lse) through the loaded build: the wrapper's route, or, for
-    f32 on an older build, its own: its split pass (rt_split) and f32
-    Hopper forward, or without one its f32 kernel at every width."""
-    if not _older_f32(q):
+    """B1 (B2 with_lse) through the loaded build: the wrapper's route, or, on
+    an older build (_older_fwd), its own: for f32 its split pass (rt_split)
+    and f32 Hopper forward, or without one its f32 kernel (the CUDA-core
+    one at 512)."""
+    if not _older_fwd(q):
         return fa.flash_fwd(q, k, v, causal=True, scale=SCALE, with_lse=with_lse)
+    if q.dtype != torch.float32:
+        raise ValueError(f"this build has no forward at head dim {q.shape[-1]}")
     BH, T, D = q.shape
     o = torch.empty_like(q)
     lse = torch.empty((BH, T), dtype=torch.float32, device=q.device) if with_lse else None
@@ -190,14 +221,16 @@ CALLS = {
 
 
 def err_to_limit(args) -> float:
-    """The loaded build's worst error-to-limit ratio over the four kernels
-    on `args`, against the plain versions."""
+    """The loaded build's worst error-to-limit ratio over the kernels
+    (kernels_at) on `args`, against the plain versions."""
     q, k, v = args[:3]
     plain = args[:6]
     ref_o, ref_lse = fa._flash_fwd_ref(q, k, v, True, SCALE, True)
     o, lse = CALLS["fwd_lse"](*args)
     ratio = max(_err_to_limit(o, lse, ref_o, ref_lse),
                 _err_to_limit(CALLS["fwd"](*args), lse, ref_o, ref_lse))
+    if "bwd_dq" not in kernels_at(q.shape[-1]):
+        return ratio
     ratio = max(ratio, _f32_err_to_limit(CALLS["bwd_dq"](*args), fa._flash_bwd_dq_ref(*plain, True, SCALE)))
     for got, want in zip(CALLS["bwd_dkv"](*args), fa._flash_bwd_dkv_ref(*plain, True, SCALE)):
         ratio = max(ratio, _f32_err_to_limit(got, want))
@@ -242,21 +275,27 @@ def timeline_library() -> Path:
 
 def timeline(dev, dtype=torch.bfloat16) -> dict:
     """{kernel: {shape: {step: median cycles a tile spends in it}}} from the
-    stamps of B1, B3 and B4 (bf16, or f32 on the tensor cores)."""
+    stamps of B1, B3 and B4 (bf16, or f32 on the tensor cores; B1 as
+    "fwd_stream" where the streamed forward takes it)."""
     import numpy as np
 
     lib = fa._bind(ctypes.CDLL(str(timeline_library())))
     lib.rt_timeline.argtypes = [ctypes.c_void_p]
     lib.rt_timeline.restype = ctypes.c_int
     saved, fa._lib = fa._lib, lib
-    kernels = TIMELINE_KERNELS[dtype]
-    out = {key: {} for key in kernels}
+    out = {}
     try:
         stamps = np.zeros(TIMELINE_SHAPE, dtype=np.int64)
         for shape, args in _inputs(dev, dtype).items():
-            for key, kernel in kernels.items():
+            for key in kernels_at(shape[-1]):
+                if key == "fwd_lse":
+                    continue
+                call, kernel = CALLS[key], TIMELINE_KERNELS[dtype][key]
+                if key == "fwd" and _streamed(args[0]):
+                    key, kernel = "fwd_stream", STREAM_TIMELINE_KERNEL
+                out.setdefault(key, {})
                 lib.rt_timeline(stamps.ctypes.data)  # clears what an earlier run left
-                CALLS[key](*args)
+                call(*args)
                 torch.cuda.synchronize()
                 if lib.rt_timeline(stamps.ctypes.data):
                     raise RuntimeError("could not read the timeline")
@@ -314,15 +353,15 @@ def main(argv=None) -> int:
     try:
         for name, src in zip(names, sources):
             fa._lib = libs[name]
-            queue_us = {key: host_us(lambda: call(*first)) for key, call in CALLS.items()}
+            queue_us = {key: host_us(lambda: CALLS[key](*first)) for key in kernels_at(SHAPES[0][-1])}
             out["builds"][name] = {"source": str(src), "err_to_limit": err_to_limit(first),
                                    "host_us": queue_us}
         for name in names + names[::-1]:
             fa._lib = libs[name]
             for shape, args_ in inputs.items():
-                for key, call in CALLS.items():
+                for key in kernels_at(shape[-1]):
                     turns[name].setdefault(f"{key}@{'x'.join(map(str, shape))}", []).append(
-                        _time_ms(lambda: call(*args_), args.reps))
+                        _time_ms(lambda: CALLS[key](*args_), args.reps))
     finally:
         fa._lib = saved
     for name in names:

@@ -69,13 +69,18 @@ def test_kernels_match_plain_versions(dev, causal, T, D, dtype):
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    """Each refusal raises before any launch. Past 512 the forward takes any
+    head dim; the backward's wrappers, the autograd function and
+    flash_attention with gradients refuse one."""
     q = torch.randn(2, 64, 64, device=dev)
     wide = torch.randn(2, 64, 520, device=dev)
     lse = torch.zeros(2, 64, device=dev)
     refused = [
         lambda: fa.flash_fwd(q.half(), q.half(), q.half(), causal=True, scale=1.0),  # dtype
         lambda: fa.flash_fwd(q, q.bfloat16(), q, causal=True, scale=1.0),  # mixed dtypes
-        lambda: fa.flash_fwd(wide, wide, wide, causal=True, scale=1.0),  # head_dim 520 > 512
+        lambda: fa.flash_bwd_dq(wide, wide, wide, wide, lse, lse, causal=True, scale=1.0),  # head_dim 520 > 512
+        lambda: fa._FlashAttention.apply(wide.clone().requires_grad_(True), wide, wide, True, 1.0),
+        lambda: fa.flash_attention(*(wide.view(2, 64, 1, 520).clone().requires_grad_(True) for _ in range(3))),
         lambda: fa.flash_fwd(q.transpose(1, 2), q, q, causal=True, scale=1.0),  # strides
         lambda: fa.flash_fwd(q, q.cpu(), q, causal=True, scale=1.0),  # devices
         lambda: fa.flash_bwd_dq(q, q, q, q, lse[:, :32], lse, causal=True, scale=1.0),
@@ -368,6 +373,31 @@ F32_MUTANTS = {
 }
 
 
+# Broken copies of the streamed forward (fwd_kernel_sm90_stream): each must
+# miss chip_smoke.py's limits at head dim 1024 (bf16 and f32) or f32 512.
+_STREAM_Q = ("tma_load_at(s_at(is) + (part * G / 64 + b) * ROWS * 128, &q_map, full, c * G + 64 * b, q0,\n"
+             "                              head + part * bh);")
+_STREAM_K = ("c * G + 64 * b, kt * BN, head + part * bh);")
+_STREAM_V = ("slice * STREAM_SLICE + 64 * b, kt * BN, head + part * bh);")
+STREAM_MUTANTS = {
+    # Every slice takes the first slice's columns of V (D past 512).
+    "stream_slices_share_v": [(_STREAM_V, "64 * b, kt * BN, head + part * bh);")],
+    # The f32 S (P = 2) without Q_lo.K_hi^T past its first chunk.
+    "stream_drops_s_cross_product": [("      issue_s_add<G, Cfg::ROWS>(s, q_addr + Cfg::Q_PART, k_addr);\n", "")],
+    # Each tile's mask and softmax taken one tile of keys further on.
+    "stream_shifts_the_mask": [("softmax_tile<CAUSAL>(s, m, l, alpha, kt * BN, q0, r0, tg, seq_k, sl2);",
+                                "softmax_tile<CAUSAL>(s, m, l, alpha, kt * BN + BN, q0, r0, tg, seq_k, sl2);")],
+    # Flat [heads * rows, D] maps: rows past T or S come from the next head
+    # (or the next part) instead of TMA's zero fill.
+    "stream_flat_tensor_maps": _FLAT_MAPS + [
+        (_STREAM_Q, _STREAM_Q.replace("q0,\n                              head + part * bh);",
+                                      "(head + part * bh) * seq_q + q0, 0);")),
+        (_STREAM_K, "c * G + 64 * b, (head + part * bh) * seq_k + kt * BN, 0);"),
+        (_STREAM_V, "slice * STREAM_SLICE + 64 * b, (head + part * bh) * seq_k + kt * BN, 0);"),
+    ],
+}
+
+
 # Broken copies of the f32 backward (bwd_dq_kernel_sm90_f32,
 # bwd_dkv_kernel_sm90_f32): each must miss chip_smoke.py's F32_ATOL on f32
 # inputs in the kernel its name's second word says (dq, dkv or bwd: both).
@@ -401,7 +431,8 @@ def mutant(dev, request, tmp_path, monkeypatch):
     if request.param is None:
         return None
     src = (_build.CSRC / "flash_attention.cu").read_text()
-    for line, broken in {**MUTANTS, **WIDE_MUTANTS, **F32_MUTANTS, **F32_BWD_MUTANTS}[request.param]:
+    for line, broken in {**MUTANTS, **WIDE_MUTANTS, **F32_MUTANTS, **F32_BWD_MUTANTS,
+                         **STREAM_MUTANTS}[request.param]:
         assert src.count(line) == 1
         src = src.replace(line, broken, 1)
     cu, so = tmp_path / "mutant.cu", tmp_path / "mutant.so"
@@ -595,9 +626,109 @@ def test_split_pass_is_its_plain_version_bitwise(dev):
 
 def test_f32_forward_route_by_width(dev):
     """f32 B1 and B2 at 64-256 go through one split pass each and the f32
-    Hopper kernel, at 512 through the CUDA-core kernel, by the profiler's
+    Hopper kernel, at 512 through one split pass each and the streamed
+    forward (B3 and B4 there on the CUDA-core kernels), by the profiler's
     kernel names and f32_launches (chip_smoke.py's f32_route)."""
     importlib.import_module("chip_smoke").f32_route(fa, dev)
+
+
+def _stream_inputs(dev, dtype, D, T, S, seed, heads=3):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn(heads, T, D, device=dev, generator=g).to(dtype)
+    k, v = (torch.randn(heads, S, D, device=dev, generator=g).to(dtype) for _ in range(2))
+    return q, k, v
+
+
+@pytest.mark.parametrize("dtype,D", [(torch.float32, 512)] + [(dt, D) for dt in (torch.float32, torch.bfloat16)
+                                                               for D in (576, 768, 1024, 2048)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_streamed_forward_matches_plain_version(dev, dtype, D, causal):
+    """B1 and B2 on the streamed forward (fwd_kernel_sm90_stream: f32 at
+    512, both dtypes past 512, 576 and 768 padded to 1024) against
+    _flash_fwd_ref at T = 1000 on S = 300 (causal) or 700, by chip_smoke.py's
+    limits; launches counted at the width run, and B3 and B4 refuse the
+    head dim past 512."""
+    cs = importlib.import_module("chip_smoke")
+    q, k, v = _stream_inputs(dev, dtype, D, 1000, 300 if causal else 700, D)
+    scale = D ** -0.5
+    fa.reset_launches()
+    o, lse = fa.flash_fwd(q, k, v, causal=causal, scale=scale, with_lse=True)
+    o1 = fa.flash_fwd(q, k, v, causal=causal, scale=scale)
+    ref_o, ref_lse = fa._flash_fwd_ref(q, k, v, causal, scale, True)
+    _, ratios = cs.compare({"fwd": [(o1, ref_o)], "fwd_lse": [(o, ref_o), (lse, ref_lse)]})
+    assert all(r <= 1.0 for r in ratios.values()), ratios
+    width = fa.kernel_width(D, dev, forward=True)
+    assert fa.launches_by_width == {f"fwd@{width}": 1, f"fwd_lse@{width}": 1}
+    assert fa.f32_launches["split"] == 2 * (dtype == torch.float32)
+    if D > 512:
+        delta = torch.zeros_like(lse)
+        for bwd in (fa.flash_bwd_dq, fa.flash_bwd_dkv):
+            with pytest.raises(ValueError, match="up to 512"):
+                bwd(q, k, v, q, lse, delta, causal=causal, scale=scale)
+        assert fa.launches["bwd_dq"] == fa.launches["bwd_dkv"] == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_streamed_forward_slices_agree_and_repeat_bitwise(dev, dtype):
+    """Every column slice of a row tile makes S in the same chunk order, so
+    their m and l agree bitwise: with V's second 512 columns a copy of its
+    first at 1024, o's two halves are equal bit for bit (a slice that
+    normalised by another l or max would differ); and two calls give the
+    same o and lse bit for bit (no atomics)."""
+    q, k, v = _stream_inputs(dev, dtype, 1024, 1000, 1000, 7, heads=4)
+    v[..., 512:] = v[..., :512]
+    for causal in (True, False):
+        o, lse = fa.flash_fwd(q, k, v, causal=causal, scale=1024 ** -0.5, with_lse=True)
+        o2, lse2 = fa.flash_fwd(q, k, v, causal=causal, scale=1024 ** -0.5, with_lse=True)
+        assert torch.equal(o[..., 512:], o[..., :512])
+        assert torch.equal(o, o2) and torch.equal(lse, lse2)
+
+
+def test_autograd_past_512_raises_before_any_launch_and_no_grad_runs(dev):
+    """At head dim 1024 on the card: the autograd function and
+    flash_attention with gradients raise before they launch anything (the
+    backward is not ported past 512); without gradients flash_attention
+    runs the streamed forward once, against the plain attention."""
+    cs = importlib.import_module("chip_smoke")
+    g = torch.Generator(device=dev).manual_seed(3)
+    q, k, v = (torch.randn(2, 300, 2, 1024, device=dev, generator=g).bfloat16() for _ in range(3))
+    fa.reset_launches()
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    with pytest.raises(ValueError, match="up to 512"):
+        fa.flash_attention(*leaves, causal=True)
+    assert fa.launches == {"fwd": 0, "fwd_lse": 0, "bwd_dq": 0, "bwd_dkv": 0}
+    with torch.no_grad():
+        o = fa.flash_attention(q, k, v, causal=True)
+        ref = fa.mha(q, k, v, causal=True, impl="torch")
+    assert fa.launches_by_width == {"fwd@1024": 1}
+    _, ratios = cs.compare({"fwd": [(o, ref)]})
+    assert ratios["fwd"] <= 1.0, ratios
+
+
+@pytest.mark.parametrize("mutant", list(STREAM_MUTANTS), indirect=True)
+def test_smoke_limits_catch_a_broken_streamed_forward(dev, mutant):
+    """Each broken streamed forward misses chip_smoke.py's limits (o or lse)
+    in one of the two causal modes at T = 1000 (a partial last tile), at
+    head dim 1024 in bf16 and f32 and at f32 512. For the flat-map mutant
+    the inputs are the first 4 heads of 5, the first rows of every later
+    head inf in V, and only head 0 is compared, as in
+    test_smoke_limits_catch_a_broken_kernel."""
+    cs = importlib.import_module("chip_smoke")
+    worst = 0.0
+    for dtype, D in ((torch.bfloat16, 1024), (torch.float32, 1024), (torch.float32, 512)):
+        q, k, v = _stream_inputs(dev, dtype, D, 1000, 1000, D, heads=4)
+        heads = slice(None)
+        if mutant == "stream_flat_tensor_maps":
+            v5 = torch.cat([v, _stream_inputs(dev, dtype, D, 1, 1000, 1, heads=1)[1]])
+            v5[1:, :24] = float("inf")
+            v, heads = v5[:4], slice(0, 1)
+        for causal in (False, True):
+            o, lse = fa.flash_fwd(q, k, v, causal=causal, scale=D ** -0.5, with_lse=True)
+            ref_o, ref_lse = fa._flash_fwd_ref(q, k, v, causal, D ** -0.5, True)
+            _, ratios = cs.compare({"fwd_lse": [(o[heads], ref_o[heads]), (lse[heads], ref_lse[heads])]})
+            r = ratios["fwd_lse"]
+            worst = r if not r <= worst else worst  # NaN counts as worst
+    assert not worst <= 1.0, worst
 
 
 @pytest.mark.parametrize("mutant", list(WIDE_MUTANTS), indirect=True)

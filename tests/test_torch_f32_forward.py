@@ -5,7 +5,9 @@ sizes, against the f32 plain version and against the JAX package's Pallas
 forward in interpret mode, within chip_smoke.py's F32_ATOL. The emulation
 settles the kernel's product set: three bf16 products a f32 product (hi.hi,
 hi.lo, lo.hi) in S = Q.K^T and in P.V hold the limit, and leaving out any
-one of them misses it."""
+one of them misses it. The same at 512 and 1024 for the streamed forward
+(fwd_kernel_sm90_stream at P = 2): 64-row items, 32-key tiles, and S summed
+chunk by chunk over 64 columns of D in the kernel's order."""
 
 import importlib
 
@@ -30,6 +32,11 @@ cs = importlib.import_module("chip_smoke")
 # The f32 forward's tiles (F32FwdCfg): 128 q rows a work item, two consumer
 # warpgroups of 64; 128 keys a K/V tile at D = 64, 64 at 96 and 128, 16 at 256.
 ROWS, BN = 128, {64: 128, 96: 64, 128: 64, 256: 16}
+# The streamed forward's (StreamCfg<2>): 64 q rows an item (both consumer
+# warpgroups on all of them), 32-key tiles, S's contraction in chunks of 64
+# columns of D (each in two bf16 parts).
+STREAM_ROWS, STREAM_BN, STREAM_CHUNK = 64, 32, 64
+STREAM_WIDTHS = (512, 1024)
 _LOG2E, _LN2 = 1.4426950408889634, 0.6931471805599453
 # (part of the first operand, part of the second): 0 = hi, 1 = lo.
 PRODUCTS = ((0, 0), (0, 1), (1, 0))
@@ -58,10 +65,14 @@ def _rows(x, r0, n):
     return out
 
 
-def f32_forward_emulation(q, k, v, causal, scale, s_products=PRODUCTS, pv_products=PRODUCTS):
+def f32_forward_emulation(q, k, v, causal, scale, s_products=PRODUCTS, pv_products=PRODUCTS, *,
+                          rows=ROWS, bn=None, chunk=None):
     """fwd_kernel_sm90_f32's arithmetic in torch, tile by tile in its order
-    and sizes: q, k and v split into hi and lo parts (the split pass); per
-    K/V tile, S as the sum of the `s_products` of Q's and K's parts; each
+    and sizes (or, with rows, bn and chunk, fwd_kernel_sm90_stream's at P =
+    2: S summed over D's chunks of `chunk` columns, chunk by chunk, each
+    chunk's products in turn): q, k and v split into hi and lo parts (the
+    split pass); per K/V tile, S as the sum of the `s_products` of Q's and
+    K's parts; each
     64-row warpgroup takes the masked path only on the diagonal or past S
     (as the kernel decides), the running max in log2 units with scale *
     log2(e) folded into one FMA, exp2, the rescale of the sums made under
@@ -70,7 +81,7 @@ def f32_forward_emulation(q, k, v, causal, scale, s_products=PRODUCTS, pv_produc
     rescaled after the previous tile's P.V has landed; o is those sums
     times 1 / l. Returns (o, lse), both f32."""
     BH, T, D = q.shape
-    S, bn = k.shape[1], BN[D]
+    S, bn, ROWS = k.shape[1], bn or BN[D], rows
     f32 = torch.float32
     sl2 = torch.tensor(scale, dtype=f32) * torch.tensor(_LOG2E, dtype=f32)
     big_neg = torch.tensor(-1e30, dtype=f32)
@@ -89,7 +100,13 @@ def f32_forward_emulation(q, k, v, causal, scale, s_products=PRODUCTS, pv_produc
         pv = None  # P.V of the previous tile, added before this tile's rescale
         for k0 in range(0, n * bn, bn):
             kt, vt = [_rows(x, k0, bn) for x in kp], [_rows(x, k0, bn) for x in vp]
-            s = _products(qt, kt, "btd,bsd->bts", s_products)
+            if chunk is None:
+                s = _products(qt, kt, "btd,bsd->bts", s_products)
+            else:  # S = sum_c Q_c.K_c^T, chunk by chunk in the kernel's order
+                s = 0
+                for c0 in range(0, D, chunk):
+                    s = s + _products([x[..., c0:c0 + chunk] for x in qt], [x[..., c0:c0 + chunk] for x in kt],
+                                      "btd,bsd->bts", s_products)
             keys = torch.arange(k0, k0 + bn)
             ok = (keys[None, :] < S) & ((rows[:, None] >= keys[None, :]) if causal else True)
             ok = ok.expand(ROWS, bn)
@@ -219,11 +236,53 @@ def test_next_smaller_product_set_misses_the_smoke_limit(name):
         assert ratios["fwd"] > 1.0, (D, ratios)
 
 
+def _stream_emulation(q, k, v, causal, scale, **sets):
+    return f32_forward_emulation(q, k, v, causal, scale, rows=STREAM_ROWS, bn=STREAM_BN, chunk=STREAM_CHUNK,
+                                 **sets)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("D", STREAM_WIDTHS)
+def test_streamed_f32_forward_arithmetic_holds_the_smoke_limit(D, causal):
+    """The streamed forward's arithmetic at P = 2 (S's contraction chunk by
+    chunk over D), emulated on f32 inputs at 512 and 1024, T = 192: within
+    half of F32_ATOL of the f32 plain version and within F32_ATOL of the
+    Pallas forward (interpret mode), o and lse, as at 64-256."""
+    q, k, v = _qkv(41 + D, 2, 192, D)
+    scale = D ** -0.5
+    tq, tk, tv = (torch.from_numpy(x) for x in (q, k, v))
+    o, lse = _stream_emulation(tq, tk, tv, causal, scale)
+    ref_o, ref_lse = fa._flash_fwd_ref(tq, tk, tv, causal, scale, with_lse=True)
+    pallas_o, pallas_lse = _pallas(q, k, v, causal, scale)
+    _, ratios = cs.compare({"plain": [(o, ref_o), (lse, ref_lse)],
+                            "pallas": [(o, pallas_o), (lse, pallas_lse)]})
+    assert ratios["plain"] <= 0.5 and ratios["pallas"] <= 1.0, ratios
+
+
+@pytest.mark.parametrize("name", list(SMALLER))
+def test_streamed_next_smaller_product_set_misses_the_smoke_limit(name):
+    """As at 64-256: the streamed forward's S or P.V without any one of its
+    three products misses F32_ATOL against the plain version at 512 and
+    1024, on one causal case."""
+    where, dropped = SMALLER[name]
+    kept = tuple(p for p in PRODUCTS if p != dropped)
+    sets = {"s_products": kept} if where == "s" else {"pv_products": kept}
+    for D in STREAM_WIDTHS:
+        q, k, v = (torch.from_numpy(x) for x in _qkv(43 + D, 2, 192, D))
+        scale = D ** -0.5
+        o, lse = _stream_emulation(q, k, v, True, scale, **sets)
+        ref_o, ref_lse = fa._flash_fwd_ref(q, k, v, True, scale, with_lse=True)
+        _, ratios = cs.compare({"fwd": [(o, ref_o), (lse, ref_lse)]})
+        assert ratios["fwd"] > 1.0, (D, ratios)
+
+
 def test_build_check_counts_the_f32_hopper_kernels():
     """chip_smoke.py's build check reads the f32 Hopper kernels' mangled
     names (fwd_kernel_sm90_f32, bwd_dq_kernel_sm90_f32,
-    bwd_dkv_kernel_sm90_f32) and counts their 32 instantiations among the
-    Hopper kernels: a build that lacks one, or where one spills, fails it."""
+    bwd_dkv_kernel_sm90_f32) and the streamed forward's
+    (fwd_kernel_sm90_stream) and counts their 32 and 8 instantiations among
+    the Hopper kernels: a build that lacks one, or where one spills, fails
+    it."""
     ns = "_ZN51_GLOBAL__N__c4b42d03_18_flash_attention_cu_e1dd8ece"
     f32 = ns + "19fwd_kernel_sm90_f32ILi256ELb1ELb0EEEv14CUtensorMap_stS1_S1_PfS2_iiif"
     assert cs.kernel_label(f32) == "fwd_kernel_sm90_f32<256,true,false>"
@@ -231,11 +290,14 @@ def test_build_check_counts_the_f32_hopper_kernels():
     assert cs.kernel_label(dq) == "bwd_dq_kernel_sm90_f32<96,false>"
     dkv = ns + "23bwd_dkv_kernel_sm90_f32ILi128ELb1EEEv14CUtensorMap_stS1_S1_S1_PKfS3_PfS4_iiif"
     assert cs.kernel_label(dkv) == "bwd_dkv_kernel_sm90_f32<128,true>"
-    assert cs.N_SM90_KERNELS == 5 * (4 + 2 + 2) + 4 * (4 + 2 + 2)
+    stream = ns + "22fwd_kernel_sm90_streamILi2ELb1ELb0EEEv14CUtensorMap_stS1_S1_PvPfiiiif"
+    assert cs.kernel_label(stream) == "fwd_kernel_sm90_stream<2,true,false>"
+    assert cs.N_SM90_KERNELS == 5 * (4 + 2 + 2) + 4 * (4 + 2 + 2) + 2 * 4
     good = {"hgmma": 8, "spill_stores": 0, "spill_loads": 0}
     bf16 = {f"fwd_kernel_sm90<{i}>": dict(good) for i in range(40)}
     f32s = {f"fwd_kernel_sm90_f32<{i}>": dict(good) for i in range(16)}
     f32s.update({f"bwd_{k}_kernel_sm90_f32<{i}>": dict(good) for k in ("dq", "dkv") for i in range(8)})
+    f32s.update({f"fwd_kernel_sm90_stream<{i}>": dict(good) for i in range(8)})
     cs.check_sm90({**bf16, **f32s, "fwd_kernel<f32,512,true,true>": {"hgmma": 0}})
     with pytest.raises(cs.SmokeFailure):
         cs.check_sm90(bf16)

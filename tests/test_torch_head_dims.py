@@ -25,6 +25,7 @@ import jax.numpy as jnp  # noqa: E402
 import torch  # noqa: E402
 
 from ray_tpu.models import transformer as jax_tr  # noqa: E402
+from ray_tpu.ops.flash_attention import _flash_fwd  # noqa: E402
 from ray_tpu.ops.flash_attention import flash_attention as jax_flash_attention  # noqa: E402
 from ray_tpu_torch.convert import params_from_jax, params_to_numpy  # noqa: E402
 from ray_tpu_torch.models import transformer as tr  # noqa: E402
@@ -83,6 +84,31 @@ def test_attention_matches_pallas_at_head_dim(D, T, causal):
 
 
 @pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("D", [576, 1024])
+def test_forward_past_512_matches_pallas(D, causal):
+    """flash_attention without gradients (the forward's rule: padded to the
+    next multiple of 512, the streamed forward's route) and flash_fwd's lse
+    at head dims past 512 against the JAX package's Pallas forward
+    (interpret mode), within FWD_ATOL; the autograd function on the CPU
+    takes the same head dim unpadded."""
+    B, T, H = 1, 64, 2
+    rs = np.random.RandomState(D)
+    q, k, v = (_rand(rs, B, T, H, D) for _ in range(3))
+    o_ref = jax_flash_attention(*(jnp.asarray(x) for x in (q, k, v)), causal=causal, interpret=True)
+    with torch.no_grad():
+        o = fa.flash_attention(_t(q), _t(k), _t(v), causal=causal)
+    np.testing.assert_allclose(o.numpy(), np.asarray(o_ref), atol=FWD_ATOL)
+    qf, kf, vf = (_t(x).transpose(1, 2).reshape(B * H, T, D).contiguous() for x in (q, k, v))
+    _, lse = fa.flash_fwd(qf, kf, vf, causal=causal, scale=D ** -0.5, with_lse=True)
+    _, plse = _flash_fwd(*(jnp.asarray(x.numpy()) for x in (qf, kf, vf)), causal=causal, scale=D ** -0.5,
+                         block_q=128, block_k=128, interpret=True, with_lse=True)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(plse[..., 0]), atol=FWD_ATOL)
+    leaves = [_t(x).requires_grad_(True) for x in (q, k, v)]
+    np.testing.assert_allclose(fa.flash_attention(*leaves, causal=causal).detach().numpy(), o.numpy(),
+                               atol=PAD_WIDE_ATOL)
+
+
+@pytest.mark.parametrize("causal", [True, False])
 def test_gqa_at_head_dim_256_matches_pallas(causal):
     """Gemma-2B's attention shape, cut down: 4 query heads on one kv head at
     head dim 256, forward and gradients against the JAX flash_attention."""
@@ -105,13 +131,22 @@ def test_gqa_at_head_dim_256_matches_pallas(causal):
         np.testing.assert_allclose(leaf.grad.numpy(), np.asarray(ref), atol=GRAD_ATOL)
 
 
+# The forward's rule past 512: the next multiple of 512, on either device.
+FORWARD_WIDTHS = {513: 1024, 576: 1024, 640: 1024, 768: 1024, 1024: 1024, 2048: 2048}
+
+
 @pytest.mark.parametrize("D,width", [(8, 64), (32, 64), (65, 96), (80, 96), (100, 128), (192, 256),
                                      (256, 256), (300, 512), (320, 512), (384, 512), (512, 512),
-                                     (513, 513), (640, 640)])
+                                     (513, 513), (576, 576), (640, 640), (768, 768), (1024, 1024),
+                                     (2048, 2048)])
 def test_kernel_width(D, width):
-    """A head dim runs at the next of the kernels' widths; past 512 only the
-    CPU's plain versions take it."""
+    """A head dim runs at the next of the kernels' widths. Past 512 the
+    backward's rule takes it on the CPU's plain versions only and refuses it
+    on the card; the forward's rule (B1, B2) runs it at the next multiple
+    of 512 on both."""
     assert fa.kernel_width(D, "cpu") == width
+    forward = FORWARD_WIDTHS.get(D, width)
+    assert fa.kernel_width(D, "cpu", forward=True) == fa.kernel_width(D, "cuda", forward=True) == forward
     if D > fa.WIDTHS[-1]:
         with pytest.raises(ValueError, match="up to 512"):
             fa.kernel_width(D, "cuda")
@@ -228,6 +263,24 @@ HEAD_DIM_CONFIGS = {
 ATOL, RTOL = 2e-5, 1e-4
 
 
+def test_transformer_forward_at_head_dim_1024_matches_jax():
+    """The port's Transformer without gradients (its scoring and serving
+    paths: flash_attention's forward rule) at head dim 1024, one layer of 2
+    heads at d_model 2048 with a narrow d_ff and vocabulary, against the JAX
+    model on the same weights (params_from_jax): logits within ATOL, RTOL."""
+    widths = dict(vocab_size=64, n_layers=1, max_seq_len=32, d_model=2048, n_heads=2, n_kv_heads=2, d_ff=128)
+    jcfg = jax_tr.TransformerConfig(**widths, dtype=jnp.float32, attention_impl="xla")
+    tcfg = tr.TransformerConfig(**widths, dtype=torch.float32, attention_impl="kernel")
+    assert tcfg.head_dim == jcfg.head_dim == 1024
+    params = jax.tree.map(np.array, jax_tr.transformer_init(jax.random.PRNGKey(3), jcfg))
+    toks = np.random.RandomState(2).randint(0, widths["vocab_size"], (2, 24)).astype(np.int32)
+    ref_logits = jax_tr.transformer_apply(params, jnp.asarray(toks), jcfg)
+    model = params_from_jax(params, tcfg, device="cpu")
+    with torch.no_grad():
+        logits = model(torch.from_numpy(toks).long())
+    np.testing.assert_allclose(logits.numpy(), np.asarray(ref_logits), atol=ATOL, rtol=RTOL)
+
+
 @pytest.mark.parametrize("head_dim", sorted(HEAD_DIM_CONFIGS))
 def test_transformer_at_head_dim_matches_jax(head_dim):
     widths = dict(vocab_size=128, n_layers=2, max_seq_len=64, **HEAD_DIM_CONFIGS[head_dim])
@@ -260,6 +313,33 @@ def test_shape_rules_take_any_number_of_heads(BH):
     grid (BH, num_q, num_k) does, at every width up to 512."""
     for D in (64, 96, 320, 512):
         fa.check_shapes((BH, 64, D), (BH, 100, D), (BH, 100, D))
+
+
+@pytest.mark.parametrize("D", [576, 768, 1024, 2048])
+def test_forward_shape_rules_take_any_head_dim(D):
+    """The forward's shape rules (check_shapes with `forward`, which flash_fwd
+    applies to CUDA tensors) take head dims past 512, as the TPU kernels do;
+    the backward's refuse them, naming the slice that ports them."""
+    fa.check_shapes((4, 64, D), (4, 100, D), (4, 100, D), forward=True)
+    with pytest.raises(ValueError, match="up to 512.*B8b"):
+        fa.check_shapes((4, 64, D), (4, 100, D), (4, 100, D))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [513, 576, 1024])
+def test_autograd_refuses_past_512_before_any_launch(D, dtype):
+    """The autograd function's width (autograd_width, the first thing its
+    forward computes): on the card past 512 it raises, so no forward runs
+    whose backward must fail; on the CPU the plain versions take it
+    unpadded; at 512 and below both devices run the kernels' width, f32 at
+    512 too (its backward on the CUDA cores)."""
+    with pytest.raises(ValueError, match="up to 512.*B8b"):
+        fa.autograd_width(D, dtype, "cuda")
+    assert fa.autograd_width(D, dtype, "cpu") == D
+    assert fa.autograd_width(D - 512, dtype, "cuda") == fa.kernel_width(D - 512, "cuda")
+    assert fa.autograd_width(512, dtype, "cuda") == 512
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        fa.autograd_width(64, torch.float16, "cuda")
 
 
 @pytest.mark.parametrize("q,k,v,match", [
