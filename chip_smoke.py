@@ -13,7 +13,8 @@ chaos: the port's lint gate, the chaos suite and a nemesis against GPU
 work, the kernels at the head dims of the JAX package's example,
 Phi-3-mini and Gemma-2B, and at every call the TPU kernels take past
 those: head dim 512 in a train step, 66,560 heads in one call, and the
-forward past 512 (head dim 1024) and at f32 512 on the streamed forward.
+streamed kernels past 512 (head dim 1024, forward and train step) and at
+f32 512.
 
     python3 chip_smoke.py            # needs one CUDA card, nvcc, the checkout
 
@@ -24,9 +25,10 @@ Phases, each printing one JSON line:
               in cuobjdump -sass); every Hopper kernel (*_sm90: the bf16
               forward and both backward kernels, at each of the widths 64,
               96, 128, 256 and 512: 40; *_sm90_f32: the f32 forward and
-              both f32 backward kernels at 64, 96, 128 and 256: 32) must
-              and *_sm90_stream: the streamed forward over P (bf16, f32
-              as parts), CAUSAL and WRITE_LSE, D a runtime value: 8) must
+              both f32 backward kernels at 64, 96, 128 and 256: 32;
+              *_sm90_stream: the streamed forward over P (bf16, f32 as
+              parts), CAUSAL and WRITE_LSE, and both streamed backward
+              kernels over P and CAUSAL, D a runtime value: 8 + 8) must
               have HGMMA, no spill and no wgmma that ptxas serialized;
   2. kernels  every kernel against its plain version, element by element
               (f32 with TF32 off and bf16; causal and not; head_dim 64 and
@@ -39,36 +41,35 @@ Phases, each printing one JSON line:
               BH = 65536 and 66,560 heads in one call, and B1-B4 at
               [65600, 256, 128] bf16 (BH*T*D past 2^31 elements) held on
               sampled heads, the last among them, against the plain
-              versions run on those heads alone); B1 and B2 on the
-              streamed forward at head dims 576, 768, 1024 and 2048 (576
-              and 768 padded to 1024) at T in 1, 100, 1000 and T = 1000 on
-              S = 300 with the mask, B3 and B4 refusing those widths, and
-              its column slices agreeing bitwise at 1024; then at
+              versions run on those heads alone); B1-B4 on the streamed
+              kernels at head dims 576, 768, 1024 and 2048 (576 and 768
+              padded to 1024), both dtypes, and f32 at 512, at T in 1,
+              100, 1000 and T = 1000 on S = 300 with the mask, their
+              column slices agreeing bitwise at 1024 and a second call
+              repeating bitwise; then at
               the slice's shape (batch 8), the bench's (batch 32) and phase
               17's ([128, 2048, 96], [32, 2048, 256], [64, 256, 32], the
               last padded: its pad and cut copies' ms), phase 18's
               ([16, 2048, 512], [66560, 64, 96]) and [16, 2048, 320]
               (padded to 512), and the f32 kernels at [96, 1024, 64],
-              [32, 2048, 256], [16, 2048, 512] (B1 and B2 on the streamed
-              forward), [96, 1024, 128] (bf16 too) and [128, 2048, 96],
-              B1 and B2 at [8, 2048, 1024] and [4, 2048, 2048] in bf16
-              and f32, with the f32 route's split passes
-              (bitwise their plain version; f32 bounds at PEAK_F32_SPLIT, the
-              CUDA cores' share beside them; the f32 B3 and B4 timed on
-              their parts, and with the backward's split of do beside
-              SDPA's f32 backward): the kernel's
+              [32, 2048, 256], [16, 2048, 512] (the streamed kernels),
+              [96, 1024, 128] (bf16 too) and [128, 2048, 96], B1-B4 at
+              [8, 2048, 1024] and [4, 2048, 2048] in bf16 and f32, with the
+              f32 route's split passes (bitwise their plain version; f32
+              bounds at PEAK_F32_SPLIT; the f32 B3 and B4 timed on their
+              parts, and with the backward's split of do beside SDPA's f32
+              backward): the kernel's
               time, the plain version's, F.scaled_dot_product_attention's (a
               yardstick only: the port never calls it; with the backends
               that take the inputs), the bound, the
               useful TFLOP/s, the share of the bound reached (bound_ms /
               ms) and the host's us per call; which kernels an f32 B1-B4
               launch at each width, by the profiler's names (64-256: the
-              split pass and the *_sm90_f32 kernels; 512: the split pass,
-              the streamed forward and the CUDA-core backward); and where
-              the forward
-              and the backward kernels (bf16 and f32) spend a
-              streamed tile, in SM cycles, from a build with their cycle
-              stamps (kernel_ab --timeline);
+              split pass and the *_sm90_f32 kernels; 512: the split pass
+              and the *_sm90_stream kernels); and where the forward and the
+              backward kernels (bf16 and f32) spend a streamed tile, in SM
+              cycles, from a build with their cycle stamps (kernel_ab
+              --timeline);
   3. forward  transformer_apply at GPT-2-small widths through the kernels and
               through the plain attention in bf16, each against the same
               weights run in f32; then those weights built in f32 through
@@ -79,8 +80,9 @@ Phases, each printing one JSON line:
               through the plain attention in bf16, each against f32; the
               same weights built in f32 through the kernels (B2-B4 on the
               tensor cores through the split passes, B3 and B4 once a
-              layer): loss within F32_ATOL and every gradient within
-              F32_GRAD_REL of the plain f32 path's; then
+              layer, no flash kernel off the *_sm90* ones by the
+              profiler's names): loss within F32_ATOL and every gradient
+              within F32_GRAD_REL of the plain f32 path's; then
               make_train_step: a warm-up and ten steps on one repeated
               batch; losses, tokens/s, useful- and hardware-MFU;
   5. profile  where a train step spends its device time, by kernel family,
@@ -263,9 +265,11 @@ Phases, each printing one JSON line:
               ratios (B1 at 1024 once a layer), and WIDE_512 built in f32,
               its no-grad forward through the split pass and the streamed
               forward within F32_LOGITS_ATOL of the plain f32 path and its
-              first step's gradients within F32_GRAD_REL (B2 there, B3 and
-              B4 on the CUDA-core kernels), each with host and device ms
-              and launches;
+              first step's gradients within F32_GRAD_REL (B2, B3 and B4 on
+              the streamed kernels; by the profiler's names, none on the
+              CUDA cores), each with host and device ms and launches;
+              (d) WIDE_1024 trained at full width, held and timed as 18a
+              (B2-B4 at 1024 on the streamed kernels);
 then the kernels line, with each kernel's launches in phases 3, 4, 6, the
 bench's transformer phase and phases 9-18 (none in 11: RLlib's modules
 are MLPs; the reference and timing runs this script makes itself in 12,
@@ -273,8 +277,9 @@ are MLPs; the reference and timing runs this script makes itself in 12,
 entry a kernel and width launched (64; 96 and 256 in phase 17, 512 in
 18a), one for B1 at 66,560 heads (18b), the f32 route at 64: B1 (phase
 3's f32 forward), B2 (9b's f32 ring hops and phase 4's f32 step), B3 and
-B4 (both of those) and their split passes, and 18c's: B1 at 1024, and at
-f32 512 B1, B2, B3, B4 and the split passes. Any failure exits non-zero.
+B4 (both of those) and their split passes, 18c's: B1 at 1024, and at f32
+512 B1, B2, B3, B4 and the split passes, and 18d's B2, B3 and B4 at 1024.
+Any failure exits non-zero.
 The last line is the ok line.
 """
 
@@ -305,13 +310,12 @@ GPT2_SMALL = dict(vocab_size=50304, d_model=768, n_layers=12, n_heads=12,
 BATCH, SEQ, TRAIN_STEPS = 8, 1024, 10
 # Peaks from NVIDIA's data sheets (dense bf16) and the H100's HBM3 rate.
 PEAK_BF16 = 989e12
-PEAK_F32 = 67e12
 HBM_BYTES_PER_S = 3.35e12
 # The least time for f32 attention: f32 products within F32_ATOL take three
 # bf16 products each on the tensor cores (hi.hi + hi.lo + lo.hi of each
 # operand's two bf16 parts; two miss it: tests/test_torch_f32_forward.py),
 # so its useful flops run at a third of the bf16 rate, above the CUDA
-# cores' PEAK_F32 (still reported beside it, as bound_share_cuda_cores).
+# cores' 67 TFLOP/s.
 PEAK_F32_SPLIT = PEAK_BF16 / 3
 # Kernel against its plain version, element by element. Both take the same
 # inputs, do f32 arithmetic (TF32 off) and differ only in the order they sum.
@@ -546,16 +550,16 @@ HUGE_CASE, HUGE_HEADS = (65600, 256, 128), (0, 1, 32799, 65598, 65599)
 WIDE_512 = dict(vocab_size=32000, d_model=2048, n_heads=4, n_kv_heads=1, d_ff=5504,
                 tied_embeddings=True)
 SCORE_BATCH, SCORE_SEQ, SCORE_CHUNKS = 2080, 64, 8
-# Phase 2's cases past 512, B1 and B2 alone (the backward's width rule stops
-# at 512: B3 and B4 must raise there): off the streamed forward's slices of
-# 512 (576, 768: padded to 1024) and on them (1024, 2048), from a generator
-# of their own. 18c: (a) the JAX package's architecture at head dim 1024
-# (WIDE_1024: WIDE_512 with 2 heads on 2 kv heads; no published model has
-# this head dim: a width the TPU kernels take), WIDE_LAYERS layers at
-# WIDE_BATCH x WIDE_SEQ, a no-grad forward (B1 on the streamed forward, bf16);
-# (b) WIDE_512 built in f32: a no-grad forward through the split pass and
-# the streamed forward at P = 2, and the first step's gradients (B2 there,
-# B3 and B4 on the CUDA-core kernels), against the plain f32 path.
+# Phase 2's cases past 512, B1-B4 on the streamed kernels: off their slices
+# of 512 (576, 768: padded to 1024) and on them (1024, 2048), from a
+# generator of their own. 18c: (a) the JAX package's architecture at head
+# dim 1024 (WIDE_1024: WIDE_512 with 2 heads on 2 kv heads; no published
+# model has this head dim: a width the TPU kernels take), WIDE_LAYERS layers
+# at WIDE_BATCH x WIDE_SEQ, a no-grad forward (B1 on the streamed forward,
+# bf16); (b) WIDE_512 built in f32: a no-grad forward through the split
+# pass and the streamed forward at P = 2, and the first step's gradients
+# (B2-B4 on the streamed kernels), against the plain f32 path. 18d:
+# WIDE_1024 trained as 18a trains WIDE_512 (B2-B4 at 1024).
 STREAM_HEAD_DIMS = (576, 768, 1024, 2048)
 WIDE_1024 = dict(WIDE_512, n_heads=2, n_kv_heads=2)
 
@@ -674,8 +678,10 @@ _KERNEL_NAME = re.compile(r"((?:fwd|bwd_dq|bwd_dkv)_kernel(?:_tc|_sm90(?:_f32|_s
 # fwd_kernel_sm90_f32 over D x CAUSAL x WRITE_LSE and the f32 backward
 # bwd_dq_kernel_sm90_f32 and bwd_dkv_kernel_sm90_f32 over D x CAUSAL, D in
 # 64, 96, 128, 256; and the streamed forward fwd_kernel_sm90_stream over P
-# (1: bf16, 2: f32 as parts) x CAUSAL x WRITE_LSE, D a runtime value.
-N_SM90_KERNELS = 5 * (4 + 2 + 2) + 4 * (4 + 2 + 2) + 2 * 4
+# (1: bf16, 2: f32 as parts) x CAUSAL x WRITE_LSE and the streamed backward
+# bwd_dq_kernel_sm90_stream and bwd_dkv_kernel_sm90_stream over P x CAUSAL,
+# D a runtime value.
+N_SM90_KERNELS = 5 * (4 + 2 + 2) + 4 * (4 + 2 + 2) + 2 * 4 + 2 * (2 + 2)
 _SM90 = re.compile(r"_sm90(?:_f32|_stream)?<")
 _TEMPLATE_ARG = re.compile(r"Li(\d+)E|Lb([01])E|(13__nv_bfloat16|f)")
 _SERIALIZED = re.compile(r"wgmma\.mma_async instructions are serialized due to (.*) "
@@ -760,47 +766,57 @@ def check_sm90(report: dict) -> None:
 # ----------------------------------------------------------------- phase 2
 
 def stream_cases(fa, dev, gen) -> int:
-    """B1 and B2 past 512 (STREAM_HEAD_DIMS; the streamed forward, bf16 and
-    f32) against their plain versions at T in 1, 100 and 1000, causal or
-    not, and T = 1000 on S = 300 with the mask, by phase 2's limits; B3 and
-    B4 raise there before any launch. Then the streamed forward's column
-    slices at 1024: with V's second 512 columns a copy of its first, o's two
-    halves are bitwise equal (every slice makes the same S, m and l), and a
-    second call repeats o and lse bitwise. Prints one line a case; returns
-    the number of cases."""
+    """B1-B4 on the streamed kernels (STREAM_HEAD_DIMS in bf16 and f32, and
+    f32 at 512) against their plain versions at T in 1, 100 and 1000,
+    causal or not, and T = 1000 on S = 300 with the mask, by phase 2's
+    limits. Then their column slices at 1024: with q's, k's, v's and do's
+    second 512 columns a copy of their first, the halves of o, dq, dk and
+    dv are bitwise equal (every slice makes the same S, P and dS), and a
+    second call repeats o, lse, dq, dk and dv bitwise. Prints one line a
+    case; returns the number of cases."""
     cases = 0
     for dtype in (torch.float32, torch.bfloat16):
-        shapes = [(D, T, T, causal) for D in STREAM_HEAD_DIMS for T in (1, 100, 1000) for causal in (True, False)]
-        shapes += [(D, 1000, 300, True) for D in STREAM_HEAD_DIMS]
+        dims = STREAM_HEAD_DIMS + ((512,) if dtype == torch.float32 else ())
+        shapes = [(D, T, T, causal) for D in dims for T in (1, 100, 1000) for causal in (True, False)]
+        shapes += [(D, 1000, 300, True) for D in dims]
         for D, T, S, causal in shapes:
             q, k, v, do = (torch.randn(4, n, D, device=dev, generator=gen).to(dtype) for n in (T, S, S, T))
             scale = D ** -0.5
             ref_o, ref_lse = fa._flash_fwd_ref(q, k, v, causal, scale, True)
             o, lse = fa.flash_fwd(q, k, v, causal=causal, scale=scale, with_lse=True)
-            errs, ratios = compare({"fwd": [(fa.flash_fwd(q, k, v, causal=causal, scale=scale), ref_o)],
-                                    "fwd_lse": [(o, ref_o), (lse, ref_lse)]})
-            before = dict(fa.launches)
             delta = (do.float() * ref_o.float()).sum(-1)
-            refused = []
-            for bwd in (fa.flash_bwd_dq, fa.flash_bwd_dkv):
-                try:
-                    bwd(q, k, v, do, ref_lse, delta, causal=causal, scale=scale)
-                except ValueError:
-                    refused.append(bwd.__name__)
-            case = dict(dtype=str(dtype).split(".")[-1], D=D, width=fa.kernel_width(D, dev, forward=True), T=T,
-                        S=S, causal=causal, max_abs_err=errs, err_to_limit=ratios, bwd_refused=refused)
+            args = (q, k, v, do, ref_lse, delta)
+            errs, ratios = compare({
+                "fwd": [(fa.flash_fwd(q, k, v, causal=causal, scale=scale), ref_o)],
+                "fwd_lse": [(o, ref_o), (lse, ref_lse)],
+                "bwd_dq": [(fa.flash_bwd_dq(*args, causal=causal, scale=scale),
+                            fa._flash_bwd_dq_ref(*args, causal, scale))],
+                "bwd_dkv": list(zip(fa.flash_bwd_dkv(*args, causal=causal, scale=scale),
+                                    fa._flash_bwd_dkv_ref(*args, causal, scale))),
+            })
+            case = dict(dtype=str(dtype).split(".")[-1], D=D, width=fa.kernel_width(D), T=T, S=S, causal=causal,
+                        max_abs_err=errs, err_to_limit=ratios)
             emit({"phase": "kernels", "stream_case": case})
             check_ratios(ratios, case)
-            check(len(refused) == 2 and fa.launches == before, f"B3 or B4 took head dim {D}: {case}")
             cases += 1
-        q, k, v = (torch.randn(4, 1000, 1024, device=dev, generator=gen).to(dtype) for _ in range(3))
-        v[..., 512:] = v[..., :512]
-        o, lse = fa.flash_fwd(q, k, v, causal=True, scale=1024 ** -0.5, with_lse=True)
-        again = fa.flash_fwd(q, k, v, causal=True, scale=1024 ** -0.5, with_lse=True)
-        slices = {"dtype": str(dtype).split(".")[-1], "halves_equal": bool(torch.equal(o[..., 512:], o[..., :512])),
-                  "repeats": bool(torch.equal(again[0], o) and torch.equal(again[1], lse))}
+        q, k, v, do = (torch.randn(4, 1000, 1024, device=dev, generator=gen).to(dtype) for _ in range(4))
+        for x in (q, k, v, do):
+            x[..., 512:] = x[..., :512]
+        runs = []
+        for _ in range(2):
+            o, lse = fa.flash_fwd(q, k, v, causal=True, scale=1024 ** -0.5, with_lse=True)
+            delta = (do.float() * o.float()).sum(-1)
+            args = (q, k, v, do, lse, delta)
+            runs.append((o, lse, fa.flash_bwd_dq(*args, causal=True, scale=1024 ** -0.5),
+                         *fa.flash_bwd_dkv(*args, causal=True, scale=1024 ** -0.5)))
+        names = ("o", "lse", "dq", "dk", "dv")
+        slices = {"dtype": str(dtype).split(".")[-1],
+                  "halves_equal": {n: bool(torch.equal(x[..., 512:], x[..., :512]))
+                                   for n, x in zip(names, runs[0]) if n != "lse"},
+                  "repeats": {n: bool(torch.equal(a, b)) for n, a, b in zip(names, *runs)}}
         emit({"phase": "kernels", "stream_slices": slices})
-        check(slices["halves_equal"] and slices["repeats"], f"the streamed forward's slices disagree: {slices}")
+        check(all(slices["halves_equal"].values()) and all(slices["repeats"].values()),
+              f"the streamed kernels' slices disagree or a call does not repeat: {slices}")
         cases += 1
     return cases
 
@@ -812,8 +828,8 @@ def kernel_cases(fa, dev, gen, gen_more, gen_widths, gen_wider, gen_stream) -> N
     draw from gen_more, those at WIDE_HEAD_DIMS from gen_widths, those at
     WIDER_HEAD_DIMS from gen_wider, the others from gen in the order they
     always have, so the later phases' inputs do not move when a case is
-    added; the streamed forward's cases past 512 (stream_cases) from
-    gen_stream, after all of those."""
+    added; the streamed kernels' cases (stream_cases) from gen_stream,
+    after all of those."""
     worst = {key: {"max_abs_err": 0.0, "err_to_limit": 0.0} for _, key, _ in KERNELS}
     cases = 0
     for dtype in (torch.float32, torch.bfloat16):
@@ -847,7 +863,7 @@ def kernel_cases(fa, dev, gen, gen_more, gen_widths, gen_wider, gen_stream) -> N
                 "bwd_dq": [(dq, ref_dq)],
                 "bwd_dkv": [(dk, ref_dk), (dv, ref_dv)],
             })
-            case = dict(dtype=str(dtype).split(".")[-1], D=D, width=fa.kernel_width(D, dev), T=T, S=S,
+            case = dict(dtype=str(dtype).split(".")[-1], D=D, width=fa.kernel_width(D), T=T, S=S,
                         causal=causal, max_abs_err=errs, err_to_limit=ratios)
             emit({"phase": "kernels", "case": case})
             check_ratios(ratios, case)
@@ -1012,13 +1028,10 @@ def kernel_timings(fa, dev, gen, cfg, batch: int = BATCH, seq: int = SEQ) -> dic
     ms. On the f32 route (fa.parts_route) B3 and B4 are timed on parts made
     beforehand, and the line gives the backward's work as the autograd
     function does it (do split, then B3 and B4 on the forward's parts)
-    beside SDPA's backward. Past 512 B1 and B2 alone (the forward's width
-    rule; the backward's stops at 512). Returns {key: row}."""
+    beside SDPA's backward. Returns {key: row}."""
     BH, T, D = batch * cfg.n_heads, seq, cfg.head_dim
     dt = cfg.dtype
-    width = fa.kernel_width(D, dev, forward=True)
-    keys = [key for _, key, _ in KERNELS if width <= fa.WIDTHS[-1] or key in ("fwd", "fwd_lse")]
-    backward = "bwd_dq" in keys
+    width = fa.kernel_width(D)
     q, k, v, do = (torch.randn(BH, T, D, device=dev, generator=gen).to(dt) for _ in range(4))
     scale = D ** -0.5
     o, lse = fa.flash_fwd(q, k, v, causal=True, scale=scale, with_lse=True)
@@ -1026,12 +1039,11 @@ def kernel_timings(fa, dev, gen, cfg, batch: int = BATCH, seq: int = SEQ) -> dic
 
     ref_o, ref_lse = fa._flash_fwd_ref(q, k, v, True, scale, True)
     pairs = {"fwd": [(fa.flash_fwd(q, k, v, causal=True, scale=scale), ref_o)],
-             "fwd_lse": [(o, ref_o), (lse, ref_lse)]}
-    if backward:
-        pairs["bwd_dq"] = [(fa.flash_bwd_dq(q, k, v, do, lse, delta, causal=True, scale=scale),
-                            fa._flash_bwd_dq_ref(q, k, v, do, lse, delta, True, scale))]
-        pairs["bwd_dkv"] = list(zip(fa.flash_bwd_dkv(q, k, v, do, lse, delta, causal=True, scale=scale),
-                                    fa._flash_bwd_dkv_ref(q, k, v, do, lse, delta, True, scale)))
+             "fwd_lse": [(o, ref_o), (lse, ref_lse)],
+             "bwd_dq": [(fa.flash_bwd_dq(q, k, v, do, lse, delta, causal=True, scale=scale),
+                         fa._flash_bwd_dq_ref(q, k, v, do, lse, delta, True, scale))],
+             "bwd_dkv": list(zip(fa.flash_bwd_dkv(q, k, v, do, lse, delta, causal=True, scale=scale),
+                                 fa._flash_bwd_dkv_ref(q, k, v, do, lse, delta, True, scale)))}
     errs, ratios = compare(pairs)
     del ref_o, ref_lse, pairs
     check_ratios(ratios, "the slice's shape")
@@ -1062,20 +1074,17 @@ def kernel_timings(fa, dev, gen, cfg, batch: int = BATCH, seq: int = SEQ) -> dic
     sdo = do.view(batch, cfg.n_heads, T, D)
     with torch.no_grad():
         sdpa_fwd_ms = time_ms(lambda: F.scaled_dot_product_attention(sq, sk, sv, is_causal=True))
-    library = {"fwd": sdpa_fwd_ms, "fwd_lse": sdpa_fwd_ms}
+    so = F.scaled_dot_product_attention(sq, sk, sv, is_causal=True)
+    sdpa_bwd_ms = time_ms(lambda: torch.autograd.grad(so, (sq, sk, sv), sdo, retain_graph=True))
+    library = {"fwd": sdpa_fwd_ms, "fwd_lse": sdpa_fwd_ms, "bwd_dq": sdpa_bwd_ms, "bwd_dkv": sdpa_bwd_ms}
     line = {"phase": "kernels", "shape": [BH, T, D], "width": width, "dtype": str(dt).split(".")[-1],
-            "causal": True, "sdpa_fwd_ms": sdpa_fwd_ms}
-    if backward:
-        so = F.scaled_dot_product_attention(sq, sk, sv, is_causal=True)
-        sdpa_bwd_ms = time_ms(lambda: torch.autograd.grad(so, (sq, sk, sv), sdo, retain_graph=True))
-        library["bwd_dq"] = library["bwd_dkv"] = sdpa_bwd_ms
-        line["sdpa_bwd_ms"] = sdpa_bwd_ms
-        line["sdpa_fwd_bwd_ms"] = time_ms(lambda: torch.autograd.grad(
-            F.scaled_dot_product_attention(sq, sk, sv, is_causal=True), (sq, sk, sv), sdo))
-        # The port's forward and backward through its autograd function, the same work.
-        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
-        line["port_fwd_bwd_ms"] = time_ms(lambda: torch.autograd.grad(
-            fa._FlashAttention.apply(*leaves, True, scale), leaves, do))
+            "causal": True, "sdpa_fwd_ms": sdpa_fwd_ms, "sdpa_bwd_ms": sdpa_bwd_ms}
+    line["sdpa_fwd_bwd_ms"] = time_ms(lambda: torch.autograd.grad(
+        F.scaled_dot_product_attention(sq, sk, sv, is_causal=True), (sq, sk, sv), sdo))
+    # The port's forward and backward through its autograd function, the same work.
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    line["port_fwd_bwd_ms"] = time_ms(lambda: torch.autograd.grad(
+        fa._FlashAttention.apply(*leaves, True, scale), leaves, do))
 
     pairs = BH * T * (T + 1) / 2  # (query, key) pairs under the causal mask
     elt = q.element_size()
@@ -1089,7 +1098,7 @@ def kernel_timings(fa, dev, gen, cfg, batch: int = BATCH, seq: int = SEQ) -> dic
     peak = PEAK_BF16 if dt == torch.bfloat16 else PEAK_F32_SPLIT
     host_us = importlib.import_module("ray_tpu_torch.ops.kernel_ab").host_us
     rows = {}
-    for key in keys:
+    for _, key, _ in KERNELS:
         flops, nbytes = work[key]
         t_ops, t_bytes = flops / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
         ms = time_ms(kernel_fns[key])
@@ -1104,18 +1113,14 @@ def kernel_timings(fa, dev, gen, cfg, batch: int = BATCH, seq: int = SEQ) -> dic
             "tflops": flops / ms * 1e-9,  # useful flops, no recompute, no hi/lo split
             "bound_share": max(t_ops, t_bytes) / ms,
         }
-        if dt == torch.float32:  # the bound at the CUDA cores' rate, as the CUDA-core kernels set it
-            rows[key]["bound_share_cuda_cores"] = max(flops / PEAK_F32 * 1e3, t_bytes) / ms
-        # ~50 ms of device work at most: 200 calls of a bf16 kernel, 20 of a
-        # 10 ms CUDA-core one (200 of those held the card 2 s a kernel).
+        # ~50 ms of device work at most: 200 calls of a fast kernel, 20 of
+        # a slow one (200 calls of a 10 ms one held the card 2 s a kernel).
         rows[key]["host_us"] = host_us(kernel_fns[key], calls=max(20, min(200, int(50 / ms))))
     line.update(timings=rows, sdpa_backends=sdpa_backends(sq.detach(), sk.detach(), sv.detach()))
     if parts is not None:
         rows["split"] = split_timing(fa, q, k, v)
         rows["split_bwd"] = split_timing(fa, do)
         line["bwd_with_split_ms"] = time_ms(autograd_bwd)
-    elif fa.parts_route(q, forward=True):  # the streamed f32 forward's split pass, in B1 and B2
-        rows["split"] = split_timing(fa, q, k, v)
     if width != D:  # the padded route's copies: q, k, v and do padded, o, dq, dk, dv cut
         outs = [torch.empty(BH, T, width, dtype=dt, device=dev),
                 *(torch.empty(BH, T, width, device=dev) for _ in range(3))]
@@ -1151,12 +1156,10 @@ def flash_kernel_names(prof) -> list:
 
 def f32_route(fa, dev) -> None:
     """Which kernels an f32 B1, B2 and the autograd function's backward
-    (B3, B4) launch at each width, by the profiler's kernel names: at
-    64-256 the split pass and the *_sm90_f32 kernels (never a CUDA-core
-    bwd_*_kernel<float, ...>), the backward's split on do alone; at 512 the
-    split pass and the streamed forward (fwd_kernel_sm90_stream<2, ...>) for
-    B1 and B2, the CUDA-core kernels for B3 and B4 on the f32 q, k and v the
-    autograd function saved; and the wrappers' f32_launches agree."""
+    (B3, B4) launch at each width, by the profiler's kernel names: the
+    split pass and, at 64-256, the *_sm90_f32 kernels, at 512 the
+    *_sm90_stream ones at P = 2; the backward's split on do alone (the
+    forward's parts saved); and the wrappers' f32_launches agree."""
     from torch.profiler import ProfilerActivity, profile
 
     line = {}
@@ -1169,16 +1172,14 @@ def f32_route(fa, dev) -> None:
             torch.autograd.grad(fa._FlashAttention.apply(*leaves, True, D ** -0.5), leaves, do)
             torch.cuda.synchronize()
         names = flash_kernel_names(prof)
-        hopper = D in fa.SPLIT_WIDTHS
         line[D] = {"kernels": names, "f32_launches": dict(fa.f32_launches)}
         want = ([f"fwd_kernel_sm90_f32<{D}, true, false>", f"fwd_kernel_sm90_f32<{D}, true, true>",
                  f"bwd_dq_kernel_sm90_f32<{D}, true>", f"bwd_dkv_kernel_sm90_f32<{D}, true>", "split_kernel"]
-                if hopper else
+                if D in fa.SPLIT_WIDTHS else
                 ["fwd_kernel_sm90_stream<2, true, false>", "fwd_kernel_sm90_stream<2, true, true>",
-                 f"bwd_dq_kernel<float, {D}, 2, 16, true>", f"bwd_dkv_kernel<float, {D}, 2, 16, true>",
-                 "split_kernel"])
+                 "bwd_dq_kernel_sm90_stream<2, true>", "bwd_dkv_kernel_sm90_stream<2, true>", "split_kernel"])
         check(names == sorted(want) and fa.f32_launches == {
-                  "split": 3 if hopper else 2, "fwd": 1, "fwd_lse": 1, "bwd_dq": hopper, "bwd_dkv": hopper},
+                  "split": 3, "fwd": 1, "fwd_lse": 1, "bwd_dq": 1, "bwd_dkv": 1},
               f"f32 B1-B4 at head dim {D} launched {line[D]}")
     emit({"phase": "kernels", "f32_route": line})
 
@@ -1309,21 +1310,25 @@ def grads_check(tr, cfg, dev, model, batch, line=None, f32=False):
 
 def f32_grads_check(tr, cfg, dev, model, batch, truth, line=None) -> dict:
     """`model`'s weights built in f32 through the kernels (B2-B4 on the
-    tensor cores through the split passes; at head dim 512 B2 on the
-    streamed forward and B3, B4 on the CUDA-core kernels, on the f32 q, k
-    and v): the first loss within F32_ATOL and every parameter's gradient
-    within F32_GRAD_REL (relative L2) of `truth`, the plain f32 path's
-    (loss, grads) on the same weights and batch; B3 and B4 once a layer, one
-    split pass for each forward (remat runs a layer's forward again in the
-    backward) and, at 64-256, one for each backward. Returns the run's
-    fa.f32_launches."""
+    tensor cores through the split passes; at head dim 512 and past on the
+    streamed kernels): the first loss within F32_ATOL and every parameter's
+    gradient within F32_GRAD_REL (relative L2) of `truth`, the plain f32
+    path's (loss, grads) on the same weights and batch; B3 and B4 once a
+    layer, one split pass for each forward (remat runs a layer's forward
+    again in the backward) and one for each backward; by the profiler's
+    names, every flash kernel a Hopper one (*_sm90*) or the split pass.
+    Returns the run's fa.f32_launches."""
+    from torch.profiler import ProfilerActivity, profile
+
     fa = importlib.import_module("ray_tpu_torch.ops.flash_attention")
     m = tr.Transformer(dataclasses.replace(cfg, attention_impl="kernel", dtype=torch.float32), dev)
     m.load_state_dict(model.state_dict())
     fa.reset_launches()
-    loss, grads = first_grads(tr, m, batch)
-    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        loss, grads = first_grads(tr, m, batch)
+        torch.cuda.synchronize()
     launches, by_width = dict(fa.f32_launches), dict(fa.launches_by_width)
+    names = flash_kernel_names(prof)
     del m
     rel = {n: float(torch.linalg.vector_norm(grads[n] - g) / torch.linalg.vector_norm(g))
            for n, g in truth[1].items()}
@@ -1333,15 +1338,17 @@ def f32_grads_check(tr, cfg, dev, model, batch, truth, line=None) -> dict:
         "grad_rel_bound": F32_GRAD_REL, "worst_grad_rel": {n: rel[n] for n in worst},
         "rel_err_vs_plain_f32": {n: rel[n] for n in ("blocks.0.wq", "blocks.0.wk", "blocks.0.wv",
                                                       f"blocks.{cfg.n_layers - 1}.wk")},
-        "f32_launches": launches}})
+        "f32_launches": launches, "flash_kernels": names}})
     check(math.isfinite(loss) and abs(loss - truth[0]) <= F32_ATOL, "f32 first loss off the plain f32 path")
     check(all(math.isfinite(r) and r <= F32_GRAD_REL for r in rel.values()),
           f"f32 gradients through the kernels off the plain f32 path's: {worst}")
-    n, parts = cfg.n_layers, cfg.head_dim in fa.SPLIT_WIDTHS  # the backward on parts, or on f32
-    check(launches["bwd_dq"] == n * parts and launches["bwd_dkv"] == n * parts and launches["fwd_lse"] >= n
-          and launches["split"] == launches["fwd_lse"] + n * parts
-          and by_width.get(f"bwd_dq@{cfg.head_dim}") == n and by_width.get(f"bwd_dkv@{cfg.head_dim}") == n,
+    n, width = cfg.n_layers, fa.kernel_width(cfg.head_dim)
+    check(launches["bwd_dq"] == n and launches["bwd_dkv"] == n and launches["fwd_lse"] >= n
+          and launches["split"] == launches["fwd_lse"] + n
+          and by_width.get(f"bwd_dq@{width}") == n and by_width.get(f"bwd_dkv@{width}") == n,
           f"the f32 step did not run B2-B4 through the split passes once a layer: {launches}, {by_width}")
+    check(names and all("_sm90" in name or name == "split_kernel" for name in names),
+          f"the f32 step ran a flash kernel off the tensor cores: {names}")
     return launches
 
 
@@ -4597,7 +4604,7 @@ def example_run(dev) -> dict:
 
 
 def wide_model_run(tr, fa, part: str, widths: dict, dev, gen, phase: str = "head_dims") -> dict:
-    """17b, 17c or 18a: a model of `widths` (cut to WIDE_LAYERS layers) at
+    """17b, 17c, 18a or 18d: a model of `widths` (cut to WIDE_LAYERS layers) at
     WIDE_BATCH x WIDE_SEQ: the bf16 logits and the first step's gradients
     through the kernels and through the plain attention, each against the
     same weights in f32 (phases 3 and 4's bounds); then a warm-up and
@@ -4647,7 +4654,7 @@ def wide_model_run(tr, fa, part: str, widths: dict, dev, gen, phase: str = "head
     check(all(math.isfinite(x) for x in losses), f"{part}: a loss is not finite")
     check(losses[-1] < losses[0], f"{part}: the loss did not fall: {losses}")
     check(line["hardware_mfu"] < 1.0, f"{part}: hardware-MFU is not below 1")
-    check(launches.get(f"bwd_dkv@{fa.kernel_width(cfg.head_dim, dev)}", 0) > 0,
+    check(launches.get(f"bwd_dkv@{fa.kernel_width(cfg.head_dim)}", 0) > 0,
           f"{part}: the kernels at head dim {cfg.head_dim} were not launched: {launches}")
     return launches
 
@@ -4796,9 +4803,9 @@ def stream_phase(tr, fa, dev) -> dict:
     (b) WIDE_512 built in f32: a no-grad forward through the split pass and
     the streamed forward at P = 2 within F32_LOGITS_ATOL of the plain f32
     path (f32_forward_check), by kernel name no CUDA-core forward; then the
-    first step's f32 gradients (f32_grads_check: B2 on the streamed forward,
-    B3 and B4 on the CUDA-core kernels). Each prints its host and device ms
-    and launches. Returns {"a": launches by width, "b": f32 launches of the
+    first step's f32 gradients (f32_grads_check: B2-B4 on the streamed
+    kernels, by kernel name none on the CUDA cores). Each prints its host
+    and device ms and launches. Returns {"a": launches by width, "b": f32 launches of the
     forward, "b_step": f32 launches of the step, "b_step_by_width": the
     step's launches by width}."""
     gen = torch.Generator(device=dev).manual_seed(SEED + 43)
@@ -4851,19 +4858,23 @@ def stream_phase(tr, fa, dev) -> dict:
 
 def wide_phase(tr, fa, dev) -> tuple:
     """Phase 18: head dim 512 through a train step (18a), 66,560 heads in
-    one call through a scoring forward (18b) and the streamed forward on the
-    model's paths (18c: head dim 1024, and f32 at 512). Returns the flash
-    launches of each, by width (18c's as stream_phase returns them)."""
+    one call through a scoring forward (18b), the streamed kernels on the
+    model's paths (18c: head dim 1024 without gradients, and f32 at 512)
+    and head dim 1024 through a train step (18d). Returns the flash launches
+    of each, by width (18c's as stream_phase returns them)."""
     t0 = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(SEED + 42)
     train = wide_model_run(tr, fa, "18a", WIDE_512, dev, gen, phase="wide")
     scoring = scoring_batch(tr, fa, dev)
     t_stream = time.perf_counter()
     stream = stream_phase(tr, fa, dev)
-    emit({"phase": "wide", "launches_by_width": {"18a": train, "18b": scoring, "18c": stream},
+    t_train_1024 = time.perf_counter()
+    train_1024 = wide_model_run(tr, fa, "18d", WIDE_1024, dev, torch.Generator(device=dev).manual_seed(SEED + 44),
+                                phase="wide")
+    emit({"phase": "wide", "launches_by_width": {"18a": train, "18b": scoring, "18c": stream, "18d": train_1024},
           "nvidia_smi": card()["nvidia_smi"], "seconds": time.perf_counter() - t0,
-          "18c_seconds": time.perf_counter() - t_stream})
-    return train, scoring, stream
+          "18c_seconds": t_train_1024 - t_stream, "18d_seconds": time.perf_counter() - t_train_1024})
+    return train, scoring, stream, train_1024
 
 
 def main() -> int:
@@ -4928,8 +4939,8 @@ def main() -> int:
                    batch=4, seq=WIDE_SEQ)
     rows["bh"] = kernel_timings(fa, dev, gen_wider, tr.TransformerConfig(**PHI3_MINI),
                                 batch=SCORE_BATCH, seq=SCORE_SEQ)
-    # The f32 kernels (TF32 off for SDPA too; B1 and B2 on the tensor cores
-    # through the split pass up to 256, B3 and B4 on the CUDA cores) at
+    # The f32 kernels (TF32 off for SDPA too; B1-B4 on the tensor cores
+    # through the split passes, at 512 on the streamed kernels) at
     # GPT-2 small's shape (phase 3's f32 forward: its row goes in the line),
     # 17c's and 18a's, then at head dim 128 ([96, 1024, 128], GPT-2 small's
     # batch and heads at d_model 1536; bf16 too) and 17b's ([128, 2048, 96]).
@@ -4943,8 +4954,8 @@ def main() -> int:
                                                                     "dtype": dtype}))
     kernel_timings(fa, dev, gen_wider, tr.TransformerConfig(**{**PHI3_MINI, "dtype": torch.float32}),
                    batch=4, seq=WIDE_SEQ)
-    # The streamed forward past 512: 18c(a)'s [8, 2048, 1024] and [4, 2048,
-    # 2048] (WIDE_512's d_model on one head), bf16 and f32 (B1 and B2 only).
+    # The streamed kernels past 512: 18c(a)'s and 18d's [8, 2048, 1024] and
+    # [4, 2048, 2048] (WIDE_512's d_model on one head), bf16 and f32.
     stream_rows = {}
     for dtype in (torch.bfloat16, torch.float32):
         for heads in (2, 1):
@@ -4999,7 +5010,7 @@ def main() -> int:
     wide_launches = head_dims_phase(tr, fa, dev)
     gc.collect()
     torch.cuda.empty_cache()
-    wide512_launches, scoring_launches, stream_launches = wide_phase(tr, fa, dev)
+    wide512_launches, scoring_launches, stream_launches, wide1024_launches = wide_phase(tr, fa, dev)
     for key, n in wide512_launches.items():
         wide_launches[key] = wide_launches.get(key, 0) + n
 
@@ -5045,14 +5056,17 @@ def main() -> int:
         kernels.append({"name": name, "route": "cuda", "source": SOURCE, "replaces": replaces,
                         "head_dim": 64, "dtype": "float32", "launches": launched, **row})
         check(launched > 0, f"{name} was not launched on the main path")
-    # The streamed forward (18c): B1 at head dim 1024 in bf16 (18c(a); phase
-    # 2's numbers at [8, 2048, 1024]), and f32 at 512 (18c(b): B1 in its
-    # forward, B2 and the CUDA-core B3 and B4 in its first step, the split
-    # pass in both; phase 2's numbers at [16, 2048, 512] f32).
+    # The streamed kernels: B1 at head dim 1024 in bf16 (18c(a); phase 2's
+    # numbers at [8, 2048, 1024]) and B2-B4 there (18d's train steps), and
+    # f32 at 512 (18c(b): B1 in its forward, B2-B4 in its first step, the
+    # split pass in both; phase 2's numbers at [16, 2048, 512] f32).
     b, b_step, b_width = stream_launches["b"], stream_launches["b_step"], stream_launches["b_step_by_width"]
+    d1024 = stream_rows[1024, torch.bfloat16]
     for name, launched, replaces, head_dim, dtype, row in (
             ("flash_fwd_d1024", stream_launches["a"].get("fwd@1024", 0), KERNELS[0][2], 1024, "bfloat16",
-             stream_rows[1024, torch.bfloat16]["fwd"]),
+             d1024["fwd"]),
+            *((f"{name}_d1024", wide1024_launches.get(f"{key}@1024", 0), replaces, 1024, "bfloat16", d1024[key])
+              for name, key, replaces in KERNELS[1:]),
             ("flash_fwd_f32_d512", b["fwd"], KERNELS[0][2], 512, "float32", f32_512["fwd"]),
             ("flash_fwd_lse_f32_d512", b_step["fwd_lse"], KERNELS[1][2], 512, "float32", f32_512["fwd_lse"]),
             ("flash_bwd_dq_f32_d512", b_width.get("bwd_dq@512", 0), KERNELS[2][2], 512, "float32",

@@ -7,23 +7,21 @@
 //   fwd_kernel_sm90<.., WRITE_LSE=true>     fwd_kernel_sm90_f32<.., WRITE_LSE=true>   <- _attn_fwd_kernel_lse  (B2)
 //   bwd_dq_kernel_sm90                      bwd_dq_kernel_sm90_f32                    <- _attn_bwd_dq_kernel   (B3)
 //   bwd_dkv_kernel_sm90                     bwd_dkv_kernel_sm90_f32                   <- _attn_bwd_dkv_kernel  (B4)
-// and, for B1 and B2 past D = 512 (bf16 and f32) and f32 at 512,
-// fwd_kernel_sm90_stream<P, .., WRITE_LSE>, S's contraction streamed over
-// chunks of D (see "The forward past 512" below). The f32 kernels take their
-// operands from split_kernel, which replaces no TPU kernel (see "The f32
-// forward" and "The f32 backward" below), at D = 64-256, and the streamed
-// forward at 512 and past; the f32 backward at D = 512 still runs on the
-// CUDA-core bwd_dq_kernel and bwd_dkv_kernel<float, 512, ..>.
+// and, past D = 512 (bf16 and f32) and for f32 at 512, the same four with
+// the contraction over D streamed in chunks: fwd_kernel_sm90_stream<P, ..,
+// WRITE_LSE> (B1, B2; see "The forward past 512" below),
+// bwd_dq_kernel_sm90_stream and bwd_dkv_kernel_sm90_stream (B3, B4; "The
+// backward past 512"). The f32 kernels take their operands from
+// split_kernel, which replaces no TPU kernel (see "The f32 forward" and "The
+// f32 backward" below). Every kernel runs on the tensor cores.
 //
 // Layout [BH, T, D] for q/do/o and [BH, S, D] for k/v, row-major and
 // contiguous; lse and delta are [BH, T] f32; dq, dk and dv are f32. D is 64,
-// 96, 128, 256 or 512, and for the streamed forward any multiple of 512;
+// 96, 128, 256 or 512, and for the streamed kernels any multiple of 512;
 // the wrappers (flash_attention.py) run any other head dim, as the TPU
-// kernels take any, at the next of these, zero-padded (the backward up to
-// 512). Any number of heads BH, as the TPU kernels' grid takes: the
-// Hopper kernels are persistent and the f32 kernels fold the head into
-// gridDim.x; every offset into a tensor is formed in size_t. All sums are
-// f32.
+// kernels take any, at the next of these, zero-padded. Any number of heads
+// BH, as the TPU kernels' grid takes: the Hopper kernels are persistent and
+// every offset into a tensor is formed in size_t. All sums are f32.
 //
 // What bounds them on the card. The least time for the work is set by the
 // bytes at the train step's shape (causal, T = 1024, D = 64: ~256 flops per
@@ -268,8 +266,8 @@
 //     warpgroup's 256 dK and dV columns in two passes of 128, recomputing
 //     S^T and dP^T (four times S^T's tensor work, as a price of no atomics).
 // Past 512, Q, K and V tiles of 64 rows no longer leave room for a stream,
-// nor does f32 at 512 (Q's two parts 128 KB): the forward streams S's
-// contraction there (below); the backward's wrappers refuse D > 512.
+// nor do f32 parts at 512 (Q's two parts 128 KB): there every kernel streams
+// its contraction over D (the two sections below).
 //
 // The forward past 512 (fwd_kernel_sm90_stream, StreamCfg), bf16 (P = 1)
 // and f32 as split_kernel's parts (P = 2, at 512 too). D is a runtime
@@ -306,28 +304,62 @@
 //      work, 1.5x at 512, 2.5x at 1024, 4.5x at 2048 (times 3 at P = 2, the
 //      bf16 products of each f32 one).
 //
-// The first kernels (f32 at D = 512 only, now both backward kernels) do
-// their arithmetic on the f32 CUDA cores (67 TFLOP/s, not the tensor cores'
-// 989), and that is what bounds them. At D = 512 they own 32 rows (R = 2
-// rows a thread group) and stream 16 (F32Cfg; each block ~200 KB). A block
-// takes tile blockIdx.x % tiles of head blockIdx.x / tiles: gridDim.y would
-// stop at 65535 heads. They stay at 512 until their own streamed
-// contraction (dO and Q in parts take 256 KB for 64 rows).
-// What their design does about it:
-//   * The TPU kernels carry the online-softmax state (m, l, acc) in VMEM
-//     scratch from one sequential grid step to the next. Blocks on Hopper
-//     run in no order, so each block owns one q tile (one k tile for dkv)
-//     and walks the other axis in a loop inside the block, with the running
-//     state in registers. Nothing O(T*S) ever reaches device memory, and
-//     no atomics are needed: every output row is written by one block.
-//   * Each tile of q, k, v (and do) is staged once in shared memory as f32
-//     and reused by all 256 threads; a thread computes a 4x4 patch of the
-//     64x64 score tile (rows ty*4+i, columns tx+16*j), so eight shared-memory
-//     loads feed sixteen multiply-adds. Rows are padded to D+1 floats so the 16
-//     lanes of a row group read 16 different banks.
-//   * Causal tiles strictly above the diagonal are skipped, as the TPU
-//     kernels skip them; rows past T or S are loaded as 0 and masked, never
-//     read from device memory (0 * NaN would poison a sum).
+// The backward past 512 (bwd_dq_kernel_sm90_stream, DqStreamCfg;
+// bwd_dkv_kernel_sm90_stream, DkvStreamCfg), bf16 (P = 1) and f32 as
+// split_kernel's parts (P = 2, at 512 too), D a runtime multiple of 512:
+// 4 instantiations each over (P, CAUSAL) serve every width. The forward's
+// design, applied to both backward kernels:
+//   1. Items and slices. bwd_dq: 64 q rows of one head by one slice of 512
+//      dQ columns, each consumer warpgroup holding 256 (128 registers, as
+//      the bf16 kernel at 512). bwd_dkv: 64 k rows by one slice of 256
+//      columns of dK and dV, each warpgroup holding 128 of each (dK and dV
+//      of 256 columns would take 256 registers a thread). A head takes D /
+//      512 (D / 256) slices, units of their own, slice fastest, in the
+//      forward's persistent units.
+//   2. S = sum_c Q_c.K_c^T and dP = sum_c dO_c.V_c^T (S^T = sum_c
+//      K_c.Q_c^T and dP^T = sum_c V_c.dO_c^T in bwd_dkv), streamed over
+//      StreamCfg's chunks of 128 bf16 bytes a row in all parts: the
+//      producer loads each tile's four chunks (Q, dO, K and V) into one
+//      stage of a ring, so bwd_dq re-reads an item's Q and dO from L2 once
+//      for each K/V tile, and bwd_dkv an item's K and V once for each Q/dO
+//      tile. A consumer issues chunk c's products once its stage has landed
+//      and frees chunk c - 1's once those are in, as the forward does.
+//   3. The products into the outputs take the slice's columns of the
+//      streamed operand from a ring of two stages of their own: K's 512
+//      for dQ += dS.K; Q's and dO's 256 for dK += dS^T.Q and dV += P^T.dO.
+//      Tile t's S and dP are issued before tile t-1's products, which run
+//      under tile t's P and dS (the previous tile's split operands held
+//      beside them: bwd_dq's 32-key tiles at P = 1 and 16-key ones at P =
+//      2, bwd_dkv's 16-row Q/dO tiles leave the registers for it).
+//   4. Every slice (and both warpgroups) makes S and dP from the same
+//      chunks in the same order with the same instructions, so P and dS
+//      agree bitwise across slices; no atomics, each output element written
+//      once: a train step's gradients repeat bitwise. bwd_dq's consumers
+//      load their rows' lse and delta once an item; bwd_dkv's producer warp
+//      copies a Q/dO tile's by cp.async into slots counted on the tile's
+//      slice stage (1 + 32 arrivals), as bwd_dkv_body does.
+//   5. The product set at P = 2 is the f32 backward's: S, dP, dQ, dK and dV
+//      each three bf16 products (hi.hi + hi.lo + lo.hi), P and dS split on
+//      chip as bwd_dq_body and bwd_dkv_body split them. Streaming changes
+//      only the order of S's and dP's sums; tests/test_torch_stream_backward.py
+//      emulates both kernels chunk by chunk at 512 and 1024.
+//   6. The tensor work, against the useful work of a (q, key) pair (6 D
+//      flops in bwd_dq: S, dP, dQ; 8 D in bwd_dkv: S, dP, dK, dV). Both
+//      warpgroups make S and dP and each slice makes them again; the
+//      products into the outputs take two bf16 products each at P = 1 (the
+//      split operand's hi and lo). bwd_dq: (8 D / 512 + 4) / 6 the useful
+//      work at P = 1, 2x at 512, 3.3x at 1024, 6x at 2048; at P = 2 (three
+//      bf16 products each) (24 D / 512 + 6) / 6, 5x at 512, 9x at 1024.
+//      bwd_dkv: (8 D / 256 + 8) / 8 = D / 256 + 1, 3x at 512, 5x at 1024,
+//      9x at 2048; at P = 2 (24 D / 256 + 12) / 8, 7.5x at 512, 13.5x at
+//      1024. Two warpgroups sharing S and dP through shared memory, one
+//      making S and the other dP, would halve the recompute's share; the
+//      stream of chunks from L2 (bwd_dq at P = 2: an item's Q and dO, 256
+//      KB, and 64 KB of K and V a 16-key tile) sets the pace first.
+//   7. Shared memory (each config's static_assert): bwd_dq at P = 1, 48 KB
+//      S stages x 3 + 32 KB K slices x 2 (208 KB); at P = 2, 40 KB x 4 +
+//      32 KB x 2 (224 KB); bwd_dkv 40 KB x 4 + 16 KB (P = 1) or 32 KB (P =
+//      2) slices x 2.
 
 #include <cuda.h>  // CUtensorMap and its enums; no driver function is linked
 #include <cuda_bf16.h>
@@ -339,267 +371,7 @@
 
 namespace {
 
-constexpr int NT = 256;   // threads: 16 row groups (ty) x 16 lanes (tx)
 constexpr float BIG_NEG = -1e30f;  // masked score, as _BIG_NEG in the reference
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-
-// Stage rows [row0, row0 + ROWS) of an [n, D] matrix into a [ROWS][D + 1]
-// f32 tile. Rows at or past n are written as 0 and never read from memory.
-template <typename T, int D, int ROWS>
-__device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src, int row0, int n) {
-  for (int e = threadIdx.x; e < ROWS * D; e += NT) {
-    const int r = e / D, c = e % D;
-    const int g = row0 + r;
-    dst[r * (D + 1) + c] = g < n ? to_f32(src[static_cast<size_t>(g) * D + c]) : 0.f;
-  }
-}
-
-// ------------------------------------------------------------ backward dq
-// Replaces _attn_bwd_dq_kernel (tile math of _bwd_tile). One block per
-// (q tile of 16 R rows, bh); loops over k tiles of BC keys (F32Cfg). Per
-// tile it re-derives p = exp(s - lse) and ds = p * (do.v^T - delta) * scale,
-// then dq += ds.k.
-template <typename T, int D, int R, int BC, bool CAUSAL>
-__global__ void __launch_bounds__(NT) bwd_dq_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    const T* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
-    float* __restrict__ dq, int seq_q, int seq_k, float scale) {
-  constexpr int QR = 16 * R, LD = D + 1, LP = BC + 1, DC = D / 16, JN = BC / 16;
-  extern __shared__ float smem[];
-  float* qs = smem;             // [QR][LD]
-  float* dos = qs + QR * LD;    // [QR][LD]
-  float* ks = dos + QR * LD;    // [BC][LD]
-  float* vs = ks + BC * LD;     // [BC][LD]
-  float* dss = vs + BC * LD;    // [QR][LP]
-
-  const int n_qt = (seq_q + QR - 1) / QR, bh = blockIdx.x / n_qt, q0 = blockIdx.x % n_qt * QR;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  q += static_cast<size_t>(bh) * seq_q * D;
-  dout += static_cast<size_t>(bh) * seq_q * D;
-  dq += static_cast<size_t>(bh) * seq_q * D;
-  k += static_cast<size_t>(bh) * seq_k * D;
-  v += static_cast<size_t>(bh) * seq_k * D;
-  lse += static_cast<size_t>(bh) * seq_q;
-  delta += static_cast<size_t>(bh) * seq_q;
-
-  load_tile<T, D, QR>(qs, q, q0, seq_q);
-  load_tile<T, D, QR>(dos, dout, q0, seq_q);
-
-  float lr[R], dl[R], acc[R][DC];
-#pragma unroll
-  for (int i = 0; i < R; ++i) {
-    const int qp = q0 + ty * R + i;
-    lr[i] = qp < seq_q ? lse[qp] : 0.f;
-    dl[i] = qp < seq_q ? delta[qp] : 0.f;
-#pragma unroll
-    for (int c = 0; c < DC; ++c) acc[i][c] = 0.f;
-  }
-
-  int nk = (seq_k + BC - 1) / BC;
-  if (CAUSAL) nk = min(nk, (q0 + QR - 1) / BC + 1);
-
-  for (int kt = 0; kt < nk; ++kt) {
-    const int k0 = kt * BC;
-    __syncthreads();
-    load_tile<T, D, BC>(ks, k, k0, seq_k);
-    load_tile<T, D, BC>(vs, v, k0, seq_k);
-    __syncthreads();
-
-    float s[R][JN], dp[R][JN];
-#pragma unroll
-    for (int i = 0; i < R; ++i)
-#pragma unroll
-      for (int j = 0; j < JN; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float a[R], g[R], b[JN], w[JN];
-#pragma unroll
-      for (int i = 0; i < R; ++i) {
-        a[i] = qs[(ty * R + i) * LD + d];
-        g[i] = dos[(ty * R + i) * LD + d];
-      }
-#pragma unroll
-      for (int j = 0; j < JN; ++j) {
-        b[j] = ks[(tx + 16 * j) * LD + d];
-        w[j] = vs[(tx + 16 * j) * LD + d];
-      }
-#pragma unroll
-      for (int i = 0; i < R; ++i)
-#pragma unroll
-        for (int j = 0; j < JN; ++j) {
-          s[i][j] = fmaf(a[i], b[j], s[i][j]);
-          dp[i][j] = fmaf(g[i], w[j], dp[i][j]);
-        }
-    }
-
-#pragma unroll
-    for (int i = 0; i < R; ++i) {
-      const int qp = q0 + ty * R + i;
-#pragma unroll
-      for (int j = 0; j < JN; ++j) {
-        const int kp = k0 + tx + 16 * j;
-        const bool ok = kp < seq_k && qp < seq_q && (!CAUSAL || qp >= kp);
-        const float p = ok ? expf(s[i][j] * scale - lr[i]) : 0.f;
-        dss[(ty * R + i) * LP + tx + 16 * j] = ok ? p * (dp[i][j] - dl[i]) * scale : 0.f;
-      }
-    }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int c = 0; c < BC; ++c) {
-      float ds[R];
-#pragma unroll
-      for (int i = 0; i < R; ++i) ds[i] = dss[(ty * R + i) * LP + c];
-#pragma unroll
-      for (int jj = 0; jj < DC; ++jj) {
-        const float kv = ks[c * LD + tx + 16 * jj];
-#pragma unroll
-        for (int i = 0; i < R; ++i) acc[i][jj] = fmaf(ds[i], kv, acc[i][jj]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < R; ++i) {
-    const int qp = q0 + ty * R + i;
-    if (qp >= seq_q) continue;
-#pragma unroll
-    for (int jj = 0; jj < DC; ++jj) dq[static_cast<size_t>(qp) * D + tx + 16 * jj] = acc[i][jj];
-  }
-}
-
-// ----------------------------------------------------------- backward dkv
-// Replaces _attn_bwd_dkv_kernel. One block per (k tile of 16 R rows, bh);
-// loops over the q tiles (of BC rows, F32Cfg) that can see it, so dk and dv
-// need no atomics. The score tile is computed transposed (k rows x q
-// columns) so that each thread's rows are the k rows whose dk and dv it
-// accumulates.
-template <typename T, int D, int R, int BC, bool CAUSAL>
-__global__ void __launch_bounds__(NT) bwd_dkv_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    const T* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
-    float* __restrict__ dk, float* __restrict__ dv, int seq_q, int seq_k, float scale) {
-  constexpr int KR = 16 * R, LD = D + 1, LP = BC + 1, DC = D / 16, JN = BC / 16;
-  extern __shared__ float smem[];
-  float* ks = smem;             // [KR][LD]
-  float* vs = ks + KR * LD;     // [KR][LD]
-  float* qs = vs + KR * LD;     // [BC][LD]
-  float* dos = qs + BC * LD;    // [BC][LD]
-  float* ps = dos + BC * LD;    // [KR][LP]  p transposed
-  float* dss = ps + KR * LP;    // [KR][LP]  ds transposed
-  float* ls = dss + KR * LP;    // [BC] lse of the q tile
-  float* dls = ls + BC;         // [BC] delta of the q tile
-
-  const int n_kt = (seq_k + KR - 1) / KR, bh = blockIdx.x / n_kt, k0 = blockIdx.x % n_kt * KR;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  q += static_cast<size_t>(bh) * seq_q * D;
-  dout += static_cast<size_t>(bh) * seq_q * D;
-  k += static_cast<size_t>(bh) * seq_k * D;
-  v += static_cast<size_t>(bh) * seq_k * D;
-  dk += static_cast<size_t>(bh) * seq_k * D;
-  dv += static_cast<size_t>(bh) * seq_k * D;
-  lse += static_cast<size_t>(bh) * seq_q;
-  delta += static_cast<size_t>(bh) * seq_q;
-
-  load_tile<T, D, KR>(ks, k, k0, seq_k);
-  load_tile<T, D, KR>(vs, v, k0, seq_k);
-
-  float dka[R][DC], dva[R][DC];
-#pragma unroll
-  for (int i = 0; i < R; ++i)
-#pragma unroll
-    for (int c = 0; c < DC; ++c) dka[i][c] = dva[i][c] = 0.f;
-
-  const int nq = (seq_q + BC - 1) / BC;
-  // The reference's skip: q tile qi sees k tile ki iff qi*bq + bq - 1 >= ki*bk.
-  const int qt0 = CAUSAL ? k0 / BC : 0;
-
-  for (int qt = qt0; qt < nq; ++qt) {
-    const int q0 = qt * BC;
-    __syncthreads();
-    load_tile<T, D, BC>(qs, q, q0, seq_q);
-    load_tile<T, D, BC>(dos, dout, q0, seq_q);
-    if (threadIdx.x < BC) {
-      const int qp = q0 + threadIdx.x;
-      ls[threadIdx.x] = qp < seq_q ? lse[qp] : 0.f;
-      dls[threadIdx.x] = qp < seq_q ? delta[qp] : 0.f;
-    }
-    __syncthreads();
-
-    float s[R][JN], dp[R][JN];
-#pragma unroll
-    for (int i = 0; i < R; ++i)
-#pragma unroll
-      for (int j = 0; j < JN; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float a[R], w[R], b[JN], g[JN];
-#pragma unroll
-      for (int i = 0; i < R; ++i) {
-        a[i] = ks[(ty * R + i) * LD + d];
-        w[i] = vs[(ty * R + i) * LD + d];
-      }
-#pragma unroll
-      for (int j = 0; j < JN; ++j) {
-        b[j] = qs[(tx + 16 * j) * LD + d];
-        g[j] = dos[(tx + 16 * j) * LD + d];
-      }
-#pragma unroll
-      for (int i = 0; i < R; ++i)
-#pragma unroll
-        for (int j = 0; j < JN; ++j) {
-          s[i][j] = fmaf(a[i], b[j], s[i][j]);
-          dp[i][j] = fmaf(w[i], g[j], dp[i][j]);
-        }
-    }
-
-#pragma unroll
-    for (int i = 0; i < R; ++i) {
-      const int kp = k0 + ty * R + i;
-#pragma unroll
-      for (int j = 0; j < JN; ++j) {
-        const int r = tx + 16 * j, qp = q0 + r;
-        const bool ok = kp < seq_k && qp < seq_q && (!CAUSAL || qp >= kp);
-        const float p = ok ? expf(s[i][j] * scale - ls[r]) : 0.f;
-        ps[(ty * R + i) * LP + r] = p;
-        dss[(ty * R + i) * LP + r] = ok ? p * (dp[i][j] - dls[r]) * scale : 0.f;
-      }
-    }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int c = 0; c < BC; ++c) {
-      float p[R], ds[R];
-#pragma unroll
-      for (int i = 0; i < R; ++i) {
-        p[i] = ps[(ty * R + i) * LP + c];
-        ds[i] = dss[(ty * R + i) * LP + c];
-      }
-#pragma unroll
-      for (int jj = 0; jj < DC; ++jj) {
-        const float g = dos[c * LD + tx + 16 * jj];
-        const float a = qs[c * LD + tx + 16 * jj];
-#pragma unroll
-        for (int i = 0; i < R; ++i) {
-          dva[i][jj] = fmaf(p[i], g, dva[i][jj]);
-          dka[i][jj] = fmaf(ds[i], a, dka[i][jj]);
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < R; ++i) {
-    const int kp = k0 + ty * R + i;
-    if (kp >= seq_k) continue;
-#pragma unroll
-    for (int jj = 0; jj < DC; ++jj) {
-      dk[static_cast<size_t>(kp) * D + tx + 16 * jj] = dka[i][jj];
-      dv[static_cast<size_t>(kp) * D + tx + 16 * jj] = dva[i][jj];
-    }
-  }
-}
 
 // ===================================================== Hopper kernels (bf16)
 
@@ -1160,12 +932,15 @@ __device__ __forceinline__ void issue_pv(float (&acc)[D / 2], const uint32_t (&p
 // products in, 5 split), 3 the f32 forward (the forward's events), 4 and
 // 5 the f32 bwd_dq and bwd_dkv (the backward's events), 6 the streamed
 // forward (0 the tile begins, 1 S issued chunk by chunk, 2 the previous
-// tile's P.V issued, 3 S in, 4 softmax done, 5 P.V in, rescaled, P split). Only
+// tile's P.V issued, 3 S in, 4 softmax done, 5 P.V in, rescaled, P split),
+// 7 and 8 the streamed bwd_dq and bwd_dkv (0 the tile begins, 1 S and dP
+// issued chunk by chunk, 2 the previous tile's products issued, 3 S and dP
+// in, 4 P and dS made, 5 the previous tile's products in, split). Only
 // ray_tpu_torch/ops/kernel_ab.py's timeline build defines RT_TIMELINE
 // (chip_smoke.py phase 2 reads it through rt_timeline); the library the
 // port loads has no stamps.
 constexpr int TIMELINE_TILES = 64;
-__device__ long long timeline[7][2][TIMELINE_TILES][6];
+__device__ long long timeline[9][2][TIMELINE_TILES][6];
 __device__ __forceinline__ void stamp(int kernel, int wg, int tile, int ev, bool pred) {
   long long* at = &timeline[kernel][wg][min(tile, TIMELINE_TILES - 1)][ev];
   asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %2, 0;\n@p st.global.b64 [%0], %1;\n}\n" ::"l"(at),
@@ -1712,20 +1487,21 @@ struct StreamCfg {
 
 // S (FIRST: S =) += Q_c.K_c^T of one chunk of G columns, Q's 64 rows and
 // K's 2N at q_addr and k_addr, each in P parts (P = 2: the lo part Q_PART
-// and K_PART bytes past the hi part; hi.hi + hi.lo + lo.hi, the f32
-// forward's product set).
+// and K_PART bytes past the hi part, K_PART a part of 2N rows; hi.hi +
+// hi.lo + lo.hi, the f32 forward's product set). The streamed backward
+// makes dP, S^T and dP^T with it too (dO, K or V in Q's place).
 template <int P, bool FIRST, int N>
 __device__ __forceinline__ void issue_s_chunk(float (&s)[N], uint32_t q_addr, uint32_t k_addr) {
   using Cfg = StreamCfg<P>;
-  constexpr int G = Cfg::G;
+  constexpr int G = Cfg::G, K_PART = 2 * N * G * 2;
   if constexpr (FIRST && P == 1) {
     issue_s<G, Cfg::ROWS, true>(s, q_addr, k_addr);
   } else if constexpr (FIRST) {
-    issue_s_split<G, Cfg::ROWS>(s, q_addr, k_addr, Cfg::Q_PART, Cfg::K_PART);
+    issue_s_split<G, Cfg::ROWS>(s, q_addr, k_addr, Cfg::Q_PART, K_PART);
   } else {
     issue_s_add<G, Cfg::ROWS>(s, q_addr, k_addr);
     if constexpr (P == 2) {
-      issue_s_add<G, Cfg::ROWS>(s, q_addr, k_addr + Cfg::K_PART);
+      issue_s_add<G, Cfg::ROWS>(s, q_addr, k_addr + K_PART);
       issue_s_add<G, Cfg::ROWS>(s, q_addr + Cfg::Q_PART, k_addr);
     }
   }
@@ -2595,13 +2371,522 @@ __global__ void __launch_bounds__(FWD_THREADS, 1) bwd_dq_kernel_sm90_f32(
   bwd_dq_body<D, CAUSAL, 2>(&q_map, &k_map, &v_map, &do_map, lse, delta, dq, bh, seq_q, seq_k, scale);
 }
 
+// ======================= backward on Hopper, S's and dP's contraction streamed
+//
+// bwd_dq_kernel_sm90_stream replaces _attn_bwd_dq_kernel (B3) and
+// bwd_dkv_kernel_sm90_stream _attn_bwd_dkv_kernel (B4) of
+// ray_tpu/ops/flash_attention.py where an item's resident operands no
+// longer fit beside a stream of tiles: bf16 (P = 1) past D = 512, f32 as
+// split_kernel's parts (P = 2) at 512 and past, D a runtime multiple of
+// STREAM_SLICE. See the file's header ("The backward past 512") for the
+// design.
+
+// Tiles and shared memory of bwd_dq_kernel_sm90_stream, in bytes. An item is
+// 64 q rows by one slice of STREAM_SLICE dQ columns. An S stage holds, for
+// one chunk of G columns (StreamCfg's), the item's Q and dO chunks and a K/V
+// tile's K and V chunks, each in P parts ([P][G / 64][rows][64]); the ring
+// is S_STAGES deep. dQ += dS.K takes the slice's columns of the K tile (BN
+// keys x 512 x P) from a ring of K_STAGES of its own. P = 1: 32-key tiles,
+// 3 x 48 + 2 x 32 = 208 KB; P = 2: 16-key tiles, 4 x 40 + 2 x 32 = 224 KB.
+template <int P>
+struct DqStreamCfg {
+  static constexpr int ROWS = 64, BN = P == 1 ? 32 : 16, G = StreamCfg<P>::G;
+  static constexpr int S_STAGES = P == 1 ? 3 : 4, K_STAGES = 2;
+  static constexpr int A_PART = ROWS * G * 2, B_PART = BN * G * 2;  // one part of a Q or dO, a K or V chunk
+  static constexpr int DO_AT = P * A_PART, K_AT = 2 * DO_AT, V_AT = K_AT + P * B_PART;  // in an S stage
+  static constexpr int S_BYTES = 2 * P * (A_PART + B_PART);
+  static constexpr int K_PART = BN * STREAM_SLICE * 2, K_BYTES = P * K_PART;  // one K slice stage
+  static constexpr int RING_AT = S_STAGES * S_BYTES, BAR_AT = RING_AT + K_STAGES * K_BYTES;
+  static constexpr int BYTES = BAR_AT + 8 * 2 * (S_STAGES + K_STAGES) + 1024;
+  static_assert(BYTES <= 232448, "a block has 227 KB of shared memory");
+  // The producer's loop over chunks, parts and boxes keeps its counters in
+  // 40 registers; the consumers keep 232.
+  static constexpr int PRODUCER_REGS = 40;
+};
+
+// Tiles and shared memory of bwd_dkv_kernel_sm90_stream, in bytes. An item
+// is 64 k rows by one slice of SLICE columns of dK and dV. An S stage holds
+// the item's K and V chunks and a Q/dO tile's Q and dO chunks (BQ rows);
+// dK += dS^T.Q and dV += P^T.dO take the slice's columns of the tile's Q and
+// dO ([P][SLICE / 64][BQ][64] each) from a ring of Q_STAGES; the tile's lse
+// and delta lie in slots past everything, one [lse | delta] pair a slice
+// stage. 4 x 40 + 2 x 16 = 192 KB at P = 1, 4 x 40 + 2 x 32 = 224 KB at P = 2.
+template <int P>
+struct DkvStreamCfg {
+  static constexpr int ROWS = 64, BQ = 16, G = StreamCfg<P>::G, SLICE = STREAM_SLICE / 2;
+  static constexpr int S_STAGES = 4, Q_STAGES = 2;
+  static constexpr int A_PART = ROWS * G * 2, B_PART = BQ * G * 2;  // one part of a K or V, a Q or dO chunk
+  static constexpr int V_AT = P * A_PART, Q_AT = 2 * V_AT, DO_AT = Q_AT + P * B_PART;  // in an S stage
+  static constexpr int S_BYTES = 2 * P * (A_PART + B_PART);
+  static constexpr int Q_PART = BQ * SLICE * 2;  // one part of a Q or dO slice
+  static constexpr int DO_SLICE_AT = P * Q_PART, Q_BYTES = 2 * P * Q_PART;  // in a slice stage
+  static constexpr int RING_AT = S_STAGES * S_BYTES, BAR_AT = RING_AT + Q_STAGES * Q_BYTES;
+  static constexpr int STAT_AT = BAR_AT + 8 * 2 * (S_STAGES + Q_STAGES);
+  static constexpr int BYTES = STAT_AT + Q_STAGES * 2 * BQ * 4 + 1024;
+  static_assert(BYTES <= 232448, "a block has 227 KB of shared memory");
+  static constexpr int PRODUCER_REGS = 40;
+};
+
+// Persistent, in units of two 64-row q tiles of one head (unit_item), once
+// for each slice of dQ's columns, slice fastest. For each K/V tile of an
+// item (up to the diagonal: kv_tiles) the producer's one thread loads its
+// n_ch chunk stages, then the slice's columns of K. Both consumer
+// warpgroups make S and dP for the item's 64 rows over all chunks (chunk c
+// issued once its stage has landed, its stage freed once its products are
+// in), then dS from lse and delta (P is not kept: nothing is rescaled), and
+// dQ += dS.K for their 256 of the slice's columns, tile t-1's under tile
+// t's dS, as bwd_dq_body. With P = 2 each product is three bf16 products.
+template <int P, bool CAUSAL>
+__global__ void __launch_bounds__(FWD_THREADS, 1) bwd_dq_kernel_sm90_stream(
+    const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap k_map,
+    const __grid_constant__ CUtensorMap v_map, const __grid_constant__ CUtensorMap do_map,
+    const float* __restrict__ lse, const float* __restrict__ delta, float* __restrict__ dq, int bh,
+    int seq_q, int seq_k, int D, float scale) {
+  using Cfg = DqStreamCfg<P>;
+  constexpr int ROWS = Cfg::ROWS, BN = Cfg::BN, G = Cfg::G, SS = Cfg::S_STAGES, KS = Cfg::K_STAGES;
+  constexpr int OUT = STREAM_SLICE / 2;  // a warpgroup's dQ columns
+  extern __shared__ unsigned char dq_stream_smem[];
+  const uint32_t sm = smem_u32(swizzle_base(dq_stream_smem));
+  const uint32_t s_full = sm + Cfg::BAR_AT;  // [SS]: the stage's chunks landed
+  const uint32_t s_empty = s_full + 8 * SS;  // [SS]: both consumers' products of it are in
+  const uint32_t k_full = s_empty + 8 * SS;  // [KS]: the stage's K slice landed
+  const uint32_t k_empty = k_full + 8 * KS;  // [KS]: both consumers' dQ products of it are in
+  auto s_at = [&](int i) { return sm + i % SS * Cfg::S_BYTES; };
+  auto k_at = [&](int i) { return sm + Cfg::RING_AT + i % KS * Cfg::K_BYTES; };
+
+  const int n_ch = D / G, n_slices = D / STREAM_SLICE;
+  const int n_qt = (seq_q + ROWS - 1) / ROWS, n_units = (n_qt + 1) / 2 * bh * n_slices;
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < SS; ++st) {
+      mbar_init(s_full + 8 * st, 1);
+      mbar_init(s_empty + 8 * st, 2);
+    }
+    for (int st = 0; st < KS; ++st) {
+      mbar_init(k_full + 8 * st, 1);
+      mbar_init(k_empty + 8 * st, 2);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  if (wg == 2) {  // producer: one thread keeps both rings full
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(Cfg::PRODUCER_REGS));
+    if (threadIdx.x == 256) {
+      int is = 0, ik = 0, head, q0;  // S stages and K slices loaded
+      for (int u = blockIdx.x; u < n_units; u += gridDim.x) {
+        const int slice = u % n_slices;
+        for (int j = 0; j < 2 && unit_item<ROWS>(u / n_slices, j, n_qt, head, q0); ++j) {
+          const int n_kv_tiles = kv_tiles<CAUSAL, BN, ROWS>(q0, seq_k);
+          for (int kt = 0; kt < n_kv_tiles; ++kt, ++ik) {
+            const int k0 = kt * BN;
+            for (int c = 0; c < n_ch; ++c, ++is) {
+              const uint32_t st = s_at(is), full = s_full + 8 * (is % SS);
+              mbar_wait(s_empty + 8 * (is % SS), (is / SS & 1) ^ 1);  // passes at once on the first lap
+              mbar_expect_tx(full, Cfg::S_BYTES);  // out-of-range rows are zero-filled and counted
+              for (int part = 0; part < P; ++part)
+                for (int b = 0; b < G / 64; ++b) {
+                  const int col = c * G + 64 * b, h = head + part * bh;
+                  const uint32_t a = part * Cfg::A_PART + b * ROWS * 128, k = part * Cfg::B_PART + b * BN * 128;
+                  tma_load_at(st + a, &q_map, full, col, q0, h);
+                  tma_load_at(st + Cfg::DO_AT + a, &do_map, full, col, q0, h);
+                  tma_load_at(st + Cfg::K_AT + k, &k_map, full, col, k0, h);
+                  tma_load_at(st + Cfg::V_AT + k, &v_map, full, col, k0, h);
+                }
+            }
+            const uint32_t full = k_full + 8 * (ik % KS);
+            mbar_wait(k_empty + 8 * (ik % KS), (ik / KS & 1) ^ 1);
+            mbar_expect_tx(full, Cfg::K_BYTES);
+            for (int part = 0; part < P; ++part)
+              for (int b = 0; b < STREAM_SLICE / 64; ++b)
+                tma_load_at(k_at(ik) + (part * STREAM_SLICE / 64 + b) * BN * 128, &k_map, full,
+                            slice * STREAM_SLICE + 64 * b, k0, head + part * bh);
+          }
+        }
+      }
+    }
+  } else {  // consumer warpgroup wg: the item's 64 rows, the slice's dQ columns [OUT wg, OUT wg + OUT)
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(240 - (Cfg::PRODUCER_REGS - 24) / 2));
+    const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32, tg = lane % 4;
+    const float sl2 = scale * LOG2E;
+    const uint32_t k_col = wg * (OUT / 64) * BN * 128;  // this warpgroup's boxes of a K slice part
+    float s[BN / 2], dp[BN / 2], dqa[OUT / 2];
+    uint32_t dsh[BN / 16][4], dsl[BN / 16][4];
+
+    // S and dP of one tile over its n_ch chunks (stage `is` on): every
+    // chunk's products but the last are in on return, their stages freed;
+    // the last chunk's are one commit group in flight, its stage held.
+    auto issue_sdp_tile = [&](int is) {
+      mbar_wait(s_full + 8 * (is % SS), is / SS & 1);
+      issue_s_chunk<P, true>(s, s_at(is), s_at(is) + Cfg::K_AT);
+      issue_s_chunk<P, true>(dp, s_at(is) + Cfg::DO_AT, s_at(is) + Cfg::V_AT);
+      wgmma_commit();
+      keep(s);
+      keep(dp);
+      for (int c = 1; c < n_ch; ++c) {
+        const int i = is + c;
+        mbar_wait(s_full + 8 * (i % SS), i / SS & 1);
+        issue_s_chunk<P, false>(s, s_at(i), s_at(i) + Cfg::K_AT);
+        issue_s_chunk<P, false>(dp, s_at(i) + Cfg::DO_AT, s_at(i) + Cfg::V_AT);
+        wgmma_commit();
+        keep(s);
+        keep(dp);
+        wgmma_wait<1>();  // chunk c - 1's products are in: its stage is free
+        keep(s);
+        keep(dp);
+        mbar_arrive_if(s_empty + 8 * ((i - 1) % SS), tid == 0);
+      }
+    };
+    // dQ += dS.K of the tile whose K slice is stage ik, issued.
+    auto issue_dq_tile = [&](int ik) {
+      mbar_wait(k_full + 8 * (ik % KS), ik / KS & 1);
+      if constexpr (P == 1)
+        issue_pv<OUT>(dqa, dsh, dsl, k_at(ik) + k_col);
+      else
+        issue_pv_split<OUT>(dqa, dsh, dsl, k_at(ik) + k_col, Cfg::K_PART);
+      wgmma_commit();
+    };
+
+    int is = 0, ik = 0, head, q0;  // S stages and K slices consumed
+    for (int u = blockIdx.x; u < n_units; u += gridDim.x) {
+      const int slice = u % n_slices;
+      for (int j = 0; j < 2 && unit_item<ROWS>(u / n_slices, j, n_qt, head, q0); ++j) {
+        const int n_kv_tiles = kv_tiles<CAUSAL, BN, ROWS>(q0, seq_k);
+        const int r0 = q0 + warp * 16 + lane / 4;  // this thread's rows: r0 and r0 + 8
+        float lse2[2], dl[2];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int qp = r0 + 8 * r;
+          const size_t at = static_cast<size_t>(head) * seq_q + qp;
+          lse2[r] = qp < seq_q ? lse[at] * LOG2E : 0.f;
+          dl[r] = qp < seq_q ? delta[at] : 0.f;
+        }
+        // dS / scale of the tile at k0 in place of dP. Only a tile on the
+        // diagonal or past seq_k has masked entries.
+        auto grads = [&](int k0) {
+          if (k0 + BN > seq_k || (CAUSAL && k0 + BN - 1 > q0))
+            dq_grads<true, CAUSAL>(s, dp, lse2, dl, r0, k0 + 2 * tg, seq_k, sl2);
+          else
+            dq_grads<false, CAUSAL>(s, dp, lse2, dl, r0, k0 + 2 * tg, seq_k, sl2);
+        };
+#pragma unroll
+        for (int i = 0; i < OUT / 2; ++i) dqa[i] = 0.f;
+        // Tile 0: S_0 and dP_0 alone.
+        keep(s);
+        keep(dp);
+        wgmma_fence();
+        issue_sdp_tile(is);
+        is += n_ch;
+        wgmma_wait<0>();
+        keep(s);
+        keep(dp);
+        mbar_arrive_if(s_empty + 8 * ((is - 1) % SS), tid == 0);
+        grads(0);
+        split_p<true>(dp, dsh, dsl);
+        // Tile kt: S_kt and dP_kt chunk by chunk, then dQ += dS_{kt-1}.K_{kt-1},
+        // which runs on the tensor cores under tile kt's dS.
+        for (int kt = 1; kt < n_kv_tiles; ++kt, ++ik) {
+          STAMP(7, ik, 0);
+          keep(s);
+          keep(dp);
+          keep(dqa);
+          keep(dsh);
+          keep(dsl);
+          wgmma_fence();
+          issue_sdp_tile(is);
+          is += n_ch;
+          STAMP(7, ik, 1);
+          issue_dq_tile(ik);
+          STAMP(7, ik, 2);
+          keep(s);
+          keep(dp);
+          keep(dqa);
+          wgmma_wait<1>();  // S_kt and dP_kt are in: their last chunk's stage is free
+          keep(s);
+          keep(dp);
+          STAMP(7, ik, 3);
+          mbar_arrive_if(s_empty + 8 * ((is - 1) % SS), tid == 0);
+          grads(kt * BN);
+          STAMP(7, ik, 4);
+          wgmma_wait<0>();  // tile kt-1's dQ product is in: its split and its K slice are free
+          keep(dqa);
+          keep(dsh);
+          keep(dsl);
+          mbar_arrive_if(k_empty + 8 * (ik % KS), tid == 0);
+          split_p<true>(dp, dsh, dsl);
+          STAMP(7, ik, 5);
+        }
+        keep(dqa);
+        keep(dsh);
+        keep(dsl);
+        wgmma_fence();
+        issue_dq_tile(ik);
+        keep(dqa);
+        wgmma_wait<0>();
+        keep(dqa);
+        keep(dsh);
+        keep(dsl);
+        mbar_arrive_if(k_empty + 8 * (ik % KS), tid == 0);
+        ++ik;
+#pragma unroll
+        for (int i = 0; i < OUT / 2; ++i) dqa[i] *= scale;
+        store_rows<OUT>(dq + static_cast<size_t>(head) * seq_q * D + slice * STREAM_SLICE + wg * OUT, dqa, r0, tg,
+                        seq_q, D);
+      }
+    }
+  }
+}
+
+// Persistent, in units of two 64-row k tiles of one head (unit_item), once
+// for each slice of dK's and dV's columns, slice fastest. For each Q/dO
+// tile that sees an item (with CAUSAL from its diagonal's, the reference's
+// skip) the producer warp's lane 0 loads its n_ch chunk stages, then the
+// slice's columns of Q and dO, and its 32 lanes copy the tile's lse and
+// delta into the slice stage's slots (cp.async, zero past T). Both consumer
+// warpgroups make S^T = K.Q^T and dP^T = V.dO^T for the item's 64 k rows
+// over all chunks, then P^T and dS^T (dkv_grads), and dV += P^T.dO, dK +=
+// dS^T.Q for their 128 of the slice's columns, tile t-1's under tile t's
+// P^T and dS^T. With P = 2 each product is three bf16 products.
+template <int P, bool CAUSAL>
+__global__ void __launch_bounds__(FWD_THREADS, 1) bwd_dkv_kernel_sm90_stream(
+    const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap k_map,
+    const __grid_constant__ CUtensorMap v_map, const __grid_constant__ CUtensorMap do_map,
+    const float* __restrict__ lse, const float* __restrict__ delta, float* __restrict__ dk,
+    float* __restrict__ dv, int bh, int seq_q, int seq_k, int D, float scale) {
+  using Cfg = DkvStreamCfg<P>;
+  constexpr int ROWS = Cfg::ROWS, BQ = Cfg::BQ, G = Cfg::G, SS = Cfg::S_STAGES, QS = Cfg::Q_STAGES;
+  constexpr int SLICE = Cfg::SLICE, OUT = SLICE / 2;  // a warpgroup's dK and dV columns
+  extern __shared__ unsigned char dkv_stream_smem[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(swizzle_base(dkv_stream_smem));
+  const uint32_t sm = smem_u32(base);
+  float* stats = reinterpret_cast<float*>(base + Cfg::STAT_AT);  // [QS][lse | delta][BQ]
+  const uint32_t s_full = sm + Cfg::BAR_AT;  // [SS]: the stage's chunks landed
+  const uint32_t s_empty = s_full + 8 * SS;  // [SS]: both consumers' products of it are in
+  const uint32_t q_full = s_empty + 8 * SS;  // [QS]: the stage's Q and dO slices and stats landed
+  const uint32_t q_empty = q_full + 8 * QS;  // [QS]: both consumers' dK and dV products of it are in
+  auto s_at = [&](int i) { return sm + i % SS * Cfg::S_BYTES; };
+  auto q_at = [&](int i) { return sm + Cfg::RING_AT + i % QS * Cfg::Q_BYTES; };
+
+  const int n_ch = D / G, n_slices = D / SLICE;
+  const int n_kt = (seq_k + ROWS - 1) / ROWS, n_units = (n_kt + 1) / 2 * bh * n_slices;
+  const int q_tiles = (seq_q + BQ - 1) / BQ;
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < SS; ++st) {
+      mbar_init(s_full + 8 * st, 1);
+      mbar_init(s_empty + 8 * st, 2);
+    }
+    for (int st = 0; st < QS; ++st) {
+      mbar_init(q_full + 8 * st, 1 + 32);  // the TMA's arrival and one per producer lane's cp.asyncs
+      mbar_init(q_empty + 8 * st, 2);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  if (wg == 2) {  // producer: one warp; lane 0 issues the TMA loads, every lane copies stats
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(Cfg::PRODUCER_REGS));
+    if (threadIdx.x < 256 + 32) {
+      const int lane = threadIdx.x % 32;
+      int is = 0, iq = 0, head, k0;  // S stages and Q/dO slices loaded
+      for (int u = blockIdx.x; u < n_units; u += gridDim.x) {
+        const int slice = u % n_slices;
+        for (int j = 0; j < 2 && unit_item<ROWS>(u / n_slices, j, n_kt, head, k0); ++j) {
+          const float* lse_h = lse + static_cast<size_t>(head) * seq_q;
+          const float* delta_h = delta + static_cast<size_t>(head) * seq_q;
+          for (int q0 = CAUSAL ? k0 / BQ * BQ : 0; q0 < q_tiles * BQ; q0 += BQ, ++iq) {
+            for (int c = 0; c < n_ch; ++c, ++is) {
+              const uint32_t st = s_at(is), full = s_full + 8 * (is % SS);
+              mbar_wait(s_empty + 8 * (is % SS), (is / SS & 1) ^ 1);  // passes at once on the first lap
+              if (lane == 0) {
+                mbar_expect_tx(full, Cfg::S_BYTES);  // out-of-range rows are zero-filled and counted
+                for (int part = 0; part < P; ++part)
+                  for (int b = 0; b < G / 64; ++b) {
+                    const int col = c * G + 64 * b, h = head + part * bh;
+                    const uint32_t a = part * Cfg::A_PART + b * ROWS * 128, t = part * Cfg::B_PART + b * BQ * 128;
+                    tma_load_at(st + a, &k_map, full, col, k0, h);
+                    tma_load_at(st + Cfg::V_AT + a, &v_map, full, col, k0, h);
+                    tma_load_at(st + Cfg::Q_AT + t, &q_map, full, col, q0, h);
+                    tma_load_at(st + Cfg::DO_AT + t, &do_map, full, col, q0, h);
+                  }
+              }
+            }
+            const uint32_t full = q_full + 8 * (iq % QS);
+            mbar_wait(q_empty + 8 * (iq % QS), (iq / QS & 1) ^ 1);
+            if (lane == 0) {
+              mbar_expect_tx(full, Cfg::Q_BYTES);
+              for (int part = 0; part < P; ++part)
+                for (int b = 0; b < SLICE / 64; ++b) {
+                  const int col = slice * SLICE + 64 * b, h = head + part * bh;
+                  const uint32_t at = q_at(iq) + (part * SLICE / 64 + b) * BQ * 128;
+                  tma_load_at(at, &q_map, full, col, q0, h);
+                  tma_load_at(at + Cfg::DO_SLICE_AT, &do_map, full, col, q0, h);
+                }
+            }
+            // lse and delta rows are 4 * T bytes apart, no multiple of 16 for
+            // every T: cp.async, zero-filled past T.
+            float* stat = stats + iq % QS * 2 * BQ;
+            const int qp = q0 + lane;
+            if (lane < BQ) {
+              cp_async_4(stat + lane, lse_h + (qp < seq_q ? qp : 0), qp < seq_q);
+              cp_async_4(stat + BQ + lane, delta_h + (qp < seq_q ? qp : 0), qp < seq_q);
+            }
+            cp_async_arrive(full);
+          }
+        }
+      }
+    }
+  } else {  // consumer warpgroup wg: the item's 64 k rows, the slice's columns [OUT wg, OUT wg + OUT)
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(240 - (Cfg::PRODUCER_REGS - 24) / 2));
+    const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32, tg = lane % 4;
+    const float sl2 = scale * LOG2E;
+    const uint32_t q_col = wg * (OUT / 64) * BQ * 128;  // this warpgroup's boxes of a Q or dO slice part
+    float s[BQ / 2], dp[BQ / 2], dka[OUT / 2], dva[OUT / 2];
+    uint32_t ph[BQ / 16][4], pl[BQ / 16][4], dsh[BQ / 16][4], dsl[BQ / 16][4];
+
+    // S^T and dP^T of one Q/dO tile over its n_ch chunks, as bwd_dq's.
+    auto issue_sdp_tile = [&](int is) {
+      mbar_wait(s_full + 8 * (is % SS), is / SS & 1);
+      issue_s_chunk<P, true>(s, s_at(is), s_at(is) + Cfg::Q_AT);
+      issue_s_chunk<P, true>(dp, s_at(is) + Cfg::V_AT, s_at(is) + Cfg::DO_AT);
+      wgmma_commit();
+      keep(s);
+      keep(dp);
+      for (int c = 1; c < n_ch; ++c) {
+        const int i = is + c;
+        mbar_wait(s_full + 8 * (i % SS), i / SS & 1);
+        issue_s_chunk<P, false>(s, s_at(i), s_at(i) + Cfg::Q_AT);
+        issue_s_chunk<P, false>(dp, s_at(i) + Cfg::V_AT, s_at(i) + Cfg::DO_AT);
+        wgmma_commit();
+        keep(s);
+        keep(dp);
+        wgmma_wait<1>();  // chunk c - 1's products are in: its stage is free
+        keep(s);
+        keep(dp);
+        mbar_arrive_if(s_empty + 8 * ((i - 1) % SS), tid == 0);
+      }
+    };
+    // dV += P^T.dO and dK += dS^T.Q of the tile whose slices are stage iq, issued.
+    auto issue_dkv_tile = [&](int iq) {
+      const uint32_t at = q_at(iq) + q_col;
+      if constexpr (P == 1) {
+        issue_pv<OUT>(dva, ph, pl, at + Cfg::DO_SLICE_AT);
+        issue_pv<OUT>(dka, dsh, dsl, at);
+      } else {
+        issue_pv_split<OUT>(dva, ph, pl, at + Cfg::DO_SLICE_AT, Cfg::Q_PART);
+        issue_pv_split<OUT>(dka, dsh, dsl, at, Cfg::Q_PART);
+      }
+      wgmma_commit();
+    };
+    auto split_pds = [&] {
+      split_p<true>(s, ph, pl);
+      split_p<true>(dp, dsh, dsl);
+    };
+    auto keep_split = [&] {
+      keep(ph);
+      keep(pl);
+      keep(dsh);
+      keep(dsl);
+    };
+
+    int is = 0, iq = 0, head, k0;  // S stages and Q/dO slices consumed
+    for (int u = blockIdx.x; u < n_units; u += gridDim.x) {
+      const int slice = u % n_slices;
+      for (int j = 0; j < 2 && unit_item<ROWS>(u / n_slices, j, n_kt, head, k0); ++j) {
+        const int r0 = k0 + warp * 16 + lane / 4;  // this thread's k rows: r0 and r0 + 8
+        const int first = CAUSAL ? k0 / BQ * BQ : 0, n_t = max(q_tiles - first / BQ, 0);
+        // P^T and dS^T / scale of the tile at q0 (its stats in slice stage
+        // `stage`) in place of S^T and dP^T, once the stage has landed. Only a
+        // tile that crosses the diagonal or the end of T or S has masked
+        // entries.
+        auto grads = [&](int stage, int q0) {
+          mbar_wait(q_full + 8 * (stage % QS), stage / QS & 1);
+          const float* stat = stats + stage % QS * 2 * BQ;
+          if (q0 + BQ > seq_q || k0 + ROWS > seq_k || (CAUSAL && q0 < k0 + ROWS - 1))
+            dkv_grads<true, CAUSAL>(s, dp, stat, q0, r0, tg, seq_q, seq_k, sl2);
+          else
+            dkv_grads<false, CAUSAL>(s, dp, stat, q0, r0, tg, seq_q, seq_k, sl2);
+        };
+#pragma unroll
+        for (int i = 0; i < OUT / 2; ++i) dka[i] = dva[i] = 0.f;
+        if (n_t > 0) {
+          // Tile 0: S^T_0 and dP^T_0 alone.
+          keep(s);
+          keep(dp);
+          wgmma_fence();
+          issue_sdp_tile(is);
+          is += n_ch;
+          wgmma_wait<0>();
+          keep(s);
+          keep(dp);
+          mbar_arrive_if(s_empty + 8 * ((is - 1) % SS), tid == 0);
+          grads(iq, first);
+          split_pds();
+          // Tile t: S^T_t and dP^T_t chunk by chunk, then tile t-1's dV and
+          // dK products, which run under tile t's P^T and dS^T.
+          for (int t = 1; t < n_t; ++t, ++iq) {
+            STAMP(8, iq, 0);
+            keep(s);
+            keep(dp);
+            keep(dka);
+            keep(dva);
+            keep_split();
+            wgmma_fence();
+            issue_sdp_tile(is);
+            is += n_ch;
+            STAMP(8, iq, 1);
+            issue_dkv_tile(iq);
+            STAMP(8, iq, 2);
+            keep(s);
+            keep(dp);
+            keep(dka);
+            keep(dva);
+            wgmma_wait<1>();  // S^T_t and dP^T_t are in: their last chunk's stage is free
+            keep(s);
+            keep(dp);
+            STAMP(8, iq, 3);
+            mbar_arrive_if(s_empty + 8 * ((is - 1) % SS), tid == 0);
+            grads(iq + 1, first + t * BQ);
+            STAMP(8, iq, 4);
+            wgmma_wait<0>();  // tile t-1's products are in: its split and its slices are free
+            keep(dka);
+            keep(dva);
+            keep_split();
+            mbar_arrive_if(q_empty + 8 * (iq % QS), tid == 0);
+            split_pds();
+            STAMP(8, iq, 5);
+          }
+          keep(dka);
+          keep(dva);
+          keep_split();
+          wgmma_fence();
+          issue_dkv_tile(iq);
+          keep(dka);
+          keep(dva);
+          wgmma_wait<0>();
+          keep(dka);
+          keep(dva);
+          keep_split();
+          mbar_arrive_if(q_empty + 8 * (iq % QS), tid == 0);
+          ++iq;
+        }
+        const size_t at = static_cast<size_t>(head) * seq_k * D + slice * SLICE + wg * OUT;
+#pragma unroll
+        for (int i = 0; i < OUT / 2; ++i) dka[i] *= scale;
+        store_rows<OUT>(dk + at, dka, r0, tg, seq_k, D);
+        store_rows<OUT>(dv + at, dva, r0, tg, seq_k, D);
+      }
+    }
+  }
+}
+
 // ---------------------------------------------------------------- launchers
 
 // Every kernel takes more than the default 48 KB of shared memory, which a
 // kernel is allowed only once its limit is raised on the device. Raise it at
 // the kernel's first launch on each device, not at every launch: the smem
 // size of one instantiation is fixed. THREADS is the kernel's block size.
-template <auto Kernel, int THREADS = NT, typename... Args>
+template <auto Kernel, int THREADS, typename... Args>
 cudaError_t launch(dim3 grid, size_t smem, cudaStream_t stream, Args... args) {
   constexpr int kMaxDevices = 64;
   static bool raised[kMaxDevices] = {};
@@ -2617,65 +2902,6 @@ cudaError_t launch(dim3 grid, size_t smem, cudaStream_t stream, Args... args) {
   }
   Kernel<<<grid, THREADS, smem, stream>>>(args...);
   return cudaGetLastError();
-}
-
-// The CUDA-core backward kernels' tiles, built at D = 512 only (64-256 run
-// the Hopper f32 kernels): R rows a thread group (16 R = 32 rows a block)
-// and BC = 16 rows a streamed tile, so each block fits in 227 KB.
-template <int D>
-struct F32Cfg {
-  static_assert(D == 512, "the CUDA-core f32 kernels run at D = 512 only");
-  static constexpr int BWD_R = 2, BWD_BC = 16;
-};
-
-// A block per tile of `rows` rows (16 r a tile) of each of bh heads, in
-// gridDim.x, which takes up to 2^31 - 1 blocks.
-cudaError_t head_grid(int rows, int r, int bh, dim3& grid) {
-  const long long blocks = static_cast<long long>((rows + 16 * r - 1) / (16 * r)) * bh;
-  if (blocks > 0x7FFFFFFF) return cudaErrorInvalidValue;
-  grid = dim3(static_cast<unsigned>(blocks));
-  return cudaSuccess;
-}
-
-template <typename T, int D>
-cudaError_t bwd_dq(const void* q, const void* k, const void* v, const void* dout,
-                   const float* lse, const float* delta, float* dq, int bh, int seq_q, int seq_k,
-                   float scale, bool causal, cudaStream_t stream) {
-  constexpr int R = F32Cfg<D>::BWD_R, BC = F32Cfg<D>::BWD_BC, QR = 16 * R;
-  constexpr size_t smem = sizeof(float) * (2 * QR * (D + 1) + 2 * BC * (D + 1) + QR * (BC + 1));
-  static_assert(smem <= 232448, "a block has 227 KB of shared memory");
-  dim3 grid;
-  const cudaError_t err = head_grid(seq_q, R, bh, grid);
-  if (err != cudaSuccess) return err;
-  const T* qt = static_cast<const T*>(q);
-  const T* kt = static_cast<const T*>(k);
-  const T* vt = static_cast<const T*>(v);
-  const T* dot = static_cast<const T*>(dout);
-  return causal ? launch<bwd_dq_kernel<T, D, R, BC, true>>(grid, smem, stream, qt, kt, vt, dot, lse,
-                                                           delta, dq, seq_q, seq_k, scale)
-                : launch<bwd_dq_kernel<T, D, R, BC, false>>(grid, smem, stream, qt, kt, vt, dot, lse,
-                                                            delta, dq, seq_q, seq_k, scale);
-}
-
-template <typename T, int D>
-cudaError_t bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
-                    const float* lse, const float* delta, float* dk, float* dv, int bh,
-                    int seq_q, int seq_k, float scale, bool causal, cudaStream_t stream) {
-  constexpr int R = F32Cfg<D>::BWD_R, BC = F32Cfg<D>::BWD_BC, KR = 16 * R;
-  constexpr size_t smem =
-      sizeof(float) * (2 * KR * (D + 1) + 2 * BC * (D + 1) + 2 * KR * (BC + 1) + 2 * BC);
-  static_assert(smem <= 232448, "a block has 227 KB of shared memory");
-  dim3 grid;
-  const cudaError_t err = head_grid(seq_k, R, bh, grid);
-  if (err != cudaSuccess) return err;
-  const T* qt = static_cast<const T*>(q);
-  const T* kt = static_cast<const T*>(k);
-  const T* vt = static_cast<const T*>(v);
-  const T* dot = static_cast<const T*>(dout);
-  return causal ? launch<bwd_dkv_kernel<T, D, R, BC, true>>(grid, smem, stream, qt, kt, vt, dot, lse,
-                                                            delta, dk, dv, seq_q, seq_k, scale)
-                : launch<bwd_dkv_kernel<T, D, R, BC, false>>(grid, smem, stream, qt, kt, vt, dot, lse,
-                                                             delta, dk, dv, seq_q, seq_k, scale);
 }
 
 // cuTensorMapEncodeTiled, taken from the driver through the runtime, so the
@@ -2905,32 +3131,77 @@ cudaError_t bwd_dq_sm90(const void* q, const void* k, const void* v, const void*
                         grid, smem, stream, qm, km, vm, dom, lse, delta, dq, bh, seq_q, seq_k, scale);
 }
 
+// The streamed backward kernels on operands in P parts (P = 1: bf16; P = 2:
+// split_kernel's parts, [2 bh, rows, D] each) at any D that is a multiple
+// of STREAM_SLICE; an int counts the units, the slices included.
+template <int P>
+cudaError_t bwd_dq_sm90_stream(const void* q, const void* k, const void* v, const void* dout, const float* lse,
+                               const float* delta, float* dq, int bh, int seq_q, int seq_k, int D, float scale,
+                               bool causal, cudaStream_t stream) {
+  using Cfg = DqStreamCfg<P>;
+  if (D <= 0 || D % STREAM_SLICE || bh > 0x7FFFFFFF / P) return cudaErrorInvalidValue;
+  CUtensorMap qm, km, vm, dom;
+  dim3 grid;
+  int units = 0;
+  cudaError_t err = encode_map(&qm, q, P * bh, seq_q, D, 64, Cfg::ROWS);
+  if (err == cudaSuccess) err = encode_map(&dom, dout, P * bh, seq_q, D, 64, Cfg::ROWS);
+  if (err == cudaSuccess) err = encode_map(&km, k, P * bh, seq_k, D, 64, Cfg::BN);
+  if (err == cudaSuccess) err = encode_map(&vm, v, P * bh, seq_k, D, 64, Cfg::BN);
+  if (err == cudaSuccess) err = units_of<Cfg::ROWS>(seq_q, bh, units);
+  if (err == cudaSuccess && units > 0x7FFFFFFF / (D / STREAM_SLICE)) err = cudaErrorInvalidValue;
+  if (err == cudaSuccess) err = persistent_grid(units * (D / STREAM_SLICE), grid);
+  if (err != cudaSuccess) return err;
+  const size_t smem = Cfg::BYTES;
+  return causal ? launch<bwd_dq_kernel_sm90_stream<P, true>, FWD_THREADS>(
+                      grid, smem, stream, qm, km, vm, dom, lse, delta, dq, bh, seq_q, seq_k, D, scale)
+                : launch<bwd_dq_kernel_sm90_stream<P, false>, FWD_THREADS>(
+                      grid, smem, stream, qm, km, vm, dom, lse, delta, dq, bh, seq_q, seq_k, D, scale);
+}
+
+template <int P>
+cudaError_t bwd_dkv_sm90_stream(const void* q, const void* k, const void* v, const void* dout, const float* lse,
+                                const float* delta, float* dk, float* dv, int bh, int seq_q, int seq_k, int D,
+                                float scale, bool causal, cudaStream_t stream) {
+  using Cfg = DkvStreamCfg<P>;
+  if (D <= 0 || D % STREAM_SLICE || bh > 0x7FFFFFFF / P) return cudaErrorInvalidValue;
+  CUtensorMap qm, km, vm, dom;
+  dim3 grid;
+  int units = 0;
+  cudaError_t err = encode_map(&qm, q, P * bh, seq_q, D, 64, Cfg::BQ);
+  if (err == cudaSuccess) err = encode_map(&dom, dout, P * bh, seq_q, D, 64, Cfg::BQ);
+  if (err == cudaSuccess) err = encode_map(&km, k, P * bh, seq_k, D, 64, Cfg::ROWS);
+  if (err == cudaSuccess) err = encode_map(&vm, v, P * bh, seq_k, D, 64, Cfg::ROWS);
+  if (err == cudaSuccess) err = units_of<Cfg::ROWS>(seq_k, bh, units);
+  if (err == cudaSuccess && units > 0x7FFFFFFF / (D / Cfg::SLICE)) err = cudaErrorInvalidValue;
+  if (err == cudaSuccess) err = persistent_grid(units * (D / Cfg::SLICE), grid);
+  if (err != cudaSuccess) return err;
+  const size_t smem = Cfg::BYTES;
+  return causal ? launch<bwd_dkv_kernel_sm90_stream<P, true>, FWD_THREADS>(
+                      grid, smem, stream, qm, km, vm, dom, lse, delta, dk, dv, bh, seq_q, seq_k, D, scale)
+                : launch<bwd_dkv_kernel_sm90_stream<P, false>, FWD_THREADS>(
+                      grid, smem, stream, qm, km, vm, dom, lse, delta, dk, dv, bh, seq_q, seq_k, D, scale);
+}
+
 }  // namespace
 
 // ------------------------------------------------------------ C interface
-// dtype: 0 = float32, 1 = bfloat16, 2 = float32 as rt_split4's parts.
-// head_dim: 64, 96, 128, 256 or 512 (the wrappers pad any other width up
-// to 512 to the next of them), and for rt_flash_fwd_stream any multiple of
-// 512. Each function returns the cudaError_t of its launch (0 on success);
-// the kernel runs on `stream` and nothing here synchronises or allocates.
-// bf16 runs the Hopper kernels at every width; f32 runs them at 64-256 as
-// parts (dtype 2: fwd_kernel_sm90_f32, bwd_dq_kernel_sm90_f32,
-// bwd_dkv_kernel_sm90_f32), its forward at 512 and past as parts on the
-// streamed forward, and its backward at 512 as f32 (dtype 0: the CUDA-core
-// kernels).
+// dtype: 1 = bfloat16, 2 = float32 as rt_split4's parts (any other:
+// cudaErrorInvalidValue). head_dim: 64, 96, 128, 256 or 512 (bf16) and 64,
+// 96, 128 or 256 (parts) for rt_flash_fwd, rt_flash_bwd_dq and
+// rt_flash_bwd_dkv; any multiple of 512 for the streamed entry points (the
+// wrappers pad any other width to the next of these). Each function returns
+// the cudaError_t of its launch (0 on success); the kernel runs on `stream`
+// and nothing here synchronises or allocates.
 
-// In each backward function, FN(W) names the launcher of width W for the
-// dtype: the Hopper kernels for bf16 (P = 1) at every width and for parts
-// (P = 2) at 64-256, the CUDA-core ones for f32 at 512.
-#define RT_DISPATCH(CALL, HOPPER, CUDA_CORE)                                                      \
+// In each backward function, FN(W) names the Hopper launcher of width W for
+// the dtype (P = 1: bf16; P = 2: parts).
+#define RT_DISPATCH(CALL, HOPPER)                                                                 \
   if (dtype == 1) {                                                                               \
     CALL(64, (HOPPER<64, 1>)) CALL(96, (HOPPER<96, 1>)) CALL(128, (HOPPER<128, 1>))               \
     CALL(256, (HOPPER<256, 1>)) CALL(512, (HOPPER<512, 1>))                                       \
   } else if (dtype == 2) {                                                                        \
     CALL(64, (HOPPER<64, 2>)) CALL(96, (HOPPER<96, 2>)) CALL(128, (HOPPER<128, 2>))               \
     CALL(256, (HOPPER<256, 2>))                                                                   \
-  } else if (dtype == 0) {                                                                        \
-    CALL(512, (CUDA_CORE<float, 512>))                                                            \
   }                                                                                               \
   return static_cast<int>(cudaErrorInvalidValue);
 
@@ -3004,7 +3275,7 @@ int rt_flash_bwd_dq(const void* q, const void* k, const void* v, const void* dou
   if (head_dim == W)                                                                                 \
     return FN(q, k, v, dout, static_cast<const float*>(lse), static_cast<const float*>(delta),       \
               static_cast<float*>(dq), bh, seq_q, seq_k, scale, causal != 0, static_cast<cudaStream_t>(stream));
-  RT_DISPATCH(RT_DQ, bwd_dq_sm90, bwd_dq)
+  RT_DISPATCH(RT_DQ, bwd_dq_sm90)
 #undef RT_DQ
 }
 
@@ -3016,14 +3287,48 @@ int rt_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* do
     return FN(q, k, v, dout, static_cast<const float*>(lse), static_cast<const float*>(delta),       \
               static_cast<float*>(dk), static_cast<float*>(dv), bh, seq_q, seq_k, scale, causal != 0,  \
               static_cast<cudaStream_t>(stream));
-  RT_DISPATCH(RT_DKV, bwd_dkv_sm90, bwd_dkv)
+  RT_DISPATCH(RT_DKV, bwd_dkv_sm90)
 #undef RT_DKV
+}
+
+// B3 and B4 with S's and dP's contraction streamed (bwd_dq_kernel_sm90_stream,
+// bwd_dkv_kernel_sm90_stream): dtype 1 (bf16) or 2 (rt_split4's parts) at
+// any head_dim that is a multiple of 512 (the wrappers zero-pad to one).
+int rt_flash_bwd_dq_stream(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+                           const void* delta, void* dq, int bh, int seq_q, int seq_k, int head_dim, float scale,
+                           int causal, int dtype, void* stream) {
+  const float* l = static_cast<const float*>(lse);
+  const float* d = static_cast<const float*>(delta);
+  float* out = static_cast<float*>(dq);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 1)
+    return bwd_dq_sm90_stream<1>(q, k, v, dout, l, d, out, bh, seq_q, seq_k, head_dim, scale, causal != 0, st);
+  if (dtype == 2)
+    return bwd_dq_sm90_stream<2>(q, k, v, dout, l, d, out, bh, seq_q, seq_k, head_dim, scale, causal != 0, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+int rt_flash_bwd_dkv_stream(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+                            const void* delta, void* dk, void* dv, int bh, int seq_q, int seq_k, int head_dim,
+                            float scale, int causal, int dtype, void* stream) {
+  const float* l = static_cast<const float*>(lse);
+  const float* d = static_cast<const float*>(delta);
+  float* k_out = static_cast<float*>(dk);
+  float* v_out = static_cast<float*>(dv);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 1)
+    return bwd_dkv_sm90_stream<1>(q, k, v, dout, l, d, k_out, v_out, bh, seq_q, seq_k, head_dim, scale,
+                                  causal != 0, st);
+  if (dtype == 2)
+    return bwd_dkv_sm90_stream<2>(q, k, v, dout, l, d, k_out, v_out, bh, seq_q, seq_k, head_dim, scale,
+                                  causal != 0, st);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 const char* rt_error_string(int err) { return cudaGetErrorString(static_cast<cudaError_t>(err)); }
 
 #ifdef RT_TIMELINE
-// Copies the stamps into dst (host memory, [7][2][64][6] int64) and clears them.
+// Copies the stamps into dst (host memory, [9][2][64][6] int64) and clears them.
 int rt_timeline(void* dst) {
   void* at = nullptr;
   cudaError_t err = cudaMemcpyFromSymbol(dst, timeline, sizeof(timeline));

@@ -8,36 +8,32 @@ become the CUDA kernels of `csrc/flash_attention.cu`, bound with ctypes:
   flash_bwd_dq               <- _attn_bwd_dq_kernel   (B3)
   flash_bwd_dkv              <- _attn_bwd_dkv_kernel  (B4)
 
-For bf16 inputs (the train step's) all four run on the tensor cores. f32
-inputs at head dims 64-256 (SPLIT_WIDTHS) run on the tensor cores too: a
-split pass (`split_parts`, which replaces no TPU kernel) writes each f32
-operand as two bf16 parts, hi = bf16(x) and lo = bf16(x - hi), and the
-kernels sum three bf16 products for each f32 one (hi.hi + hi.lo + lo.hi),
-within chip_smoke.py's f32 limit of the f32 plain version. The `*_parts`
-wrappers take those parts; the f32 wrappers split their operands and call
-them. The f32 forward at 512 takes the parts too, into the streamed
-forward below; the f32 backward at 512 runs on the f32 CUDA cores. Every
-sum is f32 and the plain versions below are what the kernels compute.
+Every kernel runs on the tensor cores. bf16 inputs (the train step's) go
+to them as they are. For f32 inputs a split pass (`split_parts`, which
+replaces no TPU kernel) writes each f32 operand as two bf16 parts, hi =
+bf16(x) and lo = bf16(x - hi), and the kernels sum three bf16 products for
+each f32 one (hi.hi + hi.lo + lo.hi), within chip_smoke.py's f32 limit of
+the f32 plain version. The `*_parts` wrappers take those parts; the f32
+wrappers split their operands and call them. Every sum is f32 and the
+plain versions below are what the kernels compute.
 
-Two width rules (`kernel_width`). The kernels are built for head dims 64,
-96, 128, 256 and 512 (`WIDTHS`), and any other head dim up to 512 runs at
-the next of those widths, its q, k, v (and do) zero-padded: q.k^T, the
+One width rule (`kernel_width`), for the forward and the backward alike,
+on the card and on the CPU. The kernels are built for head dims 64, 96,
+128, 256 and 512 (`WIDTHS`), and any other head dim up to 512 runs at the
+next of those widths, its q, k, v (and do) zero-padded: q.k^T, the
 softmax, lse and delta = rowsum(do * o) are unchanged by zero columns, and
 the padded columns of o, dq, dk and dv are zero and cut away. The scale
-stays the caller's (1/sqrt of the unpadded width). The forward (B1, B2:
-`flash_fwd`, `flash_fwd_parts`, and `flash_attention` without gradients,
-which the transformer's scoring and serving paths take) takes any head dim,
-as the TPU kernels do: past 512 it runs at the next multiple of 512
-(`STREAM_SLICE`) on the streamed forward (fwd_kernel_sm90_stream: S's
-contraction streamed over chunks of D, an item's output columns in slices
-of 512), which also takes f32 at 512. The backward's rule (B3, B4, the
-autograd function, ring attention) stops at 512: past it a CUDA tensor is
-refused, and the autograd function refuses before it launches anything
-(`autograd_width`). `flash_attention`, the autograd function and ring
-attention pad once a call, in the copy to [BH, T, D] they make anyway; the
-wrappers pad what they are given directly. The CPU path pads too (the
-forward's rule past 512 as well), so the CPU tests run the route the card
-runs. Any number of heads BH is taken, as the TPU kernels' grid takes any.
+stays the caller's (1/sqrt of the unpadded width). Past 512 any head dim
+runs at the next multiple of 512 (`STREAM_SLICE`) on the streamed kernels
+(`stream_route`: fwd_kernel_sm90_stream, bwd_dq_kernel_sm90_stream and
+bwd_dkv_kernel_sm90_stream, their contraction over D streamed in chunks,
+their output columns in slices), which also take f32 at 512; so the
+autograd function, `flash_attention` with gradients and ring attention
+train at any head dim, as the TPU kernels do. `flash_attention`, the
+autograd function and ring attention pad once a call, in the copy to [BH,
+T, D] they make anyway; the wrappers pad what they are given directly.
+The CPU path pads too, so the CPU tests run the route the card runs. Any
+number of heads BH is taken, as the TPU kernels' grid takes any.
 
 Each wrapper launches its kernel for a CUDA tensor and raises on anything
 the kernel does not take; for a CPU tensor it runs its plain PyTorch
@@ -69,12 +65,12 @@ launches: Dict[str, int] = {"fwd": 0, "fwd_lse": 0, "bwd_dq": 0, "bwd_dkv": 0}
 launches_by_width: Dict[str, int] = {}
 f32_launches: Dict[str, int] = {"split": 0, "fwd": 0, "fwd_lse": 0, "bwd_dq": 0, "bwd_dkv": 0}
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_PARTS = 2  # the kernels' dtype code for f32 operands given as split_parts' parts
+_DTYPES = (torch.float32, torch.bfloat16)
+_BF16, _PARTS = 1, 2  # the kernels' dtype codes: bf16 operands, f32 operands as split_parts' parts
 WIDTHS = (64, 96, 128, 256, 512)  # the head dims the kernels are built for
-SPLIT_WIDTHS = (64, 96, 128, 256)  # where f32 B1-B4 run on the tensor cores, as parts
-# The streamed forward (B1, B2) takes any multiple of STREAM_SLICE: past 512
-# a head dim is padded to the next one; f32 runs it at 512 too, as parts.
+SPLIT_WIDTHS = (64, 96, 128, 256)  # where the f32 parts run the per-width kernels
+# The streamed kernels (B1-B4) take any multiple of STREAM_SLICE: past 512 a
+# head dim is padded to the next one; f32 runs them at 512 too, as parts.
 STREAM_SLICE = 512
 _lib: Optional[ctypes.CDLL] = None
 
@@ -107,6 +103,10 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     if hasattr(lib, "rt_flash_fwd_stream"):  # older builds have no streamed forward (kernel_ab times them)
         lib.rt_flash_fwd_stream.argtypes = lib.rt_flash_fwd.argtypes
         fns.append(lib.rt_flash_fwd_stream)
+    if hasattr(lib, "rt_flash_bwd_dq_stream"):  # nor a streamed backward
+        lib.rt_flash_bwd_dq_stream.argtypes = lib.rt_flash_bwd_dq.argtypes
+        lib.rt_flash_bwd_dkv_stream.argtypes = lib.rt_flash_bwd_dkv.argtypes
+        fns += [lib.rt_flash_bwd_dq_stream, lib.rt_flash_bwd_dkv_stream]
     if hasattr(lib, "rt_split"):  # older builds' forward-only split (kernel_ab times them)
         lib.rt_split.argtypes = [P, P, P, P, L, L, P]
         fns.append(lib.rt_split)
@@ -126,43 +126,36 @@ def _kernels() -> ctypes.CDLL:
     return _lib
 
 
-def kernel_width(head_dim: int, device, *, forward: bool = False) -> int:
-    """The head dim an attention of `head_dim` runs at: the next of WIDTHS.
-    Past them the forward's rule (B1, B2: `forward`) runs the next multiple
-    of STREAM_SLICE, on the card and on the CPU alike; the backward's rule
-    (B3, B4 and whatever runs them: the autograd function, ring attention)
-    runs such a head dim unpadded on the CPU (the plain versions take any)
-    and raises on the card."""
+def kernel_width(head_dim: int) -> int:
+    """The head dim an attention of `head_dim` runs at, on the card and on
+    the CPU, forward and backward: the next of WIDTHS, or past them the
+    next multiple of STREAM_SLICE (the streamed kernels)."""
     for width in WIDTHS:
         if head_dim <= width:
             return width
-    if forward:
-        return -(-head_dim // STREAM_SLICE) * STREAM_SLICE
-    if torch.device(device).type == "cpu":
-        return head_dim
-    raise ValueError(_BWD_WIDTH_REFUSAL.format(head_dim))
-
-
-# The backward kernels past 512 are the next slice of the port (ROADMAP,
-# queue B, B8b); the forward takes any head dim.
-_BWD_WIDTH_REFUSAL = ("the flash backward kernels take head_dim up to 512 (past 512 only the forward is "
-                      "ported: B3, B4 and the autograd function there are queue B's B8b); got {}")
+    return -(-head_dim // STREAM_SLICE) * STREAM_SLICE
 
 
 def stream_route(width: int, dtype) -> bool:
-    """Whether B1 and B2 at kernel width `width` run the streamed forward
-    (fwd_kernel_sm90_stream): past 512, and f32 at 512."""
+    """Whether B1-B4 at kernel width `width` run the streamed kernels
+    (fwd_kernel_sm90_stream, bwd_dq_kernel_sm90_stream,
+    bwd_dkv_kernel_sm90_stream): past 512, and f32 (`dtype`, the operands'
+    before any split) at 512."""
     return width > WIDTHS[-1] or (width == WIDTHS[-1] and dtype == torch.float32)
 
 
+def _streamed(width: int, code: int) -> bool:
+    """stream_route for operands of the kernels' dtype code `code`."""
+    return stream_route(width, torch.float32 if code == _PARTS else torch.bfloat16)
+
+
 def autograd_width(head_dim: int, dtype, device) -> int:
-    """The width _FlashAttention runs an attention of `head_dim` at, before
-    it launches anything: the backward's rule, so on the card a head dim
-    whose backward is not ported (past 512) raises here, and no forward runs
-    whose backward must fail. dtype: float32 or bfloat16 on the card."""
+    """The width _FlashAttention runs an attention of `head_dim` at
+    (kernel_width), checked before it launches anything. dtype: float32 or
+    bfloat16 on the card."""
     if torch.device(device).type == "cuda" and dtype not in _DTYPES:
         raise ValueError(f"flash kernels take float32 or bfloat16, got {dtype}")
-    return kernel_width(head_dim, device)
+    return kernel_width(head_dim)
 
 
 def _pad(width: int, *xs) -> list:
@@ -182,10 +175,9 @@ def _check_err(err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {err}: {msg}")
 
 
-def check_shapes(q_shape, k_shape, v_shape, *, forward: bool = False) -> None:
+def check_shapes(q_shape, k_shape, v_shape) -> None:
     """Raise unless the kernels take q [BH, T, D] and k, v [BH, S, D] of
-    these shapes: any BH, T and S above 0; D above 0, up to the widest width
-    for the backward's kernels, any for the forward's (`forward`)."""
+    these shapes: any BH, T, S and D above 0."""
     if len(q_shape) != 3 or len(k_shape) != 3 or tuple(k_shape) != tuple(v_shape):
         raise ValueError(f"flash kernels take q [BH,T,D], k/v [BH,S,D]; got {q_shape}, {k_shape}, {v_shape}")
     BH, T, D = q_shape
@@ -193,15 +185,12 @@ def check_shapes(q_shape, k_shape, v_shape, *, forward: bool = False) -> None:
         raise ValueError(f"q {tuple(q_shape)} and k {tuple(k_shape)} disagree")
     if D <= 0:
         raise ValueError(f"flash kernels need head_dim > 0, got {D}")
-    if not forward and D > WIDTHS[-1]:
-        raise ValueError(_BWD_WIDTH_REFUSAL.format(D))
     if BH == 0 or T == 0 or k_shape[1] == 0:
         raise ValueError(f"flash kernels need BH, T, S > 0; got {tuple(q_shape)}, {tuple(k_shape)}")
 
 
-def _check_inputs(q, k, v, *rest, forward: bool = False) -> None:
-    """Raise unless the kernels (the forward's: `forward`) take these
-    [BH, T, D] / [BH, S, D] tensors."""
+def _check_inputs(q, k, v, *rest) -> None:
+    """Raise unless the kernels take these [BH, T, D] / [BH, S, D] tensors."""
     for t in (q, k, v, *rest):
         if t.device.type != "cuda":
             raise ValueError(f"flash kernels need CUDA tensors, got {t.device}")
@@ -215,7 +204,7 @@ def _check_inputs(q, k, v, *rest, forward: bool = False) -> None:
             raise ValueError("flash kernels load rows 16 bytes at a time: tensors must be 16-byte aligned")
     if q.dtype not in _DTYPES:
         raise ValueError(f"flash kernels take float32 or bfloat16, got {q.dtype}")
-    check_shapes(q.shape, k.shape, v.shape, forward=forward)
+    check_shapes(q.shape, k.shape, v.shape)
 
 
 def _check_stats(q, *stats) -> None:
@@ -301,13 +290,11 @@ def _torch_attention_bhtd(q, k, v, *, causal: bool, scale: float):
 
 # ------------------------------------------------------------------ wrappers
 
-def parts_route(q, *, forward: bool = False) -> bool:
-    """Whether the kernels take `q`'s attention (at its kernel width) as
-    split_parts' parts: f32 on the card at SPLIT_WIDTHS, and for the
-    forward (`forward`) also at 512 and past (the streamed forward)."""
-    D = q.shape[-1]
-    return (q.device.type == "cuda" and q.dtype == torch.float32
-            and (D in SPLIT_WIDTHS or forward and stream_route(D, q.dtype)))
+def parts_route(q) -> bool:
+    """Whether the kernels take `q`'s attention as split_parts' parts: f32
+    on the card, at every kernel width (SPLIT_WIDTHS, then the streamed
+    kernels at 512 and past)."""
+    return q.device.type == "cuda" and q.dtype == torch.float32
 
 
 def split_parts(*xs):
@@ -338,9 +325,8 @@ def split_parts(*xs):
 def _check_parts(parts, n: int) -> tuple:
     """Raise unless `parts` are n of split_parts' outputs the kernels take:
     contiguous bf16 [2, BH, rows, D] CUDA tensors of one device, D in
-    SPLIT_WIDTHS (for the forward's three, n = 3, also a multiple of
-    STREAM_SLICE), q's (and do's) [BH, T, D] and k's, v's [BH, S, D] by the
-    shape rules. Returns the parts."""
+    SPLIT_WIDTHS or a multiple of STREAM_SLICE, q's (and do's) [BH, T, D]
+    and k's, v's [BH, S, D] by the shape rules. Returns the parts."""
     if len(parts) != n:
         raise ValueError(f"want the parts of {n} operands, got {len(parts)}")
     for p in parts:
@@ -350,14 +336,13 @@ def _check_parts(parts, n: int) -> tuple:
                              f"[2, BH, rows, D] CUDA tensors on one device; got {p.dtype} "
                              f"{tuple(p.shape)} on {p.device}")
     pq, pk, pv = parts[:3]
-    forward = n == 3
-    check_shapes(pq.shape[1:], pk.shape[1:], pv.shape[1:], forward=forward)
+    check_shapes(pq.shape[1:], pk.shape[1:], pv.shape[1:])
     if n == 4 and parts[3].shape != pq.shape:
         raise ValueError(f"do's parts {tuple(parts[3].shape)} and q's {tuple(pq.shape)} disagree")
     D = pq.shape[-1]
-    if not (D in SPLIT_WIDTHS or forward and D % STREAM_SLICE == 0):
-        raise ValueError(f"the f32 kernels take parts at head dims {SPLIT_WIDTHS}"
-                         f"{' or a multiple of 512' if forward else ''}, got {D}")
+    if not (D in SPLIT_WIDTHS or D % STREAM_SLICE == 0):
+        raise ValueError(f"the f32 kernels take parts at head dims {SPLIT_WIDTHS} or a multiple of "
+                         f"{STREAM_SLICE}, got {D}")
     return parts
 
 
@@ -369,7 +354,7 @@ def _launch_fwd(q, k, v, o, lse, causal: bool, scale: float, dtype: int) -> None
         raise ValueError(f"flash_fwd needs scale > 0, got {scale}")
     BH, T, D = o.shape
     lib = _kernels()
-    fn = lib.rt_flash_fwd_stream if stream_route(D, o.dtype) else lib.rt_flash_fwd
+    fn = lib.rt_flash_fwd_stream if _streamed(D, dtype) else lib.rt_flash_fwd
     with torch.cuda.device(o.device):
         err = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
@@ -382,23 +367,23 @@ def _launch_fwd(q, k, v, o, lse, causal: bool, scale: float, dtype: int) -> None
 
 def flash_fwd(q, k, v, *, causal: bool, scale: float, with_lse: bool = False):
     """Attention forward on [BH, T, D]: o, or (o, lse [BH, T] f32) with_lse,
-    at any D (the forward's width rule). f32 CUDA tensors at SPLIT_WIDTHS,
-    512 and past go through split_parts, then flash_fwd_parts."""
+    at any D (kernel_width). f32 CUDA tensors go through split_parts, then
+    flash_fwd_parts."""
     if q.device.type != "cpu":
-        _check_inputs(q, k, v, forward=True)
+        _check_inputs(q, k, v)
     D = q.shape[-1]
-    width = kernel_width(D, q.device, forward=True)
+    width = kernel_width(D)
     if width != D:
         out = flash_fwd(*_pad(width, q, k, v), causal=causal, scale=scale, with_lse=with_lse)
         return (_cut(out[0], D), out[1]) if with_lse else _cut(out, D)
     if q.device.type == "cpu":
         return _flash_fwd_ref(q, k, v, causal, scale, with_lse)
-    if parts_route(q, forward=True):
+    if parts_route(q):
         return flash_fwd_parts(split_parts(q, k, v), causal=causal, scale=scale, with_lse=with_lse)
     BH, T, D = q.shape
     o = torch.empty_like(q)
     lse = torch.empty((BH, T), dtype=torch.float32, device=q.device) if with_lse else None
-    _launch_fwd(q, k, v, o, lse, causal, scale, _DTYPES[q.dtype])
+    _launch_fwd(q, k, v, o, lse, causal, scale, _BF16)
     return (o, lse) if with_lse else o
 
 
@@ -416,9 +401,13 @@ def flash_fwd_parts(parts, *, causal: bool, scale: float, with_lse: bool = False
 
 
 def _launch_bwd_dq(q, k, v, do, lse, delta, dq, causal: bool, scale: float, dtype: int) -> None:
+    """B3 into dq [BH, T, D]: the streamed kernel where stream_route says
+    so, else the kernel of width D."""
     BH, T, D = dq.shape
+    lib = _kernels()
+    fn = lib.rt_flash_bwd_dq_stream if _streamed(D, dtype) else lib.rt_flash_bwd_dq
     with torch.cuda.device(dq.device):
-        err = _kernels().rt_flash_bwd_dq(
+        err = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
             delta.data_ptr(), dq.data_ptr(), BH, T, k.shape[-2], D, scale, int(causal),
             dtype, _stream(dq.device),
@@ -428,9 +417,12 @@ def _launch_bwd_dq(q, k, v, do, lse, delta, dq, causal: bool, scale: float, dtyp
 
 
 def _launch_bwd_dkv(q, k, v, do, lse, delta, dk, dv, causal: bool, scale: float, dtype: int) -> None:
+    """B4 into dk and dv [BH, S, D], as _launch_bwd_dq."""
     BH, S, D = dk.shape
+    lib = _kernels()
+    fn = lib.rt_flash_bwd_dkv_stream if _streamed(D, dtype) else lib.rt_flash_bwd_dkv
     with torch.cuda.device(dk.device):
-        err = _kernels().rt_flash_bwd_dkv(
+        err = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
             delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), BH, q.shape[-2], S, D, scale,
             int(causal), dtype, _stream(dk.device),
@@ -440,14 +432,14 @@ def _launch_bwd_dkv(q, k, v, do, lse, delta, dk, dv, causal: bool, scale: float,
 
 
 def flash_bwd_dq(q, k, v, do, lse, delta, *, causal: bool, scale: float):
-    """dq [BH, T, D] f32 from the saved forward and delta = rowsum(do * o).
-    f32 CUDA tensors at SPLIT_WIDTHS go through split_parts (q, k, v and do
-    in one launch), then flash_bwd_dq_parts."""
+    """dq [BH, T, D] f32 from the saved forward and delta = rowsum(do * o),
+    at any D (kernel_width). f32 CUDA tensors go through split_parts (q, k,
+    v and do in one launch), then flash_bwd_dq_parts."""
     if q.device.type != "cpu":
         _check_inputs(q, k, v, do)
         _check_stats(q, lse, delta)
     D = q.shape[-1]
-    width = kernel_width(D, q.device)
+    width = kernel_width(D)
     if width != D:
         return _cut(flash_bwd_dq(*_pad(width, q, k, v, do), lse, delta, causal=causal, scale=scale), D)
     if q.device.type == "cpu":
@@ -455,13 +447,14 @@ def flash_bwd_dq(q, k, v, do, lse, delta, *, causal: bool, scale: float):
     if parts_route(q):
         return flash_bwd_dq_parts(split_parts(q, k, v, do), lse, delta, causal=causal, scale=scale)
     dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
-    _launch_bwd_dq(q, k, v, do, lse, delta, dq, causal, scale, _DTYPES[q.dtype])
+    _launch_bwd_dq(q, k, v, do, lse, delta, dq, causal, scale, _BF16)
     return dq
 
 
 def flash_bwd_dq_parts(parts, lse, delta, *, causal: bool, scale: float):
     """flash_bwd_dq on f32 q, k, v and do given as their split_parts parts
-    (one tuple of four), from the f32 Hopper kernel."""
+    (one tuple of four), from the f32 Hopper kernel (the streamed one at 512
+    and past)."""
     pq, pk, pv, pdo = _check_parts(parts, 4)
     _check_stats(pq[0], lse, delta)
     dq = torch.empty(pq.shape[1:], dtype=torch.float32, device=pq.device)
@@ -471,13 +464,13 @@ def flash_bwd_dq_parts(parts, lse, delta, *, causal: bool, scale: float):
 
 
 def flash_bwd_dkv(q, k, v, do, lse, delta, *, causal: bool, scale: float):
-    """(dk, dv), each [BH, S, D] f32. f32 CUDA tensors at SPLIT_WIDTHS go
-    through split_parts, then flash_bwd_dkv_parts."""
+    """(dk, dv), each [BH, S, D] f32, at any D (kernel_width). f32 CUDA
+    tensors go through split_parts, then flash_bwd_dkv_parts."""
     if q.device.type != "cpu":
         _check_inputs(q, k, v, do)
         _check_stats(q, lse, delta)
     D = q.shape[-1]
-    width = kernel_width(D, q.device)
+    width = kernel_width(D)
     if width != D:
         dk, dv = flash_bwd_dkv(*_pad(width, q, k, v, do), lse, delta, causal=causal, scale=scale)
         return _cut(dk, D), _cut(dv, D)
@@ -487,13 +480,13 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, *, causal: bool, scale: float):
         return flash_bwd_dkv_parts(split_parts(q, k, v, do), lse, delta, causal=causal, scale=scale)
     dk = torch.empty(k.shape, dtype=torch.float32, device=q.device)
     dv = torch.empty(v.shape, dtype=torch.float32, device=q.device)
-    _launch_bwd_dkv(q, k, v, do, lse, delta, dk, dv, causal, scale, _DTYPES[q.dtype])
+    _launch_bwd_dkv(q, k, v, do, lse, delta, dk, dv, causal, scale, _BF16)
     return dk, dv
 
 
 def flash_bwd_dkv_parts(parts, lse, delta, *, causal: bool, scale: float):
     """flash_bwd_dkv on f32 q, k, v and do given as their split_parts parts,
-    from the f32 Hopper kernel."""
+    from the f32 Hopper kernel (the streamed one at 512 and past)."""
     pq, pk, pv, pdo = _check_parts(parts, 4)
     _check_stats(pq[0], lse, delta)
     dk, dv = (torch.empty(pk.shape[1:], dtype=torch.float32, device=pk.device) for _ in range(2))
@@ -503,15 +496,12 @@ def flash_bwd_dkv_parts(parts, lse, delta, *, causal: bool, scale: float):
 
 
 class _FlashAttention(torch.autograd.Function):
-    """Flash attention on [BH, T, D] with the tiled recompute backward. A
-    head dim off the kernels' widths is padded once: the padded q, k, v and
-    o are saved, and do is padded once in the backward. On the f32 route
-    (parts_route) the forward's parts of q, k and v are saved in their
-    place, so the backward splits do alone. At f32 512 the forward takes
-    the streamed forward's parts route but the f32 q, k and v are saved:
-    the backward there is the CUDA-core kernels', on f32 operands (hi + lo
-    does not give x back bitwise). Past 512 on the card it raises before
-    any launch (autograd_width)."""
+    """Flash attention on [BH, T, D] with the tiled recompute backward, at
+    any head dim. A head dim off the kernels' widths is padded once
+    (autograd_width): the padded q, k, v and o are saved, and do is padded
+    once in the backward. On the f32 route (parts_route) the forward's parts
+    of q, k and v are saved in their place, so the backward splits do
+    alone."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, scale: float):
@@ -561,13 +551,14 @@ def _to_bhtd(x, rep: int, width: Optional[int] = None):
 def flash_attention(q, k, v, *, causal: bool = False, scale: Optional[float] = None):
     """Flash attention on [B, T, H, D] inputs (grouped-query: H_kv may divide H)
     through the kernels (their plain versions for CPU tensors), at the
-    kernels' next width up from D (kernel_width)."""
+    kernels' next width up from D (kernel_width), with or without
+    gradients."""
     B, T, H, D = q.shape
     if scale is None:
         scale = 1.0 / math.sqrt(D)
     rep = H // k.shape[2]
     grad = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad)
-    width = autograd_width(D, q.dtype, q.device) if grad else kernel_width(D, q.device, forward=True)
+    width = autograd_width(D, q.dtype, q.device) if grad else kernel_width(D)
     qf, kf, vf = _to_bhtd(q, 1, width), _to_bhtd(k, rep, width), _to_bhtd(v, rep, width)
     if grad:
         of = _FlashAttention.apply(qf, kf, vf, causal, scale)

@@ -18,25 +18,27 @@ this one's again, so a drift of the card's clock falls on every side
 alike. bf16 (or `--dtype float32`), causal, on [B*H, T, D] inputs from a seed, at the shapes of
 `--head-dim` (SHAPES: 64, the default, GPT-2 small's; 32, 96 and 256 the
 JAX package's example's, Phi-3-mini's and Gemma-2B's attention widths; 512
-chip_smoke.py's 18a's; 1024 and 2048 the streamed forward's past 512; any
-other D at [96, 1024, D]), scale 1/sqrt(D). Past 512 only B1 and B2 are
-timed (the backward kernels stop at 512). At f32 and 64-256 the forward is
-timed with its split pass and the backward kernels on q, k, v and do split
-beforehand (the f32 kernels alone); a build without the backward's split
-pass (rt_split4) runs its f32 backward on its CUDA-core kernels at every
-width, and its forward through its own split pass (rt_split) or, without
-one, its CUDA-core kernel, as it did; a build without the streamed forward
-(rt_flash_fwd_stream) runs f32 at 512 on its CUDA-core forward. Prints
-one JSON line: the card, each build's worst error-to-limit ratio, the
-host's us to queue a call of each kernel at the first shape, and its ms
-per shape and kernel (the mean of its two turns, each a mean of `--reps`
-calls, and both turns).
+chip_smoke.py's 18a's; 1024 and 2048 the streamed kernels' past 512; any
+other D at [96, 1024, D]), scale 1/sqrt(D). At f32 the forward is timed
+with its split pass and the backward kernels on q, k, v and do split
+beforehand (the f32 kernels alone). Older builds run their own routes: a
+build without the backward's split pass (rt_split4) runs its f32 backward
+on its CUDA-core kernels at every width, and its forward through its own
+split pass (rt_split) or, without one, its CUDA-core kernel; a build
+without the streamed forward (rt_flash_fwd_stream) runs f32 B1 and B2 at
+512 on its CUDA-core forward, and one without the streamed backward
+(rt_flash_bwd_dq_stream) f32 B3 and B4 at 512 on its CUDA-core kernels
+(on the f32 operands), and has no B3 or B4 past 512 (not timed there).
+Prints one JSON line: the card, each build's worst error-to-limit ratio,
+the host's us to queue a call of each kernel at the first shape, and its
+ms per shape and kernel (the mean of its two turns, each a mean of
+`--reps` calls, and both turns).
 
 `--timeline` builds this checkout's source with RT_TIMELINE, which stamps
 the SM's cycle counter in block 0's two consumer warpgroups at each step of
 every streamed tile after an item's first, runs B1, B3 and B4 once each at
-each shape, and prints the median cycles a tile spends in each step (B1 on
-the streamed forward's steps where the width takes it: f32 at 512, any
+each shape, and prints the median cycles a tile spends in each step (on
+the streamed kernels' steps where the width takes them: f32 at 512, any
 dtype past 512).
 """
 
@@ -90,7 +92,7 @@ BF16_RTOL, BF16_ATOL, F32_ATOL = 2.0 ** -7, 1e-4, 2e-4
 # The kernels' stamps (timeline in the source): [kernel][consumer][tile][event],
 # the steps between a tile's events, by kernel, and each dtype's stamped
 # kernels by their index in the stamps.
-TIMELINE_SHAPE = (7, 2, 64, 6)
+TIMELINE_SHAPE = (9, 2, 64, 6)
 _BWD_STEPS = ("issue S, dP and the previous products", "S and dP in", "P and dS",
               "previous products in", "split")
 TIMELINE_STEPS = {
@@ -98,10 +100,14 @@ TIMELINE_STEPS = {
     "bwd_dq": _BWD_STEPS,
     "bwd_dkv": _BWD_STEPS,
     "fwd_stream": ("issue S chunk by chunk", "P.V issued", "S in", "softmax", "P.V in, rescale and split P"),
+    "bwd_dq_stream": ("issue S and dP chunk by chunk", "previous products issued", "S and dP in", "P and dS",
+                      "previous products in, split"),
 }
+TIMELINE_STEPS["bwd_dkv_stream"] = TIMELINE_STEPS["bwd_dq_stream"]
 TIMELINE_KERNELS = {torch.bfloat16: {"fwd": 0, "bwd_dq": 1, "bwd_dkv": 2},
                     torch.float32: {"fwd": 3, "bwd_dq": 4, "bwd_dkv": 5}}
-STREAM_TIMELINE_KERNEL = 6  # the streamed forward's stamps, either dtype
+# The streamed kernels' stamps, either dtype.
+STREAM_TIMELINE_KERNELS = {"fwd": 6, "bwd_dq": 7, "bwd_dkv": 8}
 
 
 def _err_to_limit(o, lse, ref_o, ref_lse) -> float:
@@ -146,9 +152,9 @@ def _older_f32(q) -> bool:
 
 
 def _streamed(q) -> bool:
-    """Whether this checkout's wrappers run q's forward on the streamed
-    forward (fa.stream_route)."""
-    return fa.stream_route(fa.kernel_width(q.shape[-1], q.device, forward=True), q.dtype)
+    """Whether this checkout's wrappers run q's attention on the streamed
+    kernels (fa.stream_route)."""
+    return fa.stream_route(fa.kernel_width(q.shape[-1]), q.dtype)
 
 
 def _older_fwd(q) -> bool:
@@ -158,9 +164,20 @@ def _older_fwd(q) -> bool:
     return _older_f32(q) or (_streamed(q) and not hasattr(fa._lib, "rt_flash_fwd_stream"))
 
 
-def kernels_at(head_dim: int) -> tuple:
-    """The kernels timed at `head_dim`: B1-B4, or B1 and B2 past 512."""
-    return tuple(CALLS) if head_dim <= fa.WIDTHS[-1] else ("fwd", "fwd_lse")
+def _older_bwd(q) -> bool:
+    """Whether q's backward is a streamed one and the loaded build has
+    none: f32 at 512 then runs its CUDA-core kernels; bf16 or f32 past
+    512, nothing."""
+    return _streamed(q) and not hasattr(fa._lib, "rt_flash_bwd_dq_stream")
+
+
+def kernels_at(q) -> tuple:
+    """The kernels the loaded build runs on q: B1-B4, or B1 and B2 on a
+    build without a backward at q's width (past 512, before the streamed
+    backward)."""
+    if _older_bwd(q) and fa.kernel_width(q.shape[-1]) > fa.WIDTHS[-1]:
+        return ("fwd", "fwd_lse")
+    return tuple(CALLS)
 
 
 def _fwd(q, k, v, with_lse: bool = False):
@@ -188,12 +205,19 @@ def _fwd(q, k, v, with_lse: bool = False):
     return (o, lse) if with_lse else o
 
 
+def _older_f32_bwd(q) -> bool:
+    """Whether the loaded build runs q's backward on its f32 CUDA-core
+    kernels (_older_f32, or f32 at 512 on a build without the streamed
+    backward)."""
+    return _older_f32(q) or (_older_bwd(q) and q.dtype == torch.float32)
+
+
 def _bwd_dq(q, k, v, do, lse, delta, parts):
     """B3 through the loaded build: the f32 kernel on `parts` where they are
     given, an older build's f32 CUDA-core kernel, or the wrapper."""
-    if parts is not None and not _older_f32(q):
+    if parts is not None and not _older_f32_bwd(q):
         return fa.flash_bwd_dq_parts(parts, lse, delta, causal=True, scale=SCALE)
-    if not _older_f32(q):
+    if not _older_f32_bwd(q):
         return fa.flash_bwd_dq(q, k, v, do, lse, delta, causal=True, scale=SCALE)
     dq = torch.empty_like(q)
     fa._launch_bwd_dq(q, k, v, do, lse, delta, dq, True, SCALE, 0)
@@ -202,9 +226,9 @@ def _bwd_dq(q, k, v, do, lse, delta, parts):
 
 def _bwd_dkv(q, k, v, do, lse, delta, parts):
     """B4 through the loaded build, as _bwd_dq."""
-    if parts is not None and not _older_f32(q):
+    if parts is not None and not _older_f32_bwd(q):
         return fa.flash_bwd_dkv_parts(parts, lse, delta, causal=True, scale=SCALE)
-    if not _older_f32(q):
+    if not _older_f32_bwd(q):
         return fa.flash_bwd_dkv(q, k, v, do, lse, delta, causal=True, scale=SCALE)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     fa._launch_bwd_dkv(q, k, v, do, lse, delta, dk, dv, True, SCALE, 0)
@@ -221,15 +245,15 @@ CALLS = {
 
 
 def err_to_limit(args) -> float:
-    """The loaded build's worst error-to-limit ratio over the kernels
-    (kernels_at) on `args`, against the plain versions."""
+    """The loaded build's worst error-to-limit ratio over the kernels it
+    runs (kernels_at) on `args`, against the plain versions."""
     q, k, v = args[:3]
     plain = args[:6]
     ref_o, ref_lse = fa._flash_fwd_ref(q, k, v, True, SCALE, True)
     o, lse = CALLS["fwd_lse"](*args)
     ratio = max(_err_to_limit(o, lse, ref_o, ref_lse),
                 _err_to_limit(CALLS["fwd"](*args), lse, ref_o, ref_lse))
-    if "bwd_dq" not in kernels_at(q.shape[-1]):
+    if "bwd_dq" not in kernels_at(q):
         return ratio
     ratio = max(ratio, _f32_err_to_limit(CALLS["bwd_dq"](*args), fa._flash_bwd_dq_ref(*plain, True, SCALE)))
     for got, want in zip(CALLS["bwd_dkv"](*args), fa._flash_bwd_dkv_ref(*plain, True, SCALE)):
@@ -275,8 +299,9 @@ def timeline_library() -> Path:
 
 def timeline(dev, dtype=torch.bfloat16) -> dict:
     """{kernel: {shape: {step: median cycles a tile spends in it}}} from the
-    stamps of B1, B3 and B4 (bf16, or f32 on the tensor cores; B1 as
-    "fwd_stream" where the streamed forward takes it)."""
+    stamps of B1, B3 and B4 (bf16, or f32 on the tensor cores; as
+    "fwd_stream", "bwd_dq_stream" and "bwd_dkv_stream" where the streamed
+    kernels take them)."""
     import numpy as np
 
     lib = fa._bind(ctypes.CDLL(str(timeline_library())))
@@ -287,12 +312,12 @@ def timeline(dev, dtype=torch.bfloat16) -> dict:
     try:
         stamps = np.zeros(TIMELINE_SHAPE, dtype=np.int64)
         for shape, args in _inputs(dev, dtype).items():
-            for key in kernels_at(shape[-1]):
+            for key in kernels_at(args[0]):
                 if key == "fwd_lse":
                     continue
                 call, kernel = CALLS[key], TIMELINE_KERNELS[dtype][key]
-                if key == "fwd" and _streamed(args[0]):
-                    key, kernel = "fwd_stream", STREAM_TIMELINE_KERNEL
+                if _streamed(args[0]):
+                    key, kernel = f"{key}_stream", STREAM_TIMELINE_KERNELS[key]
                 out.setdefault(key, {})
                 lib.rt_timeline(stamps.ctypes.data)  # clears what an earlier run left
                 call(*args)
@@ -353,13 +378,13 @@ def main(argv=None) -> int:
     try:
         for name, src in zip(names, sources):
             fa._lib = libs[name]
-            queue_us = {key: host_us(lambda: CALLS[key](*first)) for key in kernels_at(SHAPES[0][-1])}
+            queue_us = {key: host_us(lambda: CALLS[key](*first)) for key in kernels_at(first[0])}
             out["builds"][name] = {"source": str(src), "err_to_limit": err_to_limit(first),
                                    "host_us": queue_us}
         for name in names + names[::-1]:
             fa._lib = libs[name]
             for shape, args_ in inputs.items():
-                for key in kernels_at(shape[-1]):
+                for key in kernels_at(args_[0]):
                     turns[name].setdefault(f"{key}@{'x'.join(map(str, shape))}", []).append(
                         _time_ms(lambda: CALLS[key](*args_), args.reps))
     finally:

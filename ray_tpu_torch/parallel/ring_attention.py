@@ -267,7 +267,7 @@ def _ring_bthd(q, k, v, ring, causal: bool, scale: Optional[float], impl: str):
         scale = 1.0 / math.sqrt(D)
     # The kernel route runs at the kernels' next width up from D: padded
     # once here, not at each hop (flash_attention.kernel_width).
-    width = kernel_width(D, q.device) if impl == "kernel" else D
+    width = kernel_width(D) if impl == "kernel" else D
     qf, kf, vf = (_to_bhtd(x, 1, width) for x in (q, k, v))
     o = _RingAttention.apply(qf, kf, vf, ring, causal, scale, impl)
     return o[..., :D].reshape(B, H, T, D).transpose(1, 2)

@@ -69,18 +69,20 @@ def test_kernels_match_plain_versions(dev, causal, T, D, dtype):
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
-    """Each refusal raises before any launch. Past 512 the forward takes any
-    head dim; the backward's wrappers, the autograd function and
-    flash_attention with gradients refuse one."""
+    """Each refusal raises before any launch. At head dim 520 (past 512) the
+    backward's wrappers, the autograd function and flash_attention with
+    gradients refuse a dtype the kernels do not take, and parts of a width
+    no kernel is built for; the same calls in f32 run, at width 1024."""
     q = torch.randn(2, 64, 64, device=dev)
     wide = torch.randn(2, 64, 520, device=dev)
     lse = torch.zeros(2, 64, device=dev)
+    wide_parts = tuple(torch.zeros(2, 2, 64, 520, dtype=torch.bfloat16, device=dev) for _ in range(4))
     refused = [
         lambda: fa.flash_fwd(q.half(), q.half(), q.half(), causal=True, scale=1.0),  # dtype
         lambda: fa.flash_fwd(q, q.bfloat16(), q, causal=True, scale=1.0),  # mixed dtypes
-        lambda: fa.flash_bwd_dq(wide, wide, wide, wide, lse, lse, causal=True, scale=1.0),  # head_dim 520 > 512
-        lambda: fa._FlashAttention.apply(wide.clone().requires_grad_(True), wide, wide, True, 1.0),
-        lambda: fa.flash_attention(*(wide.view(2, 64, 1, 520).clone().requires_grad_(True) for _ in range(3))),
+        lambda: fa.flash_bwd_dq_parts(wide_parts, lse, lse, causal=True, scale=1.0),  # parts at 520
+        lambda: fa._FlashAttention.apply(wide.half().requires_grad_(True), wide.half(), wide.half(), True, 1.0),
+        lambda: fa.flash_attention(*(wide.view(2, 64, 1, 520).half().requires_grad_(True) for _ in range(3))),
         lambda: fa.flash_fwd(q.transpose(1, 2), q, q, causal=True, scale=1.0),  # strides
         lambda: fa.flash_fwd(q, q.cpu(), q, causal=True, scale=1.0),  # devices
         lambda: fa.flash_bwd_dq(q, q, q, q, lse[:, :32], lse, causal=True, scale=1.0),
@@ -91,6 +93,11 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
         with pytest.raises(ValueError):
             call()
     assert fa.launches == before
+    fa.reset_launches()
+    fa.flash_bwd_dq(wide, wide, wide, wide, lse, lse, causal=True, scale=1.0)
+    leaves = [t.clone().requires_grad_(True) for t in (wide, wide, wide)]
+    torch.autograd.grad(fa._FlashAttention.apply(*leaves, True, 1.0).sum(), leaves)
+    assert fa.launches_by_width == {"bwd_dq@1024": 2, "fwd_lse@1024": 1, "bwd_dkv@1024": 1}
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -121,7 +128,7 @@ def test_kernels_match_plain_versions_at_head_dim(dev, D, causal, dtype):
                             fa._flash_bwd_dkv_ref(*args, causal, scale))),
     })
     assert all(r <= 1.0 for r in ratios.values()), ratios
-    width = fa.kernel_width(D, dev)
+    width = fa.kernel_width(D)
     assert fa.launches_by_width == {f"{key}@{width}": 1 for key in fa.launches}
 
 
@@ -174,7 +181,7 @@ def test_entry_points_take_any_head_dim(dev, D):
     B, T, H, Hk = 2, 256, 4, 2
     q, do = (torch.randn(B, T, H, D, device=dev, generator=g) for _ in range(2))
     k, v = (torch.randn(B, T, Hk, D, device=dev, generator=g) for _ in range(2))
-    width = fa.kernel_width(D, dev)
+    width = fa.kernel_width(D)
 
     def run(attend, *xs, grad=do):
         leaves = [t.clone().requires_grad_(True) for t in xs]
@@ -432,7 +439,7 @@ def mutant(dev, request, tmp_path, monkeypatch):
         return None
     src = (_build.CSRC / "flash_attention.cu").read_text()
     for line, broken in {**MUTANTS, **WIDE_MUTANTS, **F32_MUTANTS, **F32_BWD_MUTANTS,
-                         **STREAM_MUTANTS}[request.param]:
+                         **STREAM_MUTANTS, **STREAM_BWD_MUTANTS}[request.param]:
         assert src.count(line) == 1
         src = src.replace(line, broken, 1)
     cu, so = tmp_path / "mutant.cu", tmp_path / "mutant.so"
@@ -562,10 +569,9 @@ def test_smoke_limits_catch_a_broken_f32_backward(dev, mutant):
 
 
 def test_f32_backward_route_by_width(dev):
-    """f32 B3 and B4 through their wrappers at 64-256 go through one split
-    pass each (q, k, v and do) and the f32 Hopper kernels, at 512 through
-    the CUDA-core kernels, by the profiler's kernel names and
-    f32_launches."""
+    """f32 B3 and B4 through their wrappers go through one split pass each
+    (q, k, v and do) and the f32 Hopper kernels at 64-256, the streamed ones
+    at 512, by the profiler's kernel names and f32_launches."""
     from torch.profiler import ProfilerActivity, profile
 
     cs = importlib.import_module("chip_smoke")
@@ -579,21 +585,20 @@ def test_f32_backward_route_by_width(dev):
             fa.flash_bwd_dkv(*args, causal=True, scale=D ** -0.5)
             torch.cuda.synchronize()
         names = cs.flash_kernel_names(prof)
-        hopper = D in fa.SPLIT_WIDTHS
-        want = ([f"bwd_dkv_kernel_sm90_f32<{D}, true>", f"bwd_dq_kernel_sm90_f32<{D}, true>", "split_kernel"]
-                if hopper else [f"bwd_dkv_kernel<float, {D}, 2, 16, true>", f"bwd_dq_kernel<float, {D}, 2, 16, true>"])
+        kind = "_f32" if D in fa.SPLIT_WIDTHS else "_stream"
+        args_ = f"{D}, true" if D in fa.SPLIT_WIDTHS else "2, true"
+        want = [f"bwd_dkv_kernel_sm90{kind}<{args_}>", f"bwd_dq_kernel_sm90{kind}<{args_}>", "split_kernel"]
         assert names == sorted(want), (D, names)
-        assert fa.f32_launches == {"split": 2 * hopper, "fwd": 0, "fwd_lse": 0, "bwd_dq": hopper,
-                                   "bwd_dkv": hopper}, (D, fa.f32_launches)
+        assert fa.f32_launches == {"split": 2, "fwd": 0, "fwd_lse": 0, "bwd_dq": 1, "bwd_dkv": 1}, (D, fa.f32_launches)
         assert fa.launches["bwd_dq"] == fa.launches["bwd_dkv"] == 1
 
 
 def test_f32_backward_repeats_bitwise(dev):
     """Two f32 backward calls of the autograd function on the same inputs
     give the same gradients bit for bit (no atomics: each output row is
-    written by one block, its sums in one order), at 64 and 256."""
+    written by one block, its sums in one order), at 64, 256 and 512."""
     g = torch.Generator(device=dev).manual_seed(4)
-    for D in (64, 256):
+    for D in (64, 256, 512):
         q, k, v, do = (torch.randn(8, 1000, D, device=dev, generator=g) for _ in range(4))
         runs = []
         for _ in range(2):
@@ -625,10 +630,10 @@ def test_split_pass_is_its_plain_version_bitwise(dev):
 
 
 def test_f32_forward_route_by_width(dev):
-    """f32 B1 and B2 at 64-256 go through one split pass each and the f32
-    Hopper kernel, at 512 through one split pass each and the streamed
-    forward (B3 and B4 there on the CUDA-core kernels), by the profiler's
-    kernel names and f32_launches (chip_smoke.py's f32_route)."""
+    """f32 B1-B4 at 64-256 go through the split passes and the f32 Hopper
+    kernels, at 512 through the split passes and the streamed kernels, by
+    the profiler's kernel names and f32_launches (chip_smoke.py's
+    f32_route)."""
     importlib.import_module("chip_smoke").f32_route(fa, dev)
 
 
@@ -646,8 +651,7 @@ def test_streamed_forward_matches_plain_version(dev, dtype, D, causal):
     """B1 and B2 on the streamed forward (fwd_kernel_sm90_stream: f32 at
     512, both dtypes past 512, 576 and 768 padded to 1024) against
     _flash_fwd_ref at T = 1000 on S = 300 (causal) or 700, by chip_smoke.py's
-    limits; launches counted at the width run, and B3 and B4 refuse the
-    head dim past 512."""
+    limits; launches counted at the width run."""
     cs = importlib.import_module("chip_smoke")
     q, k, v = _stream_inputs(dev, dtype, D, 1000, 300 if causal else 700, D)
     scale = D ** -0.5
@@ -657,15 +661,9 @@ def test_streamed_forward_matches_plain_version(dev, dtype, D, causal):
     ref_o, ref_lse = fa._flash_fwd_ref(q, k, v, causal, scale, True)
     _, ratios = cs.compare({"fwd": [(o1, ref_o)], "fwd_lse": [(o, ref_o), (lse, ref_lse)]})
     assert all(r <= 1.0 for r in ratios.values()), ratios
-    width = fa.kernel_width(D, dev, forward=True)
+    width = fa.kernel_width(D)
     assert fa.launches_by_width == {f"fwd@{width}": 1, f"fwd_lse@{width}": 1}
     assert fa.f32_launches["split"] == 2 * (dtype == torch.float32)
-    if D > 512:
-        delta = torch.zeros_like(lse)
-        for bwd in (fa.flash_bwd_dq, fa.flash_bwd_dkv):
-            with pytest.raises(ValueError, match="up to 512"):
-                bwd(q, k, v, q, lse, delta, causal=causal, scale=scale)
-        assert fa.launches["bwd_dq"] == fa.launches["bwd_dkv"] == 0
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -685,24 +683,111 @@ def test_streamed_forward_slices_agree_and_repeat_bitwise(dev, dtype):
 
 
 def test_autograd_past_512_raises_before_any_launch_and_no_grad_runs(dev):
-    """At head dim 1024 on the card: the autograd function and
-    flash_attention with gradients raise before they launch anything (the
-    backward is not ported past 512); without gradients flash_attention
-    runs the streamed forward once, against the plain attention."""
+    """At head dim 1024 on the card the autograd function no longer raises:
+    flash_attention with gradients runs B2, B3 and B4 once each on the
+    streamed kernels, its output and gradients against the kernels' plain
+    versions composed as the autograd function composes them (delta from
+    the kernel path's bf16 o, as chip_smoke.py's gqa_case); without
+    gradients it runs the streamed forward once. Both by chip_smoke.py's
+    limits (bf16)."""
     cs = importlib.import_module("chip_smoke")
     g = torch.Generator(device=dev).manual_seed(3)
-    q, k, v = (torch.randn(2, 300, 2, 1024, device=dev, generator=g).bfloat16() for _ in range(3))
+    B, T, H, D = 2, 300, 2, 1024
+    q, k, v, do = (torch.randn(B, T, H, D, device=dev, generator=g).bfloat16() for _ in range(4))
     fa.reset_launches()
     leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
-    with pytest.raises(ValueError, match="up to 512"):
-        fa.flash_attention(*leaves, causal=True)
-    assert fa.launches == {"fwd": 0, "fwd_lse": 0, "bwd_dq": 0, "bwd_dkv": 0}
+    o = fa.flash_attention(*leaves, causal=True)
+    got = (o, *torch.autograd.grad(o, leaves, do))
+    assert fa.launches_by_width == {"fwd_lse@1024": 1, "bwd_dq@1024": 1, "bwd_dkv@1024": 1}
+
+    def bhtd(x):  # [B, T, H, D] -> [B*H, T, D]
+        return x.transpose(1, 2).reshape(-1, T, D)
+
+    def bthd(x):  # [B*H, T, D] -> [B, T, H, D]
+        return x.reshape(B, -1, T, D).transpose(1, 2)
+
+    args = [bhtd(t) for t in (q, k, v, do)]
+    o_ref, lse = fa._flash_fwd_ref(*args[:3], True, D ** -0.5, True)
+    args += [lse, (args[3].float() * bhtd(got[0].detach()).float()).sum(-1)]
+    want = (bthd(o_ref), bthd(fa._flash_bwd_dq_ref(*args, True, D ** -0.5).bfloat16()),
+            *(bthd(x.bfloat16()) for x in fa._flash_bwd_dkv_ref(*args, True, D ** -0.5)))
+    _, ratios = cs.compare({"grads": list(zip(got, want))})
+    assert ratios["grads"] <= 1.0, ratios
+    fa.reset_launches()
     with torch.no_grad():
         o = fa.flash_attention(q, k, v, causal=True)
         ref = fa.mha(q, k, v, causal=True, impl="torch")
     assert fa.launches_by_width == {"fwd@1024": 1}
     _, ratios = cs.compare({"fwd": [(o, ref)]})
     assert ratios["fwd"] <= 1.0, ratios
+
+
+def _stream_bwd_args(dev, dtype, D, T, S, causal, seed, heads=3):
+    """q, k, v, do from a seed, the plain forward's lse and delta."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, do = (torch.randn(heads, T, D, device=dev, generator=g).to(dtype) for _ in range(2))
+    k, v = (torch.randn(heads, S, D, device=dev, generator=g).to(dtype) for _ in range(2))
+    ref_o, lse = fa._flash_fwd_ref(q, k, v, causal, D ** -0.5, True)
+    return q, k, v, do, lse, (do.float() * ref_o.float()).sum(-1)
+
+
+@pytest.mark.parametrize("dtype,D", [(torch.float32, 512), (torch.float32, 576), (torch.float32, 1024),
+                                     (torch.bfloat16, 1024), (torch.bfloat16, 2048)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_streamed_backward_matches_plain_version(dev, dtype, D, causal):
+    """B3 and B4 on the streamed kernels (bwd_dq_kernel_sm90_stream,
+    bwd_dkv_kernel_sm90_stream: f32 at 512 and past, bf16 past 512, 576
+    padded to 1024) against their plain versions at T = 1000 on S = 300
+    (causal) or 700, by chip_smoke.py's limits; one launch each at the
+    width run."""
+    cs = importlib.import_module("chip_smoke")
+    args = _stream_bwd_args(dev, dtype, D, 1000, 300 if causal else 700, causal, D)
+    scale = D ** -0.5
+    fa.reset_launches()
+    dq = fa.flash_bwd_dq(*args, causal=causal, scale=scale)
+    dk, dv = fa.flash_bwd_dkv(*args, causal=causal, scale=scale)
+    _, ratios = cs.compare({"bwd_dq": [(dq, fa._flash_bwd_dq_ref(*args, causal, scale))],
+                            "bwd_dkv": list(zip((dk, dv), fa._flash_bwd_dkv_ref(*args, causal, scale)))})
+    assert all(r <= 1.0 for r in ratios.values()), ratios
+    width = fa.kernel_width(D)
+    assert fa.launches_by_width == {f"bwd_dq@{width}": 1, f"bwd_dkv@{width}": 1}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_streamed_backward_slices_agree_and_repeat_bitwise(dev, dtype):
+    """Every slice makes S and dP from the same chunks in the same order, so
+    P and dS agree bitwise across slices: with q's, k's and do's second 512
+    columns a copy of their first at 1024, the halves of dq, dk and dv are
+    equal bit for bit; and two calls give the same dq, dk and dv bit for
+    bit (no atomics)."""
+    q, k, v, do = (torch.randn(4, 1000, 1024, device=dev, generator=torch.Generator(device=dev).manual_seed(i))
+                   .to(dtype) for i in range(4))
+    for x in (q, k, do):
+        x[..., 512:] = x[..., :512]
+    for causal in (True, False):
+        ref_o, lse = fa._flash_fwd_ref(q, k, v, causal, 1024 ** -0.5, True)
+        args = (q, k, v, do, lse, (do.float() * ref_o.float()).sum(-1))
+        runs = [(fa.flash_bwd_dq(*args, causal=causal, scale=1024 ** -0.5),
+                 *fa.flash_bwd_dkv(*args, causal=causal, scale=1024 ** -0.5)) for _ in range(2)]
+        assert all(torch.equal(x[..., 512:], x[..., :512]) for x in runs[0])
+        assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+# Broken copies of the streamed backward (bwd_dq_kernel_sm90_stream,
+# bwd_dkv_kernel_sm90_stream): each must miss chip_smoke.py's limits at head
+# dim 1024 (bf16 and f32) or f32 512, in the kernel its name's first word
+# says (dq or dkv).
+STREAM_BWD_MUTANTS = {
+    # Every slice of dQ takes the first slice's columns of K.
+    "dq_slices_share_k": [("slice * STREAM_SLICE + 64 * b, k0, head + part * bh);",
+                           "64 * b, k0, head + part * bh);")],
+    # Each warpgroup's dV columns written where the other's belong.
+    "dkv_dv_at_wrong_columns": [("store_rows<OUT>(dv + at, dva, r0, tg, seq_k, D);",
+                                 "store_rows<OUT>(dv + at + (1 - 2 * wg) * OUT, dva, r0, tg, seq_k, D);")],
+    # dP (bwd_dq) without its second chunk of D.
+    "dq_drops_a_dp_chunk": [("issue_s_chunk<P, false>(dp, s_at(i) + Cfg::DO_AT, s_at(i) + Cfg::V_AT);",
+                             "if (c != 1) issue_s_chunk<P, false>(dp, s_at(i) + Cfg::DO_AT, s_at(i) + Cfg::V_AT);")],
+}
 
 
 @pytest.mark.parametrize("mutant", list(STREAM_MUTANTS), indirect=True)
@@ -727,6 +812,30 @@ def test_smoke_limits_catch_a_broken_streamed_forward(dev, mutant):
             ref_o, ref_lse = fa._flash_fwd_ref(q, k, v, causal, D ** -0.5, True)
             _, ratios = cs.compare({"fwd_lse": [(o[heads], ref_o[heads]), (lse[heads], ref_lse[heads])]})
             r = ratios["fwd_lse"]
+            worst = r if not r <= worst else worst  # NaN counts as worst
+    assert not worst <= 1.0, worst
+
+
+@pytest.mark.parametrize("mutant", list(STREAM_BWD_MUTANTS), indirect=True)
+def test_smoke_limits_catch_a_broken_streamed_backward(dev, mutant):
+    """Each broken streamed backward misses chip_smoke.py's limits (dq, or
+    dk and dv) in one of the two causal modes at T = 1000 (a partial last
+    tile), at head dim 1024 in bf16 and f32 and at f32 512."""
+    cs = importlib.import_module("chip_smoke")
+    key = {"dq": "bwd_dq", "dkv": "bwd_dkv"}[mutant.split("_")[0]]
+    worst = 0.0
+    for dtype, D in ((torch.bfloat16, 1024), (torch.float32, 1024), (torch.float32, 512)):
+        for causal in (False, True):
+            args = _stream_bwd_args(dev, dtype, D, 1000, 1000, causal, D, heads=4)
+            scale = D ** -0.5
+            if key == "bwd_dq":
+                pairs = [(fa.flash_bwd_dq(*args, causal=causal, scale=scale),
+                          fa._flash_bwd_dq_ref(*args, causal, scale))]
+            else:
+                pairs = list(zip(fa.flash_bwd_dkv(*args, causal=causal, scale=scale),
+                                 fa._flash_bwd_dkv_ref(*args, causal, scale)))
+            _, ratios = cs.compare({key: pairs})
+            r = ratios[key]
             worst = r if not r <= worst else worst  # NaN counts as worst
     assert not worst <= 1.0, worst
 

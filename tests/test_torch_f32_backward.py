@@ -28,6 +28,19 @@ from ray_tpu.ops.flash_attention import _flash_bwd_dkv, _flash_bwd_dq  # noqa: E
 fa = importlib.import_module("ray_tpu_torch.ops.flash_attention")
 cs = importlib.import_module("chip_smoke")
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The emulations' matmuls are small: one intra-op thread a process, so
+    the suite's parallel workers do not oversubscribe the cores (with a
+    thread per core in every worker, these files ran 10-20x slower under
+    the suite's load than alone)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 # The kernels' streamed tiles (DqCfg<D, 2>, DkvCfg<D, 2>): bwd_dq streams K/V
 # tiles of BN keys, bwd_dkv Q/dO tiles of BQ q rows.
 BN = {64: 64, 96: 32, 128: 32, 256: 16}

@@ -29,6 +29,19 @@ from ray_tpu.ops.flash_attention import _flash_fwd  # noqa: E402
 fa = importlib.import_module("ray_tpu_torch.ops.flash_attention")
 cs = importlib.import_module("chip_smoke")
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The emulations' matmuls are small: one intra-op thread a process, so
+    the suite's parallel workers do not oversubscribe the cores (with a
+    thread per core in every worker, these files ran 10-20x slower under
+    the suite's load than alone)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 # The f32 forward's tiles (F32FwdCfg): 128 q rows a work item, two consumer
 # warpgroups of 64; 128 keys a K/V tile at D = 64, 64 at 96 and 128, 16 at 256.
 ROWS, BN = 128, {64: 128, 96: 64, 128: 64, 256: 16}
@@ -279,10 +292,11 @@ def test_streamed_next_smaller_product_set_misses_the_smoke_limit(name):
 def test_build_check_counts_the_f32_hopper_kernels():
     """chip_smoke.py's build check reads the f32 Hopper kernels' mangled
     names (fwd_kernel_sm90_f32, bwd_dq_kernel_sm90_f32,
-    bwd_dkv_kernel_sm90_f32) and the streamed forward's
-    (fwd_kernel_sm90_stream) and counts their 32 and 8 instantiations among
-    the Hopper kernels: a build that lacks one, or where one spills, fails
-    it."""
+    bwd_dkv_kernel_sm90_f32) and the streamed kernels'
+    (fwd_kernel_sm90_stream, bwd_dq_kernel_sm90_stream,
+    bwd_dkv_kernel_sm90_stream) and counts their 32 and 16 instantiations
+    among the 88 Hopper kernels: a build that lacks one, or where one
+    spills, fails it."""
     ns = "_ZN51_GLOBAL__N__c4b42d03_18_flash_attention_cu_e1dd8ece"
     f32 = ns + "19fwd_kernel_sm90_f32ILi256ELb1ELb0EEEv14CUtensorMap_stS1_S1_PfS2_iiif"
     assert cs.kernel_label(f32) == "fwd_kernel_sm90_f32<256,true,false>"
@@ -292,12 +306,17 @@ def test_build_check_counts_the_f32_hopper_kernels():
     assert cs.kernel_label(dkv) == "bwd_dkv_kernel_sm90_f32<128,true>"
     stream = ns + "22fwd_kernel_sm90_streamILi2ELb1ELb0EEEv14CUtensorMap_stS1_S1_PvPfiiiif"
     assert cs.kernel_label(stream) == "fwd_kernel_sm90_stream<2,true,false>"
-    assert cs.N_SM90_KERNELS == 5 * (4 + 2 + 2) + 4 * (4 + 2 + 2) + 2 * 4
+    sdq = ns + "25bwd_dq_kernel_sm90_streamILi2ELb1EEEv14CUtensorMap_stS1_S1_S1_PKfS3_Pfiiiif"
+    assert cs.kernel_label(sdq) == "bwd_dq_kernel_sm90_stream<2,true>"
+    sdkv = ns + "26bwd_dkv_kernel_sm90_streamILi1ELb0EEEv14CUtensorMap_stS1_S1_S1_PKfS3_PfS4_iiiif"
+    assert cs.kernel_label(sdkv) == "bwd_dkv_kernel_sm90_stream<1,false>"
+    assert cs.N_SM90_KERNELS == 88 == 5 * (4 + 2 + 2) + 4 * (4 + 2 + 2) + 2 * 4 + 2 * (2 + 2)
     good = {"hgmma": 8, "spill_stores": 0, "spill_loads": 0}
     bf16 = {f"fwd_kernel_sm90<{i}>": dict(good) for i in range(40)}
     f32s = {f"fwd_kernel_sm90_f32<{i}>": dict(good) for i in range(16)}
     f32s.update({f"bwd_{k}_kernel_sm90_f32<{i}>": dict(good) for k in ("dq", "dkv") for i in range(8)})
     f32s.update({f"fwd_kernel_sm90_stream<{i}>": dict(good) for i in range(8)})
+    f32s.update({f"bwd_{k}_kernel_sm90_stream<{i}>": dict(good) for k in ("dq", "dkv") for i in range(4)})
     cs.check_sm90({**bf16, **f32s, "fwd_kernel<f32,512,true,true>": {"hgmma": 0}})
     with pytest.raises(cs.SmokeFailure):
         cs.check_sm90(bf16)

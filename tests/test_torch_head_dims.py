@@ -89,8 +89,8 @@ def test_forward_past_512_matches_pallas(D, causal):
     """flash_attention without gradients (the forward's rule: padded to the
     next multiple of 512, the streamed forward's route) and flash_fwd's lse
     at head dims past 512 against the JAX package's Pallas forward
-    (interpret mode), within FWD_ATOL; the autograd function on the CPU
-    takes the same head dim unpadded."""
+    (interpret mode), within FWD_ATOL; with gradients (the same width rule)
+    the forward agrees."""
     B, T, H = 1, 64, 2
     rs = np.random.RandomState(D)
     q, k, v = (_rand(rs, B, T, H, D) for _ in range(3))
@@ -131,27 +131,18 @@ def test_gqa_at_head_dim_256_matches_pallas(causal):
         np.testing.assert_allclose(leaf.grad.numpy(), np.asarray(ref), atol=GRAD_ATOL)
 
 
-# The forward's rule past 512: the next multiple of 512, on either device.
-FORWARD_WIDTHS = {513: 1024, 576: 1024, 640: 1024, 768: 1024, 1024: 1024, 2048: 2048}
-
-
 @pytest.mark.parametrize("D,width", [(8, 64), (32, 64), (65, 96), (80, 96), (100, 128), (192, 256),
                                      (256, 256), (300, 512), (320, 512), (384, 512), (512, 512),
-                                     (513, 513), (576, 576), (640, 640), (768, 768), (1024, 1024),
+                                     (513, 1024), (576, 1024), (640, 1024), (768, 1024), (1024, 1024),
                                      (2048, 2048)])
 def test_kernel_width(D, width):
-    """A head dim runs at the next of the kernels' widths. Past 512 the
-    backward's rule takes it on the CPU's plain versions only and refuses it
-    on the card; the forward's rule (B1, B2) runs it at the next multiple
-    of 512 on both."""
-    assert fa.kernel_width(D, "cpu") == width
-    forward = FORWARD_WIDTHS.get(D, width)
-    assert fa.kernel_width(D, "cpu", forward=True) == fa.kernel_width(D, "cuda", forward=True) == forward
-    if D > fa.WIDTHS[-1]:
-        with pytest.raises(ValueError, match="up to 512"):
-            fa.kernel_width(D, "cuda")
-    else:
-        assert fa.kernel_width(D, "cuda") == width
+    """A head dim runs at the next of the kernels' widths, past them at the
+    next multiple of 512 (the streamed kernels): one rule for the forward
+    and the backward, which the autograd function takes on either
+    device."""
+    assert fa.kernel_width(D) == width
+    for device in ("cpu", "cuda"):
+        assert fa.autograd_width(D, torch.float32, device) == width
 
 
 @pytest.mark.parametrize("causal", [True, False])
@@ -317,33 +308,30 @@ def test_shape_rules_take_any_number_of_heads(BH):
 
 @pytest.mark.parametrize("D", [576, 768, 1024, 2048])
 def test_forward_shape_rules_take_any_head_dim(D):
-    """The forward's shape rules (check_shapes with `forward`, which flash_fwd
-    applies to CUDA tensors) take head dims past 512, as the TPU kernels do;
-    the backward's refuse them, naming the slice that ports them."""
-    fa.check_shapes((4, 64, D), (4, 100, D), (4, 100, D), forward=True)
-    with pytest.raises(ValueError, match="up to 512.*B8b"):
-        fa.check_shapes((4, 64, D), (4, 100, D), (4, 100, D))
+    """The shape rules (check_shapes, which every wrapper, forward and
+    backward, applies to CUDA tensors) take head dims past 512, as the TPU
+    kernels do, and the kernels run them at the next multiple of 512."""
+    fa.check_shapes((4, 64, D), (4, 100, D), (4, 100, D))
+    assert fa.kernel_width(D) % 512 == 0 and 0 <= fa.kernel_width(D) - D < 512
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("D", [513, 576, 1024])
 def test_autograd_refuses_past_512_before_any_launch(D, dtype):
     """The autograd function's width (autograd_width, the first thing its
-    forward computes): on the card past 512 it raises, so no forward runs
-    whose backward must fail; on the CPU the plain versions take it
-    unpadded; at 512 and below both devices run the kernels' width, f32 at
-    512 too (its backward on the CUDA cores)."""
-    with pytest.raises(ValueError, match="up to 512.*B8b"):
-        fa.autograd_width(D, dtype, "cuda")
-    assert fa.autograd_width(D, dtype, "cpu") == D
-    assert fa.autograd_width(D - 512, dtype, "cuda") == fa.kernel_width(D - 512, "cuda")
+    forward computes) no longer refuses past 512: on the card and on the
+    CPU it is the next multiple of 512, where the streamed backward runs;
+    at 512 and below both devices run the kernels' width. What it still
+    refuses before any launch is a dtype the kernels do not take."""
+    assert fa.autograd_width(D, dtype, "cuda") == fa.autograd_width(D, dtype, "cpu") == 1024
+    assert fa.autograd_width(D - 512, dtype, "cuda") == fa.kernel_width(D - 512)
     assert fa.autograd_width(512, dtype, "cuda") == 512
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         fa.autograd_width(64, torch.float16, "cuda")
 
 
 @pytest.mark.parametrize("q,k,v,match", [
-    ((4, 64, 513), (4, 64, 513), (4, 64, 513), "up to 512"),
+    ((4, 64, 0), (4, 64, 0), (4, 64, 0), "head_dim > 0"),
     ((0, 64, 64), (0, 64, 64), (0, 64, 64), "BH, T, S > 0"),
     ((4, 0, 64), (4, 64, 64), (4, 64, 64), "BH, T, S > 0"),
     ((4, 64, 64), (4, 0, 64), (4, 0, 64), "BH, T, S > 0"),
