@@ -563,6 +563,16 @@ SCORE_BATCH, SCORE_SEQ, SCORE_CHUNKS = 2080, 64, 8
 STREAM_HEAD_DIMS = (576, 768, 1024, 2048)
 WIDE_1024 = dict(WIDE_512, n_heads=2, n_kv_heads=2)
 
+# Phase 2's cases at a scale of -1/sqrt(D) and 0, which the TPU kernels
+# take and the wrappers route before a launch (the kernels take the row max
+# of the raw scores, so they launch at a scale > 0): (dtype, D, T, S,
+# causal) at head dim 64, at 80 (padded to 96) and at 1024 (streamed).
+SCALE_CASES = ([(dtype, 64, 1000, 1000, causal) for dtype in (torch.bfloat16, torch.float32)
+                for causal in (True, False)]
+               + [(dtype, 80, 1000, 1000, True) for dtype in (torch.bfloat16, torch.float32)]
+               + [(dtype, 1024, 300, 300, True) for dtype in (torch.bfloat16, torch.float32)])
+SCALE_KINDS = ("-1/sqrt(D)", "0")
+
 KERNELS = [  # name, launch-count key, TPU kernel it replaces
     ("flash_fwd", "fwd", "ray_tpu/ops/flash_attention.py:35"),
     ("flash_fwd_lse", "fwd_lse", "ray_tpu/ops/flash_attention.py:109"),
@@ -821,7 +831,62 @@ def stream_cases(fa, dev, gen) -> int:
     return cases
 
 
-def kernel_cases(fa, dev, gen, gen_more, gen_widths, gen_wider, gen_stream) -> None:
+def scale_case(fa, dev, gen, dtype, D: int, T: int, S: int, causal: bool, kind: str) -> dict:
+    """B1-B4 through their wrappers at scale -1/sqrt(D) or 0 (SCALE_KINDS)
+    against their plain versions at that scale. Returns the case: each
+    kernel's max abs error and error-to-limit ratio by phase 2's limits, the
+    launches of each kernel (dq at 0 launches none), and at 0 whether dq
+    and dk came out exactly zero."""
+    scale = -(D ** -0.5) if kind == "-1/sqrt(D)" else 0.0
+    q, k, v, do = (torch.randn(4, n, D, device=dev, generator=gen).to(dtype) for n in (T, S, S, T))
+    ref_o, ref_lse = fa._flash_fwd_ref(q, k, v, causal, scale, True)
+    delta = (do.float() * ref_o.float()).sum(-1)
+    args = (q, k, v, do, ref_lse, delta)
+    before = dict(fa.launches)
+    o, lse = fa.flash_fwd(q, k, v, causal=causal, scale=scale, with_lse=True)
+    o1 = fa.flash_fwd(q, k, v, causal=causal, scale=scale)
+    dq = fa.flash_bwd_dq(*args, causal=causal, scale=scale)
+    dk, dv = fa.flash_bwd_dkv(*args, causal=causal, scale=scale)
+    launched = {key: fa.launches[key] - before[key] for key in before}
+    errs, ratios = compare({
+        "fwd": [(o1, ref_o)],
+        "fwd_lse": [(o, ref_o), (lse, ref_lse)],
+        "bwd_dq": [(dq, fa._flash_bwd_dq_ref(*args, causal, scale))],
+        "bwd_dkv": list(zip((dk, dv), fa._flash_bwd_dkv_ref(*args, causal, scale))),
+    })
+    case = dict(dtype=str(dtype).split(".")[-1], D=D, width=fa.kernel_width(D), T=T, S=S, causal=causal,
+                scale=scale, max_abs_err=errs, err_to_limit=ratios, launches=launched)
+    if scale == 0:
+        case["dq_dk_zero"] = not dq.any() and not dk.any()
+    return case
+
+
+def scale_ok(case: dict) -> bool:
+    """A scale case passes: every ratio within its limit, each kernel
+    launched once (dq none at 0), dq and dk exactly zero at 0."""
+    want = {"fwd": 1, "fwd_lse": 1, "bwd_dq": 0 if case["scale"] == 0 else 1, "bwd_dkv": 1}
+    return (all(math.isfinite(r) and r <= 1.0 for r in case["err_to_limit"].values())
+            and case["launches"] == want and case.get("dq_dk_zero", True))
+
+
+def scale_cases(fa, dev, gen) -> int:
+    """Every SCALE_CASES shape at each SCALE_KINDS scale (scale_case), one
+    "scale_case" line each, then their worst error-to-limit ratio; returns
+    the number of cases."""
+    worst = 0.0
+    for dtype, D, T, S, causal in SCALE_CASES:
+        for kind in SCALE_KINDS:
+            case = scale_case(fa, dev, gen, dtype, D, T, S, causal, kind)
+            emit({"phase": "kernels", "scale_case": case})
+            check(scale_ok(case), f"a kernel at scale {kind} is off its plain version, launched "
+                                  f"otherwise than once, or left dq or dk nonzero at 0: {case}")
+            worst = max(worst, *case["err_to_limit"].values())
+    emit({"phase": "kernels", "scale_cases": len(SCALE_CASES) * len(SCALE_KINDS),
+          "worst_err_to_limit": worst})
+    return len(SCALE_CASES) * len(SCALE_KINDS)
+
+
+def kernel_cases(fa, dev, gen, gen_more, gen_widths, gen_wider, gen_stream, gen_scale) -> None:
     """Every kernel against its plain version on the listed cases. Prints
     each case's max abs error and worst error-to-limit ratio (F32_ATOL,
     BF16_RTOL, BF16_ATOL) per kernel. The cases T in 1, 100 and S != T
@@ -829,7 +894,8 @@ def kernel_cases(fa, dev, gen, gen_more, gen_widths, gen_wider, gen_stream) -> N
     WIDER_HEAD_DIMS from gen_wider, the others from gen in the order they
     always have, so the later phases' inputs do not move when a case is
     added; the streamed kernels' cases (stream_cases) from gen_stream,
-    after all of those."""
+    after all of those; the cases at a scale <= 0 (scale_cases) from
+    gen_scale, last."""
     worst = {key: {"max_abs_err": 0.0, "err_to_limit": 0.0} for _, key, _ in KERNELS}
     cases = 0
     for dtype in (torch.float32, torch.bfloat16):
@@ -876,6 +942,7 @@ def kernel_cases(fa, dev, gen, gen_more, gen_widths, gen_wider, gen_stream) -> N
         gqa_case(fa, dev, gen, dtype)
         cases += 1
     cases += stream_cases(fa, dev, gen_stream)
+    cases += scale_cases(fa, dev, gen_scale)
     emit({"phase": "kernels", "cases": cases, "worst": worst,
           "limits": {"f32_atol": F32_ATOL, "bf16_rtol": BF16_RTOL, "bf16_atol": BF16_ATOL}})
 
@@ -4922,8 +4989,9 @@ def main() -> int:
     gen_widths = torch.Generator(device=dev).manual_seed(SEED + 30)
     gen_wider = torch.Generator(device=dev).manual_seed(SEED + 40)
     gen_stream = torch.Generator(device=dev).manual_seed(SEED + 50)
+    gen_scale = torch.Generator(device=dev).manual_seed(SEED + 60)
     t_kernels = time.perf_counter()
-    kernel_cases(fa, dev, gen, gen_more, gen_widths, gen_wider, gen_stream)
+    kernel_cases(fa, dev, gen, gen_more, gen_widths, gen_wider, gen_stream, gen_scale)
     heads_cases(fa, dev, gen_wider)
     rows = {64: kernel_timings(fa, dev, gen, cfg)}
     kernel_timings(fa, dev, gen_more, cfg, batch=4 * BATCH)  # the bench's batch: emitted, not in the line

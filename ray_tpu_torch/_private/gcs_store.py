@@ -947,11 +947,15 @@ class ReplicatedStoreClient(StoreClient):
 
     def wait_replication(self) -> None:
         """Barrier: block until every in-flight follower ship (including
-        laggard catch-up) has drained. Test/scan hook — the commit path
-        never waits for more than the quorum."""
+        laggard catch-up) has drained. The event loop's group commit never
+        waits for more than the quorum; a caller's ``flush`` ends with this
+        barrier."""
         if self._closed:
             return
-        futs = [lane.submit(lambda: None) for lane in self._ship_lanes]
+        try:
+            futs = [lane.submit(lambda: None) for lane in self._ship_lanes]
+        except RuntimeError:  # closed by another thread meanwhile
+            return
         for fut in futs:
             fut.result()
 
@@ -1032,12 +1036,20 @@ class ReplicatedStoreClient(StoreClient):
             self._flush()
             return
         self._flush_scheduled = True
-        loop.call_soon(self.flush)
+        loop.call_soon(self.flush, False)
 
-    def flush(self) -> None:
+    def flush(self, drain: bool = True) -> None:
+        """Force the buffered tick out. The event loop's group commit
+        (``drain=False``) returns once a quorum holds it; a caller's flush
+        returns once every reachable member does: a standby tails one
+        follower's file (``ReplicaTailer``), and what a caller flushed —
+        the leadership lease, a write it waits on — must be in that file
+        when ``flush`` returns, even when the other follower acked first."""
         with self._lock:
             self._flush_scheduled = False
             self._flush()
+        if drain:
+            self.wait_replication()
 
     def _ship_one(self, fi: int, m: "_ReplicaLog", buf, term, seq, prev_seq, snap) -> str:
         """Deliver one group commit to one follower on its serial lane.
@@ -1235,7 +1247,9 @@ class ReplicatedStoreClient(StoreClient):
     def crash(self) -> None:
         """Process-death analog: the buffered tick reaches every reachable
         member's file (no fsync) — what a real leader that writes-before-
-        acking would have already shipped."""
+        acking would have already shipped. Ships already on a lane were
+        sent before the death, so they land first, in order: a member
+        behind the quorum ack still receives every acknowledged commit."""
         with self._lock:
             if self._closed:
                 return
@@ -1243,7 +1257,7 @@ class ReplicatedStoreClient(StoreClient):
             self._pending.clear()
             self._closed = True
         for lane in self._ship_lanes:
-            lane.shutdown(wait=False, cancel_futures=True)
+            lane.shutdown(wait=True)
         if buf:
             for m in self._members:
                 m.write_unsynced(buf)
@@ -1258,7 +1272,9 @@ class ReplicaTailer:
     Detects compaction/catch-up rewrites (inode change, shrink, or changed
     leading bytes — inode numbers alone are unreliable: many filesystems
     hand a renamed-over file the number the original just freed) and
-    replays from offset zero."""
+    replays from offset zero. The check and the read go through one open
+    file, so a rewrite renamed in between cannot hand the read the new
+    file at the old one's offset."""
 
     def __init__(self, path: str):
         self.path = os.path.abspath(path)
@@ -1272,25 +1288,22 @@ class ReplicaTailer:
     def poll(self) -> int:
         """Apply any new frames; returns how many bytes were consumed."""
         try:
-            st = os.stat(self.path)
+            f = open(self.path, "rb")
         except OSError:
             return 0
-        try:
-            with open(self.path, "rb") as f:
-                head = f.read(len(self._head)) if self._head else b""
-        except OSError:
-            return 0
-        if (
-            st.st_ino != self._ino
-            or st.st_size < self._off
-            or head != self._head
-        ):
-            self._ino = st.st_ino
-            self._off = 0
-            self.tables = {}
-        if st.st_size <= self._off:
-            return 0
-        with open(self.path, "rb") as f:
+        with f:
+            st = os.fstat(f.fileno())
+            head = f.read(len(self._head)) if self._head else b""
+            if (
+                st.st_ino != self._ino
+                or st.st_size < self._off
+                or head != self._head
+            ):
+                self._ino = st.st_ino
+                self._off = 0
+                self.tables = {}
+            if st.st_size <= self._off:
+                return 0
             f.seek(self._off)
             data = f.read()
         if self._off == 0:

@@ -35,6 +35,14 @@ T, D] they make anyway; the wrappers pad what they are given directly.
 The CPU path pads too, so the CPU tests run the route the card runs. Any
 number of heads BH is taken, as the TPU kernels' grid takes any.
 
+Any finite scale is taken, as the TPU kernels take any. The kernels take
+the row max of the raw scores before they scale them, so they launch at a
+scale > 0 only, and each wrapper routes a finite scale <= 0 before its
+CPU dispatch and any launch (`_route_q`): below 0 it calls with -q and
+|scale| (o, lse, dk and dv as they come, dq negated), at 0 with a zero q
+and scale 1 (every score 0: o, lse and dv as they come, dk zero by
+itself, dq zero without a launch). A non-finite scale raises at the launch.
+
 Each wrapper launches its kernel for a CUDA tensor and raises on anything
 the kernel does not take; for a CPU tensor it runs its plain PyTorch
 version (`_flash_*_ref`), which repeats the kernel's arithmetic densely and
@@ -346,12 +354,30 @@ def _check_parts(parts, n: int) -> tuple:
     return parts
 
 
+def _routed(scale: float) -> bool:
+    """Whether a wrapper routes this scale before any launch: the kernels
+    take the row max of the raw scores before they scale them, which is the
+    max of the scaled ones only for a scale > 0. A finite scale <= 0 goes
+    through _route_q."""
+    return math.isfinite(scale) and scale <= 0
+
+
+def _route_q(q, scale: float):
+    """The q and the positive scale that give the scores q·kᵀ·scale for a
+    finite scale <= 0: -q and |scale| (negating is exact, for parts as for
+    one tensor), or for 0 a zero q and 1, whose scores are all 0."""
+    return (-q, -scale) if scale < 0 else (torch.zeros_like(q), 1.0)
+
+
 def _launch_fwd(q, k, v, o, lse, causal: bool, scale: float, dtype: int) -> None:
     """B1 (B2 with lse) into o [BH, T, D] (and lse [BH, T]): the streamed
     forward where stream_route says so (o's dtype is the inputs'), else the
-    kernel of width D."""
-    if not scale > 0:  # the kernel takes the row max before it scales
-        raise ValueError(f"flash_fwd needs scale > 0, got {scale}")
+    kernel of width D. The scale must be finite and > 0: the wrappers route
+    any finite scale <= 0 (_route_q) before they launch, and a non-finite
+    scale raises here."""
+    if not (math.isfinite(scale) and scale > 0):  # the kernel takes the row max before it scales
+        raise ValueError(f"flash_fwd launches at a finite scale > 0 (the wrappers route a "
+                         f"finite scale <= 0 before a launch), got {scale}")
     BH, T, D = o.shape
     lib = _kernels()
     fn = lib.rt_flash_fwd_stream if _streamed(D, dtype) else lib.rt_flash_fwd
@@ -368,9 +394,11 @@ def _launch_fwd(q, k, v, o, lse, causal: bool, scale: float, dtype: int) -> None
 def flash_fwd(q, k, v, *, causal: bool, scale: float, with_lse: bool = False):
     """Attention forward on [BH, T, D]: o, or (o, lse [BH, T] f32) with_lse,
     at any D (kernel_width). f32 CUDA tensors go through split_parts, then
-    flash_fwd_parts."""
+    flash_fwd_parts. Any finite scale: one <= 0 is routed (_route_q)."""
     if q.device.type != "cpu":
         _check_inputs(q, k, v)
+    if _routed(scale):
+        q, scale = _route_q(q, scale)
     D = q.shape[-1]
     width = kernel_width(D)
     if width != D:
@@ -392,6 +420,8 @@ def flash_fwd_parts(parts, *, causal: bool, scale: float, with_lse: bool = False
     f32, or (o, lse) with_lse, from the f32 Hopper kernel (the streamed one
     at 512 and past)."""
     pq, pk, pv = _check_parts(parts, 3)
+    if _routed(scale):
+        pq, scale = _route_q(pq, scale)
     BH, T, D = pq.shape[1:]
     o = torch.empty((BH, T, D), dtype=torch.float32, device=pq.device)
     lse = torch.empty((BH, T), dtype=torch.float32, device=pq.device) if with_lse else None
@@ -434,10 +464,15 @@ def _launch_bwd_dkv(q, k, v, do, lse, delta, dk, dv, causal: bool, scale: float,
 def flash_bwd_dq(q, k, v, do, lse, delta, *, causal: bool, scale: float):
     """dq [BH, T, D] f32 from the saved forward and delta = rowsum(do * o),
     at any D (kernel_width). f32 CUDA tensors go through split_parts (q, k,
-    v and do in one launch), then flash_bwd_dq_parts."""
+    v and do in one launch), then flash_bwd_dq_parts. At a finite scale
+    <= 0, dq is the routed call's negated (scale < 0) or zero, unlaunched."""
     if q.device.type != "cpu":
         _check_inputs(q, k, v, do)
         _check_stats(q, lse, delta)
+    if _routed(scale):
+        if scale == 0:
+            return torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+        return -flash_bwd_dq(-q, k, v, do, lse, delta, causal=causal, scale=-scale)
     D = q.shape[-1]
     width = kernel_width(D)
     if width != D:
@@ -454,9 +489,13 @@ def flash_bwd_dq(q, k, v, do, lse, delta, *, causal: bool, scale: float):
 def flash_bwd_dq_parts(parts, lse, delta, *, causal: bool, scale: float):
     """flash_bwd_dq on f32 q, k, v and do given as their split_parts parts
     (one tuple of four), from the f32 Hopper kernel (the streamed one at 512
-    and past)."""
+    and past). At a finite scale <= 0 as flash_bwd_dq."""
     pq, pk, pv, pdo = _check_parts(parts, 4)
     _check_stats(pq[0], lse, delta)
+    if _routed(scale):
+        if scale == 0:
+            return torch.zeros(pq.shape[1:], dtype=torch.float32, device=pq.device)
+        return -flash_bwd_dq_parts((-pq, pk, pv, pdo), lse, delta, causal=causal, scale=-scale)
     dq = torch.empty(pq.shape[1:], dtype=torch.float32, device=pq.device)
     _launch_bwd_dq(pq, pk, pv, pdo, lse, delta, dq, causal, scale, _PARTS)
     f32_launches["bwd_dq"] += 1
@@ -465,10 +504,13 @@ def flash_bwd_dq_parts(parts, lse, delta, *, causal: bool, scale: float):
 
 def flash_bwd_dkv(q, k, v, do, lse, delta, *, causal: bool, scale: float):
     """(dk, dv), each [BH, S, D] f32, at any D (kernel_width). f32 CUDA
-    tensors go through split_parts, then flash_bwd_dkv_parts."""
+    tensors go through split_parts, then flash_bwd_dkv_parts. A finite
+    scale <= 0 is routed (_route_q): dk and dv are the routed call's."""
     if q.device.type != "cpu":
         _check_inputs(q, k, v, do)
         _check_stats(q, lse, delta)
+    if _routed(scale):
+        q, scale = _route_q(q, scale)
     D = q.shape[-1]
     width = kernel_width(D)
     if width != D:
@@ -486,9 +528,12 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, *, causal: bool, scale: float):
 
 def flash_bwd_dkv_parts(parts, lse, delta, *, causal: bool, scale: float):
     """flash_bwd_dkv on f32 q, k, v and do given as their split_parts parts,
-    from the f32 Hopper kernel (the streamed one at 512 and past)."""
+    from the f32 Hopper kernel (the streamed one at 512 and past). At a
+    finite scale <= 0 as flash_bwd_dkv."""
     pq, pk, pv, pdo = _check_parts(parts, 4)
     _check_stats(pq[0], lse, delta)
+    if _routed(scale):
+        pq, scale = _route_q(pq, scale)
     dk, dv = (torch.empty(pk.shape[1:], dtype=torch.float32, device=pk.device) for _ in range(2))
     _launch_bwd_dkv(pq, pk, pv, pdo, lse, delta, dk, dv, causal, scale, _PARTS)
     f32_launches["bwd_dkv"] += 1

@@ -4,7 +4,13 @@ tests/test_gce_provider.py and tests/test_cluster_launcher.py over a fake
 gcloud that models GCE's GPU-VM lifecycle, the autoscaler cases of
 tests/test_accelerators.py as their GPU counterparts (command shapes, an
 infeasible GPU demand that does not block feasible work, one GPU node per
-demand), and the CLI's up, submit and down on the fake provider."""
+demand) with its registry lookup on the GPU manager, and the CLI's up,
+submit and down on the fake provider. The TPU-only cases of
+tests/test_accelerators.py stay out: GCE metadata detection, the pod's
+non-zero worker, the pod worker-count heuristics and the whole pod slice
+(the one-GPU-node-per-demand case is the port's counterpart of the last);
+so does tests/test_gce_provider.py's slice-gang case, whose GPU
+counterpart is the scale-up and scale-down over the fake gcloud here."""
 
 import json
 import os
@@ -344,6 +350,40 @@ def test_gce_provider_command_shapes():
     assert commands[-1][:4] == ["gcloud", "compute", "ssh", pids[1]]
     assert commands[-1][-2:] == ["--command", "nvidia-smi"]
     assert provider.non_terminated_nodes() == pids[1:]
+
+
+def test_manager_registry_lookup():
+    """The registry resolves a resource to its manager: on the port "GPU"
+    to GPUAcceleratorManager and "TPU" to none (ray_tpu's: "TPU" to its
+    TPU manager and "GPU" to none)."""
+    from ray_tpu_torch._private.accelerators import (
+        GPUAcceleratorManager,
+        get_accelerator_manager_for_resource,
+    )
+
+    assert get_accelerator_manager_for_resource("GPU") is GPUAcceleratorManager
+    assert get_accelerator_manager_for_resource("TPU") is None
+
+
+def test_infeasible_task_does_not_block_feasible(shutdown_only):
+    """A cluster-wide-infeasible demand parks on the side queue; feasible
+    tasks behind it still schedule (no FIFO head-of-line blocking). The
+    demand is named as a custom resource, as the reference names its TPUs;
+    the case after it asks through num_gpus."""
+    ray_tpu_torch.init(num_cpus=2, num_gpus=0)
+
+    @ray_tpu_torch.remote(num_cpus=0, resources={"GPU": 8})
+    def needs_gpus():
+        return 1
+
+    @ray_tpu_torch.remote
+    def plain():
+        return 42
+
+    stuck = needs_gpus.remote()  # queues forever (no GPU node ever joins)
+    assert ray_tpu_torch.get(plain.remote(), timeout=60) == 42
+    ready, pending = ray_tpu_torch.wait([stuck], num_returns=1, timeout=1)
+    assert not ready and pending
 
 
 def test_infeasible_gpu_task_does_not_block_feasible(shutdown_only):

@@ -9,7 +9,14 @@ two-worker TorchTrainer's collective group.
 
 Each package's ranks are actors of its own runtime. The two runtimes run in
 subprocesses of their own (OPS_SCRIPT), side by side; the reference's
-attention runs here, on the JAX CPU mesh."""
+attention runs here, on the JAX CPU mesh.
+
+tests/test_collective_xla.py stays out: each of its cases drives the xla
+backend (compiled programs over a jax mesh, a JaxTrainer's SPMD step), which
+the port replaces with nccl and gloo on torch.distributed. Their
+counterparts are the gloo-against-store ops, ring and Ulysses on a gloo
+group, the telemetry families and the rank killed mid-op here, and the
+NCCL group on the card (tests/test_torch_cuda.py, chip_smoke.py phase 10)."""
 
 import functools
 import os

@@ -731,6 +731,21 @@ def _stream_bwd_args(dev, dtype, D, T, S, causal, seed, heads=3):
     return q, k, v, do, lse, (do.float() * ref_o.float()).sum(-1)
 
 
+@pytest.mark.parametrize("kind", ["-1/sqrt(D)", "0"])
+@pytest.mark.parametrize("case", range(8))
+def test_kernels_take_any_scale(dev, case, kind):
+    """chip_smoke.py's SCALE_CASES at each of its scales: B1-B4 through their
+    wrappers (a scale <= 0 routed before any launch) against their plain
+    versions at that scale, by phase 2's limits; each kernel launched once,
+    dq none at 0, where dq and dk come out exactly zero."""
+    cs = importlib.import_module("chip_smoke")
+    assert len(cs.SCALE_CASES) == 8
+    dtype, D, T, S, causal = cs.SCALE_CASES[case]
+    gen = torch.Generator(device=dev).manual_seed(case)
+    got = cs.scale_case(fa, dev, gen, dtype, D, T, S, causal, kind)
+    assert cs.scale_ok(got), got
+
+
 @pytest.mark.parametrize("dtype,D", [(torch.float32, 512), (torch.float32, 576), (torch.float32, 1024),
                                      (torch.bfloat16, 1024), (torch.bfloat16, 2048)])
 @pytest.mark.parametrize("causal", [True, False])

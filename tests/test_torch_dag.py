@@ -11,7 +11,17 @@ end to end, with no group (shm) and on a gloo group.
 
 The compiled graphs of both packages run in subprocesses of their own
 (DAG_SCRIPT), side by side; the CUDA routes (IPC, loopback) are in
-tests/test_torch_cuda.py."""
+tests/test_torch_cuda.py. tests/test_dag_workflow.py's channel, tensor
+channel and compiled-graph cases (linear, tensor transport, multi-output,
+error propagation) also run on the port case for case after the rename,
+each channel's segment named with the process id (the reference names one
+segment for every run, which its twin, running at once in another worker,
+would share). Its ICI case (test_ici_device_to_device_transfer) needs jax and a TPU's
+devices, and so do tests/test_dag_channels.py's two XLA device-channel
+cases (test_device_channel_cross_process_degrade,
+test_device_channel_program_reuse): they stay out, and their counterparts
+are the group-route cases here (a host payload's degradation, repeated
+writes) and the CUDA hop in tests/test_torch_cuda.py."""
 
 import os
 import pickle
@@ -24,6 +34,7 @@ import torch
 
 import ray_tpu_torch
 from ray_tpu_torch import dag
+from ray_tpu_torch.testing import torch_cluster  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -413,6 +424,159 @@ def test_cuda_hop_refuses_a_tensor_off_its_source():
 
     with pytest.raises(ValueError, match="cuda:0"):
         make_cuda_hop(0, 1)(torch.zeros(2))
+
+
+# -- tests/test_dag_workflow.py's channel and compiled-graph cases, case for case --
+
+
+def test_channel_roundtrip():
+    from ray_tpu_torch.dag.channel import Channel
+
+    name = f"rtdag_test_ch1_{os.getpid()}"
+    ch = Channel(name, 1 << 20, create=True)
+    try:
+        reader = Channel(name, 1 << 20)
+        ch.write({"x": 1})
+        assert reader.read(timeout=5) == {"x": 1}
+        ch.write([1, 2, 3])
+        assert reader.read(timeout=5) == [1, 2, 3]
+        with pytest.raises(TimeoutError):
+            reader.read(timeout=0.2)  # nothing new
+    finally:
+        ch.close(unlink=True)
+
+
+def test_compiled_dag_linear(torch_cluster):
+    import ray_tpu_torch
+    from ray_tpu_torch import dag
+
+    @ray_tpu_torch.remote
+    class Adder:
+        def add(self, x):
+            return x + 1
+
+    @ray_tpu_torch.remote
+    class Doubler:
+        def double(self, x):
+            return x * 2
+
+    a, b = Adder.remote(), Doubler.remote()
+    with dag.InputNode() as inp:
+        graph = b.double.bind(a.add.bind(inp))
+    compiled = graph.experimental_compile()
+    try:
+        for i in range(10):
+            assert compiled.execute(i).get() == (i + 1) * 2
+    finally:
+        compiled.teardown()
+
+
+def test_tensor_channel_roundtrip():
+    from ray_tpu_torch.dag.tensor_channel import TensorChannel
+
+    name = f"rtdag_test_tch1_{os.getpid()}"
+    ch = TensorChannel(name, 1 << 22, create=True)
+    try:
+        reader = TensorChannel(name, 1 << 22)
+        arr = np.arange(1 << 18, dtype=np.float32).reshape(512, 512)
+        ch.write(arr)
+        out = reader.read(timeout=5)
+        assert out.dtype == arr.dtype and out.shape == arr.shape
+        assert np.array_equal(out, arr)
+        # Non-array values still round-trip (pickle fallback: STOP sentinel,
+        # error tuples).
+        ch.write({"k": [1, 2]})
+        assert reader.read(timeout=5) == {"k": [1, 2]}
+        ch.write(("ok", np.ones(4, dtype=np.int64)))
+        kind, val = reader.read(timeout=5)
+        assert kind == "ok" and np.array_equal(val, np.ones(4, dtype=np.int64))
+        # 0-d arrays keep scalar shape (ascontiguousarray promotes to (1,)
+        # internally; the original shape must win on the wire).
+        ch.write(np.array(3.5))
+        z = reader.read(timeout=5)
+        assert z.shape == () and float(z) == 3.5
+        # A plain 2-tuple headed by an array must not trip the wire-tuple
+        # check (elementwise == on arrays).
+        ch.write((np.arange(3), "tail"))
+        t = reader.read(timeout=5)
+        assert np.array_equal(t[0], np.arange(3)) and t[1] == "tail"
+    finally:
+        ch.close(unlink=True)
+
+
+def test_compiled_dag_tensor_transport(torch_cluster):
+    """Arrays move between DAG actors through array-native channels
+    (reference analog: with_tensor_transport -> NCCL/typed channels)."""
+    import ray_tpu_torch
+    from ray_tpu_torch import dag
+
+    @ray_tpu_torch.remote
+    class Producer:
+        def make(self, seed):
+            return np.full((256, 256), float(seed), dtype=np.float32)
+
+    @ray_tpu_torch.remote
+    class Consumer:
+        def total(self, x):
+            assert isinstance(x, np.ndarray) and x.dtype == np.float32
+            return float(x.sum())
+
+    p, c = Producer.remote(), Consumer.remote()
+    with dag.InputNode() as inp:
+        graph = c.total.bind(p.make.bind(inp).with_tensor_transport())
+    compiled = graph.experimental_compile()
+    try:
+        for i in (1, 2, 3):
+            assert compiled.execute(i).get() == 256 * 256 * i
+    finally:
+        compiled.teardown()
+
+
+def test_compiled_dag_multi_output(torch_cluster):
+    import ray_tpu_torch
+    from ray_tpu_torch import dag
+
+    @ray_tpu_torch.remote
+    class Plus:
+        def __init__(self, k):
+            self.k = k
+
+        def go(self, x):
+            return x + self.k
+
+    p1, p2 = Plus.remote(1), Plus.remote(2)
+    with dag.InputNode() as inp:
+        graph = dag.MultiOutputNode([p1.go.bind(inp), p2.go.bind(inp)])
+    compiled = graph.experimental_compile()
+    try:
+        assert compiled.execute(10).get() == [11, 12]
+    finally:
+        compiled.teardown()
+
+
+def test_compiled_dag_error_propagation(torch_cluster):
+    import ray_tpu_torch
+    from ray_tpu_torch import dag
+
+    @ray_tpu_torch.remote
+    class Boom:
+        def go(self, x):
+            if x == 3:
+                raise ValueError("boom at 3")
+            return x
+
+    b = Boom.remote()
+    with dag.InputNode() as inp:
+        graph = b.go.bind(inp)
+    compiled = graph.experimental_compile()
+    try:
+        assert compiled.execute(1).get() == 1
+        with pytest.raises(ValueError, match="boom at 3"):
+            compiled.execute(3).get()
+        # The loop survives the error.
+        assert compiled.execute(4).get() == 4
+    finally:
+        compiled.teardown()
 
 
 @pytest.mark.timeout(60)

@@ -386,6 +386,17 @@ DIFFERS = {
                        "transport exists (ray_tpu leaves it open when stop() tears it down "
                        "before connection_made, or when the accept finishes after stop(): "
                        "its peer then waits forever on replies that never come)",
+    "_private/gcs_store.py": "ReplicatedStoreClient.flush returns once every reachable member "
+                             "holds the tick, and the event loop's group commit (flush(False)) "
+                             "still acks on the quorum (ray_tpu's flush acks on the quorum too, so a "
+                             "standby tailing follower0 misses what was flushed, the "
+                             "leadership lease included, whenever follower1 acked first); "
+                             "crash lands the ships already on a lane before the buffered "
+                             "tick (ray_tpu cancels them, so a follower behind the quorum "
+                             "loses acknowledged commits); ReplicaTailer.poll checks for a rewrite "
+                             "and reads through one open file (ray_tpu opens the path again "
+                             "to read, so a compaction renamed in between hands it the new "
+                             "file at the old file's offset)",
     "_private/object_store.py": "release_many keeps the holds that follow values "
                                 "(hold_for_value, release_value_holds)",
     "_private/node.py": "num_gpus, and the registry's GPU detection when no GPU count is given",

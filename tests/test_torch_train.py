@@ -4,6 +4,11 @@ parity (ROADMAP A7): the tiny f32 train step of tests/test_torch_train_step.py
 through a one-worker trainer against the bare step and the JAX package's,
 a two-worker DDP step on half batches against the bare step on the whole
 batch, a checkpoint resume, and a GPU gang without a card.
+tests/test_train.py's test_jax_trainer_reports_and_context has its
+counterpart here in test_torch_trainer_reports_and_context (a TorchTrainer
+in place of the JaxTrainer); test_collective_across_train_workers runs on
+the gang's collective group as in the reference, and
+test_all_reduce_across_train_workers on its gloo process group.
 
 Train loops are nested functions, so cloudpickle ships them by value: a
 worker never imports this module (which imports jax)."""
@@ -132,6 +137,30 @@ def test_all_reduce_across_train_workers(torch_cluster, tmp_path):  # noqa: F811
     result = TorchTrainer(train_fn, scaling_config=ScalingConfig(num_workers=2, **CPU),
                           worker_env=ONE_THREAD,
                           run_config=_cfg(tmp_path, "t_coll")).fit()
+    assert result.metrics["sum"] == 3.0  # 1 + 2
+
+
+def test_collective_across_train_workers(torch_cluster, tmp_path):  # noqa: F811
+    """ray_tpu's case on the port: the gang's collective group (TorchConfig's
+    "store" backend by default) allreduces each rank's rank + 1."""
+
+    def train_fn(config):
+        from ray_tpu_torch.util import collective
+
+        ctx = train.get_context()
+        group = ctx.get_collective_group()
+        assert group is not None
+        out = collective.allreduce(
+            np.array([float(ctx.get_world_rank() + 1)]), group_name=group
+        )
+        train.report({"sum": float(np.asarray(out)[0])})
+
+    result = TorchTrainer(
+        train_fn,
+        scaling_config=ScalingConfig(num_workers=2, **CPU),
+        worker_env=ONE_THREAD,
+        run_config=RunConfig(name="t_coll", storage_path=str(tmp_path)),
+    ).fit()
     assert result.metrics["sum"] == 3.0  # 1 + 2
 
 

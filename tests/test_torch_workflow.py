@@ -7,7 +7,10 @@ port's runtime; then the same workflow through both packages, each in a
 process of its own (equal outputs, equal step records), both packages'
 render_prometheus on one snapshot (equal text after the rename), a step's
 num_gpus reaching its task's lease, and torch tensors checkpointed by a
-step and resumed bitwise, as CPU tensors on disk."""
+step and resumed bitwise, as CPU tensors on disk. Last,
+tests/test_dag_workflow.py's two runtime-env cases (env_vars, working_dir)
+and its autoscaler case (a fake provider scales up under queued leases and
+back down when idle), case for case after the rename."""
 
 import json
 import os
@@ -20,7 +23,7 @@ import pytest
 import torch
 
 import ray_tpu_torch
-from ray_tpu_torch.testing import torch_cluster  # noqa: F401
+from ray_tpu_torch.testing import torch_cluster, torch_shutdown_only  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -447,3 +450,81 @@ def test_step_options_reach_the_lease_and_tensors_resume_bitwise(tmp_path):
     assert saved["w"].dtype == torch.bfloat16
     assert {name: leases[name].get("GPU") for name in ("init", "train", "evaluate")} == \
         {"init": 1.0, "train": 1.0, "evaluate": 1.0}
+
+
+# -- tests/test_dag_workflow.py's runtime-env and autoscaler cases, case for case --
+
+
+def test_runtime_env_env_vars(torch_cluster):
+    import ray_tpu_torch
+
+    @ray_tpu_torch.remote
+    class EnvReader:
+        def read(self, key):
+            return os.environ.get(key)
+
+    a = EnvReader.options(
+        runtime_env={"env_vars": {"MY_RT_ENV": "hello42"}}
+    ).remote()
+    assert ray_tpu_torch.get(a.read.remote("MY_RT_ENV")) == "hello42"
+
+
+def test_runtime_env_working_dir(torch_cluster, tmp_path):
+    import ray_tpu_torch
+
+    pkg = tmp_path / "mypkg"
+    pkg.mkdir()
+    (pkg / "my_rt_module.py").write_text("VALUE = 1234\n")
+
+    @ray_tpu_torch.remote
+    class Importer:
+        def go(self):
+            import my_rt_module
+
+            return my_rt_module.VALUE
+
+    a = Importer.options(runtime_env={"working_dir": str(pkg)}).remote()
+    assert ray_tpu_torch.get(a.go.remote()) == 1234
+
+
+def test_autoscaler_up_down(torch_shutdown_only):
+    import ray_tpu_torch
+    from ray_tpu_torch.autoscaler import Autoscaler, AutoscalerConfig, FakeNodeProvider
+    from ray_tpu_torch.cluster_utils import Cluster
+
+    cluster = Cluster(initialize_head=True, head_node_args={"num_cpus": 1})
+    ray_tpu_torch.init(address=cluster.address)
+
+    provider = FakeNodeProvider(
+        cluster,
+        node_types={
+            "worker": {"resources": {"CPU": 2.0}, "min_workers": 0, "max_workers": 2}
+        },
+    )
+    scaler = Autoscaler(
+        provider,
+        AutoscalerConfig(upscale_delay_s=0.2, idle_timeout_s=2.0),
+    )
+
+    # Saturate the 1-CPU head so leases queue up.
+    @ray_tpu_torch.remote
+    def slow():
+        time.sleep(4)
+        return 1
+
+    refs = [slow.options(num_cpus=1).remote() for _ in range(4)]
+    deadline = time.monotonic() + 20
+    while time.monotonic() < deadline and not provider.non_terminated_nodes():
+        scaler.update()
+        time.sleep(0.3)
+    assert provider.non_terminated_nodes(), "autoscaler never launched a node"
+
+    assert ray_tpu_torch.get(refs, timeout=60) == [1] * 4
+
+    # After the work drains, idle nodes are reclaimed.
+    deadline = time.monotonic() + 30
+    while time.monotonic() < deadline and provider.non_terminated_nodes():
+        scaler.update()
+        time.sleep(0.5)
+    assert not provider.non_terminated_nodes(), "idle node was not terminated"
+    cluster.shutdown()
