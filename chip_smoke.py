@@ -23,9 +23,9 @@ Phases, each printing one JSON line:
      build    each kernel's registers and spills (ptxas -v) and its counts of
               tensor-core instructions (HMMA for mma.sync, HGMMA for wgmma,
               in cuobjdump -sass); every Hopper kernel (*_sm90: the bf16
-              forward and both backward kernels, at each of the widths 64,
-              96, 128, 256 and 512: 40; *_sm90_f32: the f32 forward and
-              both f32 backward kernels at 64, 96, 128 and 256: 32;
+              forward and both backward kernels, at each of the widths 32,
+              64, 96, 128, 256 and 512: 48; *_sm90_f32: the f32 forward and
+              both f32 backward kernels at 32, 64, 96, 128 and 256: 40;
               *_sm90_stream: the streamed forward over P (bf16, f32 as
               parts), CAUSAL and WRITE_LSE, and both streamed backward
               kernels over P and CAUSAL, D a runtime value: 8 + 8) must
@@ -34,8 +34,8 @@ Phases, each printing one JSON line:
               (f32 with TF32 off and bf16; causal and not; head_dim 64 and
               128; T in 1, 100, 192, 1000, 1024; T = 300 on S = 1000 keys
               without the mask (head_dim 64 and 128), T = 1000 on S = 300
-              with it (128); head_dim 32, 80, 96, 192 and 256 (32, 80 and
-              192 padded to the next width) at T in 1, 100, 1000 and T =
+              with it (128); head_dim 32, 80, 96, 192 and 256 (80 and 192
+              padded to the next width) at T in 1, 100, 1000 and T =
               1000 on S = 300 with the mask; the same at head dims 320,
               384 and 512 (320 and 384 padded to 512); GQA through `mha`;
               BH = 65536 and 66,560 heads in one call, and B1-B4 at
@@ -46,10 +46,12 @@ Phases, each printing one JSON line:
               padded to 1024), both dtypes, and f32 at 512, at T in 1,
               100, 1000 and T = 1000 on S = 300 with the mask, their
               column slices agreeing bitwise at 1024 and a second call
-              repeating bitwise; then at
+              repeating bitwise; B1-B4 at scales -1/sqrt(D) and 0; and at
+              head dim 16 (padded to 32), both dtypes, causal or not, T in
+              1, 100, 1000 and T = 1000 on S = 300 with the mask; then at
               the slice's shape (batch 8), the bench's (batch 32) and phase
-              17's ([128, 2048, 96], [32, 2048, 256], [64, 256, 32], the
-              last padded: its pad and cut copies' ms), phase 18's
+              17's ([128, 2048, 96], [32, 2048, 256], [64, 256, 32]), the
+              example's widths at [128, 2048, 32], phase 18's
               ([16, 2048, 512], [66560, 64, 96]) and [16, 2048, 320]
               (padded to 512), and the f32 kernels at [96, 1024, 64],
               [32, 2048, 256], [16, 2048, 512] (the streamed kernels),
@@ -61,7 +63,9 @@ Phases, each printing one JSON line:
               backward): the kernel's
               time, the plain version's, F.scaled_dot_product_attention's (a
               yardstick only: the port never calls it; with the backends
-              that take the inputs), the bound, the
+              that take the inputs), the bound (the largest of the bytes,
+              the flops and the exps, one a (query, key) pair, at the
+              card's exp rate), the
               useful TFLOP/s, the share of the bound reached (bound_ms /
               ms) and the host's us per call; which kernels an f32 B1-B4
               launch at each width, by the profiler's names (64-256: the
@@ -240,9 +244,12 @@ Phases, each printing one JSON line:
               1.0, and the seconds from each kill to its answer;
  17. head_dims the kernels at other head dims, through the port's entry
               points: (a) the JAX package's example (EXAMPLE, head dim 32,
-              padded to 64), its loop of 20 AdamW steps on a new batch
-              each, in a one-worker GPU TorchTrainer: its losses bitwise
-              the same run's bare here; (b) Phi-3-mini's widths (head dim
+              on the kernels at 32), its loop of 20 AdamW steps on a new
+              batch each and one eval loss without gradients, in a
+              one-worker GPU TorchTrainer: its losses bitwise the same
+              run's bare here, every launch at 32, and one more bare step
+              profiled: only *_sm90<32, ...> flash kernels and no pad or
+              cut copy; (b) Phi-3-mini's widths (head dim
               96) and (c) Gemma-2B's attention and matrix widths in the JAX
               package's architecture (head dim 256, one kv head), each cut
               to WIDE_LAYERS layers at WIDE_BATCH x WIDE_SEQ: bf16 logits and
@@ -274,8 +281,9 @@ then the kernels line, with each kernel's launches in phases 3, 4, 6, the
 bench's transformer phase and phases 9-18 (none in 11: RLlib's modules
 are MLPs; the reference and timing runs this script makes itself in 12,
 13, 14, 15, 16, 17 and 18 are not counted, nor 16's killed attempt), one
-entry a kernel and width launched (64; 96 and 256 in phase 17, 512 in
-18a), one for B1 at 66,560 heads (18b), the f32 route at 64: B1 (phase
+entry a kernel and width launched (64; 32, 96 and 256 in phase 17, 32
+with 17a's launches a step, B1's in its eval; 512 in 18a), one for B1 at 66,560 heads
+(18b), the f32 route at 64: B1 (phase
 3's f32 forward), B2 (9b's f32 ring hops and phase 4's f32 step), B3 and
 B4 (both of those) and their split passes, 18c's: B1 at 1024, and at f32
 512 B1, B2, B3, B4 and the split passes, and 18d's B2, B3 and B4 at 1024.
@@ -317,6 +325,10 @@ HBM_BYTES_PER_S = 3.35e12
 # so its useful flops run at a third of the bf16 rate, above the CUDA
 # cores' 67 TFLOP/s.
 PEAK_F32_SPLIT = PEAK_BF16 / 3
+# The exp unit (MUFU): 16 ex2 a clock on each SM. Attention takes one exp a
+# (query, key) pair in each of B1-B4 and, at D = 32, 4 D = 128 useful flops
+# a pair in the forward: there the exps, not the flops, set the least time.
+EXPS_PER_CLOCK_PER_SM = 16
 # Kernel against its plain version, element by element. Both take the same
 # inputs, do f32 arithmetic (TF32 off) and differ only in the order they sum.
 #  - f32 outputs (lse, dq, dk, dv always; o from f32 inputs): within
@@ -505,9 +517,13 @@ CHAOS_SEEDS, CHAOS_DETERMINISM_SCENARIO = 1, "chunk_loss"
 NEMESIS_SEEDS, NEMESIS_RETRIES = (SEED + 16, SEED + 17), 3
 NEMESIS_HOLD_S, NEMESIS_IN_FORWARD_S = 120.0, 1.0
 
-# Phase 2's cases at the head dims past GPT-2 small's 64 and 128: off the
-# kernels' widths (32, 80, 192: padded to 64, 96, 256) and on them (96, 256).
+# Phase 2's cases at the head dims beside GPT-2 small's 64 and 128: on the
+# kernels' widths (32, 96, 256) and off them (80, 192: padded to 96, 256);
+# and, from a generator of their own after every other case, below the
+# narrowest width (16, padded to 32: the flagship configuration's head dim
+# in __graft_entry__.py).
 WIDE_HEAD_DIMS = (32, 80, 96, 192, 256)
+NARROW_HEAD_DIMS = (16,)
 # Phase 17: the head dims the JAX package's architecture takes past GPT-2
 # small's. 17a: the JAX package's own example (examples/train_transformer.py:
 # 22-25, head dim 32), its loop of EXAMPLE_STEPS AdamW(3e-4) steps on a new
@@ -661,6 +677,27 @@ def time_ms(fn, reps: int = 20) -> float:
     raise SmokeFailure("the host could not queue the timed calls ahead of the card")
 
 
+@functools.lru_cache(maxsize=None)
+def exps_per_s() -> float:
+    """The card's exp rate: EXPS_PER_CLOCK_PER_SM on each of its SMs at its
+    highest SM clock (nvidia-smi's clocks.max.sm)."""
+    mhz = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits", "-i", "0"],
+                         capture_output=True, text=True, timeout=60, check=True).stdout.split()[0]
+    return EXPS_PER_CLOCK_PER_SM * torch.cuda.get_device_properties(0).multi_processor_count * float(mhz) * 1e6
+
+
+def bound(flops: float, nbytes: float, exps: float, peak: float = PEAK_BF16) -> dict:
+    """The least time a kernel could take for this work: the largest of its
+    bytes at HBM_BYTES_PER_S, its flops at `peak` and its exps at
+    exps_per_s(); "bound_by" is "bytes" or "operations" (flops or exps:
+    "bound_of" says which), "bound_parts_ms" each of the three."""
+    parts = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3, "flops": flops / peak * 1e3,
+             "exps": exps / exps_per_s() * 1e3}
+    of = max(parts, key=parts.get)
+    return {"bound_ms": parts[of], "bound_by": "bytes" if of == "bytes" else "operations", "bound_of": of,
+            "bound_parts_ms": parts}
+
+
 def timed(fn) -> float:
     """Seconds that fn() takes."""
     t0 = time.perf_counter()
@@ -684,14 +721,14 @@ _KERNEL_NAME = re.compile(r"((?:fwd|bwd_dq|bwd_dkv)_kernel(?:_tc|_sm90(?:_f32|_s
 # The Hopper kernels in the build (wgmma: HGMMA in the SASS): the bf16
 # forward fwd_kernel_sm90 over D x CAUSAL x WRITE_LSE and the bf16 backward
 # bwd_dq_kernel_sm90 and bwd_dkv_kernel_sm90, each over D x CAUSAL, D in
-# the kernels' five widths (64, 96, 128, 256, 512); and the f32 forward
+# the kernels' six widths (32, 64, 96, 128, 256, 512); and the f32 forward
 # fwd_kernel_sm90_f32 over D x CAUSAL x WRITE_LSE and the f32 backward
 # bwd_dq_kernel_sm90_f32 and bwd_dkv_kernel_sm90_f32 over D x CAUSAL, D in
-# 64, 96, 128, 256; and the streamed forward fwd_kernel_sm90_stream over P
-# (1: bf16, 2: f32 as parts) x CAUSAL x WRITE_LSE and the streamed backward
-# bwd_dq_kernel_sm90_stream and bwd_dkv_kernel_sm90_stream over P x CAUSAL,
-# D a runtime value.
-N_SM90_KERNELS = 5 * (4 + 2 + 2) + 4 * (4 + 2 + 2) + 2 * 4 + 2 * (2 + 2)
+# 32, 64, 96, 128, 256; and the streamed forward fwd_kernel_sm90_stream over
+# P (1: bf16, 2: f32 as parts) x CAUSAL x WRITE_LSE and the streamed
+# backward bwd_dq_kernel_sm90_stream and bwd_dkv_kernel_sm90_stream over P x
+# CAUSAL, D a runtime value.
+N_SM90_KERNELS = 6 * (4 + 2 + 2) + 5 * (4 + 2 + 2) + 2 * 4 + 2 * (2 + 2)
 _SM90 = re.compile(r"_sm90(?:_f32|_stream)?<")
 _TEMPLATE_ARG = re.compile(r"Li(\d+)E|Lb([01])E|(13__nv_bfloat16|f)")
 _SERIALIZED = re.compile(r"wgmma\.mma_async instructions are serialized due to (.*) "
@@ -886,7 +923,7 @@ def scale_cases(fa, dev, gen) -> int:
     return len(SCALE_CASES) * len(SCALE_KINDS)
 
 
-def kernel_cases(fa, dev, gen, gen_more, gen_widths, gen_wider, gen_stream, gen_scale) -> None:
+def kernel_cases(fa, dev, gen, gen_more, gen_widths, gen_wider, gen_stream, gen_scale, gen_narrow) -> None:
     """Every kernel against its plain version on the listed cases. Prints
     each case's max abs error and worst error-to-limit ratio (F32_ATOL,
     BF16_RTOL, BF16_ATOL) per kernel. The cases T in 1, 100 and S != T
@@ -895,9 +932,36 @@ def kernel_cases(fa, dev, gen, gen_more, gen_widths, gen_wider, gen_stream, gen_
     always have, so the later phases' inputs do not move when a case is
     added; the streamed kernels' cases (stream_cases) from gen_stream,
     after all of those; the cases at a scale <= 0 (scale_cases) from
-    gen_scale, last."""
+    gen_scale; those at NARROW_HEAD_DIMS from gen_narrow, last."""
     worst = {key: {"max_abs_err": 0.0, "err_to_limit": 0.0} for _, key, _ in KERNELS}
     cases = 0
+
+    def run(dtype, D, T, S, causal, g):
+        q, k, v, do = (torch.randn(4, n, D, device=dev, generator=g).to(dtype) for n in (T, S, S, T))
+        scale = D ** -0.5
+        ref_o, ref_lse = fa._flash_fwd_ref(q, k, v, causal, scale, True)
+        o, lse = fa.flash_fwd(q, k, v, causal=causal, scale=scale, with_lse=True)
+        o1 = fa.flash_fwd(q, k, v, causal=causal, scale=scale)
+        delta = (do.float() * ref_o.float()).sum(-1)
+        dq = fa.flash_bwd_dq(q, k, v, do, ref_lse, delta, causal=causal, scale=scale)
+        dk, dv = fa.flash_bwd_dkv(q, k, v, do, ref_lse, delta, causal=causal, scale=scale)
+        ref_dq = fa._flash_bwd_dq_ref(q, k, v, do, ref_lse, delta, causal, scale)
+        ref_dk, ref_dv = fa._flash_bwd_dkv_ref(q, k, v, do, ref_lse, delta, causal, scale)
+        errs, ratios = compare({
+            "fwd": [(o1, ref_o)],
+            "fwd_lse": [(o, ref_o), (lse, ref_lse)],
+            "bwd_dq": [(dq, ref_dq)],
+            "bwd_dkv": [(dk, ref_dk), (dv, ref_dv)],
+        })
+        case = dict(dtype=str(dtype).split(".")[-1], D=D, width=fa.kernel_width(D), T=T, S=S,
+                    causal=causal, max_abs_err=errs, err_to_limit=ratios)
+        emit({"phase": "kernels", "case": case})
+        check_ratios(ratios, case)
+        for key in errs:
+            w = worst[key]
+            w["max_abs_err"] = max(w["max_abs_err"], errs[key])
+            w["err_to_limit"] = max(w["err_to_limit"], ratios[key])
+
     for dtype in (torch.float32, torch.bfloat16):
         shapes = [(D, T, T, causal, gen) for D in (64, 128) for T in (192, 1000, 1024)
                   for causal in (True, False)]
@@ -912,37 +976,19 @@ def kernel_cases(fa, dev, gen, gen_more, gen_widths, gen_wider, gen_stream, gen_
                    for causal in (True, False)]
         shapes += [(D, 1000, 300, True, gen_wider) for D in WIDER_HEAD_DIMS]
         for D, T, S, causal, g in shapes:
-            q, k, v, do = (torch.randn(4, n, D, device=dev, generator=g).to(dtype)
-                           for n in (T, S, S, T))
-            scale = D ** -0.5
-            ref_o, ref_lse = fa._flash_fwd_ref(q, k, v, causal, scale, True)
-            o, lse = fa.flash_fwd(q, k, v, causal=causal, scale=scale, with_lse=True)
-            o1 = fa.flash_fwd(q, k, v, causal=causal, scale=scale)
-            delta = (do.float() * ref_o.float()).sum(-1)
-            dq = fa.flash_bwd_dq(q, k, v, do, ref_lse, delta, causal=causal, scale=scale)
-            dk, dv = fa.flash_bwd_dkv(q, k, v, do, ref_lse, delta, causal=causal, scale=scale)
-            ref_dq = fa._flash_bwd_dq_ref(q, k, v, do, ref_lse, delta, causal, scale)
-            ref_dk, ref_dv = fa._flash_bwd_dkv_ref(q, k, v, do, ref_lse, delta, causal, scale)
-            errs, ratios = compare({
-                "fwd": [(o1, ref_o)],
-                "fwd_lse": [(o, ref_o), (lse, ref_lse)],
-                "bwd_dq": [(dq, ref_dq)],
-                "bwd_dkv": [(dk, ref_dk), (dv, ref_dv)],
-            })
-            case = dict(dtype=str(dtype).split(".")[-1], D=D, width=fa.kernel_width(D), T=T, S=S,
-                        causal=causal, max_abs_err=errs, err_to_limit=ratios)
-            emit({"phase": "kernels", "case": case})
-            check_ratios(ratios, case)
-            for key in errs:
-                w = worst[key]
-                w["max_abs_err"] = max(w["max_abs_err"], errs[key])
-                w["err_to_limit"] = max(w["err_to_limit"], ratios[key])
+            run(dtype, D, T, S, causal, g)
             cases += 1
     for dtype in (torch.float32, torch.bfloat16):
         gqa_case(fa, dev, gen, dtype)
         cases += 1
     cases += stream_cases(fa, dev, gen_stream)
     cases += scale_cases(fa, dev, gen_scale)
+    for dtype in (torch.float32, torch.bfloat16):
+        shapes = [(D, T, T, causal) for D in NARROW_HEAD_DIMS for T in (1, 100, 1000) for causal in (True, False)]
+        shapes += [(D, 1000, 300, True) for D in NARROW_HEAD_DIMS]
+        for D, T, S, causal in shapes:
+            run(dtype, D, T, S, causal, gen_narrow)
+            cases += 1
     emit({"phase": "kernels", "cases": cases, "worst": worst,
           "limits": {"f32_atol": F32_ATOL, "bf16_rtol": BF16_RTOL, "bf16_atol": BF16_ATOL}})
 
@@ -1153,7 +1199,7 @@ def kernel_timings(fa, dev, gen, cfg, batch: int = BATCH, seq: int = SEQ) -> dic
     line["port_fwd_bwd_ms"] = time_ms(lambda: torch.autograd.grad(
         fa._FlashAttention.apply(*leaves, True, scale), leaves, do))
 
-    pairs = BH * T * (T + 1) / 2  # (query, key) pairs under the causal mask
+    pairs = BH * T * (T + 1) / 2  # (query, key) pairs under the causal mask: one exp each
     elt = q.element_size()
     mat = BH * T * D  # elements of one [BH, T, D] operand
     work = {  # (flops, bytes): each input read once, each output written once
@@ -1167,18 +1213,17 @@ def kernel_timings(fa, dev, gen, cfg, batch: int = BATCH, seq: int = SEQ) -> dic
     rows = {}
     for _, key, _ in KERNELS:
         flops, nbytes = work[key]
-        t_ops, t_bytes = flops / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+        least = bound(flops, nbytes, pairs, peak)
         ms = time_ms(kernel_fns[key])
         rows[key] = {
             "max_abs_err": errs[key],
             "err_to_limit": ratios[key],
             "ms": ms,
             "plain_ms": time_ms(plain_fns[key], reps=5),
-            "bound_ms": max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            **least,
             "library_ms": library[key],
             "tflops": flops / ms * 1e-9,  # useful flops, no recompute, no hi/lo split
-            "bound_share": max(t_ops, t_bytes) / ms,
+            "bound_share": least["bound_ms"] / ms,
         }
         # ~50 ms of device work at most: 200 calls of a fast kernel, 20 of
         # a slow one (200 calls of a 10 ms one held the card 2 s a kernel).
@@ -1212,8 +1257,9 @@ def split_timing(fa, *xs) -> dict:
 
 
 # This repo's flash kernels (and the split pass) in a profiler event's name,
-# as the profiler demangles it: "bwd_dq_kernel_sm90_f32<64, true>".
-_FLASH_NAME = re.compile(r"\b(?:fwd|bwd_dq|bwd_dkv|split)_kernel(?:_sm90_(?:f32|stream))?(?:<[^>]*>)?")
+# as the profiler demangles it: "bwd_dq_kernel_sm90_f32<64, true>",
+# "fwd_kernel_sm90<32, true, true>".
+_FLASH_NAME = re.compile(r"\b(?:fwd|bwd_dq|bwd_dkv|split)_kernel(?:_sm90(?:_f32|_stream)?)?(?:<[^>]*>)?")
 
 
 def flash_kernel_names(prof) -> list:
@@ -2250,12 +2296,9 @@ def template_times(fa, dev, gen) -> dict:
                 "bwd_dkv": (8 * D * pairs, 4 * mat * elt + 2 * BH * t * 4 + 2 * mat * 4)}
         rows = {}
         for key, fn in fns.items():
-            flops, nbytes = work[key]
-            t_ops, t_bytes = flops / PEAK_BF16 * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+            least = bound(*work[key], pairs)
             ms = time_ms(fn)
-            rows[key] = {"ms": ms, "bound_ms": max(t_ops, t_bytes),
-                         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-                         "bound_share": max(t_ops, t_bytes) / ms}
+            rows[key] = {"ms": ms, **least, "bound_share": least["bound_ms"] / ms}
         out[f"{'causal' if causal else 'noncausal'}_{BH}x{t}x{D}"] = rows
     return out
 
@@ -4594,12 +4637,43 @@ def chaos_phase(host: dict) -> dict:
 
 # ---------------------------------------------------------------- phase 17
 
-def example_steps(dev) -> dict:
+@contextlib.contextmanager
+def pad_copies(fa):
+    """{"pad": n, "cut": n}: the copies the padded route (fa._pad, fa._cut)
+    makes while the block runs, each call's outputs that are not its
+    inputs."""
+    counts = {"pad": 0, "cut": 0}
+    pad, cut = fa._pad, fa._cut
+
+    def counting_pad(width, *xs):
+        out = pad(width, *xs)
+        counts["pad"] += sum(o is not x for o, x in zip(out, xs))
+        return out
+
+    def counting_cut(x, head_dim):
+        out = cut(x, head_dim)
+        counts["cut"] += out is not x
+        return out
+
+    fa._pad, fa._cut = counting_pad, counting_cut
+    try:
+        yield counts
+    finally:
+        fa._pad, fa._cut = pad, cut
+
+
+def example_steps(dev, profiled: bool = False) -> dict:
     """17a's run on `dev`: examples/train_transformer.py's loop, ported:
     EXAMPLE's weights and then a new batch of EXAMPLE_BATCH sequences each
     step, all drawn from one generator (SEED + 31), EXAMPLE_STEPS AdamW(3e-4)
-    steps. Returns the losses, the mean step ms and the flash launches, by
-    kernel and by the width each ran at."""
+    steps, then the loss of one more batch without gradients (an eval: B1
+    once a layer). Returns the losses, the eval loss, the mean step ms and
+    the flash launches, by kernel and by the width each ran at;
+    `profiled`, also one more step's flash kernels by the profiler's names
+    and the padded route's copies in it (pad_copies), after the counts are
+    read."""
+    from torch.profiler import ProfilerActivity, profile
+
     from ray_tpu_torch.models import transformer as tr
 
     fa = importlib.import_module("ray_tpu_torch.ops.flash_attention")
@@ -4609,17 +4683,29 @@ def example_steps(dev) -> dict:
     state = init_state(gen)
     fa.reset_launches()
     losses = []
+
+    def batch():
+        raw = torch.randint(0, cfg.vocab_size, (EXAMPLE_BATCH, cfg.max_seq_len + 1), device=dev,
+                            generator=gen)
+        return {"tokens": raw[:, :-1].contiguous(), "targets": raw[:, 1:].contiguous()}
+
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(EXAMPLE_STEPS):
-        raw = torch.randint(0, cfg.vocab_size, (EXAMPLE_BATCH, cfg.max_seq_len + 1), device=dev,
-                            generator=gen)
-        state, m = step(state, {"tokens": raw[:, :-1].contiguous(), "targets": raw[:, 1:].contiguous()})
+        state, m = step(state, batch())
         losses.append(m["loss"])
     torch.cuda.synchronize()
-    return {"losses": [float(x) for x in losses],
-            "step_ms": (time.perf_counter() - t0) / EXAMPLE_STEPS * 1e3,
-            "launches": dict(fa.launches), "launches_by_width": dict(fa.launches_by_width)}
+    step_ms = (time.perf_counter() - t0) / EXAMPLE_STEPS * 1e3
+    with torch.no_grad():
+        eval_loss = float(tr.transformer_loss(state["model"], batch()))
+    out = {"losses": [float(x) for x in losses], "eval_loss": eval_loss, "step_ms": step_ms,
+           "launches": dict(fa.launches), "launches_by_width": dict(fa.launches_by_width)}
+    if profiled:
+        with pad_copies(fa) as copies, profile(activities=[ProfilerActivity.CUDA]) as prof:
+            step(state, batch())
+            torch.cuda.synchronize()
+        out.update(flash_kernels=flash_kernel_names(prof), pad_copies=copies)
+    return out
 
 
 def example_loop(config) -> None:
@@ -4639,7 +4725,7 @@ def example_run(dev) -> dict:
     from ray_tpu_torch.air import RunConfig, ScalingConfig
     from ray_tpu_torch.train.torch import TorchTrainer
 
-    bare = example_steps(dev)
+    bare = example_steps(dev, profiled=True)
     storage = os.path.join(ROOT, "build", "chip_smoke_example")
     shutil.rmtree(storage, ignore_errors=True)
     t0 = time.time()
@@ -4656,17 +4742,26 @@ def example_run(dev) -> dict:
     line = {"config": {k: str(v) for k, v in EXAMPLE.items()},
             "head_dim": EXAMPLE["d_model"] // EXAMPLE["n_heads"], "batch": EXAMPLE_BATCH, "steps": EXAMPLE_STEPS, "bare": bare,
             "worker": worker, "fit_s": time.time() - t0,
-            "loss_bitwise_equal_to_bare": worker["losses"] == bare["losses"],
+            "loss_bitwise_equal_to_bare": (worker["losses"] == bare["losses"]
+                                           and worker["eval_loss"] == bare["eval_loss"]),
             # a new batch of uniform tokens each step: the loss only nears ln(vocab)
             "mean_loss_first_last_5": [sum(bare["losses"][:5]) / 5, sum(bare["losses"][-5:]) / 5]}
     emit({"phase": "head_dims", "part": "17a", **line})
     check(worker["device"].startswith("cuda") and not worker["forbidden_modules"],
           f"17a's worker ran on {worker['device']} with {worker['forbidden_modules']}")
-    check(all(math.isfinite(x) for x in bare["losses"]), "17a: a loss is not finite")
+    check(all(math.isfinite(x) for x in bare["losses"] + [bare["eval_loss"]]), "17a: a loss is not finite")
     check(line["loss_bitwise_equal_to_bare"], f"17a: the worker's losses are not the bare run's: "
                                               f"{worker['losses']} against {bare['losses']}")
     check(worker["launches"] == bare["launches"] and worker["launches"]["bwd_dkv"] > 0,
           f"17a: launches {worker['launches']} against the bare run's {bare['launches']}")
+    # Head dim 32 runs natively: every launch at 32, the profiled step's
+    # flash kernels all *_sm90<32, ...> ones, and no pad or cut copy in it.
+    width = line["head_dim"]
+    check(all(key.endswith(f"@{width}") for key in worker["launches_by_width"])
+          and bare["flash_kernels"] and all(f"_sm90<{width}," in n for n in bare["flash_kernels"])
+          and not any(bare["pad_copies"].values()),
+          f"17a: not every flash kernel ran at head dim {width} without a pad: {worker['launches_by_width']}, "
+          f"{bare['flash_kernels']}, {bare['pad_copies']}")
     return worker["launches_by_width"]
 
 
@@ -4990,8 +5085,9 @@ def main() -> int:
     gen_wider = torch.Generator(device=dev).manual_seed(SEED + 40)
     gen_stream = torch.Generator(device=dev).manual_seed(SEED + 50)
     gen_scale = torch.Generator(device=dev).manual_seed(SEED + 60)
+    gen_narrow = torch.Generator(device=dev).manual_seed(SEED + 70)
     t_kernels = time.perf_counter()
-    kernel_cases(fa, dev, gen, gen_more, gen_widths, gen_wider, gen_stream, gen_scale)
+    kernel_cases(fa, dev, gen, gen_more, gen_widths, gen_wider, gen_stream, gen_scale, gen_narrow)
     heads_cases(fa, dev, gen_wider)
     rows = {64: kernel_timings(fa, dev, gen, cfg)}
     kernel_timings(fa, dev, gen_more, cfg, batch=4 * BATCH)  # the bench's batch: emitted, not in the line
@@ -5000,6 +5096,9 @@ def main() -> int:
                                (EXAMPLE, EXAMPLE_BATCH, EXAMPLE["max_seq_len"])):
         wide = tr.TransformerConfig(**{**widths, "dtype": torch.bfloat16})
         rows[wide.head_dim] = kernel_timings(fa, dev, gen_widths, wide, batch=batch, seq=seq)
+    # The example's widths at batch 16 and T 2048 ([128, 2048, 32]), where
+    # the kernels at 32, not the launch, set the time.
+    kernel_timings(fa, dev, gen_narrow, tr.TransformerConfig(**EXAMPLE), batch=16, seq=WIDE_SEQ)
     # Phase 18's: 18a's at batch 4 ([16, 2048, 512]), the same at head dim
     # 320 (padded to 512), and 18b's call of 66,560 heads, bf16.
     rows[512] = kernel_timings(fa, dev, gen_wider, tr.TransformerConfig(**WIDE_512), batch=4, seq=WIDE_SEQ)
@@ -5083,22 +5182,26 @@ def main() -> int:
         wide_launches[key] = wide_launches.get(key, 0) + n
 
     # One entry a kernel and width the main path launched: phases 3-16 run
-    # GPT-2 small's 64 only; phase 17 runs 64 (17a, padded from 32), 96 and
-    # 256; 18a 512. Each width's numbers are phase 2's at its shape (64:
-    # GPT-2 small at batch 8; 96, 256 and 512: 17b's, 17c's and 18a's at
-    # batch 4). B1 at 66,560 heads (18b) has an entry of its own, with phase
-    # 2's numbers at [66560, 64, 96].
+    # GPT-2 small's 64 only; phase 17 runs 32 (17a, the example's, with its
+    # launches a step), 96 and 256; 18a 512. Each width's numbers are phase
+    # 2's at its shape (64: GPT-2 small at batch 8; 32: the example's
+    # [64, 256, 32]; 96, 256 and 512: 17b's, 17c's and 18a's at batch 4).
+    # B1 at 66,560 heads (18b) has an entry of its own, with phase 2's
+    # numbers at [66560, 64, 96].
     kernels = []
     for name, key, replaces in KERNELS:
         n = (fwd_launches[key] + train_launches[key] + trainer_launches[key] + bench_launches[key]
              + mesh_launches[key] + collective_launches[key] + rllib_launches[key]
              + serve_launches[key] + tune_launches[key] + cluster_launches[key]
              + scale_out_launches[key] + chaos_launches[key])
-        for width in (64, 96, 256, 512):
+        for width in (32, 64, 96, 256, 512):
             launched = wide_launches.get(f"{key}@{width}", 0) + (n if width == 64 else 0)
             kernels.append({"name": name if width == 64 else f"{name}_d{width}", "route": "cuda",
                             "source": SOURCE, "replaces": replaces, "head_dim": width,
                             "launches": launched, **rows[width][key]})
+            if width == 32:  # 17a's alone: B2-B4 in its steps, B1 in its eval
+                kernels[-1].update({"launches_per_eval": launched} if key == "fwd"
+                                   else {"launches_per_step": launched / EXAMPLE_STEPS})
             check(launched > 0, f"{name} at head dim {width} was not launched on the main path")
         check(n > 0, f"{name} was not launched on the main path")
     launched = scoring_launches.get("fwd@96", 0)

@@ -16,8 +16,8 @@
 // f32 backward" below). Every kernel runs on the tensor cores.
 //
 // Layout [BH, T, D] for q/do/o and [BH, S, D] for k/v, row-major and
-// contiguous; lse and delta are [BH, T] f32; dq, dk and dv are f32. D is 64,
-// 96, 128, 256 or 512, and for the streamed kernels any multiple of 512;
+// contiguous; lse and delta are [BH, T] f32; dq, dk and dv are f32. D is 32,
+// 64, 96, 128, 256 or 512, and for the streamed kernels any multiple of 512;
 // the wrappers (flash_attention.py) run any other head dim, as the TPU
 // kernels take any, at the next of these, zero-padded. Any number of heads
 // BH, as the TPU kernels' grid takes: the Hopper kernels are persistent and
@@ -156,7 +156,7 @@
 // The f32 forward (fwd_kernel_sm90_f32, after the bf16 forward) runs f32
 // attention on the bf16 tensor cores: every f32 call of flash_attention,
 // mha, the autograd function, a transformer built in f32 and the ring's
-// and Ulysses' kernel routes takes it at D = 64, 96, 128 and 256.
+// and Ulysses' kernel routes takes it at D = 32, 64, 96, 128 and 256.
 //   1. The split. split_kernel writes each f32 operand x of q, k and v as
 //      hi = bf16(x) and lo = bf16(x - hi) (to nearest; |x - hi - lo| <=
 //      2^-16 |x|), and the kernel splits P the same way on chip (split_p).
@@ -249,6 +249,32 @@
 // swizzle, and P.V is one m64n96 product. Its forward takes D = 64's
 // 128-key tiles, and bwd_dkv pipelines 32-row q tiles (dK and dV take 96
 // registers, not 128).
+//
+// The Hopper kernels at D = 32 (the JAX package's example's head dim; a
+// head dim below it runs padded to it). A tile is one Lay<32> box, 64-byte
+// rows in the 64-byte swizzle (one of D = 96's three); S = Q.K^T is two
+// 16-column k steps, and P.V, dQ += dS.K, dV += P^T.dO and dK += dS^T.Q are
+// m64n32k16 products with A from registers (wgmma_rs on d[16]).
+//   * What bounds them: the exps, not the flops. A (q, key) pair takes one
+//     exp2 in each of B1-B4 and 4 D = 128 useful flops in the forward (6 D
+//     in B3, 8 D in B4): at 989 TFLOP/s the tensor cores would take ~7.7 T
+//     pairs/s of the forward, the exp unit (16 ex2 a clock an SM, 132 SMs
+//     at 1.98 GHz) ~4.2 T/s, so the least time is the exps' (chip_smoke.py's
+//     bound counts them; only B4's flops come to as much). Halving D from
+//     64 halves a tile's tensor work and leaves its softmax: the forward's
+//     consumer tile takes ~2580 cycles against ~2970 at 64 (kernel_ab
+//     --timeline, on an H100: issuing S and P.V ~480 against ~900, the
+//     softmax ~1350, rescaling and splitting P ~360), and the tensor cores
+//     stand idle most of it.
+//   * So the tiles take as many keys as the registers hold, spreading each
+//     tile's fixed costs (barriers, the row max's shuffles, the rescale)
+//     over more exps: 128 keys in both forwards (S and P take 128
+//     registers) and in bwd_dq (S, dP and the split dS 192 beside dQ's 16),
+//     64 q rows in bwd_dkv (D = 64's: 128 rows of S^T, dP^T and their
+//     splits would take 256). FwdCfg, F32FwdCfg, DqCfg and DkvCfg give the
+//     times of the choices that lost.
+//   * Not tried: moving part of the exps to the FMA pipe (a polynomial
+//     exp2), the one way past the exp unit's rate.
 //
 // The Hopper kernels at D = 512. An item's 128 rows no longer fit: Q alone
 // would take 128 KB and an output's sums for 64 rows 256 registers a thread.
@@ -444,11 +470,12 @@ constexpr float LN2 = 0.6931471805599453f;
 // columns as TMA writes them, [D / BW][rows][BW], each box row swizzled over
 // its RB bytes. D a multiple of 64: 64-column boxes, 128-byte rows and the
 // 128-byte swizzle. D = 96 (192 bytes a row, no swizzle's width): three
-// 32-column boxes, 64-byte rows and the 64-byte swizzle. ATOM is the
-// swizzle's period, 8 rows; a row holds KPB of wgmma's 16-column k steps.
+// 32-column boxes, 64-byte rows and the 64-byte swizzle; D = 32 one such
+// box. ATOM is the swizzle's period, 8 rows; a row holds KPB of wgmma's
+// 16-column k steps.
 template <int D>
 struct Lay {
-  static_assert(D % 64 == 0 || D == 96, "the Hopper kernels take D = 64, 96, 128, 256 or 512");
+  static_assert(D % 64 == 0 || D == 96 || D == 32, "the Hopper kernels take D = 32, 64, 96, 128, 256 or 512");
   static constexpr int BW = D % 64 == 0 ? 64 : 32;
   static constexpr int RB = 2 * BW;
   static constexpr int ATOM = 8 * RB;
@@ -479,7 +506,11 @@ struct Items {
 // memory: 32-key tiles in a ring of four stages (192 KB in all); 64-key
 // tiles in two stages spilled and took 0.2221 ms against 0.2064 at
 // [32, 2048, 256]. At D = 512, Q of the item's 64 rows 64 KB and 32-key
-// tiles in two stages (192 KB in all).
+// tiles in two stages (192 KB in all). At D = 32 a 128-key K or V tile is 8
+// KB: the registers (S and P of 128 keys take 128 of them) bound the tile,
+// not shared memory: 0.2226 ms against 0.2447 for 64-key tiles and 0.2743
+// for 128 in two stages at [128, 2048, 32] (64-key tiles 0.0103 against
+// 0.0111 at the example's launch-bound [64, 256, 32]), in turns on an H100.
 template <int D>
 struct FwdCfg {
   static constexpr int BN = D <= 96 ? 128 : D >= 256 ? 32 : 64;  // keys per K/V tile (the N of S = Q.K^T)
@@ -630,6 +661,17 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[8], uint64_t a, uint64_t b) 
       "}, %8, %9, p, 1, 1, 0, 0;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
       : "l"(a), "l"(b), "n"(SCALE_D));
+}
+__device__ __forceinline__ void wgmma_rs(float (&d)[16], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15 "
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "n"(1));
 }
 __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
   asm volatile(
@@ -1139,8 +1181,8 @@ __global__ void __launch_bounds__(FWD_THREADS, 1) fwd_kernel_sm90(
 // ============================================== forward on Hopper (f32, sm_90a)
 //
 // fwd_kernel_sm90_f32 replaces _attn_fwd_kernel (WRITE_LSE = false, B1) and
-// _attn_fwd_kernel_lse (WRITE_LSE = true, B2) for f32 inputs at D = 64, 96,
-// 128 and 256, on the tensor cores. See the file's header for the split, the
+// _attn_fwd_kernel_lse (WRITE_LSE = true, B2) for f32 inputs at D = 32, 64,
+// 96, 128 and 256, on the tensor cores. See the file's header for the split, the
 // product set and what bounds the kernel; split_kernel below makes its
 // operands.
 
@@ -1181,6 +1223,10 @@ __global__ void __launch_bounds__(256) split_kernel(const float4* __restrict__ x
 // bytes of the bf16 one at 2D. Items of 128 q rows (64 a consumer) at
 // every width; K and V in rings of their own (a K stage is free once S is
 // in, a V stage once P.V is), STAGES each:
+//   D = 32: 128-key tiles, 3 stages (Q 16 KB, the rings 96 KB), as the
+//     bf16 forward at 32 (registers, not bytes, bound the tile): with its
+//     split pass 0.3201 ms against 0.3543 for 64-key tiles and 0.3181 in
+//     four stages at [128, 2048, 32];
 //   D = 64: 128-key tiles, 3 stages (Q 32 KB, the rings 192 KB);
 //   D = 96: 64 keys, 3 stages (48 KB, 144 KB);
 //   D = 128: 64 keys, 2 stages (64 KB, 128 KB);
@@ -1189,7 +1235,7 @@ __global__ void __launch_bounds__(256) split_kernel(const float4* __restrict__ x
 //     consumer's 240 registers.
 template <int D>
 struct F32FwdCfg {
-  static constexpr int BN = D == 64 ? 128 : D == 256 ? 16 : 64;  // keys per K/V tile
+  static constexpr int BN = D <= 64 ? 128 : D == 256 ? 16 : 64;  // keys per K/V tile
   static constexpr int STAGES = D == 128 ? 2 : 3;                 // K stages, and V stages
   static constexpr int Q_PART = FWD_BQ * D * 2;                    // one part of an item's Q
   static constexpr int KV_PART = BN * D * 2;                       // one part of a K or V tile
@@ -1739,8 +1785,10 @@ struct DkvCfg {
   // of a consumer thread's 240 registers, and a 64-row tile's S^T, dP^T and
   // their split operands (64 more) left ptxas spilling; D = 96 takes 128's
   // 32-row tiles. At D * P = 512, 16-row tiles: K and V of the item take
-  // 128 KB.
-  static constexpr int BQ = D == 64 ? 64 : D * P == 512 ? 16 : 32;
+  // 128 KB. D = 32 takes 64's 64-row tiles (dK and dV 32 registers): 0.2923
+  // ms against 0.3484 for 32-row tiles and 0.3662 in two stages (bf16),
+  // 0.3875 against 0.4704 and 0.5004 (f32) at [128, 2048, 32] on an H100.
+  static constexpr int BQ = D <= 64 ? 64 : D * P == 512 ? 16 : 32;
   // At bf16 D = 256, dK and dV would take 256 registers a thread: the
   // consumers make them in two passes over the item's q tiles, 128 columns
   // each (DA), and recompute S^T and dP^T in the second (K, V 128 KB for
@@ -1780,8 +1828,12 @@ struct DqCfg {
   // for 64 rows: 16-key tiles, three stages (224 KB). At f32 96 they take
   // 96 KB: 32-key tiles in four stages (192 KB; 0.7908 ms against 0.8883
   // for 64-key tiles in two stages, which left a tile ~3000 of its ~5700
-  // cycles waiting for its load, at [128, 2048, 96] on an H100).
-  static constexpr int BN = D * P == 512 ? 16 : D * P == 256 || D * P == 192 ? 32 : 64;
+  // cycles waiting for its load, at [128, 2048, 96] on an H100). At D = 32
+  // S, dP and the split dS of 128 keys fit beside dQ's 16 registers:
+  // 0.1916 ms against 0.2024 for 64-key tiles and 0.2550 for 32 (bf16),
+  // 0.2562 against 0.2786 and 0.3380 (f32) at [128, 2048, 32], in turns on
+  // an H100.
+  static constexpr int BN = D == 32 ? 128 : D * P == 512 ? 16 : D * P == 256 || D * P == 192 ? 32 : 64;
   static constexpr int STAGES = D * P >= 256 ? 3 : 4;
   static constexpr int Q_PART = It::ROWS * D * 2;  // one part of an item's Q or dO
   static constexpr int KV_PART = BN * D * 2;       // one part of a K or V tile
@@ -2932,7 +2984,7 @@ EncodeTiledFn encode_tiled() {
 // box_rows rows of one head. A box's rows past `rows` are zero-filled: they
 // never come from the next head. TMA needs the base 16-byte aligned and
 // every stride a multiple of 16 bytes: the wrapper checks the first, and D
-// in {64, 96, 128, 256} or a multiple of 512 gives the second.
+// in {32, 64, 96, 128, 256} or a multiple of 512 gives the second.
 cudaError_t encode_map(CUtensorMap* map, const void* ptr, int heads, int rows, int D, int bw, int box_rows) {
   const EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
@@ -3186,8 +3238,8 @@ cudaError_t bwd_dkv_sm90_stream(const void* q, const void* k, const void* v, con
 
 // ------------------------------------------------------------ C interface
 // dtype: 1 = bfloat16, 2 = float32 as rt_split4's parts (any other:
-// cudaErrorInvalidValue). head_dim: 64, 96, 128, 256 or 512 (bf16) and 64,
-// 96, 128 or 256 (parts) for rt_flash_fwd, rt_flash_bwd_dq and
+// cudaErrorInvalidValue). head_dim: 32, 64, 96, 128, 256 or 512 (bf16) and
+// 32, 64, 96, 128 or 256 (parts) for rt_flash_fwd, rt_flash_bwd_dq and
 // rt_flash_bwd_dkv; any multiple of 512 for the streamed entry points (the
 // wrappers pad any other width to the next of these). Each function returns
 // the cudaError_t of its launch (0 on success); the kernel runs on `stream`
@@ -3197,11 +3249,11 @@ cudaError_t bwd_dkv_sm90_stream(const void* q, const void* k, const void* v, con
 // the dtype (P = 1: bf16; P = 2: parts).
 #define RT_DISPATCH(CALL, HOPPER)                                                                 \
   if (dtype == 1) {                                                                               \
-    CALL(64, (HOPPER<64, 1>)) CALL(96, (HOPPER<96, 1>)) CALL(128, (HOPPER<128, 1>))               \
-    CALL(256, (HOPPER<256, 1>)) CALL(512, (HOPPER<512, 1>))                                       \
+    CALL(32, (HOPPER<32, 1>)) CALL(64, (HOPPER<64, 1>)) CALL(96, (HOPPER<96, 1>))                 \
+    CALL(128, (HOPPER<128, 1>)) CALL(256, (HOPPER<256, 1>)) CALL(512, (HOPPER<512, 1>))           \
   } else if (dtype == 2) {                                                                        \
-    CALL(64, (HOPPER<64, 2>)) CALL(96, (HOPPER<96, 2>)) CALL(128, (HOPPER<128, 2>))               \
-    CALL(256, (HOPPER<256, 2>))                                                                   \
+    CALL(32, (HOPPER<32, 2>)) CALL(64, (HOPPER<64, 2>)) CALL(96, (HOPPER<96, 2>))                 \
+    CALL(128, (HOPPER<128, 2>)) CALL(256, (HOPPER<256, 2>))                                       \
   }                                                                                               \
   return static_cast<int>(cudaErrorInvalidValue);
 
@@ -3215,12 +3267,14 @@ int rt_flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse
     return FN(q, k, v, o, static_cast<float*>(lse), bh, seq_q, seq_k, scale, causal != 0, \
               static_cast<cudaStream_t>(stream));
   if (dtype == 1) {
+    RT_FWD(32, fwd_sm90<32>)
     RT_FWD(64, fwd_sm90<64>)
     RT_FWD(96, fwd_sm90<96>)
     RT_FWD(128, fwd_sm90<128>)
     RT_FWD(256, fwd_sm90<256>)
     RT_FWD(512, fwd_sm90<512>)
   } else if (dtype == 2) {
+    RT_FWD(32, fwd_sm90_f32<32>)
     RT_FWD(64, fwd_sm90_f32<64>)
     RT_FWD(96, fwd_sm90_f32<96>)
     RT_FWD(128, fwd_sm90_f32<128>)

@@ -18,16 +18,16 @@ wrappers split their operands and call them. Every sum is f32 and the
 plain versions below are what the kernels compute.
 
 One width rule (`kernel_width`), for the forward and the backward alike,
-on the card and on the CPU. The kernels are built for head dims 64, 96,
-128, 256 and 512 (`WIDTHS`), and any other head dim up to 512 runs at the
-next of those widths, its q, k, v (and do) zero-padded: q.k^T, the
-softmax, lse and delta = rowsum(do * o) are unchanged by zero columns, and
-the padded columns of o, dq, dk and dv are zero and cut away. The scale
-stays the caller's (1/sqrt of the unpadded width). Past 512 any head dim
-runs at the next multiple of 512 (`STREAM_SLICE`) on the streamed kernels
-(`stream_route`: fwd_kernel_sm90_stream, bwd_dq_kernel_sm90_stream and
-bwd_dkv_kernel_sm90_stream, their contraction over D streamed in chunks,
-their output columns in slices), which also take f32 at 512; so the
+on the card and on the CPU. The kernels are built for head dims 32, 64,
+96, 128, 256 and 512 (`WIDTHS`), and any other head dim up to 512 runs at
+the next of those widths (1-31 at 32), its q, k, v (and do) zero-padded:
+q.k^T, the softmax, lse and delta = rowsum(do * o) are unchanged by zero
+columns, and the padded columns of o, dq, dk and dv are zero and cut away.
+The scale stays the caller's (1/sqrt of the unpadded width). Past 512 any
+head dim runs at the next multiple of 512 (`STREAM_SLICE`) on the streamed
+kernels (`stream_route`: fwd_kernel_sm90_stream, bwd_dq_kernel_sm90_stream
+and bwd_dkv_kernel_sm90_stream, their contraction over D streamed in
+chunks, their output columns in slices), which also take f32 at 512; so the
 autograd function, `flash_attention` with gradients and ring attention
 train at any head dim, as the TPU kernels do. `flash_attention`, the
 autograd function and ring attention pad once a call, in the copy to [BH,
@@ -75,8 +75,8 @@ f32_launches: Dict[str, int] = {"split": 0, "fwd": 0, "fwd_lse": 0, "bwd_dq": 0,
 
 _DTYPES = (torch.float32, torch.bfloat16)
 _BF16, _PARTS = 1, 2  # the kernels' dtype codes: bf16 operands, f32 operands as split_parts' parts
-WIDTHS = (64, 96, 128, 256, 512)  # the head dims the kernels are built for
-SPLIT_WIDTHS = (64, 96, 128, 256)  # where the f32 parts run the per-width kernels
+WIDTHS = (32, 64, 96, 128, 256, 512)  # the head dims the kernels are built for
+SPLIT_WIDTHS = (32, 64, 96, 128, 256)  # where the f32 parts run the per-width kernels
 # The streamed kernels (B1-B4) take any multiple of STREAM_SLICE: past 512 a
 # head dim is padded to the next one; f32 runs them at 512 too, as parts.
 STREAM_SLICE = 512
@@ -333,8 +333,9 @@ def split_parts(*xs):
 def _check_parts(parts, n: int) -> tuple:
     """Raise unless `parts` are n of split_parts' outputs the kernels take:
     contiguous bf16 [2, BH, rows, D] CUDA tensors of one device, D in
-    SPLIT_WIDTHS or a multiple of STREAM_SLICE, q's (and do's) [BH, T, D]
-    and k's, v's [BH, S, D] by the shape rules. Returns the parts."""
+    SPLIT_WIDTHS (32-256) or a multiple of STREAM_SLICE, q's (and do's)
+    [BH, T, D] and k's, v's [BH, S, D] by the shape rules. Returns the
+    parts."""
     if len(parts) != n:
         raise ValueError(f"want the parts of {n} operands, got {len(parts)}")
     for p in parts:
@@ -350,7 +351,7 @@ def _check_parts(parts, n: int) -> tuple:
     D = pq.shape[-1]
     if not (D in SPLIT_WIDTHS or D % STREAM_SLICE == 0):
         raise ValueError(f"the f32 kernels take parts at head dims {SPLIT_WIDTHS} or a multiple of "
-                         f"{STREAM_SLICE}, got {D}")
+                         f"{STREAM_SLICE} (pad others first: kernel_width), got {D}")
     return parts
 
 

@@ -28,7 +28,10 @@ split pass (rt_split) or, without one, its CUDA-core kernel; a build
 without the streamed forward (rt_flash_fwd_stream) runs f32 B1 and B2 at
 512 on its CUDA-core forward, and one without the streamed backward
 (rt_flash_bwd_dq_stream) f32 B3 and B4 at 512 on its CUDA-core kernels
-(on the f32 operands), and has no B3 or B4 past 512 (not timed there).
+(on the f32 operands), and has no B3 or B4 past 512 (not timed there); a
+build without the kernels at 32 runs a head dim of 32 padded to 64, as its
+wrappers did (the backward on parts padded once beforehand, as its
+autograd function saved them, its outputs cut).
 Prints one JSON line: the card, each build's worst error-to-limit ratio,
 the host's us to queue a call of each kernel at the first shape, and its
 ms per shape and kernel (the mean of its two turns, each a mean of
@@ -63,12 +66,12 @@ from ray_tpu_torch.ops import _build
 fa = importlib.import_module("ray_tpu_torch.ops.flash_attention")
 
 # [B*H, T, D] by head dim: GPT-2 small at batch 8 and 32 (64), the JAX
-# package's example at batch 8 (32), Phi-3-mini's and Gemma-2B's widths at
-# batch 4 and T 2048 (96, 256), and the head-dim-512 configuration of
-# chip_smoke.py's phase 18 at batch 4 (512).
+# package's example at batch 8 and, at batch 16, T 2048 (32), Phi-3-mini's
+# and Gemma-2B's widths at batch 4 and T 2048 (96, 256), and the
+# head-dim-512 configuration of chip_smoke.py's phase 18 at batch 4 (512).
 SHAPES_BY_HEAD_DIM = {
     64: ((96, 1024, 64), (384, 1024, 64)),
-    32: ((64, 256, 32),),
+    32: ((64, 256, 32), (128, 2048, 32)),
     96: ((128, 2048, 96),),
     256: ((32, 2048, 256),),
     512: ((16, 2048, 512),),
@@ -145,6 +148,49 @@ def _inputs(dev, dtype=None):
     return out
 
 
+# This checkout's widths, which _use narrows for an older build.
+WIDTHS, SPLIT_WIDTHS = fa.WIDTHS, fa.SPLIT_WIDTHS
+
+
+def build_widths(lib) -> tuple:
+    """The per-width kernels' head dims (WIDTHS) that the build `lib` takes:
+    a build before the kernels at 32 refuses a call at 32 before any launch
+    (cudaErrorInvalidValue), so one call on a [1, 1, 32] bf16 q, k, v
+    tells them apart."""
+    x = torch.zeros(1, 1, 32, dtype=torch.bfloat16, device="cuda")
+    o = torch.empty_like(x)
+    err = lib.rt_flash_fwd(x.data_ptr(), x.data_ptr(), x.data_ptr(), o.data_ptr(), None, 1, 1, 1, 32, 1.0, 1,
+                           fa._BF16, fa._stream(x.device))
+    torch.cuda.synchronize()
+    return WIDTHS if err == 0 else tuple(w for w in WIDTHS if w != 32)
+
+
+def _use(lib) -> None:
+    """Make `lib` the wrappers' build, with the widths it takes
+    (build_widths): a head dim it lacks runs padded, as its own wrappers
+    ran it."""
+    fa._lib = lib
+    fa.WIDTHS = lib.rt_widths
+    fa.SPLIT_WIDTHS = tuple(w for w in SPLIT_WIDTHS if w in lib.rt_widths)
+
+
+_PADDED: dict = {}
+
+
+def _parts_at_width(parts):
+    """`parts` at the width the loaded build runs them (fa.kernel_width):
+    where that is wider, zero-padded once (cached), as the autograd
+    function of a build without their own width saved them."""
+    D = parts[0].shape[-1]
+    width = fa.kernel_width(D)
+    if width == D:
+        return parts
+    key = (id(parts[0]), width)
+    if key not in _PADDED:
+        _PADDED[key] = tuple(torch.nn.functional.pad(p, (0, width - D)) for p in parts)
+    return _PADDED[key]
+
+
 def _older_f32(q) -> bool:
     """Whether the loaded build predates the f32 backward on parts (no
     rt_split4) and q is f32: its own f32 routes are taken."""
@@ -216,7 +262,8 @@ def _bwd_dq(q, k, v, do, lse, delta, parts):
     """B3 through the loaded build: the f32 kernel on `parts` where they are
     given, an older build's f32 CUDA-core kernel, or the wrapper."""
     if parts is not None and not _older_f32_bwd(q):
-        return fa.flash_bwd_dq_parts(parts, lse, delta, causal=True, scale=SCALE)
+        return fa._cut(fa.flash_bwd_dq_parts(_parts_at_width(parts), lse, delta, causal=True, scale=SCALE),
+                       q.shape[-1])
     if not _older_f32_bwd(q):
         return fa.flash_bwd_dq(q, k, v, do, lse, delta, causal=True, scale=SCALE)
     dq = torch.empty_like(q)
@@ -227,7 +274,8 @@ def _bwd_dq(q, k, v, do, lse, delta, parts):
 def _bwd_dkv(q, k, v, do, lse, delta, parts):
     """B4 through the loaded build, as _bwd_dq."""
     if parts is not None and not _older_f32_bwd(q):
-        return fa.flash_bwd_dkv_parts(parts, lse, delta, causal=True, scale=SCALE)
+        dk, dv = fa.flash_bwd_dkv_parts(_parts_at_width(parts), lse, delta, causal=True, scale=SCALE)
+        return fa._cut(dk, q.shape[-1]), fa._cut(dv, q.shape[-1])
     if not _older_f32_bwd(q):
         return fa.flash_bwd_dkv(q, k, v, do, lse, delta, causal=True, scale=SCALE)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
@@ -307,7 +355,9 @@ def timeline(dev, dtype=torch.bfloat16) -> dict:
     lib = fa._bind(ctypes.CDLL(str(timeline_library())))
     lib.rt_timeline.argtypes = [ctypes.c_void_p]
     lib.rt_timeline.restype = ctypes.c_int
-    saved, fa._lib = fa._lib, lib
+    lib.rt_widths = WIDTHS
+    saved = fa._lib
+    _use(lib)
     out = {}
     try:
         stamps = np.zeros(TIMELINE_SHAPE, dtype=np.int64)
@@ -342,7 +392,7 @@ def timeline(dev, dtype=torch.bfloat16) -> dict:
                     "tile": float(statistics.median(periods)) if len(periods) else None,
                 }
     finally:
-        fa._lib = saved
+        fa._lib, fa.WIDTHS, fa.SPLIT_WIDTHS = saved, WIDTHS, SPLIT_WIDTHS
     return out
 
 
@@ -370,6 +420,8 @@ def main(argv=None) -> int:
     with ThreadPoolExecutor(len(sources)) as pool:
         paths = list(pool.map(lambda s: _build.compile_source(s, _library(s)), sources))
     libs = {name: fa._bind(ctypes.CDLL(str(p))) for name, p in zip(names, paths)}
+    for lib in libs.values():
+        lib.rt_widths = build_widths(lib)
     inputs = _inputs(dev)
     first = inputs[SHAPES[0]]
     out = {"card": _card(), "dtype": args.dtype, "shapes": [list(s) for s in SHAPES], "builds": {}}
@@ -377,18 +429,18 @@ def main(argv=None) -> int:
     saved = fa._lib
     try:
         for name, src in zip(names, sources):
-            fa._lib = libs[name]
+            _use(libs[name])
             queue_us = {key: host_us(lambda: CALLS[key](*first)) for key in kernels_at(first[0])}
             out["builds"][name] = {"source": str(src), "err_to_limit": err_to_limit(first),
-                                   "host_us": queue_us}
+                                   "host_us": queue_us, "widths": list(libs[name].rt_widths)}
         for name in names + names[::-1]:
-            fa._lib = libs[name]
+            _use(libs[name])
             for shape, args_ in inputs.items():
                 for key in kernels_at(args_[0]):
                     turns[name].setdefault(f"{key}@{'x'.join(map(str, shape))}", []).append(
                         _time_ms(lambda: CALLS[key](*args_), args.reps))
     finally:
-        fa._lib = saved
+        fa._lib, fa.WIDTHS, fa.SPLIT_WIDTHS = saved, WIDTHS, SPLIT_WIDTHS
     for name in names:
         out["builds"][name]["ms"] = {key: sum(t) / len(t) for key, t in turns[name].items()}
         out["builds"][name]["turns_ms"] = turns[name]

@@ -8,7 +8,7 @@ the wrappers route a scale <= 0 before the CPU dispatch and any launch:
 -q and |scale| below 0 (dq negated), a zero q and scale 1 at 0 (dq zero,
 unlaunched). The CPU runs that route through the plain versions. Inputs
 come from numpy with a seed; both sides run in f32 (JAX at matmul
-precision "highest"); head dim 32 runs padded to 64."""
+precision "highest"); head dims 32 and 64 are both kernel widths."""
 
 import importlib
 

@@ -104,9 +104,9 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("D", [32, 80, 96, 192, 256, 320, 384, 512])
 def test_kernels_match_plain_versions_at_head_dim(dev, D, causal, dtype):
-    """The kernels at head dims past 64 and 128: 96, 256 and 512 natively,
-    32, 80, 192, 320 and 384 padded to the next of those; T != S, a partial
-    last tile.
+    """The kernels at head dims beside 64 and 128: 32, 96, 256 and 512
+    natively, 80, 192, 320 and 384 padded to the next of those; T != S, a
+    partial last tile.
     chip_smoke.py's limits, and the launches count at the width run."""
     cs = importlib.import_module("chip_smoke")
     g = torch.Generator(device=dev).manual_seed(D)
@@ -591,6 +591,63 @@ def test_f32_backward_route_by_width(dev):
         assert names == sorted(want), (D, names)
         assert fa.f32_launches == {"split": 2, "fwd": 0, "fwd_lse": 0, "bwd_dq": 1, "bwd_dkv": 1}, (D, fa.f32_launches)
         assert fa.launches["bwd_dq"] == fa.launches["bwd_dkv"] == 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_head_dim_32_runs_natively(dev, dtype):
+    """At head dim 32 the autograd function's forward and backward run the
+    kernels built at 32, by the profiler's names (bf16: fwd_kernel_sm90<32,
+    true, true> and both backward kernels; f32: their *_sm90_f32 twins and
+    the split pass), make no pad or cut copy, and agree with the plain
+    versions by chip_smoke.py's limits."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cs = importlib.import_module("chip_smoke")
+    g = torch.Generator(device=dev).manual_seed(32)
+    q, k, v, do = (torch.randn(4, 1000, 32, device=dev, generator=g).to(dtype) for _ in range(4))
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    fa.reset_launches()
+    with cs.pad_copies(fa) as copies, profile(activities=[ProfilerActivity.CUDA]) as prof:
+        o = fa._FlashAttention.apply(*leaves, True, 32 ** -0.5)
+        grads = torch.autograd.grad(o, leaves, do)
+        torch.cuda.synchronize()
+    kind = "_f32" if dtype == torch.float32 else ""
+    want = [f"fwd_kernel_sm90{kind}<32, true, true>", f"bwd_dq_kernel_sm90{kind}<32, true>",
+            f"bwd_dkv_kernel_sm90{kind}<32, true>"] + (["split_kernel"] if kind else [])
+    assert cs.flash_kernel_names(prof) == sorted(want)
+    assert copies == {"pad": 0, "cut": 0}
+    assert fa.launches_by_width == {"fwd_lse@32": 1, "bwd_dq@32": 1, "bwd_dkv@32": 1}
+    ref_o, lse = fa._flash_fwd_ref(q, k, v, True, 32 ** -0.5, True)
+    args = (q, k, v, do, lse, (do.float() * o.detach().float()).sum(-1))
+    ref_dq = fa._flash_bwd_dq_ref(*args, True, 32 ** -0.5)
+    ref_dk, ref_dv = fa._flash_bwd_dkv_ref(*args, True, 32 ** -0.5)
+    _, ratios = cs.compare({"o": [(o, ref_o)], "dq": [(grads[0], ref_dq.to(dtype))],  # grads in q's dtype
+                            "dkv": [(grads[1], ref_dk.to(dtype)), (grads[2], ref_dv.to(dtype))]})
+    assert all(r <= 1.0 for r in ratios.values()), ratios
+
+
+def test_f32_route_by_width_includes_32(dev):
+    """32 is a width of the f32 route: f32 B1-B4 at head dim 32, and at 16
+    padded once to 32, go through the split passes and the
+    *_sm90_f32<32, ...> kernels, by the profiler's names and the launches
+    by width."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cs = importlib.import_module("chip_smoke")
+    assert fa.WIDTHS[0] == fa.SPLIT_WIDTHS[0] == 32
+    want = sorted(["fwd_kernel_sm90_f32<32, true, false>", "fwd_kernel_sm90_f32<32, true, true>",
+                   "bwd_dq_kernel_sm90_f32<32, true>", "bwd_dkv_kernel_sm90_f32<32, true>", "split_kernel"])
+    for D in (32, 16):
+        q, k, v, do = (torch.randn(2, 300, D, device=dev) for _ in range(4))
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        fa.reset_launches()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fa.flash_fwd(q, k, v, causal=True, scale=D ** -0.5)
+            torch.autograd.grad(fa._FlashAttention.apply(*leaves, True, D ** -0.5), leaves, do)
+            torch.cuda.synchronize()
+        assert cs.flash_kernel_names(prof) == want, D
+        assert fa.launches_by_width == {"fwd@32": 1, "fwd_lse@32": 1, "bwd_dq@32": 1, "bwd_dkv@32": 1}, D
+        assert fa.f32_launches == {"split": 3, "fwd": 1, "fwd_lse": 1, "bwd_dq": 1, "bwd_dkv": 1}, D
 
 
 def test_f32_backward_repeats_bitwise(dev):

@@ -43,8 +43,8 @@ def _one_torch_thread():
 
 # The kernels' streamed tiles (DqCfg<D, 2>, DkvCfg<D, 2>): bwd_dq streams K/V
 # tiles of BN keys, bwd_dkv Q/dO tiles of BQ q rows.
-BN = {64: 64, 96: 32, 128: 32, 256: 16}
-BQ = {64: 64, 96: 32, 128: 32, 256: 16}
+BN = {32: 128, 64: 64, 96: 32, 128: 32, 256: 16}
+BQ = {32: 64, 64: 64, 96: 32, 128: 32, 256: 16}
 _LOG2E = 1.4426950408889634
 # (part of the first operand, part of the second): 0 = hi, 1 = lo.
 PRODUCTS = ((0, 0), (0, 1), (1, 0))
@@ -177,7 +177,7 @@ def _pallas(q, k, v, do, lse, delta, causal, scale):
     return [torch.from_numpy(np.array(x)) for x in (dq, dk, dv)]
 
 
-CASES = [(D, T, T, causal) for D in (64, 96, 128, 256) for T in (192, 1000) for causal in (True, False)]
+CASES = [(D, T, T, causal) for D in (32, 64, 96, 128, 256) for T in (192, 1000) for causal in (True, False)]
 CASES += [(128, 300, 1000, False), (128, 1000, 300, True)]
 
 
@@ -214,7 +214,7 @@ def test_next_smaller_product_set_misses_the_smoke_limit(name):
     averaged away)."""
     which, dropped = SMALLER[name]
     kept = {which: tuple(p for p in PRODUCTS if p != dropped)}
-    for D in (64, 96, 128, 256):
+    for D in (32, 64, 96, 128, 256):
         q, k, v, do, lse, delta, scale = _case(37 + D, 192, 192, D, True)
         args = (q, k, v, do, lse, delta)
         pairs = []

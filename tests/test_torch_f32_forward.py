@@ -43,8 +43,9 @@ def _one_torch_thread():
 
 
 # The f32 forward's tiles (F32FwdCfg): 128 q rows a work item, two consumer
-# warpgroups of 64; 128 keys a K/V tile at D = 64, 64 at 96 and 128, 16 at 256.
-ROWS, BN = 128, {64: 128, 96: 64, 128: 64, 256: 16}
+# warpgroups of 64; 128 keys a K/V tile at D = 32 and 64, 64 at 96 and 128,
+# 16 at 256.
+ROWS, BN = 128, {32: 128, 64: 128, 96: 64, 128: 64, 256: 16}
 # The streamed forward's (StreamCfg<2>): 64 q rows an item (both consumer
 # warpgroups on all of them), 32-key tiles, S's contraction in chunks of 64
 # columns of D (each in two bf16 parts).
@@ -208,7 +209,7 @@ def test_split_parts_shapes_on_the_cpu():
 
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("T", [192, 1000])
-@pytest.mark.parametrize("D", [64, 96, 128, 256])
+@pytest.mark.parametrize("D", [32, 64, 96, 128, 256])
 def test_f32_forward_arithmetic_holds_the_smoke_limit(D, T, causal):
     """The kernel's product set, emulated on f32 inputs, within F32_ATOL of
     the f32 plain version and of the Pallas forward (interpret mode), o and
@@ -240,7 +241,7 @@ def test_next_smaller_product_set_misses_the_smoke_limit(name):
     where, dropped = SMALLER[name]
     kept = tuple(p for p in PRODUCTS if p != dropped)
     sets = {"s_products": kept} if where == "s" else {"pv_products": kept}
-    for D in (64, 96, 128, 256):
+    for D in (32, 64, 96, 128, 256):
         q, k, v = (torch.from_numpy(x) for x in _qkv(29 + D, 2, 192, D))
         scale = D ** -0.5
         o, lse = f32_forward_emulation(q, k, v, True, scale, **sets)
@@ -294,8 +295,8 @@ def test_build_check_counts_the_f32_hopper_kernels():
     names (fwd_kernel_sm90_f32, bwd_dq_kernel_sm90_f32,
     bwd_dkv_kernel_sm90_f32) and the streamed kernels'
     (fwd_kernel_sm90_stream, bwd_dq_kernel_sm90_stream,
-    bwd_dkv_kernel_sm90_stream) and counts their 32 and 16 instantiations
-    among the 88 Hopper kernels: a build that lacks one, or where one
+    bwd_dkv_kernel_sm90_stream) and counts their 40 and 16 instantiations
+    among the 104 Hopper kernels: a build that lacks one, or where one
     spills, fails it."""
     ns = "_ZN51_GLOBAL__N__c4b42d03_18_flash_attention_cu_e1dd8ece"
     f32 = ns + "19fwd_kernel_sm90_f32ILi256ELb1ELb0EEEv14CUtensorMap_stS1_S1_PfS2_iiif"
@@ -310,11 +311,11 @@ def test_build_check_counts_the_f32_hopper_kernels():
     assert cs.kernel_label(sdq) == "bwd_dq_kernel_sm90_stream<2,true>"
     sdkv = ns + "26bwd_dkv_kernel_sm90_streamILi1ELb0EEEv14CUtensorMap_stS1_S1_S1_PKfS3_PfS4_iiiif"
     assert cs.kernel_label(sdkv) == "bwd_dkv_kernel_sm90_stream<1,false>"
-    assert cs.N_SM90_KERNELS == 88 == 5 * (4 + 2 + 2) + 4 * (4 + 2 + 2) + 2 * 4 + 2 * (2 + 2)
+    assert cs.N_SM90_KERNELS == 104 == 6 * (4 + 2 + 2) + 5 * (4 + 2 + 2) + 2 * 4 + 2 * (2 + 2)
     good = {"hgmma": 8, "spill_stores": 0, "spill_loads": 0}
-    bf16 = {f"fwd_kernel_sm90<{i}>": dict(good) for i in range(40)}
-    f32s = {f"fwd_kernel_sm90_f32<{i}>": dict(good) for i in range(16)}
-    f32s.update({f"bwd_{k}_kernel_sm90_f32<{i}>": dict(good) for k in ("dq", "dkv") for i in range(8)})
+    bf16 = {f"fwd_kernel_sm90<{i}>": dict(good) for i in range(48)}
+    f32s = {f"fwd_kernel_sm90_f32<{i}>": dict(good) for i in range(20)}
+    f32s.update({f"bwd_{k}_kernel_sm90_f32<{i}>": dict(good) for k in ("dq", "dkv") for i in range(10)})
     f32s.update({f"fwd_kernel_sm90_stream<{i}>": dict(good) for i in range(8)})
     f32s.update({f"bwd_{k}_kernel_sm90_stream<{i}>": dict(good) for k in ("dq", "dkv") for i in range(4)})
     cs.check_sm90({**bf16, **f32s, "fwd_kernel<f32,512,true,true>": {"hgmma": 0}})

@@ -4,12 +4,12 @@ the four test_sim_* cases of tests/test_scale.py at the reference's sizes
 500 nodes, the autoscaler driving SimNodeProvider past 500 nodes, and a
 1000-raylet reconnect storm after the GCS host is lost.
 
-The file's seven other cases stay out for now (test_10k_queued_tasks,
-test_200_actors, test_50_placement_groups, test_100k_queued_tasks,
-test_1000_actors, test_200_placement_groups,
-test_256mb_broadcast_to_8_nodes): they are the reference's scalability
-envelope, marked `scale` and given 900-1800 s each, on real multi-process
-clusters; the port's twins wait on ROADMAP.md's queue A."""
+The file's seven other cases, the reference's scalability envelope on
+real multi-process clusters (test_10k_queued_tasks, test_200_actors,
+test_50_placement_groups, test_100k_queued_tasks, test_1000_actors,
+test_200_placement_groups, test_256mb_broadcast_to_8_nodes), have their
+twins in tests/test_torch_scale_envelope.py, a file of its own so that
+the suite's `--dist loadfile` runs them on another worker."""
 
 import time
 

@@ -58,8 +58,8 @@ def _qkv(seed, BH, T, D, n=4):
 
 # The Hopper forward's tiles (csrc/flash_attention.cu, FWD_BQ and FwdCfg):
 # 128 q rows a work item, two consumer warpgroups of 64; 128 keys a K/V tile
-# at D = 64 and 96, 64 at D = 128, 32 at 256.
-SM90_BQ, SM90_BN = 128, {64: 128, 96: 128, 128: 64, 256: 32}
+# at D = 32, 64 and 96, 64 at D = 128, 32 at 256.
+SM90_BQ, SM90_BN = 128, {32: 128, 64: 128, 96: 128, 128: 64, 256: 32}
 _LOG2E, _LN2 = 1.4426950408889634, 0.6931471805599453
 
 
@@ -138,10 +138,10 @@ def test_sm90_forward_arithmetic_holds_the_smoke_limits(D, T, causal):
 
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("T", [192, 1000])
-@pytest.mark.parametrize("D", [96, 256])
+@pytest.mark.parametrize("D", [32, 96, 256])
 def test_sm90_forward_arithmetic_at_wide_head_dims(D, T, causal):
     """As test_sm90_forward_arithmetic_holds_the_smoke_limits, with the
-    tiles of the D = 96 and D = 256 forward."""
+    tiles of the D = 32, 96 and 256 forward."""
     _check_sm90_forward(D, T, causal)
 
 
@@ -167,10 +167,12 @@ def _check_sm90_forward(D, T, causal):
 
 # The Hopper backward's tiles (csrc/flash_attention.cu, DkvCfg and DqCfg):
 # 128 resident rows a work item, 64 per consumer warpgroup; bwd_dkv streams
-# q tiles of 64 rows (32 at D = 96, 128 and 256; at 256 in two passes of
-# 128 columns, which recompute every element's terms in the same order, so
-# the emulation needs no passes), bwd_dq K/V tiles of 64 keys (32 at 256).
-SM90_DKV_BQ, SM90_DQ_BN = {64: 64, 96: 32, 128: 32, 256: 32}, {64: 64, 96: 64, 128: 64, 256: 32}
+# q tiles of 64 rows (at D = 32 and 64; 32 at D = 96, 128 and 256; at 256
+# in two passes of 128 columns, which recompute every element's terms in
+# the same order, so the emulation needs no passes), bwd_dq K/V tiles of 64
+# keys (128 at 32, 32 at 256).
+SM90_DKV_BQ = {32: 64, 64: 64, 96: 32, 128: 32, 256: 32}
+SM90_DQ_BN = {32: 128, 64: 64, 96: 64, 128: 64, 256: 32}
 
 
 def _split_trunc(x, split=True):
@@ -294,10 +296,10 @@ def test_sm90_backward_arithmetic_holds_the_smoke_limits(D, T, S, causal):
 
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("T,S", [(1, 1), (100, 100), (1000, 1000), (100, 300), (300, 100)])
-@pytest.mark.parametrize("D", [96, 256])
+@pytest.mark.parametrize("D", [32, 96, 256])
 def test_sm90_backward_arithmetic_at_wide_head_dims(D, T, S, causal):
     """As test_sm90_backward_arithmetic_holds_the_smoke_limits, with the
-    tiles of the D = 96 and D = 256 backward kernels."""
+    tiles of the D = 32, 96 and 256 backward kernels."""
     _check_sm90_backward(D, T, S, causal)
 
 
